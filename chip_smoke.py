@@ -10,19 +10,29 @@ Phases (each prints its own line; any failure exits nonzero):
 3. kernels against their plain PyTorch versions, on the card:
    K1 flash-attention forward at the serving shape (64, 12, 512, 64) f32
    with a key mask and a fully-masked row, plus bf16, causal,
-   causal+window and unaligned lengths; K4 quantize bit-exact on every
-   quantized leaf of a BERT-base model plus a stochastic mean-bias check;
-   K5 dequantize exact;
-4. the slice: a BERT-base model (full width and depth, random weights
-   from a seeded torch.Generator) saved as an int8 artifact, loaded by
-   the port's REST server on the card, and ~24 concurrent predicts of
-   1-8 rows at T=512 answered through coalesced bucket dispatches; every
-   answer is checked for status, shape and finiteness, a few rows against
-   the same artifact run on the CPU (plain path), and the kernels' launch
-   counters against the dispatches;
-5. timings (CUDA events, after warm-up), a torch.profiler breakdown of
+   causal+window and unaligned lengths; K2 (dQ) and K3 (dK, dV) at the
+   fine-tune shape (32, 12, 128, 64) in bf16 and f32 with a key mask and a
+   fully-masked row (exact zeros asserted), plus (8, 12, 512, 64) bf16,
+   causal, causal+window and unaligned lengths; K4 quantize bit-exact on
+   every quantized leaf of a BERT-base model plus a stochastic mean-bias
+   check; K5 dequantize exact;
+4. training: one batch of BERT-base (full width and depth, random weights
+   from a seeded torch.Generator) in f32 on the card against the CPU plain
+   path, loss and every parameter's gradient; then the slice's first main
+   path: ``BertModel.fit`` for 2 epochs of 250 seeded rows at T=128,
+   batch 32, bf16 compute on f32 masters, and ``evaluate``; losses finite,
+   parameters moved, K1/K2/K3 launch counters = 12 per step (+ K1 per
+   evaluate batch); step time (CUDA events, second epoch); a
+   torch.profiler breakdown of train steps by kernel family;
+5. serving, the second main path: the trained model saved as an int8
+   artifact (K4), loaded by the port's REST server on the card (K5), and
+   ~24 concurrent predicts of 1-8 rows at T=512 answered through coalesced
+   bucket dispatches; every answer is checked for status, shape and
+   finiteness, a few rows against the same artifact run on the CPU (plain
+   path), and the kernels' launch counters against the dispatches;
+6. timings (CUDA events, after warm-up), a torch.profiler breakdown of
    one 64-row bucket by kernel family, and the `kernels` JSON line;
-6. last line: {"ok": true, "device": {...}}.
+7. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -33,6 +43,7 @@ from __future__ import annotations
 import concurrent.futures
 import http.client
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -44,12 +55,24 @@ import torch
 
 # Published peaks of one H100 SXM (NVIDIA data sheet), used for bound_ms.
 PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 PEAK_BYTES = 3.35e12  # HBM3
 
 PATH_SHAPE = (64, 12, 512, 64)  # largest serving bucket, BERT-base heads
 SEQ_LEN = 512
 N_REQUESTS = 24
 CPU_ATOL = 1e-3
+# BERT fine-tuning recipe (Devlin et al. 2019, run_classifier.py defaults):
+# max_seq_length 128, train_batch_size 32; the JAX default lr 2e-5.
+TRAIN_SHAPE = (32, 12, 128, 64)  # (batch, heads, T, head dim) of K2/K3
+TRAIN_ROWS, TRAIN_EPOCHS = 250, 2
+# One f32 batch, card vs CPU: per parameter max|dg| <= GRAD_RTOL *
+# max|g| + GRAD_ATOL_REL * (the model's largest gradient); the second
+# term covers parameters whose gradient is rounding noise on both sides
+# (the key bias: softmax ignores a per-row shift).
+GRAD_RTOL = 1e-3
+GRAD_ATOL_REL = 1e-6
+LOSS_RTOL = 1e-5
 # About 50 ms of device time at the H100's clocks: longer than the host
 # takes to enqueue any timed run below.
 SLEEP_CYCLES = 100_000_000
@@ -187,6 +210,318 @@ def check_quant(quant, leaves, gen) -> dict:
           f"{n_seeds} seeds = {bias:.4f} (deterministic mean error "
           f"{det_bias:.3f})")
     return {"mats": mats, **errs}
+
+
+def _random_qkv(gen, bb, hh, tq, tk, dd, dtype, masked):
+    q = torch.randn(bb, hh, tq, dd, device="cuda", generator=gen)
+    k = torch.randn(bb, hh, tk, dd, device="cuda", generator=gen)
+    v = torch.randn(bb, hh, tk, dd, device="cuda", generator=gen)
+    do = torch.randn(bb, hh, tq, dd, device="cuda", generator=gen)
+    km = None
+    if masked:
+        km = torch.rand(bb, tk, device="cuda", generator=gen) > 0.25
+        km[1] = False  # a fully-masked batch row
+    return (*(x.to(dtype) for x in (q, k, v, do)), km)
+
+
+def check_flash_bwd(attention, gen) -> dict:
+    """K2 and K3 against their plain versions: elementwise |d| <= tol *
+    (1 + |ref|) (the JAX suite's f32 grad / bf16 tolerances as atol and
+    rtol), exact zeros for the fully-masked row and the masked keys."""
+    b, h, t, d = TRAIN_SHAPE
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # name, (B, H, Tq, Tk, D), dtype, causal, window, masked, tol
+        ("path_bf16", (b, h, t, t, d), bf16, False, None, True, 3e-2),
+        ("path_f32", (b, h, t, t, d), f32, False, None, True, 5e-5),
+        ("long_bf16", (8, h, 512, 512, d), bf16, False, None, True, 3e-2),
+        ("causal", (8, h, 256, 256, d), f32, True, None, True, 5e-5),
+        ("causal_window", (4, h, 256, 256, 128), f32, True, 100, False,
+         5e-5),
+        ("unaligned", (4, h, 37, 41, d), f32, False, None, True, 5e-5),
+        ("unaligned_bf16_causal_window", (2, h, 300, 300, 40), bf16, True,
+         65, True, 3e-2),
+    ]
+    results = {}
+    for name, (bb, hh, tq, tk, dd), dtype, causal, window, masked, tol in \
+            cases:
+        q, k, v, do, km = _random_qkv(gen, bb, hh, tq, tk, dd, dtype, masked)
+        args = (q, k, v, km, do)
+        with torch.inference_mode():
+            o, lse = attention.flash_attention_fwd(q, k, v, km, causal,
+                                                   window)
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            args = (*args, lse, delta, causal, window)
+            got = (attention.flash_attention_bwd_dq(*args),
+                   *attention.flash_attention_bwd_dkv(*args))
+            torch.cuda.synchronize()
+            ref = (attention.flash_attention_bwd_dq_plain(*args),
+                   *attention.flash_attention_bwd_dkv_plain(*args))
+        errs = [max_abs(g, r) for g, r in zip(got, ref)]
+        close = all(bool(((g.float() - r.float()).abs()
+                          <= tol * (1 + r.float().abs())).all())
+                    for g, r in zip(got, ref))
+        zeros = True
+        if masked:
+            dead = ~km[0]  # masked keys of batch row 0
+            zeros = all(bool((g[1] == 0).all()) for g in got) and bool(
+                (got[1][0][:, dead] == 0).all()) and bool(
+                (got[2][0][:, dead] == 0).all())
+        phase(f"K2/K3 flash_bwd {name} {tuple(q.shape)} "
+              f"Tk={tk} {str(dtype)[6:]}", close and zeros,
+              f"max|ddQ|={errs[0]:.3g} max|ddK|={errs[1]:.3g} "
+              f"max|ddV|={errs[2]:.3g} exact_zeros(masked row, masked "
+              f"keys)={zeros} tol={tol}*(1+|ref|)")
+        results[name] = {"errs": errs, "args": args}
+    return results
+
+
+def make_train_data(vocab: int):
+    """250 seeded rows at T=128 with seeded pad tails and one all-pad row;
+    the label is the parity of the [CLS]-position token (learnable)."""
+    rng = np.random.default_rng(7)
+    t = TRAIN_SHAPE[2]
+    x = rng.integers(1, vocab, (TRAIN_ROWS, t)).astype(np.int32)
+    for r, n in enumerate(rng.integers(16, t + 1, TRAIN_ROWS)):
+        x[r, n:] = 0
+    x[3] = 0  # an all-pad row: every key masked in every layer
+    return x, (x[:, 0] % 2).astype(np.int32)
+
+
+def check_train_vs_cpu(est) -> dict:
+    """One batch of 4 rows (one all-pad) through BERT-base in f32 on the
+    card (K1/K2/K3) and on the CPU (plain versions), from the same
+    weights: the loss and every parameter's gradient."""
+    from learningorchestra_tpu_torch.models.text import BertModel
+
+    x, y = make_train_data(est.vocab_size)
+    rows = [3, 0, 1, 2]
+    t0 = time.perf_counter()
+    cpu = BertModel(seed=est.seed, device="cpu")
+    cpu.load_state_dict(est.state_dict())
+    loss_fn = est._loss_and_metrics("softmax_ce")
+
+    def loss_and_grads(e):
+        e.module.zero_grad(set_to_none=True)
+        xt = torch.from_numpy(x[rows]).to(e.device)
+        yt = torch.from_numpy(y[rows]).to(e.device)
+        loss, _ = loss_fn(e.module(xt).float(), yt,
+                          torch.ones(len(rows), device=e.device))
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in e.module.named_parameters()}
+        e.module.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    loss_gpu, g_gpu = loss_and_grads(est)
+    loss_cpu, g_cpu = loss_and_grads(cpu)
+    cpu_s = time.perf_counter() - t0
+    gmax = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, worst_name, bad = 0.0, "", []
+    for name, gc in g_cpu.items():
+        err = float((g_gpu[name] - gc).abs().max())
+        ref = float(gc.abs().max())
+        if err > GRAD_RTOL * ref + GRAD_ATOL_REL * gmax:
+            bad.append(name)
+        rel = err / max(ref, GRAD_ATOL_REL * gmax)
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    phase("train step vs CPU plain path", not bad and loss_rel <= LOSS_RTOL,
+          f"BERT-base f32, rows {rows} (first all-pad) at T={x.shape[1]}: "
+          f"loss {loss_gpu:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.2g}, tol "
+          f"{LOSS_RTOL}); {len(g_cpu)} gradients, worst max|dg|/max|g| "
+          f"{worst:.3g} ({worst_name}); tol {GRAD_RTOL}*max|g| + "
+          f"{GRAD_ATOL_REL}*{gmax:.3g}; failing {bad[:5]} (CPU side "
+          f"{cpu_s:.1f}s)")
+    return {"loss_rel_err": loss_rel, "worst_grad_rel_err": worst,
+            "worst_grad_param": worst_name}
+
+
+def run_training(est, attention) -> dict:
+    """The slice's training path through the entry points a user calls:
+    ``fit`` then ``evaluate``, with the kernels' counters at 0 just before
+    and read just after."""
+    x, y = make_train_data(est.vocab_size)
+    before = [p.detach().clone() for p in est.module.parameters()]
+    marks = []
+
+    def mark_epoch(epoch, metrics, model):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    attention.launches = 0
+    attention.bwd_dq_launches = 0
+    attention.bwd_dkv_launches = 0
+    t0 = time.perf_counter()
+    est.fit(x, y, epochs=TRAIN_EPOCHS, batch_size=TRAIN_SHAPE[0],
+            callbacks=[mark_epoch])
+    fit_s = time.perf_counter() - t0
+    evaluation = est.evaluate(x, y)
+    torch.cuda.synchronize()
+    counts = {"flash_fwd": attention.launches,
+              "flash_bwd_dq": attention.bwd_dq_launches,
+              "flash_bwd_dkv": attention.bwd_dkv_launches}
+
+    per_epoch = -(-TRAIN_ROWS // TRAIN_SHAPE[0])
+    steps = TRAIN_EPOCHS * per_epoch
+    eval_batches = -(-TRAIN_ROWS // 128)
+    layers = est.num_layers
+    expected = {"flash_fwd": layers * (steps + eval_batches),
+                "flash_bwd_dq": layers * steps,
+                "flash_bwd_dkv": layers * steps}
+    losses = est.history["loss"]
+    finite = all(math.isfinite(v) for v in losses + [evaluation["loss"]])
+    moved = sum(1 for p, p0 in zip(est.module.parameters(), before)
+                if not torch.equal(p.detach(), p0))
+    epoch2_ms = marks[0].elapsed_time(marks[1])
+    step_ms = epoch2_ms / per_epoch
+    padded_tokens = per_epoch * TRAIN_SHAPE[0] * TRAIN_SHAPE[2]
+    phase("train fit", finite and moved == len(before),
+          f"BertModel L={layers} H={est.hidden_dim} bf16 compute / f32 "
+          f"masters, {TRAIN_ROWS} rows T={TRAIN_SHAPE[2]}, batch "
+          f"{TRAIN_SHAPE[0]}, {TRAIN_EPOCHS} epochs x {per_epoch} steps: "
+          f"loss {losses}, accuracy {est.history['accuracy']}, evaluate "
+          f"{evaluation}; {moved}/{len(before)} parameters moved; fit "
+          f"{fit_s:.2f}s (epoch_time {est.history['epoch_time']})")
+    phase("train launch counters", counts == expected,
+          f"{counts}; expected K1 = {layers} x ({steps} steps + "
+          f"{eval_batches} evaluate batches), K2 = K3 = {layers} x {steps}")
+    return {
+        "counts": counts, "x": x, "y": y,
+        "train": {
+            "epoch2_ms": epoch2_ms, "step_ms": step_ms,
+            "samples_per_s": TRAIN_ROWS / (epoch2_ms / 1e3),
+            "padded_tokens_per_s": padded_tokens / (epoch2_ms / 1e3),
+            "nonpad_tokens_per_s": float((x != 0).sum())
+            / (epoch2_ms / 1e3),
+            "losses": losses, "evaluate": evaluation,
+        },
+    }
+
+
+def device_kernels(prof) -> dict:
+    """Device ms by kernel name from a torch.profiler run.  A user
+    annotation (``Optimizer.step#Adam.step``) also shows a device-side
+    range spanning its kernels: it is left out, not counted twice."""
+    return {
+        ev.key: ev.self_device_time_total / 1e3  # us -> ms
+        for ev in prof.key_averages()
+        if str(ev.device_type).endswith("CUDA")
+        and not getattr(ev, "is_user_annotation", False)
+    }
+
+
+def _family(name: str, families: dict) -> str:
+    low = name.lower()
+    for fam, tags in families.items():
+        if any(tag in low for tag in tags):
+            return fam
+    return "other"
+
+
+def profile_train_step(est, x, y) -> dict:
+    """One train step (a ``fit`` of one 32-row batch: upload, permute,
+    forward, backward, Adam, the metrics' host transfer) by kernel family
+    from torch.profiler; its wall time, measured apart without the
+    profiler, gives the device's busy and idle share inside the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bs = TRAIN_SHAPE[0]
+    xs, ys = x[:bs], y[:bs]
+    est.fit(xs, ys, epochs=1, batch_size=bs)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est.fit(xs, ys, epochs=1, batch_size=bs)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        est.fit(xs, ys, epochs=1, batch_size=bs)
+        torch.cuda.synchronize()
+    families = {
+        "flash_bwd_dq": ("flash_bwd_dq",), "flash_bwd_dkv": ("flash_bwd_dkv",),
+        "flash_fwd": ("flash_fwd",),
+        "gemm": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
+        "optimizer": ("multi_tensor_apply", "adam"),
+    }
+    totals = {fam: 0.0 for fam in (*families, "other")}
+    kernels = device_kernels(prof)
+    for name, ms in kernels.items():
+        totals[_family(name, families)] += ms
+    device_ms = sum(totals.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    events = prof.key_averages()
+    launches = sum(ev.count for ev in events
+                   if str(ev.device_type).endswith("CUDA")
+                   and not getattr(ev, "is_user_annotation", False))
+    host = sorted((ev for ev in events
+                   if not str(ev.device_type).endswith("CUDA")),
+                  key=lambda ev: -ev.self_cpu_time_total)[:8]
+    return {
+        "steps": 1, "wall_ms": wall_ms, "device_ms": device_ms,
+        "busy_share": device_ms / wall_ms if device_ms else None,
+        "idle_share": 1 - device_ms / wall_ms if device_ms else None,
+        **{f"{k}_ms": v for k, v in totals.items()},
+        "device_kernels": launches,
+        "top": [[name[:60], ms] for name, ms in top],
+        # Host self time under the profiler (which slows the host).
+        "host_top": [[ev.key[:48], ev.count, ev.self_cpu_time_total / 1e3]
+                     for ev in host],
+    }
+
+
+def time_bwd(attention, bwd_res) -> dict:
+    """K2 and K3 at the fine-tune shape in bf16 (a key mask with pad
+    tails, no empty row), their plain versions, and the backward of
+    ``F.scaled_dot_product_attention`` with the same boolean mask (its
+    fwd+bwd time minus its fwd time) as the yardstick for the pair."""
+    import torch.nn.functional as F
+
+    q, k, v, _, do, *_ = bwd_res["path_bf16"]["args"]
+    b, h, t, d = q.shape
+    km = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    km[:, -37:] = False
+    with torch.inference_mode():
+        o, lse = attention.flash_attention_fwd(q, k, v, km)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        args = (q, k, v, km, do, lse, delta)
+        dq_ms = time_ms(lambda: attention.flash_attention_bwd_dq(*args))
+        dkv_ms = time_ms(lambda: attention.flash_attention_bwd_dkv(*args))
+        dq_plain = time_ms(
+            lambda: attention.flash_attention_bwd_dq_plain(*args), reps=3)
+        dkv_plain = time_ms(
+            lambda: attention.flash_attention_bwd_dkv_plain(*args), reps=3)
+        k1_ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v, km))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    mask4 = km[:, None, None, :]
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4)
+
+    lib_fb = time_ms(lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg),
+                                                 do))
+    lib_f = time_ms(lib_fwd)
+    elems = b * h * t * d * q.element_size()
+    rows = 2 * b * h * t * 4 + b * t * 4  # LSE + delta, key mask
+    work = {
+        "dq": (6 * b * h * t * t * d, 5 * elems + rows),
+        "dkv": (8 * b * h * t * t * d, 6 * elems + rows),
+    }
+    out = {"library_bwd_ms": lib_fb - lib_f, "library_fwd_bwd_ms": lib_fb,
+           "library_fwd_ms": lib_f, "k1_bf16_ms": k1_ms}
+    for key, ms, plain in (("dq", dq_ms, dq_plain), ("dkv", dkv_ms,
+                                                        dkv_plain)):
+        flops, nbytes = work[key]
+        by_ops = flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+        out[key] = {
+            "ms": ms, "plain_ms": plain, "flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(flops / PEAK_BF16_FLOPS,
+                                  nbytes / PEAK_BYTES),
+            "bound_by": "operations" if by_ops else "bytes",
+        }
+    return out
 
 
 # -- phase 4: the slice ------------------------------------------------------
@@ -401,10 +736,7 @@ def profile_forward(est) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             est.module(x)
             torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        if str(ev.device_type).endswith("CUDA"):
-            kernels[ev.key] = ev.self_device_time_total / 1e3  # us -> ms
+    kernels = device_kernels(prof)
     families = {"flash_fwd": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in kernels.items():
         low = name.lower()
@@ -472,6 +804,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f}s")
 
     flash_inputs = check_flash(attention, gen)
+    bwd_res = check_flash_bwd(attention, gen)
     tree = convert.flax_tree(est.module)
     leaves = {
         "/".join(p): t for p, t in _flat(tree)
@@ -479,6 +812,15 @@ def main() -> int:
     }
     quant_res = check_quant(quant, leaves, gen)
 
+    grad_res = check_train_vs_cpu(est)
+    train_res = run_training(est, attention)
+    try:
+        train_prof = profile_train_step(est, train_res["x"], train_res["y"])
+    except Exception as exc:  # noqa: BLE001 — where CUPTI tracing is
+        # unavailable this breakdown is reported as not measured.
+        train_prof = {"not_measured": repr(exc)}
+
+    # The trained model is what the serving path saves and serves.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         slice_res = run_slice(est, tmp)
@@ -486,15 +828,18 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     timing = time_kernels(flash_inputs, quant_res["mats"], est)
+    bwd_t = time_bwd(attention, bwd_res)
     f_ms, f_plain, f_bound, f_lib, flops, f_bytes = timing["flash"]
     q_ms, q_plain, q_bound, q_bytes = timing["quant"]
     d_ms, d_plain, d_bound, d_lib, d_bytes = timing["dequant"]
     counts = slice_res["counts"]
+    train_counts = train_res["counts"]
+    path_errs = bwd_res["path_bf16"]["errs"]
     kernels = [
         {"name": "flash_fwd", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
-         "launches": counts["flash_fwd"],
+         "launches": counts["flash_fwd"] + train_counts["flash_fwd"],
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
          "bound_by": "operations" if flops / PEAK_F32_FLOPS
@@ -514,6 +859,17 @@ def main() -> int:
          "max_abs_err": quant_res["dequantize"],
          "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
          "bound_by": "bytes", "library_ms": d_lib},
+        *({"name": f"flash_bwd_{key}", "route": "cuda",
+           "source": "learningorchestra_tpu_torch/csrc/flash_bwd.cu",
+           "replaces": f"learningorchestra_tpu/ops/attention.py:{line}",
+           "launches": train_counts[f"flash_bwd_{key}"],
+           "max_abs_err": err, "ms": bwd_t[key]["ms"],
+           "plain_ms": bwd_t[key]["plain_ms"],
+           "bound_ms": bwd_t[key]["bound_ms"],
+           "bound_by": bwd_t[key]["bound_by"],
+           "library_ms": bwd_t["library_bwd_ms"]}
+          for key, line, err in (("dq", 245, path_errs[0]),
+                                 ("dkv", 297, max(path_errs[1:])))),
     ]
     try:
         prof = profile_forward(est)
@@ -521,11 +877,25 @@ def main() -> int:
         # unavailable this breakdown is reported as not measured.
         prof = {"not_measured": repr(exc)}
     print("profile " + json.dumps(prof), flush=True)
+    print("train_profile " + json.dumps(train_prof), flush=True)
+    print("train " + json.dumps({**train_res["train"], **grad_res,
+                                 "counts": train_counts}), flush=True)
+    print("bwd_timing " + json.dumps(bwd_t), flush=True)
+    print(f"launches by path: train {train_counts}, serve {counts}; "
+          "library_ms of flash_bwd_dq and flash_bwd_dkv is ONE number: the "
+          "backward of scaled_dot_product_attention (bf16, boolean mask), "
+          "which computes K2 and K3's outputs together", flush=True)
     serve = slice_res["serve"]
     serve["forward_ms_bucket64"] = timing["forward_ms"]
     serve["flash_share_of_forward"] = 12 * f_ms / timing["forward_ms"]
     print("serve " + json.dumps(serve), flush=True)
-    print("timing shapes: flash (B,H,T,D)=" + str(PATH_SHAPE)
+    print("timing shapes: flash_bwd (B,H,T,D)=" + str(TRAIN_SHAPE)
+          + f" bf16, dq {bwd_t['dq']['flops'] / 1e9:.2f} GFLOP "
+          f"{bwd_t['dq']['bytes'] / 1e6:.1f} MB, dkv "
+          f"{bwd_t['dkv']['flops'] / 1e9:.2f} GFLOP "
+          f"{bwd_t['dkv']['bytes'] / 1e6:.1f} MB (bounds at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+          f"{PEAK_BYTES / 1e12} TB/s); flash fwd (B,H,T,D)=" + str(PATH_SHAPE)
           + f" f32, {flops / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB; "
           f"quantize/dequantize = every quantized leaf of the artifact "
           f"once ({q_bytes / 1e6:.1f} / {d_bytes / 1e6:.1f} MB); kernel "

@@ -55,25 +55,30 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     return out
 
 
-def flax_tree(module: nn.Module) -> dict:
+def flax_tree(module: nn.Module, pick=None) -> dict:
     """The module's parameters in the flax layout, as detached tensors on
-    the module's device: ``{"params": {...}}``."""
+    the module's device: ``{"params": {...}}``.  ``pick(param)`` replaces
+    each parameter with a tensor of its shape (an optimizer slot, say),
+    laid out the same way."""
+    pick = pick or (lambda p: p)
+
+    def leaf(p):
+        return pick(p).detach()
+
     root: dict = {}
     for name, mod in module.named_modules():
         if isinstance(mod, nn.Linear):
             features = getattr(mod, "features", (mod.out_features,))
             leaves = {
-                "kernel": mod.weight.detach().T.reshape(
+                "kernel": leaf(mod.weight).T.reshape(
                     mod.in_features, *features
                 ),
-                "bias": mod.bias.detach().reshape(features),
+                "bias": leaf(mod.bias).reshape(features),
             }
         elif isinstance(mod, nn.Embedding):
-            leaves = {"embedding": mod.weight.detach()}
+            leaves = {"embedding": leaf(mod.weight)}
         elif isinstance(mod, nn.LayerNorm):
-            leaves = {
-                "scale": mod.weight.detach(), "bias": mod.bias.detach(),
-            }
+            leaves = {"scale": leaf(mod.weight), "bias": leaf(mod.bias)}
         elif next(mod.parameters(recurse=False), None) is not None:
             raise TypeError(
                 f"no flax layout for {type(mod).__name__} at {name!r}"
@@ -88,11 +93,13 @@ def flax_tree(module: nn.Module) -> dict:
 
 
 def to_host(tree):
-    """Tensor leaves of a nested dict -> numpy arrays; others pass."""
+    """Tensor leaves of a nested dict -> numpy arrays that own their
+    memory (a CPU tensor's ``.numpy()`` would alias it, and a saved state
+    would follow the live parameters); others pass."""
     if isinstance(tree, dict):
         return {k: to_host(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.cpu().contiguous().numpy()
+        return tree.detach().to("cpu", copy=True).contiguous().numpy()
     return tree
 
 

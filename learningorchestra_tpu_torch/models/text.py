@@ -104,10 +104,13 @@ class _BertClassifier(nn.Module):
 
 @register(_MODULE)
 class BertModel(NeuralEstimator):
-    """BERT encoder + classification head.
+    """BERT encoder + classification head (fine-tune surface).
 
-    Defaults are BERT-base (L=12, H=768, A=12) per BASELINE.md config 4;
-    shrink for tests with num_layers/hidden_dim kwargs.
+    Defaults are BERT-base (L=12, H=768, A=12) per BASELINE.md config 4,
+    fine-tuned at the JAX default learning rate 2e-5; shrink for tests with
+    num_layers/hidden_dim kwargs.  Training runs K1 forward and K2/K3
+    backward in every layer on CUDA.  ``remat`` is not ported yet
+    (ROADMAP A.2).
     """
 
     def __init__(
@@ -119,6 +122,7 @@ class BertModel(NeuralEstimator):
         mlp_dim: int | None = None,
         max_len: int = 512,
         num_classes: int = 2,
+        learning_rate: float = 2e-5,
         seed: int = 0,
         device="cuda",
     ):
@@ -138,7 +142,8 @@ class BertModel(NeuralEstimator):
             max_len=max_len,
         )
         super().__init__(
-            _BertClassifier(encoder, num_classes), seed=seed, device=device,
+            _BertClassifier(encoder, num_classes), loss="softmax_ce",
+            learning_rate=learning_rate, seed=seed, device=device,
         )
 
     def check_input(self, x: np.ndarray) -> None:
@@ -169,6 +174,7 @@ class TransformerClassifier(BertModel):
         num_heads: int = 4,
         max_len: int = 256,
         num_classes: int = 2,
+        learning_rate: float = 1e-3,
         seed: int = 0,
         device="cuda",
     ):
@@ -179,6 +185,7 @@ class TransformerClassifier(BertModel):
             num_heads=num_heads,
             max_len=max_len,
             num_classes=num_classes,
+            learning_rate=learning_rate,
             seed=seed,
             device=device,
         )

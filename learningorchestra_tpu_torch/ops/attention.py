@@ -1,16 +1,20 @@
 """Flash attention — port of ``learningorchestra_tpu/ops/attention.py``.
 
 ``flash_attention_fwd`` is the wrapper of kernel K1 (``csrc/flash_fwd.cu``,
-which replaces the Pallas ``_fwd_kernel``).  A CUDA tensor launches the
-kernel or raises; a CPU tensor goes to ``flash_attention_fwd_plain``, the
-same arithmetic in plain PyTorch.  Layout and padding rules are the JAX
-package's: q, k, v are (B, H, T, D), the key mask is (B, Tk), the ragged
-tail is masked (in the kernel, not by padding copies), fully-masked rows
-give O = 0 and LSE = +1e30.
+which replaces the Pallas ``_fwd_kernel``); ``flash_attention_bwd`` wraps
+K2 and K3 (``csrc/flash_bwd.cu``: ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel``).  A CUDA tensor launches the kernel or raises; a CPU
+tensor goes to the ``*_plain`` version, the same arithmetic in plain
+PyTorch (the backward's plain versions, like its kernels, recompute S and
+dP in each pass).  Layout and padding rules are the JAX package's: q, k, v are
+(B, H, T, D), the key mask is (B, Tk), the ragged tail is masked (in the
+kernel, not by padding copies), fully-masked rows give O = 0 and LSE =
++1e30, and their gradients are exactly 0.
 
-The kernel's own tiles are 64 x 64 (the TPU's 256 x 512 blocks do not
-carry over to a Hopper SM).  Backward (K2, K3) is not ported yet: on CUDA a
-call whose inputs require grad raises.
+``flash_attention`` runs through :class:`_FlashAttention` (the
+counterpart of the JAX ``_flash_core`` custom_vjp) whenever grad is on and
+an input requires it, on both devices. The kernels' own tiles are 64 x 64
+(the TPU's 256 x 512 blocks do not carry over to a Hopper SM).
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ _LSE_EMPTY = 1e30  # lse sentinel for fully-masked rows
 
 #: Kernel launches made by ``flash_attention_fwd`` in this process.
 launches = 0
+#: K2 / K3 launches made by ``flash_attention_bwd`` in this process.
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -108,19 +115,63 @@ def flash_attention_fwd_plain(q, k, v, key_mask=None, causal: bool = False,
     return o.to(q.dtype), lse
 
 
-_lib_fn = None
+def _bwd_terms(q, k, v, key_mask, do, lse, delta, causal, window):
+    """P = exp(S - LSE) * keep and dS = P * (dP - delta) * scale, both f32
+    over whole rows: what each backward pass recomputes."""
+    _validate_window(window, causal)
+    b, _, tq, d = q.shape
+    tk = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    keep = _keep_mask(key_mask, b, tq, tk, causal, window, q.device)
+    if keep is None:
+        keep = torch.ones((), device=q.device)
+    s = s + (keep - 1.0) * -_NEG_BIG
+    p = torch.exp(s - lse) * keep
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta) * scale
 
 
-def _kernel():
-    global _lib_fn
-    if _lib_fn is None:
-        fn = build.load("flash_fwd").lo_flash_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
+def flash_attention_bwd_dq_plain(q, k, v, key_mask, do, lse, delta,
+                                 causal: bool = False,
+                                 window: int | None = None):
+    """K2's arithmetic in plain PyTorch: dS cast to k's type before
+    dQ = dS.K (the reference's rounding point).  Returns dq like q."""
+    _, ds = _bwd_terms(q, k, v, key_mask, do, lse, delta, causal, window)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, key_mask, do, lse, delta,
+                                  causal: bool = False,
+                                  window: int | None = None):
+    """K3's arithmetic in plain PyTorch: dS cast to q's type before
+    dK = dS^T.Q, P cast to dO's type before dV = P^T.dO.  Returns (dk like
+    k, dv like v)."""
+    p, ds = _bwd_terms(q, k, v, key_mask, do, lse, delta, causal, window)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum(
+        "bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float()
+    )
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+_lib_fns: dict = {}
+
+
+def _kernel(symbol: str, n_ptr: int):
+    """The ctypes function ``symbol`` of a flash library: ``n_ptr``
+    pointers, the strides array, eight ints, the scale and the stream."""
+    fn = _lib_fns.get(symbol)
+    if fn is None:
+        lib = build.load("flash_fwd" if symbol == "lo_flash_fwd"
+                         else "flash_bwd")
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_void_p] * (n_ptr + 1) + [ctypes.c_int] * 8 \
+            + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib_fn = fn
-    return _lib_fn
+        _lib_fns[symbol] = fn
+    return fn
 
 
 def _check_inputs(q, k, v, key_mask):
@@ -159,15 +210,22 @@ def flash_attention_fwd(q, k, v, key_mask=None, causal: bool = False,
     _check_inputs(q, k, v, key_mask)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, key_mask, causal, window)
+    km = _check_kernel_inputs(q, k, v, key_mask)
+    b, h, tq, d = q.shape
+    o = _like_heads_last(q)
+    lse = torch.empty((b, h, tq, 1), device=q.device, dtype=torch.float32)
+    _launch("lo_flash_fwd", (q, k, v, km, o, lse), (q, k, v, o), q, k,
+            causal, window)
+    launches += 1
+    return o, lse
+
+
+def _check_kernel_inputs(q, k, v, key_mask, *more):
+    """What the CUDA kernels take: f32 or bf16 on a CUDA device, D a
+    multiple of 8 up to 128, each tensor's last dim contiguous. Returns
+    the key mask as contiguous f32 on q's device (or None)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v)
-    ):
-        raise NotImplementedError(
-            "flash attention backward (K2/K3) is not ported yet: it comes "
-            "with the training slice; call under torch.inference_mode()"
-        )
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
     b, h, tq, d = q.shape
@@ -178,37 +236,156 @@ def flash_attention_fwd(q, k, v, key_mask=None, causal: bool = False,
         raise ValueError(f"flash kernel grid limit: B, H <= 65535, got {b}, {h}")
     if tq == 0 or tk == 0:
         raise ValueError("flash kernel needs Tq, Tk >= 1")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)) + more:
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
-    km = None
-    if key_mask is not None:
-        km = key_mask.to(device=q.device, dtype=torch.float32).contiguous()
-    o = torch.empty((b, tq, h, d), device=q.device, dtype=q.dtype)
-    o = o.transpose(1, 2)
-    lse = torch.empty((b, h, tq, 1), device=q.device, dtype=torch.float32)
-    strides = (ctypes.c_longlong * 12)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        o.stride(0), o.stride(1), o.stride(2),
+    if key_mask is None:
+        return None
+    return key_mask.to(device=q.device, dtype=torch.float32).contiguous()
+
+
+def _like_heads_last(x):
+    """An empty (B, H, T, D) tensor like x whose memory is (B, T, H, D):
+    merging heads afterwards (or the qkv projection's backward) reads it
+    without a transposing copy."""
+    b, h, t, d = x.shape
+    return torch.empty((b, t, h, d), device=x.device,
+                       dtype=x.dtype).transpose(1, 2)
+
+
+def _launch(symbol, ptrs, strided, q, k, causal, window):
+    """Launch a flash kernel on q's device and current stream: ``ptrs``
+    are its tensor arguments (None for a null pointer), ``strided`` the
+    tensors whose (batch, head, row) strides it takes, in order."""
+    b, h, tq, d = q.shape
+    strides = (ctypes.c_longlong * (3 * len(strided)))(
+        *(t.stride(i) for t in strided for i in range(3))
     )
     # The launch goes to the current device: make it the tensors' one.
     with torch.cuda.device(q.device):
-        status = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            km.data_ptr() if km is not None else None,
-            o.data_ptr(), lse.data_ptr(), ctypes.addressof(strides),
-            b, h, tq, tk, d, _DTYPES[q.dtype], int(causal),
-            int(window or 0), 1.0 / math.sqrt(d),
+        status = _kernel(symbol, len(ptrs))(
+            *(t.data_ptr() if t is not None else None for t in ptrs),
+            ctypes.addressof(strides), b, h, tq, k.shape[2], d,
+            _DTYPES[q.dtype], int(causal), int(window or 0),
+            1.0 / math.sqrt(d),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    build.check(status, "flash_fwd")
-    launches += 1
-    return o, lse
+    build.check(status, symbol)
+
+
+def flash_attention_bwd_plain(q, k, v, key_mask, do, lse, delta,
+                              causal: bool = False,
+                              window: int | None = None):
+    """K2 then K3's arithmetic in plain PyTorch: (dq, dk, dv)."""
+    args = (q, k, v, key_mask, do, lse, delta, causal, window)
+    return (flash_attention_bwd_dq_plain(*args),
+            *flash_attention_bwd_dkv_plain(*args))
+
+
+def _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal, window):
+    """Raise on arguments the backward does not take.  Returns None for
+    CPU tensors (the plain path), else what the kernels take: the key mask
+    as f32 (or None), LSE and delta contiguous on q's device."""
+    _validate_window(window, causal)
+    _check_inputs(q, k, v, key_mask)
+    b, h, tq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"do must match q: got {do.dtype} {tuple(do.shape)} on "
+            f"{do.device}, q is {q.dtype} {tuple(q.shape)} on {q.device}"
+        )
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, tq, 1) or t.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be (B, H, Tq, 1) float32 = {(b, h, tq, 1)}, "
+                f"got {t.dtype} {tuple(t.shape)}"
+            )
+    if q.device.type == "cpu":
+        return None
+    km = _check_kernel_inputs(q, k, v, key_mask, ("do", do))
+    return km, lse.to(q.device).contiguous(), delta.to(q.device).contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, key_mask, do, lse, delta,
+                           causal: bool = False, window: int | None = None):
+    """dQ from the forward's LSE and delta = rowsum(dO * O) (both
+    (B, H, Tq, 1) f32); ``do`` is in q's type.  On CUDA it launches K2,
+    with the forward's limits; dq is allocated (B, T, H, D) in memory and
+    returned as its (B, H, T, D) view, like the forward's O."""
+    global bwd_dq_launches
+    dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
+                            window)
+    if dev is None:
+        return flash_attention_bwd_dq_plain(q, k, v, key_mask, do, lse,
+                                            delta, causal, window)
+    km, lse, delta = dev
+    dq = _like_heads_last(q)
+    _launch("lo_flash_bwd_dq", (q, k, v, km, do, lse, delta, dq),
+            (q, k, v, do, dq), q, k, causal, window)
+    bwd_dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
+                            causal: bool = False, window: int | None = None):
+    """(dK, dV) from the same inputs as :func:`flash_attention_bwd_dq`; on
+    CUDA it launches K3."""
+    global bwd_dkv_launches
+    dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
+                            window)
+    if dev is None:
+        return flash_attention_bwd_dkv_plain(q, k, v, key_mask, do, lse,
+                                             delta, causal, window)
+    km, lse, delta = dev
+    dk, dv = _like_heads_last(k), _like_heads_last(v)
+    _launch("lo_flash_bwd_dkv", (q, k, v, km, do, lse, delta, dk, dv),
+            (q, k, v, do, dk, dv), q, k, causal, window)
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, key_mask, do, lse, delta,
+                        causal: bool = False, window: int | None = None):
+    """Blockwise attention backward: K2 then K3, as the JAX ``_bwd_call``
+    runs its two passes.  Returns (dq, dk, dv) in q's, k's and v's
+    types."""
+    dq = flash_attention_bwd_dq(q, k, v, key_mask, do, lse, delta, causal,
+                                window)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
+                                         causal, window))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash_core`` and its custom_vjp (JAX ``ops/attention.py``
+    :530-559): the forward saves O and LSE, the backward computes delta =
+    rowsum(dO * O) in plain torch (the JAX package does it in XLA outside
+    Pallas) and runs K2 + K3. The key mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, window):
+        o, lse = flash_attention_fwd(q, k, v, key_mask, causal, window)
+        ctx.save_for_backward(q, k, v, key_mask, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, o, lse = ctx.saved_tensors
+        do = g.float()
+        delta = (do * o.float()).sum(-1, keepdim=True)
+        do = do.to(q.dtype)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, do, lse, delta,
+                                         ctx.causal, ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, key_mask=None, *, causal: bool = False,
                     window: int | None = None):
-    """Blockwise attention. q,k,v: (B, H, T, D); key_mask: (B, Tk)."""
+    """Blockwise attention. q,k,v: (B, H, T, D); key_mask: (B, Tk).
+    Differentiable through K2/K3 when grad is on and an input requires
+    it; otherwise the bare forward (serving, evaluation)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, key_mask, causal, window)
     return flash_attention_fwd(q, k, v, key_mask, causal, window)[0]

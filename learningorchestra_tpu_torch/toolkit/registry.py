@@ -17,7 +17,10 @@ _lock = threading.RLock()
 _registry: dict[tuple[str, str], Callable] = {}
 _loaded = False
 
-_MODULES = ("learningorchestra_tpu_torch.models.text",)
+_MODULES = (
+    "learningorchestra_tpu_torch.models.mlp",
+    "learningorchestra_tpu_torch.models.text",
+)
 
 
 class RegistryError(KeyError):

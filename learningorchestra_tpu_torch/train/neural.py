@@ -1,13 +1,35 @@
-"""NeuralEstimator, inference subset — port of
-``learningorchestra_tpu/train/neural.py``.
+"""NeuralEstimator — port of ``learningorchestra_tpu/train/neural.py``:
+keras-``fit`` semantics over a PyTorch train loop.
 
 Parameters live on the estimator's device from construction (seeded from
 a ``torch.Generator`` on the CPU, so one seed gives the same weights on
-every device).  ``predict`` pads its ragged tail to a power-of-two bucket
-as the JAX estimator does; ``state_dict``/``load_state_dict`` keep the
-JAX package's artifact layout: the flax-shaped numpy tree, with
-``QuantizedLeaf``s where ``quantize_pytree`` puts them.  ``fit`` comes
-with the training slice.
+every device; modules that size themselves from the first input, like the
+MLP, are built and seeded at the first ``fit``).  Training follows the JAX
+package's policies:
+
+- **mixed precision as the reference does it**: the optimizer holds f32
+  master weights; each step casts them to bf16 *inside* the differentiated
+  objective (``torch.func.functional_call`` on a dict of bf16 copies), so
+  the gradients arrive in f32 on the masters.  Every op then computes in
+  bf16 as flax's promoted modules do; ``torch.autocast`` would keep
+  LayerNorm, softmax and the residual adds in f32 instead.  Evaluation
+  applies the same cast; ``predict`` stays f32;
+- **the device epoch** (``_device_epoch_raw``): the dataset is uploaded
+  once, each epoch permutes on the device from a generator seeded by
+  (seed, epoch), pads the tail by cycling the order (mask 0 rows), runs
+  the batches and makes one host transfer of the metrics; epoch metrics
+  are the mean of the per-batch metrics;
+- **optimizers** are the optax names with optax's defaults, on
+  ``torch.optim`` (:func:`resolve_optimizer`); learning-rate schedules are
+  plain functions of the update count, optax's convention (step 0 is the
+  first update); ``accumulate_steps`` has ``optax.MultiSteps`` semantics.
+
+``predict`` pads its ragged tail to a power-of-two bucket as the JAX
+estimator does; ``state_dict``/``load_state_dict`` keep the JAX package's
+artifact layout: the flax-shaped numpy tree (with ``QuantizedLeaf``s where
+``quantize_pytree`` puts them) and the optimizer state as plain dicts in
+the optax layout.  Managed checkpoints and sharded (streaming) datasets
+are not ported yet (ROADMAP A.5).
 
 An artifact is a plain dict (:meth:`NeuralEstimator.to_artifact`) naming
 its class through the registry; :func:`load_artifact` rebuilds it on any
@@ -16,11 +38,16 @@ device.
 
 from __future__ import annotations
 
+import logging
 import math
+import re
+import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from learningorchestra_tpu_torch import convert
 from learningorchestra_tpu_torch.device import resolve_device
@@ -36,7 +63,9 @@ from learningorchestra_tpu_torch.ops.quant import (
 )
 from learningorchestra_tpu_torch.serve.bucketing import bucket_for, pad_rows
 from learningorchestra_tpu_torch.toolkit import registry
-from learningorchestra_tpu_torch.toolkit.base import Estimator
+from learningorchestra_tpu_torch.toolkit.base import Estimator, as_array
+
+_log = logging.getLogger("learningorchestra_tpu_torch.train")
 
 
 def init_params(module: nn.Module, seed: int) -> None:
@@ -59,33 +88,854 @@ def init_params(module: nn.Module, seed: int) -> None:
                 mod.bias.zero_()
 
 
-class NeuralEstimator(Estimator):
-    """Wraps a ``nn.Module`` with predict/save/load (inference subset)."""
+# -- learning-rate schedules and optimizers ----------------------------------
 
-    def __init__(self, module: nn.Module, *, seed: int = 0,
+
+def _spec_get(spec: dict, snake: str, default=None, *, required=False):
+    """Read a spec key in snake_case OR camelCase — REST bodies use
+    camelCase (vocabSize, maxLen) while Python callers write snake."""
+    camel = re.sub(r"_(\w)", lambda m: m.group(1).upper(), snake)
+    for key in (snake, camel):
+        if key in spec:
+            return spec[key]
+    if required:
+        raise ValueError(f"learning-rate schedule needs {snake!r}")
+    return default
+
+
+def _linear(init_value, end_value, transition_steps):
+    if transition_steps <= 0:
+        return lambda count: init_value
+
+    def schedule(count):
+        frac = 1 - min(max(count, 0), transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def _cosine(init_value, decay_steps, alpha=0.0):
+    if not decay_steps > 0:
+        raise ValueError(
+            "The cosine_decay_schedule requires positive decay_steps, got "
+            f"decay_steps={decay_steps}."
+        )
+
+    def schedule(count):
+        count = min(count, decay_steps)
+        decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1 - alpha) * decay + alpha)
+
+    return schedule
+
+
+def _warmup_cosine(init_value, peak_value, warmup_steps, decay_steps,
+                   end_value=0.0):
+    warm = _linear(init_value, peak_value, warmup_steps)
+    cool = _cosine(peak_value, decay_steps - warmup_steps,
+                   0.0 if peak_value == 0.0 else end_value / peak_value)
+    return lambda count: warm(count) if count < warmup_steps else \
+        cool(count - warmup_steps)
+
+
+def _exponential(init_value, transition_steps, decay_rate, staircase=False):
+    if transition_steps <= 0 or decay_rate == 0:
+        return lambda count: init_value
+
+    def schedule(count):
+        p = count / transition_steps
+        if staircase:
+            p = math.floor(p)
+        return init_value if count <= 0 else init_value * decay_rate ** p
+
+    return schedule
+
+
+def _piecewise(init_value, boundaries_and_scales):
+    if any(scale < 0.0 for scale in boundaries_and_scales.values()):
+        raise ValueError(
+            "`piecewise_constant_schedule` expects non-negative scale factors"
+        )
+
+    def schedule(count):
+        v = init_value
+        for threshold, scale in sorted(boundaries_and_scales.items()):
+            if count >= threshold:
+                v *= scale
+        return v
+
+    return schedule
+
+
+def resolve_learning_rate(lr):
+    """A float passes through; a dict becomes a schedule, a plain function
+    of the optimizer's update count (optax's convention: step 0 is the
+    first update) with optax's formulas:
+
+        {"schedule": "warmup_cosine", "peakValue": 3e-4,
+         "warmupSteps": 500, "decaySteps": 10000}
+
+    Kinds: constant, warmup_cosine, cosine, exponential, piecewise.
+    """
+    if not isinstance(lr, dict):
+        return float(lr)
+    kind = str(lr.get("schedule", "")).lower()
+    if kind in ("warmup_cosine", "warmupcosine"):
+        return _warmup_cosine(
+            float(_spec_get(lr, "init_value", 0.0)),
+            float(_spec_get(lr, "peak_value", required=True)),
+            int(_spec_get(lr, "warmup_steps", required=True)),
+            int(_spec_get(lr, "decay_steps", required=True)),
+            float(_spec_get(lr, "end_value", 0.0)),
+        )
+    if kind == "cosine":
+        return _cosine(
+            float(_spec_get(lr, "init_value", required=True)),
+            int(_spec_get(lr, "decay_steps", required=True)),
+            float(_spec_get(lr, "alpha", 0.0)),
+        )
+    if kind == "exponential":
+        return _exponential(
+            float(_spec_get(lr, "init_value", required=True)),
+            int(_spec_get(lr, "transition_steps", required=True)),
+            float(_spec_get(lr, "decay_rate", required=True)),
+            bool(_spec_get(lr, "staircase", False)),
+        )
+    if kind == "piecewise":
+        # JSON object keys are strings; the schedule wants {int step: scale}.
+        raw = _spec_get(lr, "boundaries_and_scales", required=True)
+        return _piecewise(
+            float(_spec_get(lr, "init_value", required=True)),
+            {int(k): float(v) for k, v in dict(raw).items()},
+        )
+    if kind == "constant":
+        return float(_spec_get(lr, "value", required=True))
+    raise ValueError(
+        f"unknown learning-rate schedule {lr.get('schedule')!r}; "
+        "expected warmup_cosine | cosine | exponential | piecewise | "
+        "constant"
+    )
+
+
+class _RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop``: nu = decay*nu + (1-decay)*g^2, update
+    -lr * g / sqrt(nu + eps), then an optional momentum trace of the
+    scaled updates.  ``torch.optim.RMSprop`` adds eps outside the root,
+    which moves early steps by percents when nu starts at 0."""
+
+    def __init__(self, params, lr, decay=0.9, eps=1e-8, initial_scale=0.0,
+                 momentum=None, nesterov=False):
+        super().__init__(params, dict(
+            lr=lr, decay=decay, eps=eps, initial_scale=initial_scale,
+            momentum=momentum, nesterov=nesterov,
+        ))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["nu"] = torch.full_like(p, group["initial_scale"])
+                    if group["momentum"]:
+                        st["trace"] = torch.zeros_like(p)
+                g = p.grad
+                nu = st["nu"]
+                nu.mul_(group["decay"]).addcmul_(g, g,
+                                                 value=1 - group["decay"])
+                upd = g / torch.sqrt(nu + group["eps"]) * -group["lr"]
+                if group["momentum"]:
+                    trace = st["trace"]
+                    trace.mul_(group["momentum"]).add_(upd)
+                    upd = upd + group["momentum"] * trace \
+                        if group["nesterov"] else trace
+                p.add_(upd)
+
+
+def _adam(params, lr, b1=0.9, b2=0.999, eps=1e-8):
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
+
+
+def _adamw(params, lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4):
+    # optax adds wd*p to the update before the lr scale; torch decays p by
+    # lr*wd first: the same step.  Default 1e-4 is optax's (torch: 1e-2).
+    return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps,
+                             weight_decay=weight_decay)
+
+
+def _sgd(params, lr, momentum=None, nesterov=False):
+    return torch.optim.SGD(params, lr=lr, momentum=momentum or 0.0,
+                           nesterov=nesterov)
+
+
+def _adagrad(params, lr, initial_accumulator_value=0.1, eps=1e-7):
+    # optax's defaults (torch: 0 and 1e-10).  optax takes the root of
+    # (sum + eps), torch adds eps after the root: with the 0.1 start the
+    # two differ by under 1e-6 relative.
+    return torch.optim.Adagrad(
+        params, lr=lr, initial_accumulator_value=initial_accumulator_value,
+        eps=eps,
+    )
+
+
+# name -> (factory, {optax state field: torch state key})
+_OPTIMIZERS = {
+    "adam": (_adam, {"mu": "exp_avg", "nu": "exp_avg_sq"}),
+    "adamw": (_adamw, {"mu": "exp_avg", "nu": "exp_avg_sq"}),
+    "sgd": (_sgd, {"trace": "momentum_buffer"}),
+    "rmsprop": (_RMSprop, {"nu": "nu", "trace": "trace"}),
+    "adagrad": (_adagrad, {"sum_of_squares": "sum"}),
+}
+_NOT_PORTED = ("lamb", "lion", "novograd", "radam")
+
+
+class OptimizerSpec:
+    """A resolved optimizer: a ``torch.optim`` factory with optax's
+    defaults, its kwargs, and the learning rate (a float or a schedule)."""
+
+    def __init__(self, name: str, learning_rate, **kwargs):
+        self.name = name
+        self.factory, self.slots = _OPTIMIZERS[name]
+        self.learning_rate = learning_rate
+        self.kwargs = kwargs
+
+    def lr(self, count: int) -> float:
+        """The learning rate of update number ``count`` (from 0)."""
+        lr = self.learning_rate
+        return float(lr(count) if callable(lr) else lr)
+
+    def build(self, params) -> torch.optim.Optimizer:
+        return self.factory(params, self.lr(0), **self.kwargs)
+
+    def __repr__(self) -> str:
+        return f"OptimizerSpec({self.name!r}, {self.kwargs})"
+
+
+def resolve_optimizer(optimizer, learning_rate=1e-3) -> OptimizerSpec:
+    """Turn a REST-expressible optimizer spec into an :class:`OptimizerSpec`.
+
+    ``optimizer`` may be: None (adam at ``learning_rate``), an
+    ``OptimizerSpec`` (passed through), a name string ("sgd"), or a dict
+    ``{"name": "adamw", "learningRate": ..., "weightDecay": 1e-2}`` —
+    extra keys forward to the factory (snake or camelCase) under optax's
+    names and defaults; the learning rate itself may be a schedule spec
+    (:func:`resolve_learning_rate`).
+    """
+    if optimizer is None:
+        return OptimizerSpec("adam", resolve_learning_rate(learning_rate))
+    if isinstance(optimizer, OptimizerSpec):
+        return optimizer
+    if isinstance(optimizer, str):
+        optimizer = {"name": optimizer}
+    if not isinstance(optimizer, dict):
+        raise TypeError(
+            f"optimizer must be a name, a dict spec or an OptimizerSpec, got "
+            f"{type(optimizer).__name__}"
+        )
+    spec = dict(optimizer)
+    name = str(spec.pop("name", "") or "").lower()
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported to the PyTorch package yet "
+            "(ROADMAP A.1)"
+        )
+    if name not in _OPTIMIZERS:
+        raise ValueError(
+            f"unknown optimizer {name!r}; expected one of "
+            f"{sorted([*_OPTIMIZERS, *_NOT_PORTED])}"
+        )
+    lr = None
+    for key in ("learning_rate", "learningRate"):
+        if key in spec:
+            lr = spec.pop(key)
+    if lr is None:
+        lr = learning_rate
+    kwargs = {
+        re.sub(r"([A-Z])", lambda m: "_" + m.group(1).lower(), k): v
+        for k, v in spec.items()
+    }
+    out = OptimizerSpec(name, resolve_learning_rate(lr), **kwargs)
+    out.build([torch.zeros(1, requires_grad=True)])  # reject bad kwargs now
+    return out
+
+
+# -- fit plumbing --------------------------------------------------------------
+
+
+class TrainHistory(dict):
+    """keras-History-shaped: {"loss": [...], "accuracy": [...], ...}."""
+
+    def append(self, metrics: dict) -> None:
+        for key, val in metrics.items():
+            self.setdefault(key, []).append(float(val))
+
+
+def build_stop_callbacks(owner, callbacks, early_stopping) -> list:
+    """Normalize the callback list, fold in an ``early_stopping`` spec,
+    reset reused EarlyStopping instances, clear ``owner.stop_training``."""
+    owner.stop_training = False
+    cbs = list(callbacks or [])
+    # False is the natural JSON off-toggle mirroring True.
+    if early_stopping is not None and early_stopping is not False:
+        cbs.append(EarlyStopping.from_spec(early_stopping))
+    for cb in cbs:
+        if isinstance(cb, EarlyStopping):
+            cb.reset()
+    return cbs
+
+
+def snapshot_params(params: dict) -> dict:
+    """Device-side copy of a parameter dict for best-weights rollback."""
+    return {k: v.detach().clone() for k, v in params.items()}
+
+
+class EarlyStopping:
+    """Keras-parity early stopping, usable as a fit callback or (as a
+    JSON dict via the REST train surface) the ``early_stopping`` fit
+    parameter.
+
+    ``monitor=None`` picks ``val_loss`` when validation runs, else
+    ``loss``.  ``mode="auto"`` minimizes unless the metric name looks
+    like accuracy/F1.  ``restore_best_weights=True`` snapshots the best
+    epoch's params (a device-side copy: the live tensors are updated in
+    place by the optimizer)."""
+
+    def __init__(self, monitor: str | None = None, patience: int = 0,
+                 min_delta: float = 0.0, mode: str = "auto",
+                 restore_best_weights: bool = False, baseline=None):
+        if mode not in ("auto", "min", "max"):
+            raise ValueError(f"mode must be auto|min|max, got {mode!r}")
+        self.monitor = monitor
+        self.patience = int(patience)
+        self.min_delta = abs(float(min_delta))
+        self.mode = mode
+        self.restore_best_weights = bool(restore_best_weights)
+        self.baseline = baseline
+        self.reset()
+
+    def reset(self) -> None:
+        """Clear per-run state, so a reused instance carries nothing from a
+        previous fit."""
+        self.best = None
+        self.best_params = None
+        self.best_epoch = None
+        self.wait = 0
+        self._warned_missing = False
+
+    @classmethod
+    def from_spec(cls, spec) -> "EarlyStopping":
+        """Build from a REST-JSON dict (snake_case or camelCase)."""
+        if isinstance(spec, cls):
+            return spec
+        if spec is True:
+            return cls()
+        spec = dict(spec)
+        kw = {}
+        for snake in ("monitor", "patience", "min_delta", "mode",
+                      "restore_best_weights", "baseline"):
+            val = _spec_get(spec, snake)
+            if val is not None:
+                kw[snake] = val
+        return cls(**kw)
+
+    def _resolve(self, metrics: dict) -> tuple[str, bool]:
+        name = self.monitor or (
+            "val_loss" if "val_loss" in metrics else "loss"
+        )
+        if self.mode != "auto":
+            minimize = self.mode == "min"
+        else:
+            minimize = not any(
+                tag in name for tag in ("acc", "f1", "auc", "precision",
+                                        "recall")
+            )
+        return name, minimize
+
+    def __call__(self, epoch: int, metrics: dict, model) -> None:
+        name, minimize = self._resolve(metrics)
+        if name not in metrics:
+            if not self._warned_missing:
+                self._warned_missing = True
+                _log.warning(
+                    "EarlyStopping monitor %r not in metrics %s — "
+                    "early stopping is inactive this fit",
+                    name, sorted(metrics),
+                )
+            return
+        value = float(metrics[name])
+        if self.best is None and self.baseline is not None:
+            # keras semantics: with a baseline, the first "best" to beat
+            # is the baseline itself, not the first epoch's value.
+            self.best = float(self.baseline)
+        improved = (
+            self.best is None
+            or (value < self.best - self.min_delta if minimize
+                else value > self.best + self.min_delta)
+        )
+        if improved:
+            self.best, self.best_epoch, self.wait = value, epoch, 0
+            if self.restore_best_weights:
+                self.best_params = snapshot_params(model.params)
+        else:
+            self.wait += 1
+        # keras parity: patience=N stops after N consecutive
+        # non-improving epochs (patience=0 → the first one).
+        if self.wait >= max(1, self.patience):
+            model.stop_training = True
+            if self.restore_best_weights and self.best_params is not None:
+                model.params = self.best_params
+                model.opt_state = None  # moments belong to later epochs
+
+
+def _batch_data(x: np.ndarray, y: np.ndarray, batch_size: int, rng):
+    """Shuffle + pad to a whole number of batches; returns (xb, yb, mask)
+    with shapes (n_batches, bs, ...).  Padding rows carry mask 0 so metrics
+    and gradients ignore them."""
+    n = x.shape[0]
+    if n == 0:
+        raise ValueError("cannot batch an empty dataset")
+    perm = rng.permutation(n)
+    n_batches = max(1, -(-n // batch_size))
+    pad = n_batches * batch_size - n
+    # np.resize cycles perm, so pad may exceed n (tiny datasets).
+    idx = np.concatenate([perm, np.resize(perm, pad)]) if pad else perm
+    mask = np.ones(n_batches * batch_size, np.float32)
+    if pad:
+        mask[n:] = 0.0
+    xb = x[idx].reshape(n_batches, batch_size, *x.shape[1:])
+    yb = y[idx].reshape(n_batches, batch_size, *y.shape[1:])
+    mb = mask.reshape(n_batches, batch_size)
+    return xb, yb, mb
+
+
+class _NoShuffle:
+    """Identity 'rng' for deterministic batching."""
+
+    def permutation(self, n: int):
+        return np.arange(n)
+
+
+def _is_sharded(obj) -> bool:
+    """Sharded-dataset handles/views (and tuples holding one) expose
+    ``load_shard`` / ``n_shards``; the streaming paths are not ported."""
+    if isinstance(obj, tuple):
+        return any(_is_sharded(o) for o in obj)
+    return hasattr(obj, "load_shard") or hasattr(obj, "n_shards")
+
+
+def _cast_params(module: nn.Module, dtype) -> dict:
+    """The module's parameters by name, f32 ones cast to ``dtype`` (None:
+    as they are).  The MoE router keeps full-precision weights, as the
+    JAX package's ``_param_cast_for`` exempts it."""
+    out = {}
+    for name, p in module.named_parameters():
+        if dtype is not None and p.dtype == torch.float32 and \
+                "router" not in name.lower():
+            p = p.to(dtype)
+        out[name] = p
+    return out
+
+
+def _cast_input(xb: torch.Tensor, dtype) -> torch.Tensor:
+    return xb.to(dtype) if dtype is not None and xb.is_floating_point() \
+        else xb
+
+
+def _finalize_metrics(per_batch: list[dict]) -> dict:
+    """Batch-mean the per-step metrics with ONE host transfer, then
+    'perplexity' (raw per-token CE) becomes exp(mean CE)."""
+    keys = list(per_batch[0])
+    stacked = torch.stack([torch.stack([m[k] for k in keys])
+                           for m in per_batch])
+    out = dict(zip(keys, stacked.float().mean(0).cpu().tolist()))
+    if "perplexity" in out:
+        out["perplexity"] = math.exp(out["perplexity"])
+    return out
+
+
+class NeuralEstimator(Estimator):
+    """Wraps a ``nn.Module`` with fit/evaluate/predict/save/load."""
+
+    def __init__(self, module: nn.Module, *, loss: str = "auto",
+                 optimizer: Any = None, learning_rate: float = 1e-3,
+                 seed: int = 0, compute_dtype: str = "bfloat16",
                  device="cuda"):
         self.device = resolve_device(device)
-        self.seed = seed
         self.module = module
-        self.history: dict = {}
+        self.loss = loss  # auto | softmax_ce | sigmoid_ce | mse
+        self.learning_rate = learning_rate
+        self.seed = seed
+        self.compute_dtype = compute_dtype
+        self.optimizer = resolve_optimizer(optimizer, learning_rate)
+        # The declarative spec (name/dict/None=adam), so a later
+        # compile(learning_rate=...) can rebuild the SAME optimizer kind.
+        self._optimizer_spec = (
+            optimizer if isinstance(optimizer, (str, dict))
+            else ({"name": "adam"} if optimizer is None else None)
+        )
+        self.opt_state: torch.optim.Optimizer | None = None
+        self._updates = 0  # optimizer updates made (optax's count)
+        self._mini_step = 0  # batches accumulated towards the next update
+        self._accumulate_steps = 1
+        self.stop_training = False  # callbacks may set True mid-fit
+        self.history = TrainHistory()
         init_params(module, seed)
         module.to(self.device).eval()
 
-    # -- inference ------------------------------------------------------------
+    # -- parameters -------------------------------------------------------------
+
+    @property
+    def params(self) -> dict:
+        """The live parameters by name (the optimizer updates them)."""
+        return dict(self.module.named_parameters())
+
+    @params.setter
+    def params(self, values: dict) -> None:
+        with torch.no_grad():
+            for name, p in self.module.named_parameters():
+                p.copy_(values[name])
+
+    def _init_params(self, x0: np.ndarray) -> None:
+        """Hook for modules that size themselves from the first input
+        (flax's ``module.init``); parameters of fixed-size modules exist
+        from construction."""
+
+    def _reset_optimizer(self) -> None:
+        """Fresh optimizer state (moments from zero, count 0, no pending
+        accumulated gradients)."""
+        self.module.zero_grad(set_to_none=True)
+        self.opt_state = self.optimizer.build(self.module.parameters())
+        self._updates = 0
+        self._mini_step = 0
+
+    # -- keras-compile parity -------------------------------------------------
+
+    def compile(self, optimizer=None, loss: str | None = None,
+                learning_rate=None, **kw) -> None:
+        """Reconfigure optimizer/loss.  ``optimizer`` accepts an
+        ``OptimizerSpec``, a name string, or a REST-JSON dict spec
+        (:func:`resolve_optimizer`); ``learning_rate`` (or camelCase
+        ``learningRate``) alone rebuilds the current optimizer kind at
+        the new rate/schedule."""
+        if learning_rate is None:
+            learning_rate = kw.pop("learningRate", None)
+        if optimizer is None and learning_rate is not None:
+            spec = self._optimizer_spec
+            if spec is None:
+                raise ValueError(
+                    "current optimizer is an OptimizerSpec whose rate is "
+                    "baked in; pass optimizer= explicitly to change it"
+                )
+            optimizer = spec
+        if optimizer is not None:
+            if learning_rate is not None and not isinstance(
+                optimizer, (str, dict)
+            ):
+                raise ValueError(
+                    "learning_rate is ignored for OptimizerSpec objects — "
+                    "bake the rate into the object, or pass a name/dict "
+                    "spec"
+                )
+            self.optimizer = resolve_optimizer(
+                optimizer, learning_rate if learning_rate is not None
+                else self.learning_rate,
+            )
+            self._optimizer_spec = (
+                optimizer if isinstance(optimizer, (str, dict)) else None
+            )
+            if learning_rate is not None:
+                self.learning_rate = learning_rate
+            # A fresh optimizer voids accumulation and any state built for
+            # the old one.
+            self._accumulate_steps = 1
+            if self.opt_state is not None:
+                self._reset_optimizer()
+        if loss is not None:
+            self.loss = loss
+
+    def _set_accumulation(self, accumulate_steps: int) -> None:
+        """``optax.MultiSteps(every_k_schedule=accumulate_steps)``: the
+        mean gradient over k batches, one update every k-th batch.  The
+        inner optimizer's moments survive a change; pending accumulated
+        gradients do not."""
+        if accumulate_steps < 1:
+            raise ValueError(
+                f"accumulate_steps must be >= 1, got {accumulate_steps}"
+            )
+        if accumulate_steps != self._accumulate_steps:
+            self._accumulate_steps = accumulate_steps
+            self._mini_step = 0
+            self.module.zero_grad(set_to_none=True)
+
+    # -- loss -----------------------------------------------------------------
+
+    def _resolve_loss(self, y: np.ndarray) -> str:
+        if self.loss != "auto":
+            return self.loss
+        if np.issubdtype(y.dtype, np.floating):
+            return "mse"
+        return "softmax_ce"
+
+    @staticmethod
+    def _loss_and_metrics(loss_kind: str) -> Callable:
+        """(f32 logits, labels, per-row mask) -> (loss, metrics): a masked
+        mean over max(mask.sum(), 1), as the JAX package's losses."""
+
+        def fn(logits, y, mask):
+            msum = torch.clamp_min(mask.sum(), 1.0)
+            if loss_kind == "softmax_ce":
+                y = y.long()
+                # optax.softmax_cross_entropy_with_integer_labels
+                per = torch.logsumexp(logits, -1) - logits.gather(
+                    -1, y[..., None])[..., 0]
+                correct = (logits.argmax(-1) == y).float()
+                seq_out = per.dim() == 2
+                if seq_out:
+                    # Sequence outputs (B, T, V): average over non-pad
+                    # target tokens (pad id 0); the per-sample mask
+                    # applies unchanged.
+                    tok = (y != 0).float()
+                    denom = torch.clamp_min(tok.sum(-1), 1.0)
+                    per = (per * tok).sum(-1) / denom
+                    correct = (correct * tok).sum(-1) / denom
+                loss = (per * mask).sum() / msum
+                acc = (correct * mask).sum() / msum
+                metrics = {"loss": loss, "accuracy": acc}
+                if seq_out:
+                    # Raw per-token CE; exponentiated after the mean
+                    # (_finalize_metrics).
+                    metrics["perplexity"] = loss
+                return loss, metrics
+            if loss_kind == "sigmoid_ce":
+                z = logits[..., 0]
+                yf = y.float()
+                # optax.sigmoid_binary_cross_entropy
+                per = -yf * nn.functional.logsigmoid(z) - \
+                    (1 - yf) * nn.functional.logsigmoid(-z)
+                loss = (per * mask).sum() / msum
+                acc = (((z > 0) == (yf > 0)).float() * mask).sum() / msum
+                return loss, {"loss": loss, "accuracy": acc}
+            # mse
+            pred = logits if logits.dim() == y.dim() else logits[..., 0]
+            per = ((pred - y) ** 2).mean(dim=tuple(range(1, pred.dim()))) \
+                if pred.dim() > 1 else (pred - y) ** 2
+            loss = (per * mask).sum() / msum
+            return loss, {"loss": loss}
+
+        return fn
+
+    def _compute_dtype(self):
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else None
+
+    # -- train step / epoch ---------------------------------------------------
+
+    def _train_step(self, xb, yb, mb, loss_fn, dtype) -> dict:
+        """Forward + backward on bf16 copies of the f32 masters; every
+        ``accumulate_steps``-th call applies one optimizer update with the
+        mean gradient.  Returns detached metric tensors (no host sync)."""
+        logits = functional_call(
+            self.module, _cast_params(self.module, dtype),
+            (_cast_input(xb, dtype),),
+        ).float()
+        loss, metrics = loss_fn(logits, yb, mb)
+        loss.backward()
+        self._mini_step += 1
+        k = self._accumulate_steps
+        if self._mini_step == k:
+            if k > 1:
+                for p in self.module.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(k)
+            lr = self.optimizer.lr(self._updates)
+            for group in self.opt_state.param_groups:
+                group["lr"] = lr
+            self.opt_state.step()
+            self.module.zero_grad(set_to_none=True)
+            self._updates += 1
+            self._mini_step = 0
+        return {name: v.detach() for name, v in metrics.items()}
+
+    def _device_epoch(self, xs, ys, loss_fn, dtype, batch_size: int,
+                      shuffle: bool, epoch: int) -> dict:
+        """One epoch over a device-resident dataset: permute on the device,
+        pad the tail by cycling the order (mask 0), run the batches, one
+        host transfer of the mean per-batch metrics."""
+        n = xs.shape[0]
+        if shuffle:
+            gen = torch.Generator(device=xs.device).manual_seed(
+                int(self.seed) * 1_000_003 + epoch)
+            order = torch.randperm(n, generator=gen, device=xs.device)
+        else:
+            order = torch.arange(n, device=xs.device)
+        n_batches = max(1, -(-n // batch_size))
+        pad = n_batches * batch_size - n
+        idx = torch.cat([order, order.repeat(-(-pad // n))[:pad]]) \
+            if pad else order
+        mask = torch.ones(n_batches * batch_size, device=xs.device)
+        mask[n:] = 0.0
+        per_batch = []
+        for i in range(n_batches):
+            sl = slice(i * batch_size, (i + 1) * batch_size)
+            rows = idx[sl]
+            per_batch.append(self._train_step(
+                xs[rows], ys[rows], mask[sl], loss_fn, dtype))
+        return _finalize_metrics(per_batch)
+
+    # -- keras-fit surface ----------------------------------------------------
+
+    def fit(
+        self,
+        x,
+        y,
+        epochs: int = 1,
+        batch_size: int = 32,
+        validation_split: float = 0.0,
+        validation_data: tuple | None = None,
+        shuffle: bool = True,
+        verbose: int = 0,
+        callbacks: list | None = None,
+        checkpoint_dir: str | None = None,
+        accumulate_steps: int = 1,
+        quantize_checkpoint: bool = False,
+        early_stopping: dict | EarlyStopping | None = None,
+        **_,
+    ) -> "NeuralEstimator":
+        """keras-fit surface: ``validation_split`` / ``validation_data``
+        (``val_*`` metrics), ``shuffle``, ``callbacks`` (``cb(epoch,
+        metrics, model)``), ``early_stopping`` (an :class:`EarlyStopping`
+        or its REST-JSON dict spec), ``accumulate_steps`` (MultiSteps).
+        ``quantize_checkpoint=True`` marks the estimator so its saved
+        artifact stores parameters int8 with optimizer state dropped; the
+        live model keeps full precision."""
+        if checkpoint_dir:
+            raise NotImplementedError(
+                "checkpoint_dir: managed checkpoints are not ported to the "
+                "PyTorch package yet (ROADMAP A.5)"
+            )
+        if _is_sharded(x) or _is_sharded(y):
+            raise NotImplementedError(
+                "sharded (streaming) datasets are not ported to the PyTorch "
+                "package yet: the sharded store comes with ROADMAP A.3/A.5"
+            )
+        self._quantize_persist = bool(quantize_checkpoint)
+        callbacks = build_stop_callbacks(self, callbacks, early_stopping)
+        self._set_accumulation(accumulate_steps)
+        x = as_array(x)
+        y_arr = as_array(y)
+        y_arr = y_arr.reshape(-1) if y_arr.ndim == 2 and y_arr.shape[1] == 1 \
+            else y_arr
+        loss_kind = self._resolve_loss(y_arr)
+        y_arr = y_arr.astype(np.int32 if loss_kind == "softmax_ce"
+                             else np.float32)
+
+        if validation_data is None and validation_split > 0:
+            n_val = int(len(x) * validation_split)
+            # Tiny datasets: never let the split empty the train set.
+            if 0 < n_val < len(x):
+                x, x_val = x[:-n_val], x[-n_val:]
+                y_arr, y_val = y_arr[:-n_val], y_arr[-n_val:]
+                validation_data = (x_val, y_val)
+        if len(x) == 0:
+            raise ValueError("cannot batch an empty dataset")
+        self._init_params(x[:1])
+        if self.opt_state is None:
+            self._reset_optimizer()
+
+        # Upload the dataset once; each epoch shuffles/batches on device.
+        xs = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        ys = torch.from_numpy(np.ascontiguousarray(y_arr)).to(self.device)
+        loss_fn = self._loss_and_metrics(loss_kind)
+        dtype = self._compute_dtype()
+        self.module.train()
+        try:
+            for epoch_i in range(epochs):
+                t0 = time.perf_counter()
+                metrics = self._device_epoch(xs, ys, loss_fn, dtype,
+                                             batch_size, bool(shuffle),
+                                             epoch_i)
+                metrics["epoch_time"] = time.perf_counter() - t0
+                if validation_data is not None:
+                    vx, vy = validation_data
+                    vy = as_array(vy)
+                    # Only flatten single-column matrices — sequence
+                    # targets (B, T) keep their shape.
+                    if vy.ndim == 2 and vy.shape[1] == 1:
+                        vy = vy.reshape(-1)
+                    vmetrics = self._evaluate_arrays(
+                        as_array(vx), vy, batch_size, loss_kind)
+                    metrics.update(
+                        {f"val_{k}": v for k, v in vmetrics.items()})
+                self.history.append(metrics)
+                if verbose:
+                    _log.info("epoch %d/%d: %s", epoch_i + 1, epochs,
+                              metrics)
+                for cb in callbacks:
+                    if callable(cb):
+                        cb(epoch_i, metrics, self)
+                if self.stop_training:
+                    if verbose:
+                        _log.info("early stop after epoch %d", epoch_i + 1)
+                    break
+        finally:
+            self.module.eval()
+        return self
+
+    # -- evaluation / inference -------------------------------------------------
+
+    def _evaluate_arrays(self, x, y, batch_size, loss_kind) -> dict:
+        y = y.astype(np.int32 if loss_kind == "softmax_ce" else np.float32)
+        xb, yb, mb = _batch_data(x, y, batch_size, _NoShuffle())
+        xb, yb, mb = (torch.from_numpy(a).to(self.device)
+                      for a in (xb, yb, mb))
+        loss_fn = self._loss_and_metrics(loss_kind)
+        dtype = self._compute_dtype()
+        with torch.inference_mode():
+            # Same numerics (and tensor-core rate) as training.
+            params = _cast_params(self.module, dtype)
+            per_batch = [
+                loss_fn(functional_call(
+                    self.module, params, (_cast_input(xb[i], dtype),)
+                ).float(), yb[i], mb[i])[1]
+                for i in range(xb.shape[0])
+            ]
+        return _finalize_metrics(per_batch)
+
+    def evaluate(self, x, y, batch_size: int = 128, **_) -> dict:
+        if _is_sharded(x) or _is_sharded(y):
+            raise NotImplementedError(
+                "sharded (streaming) datasets are not ported to the PyTorch "
+                "package yet: the sharded store comes with ROADMAP A.3/A.5"
+            )
+        x = as_array(x)
+        y = as_array(y)
+        # Only flatten a single-column matrix; multi-output regression
+        # targets (n, k>1) must keep their shape.
+        if y.ndim == 2 and y.shape[1] == 1:
+            y = y.reshape(-1)
+        if not self._built():
+            raise RuntimeError("evaluate() before fit()")
+        return self._evaluate_arrays(x, y, batch_size, self._resolve_loss(y))
+
+    def _built(self) -> bool:
+        return next(self.module.parameters(), None) is not None
 
     def check_input(self, x: np.ndarray) -> None:
         """Raise ValueError for input the module cannot take (validated on
         the host: a bad index on the card would fault the device)."""
 
     def apply(self, x: np.ndarray) -> np.ndarray:
-        """One forward over a host batch; returns host f32 outputs."""
+        """One f32 forward over a host batch; returns host f32 outputs."""
         with torch.inference_mode():
             xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
             return self.module(xt).float().cpu().numpy()
 
     def predict(self, x, batch_size: int = 512, **_):
-        x = np.asarray(x)
+        x = as_array(x)
         self.check_input(x)
+        if not self._built():
+            raise RuntimeError("predict() before fit()")
         outs = []
         for i in range(0, len(x), batch_size):
             xb = x[i:i + batch_size]
@@ -97,20 +947,87 @@ class NeuralEstimator(Estimator):
             outs.append(self.apply(pad_rows(xb, bucket))[:k])
         return np.concatenate(outs, axis=0)
 
+    def predict_classes(self, x, batch_size: int = 512):
+        return np.argmax(self.predict(x, batch_size), axis=-1)
+
+    def score(self, x, y) -> float:
+        return float(self.evaluate(x, y).get("accuracy", 0.0))
+
     # -- persistence ----------------------------------------------------------
+
+    def _export_opt_state(self):
+        """The optimizer state as optax lays it out, numpy leaves in the
+        flax tree shape: ``count`` plus the optimizer's slots (adam:
+        ``mu``/``nu``; sgd: ``trace``; rmsprop: ``nu``; adagrad:
+        ``sum_of_squares``), wrapped as ``MultiStepsState`` fields when
+        gradients accumulate."""
+        opt = self.opt_state
+        if opt is None:
+            return None
+
+        def slot(key):
+            return lambda p: opt.state.get(p, {}).get(key, torch.zeros_like(p))
+
+        state = {"count": np.asarray(self._updates, np.int32)}
+        for field, key in self.optimizer.slots.items():
+            if any(key in st for st in opt.state.values()):
+                state[field] = convert.to_host(
+                    convert.flax_tree(self.module, pick=slot(key)))
+        if self._accumulate_steps == 1:
+            return state
+        return {
+            "mini_step": np.asarray(self._mini_step, np.int32),
+            "gradient_step": np.asarray(self._updates, np.int32),
+            "inner_opt_state": state,
+            "acc_grads": convert.to_host(convert.flax_tree(
+                self.module,
+                pick=lambda p: p.grad / max(self._mini_step, 1)
+                if p.grad is not None else torch.zeros_like(p),
+            )),
+        }
+
+    def _import_opt_state(self, state) -> None:
+        self._reset_optimizer()
+        if state is None:
+            return
+        if "inner_opt_state" in state:
+            self._mini_step = int(state["mini_step"])
+            grads = convert.params_from_jax(state["acc_grads"])
+            for name, p in self.module.named_parameters():
+                p.grad = grads[name].to(p) * self._mini_step \
+                    if self._mini_step else None
+            state = state["inner_opt_state"]
+        self._updates = int(state["count"])
+        index = {name: i for i, (name, _) in
+                 enumerate(self.module.named_parameters())}
+        per_param: dict[int, dict] = {i: {} for i in index.values()}
+        for field, key in self.optimizer.slots.items():
+            if field not in state:
+                continue
+            for name, t in convert.params_from_jax(state[field]).items():
+                per_param[index[name]][key] = t
+        step = torch.tensor(float(self._updates))
+        for st in per_param.values():
+            if st:
+                st["step"] = step.clone()
+        saved = self.opt_state.state_dict()
+        saved["state"] = {i: st for i, st in per_param.items() if st}
+        self.opt_state.load_state_dict(saved)
 
     def state_dict(self, *, quantize: bool = False) -> dict:
         """The JAX package's artifact state: ``params`` is the flax tree of
         numpy arrays; ``quantize=True`` stores large tensors int8 (the
-        quantize kernel runs on the estimator's device)."""
+        quantize kernel runs on the estimator's device) and drops the
+        optimizer state — a serving binary."""
         tree = convert.flax_tree(self.module)
         if quantize:
             tree = quantize_pytree(tree)
         return {
             "params": convert.to_host(tree),
-            "opt_state": None,
-            "history": dict(self.history),
-            "accumulate_steps": 1,
+            "opt_state": None if quantize else self._export_opt_state(),
+            # Copies: a later fit must not grow a saved artifact's lists.
+            "history": {k: list(v) for k, v in self.history.items()},
+            "accumulate_steps": self._accumulate_steps,
             "sharded_fit_cols": None,
         }
 
@@ -126,11 +1043,21 @@ class NeuralEstimator(Estimator):
             # default: block-stack into the qkv layout.
             params = migrate_separate_qkv(params)
         self.module.load_state_dict(convert.params_from_jax(params))
-        self.history = dict(state.get("history") or {})
+        self._set_accumulation(state.get("accumulate_steps", 1))
+        # A quantized artifact drops the moments: the next fit starts
+        # them from zero.
+        if state.get("opt_state") is not None:
+            self._import_opt_state(state["opt_state"])
+        else:
+            self.opt_state = None
+        self.history = TrainHistory(state.get("history") or {})
 
-    def to_artifact(self, *, quantize: bool = False) -> dict:
+    def to_artifact(self, *, quantize: bool | None = None) -> dict:
         """A picklable artifact: class name, constructor kwargs (minus the
-        device) and :meth:`state_dict`."""
+        device) and :meth:`state_dict`.  ``quantize`` defaults to what the
+        last fit's ``quantize_checkpoint`` asked for."""
+        if quantize is None:
+            quantize = getattr(self, "_quantize_persist", False)
         params = self.get_params()
         params.pop("device", None)
         return {

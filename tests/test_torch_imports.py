@@ -40,6 +40,7 @@ def test_sources_exist():
     assert "learningorchestra_tpu_torch/ops/attention.py" in names
     assert "chip_smoke.py" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
+    assert (PORT / "csrc" / "flash_bwd.cu").is_file()
     assert (PORT / "csrc" / "quant.cu").is_file()
 
 
