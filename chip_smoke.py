@@ -13,7 +13,9 @@ Phases (each prints its own line; any failure exits nonzero):
    causal+window and unaligned lengths; K2 (dQ) and K3 (dK, dV) at the
    fine-tune shape (32, 12, 128, 64) in bf16 and f32 with a key mask and a
    fully-masked row (exact zeros asserted), plus (8, 12, 512, 64) bf16,
-   causal, causal+window and unaligned lengths; K4 quantize bit-exact on
+   causal, causal+window, unaligned lengths and D = 40 / 128 in bf16, each
+   bf16 case launched twice and required bitwise equal (run to run), and
+   no register spills in the bf16 instances (ptxas); K4 quantize bit-exact on
    every quantized leaf of a BERT-base model plus a stochastic mean-bias
    check; K5 dequantize exact;
 4. training: one batch of BERT-base (full width and depth, random weights
@@ -30,8 +32,10 @@ Phases (each prints its own line; any failure exits nonzero):
    bucket dispatches; every answer is checked for status, shape and
    finiteness, a few rows against the same artifact run on the CPU (plain
    path), and the kernels' launch counters against the dispatches;
-6. timings (CUDA events, after warm-up), a torch.profiler breakdown of
-   one 64-row bucket by kernel family, and the `kernels` JSON line;
+6. timings (CUDA events, after warm-up; K2/K3 and the backward of
+   scaled_dot_product_attention at the fine-tune shape and at (8, 12, 512,
+   64) bf16), a torch.profiler breakdown of one 64-row bucket by kernel
+   family, and the `kernels` JSON line;
 7. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
@@ -44,6 +48,7 @@ import concurrent.futures
 import http.client
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -108,6 +113,53 @@ def time_ms(fn, reps: int = 10, warmup: int = 2,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    entry function in nvcc's ``-Xptxas -v`` output."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = _kernel_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spills))
+            name = None
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_bwd_dq_tc_kernel<64,64,true>`` from an Itanium-mangled
+    name: the length-prefixed identifier that ends in "kernel", then its
+    template arguments."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        start = i + m.end()
+        ident = mangled[start:start + int(m.group())]
+        i = start + len(ident)
+        if ident.endswith("kernel"):
+            tail = mangled[i:]
+            if not tail.startswith("I"):
+                return ident
+            names = {"f": "f32", "13__nv_bfloat16": "bf16",
+                     "Lb0E": "false", "Lb1E": "true"}
+            args = re.findall(r"(f|13__nv_bfloat16|Lb[01]E|Li(\d+)E)",
+                              tail.split("EEv")[0])
+            return ident + "<" + ",".join(n or names[a] for a, n in args) \
+                + ">"
+    return mangled
 
 
 def max_abs(a, b) -> float:
@@ -241,6 +293,8 @@ def check_flash_bwd(attention, gen) -> dict:
         ("unaligned", (4, h, 37, 41, d), f32, False, None, True, 5e-5),
         ("unaligned_bf16_causal_window", (2, h, 300, 300, 40), bf16, True,
          65, True, 3e-2),
+        ("causal_window_bf16_d128", (4, h, 256, 256, 128), bf16, True, 100,
+         True, 3e-2),
     ]
     results = {}
     for name, (bb, hh, tq, tk, dd), dtype, causal, window, masked, tol in \
@@ -254,6 +308,12 @@ def check_flash_bwd(attention, gen) -> dict:
             args = (*args, lse, delta, causal, window)
             got = (attention.flash_attention_bwd_dq(*args),
                    *attention.flash_attention_bwd_dkv(*args))
+            # The bf16 route sums in mma fragment order, not the plain
+            # version's: it must still give the same bits every run.
+            same = dtype != bf16 or all(
+                torch.equal(g, r) for g, r in zip(got, (
+                    attention.flash_attention_bwd_dq(*args),
+                    *attention.flash_attention_bwd_dkv(*args))))
             torch.cuda.synchronize()
             ref = (attention.flash_attention_bwd_dq_plain(*args),
                    *attention.flash_attention_bwd_dkv_plain(*args))
@@ -268,10 +328,11 @@ def check_flash_bwd(attention, gen) -> dict:
                 (got[1][0][:, dead] == 0).all()) and bool(
                 (got[2][0][:, dead] == 0).all())
         phase(f"K2/K3 flash_bwd {name} {tuple(q.shape)} "
-              f"Tk={tk} {str(dtype)[6:]}", close and zeros,
+              f"Tk={tk} {str(dtype)[6:]}", close and zeros and same,
               f"max|ddQ|={errs[0]:.3g} max|ddK|={errs[1]:.3g} "
               f"max|ddV|={errs[2]:.3g} exact_zeros(masked row, masked "
-              f"keys)={zeros} tol={tol}*(1+|ref|)")
+              f"keys)={zeros} tol={tol}*(1+|ref|)"
+              + (f" run_to_run_bitwise={same}" if dtype == bf16 else ""))
         results[name] = {"errs": errs, "args": args}
     return results
 
@@ -473,13 +534,21 @@ def profile_train_step(est, x, y) -> dict:
 
 
 def time_bwd(attention, bwd_res) -> dict:
-    """K2 and K3 at the fine-tune shape in bf16 (a key mask with pad
-    tails, no empty row), their plain versions, and the backward of
+    """K2 and K3 in bf16 at the fine-tune shape ("train") and at (8, 12,
+    512, 64) ("long"), each with a key mask with pad tails and no empty
+    row: their plain versions, the backward of
     ``F.scaled_dot_product_attention`` with the same boolean mask (its
-    fwd+bwd time minus its fwd time) as the yardstick for the pair."""
+    fwd+bwd time minus its fwd time) as the yardstick for the pair, and K1
+    beside its bound and SDPA's forward."""
+    return {label: _time_bwd_at(attention, bwd_res[case]["args"])
+            for label, case in (("train", "path_bf16"),
+                                ("long", "long_bf16"))}
+
+
+def _time_bwd_at(attention, args) -> dict:
     import torch.nn.functional as F
 
-    q, k, v, _, do, *_ = bwd_res["path_bf16"]["args"]
+    q, k, v, _, do, *_ = args
     b, h, t, d = q.shape
     km = torch.ones(b, t, dtype=torch.bool, device="cuda")
     km[:, -37:] = False
@@ -487,13 +556,16 @@ def time_bwd(attention, bwd_res) -> dict:
         o, lse = attention.flash_attention_fwd(q, k, v, km)
         delta = (do.float() * o.float()).sum(-1, keepdim=True)
         args = (q, k, v, km, do, lse, delta)
-        dq_ms = time_ms(lambda: attention.flash_attention_bwd_dq(*args))
-        dkv_ms = time_ms(lambda: attention.flash_attention_bwd_dkv(*args))
+        dq_ms = time_ms(lambda: attention.flash_attention_bwd_dq(*args),
+                        reps=30)
+        dkv_ms = time_ms(lambda: attention.flash_attention_bwd_dkv(*args),
+                         reps=30)
         dq_plain = time_ms(
             lambda: attention.flash_attention_bwd_dq_plain(*args), reps=3)
         dkv_plain = time_ms(
             lambda: attention.flash_attention_bwd_dkv_plain(*args), reps=3)
-        k1_ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v, km))
+        k1_ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v, km),
+                        reps=30)
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
     mask4 = km[:, None, None, :]
 
@@ -501,18 +573,21 @@ def time_bwd(attention, bwd_res) -> dict:
         return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4)
 
     lib_fb = time_ms(lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg),
-                                                 do))
-    lib_f = time_ms(lib_fwd)
+                                                 do), reps=30)
+    lib_f = time_ms(lib_fwd, reps=30)
     elems = b * h * t * d * q.element_size()
     rows = 2 * b * h * t * 4 + b * t * 4  # LSE + delta, key mask
     work = {
         "dq": (6 * b * h * t * t * d, 5 * elems + rows),
         "dkv": (8 * b * h * t * t * d, 6 * elems + rows),
+        # K1: q, k, v read, O written, LSE written, the key mask read.
+        "k1": (4 * b * h * t * t * d, 4 * elems + b * h * t * 4 + b * t * 4),
     }
-    out = {"library_bwd_ms": lib_fb - lib_f, "library_fwd_bwd_ms": lib_fb,
-           "library_fwd_ms": lib_f, "k1_bf16_ms": k1_ms}
+    out = {"shape": [b, h, t, d], "library_bwd_ms": lib_fb - lib_f,
+           "library_fwd_bwd_ms": lib_fb, "library_fwd_ms": lib_f}
     for key, ms, plain in (("dq", dq_ms, dq_plain), ("dkv", dkv_ms,
-                                                        dkv_plain)):
+                                                        dkv_plain),
+                           ("k1", k1_ms, None)):
         flops, nbytes = work[key]
         by_ops = flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
         out[key] = {
@@ -790,9 +865,17 @@ def main() -> int:
     except build.KernelBuildError as exc:
         phase("build", False, str(exc))
         return 1
+    tc, spilled = [], []
     for name, log in build.build_log.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"  ptxas {name}: {regs}", flush=True)
+        report = ptxas_report(log)
+        print(f"  ptxas {name}: " + "; ".join(
+            f"{k} {regs} registers, spill stores {st} B, loads {ld} B"
+            for k, regs, st, ld in report), flush=True)
+        tc += [k for k, *_ in report if "_tc_" in k]
+        spilled += [k for k, _, st, ld in report if st or ld]
+    phase("bf16 backward registers",
+          bool(tc) and not any("_tc_" in k for k in spilled),
+          f"tensor-core instances {tc}; kernels that spill: {spilled}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -828,7 +911,8 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     timing = time_kernels(flash_inputs, quant_res["mats"], est)
-    bwd_t = time_bwd(attention, bwd_res)
+    bwd_times = time_bwd(attention, bwd_res)
+    bwd_t = bwd_times["train"]
     f_ms, f_plain, f_bound, f_lib, flops, f_bytes = timing["flash"]
     q_ms, q_plain, q_bound, q_bytes = timing["quant"]
     d_ms, d_plain, d_bound, d_lib, d_bytes = timing["dequant"]
@@ -880,7 +964,7 @@ def main() -> int:
     print("train_profile " + json.dumps(train_prof), flush=True)
     print("train " + json.dumps({**train_res["train"], **grad_res,
                                  "counts": train_counts}), flush=True)
-    print("bwd_timing " + json.dumps(bwd_t), flush=True)
+    print("bwd_timing " + json.dumps(bwd_times), flush=True)
     print(f"launches by path: train {train_counts}, serve {counts}; "
           "library_ms of flash_bwd_dq and flash_bwd_dkv is ONE number: the "
           "backward of scaled_dot_product_attention (bf16, boolean mask), "

@@ -6,27 +6,50 @@
 //
 // What bounds them on the H100: at the training shape (B=32, H=12, T=128,
 // D=64, bf16) K2 does 6*B*H*Tq*Tk*D and K3 8*B*H*Tq*Tk*D FLOPs (2.4 and
-// 3.2 GFLOP) against ~32 and ~38 MB of q/k/v/dO/dQ/dK/dV traffic, so both
-// are bound by bytes at the card's peaks (~10 us each).  This first design
-// computes in f32 on the CUDA cores (no wgmma yet), so in practice the FMA
-// issue rate of the recomputed S and dP products is what limits it.
+// 3.2 GFLOP: 2.4 and 3.3 us at 989 TFLOP/s) against ~32 and ~38 MB of
+// q/k/v/dO/dQ/dK/dV traffic (9.5 and 11.4 us at 3.35 TB/s), so both are
+// bound by bytes.
 //
-// What the design does about it: the TPU kernels' two-pass split is kept.
-// K2: one thread block owns one 64-row q tile (its Q, dO, LSE and delta
-// stay in shared memory / registers) and loops over the live K/V tiles;
-// dQ accumulates in registers.  K3: one block owns one 64-row K/V tile and
+// Two routes, chosen by dtype:
+// - bf16 (the training path): tensor cores.  Every product -- S = Q K^T,
+//   dP = dO V^T, dQ = dS K in K2; S^T = K Q^T, dP^T = V dO^T, dV = P^T dO,
+//   dK = dS^T Q in K3 -- is mma.sync.m16n8k16 bf16 -> f32, with operands
+//   read from shared memory by ldmatrix (.trans where the contraction runs
+//   along the tile's rows).  Four warps own 16 rows each of a 64-row tile.
+//   As in FlashAttention-2, the f32 accumulator fragment of two adjacent
+//   n8 tiles of S (or S^T) has the layout of an A fragment of k16, so P
+//   and dS are formed in registers and packed to bf16 A fragments -- the
+//   packing IS the reference's rounding of dS (and P) to the storage type
+//   -- and never touch shared memory.  Tiles sit in shared memory as bf16
+//   (rows padded by 16 bytes, so ldmatrix's eight row addresses fall in
+//   distinct banks), loaded by 16-byte cp.async.cg into a two-stage ring:
+//   the next K/V tile (K2) or Q/dO/LSE/delta tile (K3) is in flight while
+//   the current one is multiplied.  Not wgmma: at this shape the operation
+//   bound is a quarter of the bytes bound, so mma.sync at half the card's
+//   peak still leaves the kernels bound by bytes, and wgmma's 64-row
+//   warpgroup tiles and shared-memory descriptors buy nothing at T=128.
+//   Not TMA: its descriptors are encoded on the host per tensor, and the
+//   q/k/v views change pointer every call on a host-bound step.  cp.async
+//   needs 16-byte-aligned base pointers and strides; the wrapper checks.
+// - f32: the first design, SIMT f32 on the CUDA cores: a TF32 mma
+//   would not hold the f32 bar (5e-5).  Each thread owns a 4x4 register
+//   tile of S/dP and a 4 x D/16 tile of its output(s); a row's 16 owner
+//   lanes sit in one warp, so the dS/P tile is shared through shared
+//   memory with only __syncwarp.
+//
+// Both routes keep the TPU kernels' two-pass split.  K2: one thread block
+// owns one 64-row q tile and loops over the live K/V tiles; dQ
+// accumulates in registers.  K3: one block owns one 64-row K/V tile and
 // loops over the live q tiles; dK and dV accumulate in registers.  Each
-// pass recomputes S = Q K^T and dP = dO V^T, so S, P and dS never touch
-// device memory: they live in registers and one 64x64 shared-memory tile.
-// No atomics: every output element has one owner, so results are the same
-// from run to run.  Loops visit only live tiles under causal / window
-// masking (the Pallas kernels' _block_live / _win_lo / nq_total band), and
-// ragged tails are masked in the kernel (zero-filled tiles) instead of
-// padding copies.  q, k, v and dO are read through their strides, so the
-// fused qkv projection's views and the transposed dO need no copy.  Each
-// thread owns a 4x4 register tile of S/dP and a 4 x D/16 tile of its
-// output(s); a row's 16 owner lanes sit in one warp, so the dS/P tile is
-// shared through shared memory with only __syncwarp.
+// pass recomputes S and dP, so S, P and dS never touch device memory.  No
+// atomics: every output element has one owner and every sum runs in a
+// fixed order, so results are bitwise the same from run to run.  Loops
+// visit only live tiles under causal / window masking (the Pallas
+// kernels' _block_live / _win_lo / nq_total band), and ragged tails are
+// masked in the kernel (zero-filled tiles; D below the template width
+// reads zero-filled columns) instead of padding copies.  q, k, v and dO
+// are read through their strides, so the fused qkv projection's views and
+// the transposed dO need no copy.
 //
 // Numerical contract (the Pallas kernels'):
 // - S is accumulated in f32 and scaled by 1/sqrt(D) afterwards; masked
@@ -34,7 +57,9 @@
 // - P = exp(S - LSE) * keep in f32; dS = P * (dP - delta) * scale;
 // - K2 rounds dS to k's storage type before dS.K; K3 rounds P to dO's type
 //   before P^T.dO and dS to q's type before dS^T.Q (one storage type T
-//   here: q, k, v and dO share it);
+//   here: q, k, v and dO share it).  The bf16 route sums in another order
+//   than the plain version (mma fragments), so it agrees with it to the
+//   bf16 tolerance, not bit for bit;
 // - a fully masked q row has LSE = 1e30, so P = 0 and its dQ is exactly 0;
 //   a masked key has keep = 0, so its dK and dV are exactly 0.
 
@@ -72,18 +97,11 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Rounds through the storage type: the reference's .astype(dtype) before a
 // product.
@@ -396,6 +414,525 @@ flash_bwd_dkv_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 route: tensor cores (mma.sync), ldmatrix, cp.async ring.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 128;  // 4 warps x 16 rows of a 64-row tile
+constexpr float kLog2e = 1.4426950408889634f;
+// The -1e30 of a masked key and the 1e30 LSE of an empty row, in the
+// exp2 domain: exp2(x * log2e) = exp(x).
+constexpr float kBig2 = 1e30f * kLog2e;
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16-byte global -> shared copy; src_bytes = 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a . b for one m16n8k16 tile: a row-major 16x16 bf16, b 16x8 bf16
+// (k-major pairs), d 16x8 f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one MUFU op.  Subnormal results (below 2^-126) flush to 0, far
+// below the bf16 tolerance; -1e30-scale inputs give exactly 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 rounded to bf16 and packed, `lo` in the low half (the lower
+// column index of an mma fragment pair).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Shared-memory offsets (in elements, rows of pitch P) of this lane's
+// ldmatrix.x4 row address.  A operand, 16x16 at (row0, col0): matrices
+// (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) -- a0..a3.
+template <int P>
+__device__ __forceinline__ int a_off(int lane, int row0, int col0) {
+  return (row0 + (lane & 15)) * P + col0 + ((lane >> 4) << 3);
+}
+// B operand of two n8 tiles stored n-major ([n][k], k contiguous), without
+// .trans: matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
+// (n 8-15, k 8-15) -- b0, b1 of the first tile, then of the second.
+template <int P>
+__device__ __forceinline__ int bn_off(int lane, int n0, int k0) {
+  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * P + k0 +
+         (((lane >> 3) & 1) << 3);
+}
+// B operand of two n8 tiles stored k-major ([k][n], n contiguous), with
+// .trans: matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15),
+// (k 8-15, n 8-15) -- the same register order as bn_off's.
+template <int P>
+__device__ __forceinline__ int bk_off(int lane, int k0, int n0) {
+  return (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * P + n0 +
+         ((lane >> 4) << 3);
+}
+
+// Issues the copies of a (64, DMAX) tile: rows row0.. of src (row stride
+// ld elements) into dst (row pitch DMAX + 8).  Rows at or past nrows and
+// columns at or past D are zero-filled.
+template <int DMAX>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
+                                                long long ld, int row0,
+                                                int nrows, int D) {
+  constexpr int kChunks = DMAX / 8;  // 16-byte chunks in a row
+  constexpr int kPitch = DMAX + 8;
+#pragma unroll
+  for (int i = 0; i < kB * kChunks / kTcThreads; ++i) {
+    const int idx = threadIdx.x + i * kTcThreads;
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const int row = row0 + r;
+    const bool in = row < nrows && c * 8 < D;
+    cp_async16(smem_u32(dst + r * kPitch + c * 8),
+               in ? src + (long long)row * ld + c * 8 : src, in ? 16 : 0);
+  }
+}
+
+// K2 on tensor cores: dQ for one 64-row q tile, streaming the live K/V
+// tiles through a two-stage ring.  CAUSAL compiles the causal / window
+// test in or out.
+template <int DMAX, bool CAUSAL>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc_kernel(const Params p) {
+  constexpr int kPitch = DMAX + 8;
+  constexpr int kTile = kB * kPitch;
+  constexpr int kSteps = DMAX / 16;  // k16 steps over D
+  // The contraction over D is unrolled only at D = 64: at D = 128, ptxas
+  // hoisting every step's fragments beside the accumulators would spill.
+  constexpr int kUnrollD = DMAX > 64 ? 1 : kSteps;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sDO = sQ + kTile;
+  bf16* sK = sDO + kTile;      // 2 stages
+  bf16* sV = sK + 2 * kTile;   // 2 stages
+  float* sKeep = reinterpret_cast<float*>(sV + 2 * kTile);  // 2 x kB
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kB;
+  const int D = p.D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int t2 = (lane & 3) * 2;  // fragment column pair
+
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* op = static_cast<const bf16*>(p.dout) + b * p.o_sb +
+                   h * p.o_sh;
+  const float* kmp = p.km ? p.km + (long long)b * p.Tk : nullptr;
+
+  const int nk = (p.Tk + kB - 1) / kB;
+  int kt_begin = 0;
+  int kt_end = nk;
+  if (p.causal) {
+    // Live tiles: j*bk < (i+1)*bq and, with a window,
+    // (j+1)*bk + window - 1 > i*bq  (_block_live / _win_lo): contiguous.
+    kt_end = min(nk, (q0 + kB + kB - 1) / kB);
+    if (p.window > 0) {
+      const int lo = q0 - (p.window - 1);
+      kt_begin = lo > 0 ? lo / kB : 0;
+    }
+  }
+
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * kB;
+    load_tile_async<DMAX>(sK + stage * kTile, kp, p.k_st, k0, p.Tk, D);
+    load_tile_async<DMAX>(sV + stage * kTile, vp, p.v_st, k0, p.Tk, D);
+    if (kmp && threadIdx.x < kB) {
+      const int col = k0 + threadIdx.x;
+      // Keys past Tk read as keep = 0.
+      cp_async4(smem_u32(sKeep + stage * kB + threadIdx.x),
+                col < p.Tk ? kmp + col : kmp, col < p.Tk ? 4 : 0);
+    }
+  };
+  load_tile_async<DMAX>(sQ, qp, p.q_st, q0, p.Tq, D);
+  load_tile_async<DMAX>(sDO, op, p.o_st, q0, p.Tq, D);
+  if (kt_begin < kt_end) load_kv(kt_begin, 0);
+  cp_async_commit();
+
+  // This thread's two rows; rows past Tq get LSE = 1e30, so P = 0.
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const long long rbase = ((long long)b * p.H + h) * p.Tq;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = row[i] < p.Tq ? p.lse[rbase + row[i]] * kLog2e : kBig2;
+    // Pre-scaled: dS = P (dP - delta) scale = P (dP scale - delta scale).
+    delta[i] = row[i] < p.Tq ? p.delta[rbase + row[i]] * p.scale : 0.0f;
+  }
+  const float scale2 = p.scale * kLog2e;
+
+  float acc[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_kv(kt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) has landed
+    __syncthreads();
+    const bf16* cK = sK + stage * kTile;
+    const bf16* cV = sV + stage * kTile;
+    const float* cKeep = sKeep + stage * kB;
+    const int k0 = kt * kB;
+
+    // S and dP for this warp's 16 rows x 64 keys: 8 n8 tiles each.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll(kUnrollD)
+    for (int kd = 0; kd < kSteps; ++kd) {
+      unsigned aq[4], ado[4];
+      ldsm_x4(aq, smem_u32(sQ + a_off<kPitch>(lane, warp * 16, kd * 16)));
+      ldsm_x4(ado, smem_u32(sDO + a_off<kPitch>(lane, warp * 16, kd * 16)));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const int off = bn_off<kPitch>(lane, np * 16, kd * 16);
+        unsigned bk[4], bv[4];
+        ldsm_x4(bk, smem_u32(cK + off));
+        ldsm_x4(bv, smem_u32(cV + off));
+        mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * np], ado, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], ado, bv[2], bv[3]);
+      }
+    }
+
+    // P = exp(S*scale - 1e30*(1-keep) - LSE) * keep; dS = P (dP - delta)
+    // scale, packed to bf16 A fragments over the 64 keys (4 k16 steps).
+    unsigned ads[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = n * 8 + t2 + (e & 1);
+        const int col = k0 + cl;
+        const int i = e >> 1;
+        float kk = kmp ? cKeep[cl] : (col < p.Tk ? 1.0f : 0.0f);
+        if (CAUSAL) kk = causal_live(row[i], col, p.window) ? kk : 0.0f;
+        const float x = fmaf(s[n][e], scale2, -lse2[i]);
+        const float pv = exp2_ftz(fmaf(kk - 1.0f, kBig2, x)) * kk;
+        ds[e] = pv * fmaf(dp[n][e], p.scale, -delta[i]);
+      }
+      ads[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      ads[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS . K: K read k-major (keys are the contraction).
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int dn = 0; dn < DMAX / 16; ++dn) {
+        unsigned bk[4];
+        ldsm_x4_trans(bk, smem_u32(cK + bk_off<kPitch>(lane, j * 16,
+                                                       dn * 16)));
+        mma_bf16(acc[2 * dn], ads[j], bk[0], bk[1]);
+        mma_bf16(acc[2 * dn + 1], ads[j], bk[2], bk[3]);
+      }
+    __syncthreads();  // this stage is free for the tile two ahead
+  }
+  cp_async_wait<0>();
+
+  bf16* dqp = static_cast<bf16*>(p.dq) + b * p.a_sb + h * p.a_sh;
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n) {
+    const int d = n * 8 + t2;
+    if (d >= D) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < p.Tq)
+        *reinterpret_cast<unsigned*>(dqp + (long long)row[i] * p.a_st + d) =
+            pack_bf16(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// K3 on tensor cores: dK and dV for one 64-row K/V tile, streaming the
+// live q tiles (Q, dO, LSE, delta) through a two-stage ring.  Each q tile
+// is taken in sub-tiles of NSUB queries, which bounds the S^T / dP^T
+// fragments a thread holds beside its dK and dV accumulators; CAUSAL as
+// K2's.
+template <int DMAX, int NSUB, bool CAUSAL>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_tc_kernel(const Params p) {
+  constexpr int kPitch = DMAX + 8;
+  constexpr int kTile = kB * kPitch;
+  constexpr int kSteps = DMAX / 16;
+  constexpr int kUnrollD = DMAX > 64 ? 1 : kSteps;  // as in K2
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + kTile;
+  bf16* sQ = sV + kTile;        // 2 stages
+  bf16* sDO = sQ + 2 * kTile;   // 2 stages
+  float* sLse = reinterpret_cast<float*>(sDO + 2 * kTile);  // 2 x kB
+  float* sDelta = sLse + 2 * kB;                            // 2 x kB
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int k0 = blockIdx.x * kB;
+  const int D = p.D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+
+  const bf16* qp = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kp = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vp = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* op = static_cast<const bf16*>(p.dout) + b * p.o_sb +
+                   h * p.o_sh;
+  const long long rbase = ((long long)b * p.H + h) * p.Tq;
+
+  const int nq = (p.Tq + kB - 1) / kB;
+  int it_begin = 0;
+  int it_end = nq;
+  if (p.causal) {
+    // The q band of this K/V tile: j*bk < (i+1)*bq and, with a window,
+    // i*bq < (j+1)*bk + window - 1  (_block_live; _bwd_call's q_map).
+    it_begin = k0 / kB;
+    if (p.window > 0)
+      it_end = min(nq, (k0 + kB + p.window - 1 + kB - 1) / kB);
+  }
+
+  auto load_q = [&](int it, int stage) {
+    const int q0 = it * kB;
+    load_tile_async<DMAX>(sQ + stage * kTile, qp, p.q_st, q0, p.Tq, D);
+    load_tile_async<DMAX>(sDO + stage * kTile, op, p.o_st, q0, p.Tq, D);
+    // Threads 0-63 copy LSE, 64-127 delta; rows past Tq read 0 (and
+    // their P is zeroed below).
+    const int r = threadIdx.x & (kB - 1);
+    const float* src = threadIdx.x < kB ? p.lse : p.delta;
+    float* dst = (threadIdx.x < kB ? sLse : sDelta) + stage * kB + r;
+    const bool in = q0 + r < p.Tq;
+    cp_async4(smem_u32(dst), in ? src + rbase + q0 + r : src, in ? 4 : 0);
+  };
+  load_tile_async<DMAX>(sK, kp, p.k_st, k0, p.Tk, D);
+  load_tile_async<DMAX>(sV, vp, p.v_st, k0, p.Tk, D);
+  if (it_begin < it_end) load_q(it_begin, 0);
+  cp_async_commit();
+
+  // This thread's two key rows; keys past Tk have keep = 0.
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  float keep[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    keep[i] = key[i] < p.Tk
+                  ? (p.km ? p.km[(long long)b * p.Tk + key[i]] : 1.0f)
+                  : 0.0f;
+  const float scale2 = p.scale * kLog2e;
+
+  float dk[DMAX / 8][4], dv[DMAX / 8][4];
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+
+  for (int it = it_begin; it < it_end; ++it) {
+    const int stage = (it - it_begin) & 1;
+    if (it + 1 < it_end) load_q(it + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this q tile (and K, V) has landed
+    __syncthreads();
+    const bf16* cQ = sQ + stage * kTile;
+    const bf16* cDO = sDO + stage * kTile;
+    const float* cLse = sLse + stage * kB;
+    const float* cDelta = sDelta + stage * kB;
+    const int q0 = it * kB;
+
+#pragma unroll
+    for (int qs = 0; qs < kB; qs += NSUB) {
+      // S^T and dP^T for this warp's 16 keys x NSUB queries.
+      float s[NSUB / 8][4], dp[NSUB / 8][4];
+#pragma unroll
+      for (int n = 0; n < NSUB / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll(kUnrollD)
+      for (int kd = 0; kd < kSteps; ++kd) {
+        unsigned ak[4], av[4];
+        ldsm_x4(ak, smem_u32(sK + a_off<kPitch>(lane, warp * 16, kd * 16)));
+        ldsm_x4(av, smem_u32(sV + a_off<kPitch>(lane, warp * 16, kd * 16)));
+#pragma unroll
+        for (int np = 0; np < NSUB / 16; ++np) {
+          const int off = bn_off<kPitch>(lane, qs + np * 16, kd * 16);
+          unsigned bq[4], bo[4];
+          ldsm_x4(bq, smem_u32(cQ + off));
+          ldsm_x4(bo, smem_u32(cDO + off));
+          mma_bf16(s[2 * np], ak, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ak, bq[2], bq[3]);
+          mma_bf16(dp[2 * np], av, bo[0], bo[1]);
+          mma_bf16(dp[2 * np + 1], av, bo[2], bo[3]);
+        }
+      }
+
+      // P^T and dS^T packed to bf16 A fragments over the NSUB queries.
+      unsigned ap[NSUB / 16][4], ads[NSUB / 16][4];
+#pragma unroll
+      for (int n = 0; n < NSUB / 8; ++n) {
+        float pv[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = qs + n * 8 + t2 + (e & 1);
+          const int qrow = q0 + ql;
+          const int i = e >> 1;
+          float kk = keep[i];
+          if (CAUSAL) kk = causal_live(qrow, key[i], p.window) ? kk : 0.0f;
+          const float l2 = qrow < p.Tq ? cLse[ql] * kLog2e : kBig2;
+          const float x = fmaf(s[n][e], scale2, -l2);
+          pv[e] = exp2_ftz(fmaf(kk - 1.0f, kBig2, x)) * kk;
+          ds[e] = pv[e] * fmaf(dp[n][e], p.scale, -cDelta[ql] * p.scale);
+        }
+        ap[n >> 1][(n & 1) * 2] = pack_bf16(pv[0], pv[1]);
+        ap[n >> 1][(n & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        ads[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        ads[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dV += P^T . dO and dK += dS^T . Q: dO and Q read k-major (the
+      // queries are the contraction).
+#pragma unroll
+      for (int j = 0; j < NSUB / 16; ++j)
+#pragma unroll
+        for (int dn = 0; dn < DMAX / 16; ++dn) {
+          const int off = bk_off<kPitch>(lane, qs + j * 16, dn * 16);
+          unsigned bo[4], bq[4];
+          ldsm_x4_trans(bo, smem_u32(cDO + off));
+          ldsm_x4_trans(bq, smem_u32(cQ + off));
+          mma_bf16(dv[2 * dn], ap[j], bo[0], bo[1]);
+          mma_bf16(dv[2 * dn + 1], ap[j], bo[2], bo[3]);
+          mma_bf16(dk[2 * dn], ads[j], bq[0], bq[1]);
+          mma_bf16(dk[2 * dn + 1], ads[j], bq[2], bq[3]);
+        }
+    }
+    __syncthreads();  // this stage is free for the tile two ahead
+  }
+  cp_async_wait<0>();
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.a_sb + h * p.a_sh;
+  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.c_sb + h * p.c_sh;
+#pragma unroll
+  for (int n = 0; n < DMAX / 8; ++n) {
+    const int d = n * 8 + t2;
+    if (d >= D) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= p.Tk) continue;
+      *reinterpret_cast<unsigned*>(dkp + (long long)key[i] * p.a_st + d) =
+          pack_bf16(dk[n][2 * i], dk[n][2 * i + 1]);
+      *reinterpret_cast<unsigned*>(dvp + (long long)key[i] * p.c_st + d) =
+          pack_bf16(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int DMAX>
+int launch_dq_tc(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * 6 * kB * (DMAX + 8) +
+                      sizeof(float) * 2 * kB;
+  void (*kernel)(const Params) =
+      p.causal ? flash_bwd_dq_tc_kernel<DMAX, true>
+               : flash_bwd_dq_tc_kernel<DMAX, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Tq + kB - 1) / kB, p.H, p.B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX, int NSUB>
+int launch_dkv_tc(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * 6 * kB * (DMAX + 8) +
+                      sizeof(float) * 4 * kB;
+  void (*kernel)(const Params) =
+      p.causal ? flash_bwd_dkv_tc_kernel<DMAX, NSUB, true>
+               : flash_bwd_dkv_tc_kernel<DMAX, NSUB, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Tk + kB - 1) / kB, p.H, p.B);
+  kernel<<<grid, kTcThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// cp.async moves 16-byte chunks: every bf16 operand's base and its batch,
+// head and row strides must be 16-byte multiples (the wrapper checks
+// first and names the tensor).  The stride of a dimension of size 1 is
+// never used.
+bool misaligned(const Params& p) {
+  const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return true;
+  const long long st[12] = {p.q_sb, p.q_sh, p.q_st, p.k_sb, p.k_sh, p.k_st,
+                            p.v_sb, p.v_sh, p.v_st, p.o_sb, p.o_sh, p.o_st};
+  const int len[12] = {p.B, p.H, p.Tq, p.B, p.H, p.Tk,
+                       p.B, p.H, p.Tk, p.B, p.H, p.Tq};
+  for (int i = 0; i < 12; ++i)
+    if (len[i] > 1 && st[i] % 8) return true;
+  return false;
+}
+
 template <typename T, int DMAX>
 int launch_dq(const Params& p, cudaStream_t stream) {
   constexpr int LD = DMAX + 1;
@@ -469,9 +1006,10 @@ extern "C" int lo_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return D <= 64 ? launch_dq<float, 64>(p, s) : launch_dq<float, 128>(p, s);
-  if (dtype == 1)
-    return D <= 64 ? launch_dq<__nv_bfloat16, 64>(p, s)
-                   : launch_dq<__nv_bfloat16, 128>(p, s);
+  if (dtype == 1) {
+    if (misaligned(p)) return (int)cudaErrorMisalignedAddress;
+    return D <= 64 ? launch_dq_tc<64>(p, s) : launch_dq_tc<128>(p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -492,8 +1030,12 @@ extern "C" int lo_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return D <= 64 ? launch_dkv<float, 64>(p, s)
                    : launch_dkv<float, 128>(p, s);
-  if (dtype == 1)
-    return D <= 64 ? launch_dkv<__nv_bfloat16, 64>(p, s)
-                   : launch_dkv<__nv_bfloat16, 128>(p, s);
+  if (dtype == 1) {
+    if (misaligned(p)) return (int)cudaErrorMisalignedAddress;
+    // D = 128 takes 16-query sub-tiles: its dK and dV accumulators alone
+    // hold 128 f32 registers a thread.
+    return D <= 64 ? launch_dkv_tc<64, 64>(p, s)
+                   : launch_dkv_tc<128, 16>(p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas registers / shared memory / spills) per source,
-#: from builds made by this process.
+#: from the build that made its library (kept beside it as ``.log``).
 build_log: dict[str, str] = {}
 
 
@@ -69,6 +69,10 @@ def build(names=SOURCES) -> dict[str, float]:
     was already built)."""
     todo = [n for n in names if not library_path(n).exists()]
     secs = {n: 0.0 for n in names}
+    for name in names:
+        log = library_path(name).with_suffix(".log")
+        if name not in todo and log.exists():
+            build_log[name] = log.read_text()
     if not todo:
         return secs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -90,7 +94,11 @@ def build(names=SOURCES) -> dict[str, float]:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
-            # Atomic publish: a concurrent process never loads a torn .so.
+            # Atomic publish: a concurrent process never loads a torn .so
+            # (the log goes first, so a published library has its log).
+            tmp_log = tmp.with_suffix(".log")
+            tmp_log.write_text(log)
+            os.replace(tmp_log, out.with_suffix(".log"))
             os.replace(tmp, out)
     if failed:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))

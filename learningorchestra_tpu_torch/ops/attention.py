@@ -282,6 +282,22 @@ def flash_attention_bwd_plain(q, k, v, key_mask, do, lse, delta,
             *flash_attention_bwd_dkv_plain(*args))
 
 
+def _check_aligned(*named) -> None:
+    """The bf16 backward copies 16-byte chunks (``cp.async``): each
+    tensor's base address and its batch, head and row strides (those of
+    dimensions longer than 1) must be multiples of 16 bytes."""
+    for name, t in named:
+        step = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(
+            t.size(i) > 1 and t.stride(i) % step for i in range(3)
+        ):
+            raise ValueError(
+                f"{name} must be 16-byte aligned for the bf16 backward "
+                f"kernels (base address and batch/head/row strides): "
+                f"address {t.data_ptr():#x}, strides {t.stride()}"
+            )
+
+
 def _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal, window):
     """Raise on arguments the backward does not take.  Returns None for
     CPU tensors (the plain path), else what the kernels take: the key mask
@@ -303,22 +319,14 @@ def _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal, window):
     if q.device.type == "cpu":
         return None
     km = _check_kernel_inputs(q, k, v, key_mask, ("do", do))
+    if q.dtype == torch.bfloat16:
+        _check_aligned(("q", q), ("k", k), ("v", v), ("do", do))
     return km, lse.to(q.device).contiguous(), delta.to(q.device).contiguous()
 
 
-def flash_attention_bwd_dq(q, k, v, key_mask, do, lse, delta,
-                           causal: bool = False, window: int | None = None):
-    """dQ from the forward's LSE and delta = rowsum(dO * O) (both
-    (B, H, Tq, 1) f32); ``do`` is in q's type.  On CUDA it launches K2,
-    with the forward's limits; dq is allocated (B, T, H, D) in memory and
-    returned as its (B, H, T, D) view, like the forward's O."""
+def _launch_dq(q, k, v, do, km, lse, delta, causal, window):
+    """K2 on checked inputs; dq is allocated (B, T, H, D) in memory."""
     global bwd_dq_launches
-    dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
-                            window)
-    if dev is None:
-        return flash_attention_bwd_dq_plain(q, k, v, key_mask, do, lse,
-                                            delta, causal, window)
-    km, lse, delta = dev
     dq = _like_heads_last(q)
     _launch("lo_flash_bwd_dq", (q, k, v, km, do, lse, delta, dq),
             (q, k, v, do, dq), q, k, causal, window)
@@ -326,17 +334,9 @@ def flash_attention_bwd_dq(q, k, v, key_mask, do, lse, delta,
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
-                            causal: bool = False, window: int | None = None):
-    """(dK, dV) from the same inputs as :func:`flash_attention_bwd_dq`; on
-    CUDA it launches K3."""
+def _launch_dkv(q, k, v, do, km, lse, delta, causal, window):
+    """K3 on checked inputs; dk, dv are allocated (B, T, H, D) in memory."""
     global bwd_dkv_launches
-    dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
-                            window)
-    if dev is None:
-        return flash_attention_bwd_dkv_plain(q, k, v, key_mask, do, lse,
-                                             delta, causal, window)
-    km, lse, delta = dev
     dk, dv = _like_heads_last(k), _like_heads_last(v)
     _launch("lo_flash_bwd_dkv", (q, k, v, km, do, lse, delta, dk, dv),
             (q, k, v, do, dk, dv), q, k, causal, window)
@@ -344,15 +344,45 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
     return dk, dv
 
 
+def flash_attention_bwd_dq(q, k, v, key_mask, do, lse, delta,
+                           causal: bool = False, window: int | None = None):
+    """dQ from the forward's LSE and delta = rowsum(dO * O) (both
+    (B, H, Tq, 1) f32); ``do`` is in q's type.  On CUDA it launches K2,
+    with the forward's limits (and, in bf16, 16-byte alignment); dq is
+    allocated (B, T, H, D) in memory and returned as its (B, H, T, D)
+    view, like the forward's O."""
+    dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
+                            window)
+    if dev is None:
+        return flash_attention_bwd_dq_plain(q, k, v, key_mask, do, lse,
+                                            delta, causal, window)
+    return _launch_dq(q, k, v, do, *dev, causal, window)
+
+
+def flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
+                            causal: bool = False, window: int | None = None):
+    """(dK, dV) from the same inputs as :func:`flash_attention_bwd_dq`; on
+    CUDA it launches K3."""
+    dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
+                            window)
+    if dev is None:
+        return flash_attention_bwd_dkv_plain(q, k, v, key_mask, do, lse,
+                                             delta, causal, window)
+    return _launch_dkv(q, k, v, do, *dev, causal, window)
+
+
 def flash_attention_bwd(q, k, v, key_mask, do, lse, delta,
                         causal: bool = False, window: int | None = None):
     """Blockwise attention backward: K2 then K3, as the JAX ``_bwd_call``
-    runs its two passes.  Returns (dq, dk, dv) in q's, k's and v's
-    types."""
-    dq = flash_attention_bwd_dq(q, k, v, key_mask, do, lse, delta, causal,
-                                window)
-    return (dq, *flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
-                                         causal, window))
+    runs its two passes, on inputs checked once.  Returns (dq, dk, dv) in
+    q's, k's and v's types."""
+    dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
+                            window)
+    if dev is None:
+        return flash_attention_bwd_plain(q, k, v, key_mask, do, lse, delta,
+                                         causal, window)
+    args = (q, k, v, do, *dev, causal, window)
+    return (_launch_dq(*args), *_launch_dkv(*args))
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -46,14 +46,19 @@ CASES = {
     "unaligned": dict(mask=_random_mask(5, tk=41), tq=37, tk=41),
     "unaligned_causal": dict(mask=_random_mask(5, tk=41), tq=37, tk=41,
                              causal=True),
+    # Head widths whose padding the card's bf16 tiling handles: D = 40
+    # below the 64-wide instance (zero-filled columns), D = 128 the wide one.
+    "d40_key_mask": dict(mask=_random_mask(19), d=40),
+    "d128_causal_window": dict(mask=_random_mask(23, tk=33), tq=33, tk=33,
+                               causal=True, window=9, d=128),
 }
 
 
 def _case(name, seed=7):
     kw = dict(CASES[name])
-    tq, tk = kw.pop("tq", T), kw.pop("tk", T)
-    q, k, v, do = _arrays(seed, (B, H, tq, D), (B, H, tk, D), (B, H, tk, D),
-                          (B, H, tq, D))
+    tq, tk, d = kw.pop("tq", T), kw.pop("tk", T), kw.pop("d", D)
+    q, k, v, do = _arrays(seed, (B, H, tq, d), (B, H, tk, d), (B, H, tk, d),
+                          (B, H, tq, d))
     return q, k, v, do, kw.pop("mask", None), kw
 
 
@@ -182,6 +187,36 @@ def test_bwd_wrapper_validates_and_counts_no_launch_on_cpu():
                                  window=4)
     with pytest.raises(ValueError, match="key_mask"):
         port.flash_attention_bwd(qt, kt, vt, mt[:, 1:], dot, lse, delta)
+
+
+def test_bwd_validates_once_for_both_kernels(monkeypatch):
+    q, k, v, do, mask, _ = _case("key_mask")
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    mt = torch.from_numpy(mask)
+    o, lse = port.flash_attention_fwd(qt, kt, vt, mt)
+    delta = (dot * o).sum(-1, keepdim=True)
+    calls = []
+    check = port._check_bwd_inputs
+    monkeypatch.setattr(port, "_check_bwd_inputs",
+                        lambda *a: calls.append(1) or check(*a))
+    port.flash_attention_bwd(qt, kt, vt, mt, dot, lse, delta)
+    assert len(calls) == 1
+
+
+def test_alignment_check_names_the_tensor():
+    qkv = torch.zeros(2, 48, 3, 2, 16, dtype=torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    port._check_aligned(("q", q), ("k", k), ("v", v))  # fused-qkv views
+    flat = torch.zeros(2 * 2 * 48 * 16 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 2, 48, 16)  # base 2 bytes off
+    with pytest.raises(ValueError, match="do must be 16-byte aligned"):
+        port._check_aligned(("q", q), ("do", shifted))
+    odd_rows = torch.zeros(2, 2, 48, 20, dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="k must be 16-byte aligned"):
+        port._check_aligned(("k", odd_rows))  # 40-byte row stride
+    one_row = torch.zeros(64, dtype=torch.bfloat16).as_strided(
+        (1, 2, 1, 16), (5, 16, 3, 1))
+    port._check_aligned(("q", one_row))  # strides of length-1 dims unused
 
 
 def test_no_grad_paths_skip_the_function():
