@@ -9,15 +9,16 @@ Phases (each prints its own line; any failure exits nonzero):
    learningorchestra_tpu_torch/csrc/, all at once;
 3. kernels against their plain PyTorch versions, on the card:
    K1 flash-attention forward at the serving shape (64, 12, 512, 64) f32
-   with a key mask and a fully-masked row, plus bf16, causal,
-   causal+window and unaligned lengths; K2 (dQ) and K3 (dK, dV) at the
-   fine-tune shape (32, 12, 128, 64) in bf16 and f32 with a key mask and a
-   fully-masked row (exact zeros asserted), plus (8, 12, 512, 64) bf16,
-   causal, causal+window, unaligned lengths and D = 40 / 128 in bf16, each
-   bf16 case launched twice and required bitwise equal (run to run), and
-   no register spills in the bf16 instances (ptxas); K4 quantize bit-exact on
-   every quantized leaf of a BERT-base model plus a stochastic mean-bias
-   check; K5 dequantize exact;
+   with a key mask and a fully-masked row, plus the fine-tune shape
+   (32, 12, 128, 64) bf16, bf16 at T=512, causal, causal+window and
+   unaligned lengths; K2 (dQ) and K3 (dK, dV) at the fine-tune shape in
+   bf16 and f32 with a key mask and a fully-masked row (exact zeros
+   asserted), plus (8, 12, 512, 64) bf16, causal, causal+window, unaligned
+   lengths and D = 40 / 128 in bf16; every K1 case and every bf16 K2/K3
+   case launched twice and required bitwise equal (run to run), and no
+   register spills in any tensor-core instance of K1, K2 or K3 (ptxas);
+   K4 quantize bit-exact on every quantized leaf of a BERT-base model plus
+   a stochastic mean-bias check; K5 dequantize exact;
 4. training: one batch of BERT-base (full width and depth, random weights
    from a seeded torch.Generator) in f32 on the card against the CPU plain
    path, loss and every parameter's gradient; then the slice's first main
@@ -32,10 +33,12 @@ Phases (each prints its own line; any failure exits nonzero):
    bucket dispatches; every answer is checked for status, shape and
    finiteness, a few rows against the same artifact run on the CPU (plain
    path), and the kernels' launch counters against the dispatches;
-6. timings (CUDA events, after warm-up; K2/K3 and the backward of
-   scaled_dot_product_attention at the fine-tune shape and at (8, 12, 512,
-   64) bf16), a torch.profiler breakdown of one 64-row bucket by kernel
-   family, and the `kernels` JSON line;
+6. timings (CUDA events, after warm-up; K1 and the forward of
+   scaled_dot_product_attention at the serving shape in f32, whose kernel
+   name is printed from one profiled call; K1, K2/K3 and SDPA's forward and
+   backward at the fine-tune shape and at (8, 12, 512, 64) bf16), a
+   torch.profiler breakdown of one 64-row bucket by kernel family, and the
+   `kernels` JSON line;
 7. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
@@ -59,7 +62,10 @@ import numpy as np
 import torch
 
 # Published peaks of one H100 SXM (NVIDIA data sheet), used for bound_ms.
-PEAK_F32_FLOPS = 67e12  # CUDA cores, no tensor cores
+# Tensor cores, dense.  K1's f32 route runs each f32 product as three
+# TF32 products (split TF32), so its operations bound is 3x its FLOPs at
+# the TF32 rate (not f32 FLOPs at the CUDA cores' 67 TFLOP/s).
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 PEAK_BYTES = 3.35e12  # HBM3
 
@@ -183,6 +189,8 @@ def check_flash(attention, gen) -> dict:
          2e-5),
         ("unaligned_bf16_causal", (4, h, 300, 300, 40), torch.bfloat16,
          True, 65, True, 3e-2),
+        ("train_bf16", (32, h, 128, 128, d), torch.bfloat16, False, None,
+         True, 3e-2),
     ]
     for name, (bb, hh, tq, tk, dd), dtype, causal, window, masked, tol in \
             cases:
@@ -197,7 +205,11 @@ def check_flash(attention, gen) -> dict:
         with torch.inference_mode():
             o, lse = attention.flash_attention_fwd(q, k, v, km, causal,
                                                    window)
+            # No atomics, a fixed summation order: the same bits every run.
+            o2, lse2 = attention.flash_attention_fwd(q, k, v, km, causal,
+                                                     window)
             torch.cuda.synchronize()
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
             o_ref, lse_ref = attention.flash_attention_fwd_plain(
                 q, k, v, km, causal, window)
         err_o = max_abs(o, o_ref)
@@ -205,10 +217,12 @@ def check_flash(attention, gen) -> dict:
         empty_ok = True
         if masked:
             empty_ok = bool((o[1] == 0).all()) and bool((lse[1] == 1e30).all())
-        ok = err_o <= tol and err_lse <= tol and empty_ok
-        phase(f"K1 flash_fwd {name} {tuple(q.shape)} {str(dtype)[6:]}", ok,
+        ok = err_o <= tol and err_lse <= tol and empty_ok and same
+        phase(f"K1 flash_fwd {name} {tuple(q.shape)} Tk={tk} "
+              f"{str(dtype)[6:]}", ok,
               f"max|dO|={err_o:.3g} max|dLSE|={err_lse:.3g} "
-              f"masked_row_zero={empty_ok} tol={tol}")
+              f"masked_row_zero_lse_1e30={empty_ok} tol={tol} "
+              f"run_to_run_bitwise={same}")
         results[name] = (q, k, v, km, err_o)
     return results
 
@@ -566,6 +580,8 @@ def _time_bwd_at(attention, args) -> dict:
             lambda: attention.flash_attention_bwd_dkv_plain(*args), reps=3)
         k1_ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v, km),
                         reps=30)
+        k1_plain = time_ms(
+            lambda: attention.flash_attention_fwd_plain(q, k, v, km), reps=3)
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
     mask4 = km[:, None, None, :]
 
@@ -587,7 +603,7 @@ def _time_bwd_at(attention, args) -> dict:
            "library_fwd_bwd_ms": lib_fb, "library_fwd_ms": lib_f}
     for key, ms, plain in (("dq", dq_ms, dq_plain), ("dkv", dkv_ms,
                                                         dkv_plain),
-                           ("k1", k1_ms, None)):
+                           ("k1", k1_ms, k1_plain)):
         flops, nbytes = work[key]
         by_ops = flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
         out[key] = {
@@ -734,26 +750,58 @@ def _leaves_of(tree, cls):
 # -- phase 5: timings --------------------------------------------------------
 
 
-def time_kernels(flash_inputs, quant_mats, est) -> dict:
+def time_fwd_f32(attention, q, k, v) -> dict:
+    """K1's f32 route at the serving shape with a key mask with pad tails
+    and no empty row: kernel, plain version and the forward of
+    ``F.scaled_dot_product_attention`` with the same boolean mask, and the
+    bound: the bytes (q, k, v read, O and LSE written, the mask read)
+    against three TF32 products per f32 product (split TF32)."""
     import torch.nn.functional as F
 
-    from learningorchestra_tpu_torch.ops import attention, quant
-
-    q, k, v, km, _ = flash_inputs["path_f32"]
-    km = torch.ones_like(km)  # library yardstick: no fully-masked row
-    km[:, -37:] = False
     b, h, t, d = q.shape
+    km = torch.ones(b, t, dtype=torch.bool, device="cuda")
+    km[:, -37:] = False
+    mask4 = km[:, None, None, :]
     with torch.inference_mode():
         flash_ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v,
                                                                     km))
         plain_ms = time_ms(lambda: attention.flash_attention_fwd_plain(
             q, k, v, km), reps=3)
-        mask4 = km[:, None, None, :]
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask4))
     flops = 4 * b * h * t * t * d
     nbytes = 4 * (4 * q.numel()) + 4 * km.numel() + 4 * b * h * t
-    flash_bound = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+    by_ops = 3 * flops / PEAK_TF32_FLOPS >= nbytes / PEAK_BYTES
+    return {
+        "shape": [b, h, t, d], "ms": flash_ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "flops": flops, "bytes": nbytes,
+        "bound_ms": 1e3 * max(3 * flops / PEAK_TF32_FLOPS,
+                              nbytes / PEAK_BYTES),
+        "bound_by": "operations" if by_ops else "bytes",
+    }
+
+
+def sdpa_kernel_names(q, k, v) -> list:
+    """The device kernels of one f32 ``scaled_dot_product_attention`` call
+    with a boolean key mask (the yardstick's method, by name)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    km = torch.ones(q.shape[0], k.shape[2], dtype=torch.bool, device="cuda")
+    km[:, -37:] = False
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=km[:, None, None])
+        torch.cuda.synchronize()
+    return sorted(device_kernels(prof))
+
+
+def time_kernels(flash_inputs, quant_mats, est) -> dict:
+    from learningorchestra_tpu_torch.ops import attention, quant
+
+    q, k, v, _, _ = flash_inputs["path_f32"]
+    b = q.shape[0]
+    fwd = time_fwd_f32(attention, q, k, v)
 
     mats = list(quant_mats.values())
     q_bytes = sum(x.numel() * 5 + x.shape[0] * 4 for x, _, _ in mats)
@@ -786,7 +834,7 @@ def time_kernels(flash_inputs, quant_mats, est) -> dict:
     with torch.inference_mode():
         forward_ms = time_ms(lambda: est.module(x), reps=5)
     return {
-        "flash": (flash_ms, plain_ms, flash_bound, lib_ms, flops, nbytes),
+        "flash": fwd,
         "quant": (quant_ms, quant_plain_ms, 1e3 * q_bytes / PEAK_BYTES,
                   q_bytes),
         "dequant": (deq_ms, deq_plain_ms, 1e3 * dq_bytes / PEAK_BYTES,
@@ -873,8 +921,10 @@ def main() -> int:
             for k, regs, st, ld in report), flush=True)
         tc += [k for k, *_ in report if "_tc_" in k]
         spilled += [k for k, _, st, ld in report if st or ld]
-    phase("bf16 backward registers",
-          bool(tc) and not any("_tc_" in k for k in spilled),
+    families = {k.split("_tc_")[0] for k in tc}
+    phase("tensor-core registers",
+          {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= families
+          and not any("_tc_" in k for k in spilled),
           f"tensor-core instances {tc}; kernels that spill: {spilled}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -913,22 +963,32 @@ def main() -> int:
     timing = time_kernels(flash_inputs, quant_res["mats"], est)
     bwd_times = time_bwd(attention, bwd_res)
     bwd_t = bwd_times["train"]
-    f_ms, f_plain, f_bound, f_lib, flops, f_bytes = timing["flash"]
+    fwd = timing["flash"]
+    k1_bf16 = bwd_t["k1"]
     q_ms, q_plain, q_bound, q_bytes = timing["quant"]
     d_ms, d_plain, d_bound, d_lib, d_bytes = timing["dequant"]
     counts = slice_res["counts"]
     train_counts = train_res["counts"]
     path_errs = bwd_res["path_bf16"]["errs"]
     kernels = [
+        # K1's two routes: f32 (split TF32) on the serving path, bf16 on
+        # the training path; one launch counter, read after each path.
         {"name": "flash_fwd", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
-         "launches": counts["flash_fwd"] + train_counts["flash_fwd"],
+         "launches": counts["flash_fwd"],
          "max_abs_err": flash_inputs["path_f32"][4],
-         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
-         "bound_by": "operations" if flops / PEAK_F32_FLOPS
-         >= f_bytes / PEAK_BYTES else "bytes",
-         "library_ms": f_lib},
+         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+         "library_ms": fwd["library_ms"]},
+        {"name": "flash_fwd_bf16", "route": "cuda",
+         "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "learningorchestra_tpu/ops/attention.py:167",
+         "launches": train_counts["flash_fwd"],
+         "max_abs_err": flash_inputs["train_bf16"][4],
+         "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
+         "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
+         "library_ms": bwd_t["library_fwd_ms"]},
         {"name": "quantize_rowwise", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/quant.cu",
          "replaces": "learningorchestra_tpu/ops/quant.py:29",
@@ -965,13 +1025,23 @@ def main() -> int:
     print("train " + json.dumps({**train_res["train"], **grad_res,
                                  "counts": train_counts}), flush=True)
     print("bwd_timing " + json.dumps(bwd_times), flush=True)
+    print("fwd_timing_f32 " + json.dumps(fwd), flush=True)
+    q, k, v, _, _ = flash_inputs["path_f32"]
+    try:
+        sdpa = sdpa_kernel_names(q, k, v)
+    except Exception as exc:  # noqa: BLE001 — as for the profiles above
+        sdpa = {"not_measured": repr(exc)}
+    print("sdpa_f32_kernels " + json.dumps(sdpa), flush=True)
     print(f"launches by path: train {train_counts}, serve {counts}; "
+          "flash_fwd is K1's f32 route at the serving shape (launches: the "
+          "serving path), flash_fwd_bf16 its bf16 route at the fine-tune "
+          "shape (launches: the training path); "
           "library_ms of flash_bwd_dq and flash_bwd_dkv is ONE number: the "
           "backward of scaled_dot_product_attention (bf16, boolean mask), "
           "which computes K2 and K3's outputs together", flush=True)
     serve = slice_res["serve"]
     serve["forward_ms_bucket64"] = timing["forward_ms"]
-    serve["flash_share_of_forward"] = 12 * f_ms / timing["forward_ms"]
+    serve["flash_share_of_forward"] = 12 * fwd["ms"] / timing["forward_ms"]
     print("serve " + json.dumps(serve), flush=True)
     print("timing shapes: flash_bwd (B,H,T,D)=" + str(TRAIN_SHAPE)
           + f" bf16, dq {bwd_t['dq']['flops'] / 1e9:.2f} GFLOP "
@@ -980,7 +1050,9 @@ def main() -> int:
           f"{bwd_t['dkv']['bytes'] / 1e6:.1f} MB (bounds at "
           f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
           f"{PEAK_BYTES / 1e12} TB/s); flash fwd (B,H,T,D)=" + str(PATH_SHAPE)
-          + f" f32, {flops / 1e9:.2f} GFLOP, {f_bytes / 1e6:.1f} MB; "
+          + f" f32, {fwd['flops'] / 1e9:.2f} GFLOP (x3 in TF32 at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), {fwd['bytes'] / 1e6:.1f} "
+          f"MB; "
           f"quantize/dequantize = every quantized leaf of the artifact "
           f"once ({q_bytes / 1e6:.1f} / {d_bytes / 1e6:.1f} MB); kernel "
           f"ms are device time (launches queued behind a device sleep); "

@@ -31,6 +31,8 @@
 //   Not TMA: its descriptors are encoded on the host per tensor, and the
 //   q/k/v views change pointer every call on a host-bound step.  cp.async
 //   needs 16-byte-aligned base pointers and strides; the wrapper checks.
+//   The helpers (cp.async, ldmatrix, mma, fragment offsets) are K1's too:
+//   tc_common.cuh.
 // - f32: the first design, SIMT f32 on the CUDA cores: a TF32 mma
 //   would not hold the f32 bar (5e-5).  Each thread owns a 4x4 register
 //   tile of S/dP and a 4 x D/16 tile of its output(s); a row's 16 owner
@@ -66,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
@@ -123,10 +127,6 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
     dst[r * ld + d] =
         row < nrows ? to_f32(src[(long long)row * row_stride + d]) : 0.0f;
   }
-}
-
-__device__ __forceinline__ bool causal_live(int qrow, int kcol, int window) {
-  return kcol <= qrow && (window == 0 || kcol > qrow - window);
 }
 
 // K2: dQ for one 64-row q tile, streaming the live K/V tiles.
@@ -417,130 +417,6 @@ flash_bwd_dkv_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 // bf16 route: tensor cores (mma.sync), ldmatrix, cp.async ring.
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kTcThreads = 128;  // 4 warps x 16 rows of a 64-row tile
-constexpr float kLog2e = 1.4426950408889634f;
-// The -1e30 of a masked key and the 1e30 LSE of an empty row, in the
-// exp2 domain: exp2(x * log2e) = exp(x).
-constexpr float kBig2 = 1e30f * kLog2e;
-
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's committed copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
-                                              unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a . b for one m16n8k16 tile: a row-major 16x16 bf16, b 16x8 bf16
-// (k-major pairs), d 16x8 f32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x in one MUFU op.  Subnormal results (below 2^-126) flush to 0, far
-// below the bf16 tolerance; -1e30-scale inputs give exactly 0.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two f32 rounded to bf16 and packed, `lo` in the low half (the lower
-// column index of an mma fragment pair).
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// Shared-memory offsets (in elements, rows of pitch P) of this lane's
-// ldmatrix.x4 row address.  A operand, 16x16 at (row0, col0): matrices
-// (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15) -- a0..a3.
-template <int P>
-__device__ __forceinline__ int a_off(int lane, int row0, int col0) {
-  return (row0 + (lane & 15)) * P + col0 + ((lane >> 4) << 3);
-}
-// B operand of two n8 tiles stored n-major ([n][k], k contiguous), without
-// .trans: matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
-// (n 8-15, k 8-15) -- b0, b1 of the first tile, then of the second.
-template <int P>
-__device__ __forceinline__ int bn_off(int lane, int n0, int k0) {
-  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * P + k0 +
-         (((lane >> 3) & 1) << 3);
-}
-// B operand of two n8 tiles stored k-major ([k][n], n contiguous), with
-// .trans: matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15),
-// (k 8-15, n 8-15) -- the same register order as bn_off's.
-template <int P>
-__device__ __forceinline__ int bk_off(int lane, int k0, int n0) {
-  return (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * P + n0 +
-         ((lane >> 4) << 3);
-}
-
-// Issues the copies of a (64, DMAX) tile: rows row0.. of src (row stride
-// ld elements) into dst (row pitch DMAX + 8).  Rows at or past nrows and
-// columns at or past D are zero-filled.
-template <int DMAX>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                long long ld, int row0,
-                                                int nrows, int D) {
-  constexpr int kChunks = DMAX / 8;  // 16-byte chunks in a row
-  constexpr int kPitch = DMAX + 8;
-#pragma unroll
-  for (int i = 0; i < kB * kChunks / kTcThreads; ++i) {
-    const int idx = threadIdx.x + i * kTcThreads;
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    const int row = row0 + r;
-    const bool in = row < nrows && c * 8 < D;
-    cp_async16(smem_u32(dst + r * kPitch + c * 8),
-               in ? src + (long long)row * ld + c * 8 : src, in ? 16 : 0);
-  }
-}
 
 // K2 on tensor cores: dQ for one 64-row q tile, streaming the live K/V
 // tiles through a two-stage ring.  CAUSAL compiles the causal / window
@@ -916,23 +792,6 @@ int launch_dkv_tc(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// cp.async moves 16-byte chunks: every bf16 operand's base and its batch,
-// head and row strides must be 16-byte multiples (the wrapper checks
-// first and names the tensor).  The stride of a dimension of size 1 is
-// never used.
-bool misaligned(const Params& p) {
-  const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
-  for (const void* ptr : ptrs)
-    if (reinterpret_cast<uintptr_t>(ptr) % 16) return true;
-  const long long st[12] = {p.q_sb, p.q_sh, p.q_st, p.k_sb, p.k_sh, p.k_st,
-                            p.v_sb, p.v_sh, p.v_st, p.o_sb, p.o_sh, p.o_st};
-  const int len[12] = {p.B, p.H, p.Tq, p.B, p.H, p.Tk,
-                       p.B, p.H, p.Tk, p.B, p.H, p.Tq};
-  for (int i = 0; i < 12; ++i)
-    if (len[i] > 1 && st[i] % 8) return true;
-  return false;
-}
-
 template <typename T, int DMAX>
 int launch_dq(const Params& p, cudaStream_t stream) {
   constexpr int LD = DMAX + 1;
@@ -1007,7 +866,8 @@ extern "C" int lo_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return D <= 64 ? launch_dq<float, 64>(p, s) : launch_dq<float, 128>(p, s);
   if (dtype == 1) {
-    if (misaligned(p)) return (int)cudaErrorMisalignedAddress;
+    if (misaligned(p, p.dout, sizeof(bf16)))
+      return (int)cudaErrorMisalignedAddress;
     return D <= 64 ? launch_dq_tc<64>(p, s) : launch_dq_tc<128>(p, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -1031,7 +891,8 @@ extern "C" int lo_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return D <= 64 ? launch_dkv<float, 64>(p, s)
                    : launch_dkv<float, 128>(p, s);
   if (dtype == 1) {
-    if (misaligned(p)) return (int)cudaErrorMisalignedAddress;
+    if (misaligned(p, p.dout, sizeof(bf16)))
+      return (int)cudaErrorMisalignedAddress;
     // D = 128 takes 16-query sub-tiles: its dK and dV accumulators alone
     // hold 128 f32 registers a thread.
     return D <= 64 ? launch_dkv_tc<64, 64>(p, s)

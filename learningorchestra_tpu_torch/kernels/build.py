@@ -3,10 +3,11 @@ them through ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/torch_kernels/<name>-<hash>.so`` at the repository root
-(a git-ignored directory); the hash covers the source and the flags, so
-an edited kernel never loads a stale library.  Independent sources build
-in parallel, one nvcc process each.  A failed build raises with nvcc's
-output: nothing falls back to a plain version.
+(a git-ignored directory); the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel or header never loads
+a stale library.  Independent sources build in parallel, one nvcc process
+each.  A failed build raises with nvcc's output: nothing falls back to a
+plain version.
 """
 
 from __future__ import annotations
@@ -56,10 +57,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        src + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,7 +1,8 @@
 """Flash attention — port of ``learningorchestra_tpu/ops/attention.py``.
 
 ``flash_attention_fwd`` is the wrapper of kernel K1 (``csrc/flash_fwd.cu``,
-which replaces the Pallas ``_fwd_kernel``); ``flash_attention_bwd`` wraps
+which replaces the Pallas ``_fwd_kernel``; tensor cores in both dtypes:
+bf16 ``mma.sync``, and f32 as split TF32); ``flash_attention_bwd`` wraps
 K2 and K3 (``csrc/flash_bwd.cu``: ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel``).  A CUDA tensor launches the kernel or raises; a CPU
 tensor goes to the ``*_plain`` version, the same arithmetic in plain
@@ -201,9 +202,10 @@ def flash_attention_fwd(q, k, v, key_mask=None, causal: bool = False,
     f32).
 
     On CUDA: f32 or bf16, D a multiple of 8 up to 128, the last dim of
-    q/k/v contiguous (any batch/head/row strides, so views of a fused qkv
-    projection need no copy).  O is allocated (B, Tq, H, D) and returned
-    as its (B, H, Tq, D) transpose, so merging heads afterwards is free.
+    q/k/v contiguous and their base addresses and batch/head/row strides
+    16-byte aligned (so views of a fused qkv projection need no copy).  O
+    is allocated (B, Tq, H, D) and returned as its (B, H, Tq, D)
+    transpose, so merging heads afterwards is free.
     """
     global launches
     _validate_window(window, causal)
@@ -213,6 +215,7 @@ def flash_attention_fwd(q, k, v, key_mask=None, causal: bool = False,
     km = _check_kernel_inputs(q, k, v, key_mask)
     b, h, tq, d = q.shape
     o = _like_heads_last(q)
+    _check_aligned(("q", q), ("k", k), ("v", v), ("o", o))
     lse = torch.empty((b, h, tq, 1), device=q.device, dtype=torch.float32)
     _launch("lo_flash_fwd", (q, k, v, km, o, lse), (q, k, v, o), q, k,
             causal, window)
@@ -283,18 +286,19 @@ def flash_attention_bwd_plain(q, k, v, key_mask, do, lse, delta,
 
 
 def _check_aligned(*named) -> None:
-    """The bf16 backward copies 16-byte chunks (``cp.async``): each
-    tensor's base address and its batch, head and row strides (those of
-    dimensions longer than 1) must be multiples of 16 bytes."""
+    """The tensor-core flash kernels (K1 in both dtypes, K2/K3 in bf16)
+    copy 16-byte chunks (``cp.async``): each tensor's base address and its
+    batch, head and row strides (those of dimensions longer than 1) must be
+    multiples of 16 bytes."""
     for name, t in named:
         step = 16 // t.element_size()
         if t.data_ptr() % 16 or any(
             t.size(i) > 1 and t.stride(i) % step for i in range(3)
         ):
             raise ValueError(
-                f"{name} must be 16-byte aligned for the bf16 backward "
-                f"kernels (base address and batch/head/row strides): "
-                f"address {t.data_ptr():#x}, strides {t.stride()}"
+                f"{name} must be 16-byte aligned for the flash kernels' "
+                f"16-byte copies (base address and batch/head/row "
+                f"strides): address {t.data_ptr():#x}, strides {t.stride()}"
             )
 
 

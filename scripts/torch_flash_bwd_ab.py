@@ -1,5 +1,5 @@
-"""Time the port's flash-attention backward kernels (K2 dQ, K3 dK/dV) on
-one GPU, for the ``learningorchestra_tpu_torch`` package under a given
+"""Time the port's flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV)
+on one GPU, for the ``learningorchestra_tpu_torch`` package under a given
 root, so that two versions of the kernels can be compared on one card.
 
     python3 scripts/torch_flash_bwd_ab.py [PACKAGE_ROOT] [LABEL]
@@ -7,11 +7,13 @@ root, so that two versions of the kernels can be compared on one card.
 PACKAGE_ROOT (default: this repository) is the directory that holds the
 ``learningorchestra_tpu_torch`` package to time, e.g. an unpacked
 ``git archive`` of an earlier commit; its kernels are built there.  The
-timing itself is ``chip_smoke.py``'s (``_time_bwd_at``: CUDA events behind
-a device sleep, bf16, a key mask with pad tails) at the fine-tune shape
-(32, 12, 128, 64) and at (8, 12, 512, 64), each with the backward of
-``scaled_dot_product_attention`` as the yardstick.  Run versions in turns
-in one call (A, B, B, A): prints one JSON line per run.
+timing itself is ``chip_smoke.py``'s (CUDA events behind a device sleep, a
+key mask with pad tails): ``_time_bwd_at`` (K1, K2, K3 in bf16, with the
+forward and backward of ``scaled_dot_product_attention`` as yardsticks)
+at the fine-tune shape (32, 12, 128, 64) and at (8, 12, 512, 64), and
+``time_fwd_f32`` (K1 in f32 beside SDPA's f32 forward) at the serving
+shape (64, 12, 512, 64).  Run versions in turns in one call (A, B, B, A):
+prints one JSON line per run.
 """
 
 from __future__ import annotations
@@ -55,6 +57,10 @@ def main() -> int:
         q, k, v, do, _ = chip_smoke._random_qkv(gen, b, h, t, t, d,
                                                 torch.bfloat16, False)
         out[name] = chip_smoke._time_bwd_at(attention, (q, k, v, None, do))
+    b, h, t, d = chip_smoke.PATH_SHAPE
+    q, k, v, _, _ = chip_smoke._random_qkv(gen, b, h, t, t, d, torch.float32,
+                                           False)
+    out["serve_f32"] = chip_smoke.time_fwd_f32(attention, q, k, v)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True

@@ -3,6 +3,8 @@
 A library is built once; its nvcc log (ptxas registers and spills) is
 kept beside it and read back when the library is reused, so
 ``chip_smoke.py``'s spill check sees a cached build's ptxas lines too.
+A library's path hashes its source and the shared ``csrc/*.cuh``
+headers, so an edited header never loads a stale library.
 """
 
 import chip_smoke
@@ -41,3 +43,17 @@ def test_cached_library_keeps_its_ptxas_log(tmp_path, monkeypatch):
     build.build_log.clear()  # a later process: the library is reused
     assert build.build(("flash_bwd",)) == {"flash_bwd": 0.0}
     assert build.build_log["flash_bwd"] == PTXAS
+
+
+def test_header_edit_changes_the_library_path(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "flash_fwd.cu").write_text('#include "tc_common.cuh"\n')
+    header = csrc / "tc_common.cuh"
+    header.write_text("// helpers, first version\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+
+    first = build.library_path("flash_fwd")
+    assert build.library_path("flash_fwd") == first  # stable
+    header.write_text("// helpers, edited\n")
+    assert build.library_path("flash_fwd") != first
