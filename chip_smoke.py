@@ -17,8 +17,13 @@ Phases (each prints its own line; any failure exits nonzero):
    lengths and D = 40 / 128 in bf16; every K1 case and every bf16 K2/K3
    case launched twice and required bitwise equal (run to run), and no
    register spills in any tensor-core instance of K1, K2 or K3 (ptxas);
-   K4 quantize bit-exact on every quantized leaf of a BERT-base model plus
-   a stochastic mean-bias check; K5 dequantize exact;
+   K4 quantize bit-exact and K5 dequantize exact on every quantized leaf
+   of a BERT-base model, launched once per leaf and grouped (one launch
+   over the whole flax tree through quantize_pytree / dequantize_pytree),
+   and on edge matrices (widths 1, 3, 33, 64, 3072, 4100, one row, an
+   all-zero row, +-1e20, exact halves, a misaligned source) in both
+   routes; stochastic bits equal to plain plus a mean-bias check over 256
+   seeds; no register spills in quant.cu;
 4. training: one batch of BERT-base (full width and depth, random weights
    from a seeded torch.Generator) in f32 on the card against the CPU plain
    path, loss and every parameter's gradient; then the slice's first main
@@ -32,13 +37,19 @@ Phases (each prints its own line; any failure exits nonzero):
    ~24 concurrent predicts of 1-8 rows at T=512 answered through coalesced
    bucket dispatches; every answer is checked for status, shape and
    finiteness, a few rows against the same artifact run on the CPU (plain
-   path), and the kernels' launch counters against the dispatches;
+   path), and the kernels' launch counters against the dispatches (K4 and
+   K5: one grouped launch per 64 leaves at the save and at the load, and
+   51 leaves each); then the save and the load replayed part by part
+   (``cold_start``: synchronised wall time of each part, and two ways of
+   uploading the int8 leaves);
 6. timings (CUDA events, after warm-up; K1 and the forward of
    scaled_dot_product_attention at the serving shape in f32, whose kernel
    name is printed from one profiled call; K1, K2/K3 and SDPA's forward and
-   backward at the fine-tune shape and at (8, 12, 512, 64) bf16), a
-   torch.profiler breakdown of one 64-row bucket by kernel family, and the
-   `kernels` JSON line;
+   backward at the fine-tune shape and at (8, 12, 512, 64) bf16; K4 and
+   K5 over the artifact's 51 leaves grouped and per leaf, as device time
+   and paced by the host, beside torch.mul, and K4's stochastic route at
+   the Dense_0 shape), a torch.profiler breakdown of one 64-row bucket by
+   kernel family, and the `kernels` JSON line;
 7. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
@@ -228,6 +239,9 @@ def check_flash(attention, gen) -> dict:
 
 
 def check_quant(quant, leaves, gen) -> dict:
+    """K4 and K5 against their plain versions on the card, per leaf (one
+    launch a matrix) and grouped (one launch over many): every quantized
+    leaf of a BERT-base model, edge matrices, stochastic bits."""
     errs = {"quantize": 0.0, "dequantize": 0.0}
     bad = []
     mats = {}
@@ -248,11 +262,46 @@ def check_quant(quant, leaves, gen) -> dict:
         mats[path] = (x, v, s)
     shapes = sorted({tuple(m[0].shape) for m in mats.values()})
     phase("K4 quantize bit-exact", not any(b.startswith("q") for b in bad),
-          f"{len(mats)} BERT-base leaves, row shapes {shapes}; "
-          f"mismatches {[b for b in bad if b.startswith('q')]}")
+          f"{len(mats)} BERT-base leaves, one launch each, row shapes "
+          f"{shapes}; mismatches {[b for b in bad if b.startswith('q')]}")
     phase("K5 dequantize exact", not any(b.startswith("d") for b in bad),
-          f"{len(mats)} leaves; mismatches "
+          f"{len(mats)} leaves, one launch each; mismatches "
           f"{[b for b in bad if b.startswith('d')]}")
+
+    # The grouped route over the whole flax tree, through the pytree
+    # functions the artifact path calls (host numpy leaves).
+    launches = quant.quantize_launches
+    qtree = quant.quantize_pytree(leaves)
+    q_launches = quant.quantize_launches - launches
+    launches = quant.dequantize_launches
+    back = quant.dequantize_pytree(qtree, device="cuda")
+    torch.cuda.synchronize()
+    d_launches = quant.dequantize_launches - launches
+    g_bad = []
+    for path, (x, _, _) in mats.items():
+        v_ref, s_ref = quant.quantize_rowwise_plain(x)
+        got = qtree[path]
+        v = torch.from_numpy(got.values).cuda()
+        s = torch.from_numpy(got.scales).cuda()
+        if not (torch.equal(v, v_ref) and torch.equal(s, s_ref)):
+            g_bad.append(f"quantize {path}")
+            errs["quantize"] = max(errs["quantize"], max_abs(v, v_ref))
+        deq_ref = quant.dequantize_rowwise_plain(v_ref, s_ref)
+        deq = back[path].reshape(deq_ref.shape)
+        if not torch.equal(deq, deq_ref):
+            g_bad.append(f"dequantize {path}")
+            errs["dequantize"] = max(errs["dequantize"],
+                                     max_abs(deq, deq_ref))
+    cap = quant.MAX_LEAVES
+    want = -(-len(mats) // cap)
+    phase("K4/K5 grouped over the flax tree",
+          not g_bad and q_launches == d_launches == want,
+          f"quantize_pytree / dequantize_pytree over {len(mats)} leaves: "
+          f"{q_launches} / {d_launches} launches (expected ceil("
+          f"{len(mats)}/{cap}) = {want}); mismatches {g_bad}")
+
+    edge_ok, detail = check_quant_edges(quant, gen)
+    phase("K4/K5 edge matrices", edge_ok, detail)
 
     # Stochastic rounding: kernel == plain (same Philox words), and the
     # mean over many seeds is unbiased.
@@ -276,6 +325,77 @@ def check_quant(quant, leaves, gen) -> dict:
           f"{n_seeds} seeds = {bias:.4f} (deterministic mean error "
           f"{det_bias:.3f})")
     return {"mats": mats, **errs}
+
+
+def quant_edge_matrices(gen) -> dict:
+    """Matrices that take every row class and its edges: widths 1, 3, 33
+    (scalar class), 64 (sub-warp), 3072 (a block a row), 4100 (too wide
+    for registers), one row, an all-zero row, +-1e20, rows whose x/scale
+    are exact halves, and a source that is not 16-byte aligned."""
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    zero_row = randn(4, 96)
+    zero_row[2] = 0.0
+    huge = randn(6, 128) * 1e20
+    halves = randn(4, 64)
+    halves[:, 0] = 127.0  # scale exactly 1: the values below are ties
+    halves[:, 1:9] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5,
+                                   -126.5], device="cuda")
+    return {
+        "d1": randn(7, 1), "d3": randn(5, 3), "d33": randn(9, 33),
+        "d64": randn(100, 64), "d3072": randn(3, 3072),
+        "d4100": randn(3, 4100), "one_row": randn(1, 768),
+        "zero_row": zero_row, "huge": huge, "halves": halves,
+        "misaligned": randn(5 * 64 + 1)[1:].view(5, 64),
+    }
+
+
+def check_quant_edges(quant, gen):
+    """Both routes on the edge matrices: per leaf and one grouped launch,
+    deterministic and stochastic, against the plain versions bit for
+    bit."""
+    edges = quant_edge_matrices(gen)
+    bad = []
+    for name, x in edges.items():
+        v, s = quant.quantize_rowwise(x)
+        v_ref, s_ref = quant.quantize_rowwise_plain(x)
+        if not (torch.equal(v, v_ref) and torch.equal(s, s_ref)):
+            bad.append(f"per-leaf quantize {name}")
+        if not torch.equal(quant.dequantize_rowwise(v, s),
+                           quant.dequantize_rowwise_plain(v, s)):
+            bad.append(f"per-leaf dequantize {name}")
+    # int8 values that are not 16-byte aligned take K5's scalar class.
+    raw = torch.randint(-127, 128, (5 * 48 + 1,), dtype=torch.int8,
+                        device="cuda", generator=gen)[1:].view(5, 48)
+    sc = torch.rand(5, 1, device="cuda", generator=gen)
+    if not torch.equal(quant.dequantize_rowwise(raw, sc),
+                       quant.dequantize_rowwise_plain(raw, sc)):
+        bad.append("per-leaf dequantize misaligned int8")
+    mats = list(edges.values())
+    for stochastic in (False, True):
+        plan, values, scales = quant._quantize_group(
+            mats, stochastic=stochastic, seed=5)
+        out = quant._dequantize_group(
+            quant.plan_group([tuple(x.shape) for x in mats], "dequantize"),
+            values, scales)
+        views = quant._leaf_views(plan, values, scales)
+        for (name, x), (v, s), lp in zip(edges.items(), views, plan.leaves):
+            v_ref, s_ref = quant.quantize_rowwise_plain(
+                x, stochastic=stochastic, seed=5)
+            if not (torch.equal(v, v_ref) and torch.equal(s, s_ref)):
+                bad.append(f"grouped quantize {name} stochastic="
+                           f"{stochastic}")
+            deq = out[lp.out_offset:lp.out_offset + lp.n * lp.d]
+            if not torch.equal(deq.view(lp.n, lp.d),
+                               quant.dequantize_rowwise_plain(v, s)):
+                bad.append(f"grouped dequantize {name}")
+    torch.cuda.synchronize()
+    classes = sorted({lp.cls for lp in plan.leaves})
+    return not bad, (f"{len(edges)} matrices {[tuple(x.shape) for x in mats]}"
+                     f", quantize row classes {classes}, per leaf and "
+                     f"grouped, deterministic and stochastic; mismatches "
+                     f"{bad}")
 
 
 def _random_qkv(gen, bb, hh, tq, tk, dd, dtype, masked):
@@ -658,8 +778,8 @@ def run_slice(est, tmp) -> dict:
 
     # Main path: counters at 0 just before, read just after.
     attention.launches = 0
-    quant.quantize_launches = 0
-    quant.dequantize_launches = 0
+    quant.quantize_launches = quant.quantize_leaves = 0
+    quant.dequantize_launches = quant.dequantize_leaves = 0
     t0 = time.perf_counter()
     artifact = est.to_artifact(quantize=True)
     volumes.save_object(ARTIFACT_TYPE, "bert-base", artifact)
@@ -685,6 +805,8 @@ def run_slice(est, tmp) -> dict:
             "flash_fwd": attention.launches,
             "quantize_rowwise": quant.quantize_launches,
             "dequantize_rowwise": quant.dequantize_launches,
+            "quantize_leaves": quant.quantize_leaves,
+            "dequantize_leaves": quant.dequantize_leaves,
         }
         status, listing = request(port, "GET", "/serve")
     finally:
@@ -709,11 +831,17 @@ def run_slice(est, tmp) -> dict:
     n_quant = sum(1 for _ in _leaves_of(artifact["state"]["params"],
                                         QuantizedLeaf))
     dispatches = stats["batches"]
+    # One grouped launch per direction takes up to MAX_LEAVES leaves.
+    n_launch = -(-n_quant // quant.MAX_LEAVES)
     phase("launch counters", counts["flash_fwd"] == 12 * dispatches
-          and counts["dequantize_rowwise"] == n_quant
-          and counts["quantize_rowwise"] == n_quant,
+          and counts["dequantize_rowwise"] == n_launch
+          and counts["quantize_rowwise"] == n_launch
+          and counts["quantize_leaves"] == n_quant
+          and counts["dequantize_leaves"] == n_quant,
           f"{counts}; expected flash 12 x {dispatches} dispatches = "
-          f"{12 * dispatches}, quantize = dequantize = {n_quant} leaves")
+          f"{12 * dispatches}, quantize = dequantize = ceil({n_quant}/"
+          f"{quant.MAX_LEAVES}) = {n_launch} launches over {n_quant} "
+          f"leaves")
 
     # The same artifact on the CPU (plain attention, plain dequantize).
     picks = [(5, 0), (0, 0), (7, len(reqs[7]) - 1)]
@@ -737,6 +865,128 @@ def run_slice(est, tmp) -> dict:
             "cpu_max_abs_err": err,
         },
     }
+
+
+def cold_start(est, tmp) -> dict:
+    """The artifact save and load of the slice replayed part by part, with
+    ``torch.cuda.synchronize()`` between parts (wall ms each), beside the
+    whole calls.  Save: the flax tree and the contiguous f32 copies ahead
+    of K4, K4's grouped launch, the two device-to-host copies, the host
+    copies of the leaves that stay full precision, the rest of
+    ``to_artifact``, pickling.  Load:
+    reading and unpickling, building the estimator (module, seeded CPU
+    init, ``.to(device)``), uploading the int8 leaves, K5's grouped
+    launch, ``load_state_dict``.  The upload is measured two ways, in
+    turns: leaf by leaf into slices of the device buffers (what the port
+    does), and staged once through pinned host memory."""
+    from learningorchestra_tpu_torch import convert
+    from learningorchestra_tpu_torch.ops import quant
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+    from learningorchestra_tpu_torch.toolkit import registry
+    from learningorchestra_tpu_torch.train.neural import (
+        init_params,
+        load_artifact,
+    )
+
+    volumes = VolumeStorage(tmp)
+    clock = {"t": 0.0}
+
+    def lap() -> float:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms, clock["t"] = (now - clock["t"]) * 1e3, now
+        return ms
+
+    def pick(leaf):
+        return quant._quantizable(leaf, quant._QUANT_MIN_ELEMENTS)
+
+    save, load = {}, {}
+    lap()
+    artifact = est.to_artifact(quantize=True)
+    save["to_artifact_ms"] = lap()
+    volumes.save_object(ARTIFACT_TYPE, "cold", artifact)
+    save["pickle_write_ms"] = lap()
+    _, found = quant._collect(convert.flax_tree(est.module), pick)
+    mats = [quant._as_matrix(leaf) for leaf in found]
+    save["flax_tree_and_contiguous_ms"] = lap()
+    plan, values, scales = quant._quantize_group(mats)
+    save["k4_launch_ms"] = lap()
+    values.cpu().numpy(), scales.cpu().numpy()
+    save["device_to_host_ms"] = lap()
+    _, small = quant._collect(convert.flax_tree(est.module),
+                              lambda x: not pick(x))
+    lap()
+    [convert.to_host(t) for t in small]
+    save["small_leaves_to_host_ms"] = lap()
+    save["small_leaves"] = len(small)
+    save["rest_of_to_artifact_ms"] = save["to_artifact_ms"] - sum(
+        save[k] for k in ("flax_tree_and_contiguous_ms", "k4_launch_ms",
+                          "device_to_host_ms", "small_leaves_to_host_ms"))
+    del mats, values, scales
+
+    lap()
+    load_artifact(volumes.read_object(ARTIFACT_TYPE, "cold"),
+                  device="cuda")
+    load["load_artifact_ms"] = lap()
+    doc = volumes.read_object(ARTIFACT_TYPE, "cold")
+    load["read_unpickle_ms"] = lap()
+    cls = registry.resolve(doc["modulePath"], doc["class"])
+    fresh = cls(**doc["classParameters"], device="cuda")
+    load["construct_ms"] = lap()
+    cpu_est = cls(**doc["classParameters"], device="cpu")
+    load["construct_cpu_only_ms"] = lap()
+    init_params(cpu_est.module, cpu_est.seed)
+    load["of_which_seeded_cpu_init_ms"] = lap()
+    cpu_est.module.to("cuda")
+    load["of_which_to_device_ms"] = lap()
+    del cpu_est
+    state = doc["state"]
+    shell, found = quant._collect(state["params"],
+                                  lambda x: isinstance(x, quant.QuantizedLeaf))
+    plan = quant.plan_group(quant._quantized_shapes(found), "dequantize")
+    load["collect_and_plan_ms"] = lap()
+    uploads = {"leaf_by_leaf_ms": [], "pinned_staging_ms": []}
+    for way in ("leaf_by_leaf_ms", "pinned_staging_ms", "pinned_staging_ms",
+                "leaf_by_leaf_ms"):
+        lap()
+        if way == "leaf_by_leaf_ms":
+            values, scales = quant._upload(found, plan, "cuda")
+        else:
+            values, scales = _upload_pinned(quant, found, plan)
+        uploads[way].append(lap())
+    load["upload_ms"] = uploads
+    out = quant._dequantize_group(plan, values, scales)
+    load["k5_launch_ms"] = lap()
+    params = quant._fill(shell, [
+        out[lp.out_offset:lp.out_offset + lp.n * lp.d].view(leaf.shape)
+        for leaf, lp in zip(found, plan.leaves)])
+    fresh.load_state_dict({**state, "params": params})
+    load["load_state_dict_ms"] = lap()
+    return {"save": save, "load": load, "artifact_bytes": _tree_bytes(tmp)}
+
+
+def _upload_pinned(quant, found, plan):
+    """The other way to upload: pack the leaves into pinned host buffers,
+    then one host-to-device copy of each."""
+    values = torch.empty(plan.values_bytes, dtype=torch.int8,
+                         pin_memory=True)
+    scales = torch.empty(plan.scales_count, dtype=torch.float32,
+                         pin_memory=True)
+    for leaf, lp in zip(found, plan.leaves):
+        values[lp.values_offset:lp.values_offset + lp.n * lp.d].copy_(
+            quant._host_tensor(leaf.values, np.int8))
+        scales[lp.scales_offset:lp.scales_offset + lp.n].copy_(
+            quant._host_tensor(leaf.scales, np.float32))
+    return (values.to("cuda", non_blocking=True),
+            scales.to("cuda", non_blocking=True))
+
+
+def _tree_bytes(root) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
 
 
 def _leaves_of(tree, cls):
@@ -796,52 +1046,106 @@ def sdpa_kernel_names(q, k, v) -> list:
     return sorted(device_kernels(prof))
 
 
+def time_quant_per_leaf(quant, mats) -> dict:
+    """What every version of K4/K5 has: one ``quantize_rowwise`` /
+    ``dequantize_rowwise`` launch per leaf over all of ``mats`` ((x,
+    values, scales) on the card), as device time (behind a device sleep)
+    and paced by the host, and the wall time of ``quantize_pytree`` /
+    ``dequantize_pytree`` over the same leaves (host copies included)."""
+    def each(fn):
+        return lambda: [fn(*args) for args in mats]
+
+    tree = {f"leaf{i}": x for i, (x, _, _) in enumerate(mats)}
+    qtree = quant.quantize_pytree(tree)
+
+    def wall_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    quant_each = each(lambda x, v, s: quant.quantize_rowwise(x))
+    deq_each = each(lambda x, v, s: quant.dequantize_rowwise(v, s))
+    return {
+        "quantize_per_leaf_ms": time_ms(quant_each, reps=5),
+        "dequantize_per_leaf_ms": time_ms(deq_each, reps=5),
+        "quantize_per_leaf_host_paced_ms": time_ms(quant_each, reps=5,
+                                                   hide_launch=False),
+        "dequantize_per_leaf_host_paced_ms": time_ms(deq_each, reps=5,
+                                                     hide_launch=False),
+        "quantize_pytree_wall_ms": wall_ms(lambda: quant.quantize_pytree(
+            tree)),
+        "dequantize_pytree_wall_ms": wall_ms(
+            lambda: quant.dequantize_pytree(qtree, device="cuda")),
+    }
+
+
+def time_quant(quant, quant_mats) -> dict:
+    """K4 and K5 over every quantized leaf of the artifact (548.5 MB for
+    BERT-base): the grouped launch (device time and host-paced), the
+    per-leaf launches, the plain versions, ``torch.mul(int8, f32)`` as
+    K5's library call, and K4's stochastic route at the Dense_0 shape."""
+    mats = list(quant_mats.values())
+    xs = [x for x, _, _ in mats]
+    q_bytes = sum(x.numel() * 5 + x.shape[0] * 4 for x in xs)
+    _, values, scales = quant._quantize_group(xs)
+    plan = quant.plan_group([tuple(x.shape) for x in xs], "dequantize")
+
+    def group_q():
+        quant._quantize_group(xs)
+
+    def group_dq():
+        quant._dequantize_group(plan, values, scales)
+
+    out = {
+        "bytes": q_bytes, "bound_ms": 1e3 * q_bytes / PEAK_BYTES,
+        "leaves": len(mats), "launches_per_group": plan.launches,
+        "quantize_grouped_ms": time_ms(group_q, reps=20),
+        "dequantize_grouped_ms": time_ms(group_dq, reps=20),
+        "quantize_grouped_host_paced_ms": time_ms(group_q, reps=20,
+                                                  hide_launch=False),
+        "dequantize_grouped_host_paced_ms": time_ms(group_dq, reps=20,
+                                                    hide_launch=False),
+        "quantize_plain_ms": time_ms(
+            lambda: [quant.quantize_rowwise_plain(x) for x in xs], reps=3),
+        "dequantize_plain_ms": time_ms(
+            lambda: [quant.dequantize_rowwise_plain(v, s)
+                     for _, v, s in mats], reps=3),
+        "dequantize_library_ms": time_ms(
+            lambda: [torch.mul(v, s) for _, v, s in mats], reps=5),
+        **time_quant_per_leaf(quant, mats),
+    }
+    # Stochastic K4 (one Philox call per 4 columns) at the Dense_0 shape
+    # (768 x 3072), beside the deterministic route at the same shape.
+    x = next(x for x in xs if tuple(x.shape) == (768, 3072))
+    out["dense0"] = {
+        "shape": list(x.shape),
+        "bound_ms": 1e3 * (x.numel() * 5 + x.shape[0] * 4) / PEAK_BYTES,
+        "deterministic_ms": time_ms(lambda: quant.quantize_rowwise(x),
+                                    reps=50),
+        "stochastic_ms": time_ms(
+            lambda: quant.quantize_rowwise(x, stochastic=True, seed=3),
+            reps=50),
+    }
+    return out
+
+
 def time_kernels(flash_inputs, quant_mats, est) -> dict:
     from learningorchestra_tpu_torch.ops import attention, quant
 
     q, k, v, _, _ = flash_inputs["path_f32"]
     b = q.shape[0]
     fwd = time_fwd_f32(attention, q, k, v)
-
-    mats = list(quant_mats.values())
-    q_bytes = sum(x.numel() * 5 + x.shape[0] * 4 for x, _, _ in mats)
-    dq_bytes = sum(v.numel() * 5 + v.shape[0] * 4 for _, v, _ in mats)
-
-    def each(fn):
-        return lambda: [fn(*args) for args in mats]
-
-    quant_ms = time_ms(each(lambda x, v, s: quant.quantize_rowwise(x)),
-                       reps=5)
-    quant_plain_ms = time_ms(
-        each(lambda x, v, s: quant.quantize_rowwise_plain(x)), reps=3)
-    deq_ms = time_ms(each(lambda x, v, s: quant.dequantize_rowwise(v, s)),
-                     reps=5)
-    deq_plain_ms = time_ms(
-        each(lambda x, v, s: quant.dequantize_rowwise_plain(v, s)), reps=3)
-    deq_lib_ms = time_ms(each(lambda x, v, s: torch.mul(v, s)), reps=5)
-    # What the artifact save / load wait for: the same launches paced by
-    # the host.
-    host_paced = {
-        "quantize": time_ms(each(lambda x, v, s: quant.quantize_rowwise(x)),
-                            reps=5, hide_launch=False),
-        "dequantize": time_ms(
-            each(lambda x, v, s: quant.dequantize_rowwise(v, s)), reps=5,
-            hide_launch=False),
-    }
+    quant_t = time_quant(quant, quant_mats)
 
     # One full serving bucket through the model, for the layer breakdown.
     x = torch.randint(1, est.vocab_size, (b, SEQ_LEN), device="cuda")
     with torch.inference_mode():
         forward_ms = time_ms(lambda: est.module(x), reps=5)
-    return {
-        "flash": fwd,
-        "quant": (quant_ms, quant_plain_ms, 1e3 * q_bytes / PEAK_BYTES,
-                  q_bytes),
-        "dequant": (deq_ms, deq_plain_ms, 1e3 * dq_bytes / PEAK_BYTES,
-                    deq_lib_ms, dq_bytes),
-        "forward_ms": forward_ms,
-        "host_paced_ms": host_paced,
-    }
+    return {"flash": fwd, "quant": quant_t, "forward_ms": forward_ms}
 
 
 def profile_forward(est) -> dict:
@@ -926,6 +1230,12 @@ def main() -> int:
           {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= families
           and not any("_tc_" in k for k in spilled),
           f"tensor-core instances {tc}; kernels that spill: {spilled}")
+    quant_kernels = [k for k, *_ in ptxas_report(build.build_log["quant"])]
+    phase("quant registers",
+          {"quantize_group_kernel", "dequantize_group_kernel"}
+          <= set(quant_kernels)
+          and not any(k in spilled for k in quant_kernels),
+          f"quant.cu kernels {quant_kernels}; none may spill")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -959,14 +1269,18 @@ def main() -> int:
         slice_res = run_slice(est, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cold = cold_start(est, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     timing = time_kernels(flash_inputs, quant_res["mats"], est)
     bwd_times = time_bwd(attention, bwd_res)
     bwd_t = bwd_times["train"]
     fwd = timing["flash"]
     k1_bf16 = bwd_t["k1"]
-    q_ms, q_plain, q_bound, q_bytes = timing["quant"]
-    d_ms, d_plain, d_bound, d_lib, d_bytes = timing["dequant"]
+    qt = timing["quant"]
     counts = slice_res["counts"]
     train_counts = train_res["counts"]
     path_errs = bwd_res["path_bf16"]["errs"]
@@ -994,15 +1308,17 @@ def main() -> int:
          "replaces": "learningorchestra_tpu/ops/quant.py:29",
          "launches": counts["quantize_rowwise"],
          "max_abs_err": quant_res["quantize"],
-         "ms": q_ms, "plain_ms": q_plain, "bound_ms": q_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
+         "bound_ms": qt["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
         {"name": "dequantize_rowwise", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/quant.cu",
          "replaces": "learningorchestra_tpu/ops/quant.py:56",
          "launches": counts["dequantize_rowwise"],
          "max_abs_err": quant_res["dequantize"],
-         "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
-         "bound_by": "bytes", "library_ms": d_lib},
+         "ms": qt["dequantize_grouped_ms"],
+         "plain_ms": qt["dequantize_plain_ms"], "bound_ms": qt["bound_ms"],
+         "bound_by": "bytes", "library_ms": qt["dequantize_library_ms"]},
         *({"name": f"flash_bwd_{key}", "route": "cuda",
            "source": "learningorchestra_tpu_torch/csrc/flash_bwd.cu",
            "replaces": f"learningorchestra_tpu/ops/attention.py:{line}",
@@ -1043,6 +1359,7 @@ def main() -> int:
     serve["forward_ms_bucket64"] = timing["forward_ms"]
     serve["flash_share_of_forward"] = 12 * fwd["ms"] / timing["forward_ms"]
     print("serve " + json.dumps(serve), flush=True)
+    print("cold_start " + json.dumps(cold), flush=True)
     print("timing shapes: flash_bwd (B,H,T,D)=" + str(TRAIN_SHAPE)
           + f" bf16, dq {bwd_t['dq']['flops'] / 1e9:.2f} GFLOP "
           f"{bwd_t['dq']['bytes'] / 1e6:.1f} MB, dkv "
@@ -1054,10 +1371,10 @@ def main() -> int:
           f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), {fwd['bytes'] / 1e6:.1f} "
           f"MB; "
           f"quantize/dequantize = every quantized leaf of the artifact "
-          f"once ({q_bytes / 1e6:.1f} / {d_bytes / 1e6:.1f} MB); kernel "
-          f"ms are device time (launches queued behind a device sleep); "
-          f"paced by the host's launches they take "
-          f"{json.dumps(timing['host_paced_ms'])} ms", flush=True)
+          f"once ({qt['bytes'] / 1e6:.1f} MB each way) in one grouped "
+          f"launch; kernel ms are device time (launches queued behind a "
+          f"device sleep)", flush=True)
+    print("quant_timing " + json.dumps(qt), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -1,6 +1,7 @@
-"""Time the port's flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV)
-on one GPU, for the ``learningorchestra_tpu_torch`` package under a given
-root, so that two versions of the kernels can be compared on one card.
+"""Time the port's kernels (flash-attention K1 forward, K2 dQ, K3 dK/dV;
+int8 quantize K4 and dequantize K5) on one GPU, for the
+``learningorchestra_tpu_torch`` package under a given root, so that two
+versions of the kernels can be compared on one card.
 
     python3 scripts/torch_flash_bwd_ab.py [PACKAGE_ROOT] [LABEL]
 
@@ -12,7 +13,11 @@ key mask with pad tails): ``_time_bwd_at`` (K1, K2, K3 in bf16, with the
 forward and backward of ``scaled_dot_product_attention`` as yardsticks)
 at the fine-tune shape (32, 12, 128, 64) and at (8, 12, 512, 64), and
 ``time_fwd_f32`` (K1 in f32 beside SDPA's f32 forward) at the serving
-shape (64, 12, 512, 64).  Run versions in turns in one call (A, B, B, A):
+shape (64, 12, 512, 64); and ``time_quant_per_leaf`` over the 51
+quantized leaves of a seeded BERT-base (what every version of K4/K5 has:
+one ``quantize_rowwise`` / ``dequantize_rowwise`` launch per leaf as
+device time and host-paced, and the wall time of ``quantize_pytree`` /
+``dequantize_pytree``).  Run versions in turns in one call (A, B, B, A):
 prints one JSON line per run.
 """
 
@@ -61,6 +66,20 @@ def main() -> int:
     q, k, v, _, _ = chip_smoke._random_qkv(gen, b, h, t, t, d, torch.float32,
                                            False)
     out["serve_f32"] = chip_smoke.time_fwd_f32(attention, q, k, v)
+    del q, k, v
+
+    from learningorchestra_tpu_torch import convert
+    from learningorchestra_tpu_torch.models.text import BertModel
+    from learningorchestra_tpu_torch.ops import quant
+
+    est = BertModel(seed=0, device="cuda")
+    mats = []
+    for _, leaf in chip_smoke._flat(convert.flax_tree(est.module)):
+        if leaf.dim() >= 2 and leaf.numel() >= 4096:
+            x = leaf.detach().float().reshape(-1, leaf.shape[-1]).contiguous()
+            mats.append((x, *quant.quantize_rowwise(x)))
+    out["quant"] = {"leaves": len(mats),
+                    **chip_smoke.time_quant_per_leaf(quant, mats)}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
