@@ -50,7 +50,22 @@ Phases (each prints its own line; any failure exits nonzero):
    and paced by the host, beside torch.mul, and K4's stochastic route at
    the Dense_0 shape), a torch.profiler breakdown of one 64-row bucket by
    kernel family, and the `kernels` JSON line;
-7. last line: {"ok": true, "device": {...}}.
+7. the zoo (BASELINE configs 2, 3, 5), each at full width and depth with
+   seeded random weights: ``MnistCNN`` on (16384, 28, 28, 1) at batch
+   1024 for 4 epochs, ``ResNet50`` (1000 classes) on (512, 224, 224, 3)
+   at batch 64 for 2, both bf16 on f32 masters, and ``LSTMClassifier()``
+   on 2048 rows of T=80 (pad tails, one all-pad row) at batch 32 for 3,
+   in f32.  Each: one batch's loss and gradients on the card against the
+   CPU at the bars of phase 4 (ResNet-50 at 8 rows in f64, see
+   ``run_zoo``), steady samples/s and step ms over epochs 2..N (CUDA
+   events), a torch.profiler breakdown of one step; then each saved as an
+   int8 artifact (K4: one grouped launch, every leaf's bits against plain
+   K4 on the card, its (rows, d) and row class) and loaded back (K5: one
+   launch, exact against plain), predictions within 1e-3 of the CPU; K4
+   and K5 timed over the ResNet-50 artifact's 54 leaves against their
+   bytes bound; the MnistCNN artifact served over REST to 24 concurrent
+   requests of 1-16 images, checked against the CPU;
+8. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -100,6 +115,7 @@ LOSS_RTOL = 1e-5
 SLEEP_CYCLES = 100_000_000
 
 failures: list[str] = []
+T_START = time.perf_counter()
 
 
 def phase(name: str, ok: bool, detail: str) -> None:
@@ -487,25 +503,43 @@ def check_train_vs_cpu(est) -> dict:
     """One batch of 4 rows (one all-pad) through BERT-base in f32 on the
     card (K1/K2/K3) and on the CPU (plain versions), from the same
     weights: the loss and every parameter's gradient."""
-    from learningorchestra_tpu_torch.models.text import BertModel
-
     x, y = make_train_data(est.vocab_size)
     rows = [3, 0, 1, 2]
+    return step_vs_cpu(
+        est, x[rows], y[rows], "train step vs CPU plain path",
+        f"BERT-base f32, rows {rows} (first all-pad) at T={x.shape[1]}")
+
+
+def step_vs_cpu(est, x, y, name: str, what: str,
+                dtype=torch.float32, gate: bool = True) -> dict:
+    """The loss and every parameter's gradient of one batch in ``dtype``
+    (f32; f64 where f32 rounding alone moves ReLU decisions, below), on
+    the card and on a CPU twin of ``est`` loaded with its weights (the
+    plain path), against the bars above.  ``gate=False`` reports the
+    numbers without making a phase of them."""
+    from learningorchestra_tpu_torch.toolkit import registry
+
     t0 = time.perf_counter()
-    cpu = BertModel(seed=est.seed, device="cpu")
+    kwargs = {k: v for k, v in est.get_params().items() if k != "device"}
+    cpu = registry.resolve(type(est).__module__, type(est).__name__)(
+        **kwargs, device="cpu")
     cpu.load_state_dict(est.state_dict())
     loss_fn = est._loss_and_metrics("softmax_ce")
 
     def loss_and_grads(e):
         e.module.zero_grad(set_to_none=True)
-        xt = torch.from_numpy(x[rows]).to(e.device)
-        yt = torch.from_numpy(y[rows]).to(e.device)
-        loss, _ = loss_fn(e.module(xt).float(), yt,
-                          torch.ones(len(rows), device=e.device))
+        e.module.train().to(dtype)
+        xt = torch.from_numpy(x).to(e.device)
+        if xt.is_floating_point():
+            xt = xt.to(dtype)
+        yt = torch.from_numpy(y).to(e.device)
+        loss, _ = loss_fn(e.module(xt), yt,
+                          torch.ones(len(x), device=e.device, dtype=dtype))
         loss.backward()
-        grads = {n: p.grad.detach().float().cpu()
+        grads = {n: p.grad.detach().double().cpu()
                  for n, p in e.module.named_parameters()}
         e.module.zero_grad(set_to_none=True)
+        e.module.eval().to(torch.float32)
         return float(loss.detach()), grads
 
     loss_gpu, g_gpu = loss_and_grads(est)
@@ -513,24 +547,25 @@ def check_train_vs_cpu(est) -> dict:
     cpu_s = time.perf_counter() - t0
     gmax = max(float(g.abs().max()) for g in g_cpu.values())
     worst, worst_name, bad = 0.0, "", []
-    for name, gc in g_cpu.items():
-        err = float((g_gpu[name] - gc).abs().max())
+    for pname, gc in g_cpu.items():
+        err = float((g_gpu[pname] - gc).abs().max())
         ref = float(gc.abs().max())
         if err > GRAD_RTOL * ref + GRAD_ATOL_REL * gmax:
-            bad.append(name)
+            bad.append(pname)
         rel = err / max(ref, GRAD_ATOL_REL * gmax)
         if rel > worst:
-            worst, worst_name = rel, name
+            worst, worst_name = rel, pname
     loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    phase("train step vs CPU plain path", not bad and loss_rel <= LOSS_RTOL,
-          f"BERT-base f32, rows {rows} (first all-pad) at T={x.shape[1]}: "
-          f"loss {loss_gpu:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.2g}, tol "
-          f"{LOSS_RTOL}); {len(g_cpu)} gradients, worst max|dg|/max|g| "
-          f"{worst:.3g} ({worst_name}); tol {GRAD_RTOL}*max|g| + "
-          f"{GRAD_ATOL_REL}*{gmax:.3g}; failing {bad[:5]} (CPU side "
-          f"{cpu_s:.1f}s)")
+    report = phase if gate else (lambda n, ok, d: print(
+        f"[info] {n}: {d}", flush=True))
+    report(name, not bad and loss_rel <= LOSS_RTOL,
+          f"{what}: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (rel "
+          f"{loss_rel:.2g}, tol {LOSS_RTOL}); {len(g_cpu)} gradients, worst "
+          f"max|dg|/max|g| {worst:.3g} ({worst_name}); tol {GRAD_RTOL}"
+          f"*max|g| + {GRAD_ATOL_REL}*{gmax:.3g}; failing {bad[:5]} (CPU "
+          f"side {cpu_s:.1f}s)")
     return {"loss_rel_err": loss_rel, "worst_grad_rel_err": worst,
-            "worst_grad_param": worst_name}
+            "worst_grad_param": worst_name, "failing_params": len(bad)}
 
 
 def run_training(est, attention) -> dict:
@@ -617,14 +652,25 @@ def _family(name: str, families: dict) -> str:
 
 
 def profile_train_step(est, x, y) -> dict:
-    """One train step (a ``fit`` of one 32-row batch: upload, permute,
-    forward, backward, Adam, the metrics' host transfer) by kernel family
+    """One BERT train step (a ``fit`` of one 32-row batch) by kernel
+    family: :func:`profile_step`."""
+    bs = TRAIN_SHAPE[0]
+    return profile_step(est, x[:bs], y[:bs], {
+        "flash_bwd_dq": ("flash_bwd_dq",), "flash_bwd_dkv": ("flash_bwd_dkv",),
+        "flash_fwd": ("flash_fwd",),
+        "gemm": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
+        "optimizer": ("multi_tensor_apply", "adam"),
+    })
+
+
+def profile_step(est, xs, ys, families: dict) -> dict:
+    """One train step (a ``fit`` of one batch: upload, permute, forward,
+    backward, the optimizer, the metrics' host transfer) by kernel family
     from torch.profiler; its wall time, measured apart without the
     profiler, gives the device's busy and idle share inside the step."""
     from torch.profiler import ProfilerActivity, profile
 
-    bs = TRAIN_SHAPE[0]
-    xs, ys = x[:bs], y[:bs]
+    bs = len(xs)
     est.fit(xs, ys, epochs=1, batch_size=bs)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -635,12 +681,6 @@ def profile_train_step(est, x, y) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         est.fit(xs, ys, epochs=1, batch_size=bs)
         torch.cuda.synchronize()
-    families = {
-        "flash_bwd_dq": ("flash_bwd_dq",), "flash_bwd_dkv": ("flash_bwd_dkv",),
-        "flash_fwd": ("flash_fwd",),
-        "gemm": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
-        "optimizer": ("multi_tensor_apply", "adam"),
-    }
     totals = {fam: 0.0 for fam in (*families, "other")}
     kernels = device_kernels(prof)
     for name, ms in kernels.items():
@@ -1090,34 +1130,8 @@ def time_quant(quant, quant_mats) -> dict:
     K5's library call, and K4's stochastic route at the Dense_0 shape."""
     mats = list(quant_mats.values())
     xs = [x for x, _, _ in mats]
-    q_bytes = sum(x.numel() * 5 + x.shape[0] * 4 for x in xs)
-    _, values, scales = quant._quantize_group(xs)
-    plan = quant.plan_group([tuple(x.shape) for x in xs], "dequantize")
-
-    def group_q():
-        quant._quantize_group(xs)
-
-    def group_dq():
-        quant._dequantize_group(plan, values, scales)
-
-    out = {
-        "bytes": q_bytes, "bound_ms": 1e3 * q_bytes / PEAK_BYTES,
-        "leaves": len(mats), "launches_per_group": plan.launches,
-        "quantize_grouped_ms": time_ms(group_q, reps=20),
-        "dequantize_grouped_ms": time_ms(group_dq, reps=20),
-        "quantize_grouped_host_paced_ms": time_ms(group_q, reps=20,
-                                                  hide_launch=False),
-        "dequantize_grouped_host_paced_ms": time_ms(group_dq, reps=20,
-                                                    hide_launch=False),
-        "quantize_plain_ms": time_ms(
-            lambda: [quant.quantize_rowwise_plain(x) for x in xs], reps=3),
-        "dequantize_plain_ms": time_ms(
-            lambda: [quant.dequantize_rowwise_plain(v, s)
-                     for _, v, s in mats], reps=3),
-        "dequantize_library_ms": time_ms(
-            lambda: [torch.mul(v, s) for _, v, s in mats], reps=5),
-        **time_quant_per_leaf(quant, mats),
-    }
+    out = {**time_quant_group(quant, xs),
+           **time_quant_per_leaf(quant, mats)}
     # Stochastic K4 (one Philox call per 4 columns) at the Dense_0 shape
     # (768 x 3072), beside the deterministic route at the same shape.
     x = next(x for x in xs if tuple(x.shape) == (768, 3072))
@@ -1131,6 +1145,119 @@ def time_quant(quant, quant_mats) -> dict:
             reps=50),
     }
     return out
+
+
+def time_quant_group(quant, xs) -> dict:
+    """K4 and K5 over the matrices ``xs`` (every quantized leaf of an
+    artifact, f32 on the card) in their grouped launches, device time and
+    host-paced, beside the plain versions, ``torch.mul(int8, f32)`` as
+    K5's library call, and the bytes bound: each f32 element read and
+    its int8 written once, and one f32 scale a row."""
+    q_bytes = sum(x.numel() * 5 + x.shape[0] * 4 for x in xs)
+    _, values, scales = quant._quantize_group(xs)
+    plan = quant.plan_group([tuple(x.shape) for x in xs], "dequantize")
+    pairs = [quant.quantize_rowwise_plain(x) for x in xs]
+
+    def group_q():
+        quant._quantize_group(xs)
+
+    def group_dq():
+        quant._dequantize_group(plan, values, scales)
+
+    return {
+        "bytes": q_bytes, "bound_ms": 1e3 * q_bytes / PEAK_BYTES,
+        "leaves": len(xs), "launches_per_group": plan.launches,
+        "quantize_grouped_ms": time_ms(group_q, reps=20),
+        "dequantize_grouped_ms": time_ms(group_dq, reps=20),
+        "quantize_grouped_host_paced_ms": time_ms(group_q, reps=20,
+                                                  hide_launch=False),
+        "dequantize_grouped_host_paced_ms": time_ms(group_dq, reps=20,
+                                                    hide_launch=False),
+        "quantize_plain_ms": time_ms(
+            lambda: [quant.quantize_rowwise_plain(x) for x in xs], reps=3),
+        "dequantize_plain_ms": time_ms(
+            lambda: [quant.dequantize_rowwise_plain(v, s)
+                     for v, s in pairs], reps=3),
+        "dequantize_library_ms": time_ms(
+            lambda: [torch.mul(v, s) for v, s in pairs], reps=5),
+    }
+
+
+def time_zoo_quant(est) -> dict:
+    """:func:`time_quant_group` over a trained model's quantized leaves
+    (the ResNet-50 artifact's), as ``quantize_pytree`` collects them."""
+    from learningorchestra_tpu_torch.ops import quant
+
+    _, found = quant._collect(
+        convert_tree(est),
+        lambda x: quant._quantizable(x, quant._QUANT_MIN_ELEMENTS))
+    return time_quant_group(quant, [quant._as_matrix(x) for x in found])
+
+
+def run_vision_slice(est, x, tmp) -> dict:
+    """The trained MnistCNN as an int8 artifact served by the port's REST
+    server on the card: ``POST /serve/mnist-cnn/load`` (K5, one grouped
+    launch) and a burst of concurrent predicts of 1-16 images; every
+    answer 200, (rows, 10), finite, sampled rows against the same
+    artifact on the CPU."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.ops import quant
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    rng = np.random.default_rng(2025)
+    reqs = [x[rng.integers(0, len(x), int(rng.integers(1, 17)))]
+            for _ in range(N_VISION_REQUESTS)]
+    volumes = VolumeStorage(tmp)
+    artifact = est.to_artifact(quantize=True)
+    volumes.save_object(ARTIFACT_TYPE, "mnist-cnn", artifact)
+    server = APIServer(Config(volume_root=tmp), volumes=volumes,
+                       device="cuda")
+    port = server.start_background()
+    try:
+        quant.dequantize_launches = 0
+        t0 = time.perf_counter()
+        status, body = request(port, "POST", "/serve/mnist-cnn/load")
+        load_s = time.perf_counter() - t0
+        k5 = quant.dequantize_launches
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(len(reqs)) as pool:
+            answers = list(pool.map(
+                lambda xr: request(port, "POST", "/serve/mnist-cnn/predict",
+                                   {"instances": xr.tolist()}), reqs))
+        wall_s = time.perf_counter() - t0
+        _, listing = request(port, "GET", "/serve")
+    finally:
+        server.shutdown()
+    stats = listing["stats"]["models"]["mnist-cnn"]
+    preds, ok = [], status == 200 and k5 == 1
+    for xr, (st, b) in zip(reqs, answers):
+        p = np.asarray(b.get("predictions", []), np.float32)
+        ok &= st == 200 and p.shape == (len(xr), 10) and bool(
+            np.isfinite(p).all())
+        preds.append(p)
+    picks = [(0, 0), (5, len(reqs[5]) - 1), (11, 0)]
+    ref = load_artifact(artifact, device="cpu").predict(
+        np.stack([reqs[i][r] for i, r in picks]))
+    err = float(np.abs(np.stack([preds[i][r] for i, r in picks])
+                       - ref).max())
+    rows = sum(len(xr) for xr in reqs)
+    lat = sorted(b.get("latencyMs", 0.0) for _, b in answers)
+    phase("vision slice", ok and err <= CPU_ATOL,
+          f"POST /serve/mnist-cnn/load -> {status} in {load_s:.2f}s (K5 "
+          f"launches {k5}, expected 1); {len(reqs)} concurrent predicts, "
+          f"{rows} images: statuses {sorted({st for st, _ in answers})}, "
+          f"shapes (rows, 10), finite; {stats['batches']} dispatches, "
+          f"buckets {stats['bucketHistogram']}, wall {wall_s:.3f}s; rows "
+          f"{picks} vs the CPU: max|dlogit| {err:.3g} (atol {CPU_ATOL})")
+    return {"requests": len(reqs), "rows": rows, "wall_s": wall_s,
+            "rows_per_s": rows / wall_s, "load_s": load_s,
+            "dispatches": stats["batches"],
+            "buckets": stats["bucketHistogram"],
+            "latency_ms_p50": lat[len(lat) // 2], "latency_ms_max": lat[-1],
+            "cpu_max_abs_err": err, "k5_launches": k5}
 
 
 def time_kernels(flash_inputs, quant_mats, est) -> dict:
@@ -1179,6 +1306,230 @@ def profile_forward(est) -> dict:
         **{f"{k}_ms": v for k, v in families.items()},
         "top": [[name[:60], ms] for name, ms in top],
     }
+
+
+# -- phase 7: the vision zoo and the LSTM (BASELINE configs 2, 3, 5) --------
+
+# The JAX package's bench shapes (bench.py FULL_SUITE): MNIST-shaped
+# (16384, 28, 28, 1) at batch 1024; ResNet-50 at (512, 224, 224, 3), batch
+# 64, 1000 classes.  The LSTM at the Keras IMDb LSTM example's shape
+# (max_features 20000, maxlen 80, batch 32: LSTMClassifier's defaults).
+ZOO = {
+    "vision": dict(rows=16384, batch=1024, epochs=4, cpu_rows=16),
+    "resnet50": dict(rows=512, batch=64, epochs=2, cpu_rows=8),
+    "lstm": dict(rows=2048, batch=32, epochs=3, cpu_rows=32),
+}
+LSTM_T = 80
+ZOO_FAMILIES = {  # by kernel name, first match wins
+    "conv": ("fprop", "dgrad", "wgrad", "conv", "implicit", "winograd"),
+    "layout": ("nchwtonhwc", "nhwctonchw"),
+    "lstm": ("lstm", "rnn"),
+    "gemm": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
+    "norm": ("norm", "moments", "fusedparams", "internalgradients",
+             "gammabeta"),
+    "pool": ("pool",),
+    "optimizer": ("multi_tensor_apply", "adam"),
+}
+N_VISION_REQUESTS = 24
+
+
+def make_zoo_data(kind: str):
+    """Seeded inputs: MNIST-shaped images with a class-coded bright band
+    (learnable), ResNet-50 images with random labels, and token rows of
+    T=80 with seeded pad tails and one all-pad row (label: the first
+    token's parity)."""
+    rng = np.random.default_rng({"vision": 11, "resnet50": 12,
+                                 "lstm": 13}[kind])
+    n = ZOO[kind]["rows"]
+    if kind == "vision":
+        y = rng.integers(0, 10, n).astype(np.int32)
+        x = rng.random((n, 28, 28, 1), dtype=np.float32) * 0.5
+        for c in range(10):
+            x[y == c, 2 * c + 3:2 * c + 6] += 0.5
+        return x, y
+    if kind == "resnet50":
+        x = rng.standard_normal((n, 224, 224, 3), dtype=np.float32)
+        return x, rng.integers(0, 1000, n).astype(np.int32)
+    x = rng.integers(1, 20000, (n, LSTM_T)).astype(np.int32)
+    for r, keep in enumerate(rng.integers(8, LSTM_T + 1, n)):
+        x[r, keep:] = 0
+    x[3] = 0
+    return x, (x[:, 0] % 2).astype(np.int32)
+
+
+def build_zoo(kind: str):
+    from learningorchestra_tpu_torch.models.text import LSTMClassifier
+    from learningorchestra_tpu_torch.models.vision import MnistCNN, ResNet50
+
+    cls = {"vision": MnistCNN, "resnet50": ResNet50,
+           "lstm": LSTMClassifier}[kind]
+    return cls(seed=0, device="cuda")
+
+
+def run_zoo(kind: str) -> dict:
+    """One model of the zoo through the entry points a user calls: built
+    at its first input, one f32 batch on the card against the CPU, then
+    ``fit`` (bf16 on f32 masters for the CNNs, f32 for the LSTM) with a
+    CUDA event at every epoch's end; steady samples/s over epochs 2..N."""
+    cfg = ZOO[kind]
+    x, y = make_zoo_data(kind)
+    est = build_zoo(kind)
+    t0 = time.perf_counter()
+    est._init_params(x[:1])
+    build_s = time.perf_counter() - t0
+    k = cfg["cpu_rows"]
+    what = f"{type(est).__name__}, {k} rows of {x.shape[1:]}"
+    if kind == "resnet50":
+        # 50 ReLU layers: f32 rounding alone flips a few of ResNet-50's
+        # millions of ReLU decisions (a CPU f32 pass against a CPU f64
+        # pass: 1-8 per block output, 154 of 161 gradients off the bar by
+        # up to 2.8 %), and a flipped decision moves its gradient element
+        # by its whole value.  So the card is held to the CPU in f64 at
+        # the same bars; the f32 numbers are reported beside them.
+        f32 = step_vs_cpu(est, x[:k], y[:k], f"{kind} f32 step vs CPU",
+                          what + " f32", gate=False)
+        grad = step_vs_cpu(est, x[:k], y[:k], f"{kind} step vs CPU plain "
+                           "path", what + " f64", dtype=torch.float64)
+        grad["f32"] = f32
+    else:
+        grad = step_vs_cpu(est, x[:k], y[:k],
+                           f"{kind} step vs CPU plain path", what + " f32")
+    before = [p.detach().clone() for p in est.module.parameters()]
+    marks = []
+
+    def mark_epoch(epoch, metrics, model):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    t0 = time.perf_counter()
+    est.fit(x, y, epochs=cfg["epochs"], batch_size=cfg["batch"],
+            callbacks=[mark_epoch])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    per_epoch = -(-cfg["rows"] // cfg["batch"])
+    steady_ms = marks[0].elapsed_time(marks[-1])
+    steady_steps = (cfg["epochs"] - 1) * per_epoch
+    losses = est.history["loss"]
+    moved = sum(1 for p, p0 in zip(est.module.parameters(), before)
+                if not torch.equal(p.detach(), p0))
+    finite = all(math.isfinite(v) for v in losses)
+    res = {
+        "model": type(est).__name__, "compute_dtype": est.compute_dtype,
+        "rows": cfg["rows"], "batch": cfg["batch"], "epochs": cfg["epochs"],
+        "steps_per_epoch": per_epoch,
+        "samples_per_s": (cfg["epochs"] - 1) * cfg["rows"]
+        / (steady_ms / 1e3),
+        "step_ms": steady_ms / steady_steps, "fit_s": fit_s,
+        "build_s": build_s, "losses": losses,
+        "accuracy": est.history["accuracy"],
+        "epoch_time": est.history["epoch_time"],
+        "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **grad,
+    }
+    phase(f"{kind} train", finite and moved == len(before),
+          f"{res['model']} {est.compute_dtype} compute, {cfg['rows']} rows "
+          f"of {x.shape[1:]}, batch {cfg['batch']}, {cfg['epochs']} epochs "
+          f"x {per_epoch} steps: loss {losses}, accuracy {res['accuracy']}; "
+          f"{moved}/{len(before)} parameters moved; steady "
+          f"{res['samples_per_s']:.0f} samples/s, {res['step_ms']:.3f} ms "
+          f"a step (epochs 2-{cfg['epochs']}, CUDA events); fit "
+          f"{fit_s:.2f}s")
+    try:
+        res["profile"] = profile_step(est, x[:cfg["batch"]],
+                                      y[:cfg["batch"]], ZOO_FAMILIES)
+    except Exception as exc:  # noqa: BLE001 — where CUPTI tracing is
+        # unavailable this breakdown is reported as not measured.
+        res["profile"] = {"not_measured": repr(exc)}
+    return {"est": est, "x": x, "y": y, "result": res}
+
+
+def zoo_artifacts(zoo: dict) -> dict:
+    """Each trained model saved with ``to_artifact(quantize=True)`` (K4:
+    one grouped launch a save) and loaded back on the card (K5: one a
+    load), counters at 0 just before each and read just after; every
+    leaf's bits against the plain K4 and K5 on the card, its (rows, d)
+    and the row class its grouped launch gave it; predictions of the
+    loaded artifact against the same artifact on the CPU."""
+    from learningorchestra_tpu_torch.ops import quant
+    from learningorchestra_tpu_torch.ops.quant import QuantizedLeaf
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    classes = {quant.SUBWARP: "SUBWARP", quant.WARP: "WARP",
+               quant.BLOCK: "BLOCK", quant.GENERAL: "GENERAL"}
+    out = {"launches": {"quantize_rowwise": 0, "dequantize_rowwise": 0},
+           "max_abs_err": {"quantize": 0.0, "dequantize": 0.0}}
+    for kind, run in zoo.items():
+        est = run["est"]
+        quant.quantize_launches = quant.quantize_leaves = 0
+        t0 = time.perf_counter()
+        art = est.to_artifact(quantize=True)
+        save_s = time.perf_counter() - t0
+        q = (quant.quantize_launches, quant.quantize_leaves)
+        quant.dequantize_launches = quant.dequantize_leaves = 0
+        t0 = time.perf_counter()
+        loaded = load_artifact(art, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        d = (quant.dequantize_launches, quant.dequantize_leaves)
+        out["launches"]["quantize_rowwise"] += q[0]
+        out["launches"]["dequantize_rowwise"] += d[0]
+
+        leaves = [("/".join(path), leaf)
+                  for path, leaf in _flat(art["state"]["params"])
+                  if isinstance(leaf, QuantizedLeaf)]
+        shapes = [leaf.values.shape for _, leaf in leaves]
+        plan = quant.plan_group(shapes, "quantize")
+        live = dict(_flat(convert_tree(est)))
+        back = dict(_flat(convert_tree(loaded)))
+        bad = []
+        for (name, leaf), shape in zip(leaves, shapes):
+            key = tuple(name.split("/"))
+            x = live[key].detach().float().reshape(shape).contiguous()
+            v_ref, s_ref = quant.quantize_rowwise_plain(x)
+            v = torch.from_numpy(leaf.values).cuda()
+            s = torch.from_numpy(leaf.scales).cuda()
+            out["max_abs_err"]["quantize"] = max(
+                out["max_abs_err"]["quantize"], max_abs(v, v_ref),
+                max_abs(s, s_ref))
+            deq_ref = quant.dequantize_rowwise_plain(v, s)
+            deq = back[key].detach().float().reshape(deq_ref.shape)
+            out["max_abs_err"]["dequantize"] = max(
+                out["max_abs_err"]["dequantize"], max_abs(deq, deq_ref))
+            if not (torch.equal(v, v_ref) and torch.equal(s, s_ref)
+                    and torch.equal(deq, deq_ref)):
+                bad.append(name)
+        want = -(-len(leaves) // quant.MAX_LEAVES)
+        rows = np.arange(0, len(run["x"]), max(1, len(run["x"]) // 6))[:6]
+        xs = run["x"][rows]
+        got = loaded.predict(xs)
+        t0 = time.perf_counter()
+        ref = load_artifact(art, device="cpu").predict(xs)
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(got - ref).max())
+        table = [[name, list(shape), classes[lp.cls]]
+                 for (name, _), shape, lp in zip(leaves, shapes,
+                                                  plan.leaves)]
+        out[kind] = {"leaves": table, "save_s": save_s, "load_s": load_s,
+                     "k4": q, "k5": d, "cpu_max_abs_err": err,
+                     "bit_mismatches": bad}
+        phase(f"{kind} artifact", not bad and q == d == (want, len(leaves))
+              and err <= CPU_ATOL,
+              f"{type(est).__name__}: {len(leaves)} int8 leaves, K4 "
+              f"(launches, leaves) {q}, K5 {d}, expected ({want}, "
+              f"{len(leaves)}); bits vs plain K4/K5 on the card: mismatches "
+              f"{bad[:4]}; save {save_s:.3f}s load {load_s:.3f}s; "
+              f"predict rows {rows.tolist()} vs the CPU: max|d| {err:.3g} "
+              f"(atol {CPU_ATOL}, CPU {cpu_s:.1f}s)")
+        print(f"  {kind} leaves (rows, d) and K4 row class: "
+              + json.dumps(table), flush=True)
+    return out
+
+
+def convert_tree(est):
+    from learningorchestra_tpu_torch import convert
+
+    return convert.flax_tree(est.module)
 
 
 def main() -> int:
@@ -1277,6 +1628,29 @@ def main() -> int:
 
     timing = time_kernels(flash_inputs, quant_res["mats"], est)
     bwd_times = time_bwd(attention, bwd_res)
+
+    # The zoo's paths, after BERT's: each model trained on the card, then
+    # saved as an int8 artifact (K4) and loaded back (K5); MnistCNN served.
+    zoo, t_zoo = {}, time.perf_counter()
+    for kind in ZOO:
+        try:
+            zoo[kind] = run_zoo(kind)
+        except Exception as exc:  # noqa: BLE001 — the other models still
+            # run; the failed phase fails the script.
+            phase(f"{kind} train", False, repr(exc))
+    zoo_art = {"launches": {"quantize_rowwise": 0, "dequantize_rowwise": 0},
+               "max_abs_err": {"quantize": 0.0, "dequantize": 0.0}}
+    resnet_quant = vision_serve = None
+    if len(zoo) == len(ZOO):
+        zoo_art = zoo_artifacts(zoo)
+        resnet_quant = time_zoo_quant(zoo["resnet50"]["est"])
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            vision_serve = run_vision_slice(zoo["vision"]["est"],
+                                            zoo["vision"]["x"], tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    zoo_s = time.perf_counter() - t_zoo
     bwd_t = bwd_times["train"]
     fwd = timing["flash"]
     k1_bf16 = bwd_t["k1"]
@@ -1303,19 +1677,31 @@ def main() -> int:
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
          "library_ms": bwd_t["library_fwd_ms"]},
+        # K4/K5 launches: the BERT serving path's plus the zoo's saves
+        # and loads, each path's counters read just after it.
         {"name": "quantize_rowwise", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/quant.cu",
          "replaces": "learningorchestra_tpu/ops/quant.py:29",
-         "launches": counts["quantize_rowwise"],
-         "max_abs_err": quant_res["quantize"],
+         "launches": counts["quantize_rowwise"]
+         + zoo_art["launches"]["quantize_rowwise"],
+         "launches_by_path": {
+             "serve": counts["quantize_rowwise"],
+             "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"]},
+         "max_abs_err": max(quant_res["quantize"],
+                            zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
          "bound_ms": qt["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
         {"name": "dequantize_rowwise", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/quant.cu",
          "replaces": "learningorchestra_tpu/ops/quant.py:56",
-         "launches": counts["dequantize_rowwise"],
-         "max_abs_err": quant_res["dequantize"],
+         "launches": counts["dequantize_rowwise"]
+         + zoo_art["launches"]["dequantize_rowwise"],
+         "launches_by_path": {
+             "serve": counts["dequantize_rowwise"],
+             "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"]},
+         "max_abs_err": max(quant_res["dequantize"],
+                            zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
          "plain_ms": qt["dequantize_plain_ms"], "bound_ms": qt["bound_ms"],
          "bound_by": "bytes", "library_ms": qt["dequantize_library_ms"]},
@@ -1375,6 +1761,15 @@ def main() -> int:
           f"launch; kernel ms are device time (launches queued behind a "
           f"device sleep)", flush=True)
     print("quant_timing " + json.dumps(qt), flush=True)
+    for kind, run in zoo.items():
+        print(f"zoo_train {kind} " + json.dumps(run["result"]), flush=True)
+    print("zoo_artifacts " + json.dumps(
+        {k: v for k, v in zoo_art.items() if k in ZOO or k == "launches"}),
+        flush=True)
+    print("resnet50_quant_timing " + json.dumps(resnet_quant), flush=True)
+    print("vision_serve " + json.dumps(vision_serve), flush=True)
+    print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
+          f"{zoo_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -8,11 +8,18 @@ the carry is a per-leaf layout change:
 
 - ``Dense``/``DenseGeneral`` ``kernel`` (in, *features) <-> ``nn.Linear``
   ``weight`` (prod(features), in); ``bias`` (*features) <-> (prod,);
+  a Dense without a bias (the LSTM cell's input kernels) has no ``bias``;
+- ``Conv`` ``kernel`` HWIO (kh, kw, cin/groups, cout) <-> ``nn.Conv2d``
+  ``weight`` OIHW (cout, cin/groups, kh, kw); a depthwise kernel
+  (kh, kw, 1, C) is (C, 1, kh, kw);
 - ``Embed`` ``embedding`` <-> ``nn.Embedding`` ``weight``;
-- ``LayerNorm`` ``scale``/``bias`` <-> ``nn.LayerNorm`` ``weight``/``bias``.
+- ``LayerNorm``/``GroupNorm`` ``scale``/``bias`` <-> ``weight``/``bias``.
 
 A flax tree is the variables dict ``{"params": {...}}`` whose leaves are
-numpy arrays (or tensors, e.g. a dequantized artifact on the card).
+numpy arrays (or tensors, e.g. a dequantized artifact on the card).  A
+0-d leaf (an optimizer's per-parameter scalar, as novograd's ``nu``)
+keeps its layout both ways.  The port's Dense kernels are at most 3-D,
+so a 4-D ``kernel`` is a conv's.
 """
 
 from __future__ import annotations
@@ -41,7 +48,11 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
                 walk(val, f"{prefix}{key}.")
                 continue
             t = _tensor(val)
-            if key == "kernel":
+            if t.dim() == 0:
+                out[prefix + ("bias" if key == "bias" else "weight")] = t
+            elif key == "kernel" and t.dim() == 4:
+                out[prefix + "weight"] = t.permute(3, 2, 0, 1).contiguous()
+            elif key == "kernel":
                 out[prefix + "weight"] = t.reshape(t.shape[0], -1).T \
                     .contiguous()
             elif key == "bias":
@@ -62,22 +73,27 @@ def flax_tree(module: nn.Module, pick=None) -> dict:
     laid out the same way."""
     pick = pick or (lambda p: p)
 
-    def leaf(p):
-        return pick(p).detach()
+    def leaf(p, layout=lambda t: t):
+        t = pick(p).detach()
+        return t if t.dim() == 0 else layout(t)
 
     root: dict = {}
     for name, mod in module.named_modules():
         if isinstance(mod, nn.Linear):
             features = getattr(mod, "features", (mod.out_features,))
-            leaves = {
-                "kernel": leaf(mod.weight).T.reshape(
-                    mod.in_features, *features
-                ),
-                "bias": leaf(mod.bias).reshape(features),
-            }
+            leaves = {"kernel": leaf(mod.weight, lambda t: t.T.reshape(
+                mod.in_features, *features))}
+            if mod.bias is not None:
+                leaves["bias"] = leaf(mod.bias,
+                                      lambda t: t.reshape(features))
+        elif isinstance(mod, nn.Conv2d):
+            leaves = {"kernel": leaf(mod.weight,
+                                     lambda t: t.permute(2, 3, 1, 0))}
+            if mod.bias is not None:
+                leaves["bias"] = leaf(mod.bias)
         elif isinstance(mod, nn.Embedding):
             leaves = {"embedding": leaf(mod.weight)}
-        elif isinstance(mod, nn.LayerNorm):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             leaves = {"scale": leaf(mod.weight), "bias": leaf(mod.bias)}
         elif next(mod.parameters(recurse=False), None) is not None:
             raise TypeError(

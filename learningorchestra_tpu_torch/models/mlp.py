@@ -13,62 +13,47 @@ from typing import Sequence
 
 import numpy as np
 import torch
-from torch import nn
 
 from learningorchestra_tpu_torch.ops.layers import Dense
 from learningorchestra_tpu_torch.toolkit.registry import register
 from learningorchestra_tpu_torch.train.neural import (
-    NeuralEstimator,
-    init_params,
+    SizedEstimator,
+    SizedModule,
 )
 
 _MODULE = __name__
 
 
-class _MLP(nn.Module):
+class _MLP(SizedModule):
     def __init__(self, features: tuple, out_dim: int):
         super().__init__()
         self.features = tuple(features)
         self.out_dim = out_dim
-        self.in_features = None
 
     def build(self, in_features: int) -> None:
-        widths = (in_features, *self.features, self.out_dim)
+        widths = (int(in_features), *self.features, self.out_dim)
         for i in range(len(widths) - 1):
             setattr(self, f"Dense_{i}", Dense(widths[i], widths[i + 1]))
-        self.in_features = in_features
+        self.built = True
+
+    @staticmethod
+    def dims_of_input(x0) -> dict:
+        return {"in_features": np.prod(x0.shape[1:])}
+
+    @staticmethod
+    def dims_of_tree(params: dict) -> dict:
+        return {"in_features": params["Dense_0"]["kernel"].shape[0]}
 
     def forward(self, x):
-        if self.in_features is None:
-            raise RuntimeError(
-                "the MLP is sized by its first input: fit() or load a "
-                "state first"
-            )
+        self._check_built()
         x = x.reshape(x.shape[0], -1)
         for i in range(len(self.features)):
             x = torch.relu(getattr(self, f"Dense_{i}")(x))
         return getattr(self, f"Dense_{len(self.features)}")(x)
 
 
-class _MLPEstimator(NeuralEstimator):
-    def _build(self, in_features: int) -> None:
-        self.module.build(int(in_features))
-        init_params(self.module, self.seed)
-        self.module.to(self.device)
-
-    def _init_params(self, x0: np.ndarray) -> None:
-        if self.module.in_features is None:
-            self._build(np.prod(x0.shape[1:]))
-
-    def load_state_dict(self, state: dict) -> None:
-        if self.module.in_features is None:
-            self._build(state["params"]["params"]["Dense_0"]["kernel"]
-                        .shape[0])
-        super().load_state_dict(state)
-
-
 @register(_MODULE)
-class MLPClassifier(_MLPEstimator):
+class MLPClassifier(SizedEstimator):
     def __init__(
         self,
         hidden_layer_sizes: Sequence[int] = (128, 64),
@@ -89,7 +74,7 @@ class MLPClassifier(_MLPEstimator):
 
 
 @register(_MODULE)
-class MLPRegressor(_MLPEstimator):
+class MLPRegressor(SizedEstimator):
     def __init__(
         self,
         hidden_layer_sizes: Sequence[int] = (128, 64),

@@ -1,13 +1,15 @@
 """Text models — port of ``learningorchestra_tpu/models/text.py``: the
+LSTM sentiment classifier (``LSTMClassifier``, BASELINE config 3), the
 BERT encoder, its classifier head and the estimators over them
 (``BertModel``, BASELINE config 4; ``TransformerClassifier``).
 
 Parity with the flax modules: ``LayerNorm`` eps 1e-6, ``gelu`` in its
 tanh form, pre-LN blocks, learned positions, pad id 0 masking keys, the
-[CLS] head pooling position 0.  Submodules carry the flax tree's names
-(``Embed_0``, ``TransformerBlock_3``, ``Dense_1``...), which is what
-``convert.py`` maps by.  ``LSTMClassifier`` and ``DecoderLM`` come with
-later slices.
+[CLS] head pooling position 0; the LSTM runs over every position, pad
+tokens included, then mean-pools the non-pad ones.  Submodules carry the
+flax tree's names (``Embed_0``, ``TransformerBlock_3``,
+``OptimizedLSTMCell_0.hf``, ``Dense_1``...), which is what ``convert.py``
+maps by.  ``DecoderLM`` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -17,12 +19,128 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from learningorchestra_tpu_torch.ops.layers import Dense, MultiHeadSelfAttention
+from learningorchestra_tpu_torch.ops.layers import (
+    Dense,
+    MultiHeadSelfAttention,
+    remat_block,
+)
 from learningorchestra_tpu_torch.toolkit.registry import register
 from learningorchestra_tpu_torch.train.neural import NeuralEstimator
 
 _MODULE = __name__
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's default
+
+
+_GATES = ("i", "f", "g", "o")  # torch's packed order; flax names them so
+
+
+class OptimizedLSTMCell(nn.Module):
+    """flax ``nn.OptimizedLSTMCell`` with its per-gate leaves as they are
+    in the flax tree: input kernels ``ii``/``if``/``ig``/``io`` (no bias)
+    and hidden kernels ``hi``/``hf``/``hg``/``ho`` with one bias each.
+
+    Each gate is its own parameter, so per-leaf optimizer statistics
+    (lamb's trust ratio, novograd's ``nu``) see flax's leaves, and there is
+    one trainable bias per gate (``nn.LSTM`` trains two, ``bias_ih`` and
+    ``bias_hh``, which double the bias's step).  :meth:`run` packs the
+    gates in torch's order (i, f, g, o) into one flat buffer each call and
+    runs the fused LSTM (cuDNN on the card) with a zero ``bias_hh``."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        for gate in _GATES:
+            setattr(self, f"i{gate}", Dense(in_features, hidden, bias=False))
+        for gate in _GATES:
+            setattr(self, f"h{gate}", Dense(hidden, hidden,
+                                            init="orthogonal"))
+
+    def run(self, x):
+        """(B, T, E) -> every position's hidden state (B, T, H), from a
+        zero carry."""
+        h = self.hidden
+        parts = [getattr(self, f"i{g}").weight for g in _GATES] + \
+            [getattr(self, f"h{g}").weight for g in _GATES] + \
+            [getattr(self, f"h{g}").bias for g in _GATES]
+        parts.append(parts[-1].new_zeros(4 * h))  # bias_hh
+        # One contiguous buffer in cuDNN's order [w_ih | w_hh | b_ih |
+        # b_hh]: cuDNN takes it as its weight buffer as it is (separate
+        # tensors would be repacked each call, with a warning).
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        n_ih, n_hh = 4 * h * x.shape[-1], 4 * h * h
+        weights = [flat[:n_ih].view(4 * h, -1),
+                   flat[n_ih:n_ih + n_hh].view(4 * h, h),
+                   flat[n_ih + n_hh:n_ih + n_hh + 4 * h],
+                   flat[n_ih + n_hh + 4 * h:]]
+        zeros = x.new_zeros(1, x.shape[0], h)
+        out, _, _ = torch.lstm(x, (zeros, zeros), weights, True, 1, 0.0,
+                               self.training, False, True)
+        return out
+
+
+class _LSTMClassifier(nn.Module):
+    def __init__(self, vocab_size: int, embed_dim: int, hidden_dim: int,
+                 num_classes: int):
+        super().__init__()
+        self.Embed_0 = nn.Embedding(vocab_size, embed_dim)
+        self.OptimizedLSTMCell_0 = OptimizedLSTMCell(embed_dim, hidden_dim)
+        self.Dense_0 = Dense(hidden_dim, num_classes)
+
+    def forward(self, tokens):
+        tokens = tokens.to(torch.int64)
+        x = self.OptimizedLSTMCell_0.run(self.Embed_0(tokens))  # (B, T, H)
+        # Mean-pool over non-pad positions (pad id 0).
+        mask = (tokens != 0).to(x.dtype)[..., None]
+        pooled = (x * mask).sum(1) / torch.clamp_min(mask.sum(1), 1.0)
+        return self.Dense_0(pooled)
+
+
+def _check_tokens(x: np.ndarray, vocab_size: int, max_len=None) -> None:
+    """A 2-D integer token matrix with ids in [0, vocab_size) (checked on
+    the host: a bad index on the card would fault the device)."""
+    if x.ndim != 2 or not np.issubdtype(x.dtype, np.integer):
+        raise ValueError(
+            f"expected a 2-D integer token matrix, got {x.dtype} {x.shape}"
+        )
+    if max_len is not None and not 1 <= x.shape[1] <= max_len:
+        raise ValueError(f"sequence length {x.shape[1]} outside 1..{max_len}")
+    if x.size and (x.min() < 0 or x.max() >= vocab_size):
+        raise ValueError(f"token ids must lie in [0, {vocab_size})")
+
+
+@register(_MODULE)
+class LSTMClassifier(NeuralEstimator):
+    """Embedding + LSTM + masked mean pool + Dense (IMDb sentiment,
+    BASELINE config 3).  The defaults are the Keras IMDb LSTM example's
+    (``max_features=20000``, ``Embedding(20000, 128)``, ``LSTM(128)``).
+    Trains in f32: bf16 cell-state drift over T steps is the classic
+    failure, so this family opts out of the zoo's mixed precision."""
+
+    def __init__(
+        self,
+        vocab_size: int = 20000,
+        embed_dim: int = 128,
+        hidden_dim: int = 128,
+        num_classes: int = 2,
+        learning_rate: float = 1e-3,
+        seed: int = 0,
+        device="cuda",
+    ):
+        self.vocab_size = vocab_size
+        self.embed_dim = embed_dim
+        self.hidden_dim = hidden_dim
+        self.num_classes = num_classes
+        super().__init__(
+            _LSTMClassifier(vocab_size, embed_dim, hidden_dim, num_classes),
+            loss="softmax_ce",
+            learning_rate=learning_rate,
+            seed=seed,
+            compute_dtype="float32",
+            device=device,
+        )
+
+    def check_input(self, x: np.ndarray) -> None:
+        _check_tokens(x, self.vocab_size)
 
 
 def embed_tokens(tokens, token_table: nn.Embedding,
@@ -67,14 +185,18 @@ class BertEncoder(nn.Module):
 
     def __init__(self, vocab_size: int = 30522, hidden_dim: int = 768,
                  num_layers: int = 12, num_heads: int = 12,
-                 mlp_dim: int = 3072, max_len: int = 512):
+                 mlp_dim: int = 3072, max_len: int = 512,
+                 remat: bool | str = False):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers
         self.Embed_0 = nn.Embedding(vocab_size, hidden_dim)
         self.Embed_1 = nn.Embedding(max_len, hidden_dim)
+        # remat recomputes each block's activations in the backward pass;
+        # the names stay TransformerBlock_i whether it is on or off.
+        block_cls = remat_block(TransformerBlock, remat)
         for i in range(num_layers):
-            setattr(self, f"TransformerBlock_{i}", TransformerBlock(
+            setattr(self, f"TransformerBlock_{i}", block_cls(
                 hidden_dim, num_heads, mlp_dim,
             ))
         self.LayerNorm_0 = nn.LayerNorm(hidden_dim, eps=_LN_EPS)
@@ -109,8 +231,9 @@ class BertModel(NeuralEstimator):
     Defaults are BERT-base (L=12, H=768, A=12) per BASELINE.md config 4,
     fine-tuned at the JAX default learning rate 2e-5; shrink for tests with
     num_layers/hidden_dim kwargs.  Training runs K1 forward and K2/K3
-    backward in every layer on CUDA.  ``remat`` is not ported yet
-    (ROADMAP A.2).
+    backward in every layer on CUDA.  ``remat`` (False | True | "dots")
+    recomputes each block's activations in the backward pass
+    (:func:`~ops.layers.remat_block`), which runs K1 again there.
     """
 
     def __init__(
@@ -124,6 +247,7 @@ class BertModel(NeuralEstimator):
         num_classes: int = 2,
         learning_rate: float = 2e-5,
         seed: int = 0,
+        remat: bool | str = False,
         device="cuda",
     ):
         self.vocab_size = vocab_size
@@ -133,6 +257,7 @@ class BertModel(NeuralEstimator):
         self.mlp_dim = mlp_dim or hidden_dim * 4
         self.max_len = max_len
         self.num_classes = num_classes
+        self.remat = remat
         encoder = BertEncoder(
             vocab_size=vocab_size,
             hidden_dim=hidden_dim,
@@ -140,6 +265,7 @@ class BertModel(NeuralEstimator):
             num_heads=num_heads,
             mlp_dim=self.mlp_dim,
             max_len=max_len,
+            remat=remat,
         )
         super().__init__(
             _BertClassifier(encoder, num_classes), loss="softmax_ce",
@@ -147,19 +273,7 @@ class BertModel(NeuralEstimator):
         )
 
     def check_input(self, x: np.ndarray) -> None:
-        if x.ndim != 2 or not np.issubdtype(x.dtype, np.integer):
-            raise ValueError(
-                f"expected a 2-D integer token matrix, got {x.dtype} "
-                f"{x.shape}"
-            )
-        if not 1 <= x.shape[1] <= self.max_len:
-            raise ValueError(
-                f"sequence length {x.shape[1]} outside 1..{self.max_len}"
-            )
-        if x.size and (x.min() < 0 or x.max() >= self.vocab_size):
-            raise ValueError(
-                f"token ids must lie in [0, {self.vocab_size})"
-            )
+        _check_tokens(x, self.vocab_size, self.max_len)
 
 
 @register(_MODULE)

@@ -20,6 +20,7 @@ _loaded = False
 _MODULES = (
     "learningorchestra_tpu_torch.models.mlp",
     "learningorchestra_tpu_torch.models.text",
+    "learningorchestra_tpu_torch.models.vision",
 )
 
 

@@ -19,8 +19,10 @@ package's policies:
   (seed, epoch), pads the tail by cycling the order (mask 0 rows), runs
   the batches and makes one host transfer of the metrics; epoch metrics
   are the mean of the per-batch metrics;
-- **optimizers** are the optax names with optax's defaults, on
-  ``torch.optim`` (:func:`resolve_optimizer`); learning-rate schedules are
+- **optimizers** are the optax names with optax's defaults
+  (:func:`resolve_optimizer`): adam, adamw, sgd and adagrad on
+  ``torch.optim``; rmsprop, lamb, lion, novograd and radam written after
+  optax's update rules, per parameter (= per flax leaf); schedules are
   plain functions of the update count, optax's convention (step 0 is the
   first update); ``accumulate_steps`` has ``optax.MultiSteps`` semantics.
 
@@ -69,21 +71,27 @@ _log = logging.getLogger("learningorchestra_tpu_torch.train")
 
 
 def init_params(module: nn.Module, seed: int) -> None:
-    """Seeded init in module order: Linear weights N(0, 1/fan_in) (flax's
-    lecun scale), embeddings N(0, 1/features), zero biases, unit norms."""
+    """Seeded init in module order, flax's defaults in distribution:
+    Linear and conv weights N(0, 1/fan_in) (lecun scale; a conv's fan in
+    is kh*kw*cin/groups), an LSTM cell's recurrent kernels orthogonal,
+    embeddings N(0, 1/features), zero biases, unit norm scales."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for mod in module.modules():
-            if isinstance(mod, nn.Linear):
-                mod.weight.copy_(torch.randn(
-                    mod.weight.shape, generator=gen
-                ) / math.sqrt(mod.in_features))
-                mod.bias.zero_()
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                if getattr(mod, "init", "lecun") == "orthogonal":
+                    nn.init.orthogonal_(mod.weight, generator=gen)
+                else:
+                    mod.weight.copy_(torch.randn(
+                        mod.weight.shape, generator=gen
+                    ) / math.sqrt(mod.weight[0].numel()))
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
                 mod.weight.copy_(torch.randn(
                     mod.weight.shape, generator=gen
                 ) / math.sqrt(mod.embedding_dim))
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
@@ -280,6 +288,168 @@ def _adagrad(params, lr, initial_accumulator_value=0.1, eps=1e-7):
     )
 
 
+def _f32(x) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _decay_pow(decay: float, count: int) -> torch.Tensor:
+    """``decay**count`` as optax gets it from XLA: the f32 power of the
+    f32 decay, rounded once (torch's f32 ``pow`` is an ulp off at some
+    counts, and radam's ro magnifies an ulp of it ~2,000 times)."""
+    return _f32(float(_f32(decay)) ** count)
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """optax's ``1 - decay**count``, in f32 as optax computes it (the
+    f64 value differs by 1e-5 relative at decay 0.999)."""
+    return float(1 - _decay_pow(decay, count))
+
+
+class _OptaxStep(torch.optim.Optimizer):
+    """Base of the optimizers written after optax's update rules: each
+    parameter's slots live in its state under optax's field names, and
+    ``step`` counts updates (optax's ``count``) as a float tensor, as
+    ``torch.optim`` keeps it.  ``_update(group, p, g, st, count)``
+    returns the update; the step adds ``-lr * update``."""
+
+    slots: tuple = ()
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if "step" not in st:
+                    st["step"] = torch.tensor(0.0)
+                    for slot in self.slots:
+                        st[slot] = torch.zeros_like(p)
+                st["step"] += 1
+                upd = self._update(group, p, p.grad, st, int(st["step"]))
+                p.add_(upd, alpha=-group["lr"])
+
+
+def _adam_moments(g, st, b1: float, b2: float) -> None:
+    st["mu"].mul_(b1).add_(g, alpha=1 - b1)
+    st["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+
+
+class _Lamb(_OptaxStep):
+    """``optax.lamb``: Adam's direction (eps outside the root) plus
+    ``weight_decay * p``, scaled by the trust ratio ||p|| / ||update|| of
+    each parameter (1 where either norm is 0)."""
+
+    slots = ("mu", "nu")
+
+    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0,
+                 weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      eps_root=eps_root,
+                                      weight_decay=weight_decay))
+
+    def _update(self, group, p, g, st, count):
+        b1, b2 = group["b1"], group["b2"]
+        _adam_moments(g, st, b1, b2)
+        mu_hat = st["mu"] / _bias_correction(b1, count)
+        nu_hat = st["nu"] / _bias_correction(b2, count)
+        upd = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) +
+                        group["eps"])
+        if group["weight_decay"]:
+            upd = upd + group["weight_decay"] * p
+        p_norm = torch.linalg.vector_norm(p)
+        u_norm = torch.linalg.vector_norm(upd)
+        ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                            torch.ones_like(p_norm), p_norm / u_norm)
+        return upd * ratio
+
+
+class _Lion(_OptaxStep):
+    """``optax.lion``: sign((1-b1) g + b1 mu) + weight_decay * p, then
+    mu <- b2 mu + (1-b2) g."""
+
+    slots = ("mu",)
+
+    def __init__(self, params, lr, b1=0.9, b2=0.99, weight_decay=1e-3):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2,
+                                      weight_decay=weight_decay))
+
+    def _update(self, group, p, g, st, count):
+        b1, b2 = group["b1"], group["b2"]
+        mu = st["mu"]
+        upd = torch.sign((1.0 - b1) * g + b1 * mu)
+        mu.mul_(b2).add_(g, alpha=1 - b2)
+        return upd + group["weight_decay"] * p
+
+
+class _Novograd(_OptaxStep):
+    """``optax.novograd``: nu is ONE scalar per parameter, the EMA of
+    ||g||^2 (its first value ||g||^2 itself); mu <- b1 mu + g / (sqrt(nu)
+    + eps) + weight_decay * p (its first value without the b1 mu term).
+    The parameter is the flax leaf, so the LSTM's gates are separate."""
+
+    slots = ("mu",)
+
+    def __init__(self, params, lr, b1=0.9, b2=0.25, eps=1e-6, eps_root=0.0,
+                 weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      eps_root=eps_root,
+                                      weight_decay=weight_decay))
+
+    def _update(self, group, p, g, st, count):
+        sq = torch.linalg.vector_norm(g) ** 2
+        if count == 1:
+            st["nu"] = sq
+        else:
+            st["nu"] = (1 - group["b2"]) * sq + group["b2"] * st["nu"]
+        upd = g / (torch.sqrt(st["nu"] + group["eps_root"]) + group["eps"])
+        if group["weight_decay"]:
+            upd = upd + group["weight_decay"] * p
+        mu = st["mu"]
+        if count == 1:
+            mu.copy_(upd)
+        else:
+            mu.mul_(group["b1"]).add_(upd)
+        return mu
+
+
+class _RAdam(_OptaxStep):
+    """``optax.radam``: Adam's moments; while the variance's tractability
+    ro is below ``threshold`` the update is the bias-corrected mu alone,
+    after that r * mu_hat / (sqrt(nu_hat) + eps).  ro and r are computed
+    in f32 in optax's order: ro cancels two numbers near 2/(1-b2), so its
+    f64 value is a different number."""
+
+    slots = ("mu", "nu")
+
+    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0,
+                 threshold=5.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      eps_root=eps_root,
+                                      threshold=threshold))
+
+    @staticmethod
+    def _rectifier(b2: float, count: int):
+        """(ro, r) of update ``count``, as f32 scalars on the host."""
+        ro_inf = 2.0 / (1.0 - b2) - 1.0
+        b2t = _decay_pow(b2, count)
+        ro = ro_inf - (2 * count) * b2t / (1 - b2t)
+        r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                       / (((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
+        return float(ro), float(r)
+
+    def _update(self, group, p, g, st, count):
+        b1, b2 = group["b1"], group["b2"]
+        _adam_moments(g, st, b1, b2)
+        mu_hat = st["mu"] / _bias_correction(b1, count)
+        ro, r = self._rectifier(b2, count)
+        if ro < group["threshold"]:
+            return mu_hat
+        nu_hat = st["nu"] / _bias_correction(b2, count)
+        return r * mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) +
+                             group["eps"])
+
+
 # name -> (factory, {optax state field: torch state key})
 _OPTIMIZERS = {
     "adam": (_adam, {"mu": "exp_avg", "nu": "exp_avg_sq"}),
@@ -287,8 +457,11 @@ _OPTIMIZERS = {
     "sgd": (_sgd, {"trace": "momentum_buffer"}),
     "rmsprop": (_RMSprop, {"nu": "nu", "trace": "trace"}),
     "adagrad": (_adagrad, {"sum_of_squares": "sum"}),
+    "lamb": (_Lamb, {"mu": "mu", "nu": "nu"}),
+    "lion": (_Lion, {"mu": "mu"}),
+    "novograd": (_Novograd, {"mu": "mu", "nu": "nu"}),
+    "radam": (_RAdam, {"mu": "mu", "nu": "nu"}),
 }
-_NOT_PORTED = ("lamb", "lion", "novograd", "radam")
 
 
 class OptimizerSpec:
@@ -336,15 +509,10 @@ def resolve_optimizer(optimizer, learning_rate=1e-3) -> OptimizerSpec:
         )
     spec = dict(optimizer)
     name = str(spec.pop("name", "") or "").lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to the PyTorch package yet "
-            "(ROADMAP A.1)"
-        )
     if name not in _OPTIMIZERS:
         raise ValueError(
             f"unknown optimizer {name!r}; expected one of "
-            f"{sorted([*_OPTIMIZERS, *_NOT_PORTED])}"
+            f"{sorted(_OPTIMIZERS)}"
         )
     lr = None
     for key in ("learning_rate", "learningRate"):
@@ -957,9 +1125,10 @@ class NeuralEstimator(Estimator):
 
     def _export_opt_state(self):
         """The optimizer state as optax lays it out, numpy leaves in the
-        flax tree shape: ``count`` plus the optimizer's slots (adam:
-        ``mu``/``nu``; sgd: ``trace``; rmsprop: ``nu``; adagrad:
-        ``sum_of_squares``), wrapped as ``MultiStepsState`` fields when
+        flax tree shape: ``count`` plus the optimizer's slots (adam, adamw,
+        lamb, radam: ``mu``/``nu``; sgd: ``trace``; rmsprop: ``nu``;
+        adagrad: ``sum_of_squares``; lion: ``mu``; novograd: ``mu`` and a
+        scalar ``nu`` per leaf), wrapped as ``MultiStepsState`` fields when
         gradients accumulate."""
         opt = self.opt_state
         if opt is None:
@@ -1066,6 +1235,51 @@ class NeuralEstimator(Estimator):
             "classParameters": params,
             "state": self.state_dict(quantize=quantize),
         }
+
+
+class SizedModule(nn.Module):
+    """A module sized by its first input, as flax infers shapes: no
+    parameters until :meth:`build`, whose keyword arguments come from an
+    input (:meth:`dims_of_input`) or from a flax tree made for one
+    (:meth:`dims_of_tree`)."""
+
+    built = False
+
+    def build(self, **dims) -> None:
+        raise NotImplementedError
+
+    @staticmethod
+    def dims_of_input(x0) -> dict:
+        raise NotImplementedError
+
+    @staticmethod
+    def dims_of_tree(params: dict) -> dict:
+        raise NotImplementedError
+
+    def _check_built(self) -> None:
+        if not self.built:
+            raise RuntimeError(
+                f"{type(self).__name__} is sized by its first input: fit() "
+                "or load a state first")
+
+
+class SizedEstimator(NeuralEstimator):
+    """Estimator over a :class:`SizedModule`: built and seeded at the
+    first ``fit`` from the input's shape, or from a loaded state."""
+
+    def _build(self, dims: dict) -> None:
+        self.module.build(**dims)
+        init_params(self.module, self.seed)
+        self.module.to(self.device)
+
+    def _init_params(self, x0: np.ndarray) -> None:
+        if not self.module.built:
+            self._build(self.module.dims_of_input(x0))
+
+    def load_state_dict(self, state: dict) -> None:
+        if not self.module.built:
+            self._build(self.module.dims_of_tree(state["params"]["params"]))
+        super().load_state_dict(state)
 
 
 def load_artifact(doc: dict, *, device="cuda") -> NeuralEstimator:
