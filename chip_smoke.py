@@ -65,7 +65,23 @@ Phases (each prints its own line; any failure exits nonzero):
    and K5 timed over the ResNet-50 artifact's 54 leaves against their
    bytes bound; the MnistCNN artifact served over REST to 24 concurrent
    requests of 1-16 images, checked against the CPU;
-8. last line: {"ok": true, "device": {...}}.
+8. the REST pipeline: the port's ``APIServer`` on the card runs phase 4's
+   fine-tune as named, lineage-tracked async jobs over HTTP — the 250 rows
+   as a CSV (``POST /dataset/csv``, 409 on a duplicate), a projection of
+   the token columns, ``POST /model/tensorflow`` of BERT-base at max_len
+   128 (through the JAX package's module path, an alias), ``POST
+   /train/tensorflow`` (2 epochs, batch 32, ``quantize_checkpoint``:
+   K1/K2/K3 12 per step, K4 once at the int8 publication), evaluate and
+   predict on the train job (K5 once per load, K1 per batch; predictions
+   within 1e-3 of the same artifact on the CPU), ``POST
+   /serve/<train job>/predict``, a failing train job (missing column:
+   ``failed``, the exception in its execution document), the
+   ``checkpoint_dir`` 406 and a bare PATCH re-run (K4 once more); each
+   job's counters at 0 before its request and read after it finished;
+   the ``rest_pipeline`` line (card, power limit, each job's seconds
+   from request to finished and launches, ``fitTime``, the job layer's
+   own seconds, the artifact's save and load seconds);
+9. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -790,6 +806,14 @@ def request(port, verb, path, body=None):
         conn.close()
 
 
+def server_config(tmp):
+    """The port's server config with its store and volumes under ``tmp``
+    (the volumes at ``tmp`` itself, where the phases save artifacts)."""
+    from learningorchestra_tpu_torch.config import Config, StoreConfig
+
+    return Config(store=StoreConfig(root=f"{tmp}/store", volume_root=tmp))
+
+
 def make_requests(vocab: int) -> list[np.ndarray]:
     rng = np.random.default_rng(2024)
     reqs = []
@@ -805,7 +829,6 @@ def make_requests(vocab: int) -> list[np.ndarray]:
 
 def run_slice(est, tmp) -> dict:
     from learningorchestra_tpu_torch.api.server import APIServer
-    from learningorchestra_tpu_torch.config import Config
     from learningorchestra_tpu_torch.ops import attention, quant
     from learningorchestra_tpu_torch.ops.quant import QuantizedLeaf
     from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
@@ -814,7 +837,7 @@ def run_slice(est, tmp) -> dict:
 
     reqs = make_requests(est.vocab_size)
     volumes = VolumeStorage(tmp)
-    cfg = Config(volume_root=tmp)
+    cfg = server_config(tmp)
 
     # Main path: counters at 0 just before, read just after.
     attention.launches = 0
@@ -824,7 +847,7 @@ def run_slice(est, tmp) -> dict:
     artifact = est.to_artifact(quantize=True)
     volumes.save_object(ARTIFACT_TYPE, "bert-base", artifact)
     save_s = time.perf_counter() - t0
-    server = APIServer(cfg, volumes=volumes, device="cuda")
+    server = APIServer(cfg, device="cuda")
     port = server.start_background()
     try:
         t0 = time.perf_counter()
@@ -1201,7 +1224,6 @@ def run_vision_slice(est, x, tmp) -> dict:
     answer 200, (rows, 10), finite, sampled rows against the same
     artifact on the CPU."""
     from learningorchestra_tpu_torch.api.server import APIServer
-    from learningorchestra_tpu_torch.config import Config
     from learningorchestra_tpu_torch.ops import quant
     from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
     from learningorchestra_tpu_torch.store.volumes import VolumeStorage
@@ -1213,8 +1235,7 @@ def run_vision_slice(est, x, tmp) -> dict:
     volumes = VolumeStorage(tmp)
     artifact = est.to_artifact(quantize=True)
     volumes.save_object(ARTIFACT_TYPE, "mnist-cnn", artifact)
-    server = APIServer(Config(volume_root=tmp), volumes=volumes,
-                       device="cuda")
+    server = APIServer(server_config(tmp), device="cuda")
     port = server.start_background()
     try:
         quant.dequantize_launches = 0
@@ -1526,6 +1547,271 @@ def zoo_artifacts(zoo: dict) -> dict:
     return out
 
 
+# -- phase 8: the REST pipeline (named, lineage-tracked async jobs) -----------
+
+# The REST fine-tune runs the training phase's data and shape through the
+# port's APIServer: BERT-base at max_len 128, batch 32, 2 epochs.
+REST_FIELDS = [f"t{i}" for i in range(TRAIN_SHAPE[2])]
+# BERT-base (the class's defaults: L=12, H=768, A=12, vocab 30522).
+REST_MODEL = {"max_len": TRAIN_SHAPE[2], "num_classes": 2,
+              "learning_rate": 2e-5}
+REST_LAYERS = 12
+REST_CPU_ROWS = [3, 0, 1, 2, 4, 5, 6, 7]  # row 3 is all pad
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch counter, read after the card is idle."""
+    from learningorchestra_tpu_torch.ops import attention, quant
+
+    torch.cuda.synchronize()
+    return {"flash_fwd": attention.launches,
+            "flash_bwd_dq": attention.bwd_dq_launches,
+            "flash_bwd_dkv": attention.bwd_dkv_launches,
+            "quantize_rowwise": quant.quantize_launches,
+            "dequantize_rowwise": quant.dequantize_launches}
+
+
+def zero_kernel_counts() -> None:
+    from learningorchestra_tpu_torch.ops import attention, quant
+
+    attention.launches = attention.bwd_dq_launches = 0
+    attention.bwd_dkv_launches = 0
+    quant.quantize_launches = quant.quantize_leaves = 0
+    quant.dequantize_launches = quant.dequantize_leaves = 0
+
+
+def rest_job(port, verb, path, body, name):
+    """One job through the routes a user calls: the POST (or PATCH), then
+    the long poll until it finishes or fails, with the counters at 0
+    just before and read just after.  -> (status, metadata, seconds from
+    the request to the finished state, launches)."""
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    status, created = request(port, verb, path, body)
+    meta = created.get("metadata", created)
+    while status in (200, 201) and not (
+            meta.get("finished") or meta.get("jobState") == "failed"):
+        _, polled = request(port, "GET", f"/observe/{name}?timeout=60")
+        meta = polled["metadata"]
+    return status, meta, time.perf_counter() - t0, kernel_counts()
+
+
+def rest_rows(port, path, page=100) -> list:
+    """Every document of an artifact through its paginated GET (the
+    server caps a page at 100, as the JAX server does)."""
+    docs: list = []
+    while True:
+        _, got = request(port, "GET", f"{path}?skip={len(docs)}"
+                                      f"&limit={page}")
+        docs += got
+        if len(got) < page:
+            return docs
+
+
+def run_rest_pipeline(tmp) -> dict:
+    """The slice's REST main path on the card: CSV ingest -> projection ->
+    model -> train (K1/K2/K3 every step, K4 at the int8 publication) ->
+    evaluate and predict (K5 at each load, K1) -> serve, then the failure
+    path and a PATCH re-run; every job sequential."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    x, y = make_train_data(30522)
+    csv = f"{tmp}/tokens.csv"
+    with open(csv, "w") as fh:
+        fh.write(",".join(REST_FIELDS + ["label"]) + "\n")
+        for row, label in zip(x, y):
+            fh.write(",".join(map(str, row)) + f",{label}\n")
+    server = APIServer(server_config(f"{tmp}/volumes"), device="cuda")
+    port = server.start_background()
+    jobs, ok = {}, True
+
+    def run(key, verb, path, body, name, want_state="finished"):
+        nonlocal ok
+        status, meta, secs, counts = rest_job(port, verb, path, body, name)
+        good = status in (200, 201) and meta.get("jobState") == want_state
+        jobs[key] = {"status": status, "jobState": meta.get("jobState"),
+                     "seconds": secs, "launches": counts, "meta": meta}
+        phase(f"rest job {key}", good,
+              f"{verb} {path} -> {status}, jobState {meta.get('jobState')}"
+              f" in {secs:.2f}s; launches {counts}"
+              + ("" if good else f"; metadata {meta}"))
+        ok &= good
+        return meta
+
+    fit_params = {"x": "$tokens_x", "y": "$tokens.label",
+                  "epochs": TRAIN_EPOCHS, "batch_size": TRAIN_SHAPE[0],
+                  "quantize_checkpoint": True}
+    try:
+        meta = run("ingest", "POST", "/dataset/csv",
+                   {"datasetName": "tokens", "url": f"file://{csv}"},
+                   "tokens")
+        dup, _ = request(port, "POST", "/dataset/csv",
+                         {"datasetName": "tokens", "url": f"file://{csv}"})
+        phase("rest ingest rows", meta.get("rows") == TRAIN_ROWS
+              and meta.get("fields") == REST_FIELDS + ["label"]
+              and dup == 409,
+              f"rows {meta.get('rows')} (want {TRAIN_ROWS}), "
+              f"{len(meta.get('fields') or [])} fields, duplicate POST "
+              f"-> {dup} (want 409)")
+        run("projection", "POST", "/transform/projection",
+            {"projectionName": "tokens_x", "datasetName": "tokens",
+             "fields": REST_FIELDS}, "tokens_x")
+        run("model", "POST", "/model/tensorflow",
+            {"modelName": "bert", "class": "BertModel",
+             "modulePath": "learningorchestra_tpu.models.text",
+             "classParameters": REST_MODEL}, "bert")
+        train = run("train", "POST", "/train/tensorflow",
+                    {"name": "bert_fit", "parentName": "bert",
+                     "method": "fit", "methodParameters": fit_params},
+                    "bert_fit")
+        _, rows = request(port, "GET", "/train/tensorflow/bert_fit")
+        history = [r for r in rows if r.get("docType") == "history"]
+        losses = [r.get("loss") for r in history]
+        steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_SHAPE[0])
+        per_step = REST_LAYERS * steps
+        want = {"flash_fwd": per_step, "flash_bwd_dq": per_step,
+                "flash_bwd_dkv": per_step, "quantize_rowwise": 1,
+                "dequantize_rowwise": 0}
+        got = jobs["train"]["launches"]
+        phase("rest train", got == want and len(losses) == TRAIN_EPOCHS
+              and all(isinstance(v, float) and math.isfinite(v)
+                      for v in losses) and losses[0] != losses[-1]
+              and train.get("fitTime", 0) > 0,
+              f"launches {got} (want {want}: {REST_LAYERS} layers x {steps}"
+              " steps, "
+              f"one int8 publication); history losses {losses}; fitTime "
+              f"{train.get('fitTime')}")
+        run("evaluate", "POST", "/evaluate/tensorflow",
+            {"name": "bert_eval", "parentName": "bert_fit",
+             "method": "evaluate",
+             "methodParameters": {"x": "$tokens_x", "y": "$tokens.label"}},
+            "bert_eval")
+        run("predict", "POST", "/predict/tensorflow",
+            {"name": "bert_pred", "parentName": "bert_fit",
+             "method": "predict", "methodParameters": {"x": "$tokens_x"}},
+            "bert_pred")
+        _, ev_rows = request(port, "GET", "/evaluate/tensorflow/bert_eval")
+        pr_rows = rest_rows(port, "/predict/tensorflow/bert_pred")
+        preds = np.asarray([r["result"] for r in pr_rows if "result" in r],
+                           np.float32)
+        eval_batches = -(-TRAIN_ROWS // 128)
+        ev_l, pr_l = (jobs[k]["launches"] for k in ("evaluate", "predict"))
+        phase("rest evaluate/predict launches",
+              ev_l["dequantize_rowwise"] == pr_l["dequantize_rowwise"] == 1
+              and ev_l["flash_fwd"] == REST_LAYERS * eval_batches
+              and pr_l["flash_fwd"] == REST_LAYERS
+              and preds.shape == (TRAIN_ROWS, 2)
+              and bool(np.isfinite(preds).all()),
+              f"evaluate {ev_l} (want K5 1, K1 {REST_LAYERS} x "
+              f"{eval_batches} batches), predict {pr_l} (want K5 1, K1 "
+              f"{REST_LAYERS} x 1 bucket); "
+              f"predictions {preds.shape}; evaluate rows "
+              f"{[r for r in ev_rows[1:] if 'loss' in r]}")
+        # The same artifact on the CPU (plain dequantize, plain attention).
+        artifact = server.ctx.volumes.read_object("train/tensorflow",
+                                                  "bert_fit")
+        t0 = time.perf_counter()
+        ref = load_artifact(artifact, device="cpu").predict(
+            x[REST_CPU_ROWS])
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(preds[REST_CPU_ROWS] - ref).max())
+        phase("rest predict vs CPU plain path", err <= CPU_ATOL,
+              f"rows {REST_CPU_ROWS} (first all-pad): max|dlogit|={err:.3g}"
+              f" atol={CPU_ATOL} (CPU {cpu_s:.1f}s)")
+
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        status, served = request(port, "POST", "/serve/bert_fit/predict",
+                                 {"instances": x[:4].tolist()})
+        serve_s = time.perf_counter() - t0
+        serve_counts = kernel_counts()
+        got = np.asarray(served.get("predictions", []), np.float32)
+        serve_err = float(np.abs(got - preds[:4]).max()) \
+            if got.shape == (4, 2) else float("inf")
+        phase("rest serve", status == 200 and serve_err <= CPU_ATOL
+              and serve_counts["dequantize_rowwise"] == 1,
+              f"POST /serve/bert_fit/predict -> {status} in {serve_s:.2f}s, "
+              f"max|d| vs the predict job {serve_err:.3g}; launches "
+              f"{serve_counts}")
+
+        bad = run("failure", "POST", "/train/tensorflow",
+                  {"name": "bert_bad", "parentName": "bert", "method": "fit",
+                   "methodParameters": {**fit_params,
+                                        "x": "$tokens.nosuch"}},
+                  "bert_bad", want_state="failed")
+        _, bad_rows = request(port, "GET", "/train/tensorflow/bert_bad")
+        recorded = [r.get("exception") for r in bad_rows
+                    if r.get("docType") == "execution"]
+        refused, _ = request(port, "POST", "/train/tensorflow", {
+            "name": "bert_ckpt", "parentName": "bert", "method": "fit",
+            "methodParameters": {**fit_params, "checkpoint_dir": "/tmp/x"}})
+        phase("rest failure path", bool(recorded) and "nosuch" in str(
+            recorded[-1]) and refused == 406,
+              f"missing column -> jobState {bad.get('jobState')}, execution "
+              f"exception {recorded[-1:]}; checkpoint_dir -> {refused} "
+              "(want 406)")
+        rerun = run("rerun", "PATCH", "/train/tensorflow/bert_fit", {},
+                    "bert_fit")
+        got = jobs["rerun"]["launches"]
+        phase("rest PATCH re-run", got == want
+              and rerun.get("fitTime", 0) > 0,
+              f"bare PATCH re-ran the fit from the model: launches {got} "
+              f"(want {want})")
+
+        # The artifacts' saves and loads, timed apart from the jobs (their
+        # launches are not the main path's): the train job's int8 one and
+        # the model job's f32 one, which the train job loads.
+        vols, timed = server.ctx.volumes, {}
+        for kind, quantize in (("train", True), ("model", False)):
+            t0 = time.perf_counter()
+            est = vols.load_estimator(f"{kind}/tensorflow", "bert_fit"
+                                      if kind == "train" else "bert",
+                                      device="cuda")
+            torch.cuda.synchronize()
+            timed[f"{kind}_load_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            vols.save_object(f"{kind}/tensorflow", f"{kind}_resave",
+                             est.to_artifact(quantize=quantize))
+            timed[f"{kind}_save_s"] = time.perf_counter() - t0
+            del est
+    finally:
+        server.shutdown()
+
+    def job_line(key):
+        j = jobs.get(key, {})
+        return {"seconds": j.get("seconds"), "launches": j.get("launches")}
+
+    train_s = jobs.get("train", {}).get("seconds")
+    fit_s = jobs.get("train", {}).get("meta", {}).get("fitTime")
+    launches = {
+        "rest_train": {k: jobs[k]["launches"] for k in ("train", "rerun")
+                       if k in jobs},
+        "rest_evaluate": jobs.get("evaluate", {}).get("launches"),
+        "rest_predict": jobs.get("predict", {}).get("launches"),
+        "rest_serve": serve_counts,
+    }
+    return {
+        "ok": ok,
+        "launches": launches,
+        "line": {
+            "jobs": {k: job_line(k) for k in (
+                "ingest", "projection", "model", "train", "evaluate",
+                "predict", "failure", "rerun")},
+            "train_e2e_s": train_s, "fit_time_s": fit_s,
+            "job_layer_s": train_s - fit_s if train_s and fit_s else None,
+            "rerun_fit_time_s": jobs.get("rerun", {}).get("meta", {}).get(
+                "fitTime"),
+            "artifact_save_s": timed["train_save_s"],
+            "artifact_load_s": timed["train_load_s"],
+            "model_artifact_save_s": timed["model_save_s"],
+            "model_artifact_load_s": timed["model_load_s"],
+            "serve_s": serve_s, "predict_cpu_max_abs_err": err,
+            "serve_max_abs_err": serve_err,
+        },
+    }
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -1651,6 +1937,27 @@ def main() -> int:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     zoo_s = time.perf_counter() - t_zoo
+
+    # The REST pipeline: the same fine-tune as named async jobs.
+    tmp, t_rest = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        rest = run_rest_pipeline(tmp)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("rest pipeline", False, repr(exc))
+        rest = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rest_s = time.perf_counter() - t_rest
+    rest_l = rest["launches"]
+    rest_train = list(rest_l.get("rest_train", {}).values())
+
+    def rest_sum(kernel, paths):
+        return sum(c.get(kernel, 0) for c in paths if c)
+
+    rest_bf16 = rest_train + [rest_l.get("rest_evaluate")]
+    rest_f32 = [rest_l.get("rest_predict"), rest_l.get("rest_serve")]
+    rest_k5 = rest_f32 + [rest_l.get("rest_evaluate")]
     bwd_t = bwd_times["train"]
     fwd = timing["flash"]
     k1_bf16 = bwd_t["k1"]
@@ -1664,7 +1971,10 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
-         "launches": counts["flash_fwd"],
+         "launches": counts["flash_fwd"] + rest_sum("flash_fwd", rest_f32),
+         "launches_by_path": {
+             "serve": counts["flash_fwd"],
+             "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32)},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -1672,7 +1982,11 @@ def main() -> int:
         {"name": "flash_fwd_bf16", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
-         "launches": train_counts["flash_fwd"],
+         "launches": train_counts["flash_fwd"]
+         + rest_sum("flash_fwd", rest_bf16),
+         "launches_by_path": {
+             "train": train_counts["flash_fwd"],
+             "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -1683,10 +1997,12 @@ def main() -> int:
          "source": "learningorchestra_tpu_torch/csrc/quant.cu",
          "replaces": "learningorchestra_tpu/ops/quant.py:29",
          "launches": counts["quantize_rowwise"]
-         + zoo_art["launches"]["quantize_rowwise"],
+         + zoo_art["launches"]["quantize_rowwise"]
+         + rest_sum("quantize_rowwise", rest_train),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
-             "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"]},
+             "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
+             "rest_train": rest_sum("quantize_rowwise", rest_train)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -1696,10 +2012,13 @@ def main() -> int:
          "source": "learningorchestra_tpu_torch/csrc/quant.cu",
          "replaces": "learningorchestra_tpu/ops/quant.py:56",
          "launches": counts["dequantize_rowwise"]
-         + zoo_art["launches"]["dequantize_rowwise"],
+         + zoo_art["launches"]["dequantize_rowwise"]
+         + rest_sum("dequantize_rowwise", rest_k5),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
-             "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"]},
+             "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
+             "rest_evaluate_predict_serve": rest_sum("dequantize_rowwise",
+                                                     rest_k5)},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -1708,7 +2027,11 @@ def main() -> int:
         *({"name": f"flash_bwd_{key}", "route": "cuda",
            "source": "learningorchestra_tpu_torch/csrc/flash_bwd.cu",
            "replaces": f"learningorchestra_tpu/ops/attention.py:{line}",
-           "launches": train_counts[f"flash_bwd_{key}"],
+           "launches": train_counts[f"flash_bwd_{key}"]
+           + rest_sum(f"flash_bwd_{key}", rest_train),
+           "launches_by_path": {
+               "train": train_counts[f"flash_bwd_{key}"],
+               "rest_train": rest_sum(f"flash_bwd_{key}", rest_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -1768,8 +2091,12 @@ def main() -> int:
         flush=True)
     print("resnet50_quant_timing " + json.dumps(resnet_quant), flush=True)
     print("vision_serve " + json.dumps(vision_serve), flush=True)
+    name, _, limit = card.partition(",")
+    print("rest_pipeline " + json.dumps({
+        "card": name.strip(), "power_limit": limit.strip(),
+        **rest["line"]}), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
-          f"{zoo_s:.1f})", flush=True)
+          f"{zoo_s:.1f}, rest pipeline {rest_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -1,20 +1,28 @@
-"""REST API — port of the serve routes of
+"""REST API — port of the pipeline and serving routes of
 ``learningorchestra_tpu/api/server.py``.
 
-A stdlib ``ThreadingHTTPServer`` under the same
-``/api/learningOrchestra/v1`` prefix, carrying the resident-serving
-routes:
+``{verb} /api/learningOrchestra/v1/{service}/{tool}[/{name}]`` over a
+stdlib ``ThreadingHTTPServer`` and a regex route table, with the JAX
+server's request bodies:
 
-- ``POST /serve/<model>/predict``  ``{"instances": [...]}`` → predictions
-- ``POST /serve/<model>/load``     pin the artifact resident
-- ``POST /serve/<model>/unload`` and ``DELETE /serve/<model>``
-- ``GET  /serve``                  resident models + batcher stats
+- ``POST /dataset/csv``, ``POST /transform/projection``,
+  ``POST /model/<tool>``, ``POST /{train,evaluate,predict}/<tool>``:
+  each creates a named artifact whose job runs asynchronously (201 with
+  the artifact's GET URI); ``GET .../<name>`` polls it (metadata first,
+  then rows), ``PATCH`` re-runs it, ``DELETE`` removes it, ``GET
+  .../<tool>`` lists a family;
+- ``GET /observe/<name>``: long poll until the job finishes or fails;
+- ``POST /serve/<model>/predict|load|unload``, ``DELETE
+  /serve/<model>``, ``GET /serve``: resident serving of a train job's
+  artifact;
+- ``GET /health``.
 
-Status codes are the JAX server's: 200; 404 for an unknown model or
-route; 406 for a malformed body or an unservable artifact; 429 with a
-``Retry-After`` header under backpressure; 400 for a body that is not
-JSON.  Models are read from the port's ``VolumeStorage`` (``binaries``
-volume) and run on ``device``.
+Status codes are the JAX server's: 201/200; 409 duplicate name or a job
+still running; 404 unknown artifact, model or route; 406 semantic errors
+(bad body, unknown class, ``checkpoint_dir``); 429 + ``Retry-After``
+under serving backpressure; 400 for a body that is not JSON or a bad
+query parameter.  The client's ``X-Idempotency-Key`` header is accepted
+and ignored (the idempotency ledger is not ported).
 """
 
 from __future__ import annotations
@@ -22,50 +30,292 @@ from __future__ import annotations
 import json
 import re
 import threading
-import traceback
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlparse
+from typing import Callable
+from urllib.parse import parse_qs, urlparse
 
 from learningorchestra_tpu_torch.config import Config
+from learningorchestra_tpu_torch.log import get_logger
 from learningorchestra_tpu_torch.serve.batcher import QueueFull
 from learningorchestra_tpu_torch.serve.registry import ServeError
 from learningorchestra_tpu_torch.serve.service import (
-    NotFoundError,
-    ServingService,
+    NotFoundError as ServeNotFound,
 )
-from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+from learningorchestra_tpu_torch.serve.service import ServingService
+from learningorchestra_tpu_torch.services import (
+    DatasetService,
+    ExecutorService,
+    ModelService,
+    ServiceContext,
+    TransformService,
+)
+from learningorchestra_tpu_torch.services.context import (
+    ConflictError,
+    NotFoundError,
+    ValidationError,
+)
+from learningorchestra_tpu_torch.store.artifacts import DuplicateArtifact
+from learningorchestra_tpu_torch.toolkit.registry import RegistryError
 
-PREFIX = "/api/learningOrchestra/v1"
-_NAME = r"(?P<name>[A-Za-z0-9_.\-]+)"
+PREFIX = Config().api.api_prefix
+TOOL = r"(?P<tool>[A-Za-z0-9_\-]+)"
+NAME = r"(?P<name>[A-Za-z0-9_.\-]+)"
+
+logger = get_logger("api")
 
 
-class ValidationError(Exception):
-    """Malformed request body → 406."""
+class BadRequest(Exception):
+    """Malformed client input -> 400."""
+
+
+class Router:
+    """Regex route table: (verb, pattern) -> handler(match, body, query).
+    First match wins, so specific routes are registered before generic
+    ones where their patterns overlap."""
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix.rstrip("/")
+        self.routes: list[tuple[str, re.Pattern, Callable]] = []
+
+    def add(self, verb: str, pattern: str, handler: Callable) -> None:
+        self.routes.append((verb.upper(), re.compile(
+            "^" + self.prefix + pattern + "/?$"), handler))
+
+    def resolve(self, verb: str, path: str):
+        """-> (handler, match), or (None, "404"|"405")."""
+        matched_path = False
+        for route_verb, pattern, handler in self.routes:
+            m = pattern.match(path)
+            if m:
+                matched_path = True
+                if route_verb == verb:
+                    return handler, m
+        return None, "405" if matched_path else "404"
+
+
+def _int_param(query: dict, key: str, default: int) -> int:
+    try:
+        return int(query.get(key, default))
+    except (TypeError, ValueError):
+        raise BadRequest(f"{key} must be an integer") from None
 
 
 class APIServer:
-    def __init__(self, config: Config | None = None, *,
-                 volumes: VolumeStorage | None = None, device="cuda"):
+    """Service wiring + route table + HTTP plumbing.  ``device``
+    overrides ``config.device`` (the tests pass ``"cpu"``)."""
+
+    def __init__(self, config: Config | None = None,
+                 ctx: ServiceContext | None = None, *, device=None):
         self.config = config or Config.from_env()
-        self.volumes = volumes or VolumeStorage(self.config.volume_root)
+        self.ctx = ctx or ServiceContext(self.config, device=device)
+        self.dataset = DatasetService(self.ctx)
+        self.transform = TransformService(self.ctx)
+        self.model = ModelService(self.ctx)
+        self.executor = ExecutorService(self.ctx)
         self.serving = ServingService(
-            self.volumes, self.config.serve, device=device
+            self.ctx.volumes, self.config.serve, device=self.ctx.device
         )
+        # A PATCHed or deleted train job's resident params reload before
+        # the next predict.
+        self.ctx.add_artifact_change_listener(self.serving.registry.invalidate)
+        self.router = Router(self.config.api.api_prefix)
         self._httpd: ThreadingHTTPServer | None = None
-        self._routes: list[tuple[str, re.Pattern, object]] = []
         self._register_routes()
 
-    # -- routes ---------------------------------------------------------------
+    # -- helpers --------------------------------------------------------------
 
-    def _add(self, verb: str, pattern: str, handler) -> None:
-        self._routes.append(
-            (verb, re.compile("^" + PREFIX + pattern + "/?$"), handler)
+    def _created(self, service_path: str, meta: dict):
+        """201 + the artifact's GET URI."""
+        return 201, {
+            "result": f"{self.config.api.api_prefix}/{service_path}/"
+                      f"{meta['name']}",
+            "name": meta["name"],
+            "metadata": meta,
+        }
+
+    def _page(self, m, body, query):
+        q = query.get("query")
+        try:
+            parsed = json.loads(q) if q else None
+        except json.JSONDecodeError as exc:
+            raise BadRequest(f"bad JSON in 'query': {exc}") from None
+        return 200, self.dataset.read_page(
+            m.group("name"),
+            query=parsed,
+            skip=_int_param(query, "skip", 0),
+            limit=_int_param(query, "limit",
+                             self.config.api.page_limit_default),
         )
 
-    def _register_routes(self) -> None:
-        add = self._add
+    def _list_handler(self, service: str, tool: str | None = None):
+        """Collection GET: a family's metadata docs (``tool=None`` reads
+        the tool from the URL)."""
 
-        def serve_predict(m, body):
+        def handler(m, body, query):
+            t = tool if tool is not None else m.group("tool")
+            return 200, self.dataset.list_metadata(f"{service}/{t}")
+
+        return handler
+
+    def _deleter(self, delete: Callable[[str], None]):
+        def handler(m, body, query):
+            delete(m.group("name"))
+            return 200, {"result": "deleted"}
+
+        return handler
+
+    # -- route table ----------------------------------------------------------
+
+    def _register_routes(self) -> None:
+        add = self.router.add
+
+        add("GET", r"/health", lambda m, b, q: (200, {"status": "ok"}))
+
+        # ---- Dataset ----
+        def dataset_create(m, body, query):
+            kind = m.group("tool")
+            name = body.get("datasetName") or body.get("name")
+            url = body.get("url")
+            if not url:
+                raise ValidationError("missing 'url'")
+            if kind != "csv":
+                raise ValidationError(
+                    f"dataset/{kind} ingest is not ported to the PyTorch "
+                    "package yet; use dataset/csv"
+                )
+            if body.get("shardRows") is not None:
+                raise ValidationError(
+                    "sharded ingest ('shardRows') is not ported to the "
+                    "PyTorch package yet"
+                )
+            return self._created("dataset/csv",
+                                 self.dataset.create_csv(name, url))
+
+        add("POST", rf"/dataset/{TOOL}", dataset_create)
+        add("GET", rf"/dataset/{TOOL}", self._list_handler("dataset"))
+        add("GET", rf"/dataset/{TOOL}/{NAME}", self._page)
+        add("DELETE", rf"/dataset/{TOOL}/{NAME}",
+            self._deleter(self.dataset.delete))
+
+        # ---- Transform: projection ----
+        def projection_create(m, body, query):
+            meta = self.transform.create_projection(
+                body.get("projectionName") or body.get("name"),
+                body.get("datasetName") or body.get("parentName"),
+                body.get("fields") or [],
+            )
+            return self._created("transform/projection", meta)
+
+        def projection_update(m, body, query):
+            name = m.groupdict().get("name") or \
+                body.get("projectionName") or body.get("name")
+            return 200, {"metadata": self.transform.update_projection(
+                name, fields=body.get("fields"))}
+
+        add("POST", r"/transform/projection", projection_create)
+        # The name rides in the body (the reference's form) or the path.
+        add("PATCH", r"/transform/projection", projection_update)
+        add("PATCH", rf"/transform/projection/{NAME}", projection_update)
+        add("GET", r"/transform/projection",
+            self._list_handler("transform", "projection"))
+        add("GET", rf"/transform/projection/{NAME}", self._page)
+        add("DELETE", rf"/transform/projection/{NAME}",
+            self._deleter(self.dataset.delete))
+
+        # ---- Model ----
+        def model_create(m, body, query):
+            tool = m.group("tool")
+            meta = self.model.create(
+                body.get("modelName") or body.get("name"),
+                module_path=body.get("modulePath"),
+                class_name=body.get("class"),
+                class_parameters=body.get("classParameters"),
+                artifact_type=f"model/{tool}",
+                description=body.get("description", ""),
+            )
+            return self._created(f"model/{tool}", meta)
+
+        def model_update(m, body, query):
+            return 200, {"metadata": self.model.update(
+                m.group("name"),
+                class_parameters=body.get("classParameters"),
+                description=body.get("description", ""),
+            )}
+
+        add("POST", rf"/model/{TOOL}", model_create)
+        add("GET", rf"/model/{TOOL}", self._list_handler("model"))
+        add("PATCH", rf"/model/{TOOL}/{NAME}", model_update)
+        add("GET", rf"/model/{TOOL}/{NAME}", self._page)
+        add("DELETE", rf"/model/{TOOL}/{NAME}",
+            self._deleter(self.model.delete))
+
+        # ---- Train / Evaluate / Predict ----
+        def deadline_s(body):
+            """Per-submit job deadline (``deadlineS``): None inherits the
+            engine default, 0 disables."""
+            raw = body.get("deadlineS")
+            if raw is None:
+                return None
+            try:
+                return float(raw)
+            except (TypeError, ValueError):
+                raise ValidationError(
+                    f"deadlineS must be a number, got {raw!r}") from None
+
+        def exec_create(service):
+            def handler(m, body, query):
+                tool = m.group("tool")
+                meta = self.executor.create(
+                    body.get("name"),
+                    parent_name=body.get("parentName")
+                    or body.get("modelName"),
+                    method=body.get("method"),
+                    method_parameters=body.get("methodParameters"),
+                    artifact_type=f"{service}/{tool}",
+                    description=body.get("description", ""),
+                    deadline_s=deadline_s(body),
+                )
+                return self._created(f"{service}/{tool}", meta)
+
+            return handler
+
+        def exec_update(m, body, query):
+            return 200, {"metadata": self.executor.update(
+                m.group("name"),
+                method_parameters=body.get("methodParameters"),
+                description=body.get("description", ""),
+                deadline_s=deadline_s(body),
+            )}
+
+        for service in ("train", "evaluate", "predict"):
+            add("POST", rf"/{service}/{TOOL}", exec_create(service))
+            add("GET", rf"/{service}/{TOOL}", self._list_handler(service))
+            add("PATCH", rf"/{service}/{TOOL}/{NAME}", exec_update)
+            add("GET", rf"/{service}/{TOOL}/{NAME}", self._page)
+            add("DELETE", rf"/{service}/{TOOL}/{NAME}",
+                self._deleter(self.executor.delete))
+
+        # ---- Observe: the long poll the client's wait() loops on ----
+        def observe_wait(m, body, query):
+            name = m.group("name")
+            try:
+                timeout = float(query.get("timeout", 30))
+            except (TypeError, ValueError):
+                raise BadRequest("timeout must be a number") from None
+            self.ctx.require_existing(name)
+            deadline = time.time() + min(timeout, 300)
+            while True:
+                meta = self.ctx.artifacts.metadata.read(name)
+                if (meta.get("finished") or meta.get("jobState") == "failed"
+                        or time.time() >= deadline):
+                    return 200, {"metadata": meta}
+                time.sleep(0.1)
+
+        add("GET", rf"/observe/{NAME}", observe_wait)
+
+        # ---- Serving ----
+        def serve_predict(m, body, query):
             instances = body.get("instances")
             if instances is None:
                 instances = body.get("x")
@@ -73,57 +323,55 @@ class APIServer:
                 raise ValidationError("missing 'instances'")
             return 200, self.serving.predict(m.group("name"), instances)
 
-        def serve_unload(m, body):
+        def serve_unload(m, body, query):
             if not self.serving.unload(m.group("name")):
                 return 404, {
                     "error": f"model {m.group('name')!r} is not loaded"
                 }
             return 200, {"result": "unloaded"}
 
-        add("POST", rf"/serve/{_NAME}/predict", serve_predict)
-        add("POST", rf"/serve/{_NAME}/load", lambda m, b: (
+        add("POST", rf"/serve/{NAME}/predict", serve_predict)
+        add("POST", rf"/serve/{NAME}/load", lambda m, b, q: (
             200, {"result": self.serving.load(m.group("name"))},
         ))
-        add("POST", rf"/serve/{_NAME}/unload", serve_unload)
-        add("DELETE", rf"/serve/{_NAME}", serve_unload)
-        add("GET", r"/serve", lambda m, b: (200, {
+        add("POST", rf"/serve/{NAME}/unload", serve_unload)
+        add("DELETE", rf"/serve/{NAME}", serve_unload)
+        add("GET", r"/serve", lambda m, b, q: (200, {
             "models": self.serving.list_loaded(),
             "stats": self.serving.stats(),
         }))
 
-    def handle(self, verb: str, path: str, body) -> tuple[int, dict]:
-        """Route one request; returns (status, JSON payload)."""
-        matched_path = False
-        for route_verb, pattern, handler in self._routes:
-            m = pattern.match(path)
-            if not m:
-                continue
-            matched_path = True
-            if route_verb == verb:
-                return self._run_handler(handler, m, body)
-        if matched_path:
-            return 405, {"error": f"method {verb} not allowed on {path}"}
-        return 404, {"error": f"no such route: {path}"}
+    # -- dispatch -------------------------------------------------------------
 
-    def _run_handler(self, handler, m, body):
+    def handle(self, verb: str, path: str, body, query: dict | None = None
+               ) -> tuple[int, object]:
+        """Route one request; returns (status, JSON payload)."""
+        handler, m = self.router.resolve(verb, path)
+        if handler is None:
+            if m == "405":
+                return 405, {"error": f"method {verb} not allowed on {path}"}
+            return 404, {"error": f"no such route: {path}"}
         if not isinstance(body, dict):
             return 406, {"error": "request body must be a JSON object"}
         try:
-            return handler(m, body)
-        except NotFoundError as exc:
+            return handler(m, body, query or {})
+        except (DuplicateArtifact, ConflictError) as exc:
+            return 409, {"error": str(exc)}
+        except (NotFoundError, ServeNotFound) as exc:
             return 404, {"error": str(exc)}
-        except (ValidationError, ServeError) as exc:
+        except (ValidationError, RegistryError, ServeError) as exc:
             return 406, {"error": str(exc)}
         except QueueFull as exc:
-            # Backpressure: shed load with an explicit retry budget (the
-            # Retry-After header is attached from 'retryAfter').
+            # Backpressure: shed load with an explicit retry budget.
             return 429, {
                 "error": str(exc),
                 "retryAfter": self.config.serve.retry_after_s,
             }
-        except Exception as exc:  # noqa: BLE001 — a boundary that must
-            # keep serving: report the failure, keep the server up.
-            traceback.print_exc()
+        except BadRequest as exc:
+            return 400, {"error": str(exc)}
+        except Exception as exc:  # noqa: BLE001 — the server must keep
+            # serving: log the traceback, report the failure.
+            logger.exception("unhandled handler error: %r", exc)
             return 500, {"error": repr(exc)}
 
     # -- HTTP plumbing --------------------------------------------------------
@@ -138,6 +386,8 @@ class APIServer:
                 pass
 
             def _run(self, verb: str):
+                parsed = urlparse(self.path)
+                query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
                 body = {}
                 length = int(self.headers.get("Content-Length") or 0)
                 if length:
@@ -147,10 +397,7 @@ class APIServer:
                     except json.JSONDecodeError:
                         self._send(400, {"error": "request body is not JSON"})
                         return
-                status, payload = api.handle(
-                    verb, urlparse(self.path).path, body
-                )
-                self._send(status, payload)
+                self._send(*api.handle(verb, parsed.path, body, query))
 
             def _send(self, status: int, payload):
                 data = json.dumps(payload, default=str).encode()
@@ -170,6 +417,9 @@ class APIServer:
             def do_POST(self):
                 self._run("POST")
 
+            def do_PATCH(self):
+                self._run("PATCH")
+
             def do_DELETE(self):
                 self._run("DELETE")
 
@@ -186,9 +436,11 @@ class APIServer:
         return httpd.server_address[1]
 
     def shutdown(self) -> None:
-        """Stop the accept loop, close the socket, release the models."""
+        """Stop the accept loop, close the socket, release the models,
+        stop the engine and close the store."""
         httpd, self._httpd = self._httpd, None
         if httpd is not None:
             httpd.shutdown()
             httpd.server_close()
         self.serving.close()
+        self.ctx.close()

@@ -1,12 +1,69 @@
-"""Configuration — port of the serving part of
-``learningorchestra_tpu/config.py``: ``ServeConfig`` with the same
-defaults and the same ``LO_TPU_SERVE_*`` environment names, plus the
-volume root the port's API server reads artifacts from."""
+"""Configuration — port of the parts of ``learningorchestra_tpu/config.py``
+the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` and
+``ServeConfig``, with the same fields, defaults and ``LO_TPU_*``
+environment names, plus the ``device`` every entry point runs on.
+
+The default roots are the port's own (``~/.learningorchestra_tpu_torch``),
+so the two packages never share a store by accident; pointing both at
+one root works, since the WAL format is the same.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+from pathlib import Path
+
+
+@dataclasses.dataclass
+class StoreConfig:
+    """Where artifacts live."""
+
+    # Root directory for the document store (collections + WAL files).
+    # Env: LO_TPU_STORE_ROOT.
+    root: str = "~/.learningorchestra_tpu_torch/store"
+    # Root for volume-backed binaries.  Env: LO_TPU_VOLUME_ROOT.
+    volume_root: str = "~/.learningorchestra_tpu_torch/volumes"
+    # fsync appends on every write (durable) vs. rely on OS flush (fast).
+    durable_writes: bool = False
+    # Document-store engine: "auto" | "python" (the same WAL store);
+    # "native" names the JAX package's C++ store, which is not ported.
+    # Env: LO_TPU_STORE_BACKEND.
+    backend: str = "auto"
+
+    def store_path(self) -> Path:
+        return Path(os.path.expanduser(self.root))
+
+    def volume_path(self) -> Path:
+        return Path(os.path.expanduser(self.volume_root))
+
+
+@dataclasses.dataclass
+class APIConfig:
+    """REST front server (the address is ``start_background``'s)."""
+
+    # GET pagination cap.
+    page_limit_max: int = 100
+    page_limit_default: int = 20
+    api_prefix: str = "/api/learningOrchestra/v1"
+
+
+@dataclasses.dataclass
+class JobConfig:
+    """Async job engine sizing."""
+
+    # Env: LO_TPU_MAX_WORKERS.
+    max_workers: int = 8
+    # Weighted-fair dispatch weights per job class (service type);
+    # unlisted classes weigh 1.  Env: LO_TPU_JOB_WEIGHTS='{"train": 2}'.
+    class_weights: dict = dataclasses.field(default_factory=dict)
+    # Default wall-clock deadline per dispatched job; <= 0 disables.
+    # Env: LO_TPU_JOB_DEADLINE_S.
+    deadline_s: float = 0.0
+    # Graceful-shutdown drain budget; <= 0 keeps the unbounded drain.
+    # Env: LO_TPU_JOB_DRAIN_S.
+    shutdown_drain_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -34,28 +91,38 @@ class ServeConfig:
 
 @dataclasses.dataclass
 class Config:
+    store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
+    api: APIConfig = dataclasses.field(default_factory=APIConfig)
+    jobs: JobConfig = dataclasses.field(default_factory=JobConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
-    # Artifact volumes (store/volumes.py).  Env: LO_TPU_VOLUME_ROOT.
-    volume_root: str = "~/.learningorchestra_tpu_torch/volumes"
+    # Where every estimator the services build or load lives.
+    device: str = "cuda"
 
     @staticmethod
     def from_env(env=None) -> "Config":
+        """Build a config from the LO_TPU_* environment variables."""
         env = os.environ if env is None else env
         cfg = Config()
-        if "LO_TPU_VOLUME_ROOT" in env:
-            cfg.volume_root = env["LO_TPU_VOLUME_ROOT"]
-        if "LO_TPU_SERVE_MAX_BATCH" in env:
-            cfg.serve.max_batch = int(env["LO_TPU_SERVE_MAX_BATCH"])
-        if "LO_TPU_SERVE_MAX_QUEUE" in env:
-            cfg.serve.max_queue = int(env["LO_TPU_SERVE_MAX_QUEUE"])
-        if "LO_TPU_SERVE_FLUSH_MS" in env:
-            cfg.serve.flush_ms = float(env["LO_TPU_SERVE_FLUSH_MS"])
-        if "LO_TPU_SERVE_MAX_MODELS" in env:
-            cfg.serve.max_models = int(env["LO_TPU_SERVE_MAX_MODELS"])
-        if "LO_TPU_SERVE_MAX_BYTES" in env:
-            cfg.serve.max_bytes = int(env["LO_TPU_SERVE_MAX_BYTES"])
-        if "LO_TPU_SERVE_RETRY_AFTER" in env:
-            cfg.serve.retry_after_s = float(
-                env["LO_TPU_SERVE_RETRY_AFTER"]
-            )
+        fields = (
+            ("LO_TPU_STORE_ROOT", cfg.store, "root", str),
+            ("LO_TPU_VOLUME_ROOT", cfg.store, "volume_root", str),
+            ("LO_TPU_STORE_BACKEND", cfg.store, "backend", str),
+            ("LO_TPU_MAX_WORKERS", cfg.jobs, "max_workers", int),
+            ("LO_TPU_JOB_DEADLINE_S", cfg.jobs, "deadline_s", float),
+            ("LO_TPU_JOB_DRAIN_S", cfg.jobs, "shutdown_drain_s", float),
+            ("LO_TPU_SERVE_MAX_BATCH", cfg.serve, "max_batch", int),
+            ("LO_TPU_SERVE_MAX_QUEUE", cfg.serve, "max_queue", int),
+            ("LO_TPU_SERVE_FLUSH_MS", cfg.serve, "flush_ms", float),
+            ("LO_TPU_SERVE_MAX_MODELS", cfg.serve, "max_models", int),
+            ("LO_TPU_SERVE_MAX_BYTES", cfg.serve, "max_bytes", int),
+            ("LO_TPU_SERVE_RETRY_AFTER", cfg.serve, "retry_after_s", float),
+        )
+        for key, section, attr, cast in fields:
+            if key in env:
+                setattr(section, attr, cast(env[key]))
+        if "LO_TPU_JOB_WEIGHTS" in env:
+            cfg.jobs.class_weights = {
+                str(k): int(v)
+                for k, v in json.loads(env["LO_TPU_JOB_WEIGHTS"]).items()
+            }
         return cfg

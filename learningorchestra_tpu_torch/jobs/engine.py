@@ -1,0 +1,503 @@
+"""The async job engine — port of the core of
+``learningorchestra_tpu/jobs/engine.py``.
+
+Every pipeline step runs as a job on a worker thread and signals
+completion through its artifact's metadata document, the durable contract
+clients poll:
+
+- explicit states (pending -> running -> finished | failed | cancelled)
+  persisted as ``jobState`` beside the ``finished`` flag, and an
+  execution document per run (parameters, exception, captured stdout);
+- a process-local registry of live jobs, so ``wait`` / ``cancel`` /
+  ``state`` work without polling the store;
+- weighted-fair dispatch across job classes (service types): submissions
+  queue per class and freed workers go to classes by weighted
+  round-robin, so one service's burst cannot starve another's job;
+- a deadline watchdog that fails an overdue job, reclaims its worker and
+  device leases and flips its cancel token, and a bounded shutdown.
+
+The JAX engine's optional hooks (journal, cluster claims, tenant
+admission, flight recorder, metrics, tracing, warm-key preference) are
+``None``-able there and absent here: the port behaves as that engine does
+with each of them off.  Its preemption retries are absent too: nothing in
+the port preempts a job until the fault plane and the cluster are ported.
+"""
+
+from __future__ import annotations
+
+import io
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future, InvalidStateError
+from typing import Any, Callable
+
+from learningorchestra_tpu_torch.jobs import cancel as jobs_cancel
+from learningorchestra_tpu_torch.jobs.cancel import CancelToken
+from learningorchestra_tpu_torch.log import (
+    capture_thread_stdout,
+    get_logger,
+    kv,
+)
+from learningorchestra_tpu_torch.store.artifacts import ArtifactStore
+
+logger = get_logger("jobs")
+
+
+class JobState:
+    PENDING = "pending"
+    RUNNING = "running"
+    FINISHED = "finished"
+    FAILED = "failed"
+    CANCELLED = "cancelled"
+
+
+class JobDeadlineExceeded(Exception):
+    """A job body ran past its deadline: the watchdog failed the job and
+    reclaimed its worker and leases; the body finishes as an abandoned
+    zombie whose result is discarded."""
+
+
+class JobEngine:
+    #: Watchdog poll cadence (deadlines are a coarse hang bound).
+    WATCHDOG_INTERVAL_S = 0.1
+    #: Post-cancel join grace inside a bounded shutdown drain.
+    SHUTDOWN_GRACE_S = 2.0
+    #: Completed futures kept for ``wait`` after their job ended.
+    _MAX_DONE_RETAINED = 128
+
+    def __init__(
+        self,
+        artifacts: ArtifactStore,
+        max_workers: int = 8,
+        class_weights: dict[str, int] | None = None,
+        deadline_s: float = 0.0,
+        shutdown_drain_s: float = 0.0,
+    ):
+        self.artifacts = artifacts
+        self.max_workers = max_workers
+        # One thread per DISPATCHED job, gated by _inflight: a fixed pool
+        # would have no thread for the job a deadline reclaim freed a
+        # slot for while the zombie still pins its own.
+        self._threads: set[threading.Thread] = set()
+        self.default_deadline_s = float(deadline_s)
+        self.shutdown_drain_s = float(shutdown_drain_s)
+        # Device-lease pool (set by the service context): the watchdog
+        # revokes an expired job's leases through it.
+        self.leaser = None
+        # name -> dispatch record of RUNNING jobs; the watchdog scans it.
+        self._running_recs: dict[str, dict] = {}
+        self._watchdog: threading.Thread | None = None
+        self._watchdog_wake = threading.Event()
+        self._futures: dict[str, Future] = {}
+        self._lock = threading.Lock()
+        # Weighted round-robin over per-class FIFO queues: a class's
+        # weight is its consecutive dispatches per turn (default 1).
+        self.class_weights = dict(class_weights or {})
+        self._queues: dict[str, deque] = {}
+        self._rr_order: list[str] = []
+        self._rr_idx = 0
+        self._credits: dict[str, int] = {}
+        self._inflight = 0
+        self._shutdown = False
+
+    # -- submission -----------------------------------------------------------
+
+    def submit(
+        self,
+        name: str,
+        fn: Callable[[], Any],
+        *,
+        description: str | None = None,
+        method: str | None = None,
+        parameters: Any = None,
+        capture_stdout: bool = False,
+        on_success: Callable[[Any], dict | None] | None = None,
+        job_class: str = "default",
+        deadline_s: float | None = None,
+    ) -> Future:
+        """Run ``fn`` asynchronously as the job of artifact ``name``, whose
+        metadata document must already exist (the HTTP response returns
+        before the work runs).
+
+        ``on_success(result)`` may return fields to merge into the
+        finished metadata.  ``job_class`` is the fairness pool.
+        ``deadline_s`` bounds the body's wall clock per dispatch (None
+        inherits the engine default, ``<= 0`` disables)."""
+        # Persist the request parameters now, not only in the terminal
+        # record: a bare PATCH re-run of a job whose first run died
+        # re-uses them.
+        if parameters is not None:
+            self.artifacts.metadata.update(
+                name, {"requestParameters": parameters})
+        # Shared with the watchdog: once ``expired`` flips, the body is a
+        # zombie and every terminal write below is discarded.
+        ctl = {"expired": False}
+        token = CancelToken()
+
+        def run() -> Any:
+            with jobs_cancel.bind(token):
+                return self._run(
+                    name, fn, ctl, token, description=description,
+                    method=method, parameters=parameters,
+                    capture_stdout=capture_stdout, on_success=on_success)
+
+        future: Future = Future()
+        deadline = (
+            self.default_deadline_s if deadline_s is None
+            else float(deadline_s)
+        )
+        info = {"name": name, "job_class": job_class, "deadline": deadline,
+                "ctl": ctl, "token": token}
+        with self._lock:
+            if self._shutdown:
+                raise RuntimeError("cannot submit jobs after engine shutdown")
+            queue = self._queues.get(job_class)
+            if queue is None:
+                queue = self._queues[job_class] = deque()
+                self._rr_order.append(job_class)
+                self._credits[job_class] = self._weight(job_class)
+            queue.append((run, future, info))
+            self._futures[name] = future
+            self._prune_locked()
+            self._dispatch_locked()
+        return future
+
+    def _run(self, name, fn, ctl, token, *, description, method,
+             parameters, capture_stdout, on_success) -> Any:
+        meta = self.artifacts.metadata
+        t_start = time.monotonic()
+
+        def record(state, exception=None, stdout=None):
+            # A job that printed nothing records no stdout.
+            self.artifacts.ledger.record(
+                name, description=description, method=method,
+                parameters=parameters, state=state, exception=exception,
+                stdout=stdout or None)
+
+        def commit_cancelled(detail: str | None = None):
+            """A RUNNING job cancelled through :meth:`cancel`: the body
+            wound down (or died doing so) -> CANCELLED, not finished or
+            failed."""
+            reason = token.reason or "cancel requested"
+            logger.warning(kv(job=name, state="cancelled", reason=reason))
+            meta.update(name, {
+                "jobState": JobState.CANCELLED,
+                "finished": False,
+                "exception": f"cancelled: {reason}"
+                + (f" ({detail})" if detail else ""),
+            })
+            record(JobState.CANCELLED, exception=detail)
+            return None
+
+        if ctl["expired"]:
+            # Expired before its body started: the failure is recorded
+            # and the worker handed on.
+            logger.warning(kv(job=name, state="abandoned"))
+            return None
+        if token.cancelled():
+            if ctl.get("cancelled"):
+                return commit_cancelled()
+            # The bounded shutdown drain, before the body started.
+            logger.warning(kv(job=name, state="cancelled"))
+            meta.mark_failed(
+                name, f"cancelled: {token.reason or 'engine shutdown'}")
+            return None
+        meta.mark_running(name)
+        logger.info(kv(job=name, state="running", method=method))
+        buf = io.StringIO()
+        try:
+            if capture_stdout:
+                # Thread-scoped: only this job's prints are captured.
+                with capture_thread_stdout() as buf:
+                    result = fn()
+            else:
+                result = fn()
+        except BaseException as exc:  # noqa: BLE001 — a job body's
+            # failure is recorded, never kills the worker.
+            err = repr(exc)
+            if ctl["expired"]:
+                logger.warning(kv(job=name, state="abandoned", error=err))
+                return None
+            if ctl.get("cancelled"):
+                return commit_cancelled(err)
+            logger.error(kv(job=name, state="failed", error=err,
+                            dt=f"{time.monotonic() - t_start:.2f}s"),
+                         exc_info=True)
+            meta.mark_failed(name, err)
+            record(JobState.FAILED, exception=err, stdout=buf.getvalue())
+            return None
+        if ctl["expired"]:
+            # Finished after its deadline: already failed and its worker
+            # handed on; a late finish would resurrect it.
+            logger.warning(kv(job=name, state="abandoned"))
+            return None
+        if ctl.get("cancelled"):
+            # Cancelled mid-run: its partial result must not publish as
+            # finished.
+            return commit_cancelled()
+        extra = on_success(result) if on_success else None
+        logger.info(kv(job=name, state="finished",
+                       dt=f"{time.monotonic() - t_start:.2f}s"))
+        meta.mark_finished(name, extra or None)
+        record(JobState.FINISHED, stdout=buf.getvalue())
+        return result
+
+    # -- weighted-fair dispatch ----------------------------------------------
+
+    def _weight(self, job_class: str) -> int:
+        return max(1, int(self.class_weights.get(job_class, 1)))
+
+    def _dispatch_locked(self) -> None:
+        """Hand freed workers to queued jobs, class by class."""
+        while self._inflight < self.max_workers:
+            item = self._pick_locked()
+            if item is None:
+                return
+            runner, future, info = item
+            if not future.set_running_or_notify_cancel():
+                continue  # cancelled while queued
+            self._inflight += 1
+            rec = {**info, "future": future, "t0": time.monotonic(),
+                   "released": False}
+            self._running_recs[info["name"]] = rec
+            if rec["deadline"] > 0:
+                self._ensure_watchdog_locked()
+            thread = threading.Thread(
+                target=self._run_dispatched, args=(runner, future, rec),
+                name=f"lo-job-{info['name']}", daemon=True,
+            )
+            self._threads.add(thread)
+            thread.start()
+
+    def _pick_locked(self):
+        """Next queued job under weighted round-robin: the pointer stays
+        on a class while it has work and credits (its weight's worth of
+        consecutive dispatches), then refills them and advances.  Jobs
+        cancelled while queued are dropped without charging credits."""
+        for queue in self._queues.values():
+            while queue and queue[0][1].cancelled():
+                queue.popleft()
+        if not any(self._queues.values()):
+            return None
+        # Two passes bound the scan: the first may only refill credits.
+        for _ in range(2 * len(self._rr_order)):
+            cls = self._rr_order[self._rr_idx % len(self._rr_order)]
+            queue = self._queues[cls]
+            if queue and self._credits.get(cls, 0) > 0:
+                self._credits[cls] -= 1
+                return queue.popleft()
+            self._credits[cls] = self._weight(cls)
+            self._rr_idx += 1
+        return None
+
+    def _run_dispatched(self, runner, future: Future, rec: dict) -> None:
+        try:
+            result = runner()
+        except BaseException as exc:  # noqa: BLE001 — run() records its
+            # own failures; never leak a worker slot.
+            try:
+                future.set_exception(exc)
+            except InvalidStateError:
+                pass  # the watchdog resolved the future first
+        else:
+            try:
+                future.set_result(result)
+            except InvalidStateError:
+                pass
+        finally:
+            with self._lock:
+                if self._running_recs.get(rec["name"]) is rec:
+                    del self._running_recs[rec["name"]]
+                if not rec["released"]:
+                    # An expired job's slot was released by the watchdog.
+                    rec["released"] = True
+                    self._inflight -= 1
+                    self._dispatch_locked()
+                self._threads.discard(threading.current_thread())
+
+    # -- deadline watchdog ----------------------------------------------------
+
+    def _ensure_watchdog_locked(self) -> None:
+        """Start the watchdog lazily, at the first deadline'd dispatch."""
+        if self._shutdown:
+            return
+        if self._watchdog is None or not self._watchdog.is_alive():
+            self._watchdog_wake.clear()
+            self._watchdog = threading.Thread(
+                target=self._watchdog_loop, name="lo-job-watchdog",
+                daemon=True,
+            )
+            self._watchdog.start()
+
+    def _watchdog_loop(self) -> None:
+        while True:
+            self._watchdog_wake.wait(self.WATCHDOG_INTERVAL_S)
+            expired: list[tuple[str, dict]] = []
+            with self._lock:
+                if self._shutdown:
+                    return
+                now = time.monotonic()
+                armed = 0
+                for name, rec in list(self._running_recs.items()):
+                    if rec["deadline"] <= 0 or rec["released"]:
+                        continue
+                    if now - rec["t0"] > rec["deadline"]:
+                        # Reclaim the worker now (the body keeps its
+                        # thread) and ask the zombie to exit early.
+                        rec["released"] = True
+                        rec["ctl"]["expired"] = True
+                        rec["token"].cancel(
+                            f"deadline {rec['deadline']:g}s exceeded")
+                        del self._running_recs[name]
+                        self._inflight -= 1
+                        expired.append((name, rec))
+                    else:
+                        armed += 1
+                if expired:
+                    self._dispatch_locked()
+                if not armed and not expired:
+                    # Nothing left to watch; the next deadline'd dispatch
+                    # starts a fresh thread.
+                    self._watchdog = None
+                    return
+            for name, rec in expired:
+                self._expire_job(name, rec)
+
+    def _expire_job(self, name: str, rec: dict) -> None:
+        """Terminal bookkeeping for a timed-out job, outside the lock."""
+        err = (
+            f"job exceeded its {rec['deadline']:g}s deadline; the watchdog "
+            "failed it and reclaimed its worker and device leases (the "
+            "body finishes as an abandoned zombie)"
+        )
+        logger.error(kv(job=name, state="deadline",
+                        deadlineS=rec["deadline"]))
+        try:
+            self.artifacts.metadata.mark_failed(name, err)
+            self.artifacts.ledger.record(name, state="deadline",
+                                         exception=err)
+        except Exception:  # noqa: BLE001 — the watchdog must survive an
+            # artifact deleted under its job; the log line above stays.
+            logger.exception(kv(job=name, event="deadline_record_failed"))
+        if self.leaser is not None:
+            freed = self.leaser.revoke(name)
+            if freed:
+                logger.warning(kv(job=name, event="lease_revoked",
+                                  devices=freed))
+        try:
+            rec["future"].set_exception(JobDeadlineExceeded(err))
+        except InvalidStateError:
+            pass
+
+    def _prune_locked(self) -> None:
+        done = [n for n, f in self._futures.items() if f.done()]
+        for name in done[:max(len(done) - self._MAX_DONE_RETAINED, 0)]:
+            del self._futures[name]
+
+    # -- status / control -----------------------------------------------------
+
+    def state(self, name: str) -> str:
+        meta = self.artifacts.metadata.read(name)
+        if meta is None:
+            raise KeyError(name)
+        return meta.get(
+            "jobState",
+            JobState.FINISHED if meta.get("finished") else JobState.PENDING,
+        )
+
+    def wait(self, name: str, timeout: float | None = None) -> Any:
+        """Block until the job of ``name`` completes; returns its result
+        (clients poll GET instead)."""
+        with self._lock:
+            future = self._futures.get(name)
+        if future is None:
+            return None
+        return future.result(timeout=timeout)
+
+    def cancel(self, name: str):
+        """Cancel a queued job (-> ``True``, it never runs) or flip a
+        RUNNING job's token (-> ``"running"``: the body winds down at its
+        next check and the job ends ``cancelled``); ``False`` when the
+        job is neither."""
+        running = False
+        with self._lock:
+            # Under the engine lock, so a cancellation never lands
+            # between a queue pop and its dispatch.
+            future = self._futures.get(name)
+            queued = future is not None and future.cancel()
+            if not queued:
+                rec = self._running_recs.get(name)
+                if rec is not None and not rec["released"]:
+                    # Flag first: a body that sees the token always finds
+                    # the flag set.
+                    rec["ctl"]["cancelled"] = True
+                    rec["token"].cancel("cancel requested")
+                    running = True
+        if queued:
+            self.artifacts.metadata.update(
+                name, {"jobState": JobState.CANCELLED, "finished": False})
+            self.artifacts.ledger.record(
+                name, state=JobState.CANCELLED,
+                exception="cancelled while queued")
+            return True
+        return "running" if running else False
+
+    def shutdown(self, wait: bool = True,
+                 drain_timeout_s: float | None = None,
+                 grace_s: float | None = None) -> None:
+        """Stop accepting work; with ``wait``, drain what was accepted.
+
+        With a positive ``drain_timeout_s`` (default: the engine's
+        ``shutdown_drain_s``) the drain is bounded: past the budget every
+        running body's token is flipped, still-queued jobs are cancelled,
+        and after ``grace_s`` a thread still running is abandoned (it is
+        a daemon) rather than joined forever."""
+        with self._lock:
+            self._shutdown = True
+            self._watchdog_wake.set()
+            # Queued jobs keep dispatching as workers free: shutdown
+            # (wait=True) runs every accepted job.
+            self._dispatch_locked()
+        if not wait:
+            return
+        budget = (self.shutdown_drain_s if drain_timeout_s is None
+                  else float(drain_timeout_s))
+        deadline = time.monotonic() + budget if budget > 0 else None
+        while True:
+            with self._lock:
+                thread = next(iter(self._threads), None)
+                if (thread is None and not any(self._queues.values())
+                        and self._inflight == 0):
+                    return
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            if thread is None:
+                time.sleep(0.005)  # a worker freed, the next not started
+            elif deadline is None:
+                thread.join()
+            else:
+                thread.join(min(0.2, max(0.0, deadline - time.monotonic())))
+        with self._lock:
+            stragglers = list(self._threads)
+            for rec in self._running_recs.values():
+                rec["token"].cancel("engine shutdown drain deadline")
+            dropped = []
+            for queue in self._queues.values():
+                for _runner, queued, info in queue:
+                    if queued.cancel():
+                        dropped.append(info["name"])
+                queue.clear()
+        for name in dropped:
+            self.artifacts.metadata.update(
+                name, {"jobState": JobState.CANCELLED, "finished": False})
+        grace = self.SHUTDOWN_GRACE_S if grace_s is None else float(grace_s)
+        grace_deadline = time.monotonic() + max(0.0, grace)
+        for thread in stragglers:
+            thread.join(max(0.0, grace_deadline - time.monotonic()))
+        leftover = [t.name for t in stragglers if t.is_alive()]
+        if dropped or leftover:
+            logger.error(kv(event="shutdown_drain_bounded", budgetS=budget,
+                            droppedQueued=len(dropped),
+                            abandoned=len(leftover),
+                            threads=",".join(leftover[:8])))

@@ -1,0 +1,134 @@
+"""Per-job device placement: device leases — port of
+``learningorchestra_tpu/jobs/leases.py``.
+
+Cards are lease units (``cuda:k`` for ``k < torch.cuda.device_count()``):
+a job that runs device work takes a lease for its duration, so jobs on
+the card SERIALIZE per card (or take disjoint cards on a host with
+several), and the lease is recorded in the job's metadata.  A leased body
+runs under ``torch.cuda.device(k)`` (:func:`placed`).
+
+On a CPU context leasing is a no-op (there is nothing to contend for)
+unless a device list is injected, which is how the tests exercise the
+serialization.  Serving is not leased: its batcher threads may run
+forwards while a train job holds the card.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import threading
+import time
+from typing import Sequence
+
+import torch
+
+from learningorchestra_tpu_torch.log import get_logger, kv
+
+logger = get_logger("leases")
+
+
+class LeaseTimeout(Exception):
+    pass
+
+
+class DeviceLeaser:
+    """Blocking lease manager over a fixed set of devices: the injected
+    ``device_ids``, else every card when ``device`` is CUDA, else none."""
+
+    def __init__(self, device_ids: Sequence[str] | None = None, *,
+                 device="cuda"):
+        self._cv = threading.Condition()
+        if device_ids is not None:
+            self._all = list(device_ids)
+        elif torch.device(device).type == "cuda":
+            self._all = [f"cuda:{k}"
+                         for k in range(torch.cuda.device_count())]
+        else:
+            self._all = []
+        self._free = list(self._all)
+        # (label, device, t_start, t_end): placement audit trail, bounded.
+        self.history: collections.deque = collections.deque(maxlen=1024)
+        # Live leases for the watchdog's revoke: {label, devices,
+        # revoked}; revoked devices are back in the pool already.
+        self._active: list[dict] = []
+
+    @property
+    def device_count(self) -> int:
+        return len(self._all)
+
+    @contextlib.contextmanager
+    def lease(self, n_devices: int = 1, *, label: str = "",
+              timeout: float | None = None):
+        """Hold ``n_devices`` devices (``<= 0``: all) for the with-block;
+        yields the leased ids (empty when there is nothing to lease).
+        ``timeout=None`` waits: a job queued behind a long fit must
+        queue, not fail; a finite one raises :class:`LeaseTimeout`."""
+        with self._cv:
+            taken: list[str] = []
+            if self._all:
+                want = len(self._all) if n_devices <= 0 else min(
+                    n_devices, len(self._all))
+                if not self._cv.wait_for(lambda: len(self._free) >= want,
+                                         timeout):
+                    raise LeaseTimeout(
+                        f"no {want}-device lease within {timeout}s "
+                        f"(job {label!r})")
+                taken = [self._free.pop() for _ in range(want)]
+            rec = {"label": label, "devices": list(taken), "revoked": set()}
+            if taken:
+                self._active.append(rec)
+        t0 = time.monotonic()
+        if taken:
+            logger.info(kv(event="lease", job=label, devices=taken))
+        try:
+            yield taken
+        finally:
+            t1 = time.monotonic()
+            with self._cv:
+                for dev in taken:
+                    if dev in rec["revoked"]:
+                        continue  # the watchdog already returned it
+                    self._free.append(dev)
+                    self.history.append((label, dev, t0, t1))
+                if taken:
+                    self._active.remove(rec)
+                self._cv.notify_all()
+            if taken:
+                logger.info(kv(event="release", job=label, devices=taken,
+                               held=f"{t1 - t0:.2f}s"))
+
+    def revoke(self, label: str) -> list[str]:
+        """Force-release every device leased as ``label`` or ``label:*``
+        (the deadline watchdog's reclaim).  The holder may still be
+        running device work: the guarantee is that the scheduler stops
+        waiting, not that the computation stops."""
+        freed: list[str] = []
+        t1 = time.monotonic()
+        with self._cv:
+            for rec in self._active:
+                if rec["label"] != label and not \
+                        rec["label"].startswith(label + ":"):
+                    continue
+                for dev in rec["devices"]:
+                    if dev not in rec["revoked"]:
+                        rec["revoked"].add(dev)
+                        self._free.append(dev)
+                        self.history.append((rec["label"], dev, t1, t1))
+                        freed.append(dev)
+            if freed:
+                self._cv.notify_all()
+        return freed
+
+
+@contextlib.contextmanager
+def placed(devices: list[str]):
+    """Run the with-block on the first leased card (its current device,
+    so ``"cuda"`` tensors and kernel launches land there); a no-op
+    without a CUDA lease."""
+    cards = [d for d in devices if d.startswith("cuda:")]
+    if not cards:
+        yield
+        return
+    with torch.cuda.device(int(cards[0].split(":", 1)[1])):
+        yield

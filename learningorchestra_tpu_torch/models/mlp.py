@@ -47,6 +47,10 @@ class _MLP(SizedModule):
     def forward(self, x):
         self._check_built()
         x = x.reshape(x.shape[0], -1)
+        if not x.is_floating_point():
+            # Integer features (token ids, counts) promote to the kernel's
+            # dtype, as flax's Dense promotes them.
+            x = x.to(self.Dense_0.weight.dtype)
         for i in range(len(self.features)):
             x = torch.relu(getattr(self, f"Dense_{i}")(x))
         return getattr(self, f"Dense_{len(self.features)}")(x)

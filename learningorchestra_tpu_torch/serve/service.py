@@ -8,10 +8,11 @@ served model, and exposes the synchronous predict served at
 through the module under ``torch.inference_mode()``: on the card every
 transformer layer runs the flash kernel.
 
-Artifacts are read from the port's ``VolumeStorage`` under the
-``binaries`` volume (:meth:`NeuralEstimator.to_artifact` dicts).  The
-JAX service's compile cache, cost probes, faults, fleet and decode engine
-come with later slices.
+Artifacts are read from the port's ``VolumeStorage`` by volume key: every
+train job's binary is on the ``binaries`` volume whatever the tool in its
+type (``train/tensorflow``, ``train/pytorch``...), so a REST train job is
+servable under its name.  The JAX service's compile cache, cost probes,
+faults, fleet and decode engine come with later slices.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ from learningorchestra_tpu_torch.serve.batcher import MicroBatcher
 from learningorchestra_tpu_torch.serve.registry import ModelRegistry, ServeError
 from learningorchestra_tpu_torch.store.volumes import VolumeStorage
 from learningorchestra_tpu_torch.toolkit.registry import RegistryError
-from learningorchestra_tpu_torch.train.neural import load_artifact
+from learningorchestra_tpu_torch.train.neural import is_artifact, load_artifact
 
-#: Artifact type whose volume holds servable model binaries.
+#: An artifact type of the ``binaries`` volume, where every train (and
+#: tune) job's estimator artifact lives, whatever its tool.
 ARTIFACT_TYPE = "train/pytorch"
 
 
@@ -63,12 +65,11 @@ class ServingService:
             raise ServeError(str(exc)) from None
         except FileNotFoundError:
             raise NotFoundError(f"no model artifact named {name!r}") from None
-        if not isinstance(doc, dict) or not {
-            "modulePath", "class", "classParameters", "state",
-        } <= set(doc):
+        if not is_artifact(doc) or doc["state"] is None:
             raise ServeError(
-                f"artifact {name!r} is not a neural model binary; only "
-                "NeuralEstimator artifacts are servable"
+                f"artifact {name!r} is not a built neural model binary; "
+                "only NeuralEstimator artifacts with parameters are "
+                "servable"
             )
         try:
             return load_artifact(doc, device=self.device)

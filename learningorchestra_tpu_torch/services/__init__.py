@@ -1,0 +1,18 @@
+"""The pipeline's services — port of ``learningorchestra_tpu/services/``:
+dataset ingest, projection, model creation and the train / evaluate /
+predict executor, each step a named, lineage-tracked, asynchronous job
+whose output is persisted (store rows and volume binaries)."""
+
+from learningorchestra_tpu_torch.services.context import ServiceContext
+from learningorchestra_tpu_torch.services.dataset import DatasetService
+from learningorchestra_tpu_torch.services.executor import ExecutorService
+from learningorchestra_tpu_torch.services.model import ModelService
+from learningorchestra_tpu_torch.services.transform import TransformService
+
+__all__ = [
+    "DatasetService",
+    "ExecutorService",
+    "ModelService",
+    "ServiceContext",
+    "TransformService",
+]

@@ -3,10 +3,17 @@
 
 A host directory tree keyed by service type (the reference's six named
 volumes).  Objects are stored with the standard library's ``pickle`` (the
-JAX package uses ``dill``).  Only pickled objects are ported: the port's artifacts are
-plain dicts of numpy arrays (``NeuralEstimator.to_artifact``), so neither
-``save_pytree`` nor the raw-stream and delete helpers have a caller yet.
-Only bytes this program wrote should be read back: unpickling runs code.
+JAX package uses ``dill``).
+
+Estimators are stored as artifacts, not as pickled modules: the JAX
+package dills the estimator object, whose ``__getstate__`` moves the
+params to the host (int8 when the fit asked for ``quantize_checkpoint``);
+the port stores :meth:`NeuralEstimator.to_artifact` dicts of numpy arrays
+(:meth:`VolumeStorage.save_estimator`, which runs the quantize kernel
+there) and rebuilds them on a device (:meth:`load_estimator`, which runs
+the dequantize kernel).  Any other result (an evaluate dict, predict
+arrays) is pickled as it is.  Only bytes this program wrote should be
+read back: unpickling runs code.
 """
 
 from __future__ import annotations
@@ -14,8 +21,15 @@ from __future__ import annotations
 import os
 import pickle
 import re
+import shutil
 from pathlib import Path
 from typing import Any
+
+from learningorchestra_tpu_torch.train.neural import (
+    NeuralEstimator,
+    is_artifact,
+    load_artifact,
+)
 
 # Binary names come from REST request JSON and become file names — no
 # separators, no traversal.
@@ -88,3 +102,48 @@ class VolumeStorage:
         path = self.path_for(artifact_type, name)
         with open(path, "rb") as fh:
             return pickle.load(fh)
+
+    # -- estimators as artifacts ---------------------------------------------
+
+    def save_estimator(self, artifact_type: str, name: str,
+                       estimator: NeuralEstimator) -> Path:
+        """Persist ``estimator.to_artifact()``: int8 parameters (one
+        grouped quantize launch) when its last fit asked for
+        ``quantize_checkpoint``, else f32 with the optimizer state."""
+        return self.save_object(artifact_type, name, estimator.to_artifact())
+
+    def load_estimator(self, artifact_type: str, name: str, *, device):
+        """The stored object, rebuilt as an estimator on ``device`` when
+        it is an estimator artifact (int8 leaves dequantize there in one
+        grouped launch), else as it was pickled."""
+        obj = self.read_object(artifact_type, name)
+        return load_artifact(obj, device=device) if is_artifact(obj) else obj
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def exists(self, artifact_type: str, name: str) -> bool:
+        return self.path_for(artifact_type, name).exists()
+
+    def delete(self, artifact_type: str, name: str) -> bool:
+        path = self.path_for(artifact_type, name)
+        if path.is_dir():
+            shutil.rmtree(path)
+            return True
+        if path.exists():
+            path.unlink()
+            return True
+        return False
+
+    def delete_everywhere(self, name: str) -> bool:
+        """Remove a named binary from whichever volume holds it."""
+        _validate_name(name)
+        hit = False
+        for key in VOLUME_KEYS:
+            path = self.root / key / name
+            if path.is_dir():
+                shutil.rmtree(path)
+                hit = True
+            elif path.exists():
+                path.unlink()
+                hit = True
+        return hit

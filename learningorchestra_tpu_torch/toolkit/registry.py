@@ -1,27 +1,43 @@
 """Constructor registry — port of
 ``learningorchestra_tpu/toolkit/registry.py``.
 
-Maps ``(module_path, class_name)`` to the port's estimator classes, so an
-artifact names its class and a loader rebuilds it.  Only the port's own
-module paths are registered (the reference-era aliases come with the REST
-pipeline slice).
+Maps ``(module_path, class_name)`` to the port's estimator classes, so a
+request or an artifact names its class and a loader rebuilds it.  The
+JAX package's module paths and the reference-era ones (``tensorflow.
+keras.*``, ``torch.nn``) alias to the port's zoo, so one request body
+resolves on both servers.  The ``sklearn.*`` paths name classical
+estimators, which are not ported yet: they raise ``RegistryError`` (406).
 """
 
 from __future__ import annotations
 
 import importlib
+import inspect
 import threading
-from typing import Callable
+from typing import Any, Callable
 
 _lock = threading.RLock()
 _registry: dict[tuple[str, str], Callable] = {}
 _loaded = False
 
-_MODULES = (
-    "learningorchestra_tpu_torch.models.mlp",
-    "learningorchestra_tpu_torch.models.text",
-    "learningorchestra_tpu_torch.models.vision",
-)
+_MLP = "learningorchestra_tpu_torch.models.mlp"
+_TEXT = "learningorchestra_tpu_torch.models.text"
+_VISION = "learningorchestra_tpu_torch.models.vision"
+_MODULES = (_MLP, _TEXT, _VISION)
+
+#: Request module path -> the port's modules to look the class up in.
+MODULE_ALIASES: dict[str, tuple[str, ...]] = {
+    "learningorchestra_tpu.models.mlp": (_MLP,),
+    "learningorchestra_tpu.models.text": (_TEXT,),
+    "learningorchestra_tpu.models.vision": (_VISION,),
+    "learningorchestra_tpu.models": _MODULES,
+    "tensorflow.keras.applications": (_VISION,),
+    "tensorflow.keras.models": _MODULES,
+    "torch.nn": _MODULES,
+}
+
+#: Classical-estimator paths of the JAX package, not ported yet.
+_CLASSICAL_PREFIXES = ("sklearn.", "learningorchestra_tpu.toolkit.")
 
 
 class RegistryError(KeyError):
@@ -55,12 +71,58 @@ def _ensure_loaded() -> None:
 
 
 def resolve(module_path: str, class_name: str) -> Callable:
+    """The factory for a request's ``(modulePath, class)``."""
+    _ensure_loaded()
+    if str(module_path).startswith(_CLASSICAL_PREFIXES):
+        raise RegistryError(
+            f"modulePath={module_path!r} names a classical estimator; "
+            "those are not ported to the PyTorch package yet (ROADMAP A.4)"
+        )
+    with _lock:
+        for native in MODULE_ALIASES.get(module_path, (module_path,)):
+            factory = _registry.get((native, class_name))
+            if factory is not None:
+                return factory
+    raise RegistryError(
+        f"unknown model/estimator: modulePath={module_path!r} "
+        f"class={class_name!r}"
+    )
+
+
+def _unaccepted(fn: Callable, params: dict, *, drop=()) -> list[str]:
+    sig = inspect.signature(fn)
+    if any(p.kind == inspect.Parameter.VAR_KEYWORD
+           for p in sig.parameters.values()):
+        return []
+    accepted = set(sig.parameters) - {"self", *drop}
+    return [k for k in params if k not in accepted]
+
+
+def validate_init_params(
+    module_path: str, class_name: str, params: dict
+) -> list[str]:
+    """Names in ``params`` the constructor does not accept.  ``device``
+    is the service context's to set, never a request's."""
+    return _unaccepted(resolve(module_path, class_name).__init__, params,
+                       drop=("device",))
+
+
+def validate_method(class_or_factory: Any, method: str) -> bool:
+    """Whether the class has a callable ``method``."""
+    return callable(getattr(class_or_factory, method, None))
+
+
+def validate_method_params(
+    class_or_factory: Any, method: str, params: dict
+) -> list[str]:
+    fn = getattr(class_or_factory, method, None)
+    if fn is None:
+        return list(params)
+    return _unaccepted(fn, params)
+
+
+def constructors() -> dict[str, Callable]:
+    """class_name -> factory (for the ``#`` spec namespace)."""
     _ensure_loaded()
     with _lock:
-        factory = _registry.get((module_path, class_name))
-    if factory is None:
-        raise RegistryError(
-            f"unknown model/estimator: modulePath={module_path!r} "
-            f"class={class_name!r}"
-        )
-    return factory
+        return {name: fac for (_, name), fac in _registry.items()}

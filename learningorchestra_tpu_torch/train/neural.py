@@ -53,6 +53,7 @@ from torch.func import functional_call
 
 from learningorchestra_tpu_torch import convert
 from learningorchestra_tpu_torch.device import resolve_device
+from learningorchestra_tpu_torch.jobs.cancel import cancel_requested
 from learningorchestra_tpu_torch.ops.layers import (
     MultiHeadSelfAttention,
     has_separate_qkv,
@@ -1019,6 +1020,13 @@ class NeuralEstimator(Estimator):
         self.module.train()
         try:
             for epoch_i in range(epochs):
+                if cancel_requested():
+                    # Engine-side cancellation (deadline watchdog, bounded
+                    # shutdown drain, REST cancel): wind down exactly like
+                    # an early stop, params and history at the last
+                    # completed epoch.
+                    self.stop_training = True
+                    break
                 t0 = time.perf_counter()
                 metrics = self._device_epoch(xs, ys, loss_fn, dtype,
                                              batch_size, bool(shuffle),
@@ -1223,8 +1231,10 @@ class NeuralEstimator(Estimator):
 
     def to_artifact(self, *, quantize: bool | None = None) -> dict:
         """A picklable artifact: class name, constructor kwargs (minus the
-        device) and :meth:`state_dict`.  ``quantize`` defaults to what the
-        last fit's ``quantize_checkpoint`` asked for."""
+        device), the compute dtype and :meth:`state_dict`, which is None
+        for a module sized by its first input that has not seen one yet.
+        ``quantize`` defaults to what the last fit's
+        ``quantize_checkpoint`` asked for."""
         if quantize is None:
             quantize = getattr(self, "_quantize_persist", False)
         params = self.get_params()
@@ -1233,7 +1243,9 @@ class NeuralEstimator(Estimator):
             "modulePath": type(self).__module__,
             "class": type(self).__name__,
             "classParameters": params,
-            "state": self.state_dict(quantize=quantize),
+            "compute_dtype": self.compute_dtype,
+            "state": self.state_dict(quantize=quantize)
+            if self._built() else None,
         }
 
 
@@ -1282,10 +1294,22 @@ class SizedEstimator(NeuralEstimator):
         super().load_state_dict(state)
 
 
+_ARTIFACT_KEYS = frozenset({"modulePath", "class", "classParameters",
+                            "state"})
+
+
+def is_artifact(obj) -> bool:
+    """Whether ``obj`` is a :meth:`NeuralEstimator.to_artifact` dict."""
+    return isinstance(obj, dict) and _ARTIFACT_KEYS <= set(obj)
+
+
 def load_artifact(doc: dict, *, device="cuda") -> NeuralEstimator:
     """Rebuild an estimator from :meth:`NeuralEstimator.to_artifact` on
-    ``device`` (int8 leaves dequantize there)."""
+    ``device`` (int8 leaves dequantize there).  An unbuilt sized module's
+    artifact (``state`` None) comes back unbuilt."""
     cls = registry.resolve(doc["modulePath"], doc["class"])
     est = cls(**doc["classParameters"], device=device)
-    est.load_state_dict(doc["state"])
+    est.compute_dtype = doc.get("compute_dtype", est.compute_dtype)
+    if doc["state"] is not None:
+        est.load_state_dict(doc["state"])
     return est

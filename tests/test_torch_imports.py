@@ -1,6 +1,7 @@
 """The port stands alone: neither learningorchestra_tpu_torch/ nor
-chip_smoke.py imports JAX, flax, optax, dill or the JAX package (the card's
-machine has none of them), checked statically and at import time."""
+chip_smoke.py imports JAX, flax, optax, dill, pandas, requests or the JAX
+package (the card's machine has none of them), checked statically and at
+import time."""
 
 import ast
 import pathlib
@@ -11,8 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "learningorchestra_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dill", "orbax",
-             "learningorchestra_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dill", "orbax", "pandas",
+             "requests", "learningorchestra_tpu"}
 
 
 def _sources():
@@ -64,7 +65,8 @@ def test_import_pulls_in_no_jax():
         f"for m in {modules!r}:\n"
         "    __import__(m.rstrip('.'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'learningorchestra_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'requests', "
+        "'learningorchestra_tpu'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 from learningorchestra_tpu_torch.api.server import PREFIX, APIServer
-from learningorchestra_tpu_torch.config import Config, ServeConfig
+from learningorchestra_tpu_torch.config import Config, ServeConfig, StoreConfig
 from learningorchestra_tpu_torch.models.text import BertModel
 from learningorchestra_tpu_torch.serve.batcher import MicroBatcher, QueueFull
 from learningorchestra_tpu_torch.serve.bucketing import bucket_for, pad_rows
@@ -43,6 +43,13 @@ def _request(port, verb, path, body=None, raw=None):
         conn.close()
 
 
+def _store(tmp_path):
+    """The store and volume roots of a test server, under ``tmp_path``
+    (its ``volumes`` directory is where the test saves artifacts)."""
+    return StoreConfig(root=str(tmp_path / "store"),
+                       volume_root=str(tmp_path / "volumes"))
+
+
 @pytest.fixture(scope="module")
 def artifact():
     est = BertModel(**SMALL, seed=4, device="cpu")
@@ -53,8 +60,9 @@ def artifact():
 def server(tmp_path, artifact):
     vols = VolumeStorage(tmp_path / "volumes")
     vols.save_object(ARTIFACT_TYPE, "bert", artifact)
-    cfg = Config(serve=ServeConfig(max_batch=8, max_queue=64, flush_ms=150))
-    api = APIServer(cfg, volumes=vols, device="cpu")
+    cfg = Config(store=_store(tmp_path),
+                 serve=ServeConfig(max_batch=8, max_queue=64, flush_ms=150))
+    api = APIServer(cfg, device="cpu")
     port = api.start_background()
     yield api, port
     api.shutdown()
@@ -126,9 +134,10 @@ def test_backpressure_is_429_with_retry_after(tmp_path, artifact):
     vols = VolumeStorage(tmp_path / "volumes")
     vols.save_object(ARTIFACT_TYPE, "bert", artifact)
     # One 3-row chunk against a 2-row queue: refused before any dispatch.
-    cfg = Config(serve=ServeConfig(max_batch=4, max_queue=2,
+    cfg = Config(store=_store(tmp_path),
+                 serve=ServeConfig(max_batch=4, max_queue=2,
                                    retry_after_s=3.0))
-    api = APIServer(cfg, volumes=vols, device="cpu")
+    api = APIServer(cfg, device="cpu")
     port = api.start_background()
     try:
         status, headers, body = _request(
@@ -249,7 +258,7 @@ def test_config_reads_the_jax_env_names():
     assert (cfg.serve.max_batch, cfg.serve.max_queue, cfg.serve.flush_ms,
             cfg.serve.max_models, cfg.serve.max_bytes,
             cfg.serve.retry_after_s) == (32, 99, 2.5, 3, 1000, 7.0)
-    assert cfg.volume_root == "/v"
+    assert cfg.store.volume_root == "/v"
     default = Config.from_env({})
     assert default.serve == ServeConfig()
     assert (default.serve.max_batch, default.serve.flush_ms) == (64, 5.0)
