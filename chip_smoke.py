@@ -81,7 +81,26 @@ Phases (each prints its own line; any failure exits nonzero):
    the ``rest_pipeline`` line (card, power limit, each job's seconds
    from request to finished and launches, ``fitTime``, the job layer's
    own seconds, the artifact's save and load seconds);
-9. last line: {"ok": true, "device": {...}}.
+9. classical estimators and the Titanic pipeline: (a) all 19 classical
+   estimators fitted and answering on the card and on the CPU, held
+   against each other, at two shapes: Kaggle Titanic's (891 rows of the
+   builder's 7 features, 2 classes, seeded at train.csv's schema) and UCI
+   Covertype's (54 features, 7 classes, every predict over the published
+   581,012 rows; fit rows cut per estimator in ``COVTYPE_FIT_ROWS``, each
+   cut in its line as ``fit_rows``), t-SNE at 2,000 points; labels
+   equal but at ties within f32 rounding (``MARGIN_RTOL``, each flip
+   counted in the line), f32 answers within ``ANSWER_RTOL``, the
+   solvers' coefficients within ``COEF_RTOL``, t-SNE by its KL
+   divergence; each one's fit and predict seconds (``estimators_<shape>``
+   lines); (b) the Titanic pipeline over REST on the card: a seeded
+   891-row CSV, ``PATCH /transform/dataType``, a projection, a
+   ``StandardScaler`` transform, config 1's RandomForest train / evaluate
+   / predict (its pickle holds CPU tensors only), the builder's five
+   classifiers at once, an RF grid tune (2x2) and a BERT-base tune over
+   two learning rates on phase 8's token CSV (K1/K2/K3 launches per
+   trial, K4 once at the best candidate's int8 publication); each job's
+   seconds from request to finished (``titanic_rest`` line);
+10. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -90,6 +109,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import http.client
 import json
 import math
@@ -1588,12 +1608,17 @@ def rest_job(port, verb, path, body, name):
     zero_kernel_counts()
     t0 = time.perf_counter()
     status, created = request(port, verb, path, body)
-    meta = created.get("metadata", created)
-    while status in (200, 201) and not (
-            meta.get("finished") or meta.get("jobState") == "failed"):
+    meta = wait_done(port, name) if status in (200, 201) else created
+    return status, meta, time.perf_counter() - t0, kernel_counts()
+
+
+def wait_done(port, name) -> dict:
+    """Long-poll an artifact until it is finished or failed."""
+    while True:
         _, polled = request(port, "GET", f"/observe/{name}?timeout=60")
         meta = polled["metadata"]
-    return status, meta, time.perf_counter() - t0, kernel_counts()
+        if meta.get("finished") or meta.get("jobState") == "failed":
+            return meta
 
 
 def rest_rows(port, path, page=100) -> list:
@@ -1812,6 +1837,553 @@ def run_rest_pipeline(tmp) -> dict:
     }
 
 
+# -- phase 9: classical estimators and the Titanic pipeline -------------------
+
+# Kaggle Titanic train.csv: 891 rows, 12 columns, 177 blank Age cells.
+TITANIC_ROWS, TITANIC_AGE_BLANK = 891, 177
+TITANIC_COLUMNS = ["PassengerId", "Survived", "Pclass", "Name", "Sex", "Age",
+                   "SibSp", "Parch", "Ticket", "Fare", "Cabin", "Embarked"]
+# UCI Covertype: 581,012 rows, 10 quantitative columns (their published
+# ranges), 4 wilderness-area and 40 soil-type indicator columns, cover
+# types 1-7 at the published class counts.
+COVTYPE_CLASS_ROWS = (211840, 283301, 35754, 2747, 9493, 17367, 20510)
+COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
+                  (0, 7117), (0, 254), (0, 254), (0, 254), (0, 7173))
+# Fit rows at the Covertype shape, where the whole table would outgrow
+# the phase's time (host tree growth; CPU reference fits of the f32
+# solvers; kNN's CPU predict against its training rows; kmeans++ seeding
+# on the host).  Every predict runs over all 581,012 rows.
+COVTYPE_FIT_ROWS = {"RandomForestClassifier": 50_000,
+                    "GradientBoostingClassifier": 5_000,
+                    "KNeighborsClassifier": 5_000,
+                    "LogisticRegression": 100_000, "SGDClassifier": 100_000,
+                    "LinearSVC": 100_000, "SVC": 50_000, "KMeans": 100_000}
+TSNE_POINTS = 2000
+# Card against the CPU: f32 answers within ANSWER_RTOL of their largest
+# value; labels equal, but where the CPU's own top-2 margin is within
+# MARGIN_RTOL of its score scale (a tie at f32 rounding, ``_tie_margins``:
+# reductions run in other orders on the two devices, and among 581,012
+# rows a few such ties flip); a solver's coefficients within COEF_RTOL
+# of their largest (Adam's normalised steps carry the reduction-order
+# differences of a 100,000-row gradient through 200-300 steps: 1.2e-4
+# on the unscaled Covertype features, where the CPU tests' 240 rows give
+# 2e-6).
+# t-SNE: 10 steps at the default rate within 1e-4 of the embedding's
+# scale; the full run by its KL divergence at TSNE_RATE, where the
+# updates are stable (at the default 200, below ~4,800 points, the
+# exaggerated attraction times the rate exceeds 2 and one ulp of input
+# moves the final KL by up to 35 %; ROADMAP C).
+ANSWER_RTOL, COEF_RTOL, MARGIN_RTOL, KL_RTOL = 1e-4, 1e-3, 1e-5, 1e-2
+TSNE_RATE = 20.0
+# (module path, class, kwargs ("k": the shape's class count), input,
+# answer): the 19 classes.
+ESTIMATORS = [
+    ("sklearn.preprocessing", "StandardScaler", {}, "x", "transform"),
+    ("sklearn.preprocessing", "MinMaxScaler", {}, "x", "transform"),
+    ("sklearn.preprocessing", "OneHotEncoder", {}, "cat", "transform"),
+    ("sklearn.linear_model", "LinearRegression", {}, "reg", "predict"),
+    ("sklearn.linear_model", "Ridge", {}, "reg", "predict"),
+    ("sklearn.linear_model", "LogisticRegression", {}, "solver", "predict"),
+    ("sklearn.linear_model", "SGDClassifier", {}, "solver", "predict"),
+    ("sklearn.naive_bayes", "GaussianNB", {}, "clf", "predict"),
+    ("sklearn.naive_bayes", "MultinomialNB", {}, "counts", "predict"),
+    ("sklearn.tree", "DecisionTreeClassifier", {}, "clf", "predict"),
+    ("sklearn.ensemble", "RandomForestClassifier", {}, "clf", "predict"),
+    ("sklearn.ensemble", "GradientBoostingClassifier", {}, "clf", "predict"),
+    ("sklearn.tree", "DecisionTreeRegressor", {}, "reg", "predict"),
+    ("sklearn.neighbors", "KNeighborsClassifier", {}, "clf", "predict"),
+    ("sklearn.svm", "LinearSVC", {}, "solver", "predict"),
+    ("sklearn.svm", "SVC", {}, "solver", "predict"),
+    ("sklearn.cluster", "KMeans", {"n_clusters": "k"}, "x", "predict"),
+    ("sklearn.decomposition", "PCA", {"n_components": 2}, "x", "transform"),
+    ("sklearn.manifold", "TSNE", {"learning_rate": TSNE_RATE}, "tsne",
+     "fit_transform"),
+]
+
+
+def titanic_table(n: int = TITANIC_ROWS, seed: int = 1912) -> dict:
+    """Seeded columns at Kaggle train.csv's schema and marginals: class
+    24/21/55 %, 35 % female, 177 of 891 Age blank (None), fares by class,
+    mixed text and numeric Tickets, two blank Embarked; survival follows
+    sex, class and age."""
+    rng = np.random.default_rng(seed)
+    pclass = rng.choice([1, 2, 3], n, p=[0.24, 0.21, 0.55])
+    female = rng.random(n) < 0.35
+    age = np.round(np.clip(rng.normal(29.7, 14.5, n), 0.42, 80.0), 1)
+    blank = rng.choice(n, n * TITANIC_AGE_BLANK // TITANIC_ROWS,
+                       replace=False)
+    fare = np.round(rng.lognormal(np.log([80.0, 20.0, 9.0])[pclass - 1],
+                                  0.5), 4)
+    logit = 2.5 * female - 0.9 * (pclass - 2) - 0.02 * (age - 30)
+    embarked = rng.choice(["S", "C", "Q"], n, p=[0.72, 0.19, 0.09])
+    embarked[rng.choice(n, 2, replace=False)] = ""
+    ages = [int(a) if a == int(a) else float(a) for a in age]
+    for i in blank:
+        ages[i] = None
+    return {
+        "PassengerId": list(range(1, n + 1)),
+        "Survived": (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(
+            int).tolist(),
+        "Pclass": pclass.tolist(),
+        "Name": [f"Passenger{i}, Mr. X{i}" for i in range(n)],
+        "Sex": np.where(female, "female", "male").tolist(),
+        "Age": ages,
+        "SibSp": rng.choice([0, 0, 0, 0, 1, 1, 2, 3, 4], n).tolist(),
+        "Parch": rng.choice([0, 0, 0, 0, 1, 1, 2], n).tolist(),
+        "Ticket": [f"A/5 {rng.integers(1000, 99999)}" if i % 3 == 0
+                   else str(rng.integers(10000, 400000)) for i in range(n)],
+        "Fare": fare.tolist(),
+        "Cabin": [f"C{i}" if i % 5 == 0 else "" for i in range(n)],
+        "Embarked": embarked.tolist(),
+    }
+
+
+def write_titanic_csv(path: str, table: dict) -> None:
+    import csv
+
+    with open(path, "w", newline="") as fh:
+        out = csv.writer(fh)
+        out.writerow(TITANIC_COLUMNS)
+        for row in zip(*(table[c] for c in TITANIC_COLUMNS)):
+            out.writerow(["" if v is None else v for v in row])
+
+
+# The builder's modeling code: the 7 numeric features of the cast table
+# (Age's blanks at the median, Sex and Embarked coded), through what
+# pandas DataFrames and the port's Frames share.
+TITANIC_MODELING_CODE = """
+def prep(df):
+    age = df["Age"].to_numpy().astype(float)
+    age = np.where(np.isnan(age), np.nanmedian(age), age)
+    sex = (df["Sex"].to_numpy() == "female").astype(float)
+    emb = df["Embarked"].to_numpy()
+    port = np.select([emb == "C", emb == "Q"], [1.0, 2.0], 0.0)
+    cols = [df[c].to_numpy().astype(float)
+            for c in ("Pclass", "SibSp", "Parch", "Fare")]
+    return np.stack(cols + [age, sex, port], axis=1)
+
+features_training = prep(training_df)
+features_testing = prep(testing_df)
+"""
+
+
+def titanic_inputs(table: dict) -> dict:
+    """The estimator inputs at the Titanic shape: 891 rows of the
+    modeling code's 7 features, labels Survived."""
+    from learningorchestra_tpu_torch.services.frame import Frame
+
+    frame = Frame([dict(zip(table, row)) for row in zip(*table.values())])
+    globs = {"np": np, "training_df": frame, "testing_df": frame}
+    exec(TITANIC_MODELING_CODE, globs)  # noqa: S102 — the builder's code
+    x = globs["features_training"].astype(np.float32)
+    y = np.asarray(table["Survived"])
+    cat = np.stack([table["Pclass"], table["Sex"], table["Embarked"]], 1)
+    return {"x": x, "y": y, "cat": cat, "k": 2, "shape": "titanic",
+            "fit_rows": {}}
+
+
+def covtype_inputs(seed: int = 54) -> dict:
+    """Seeded rows at the Covertype schema: class-dependent quantitative
+    columns inside the published ranges (continuous, where the dataset's
+    are integers, so that kNN sees no tied distances) and class-dependent
+    wilderness and soil indicators."""
+    rng = np.random.default_rng(seed)
+    y = rng.permutation(np.repeat(np.arange(1, 8), COVTYPE_CLASS_ROWS))
+    n = len(y)
+    lo, hi = np.asarray(COVTYPE_RANGES, np.float64).T
+    centers = rng.uniform(0.2, 0.8, (7, 10))
+    quant = lo + np.clip(centers[y - 1] + rng.normal(0, 0.15, (n, 10)),
+                         0, 1) * (hi - lo)
+
+    def category(k):
+        cum = np.cumsum(rng.dirichlet(np.full(k, 0.5), 7), axis=1)
+        return np.minimum((cum[y - 1] < rng.random(n)[:, None]).sum(1),
+                          k - 1)
+
+    wild, soil = category(4), category(40)
+    x = np.concatenate([quant, np.eye(4)[wild], np.eye(40)[soil]],
+                       axis=1).astype(np.float32)
+    return {"x": x, "y": y, "cat": np.stack([wild, soil], 1), "k": 7,
+            "shape": "covtype", "fit_rows": COVTYPE_FIT_ROWS}
+
+
+def _answer_arrays(est, cls, x_pred, method):
+    """(answer, decision scores or None) of one fitted estimator."""
+    out = getattr(est, method)(x_pred)
+    scores = None
+    if hasattr(est, "decision_function"):
+        scores = est.decision_function(x_pred)
+    elif cls in ("GaussianNB", "MultinomialNB"):
+        scores = est._joint_log_likelihood(x_pred)
+    return out, scores
+
+
+def _host(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def fit_estimator(case, inputs, device) -> dict:
+    """Fit one of the 19 on ``device`` and answer over every row:
+    seconds of each (the card's synchronised)."""
+    from learningorchestra_tpu_torch.toolkit import registry
+
+    mod, cls, kwargs, kind, method = case
+    kwargs = {k: inputs["k"] if v == "k" else v for k, v in kwargs.items()}
+    x, y = inputs["x"], inputs["y"]
+    if kind == "cat":
+        x = inputs["cat"]
+    elif kind == "counts":
+        x = x - inputs["x"].min(0)
+    elif kind == "tsne":
+        x = inputs["tsne_x"]
+    rows = inputs["fit_rows"].get(cls, len(x))
+    est = registry.resolve(mod, cls)(**kwargs, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    if kind == "tsne":
+        answer = est.fit_transform(x)
+        sync()
+        fit_s, predict_s, scores = time.perf_counter() - t0, 0.0, None
+    else:
+        target = y.astype(np.float32) if kind == "reg" else y
+        est.fit(x[:rows], None if kind in ("x", "cat") else target[:rows])
+        sync()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        answer, scores = _answer_arrays(est, cls, x, method)
+        sync()
+        predict_s = time.perf_counter() - t0
+    return {"est": est, "x": x, "answer": _host(answer),
+            "scores": None if scores is None else _host(scores),
+            "fit_s": fit_s, "predict_s": predict_s, "fit_rows": rows,
+            "kind": kind}
+
+
+def _tie_margins(cls, est, x, scores=None, scale=1.0) -> np.ndarray:
+    """The CPU estimator's top-2 margin at rows ``x`` over its score
+    scale: a label can differ between two devices' f32 roundings only
+    where this is within rounding.  kNN: the gap between the k-th and
+    (k+1)-th nearest squared distances, KMeans: between the two nearest
+    centers, each over the row's largest distance; otherwise the gap
+    between the top two scores (decision values, joint log-likelihoods,
+    probabilities) over the largest score of the whole predict."""
+    if cls in ("KNeighborsClassifier", "KMeans"):
+        ref = est._x if cls == "KNeighborsClassifier" else \
+            est.cluster_centers_
+        q = est._put(x)
+        d = np.sort(_host((q * q).sum(1, keepdim=True) - 2.0 * q @ ref.T
+                          + (ref * ref).sum(1)[None]), axis=1)
+        k = est.n_neighbors if cls == "KNeighborsClassifier" else 1
+        return (d[:, k] - d[:, k - 1]) / np.abs(d).max(1)
+    if scores is None:
+        scores = _host(est.predict_proba(x))
+    top = np.sort(scores, axis=1)
+    return (top[:, -1] - top[:, -2]) / scale
+
+
+def compare_estimator(cls, card: dict, cpu: dict, inputs) -> tuple:
+    """(ok, detail) of the card's answers against the CPU's."""
+    a, b = card["answer"], cpu["answer"]
+    cpu_fit = cpu
+    if a.shape != b.shape:
+        return False, {"shape": [a.shape, b.shape]}
+    if cls == "TSNE":
+        kl_card = card["est"].kl_divergence_
+        kl_cpu = cpu["est"].kl_divergence_
+        short = {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            est = type(card["est"])(n_iter=10, device=dev)
+            short[side] = _host(est.fit_transform(inputs["tsne_x"]))
+        err10 = float(np.abs(short["card"] - short["cpu"]).max()
+                      / np.abs(short["cpu"]).max())
+        kl_err = abs(kl_card - kl_cpu) / kl_cpu
+        return err10 <= 1e-4 and kl_err <= KL_RTOL and bool(
+            np.isfinite(a).all()), {"kl_card": kl_card, "kl_cpu": kl_cpu,
+                                    "kl_rel_err": kl_err,
+                                    "n_iter10_rel_err": err10}
+    detail = {}
+    if cls == "KMeans":
+        # The fit is held below; the predict is held on the card's own
+        # centers (the CPU's sit 1e-5 away, which moves near-ties).
+        held = copy.copy(cpu["est"])
+        held.cluster_centers_ = card["est"].cluster_centers_.cpu()
+        detail["mismatches_vs_cpu_centers"] = int((a != b).sum())
+        cpu = {**cpu, "est": held, "answer": held.predict(cpu["x"])}
+        b = cpu["answer"]
+    if a.dtype.kind == "f":
+        err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if cls == "PCA":  # components are defined up to sign
+            sign = np.sign((a * b).sum(0))
+            err = float(np.abs(a * sign - b).max() / np.abs(b).max())
+        detail["rel_err"] = err
+        ok = err <= ANSWER_RTOL
+    else:
+        # Labels: equal, but where the CPU's own scores tie at rounding.
+        bad = np.flatnonzero(a != b)
+        scores = cpu["scores"]
+        margins = _tie_margins(
+            cls, cpu["est"], cpu["x"][bad],
+            None if scores is None else scores[bad],
+            1.0 if scores is None else float(np.abs(scores).max()),
+        ) if bad.size else np.zeros(0)
+        detail["mismatches"] = int(bad.size)
+        detail["worst_flip_margin"] = float(margins.max(initial=0.0))
+        ok = bool((margins <= MARGIN_RTOL).all())
+    if card["kind"] == "solver":
+        ce, cc = _host(card["est"].coef_), _host(cpu["est"].coef_)
+        detail["coef_rel_err"] = float(np.abs(ce - cc).max()
+                                       / np.abs(cc).max())
+        ok &= detail["coef_rel_err"] <= COEF_RTOL
+    if cls == "KMeans":
+        fitted = cpu_fit["est"]
+        fit_x = cpu["x"][:cpu["fit_rows"]]
+        bad = np.flatnonzero(card["est"].labels_ != fitted.labels_)
+        margins = _tie_margins(cls, fitted, fit_x[bad]) if bad.size \
+            else np.zeros(0)
+        ce = _host(card["est"].cluster_centers_)
+        cc = _host(fitted.cluster_centers_)
+        detail.update(
+            fit_label_mismatches=int(bad.size),
+            worst_fit_flip_margin=float(margins.max(initial=0.0)),
+            centers_rel_err=float(np.abs(ce - cc).max() / np.abs(cc).max()))
+        ok &= bool((margins <= MARGIN_RTOL).all())
+    return ok, detail
+
+
+def run_estimator_zoo(inputs) -> list:
+    """Every classical estimator fitted and answering at one shape on the
+    card and on the CPU, held against each other."""
+    rng = np.random.default_rng(9)
+    pick = rng.choice(len(inputs["x"]), min(TSNE_POINTS, len(inputs["x"])),
+                      replace=False)
+    xs = inputs["x"][pick]
+    inputs["tsne_x"] = (xs - xs.mean(0)) / np.maximum(xs.std(0), 1e-6)
+    lines = []
+    for case in ESTIMATORS:
+        cls = case[1]
+        try:
+            card = fit_estimator(case, inputs, "cuda")
+            cpu = fit_estimator(case, inputs, "cpu")
+            ok, detail = compare_estimator(cls, card, cpu, inputs)
+        except Exception as exc:  # noqa: BLE001 — the failed estimator
+            # fails the phase; the others still run.
+            phase(f"estimator {inputs['shape']} {cls}", False, repr(exc))
+            continue
+        rows = len(inputs["tsne_x"] if cls == "TSNE" else inputs["x"])
+        line = {"estimator": cls, "shape": inputs["shape"],
+                "fit_rows": card["fit_rows"] if cls != "TSNE" else rows,
+                "predict_rows": rows if cls != "TSNE" else 0,
+                "fit_s": card["fit_s"], "predict_s": card["predict_s"],
+                "cpu_fit_s": cpu["fit_s"], "cpu_predict_s": cpu["predict_s"],
+                **detail}
+        phase(f"estimator {inputs['shape']} {cls}", ok,
+              json.dumps(line, default=float))
+        lines.append(line)
+    return lines
+
+
+TITANIC_FEATURES = ["Pclass", "SibSp", "Parch", "Fare"]
+BUILDER_CLASSIFIERS = ["LogisticRegression", "DecisionTree", "RandomForest",
+                       "GradientBoosting", "NaiveBayes"]
+# Phase 8's fine-tune recipe (BERT-base, T=128, batch 32, 2 epochs) as a
+# grid over the learning rate.
+TUNE_RATES = [2e-5, 3e-5]
+
+
+def run_titanic_rest(tmp) -> dict:
+    """Phase 9 (b): the Titanic pipeline over REST on the card, every job
+    timed from its request to ``finished`` with its kernel launches."""
+    import pickle
+
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.toolkit.base import map_tensors
+
+    table = titanic_table()
+    write_titanic_csv(f"{tmp}/titanic.csv", table)
+    x_tok, y_tok = make_train_data(30522)
+    with open(f"{tmp}/tokens.csv", "w") as fh:
+        fh.write(",".join(REST_FIELDS + ["label"]) + "\n")
+        for row, label in zip(x_tok, y_tok):
+            fh.write(",".join(map(str, row)) + f",{label}\n")
+    server = APIServer(server_config(f"{tmp}/volumes"), device="cuda")
+    port = server.start_background()
+    jobs, ok = {}, True
+
+    def run(key, verb, path, body, name, want_state="finished"):
+        nonlocal ok
+        status, meta, secs, counts = rest_job(port, verb, path, body, name)
+        good = status in (200, 201) and meta.get("jobState") == want_state
+        jobs[key] = {"seconds": secs, "launches": counts, "meta": meta}
+        phase(f"titanic job {key}", good,
+              f"{verb} {path} -> {status}, jobState {meta.get('jobState')}"
+              f" in {secs:.2f}s" + ("" if good else f"; metadata {meta}"))
+        ok &= good
+        return meta
+
+    fit = {"x": "$titanic_scaled", "y": "$titanic.Survived"}
+    train, tune, bert, builder, got = {}, {}, {}, {}, {}
+    score, trials, bert_trials, builder_s = [], [], [], None
+    rf = {"modulePath": "sklearn.ensemble", "class": "RandomForestClassifier",
+          "classParameters": {}}
+    try:
+        run("ingest", "POST", "/dataset/csv",
+            {"datasetName": "titanic", "url": f"file://{tmp}/titanic.csv"},
+            "titanic")
+        _, before = request(port, "GET", "/dataset/csv/titanic?limit=100")
+        run("datatype", "PATCH", "/transform/dataType",
+            {"datasetName": "titanic",
+             "types": {"Age": "number", "Fare": "number",
+                       "Ticket": "string"}}, "titanic")
+        _, after = request(port, "GET", "/dataset/csv/titanic?limit=100")
+        rows = [(a, b) for a, b in zip(before[1:], after[1:])]
+        cast_ok = len(rows) == 99 and all(
+            b["Age"] == (None if a["Age"] is None else float(a["Age"]))
+            and isinstance(b["Ticket"], str) for a, b in rows) and any(
+            a["Age"] is None for a, _ in rows)
+        phase("titanic dataType cast", cast_ok,
+              "Age/Fare to numbers (blank Age stays None), Ticket to "
+              f"strings, over the first {len(rows)} rows")
+        ok &= cast_ok
+        run("projection", "POST", "/transform/projection",
+            {"projectionName": "titanic_x", "datasetName": "titanic",
+             "fields": TITANIC_FEATURES}, "titanic_x")
+        run("transform", "POST", "/transform/scikitlearn",
+            {"name": "titanic_scaled", "modulePath": "sklearn.preprocessing",
+             "class": "StandardScaler", "method": "fit_transform",
+             "methodParameters": {"x": "$titanic_x"}}, "titanic_scaled")
+        run("model", "POST", "/model/scikitlearn", {"name": "rf", **rf},
+            "rf")
+        train = run("train", "POST", "/train/scikitlearn",
+                    {"name": "rf_fit", "parentName": "rf", "method": "fit",
+                     "methodParameters": fit}, "rf_fit")
+        with open(server.ctx.volumes.path_for("train/scikitlearn", "rf_fit"),
+                  "rb") as fh:
+            raw = pickle.load(fh)
+        devices = set()
+        map_tensors(vars(raw), lambda t: devices.add(t.device.type))
+        phase("titanic artifact on the CPU", devices == {"cpu"},
+              f"the card-fitted forest's pickle holds tensors on {devices}")
+        ok &= devices == {"cpu"}
+        ev = run("evaluate", "POST", "/evaluate/scikitlearn",
+                 {"name": "rf_eval", "parentName": "rf_fit",
+                  "method": "score", "methodParameters": fit}, "rf_eval")
+        run("predict", "POST", "/predict/scikitlearn",
+            {"name": "rf_pred", "parentName": "rf_fit", "method": "predict",
+             "methodParameters": {"x": "$titanic_scaled"}}, "rf_pred")
+        preds = [r["result"] for r in rest_rows(
+            port, "/predict/scikitlearn/rf_pred") if "result" in r]
+        _, ev_rows = request(port, "GET", "/evaluate/scikitlearn/rf_eval")
+        score = [r["result"] for r in ev_rows if "result" in r]
+        good = len(preds) == TITANIC_ROWS and set(preds) <= {0, 1} and \
+            bool(score) and 0.6 < score[0] <= 1.0
+        phase("titanic config 1", good,
+              f"{len(preds)} predictions, training-set accuracy {score}")
+        ok &= good
+
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        status, created = request(port, "POST", "/builder/sparkml", {
+            "trainDatasetName": "titanic", "testDatasetName": "titanic",
+            "classifiersList": BUILDER_CLASSIFIERS, "labelField": "Survived",
+            "modelingCode": TITANIC_MODELING_CODE})
+        builder = {}
+        for clf in BUILDER_CLASSIFIERS:
+            meta = wait_done(port, f"titanic{clf}")
+            builder[clf] = {"accuracy": meta.get("accuracy"),
+                            "F1": meta.get("F1"),
+                            "fitTime": meta.get("fitTime"),
+                            "jobState": meta.get("jobState")}
+        builder_s = time.perf_counter() - t0
+        good = status == 201 and all(
+            b["jobState"] == "finished" and 0.5 < b["accuracy"] <= 1.0
+            for b in builder.values())
+        phase("titanic builder", good,
+              f"POST /builder/sparkml -> {status}, five classifiers at once "
+              f"in {builder_s:.2f}s: {json.dumps(builder)}")
+        ok &= good
+
+        tune = run("rf_tune", "POST", "/tune/scikitlearn",
+                   {"name": "rf_tune", "parentName": "rf", "method": "fit",
+                    "paramGrid": {"n_estimators": [25, 50],
+                                  "max_depth": [4, 8]},
+                    "methodParameters": fit}, "rf_tune")
+        trials = [r for r in rest_rows(port, "/tune/scikitlearn/rf_tune")
+                  if "score" in r]
+        good = len(trials) == 4 and tune.get("bestParams") is not None
+        phase("titanic RF tune", good,
+              f"{len(trials)} trials, bestParams {tune.get('bestParams')}, "
+              f"bestScore {tune.get('bestScore')}")
+        ok &= good
+
+        run("tokens", "POST", "/dataset/csv",
+            {"datasetName": "tokens", "url": f"file://{tmp}/tokens.csv"},
+            "tokens")
+        run("tokens_x", "POST", "/transform/projection",
+            {"projectionName": "tokens_x", "datasetName": "tokens",
+             "fields": REST_FIELDS}, "tokens_x")
+        run("bert", "POST", "/model/tensorflow",
+            {"modelName": "bert", "class": "BertModel",
+             "modulePath": "learningorchestra_tpu.models.text",
+             "classParameters": REST_MODEL}, "bert")
+        bert = run("bert_tune", "POST", "/tune/tensorflow", {
+            "name": "bert_tune", "parentName": "bert", "method": "fit",
+            "paramGrid": {"learning_rate": TUNE_RATES,
+                          **{k: [v] for k, v in REST_MODEL.items()
+                             if k != "learning_rate"}},
+            "methodParameters": {"x": "$tokens_x", "y": "$tokens.label",
+                                 "epochs": TRAIN_EPOCHS,
+                                 "batch_size": TRAIN_SHAPE[0],
+                                 "quantize_checkpoint": True}},
+            "bert_tune")
+        bert_trials = [r for r in rest_rows(port, "/tune/tensorflow/"
+                                            "bert_tune") if "score" in r]
+        steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_SHAPE[0])
+        score_batches = -(-TRAIN_ROWS // 128)
+        per_trial = {"flash_fwd": REST_LAYERS * (steps + score_batches),
+                     "flash_bwd_dq": REST_LAYERS * steps,
+                     "flash_bwd_dkv": REST_LAYERS * steps}
+        want = {k: v * len(TUNE_RATES) for k, v in per_trial.items()}
+        want.update(quantize_rowwise=1, dequantize_rowwise=0)
+        got = jobs["bert_tune"]["launches"]
+        good = got == want and len(bert_trials) == len(TUNE_RATES) and \
+            bert.get("bestParams", {}).get("learning_rate") in TUNE_RATES
+        phase("titanic BERT tune", good,
+              f"{len(bert_trials)} trials {[(t['params']['learning_rate'], t['score'], t['fitTime']) for t in bert_trials]}, "
+              f"bestParams {bert.get('bestParams')}; launches {got} (want "
+              f"{want}: per trial {per_trial}, K4 once at the int8 "
+              "publication of the best)")
+        ok &= good
+    finally:
+        server.shutdown()
+    return {
+        "ok": ok,
+        "launches": jobs.get("bert_tune", {}).get("launches", {}),
+        "line": {
+            "jobs": {k: j["seconds"] for k, j in jobs.items()},
+            "train_fit_time_s": train.get("fitTime"),
+            "evaluate_score": score,
+            "builder_s": builder_s, "builder": builder,
+            "rf_tune": {"bestParams": tune.get("bestParams"),
+                        "bestScore": tune.get("bestScore"),
+                        "trials": [{"params": t["params"],
+                                    "score": t["score"],
+                                    "fitTime": t["fitTime"]}
+                                   for t in trials]},
+            "bert_tune": {"bestParams": bert.get("bestParams"),
+                          "bestScore": bert.get("bestScore"),
+                          "trials": [{"learning_rate":
+                                      t["params"]["learning_rate"],
+                                      "score": t["score"],
+                                      "fitTime": t["fitTime"]}
+                                     for t in bert_trials],
+                          "launches_per_trial": {
+                              k: v / len(TUNE_RATES) for k, v in got.items()
+                              if k.startswith("flash")}},
+        },
+    }
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -1949,6 +2521,26 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rest_s = time.perf_counter() - t_rest
+
+    # Phase 9: the classical estimators at two shapes, card against CPU,
+    # then the Titanic pipeline over REST with its two tunes.
+    t_classic = time.perf_counter()
+    zoo9 = {}
+    for make in (lambda: titanic_inputs(titanic_table()), covtype_inputs):
+        inputs = make()
+        zoo9[inputs["shape"]] = run_estimator_zoo(inputs)
+        del inputs
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        titanic = run_titanic_rest(tmp)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("titanic rest", False, repr(exc))
+        titanic = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    classic_s = time.perf_counter() - t_classic
+    tune_l = titanic["launches"]
     rest_l = rest["launches"]
     rest_train = list(rest_l.get("rest_train", {}).values())
 
@@ -1983,10 +2575,11 @@ def main() -> int:
          "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
          "launches": train_counts["flash_fwd"]
-         + rest_sum("flash_fwd", rest_bf16),
+         + rest_sum("flash_fwd", rest_bf16) + tune_l.get("flash_fwd", 0),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
-             "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16)},
+             "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
+             "rest_tune": tune_l.get("flash_fwd", 0)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -1998,11 +2591,13 @@ def main() -> int:
          "replaces": "learningorchestra_tpu/ops/quant.py:29",
          "launches": counts["quantize_rowwise"]
          + zoo_art["launches"]["quantize_rowwise"]
-         + rest_sum("quantize_rowwise", rest_train),
+         + rest_sum("quantize_rowwise", rest_train)
+         + tune_l.get("quantize_rowwise", 0),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
-             "rest_train": rest_sum("quantize_rowwise", rest_train)},
+             "rest_train": rest_sum("quantize_rowwise", rest_train),
+             "rest_tune": tune_l.get("quantize_rowwise", 0)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -2028,10 +2623,12 @@ def main() -> int:
            "source": "learningorchestra_tpu_torch/csrc/flash_bwd.cu",
            "replaces": f"learningorchestra_tpu/ops/attention.py:{line}",
            "launches": train_counts[f"flash_bwd_{key}"]
-           + rest_sum(f"flash_bwd_{key}", rest_train),
+           + rest_sum(f"flash_bwd_{key}", rest_train)
+           + tune_l.get(f"flash_bwd_{key}", 0),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
-               "rest_train": rest_sum(f"flash_bwd_{key}", rest_train)},
+               "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
+               "rest_tune": tune_l.get(f"flash_bwd_{key}", 0)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -2095,8 +2692,15 @@ def main() -> int:
     print("rest_pipeline " + json.dumps({
         "card": name.strip(), "power_limit": limit.strip(),
         **rest["line"]}), flush=True)
+    for shape, lines in zoo9.items():
+        print(f"estimators_{shape} " + json.dumps(lines, default=float),
+              flush=True)
+    print("titanic_rest " + json.dumps({
+        "card": name.strip(), "power_limit": limit.strip(),
+        **titanic["line"]}), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
-          f"{zoo_s:.1f}, rest pipeline {rest_s:.1f})", flush=True)
+          f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
+          f"and the Titanic pipeline {classic_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

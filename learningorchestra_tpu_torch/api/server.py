@@ -5,12 +5,18 @@
 stdlib ``ThreadingHTTPServer`` and a regex route table, with the JAX
 server's request bodies:
 
-- ``POST /dataset/csv``, ``POST /transform/projection``,
-  ``POST /model/<tool>``, ``POST /{train,evaluate,predict}/<tool>``:
-  each creates a named artifact whose job runs asynchronously (201 with
-  the artifact's GET URI); ``GET .../<name>`` polls it (metadata first,
-  then rows), ``PATCH`` re-runs it, ``DELETE`` removes it, ``GET
-  .../<tool>`` lists a family;
+- ``POST /dataset/csv``, ``POST /transform/projection``, ``POST
+  /transform/<tool>`` (a generic transform: registry class + method),
+  ``POST /model/<tool>``, ``POST /{train,evaluate,predict,tune}/<tool>``
+  (a tune with ``paramGrid`` is a grid search): each creates a named
+  artifact whose job runs asynchronously (201 with the artifact's GET
+  URI); ``GET .../<name>`` polls it (metadata first, then rows),
+  ``PATCH`` re-runs it, ``DELETE`` removes it, ``GET .../<tool>`` lists
+  a family;
+- ``PATCH /transform/dataType``: cast a dataset's fields in place;
+- ``POST /builder/sparkml``: fit the builder's classifiers at once, one
+  result artifact each (``builder/tensorflow|pytorch``, the distributed
+  builder, answers 406: ROADMAP A.9);
 - ``GET /observe/<name>``: long poll until the job finishes or fails;
 - ``POST /serve/<model>/predict|load|unload``, ``DELETE
   /serve/<model>``, ``GET /serve``: resident serving of a train job's
@@ -44,6 +50,7 @@ from learningorchestra_tpu_torch.serve.service import (
 )
 from learningorchestra_tpu_torch.serve.service import ServingService
 from learningorchestra_tpu_torch.services import (
+    BuilderService,
     DatasetService,
     ExecutorService,
     ModelService,
@@ -113,6 +120,7 @@ class APIServer:
         self.transform = TransformService(self.ctx)
         self.model = ModelService(self.ctx)
         self.executor = ExecutorService(self.ctx)
+        self.builder = BuilderService(self.ctx)
         self.serving = ServingService(
             self.ctx.volumes, self.config.serve, device=self.ctx.device
         )
@@ -154,7 +162,9 @@ class APIServer:
 
         def handler(m, body, query):
             t = tool if tool is not None else m.group("tool")
-            return 200, self.dataset.list_metadata(f"{service}/{t}")
+            docs = self.dataset.list_metadata(f"{service}/{t}")
+            # Coordinator artifacts (builder runs) are not the client's.
+            return 200, [d for d in docs if not d.get("hidden")]
 
         return handler
 
@@ -223,6 +233,48 @@ class APIServer:
         add("DELETE", rf"/transform/projection/{NAME}",
             self._deleter(self.dataset.delete))
 
+        # ---- Transform: dataType ----
+        def datatype_patch(m, body, query):
+            return 200, {"metadata": self.transform.update_field_types(
+                body.get("datasetName") or body.get("name"),
+                body.get("types") or body.get("fields") or {},
+            )}
+
+        add("PATCH", r"/transform/dataType", datatype_patch)
+        # The collection GET lists the dataset family; per-name GET and
+        # DELETE go through the generic routes below.
+        add("GET", r"/transform/dataType", self._list_handler("dataset", ""))
+
+        # ---- Transform: generic (scikitlearn | tensorflow) ----
+        def transform_create(m, body, query):
+            tool = m.group("tool")
+            meta = self.transform.create_generic(
+                body.get("name"),
+                module_path=body.get("modulePath"),
+                class_name=body.get("class"),
+                class_parameters=body.get("classParameters"),
+                method=body.get("method"),
+                method_parameters=body.get("methodParameters"),
+                artifact_type=f"transform/{tool}",
+                description=body.get("description", ""),
+            )
+            return self._created(f"transform/{tool}", meta)
+
+        def transform_update(m, body, query):
+            return 200, {"metadata": self.transform.update_generic(
+                m.group("name"),
+                class_parameters=body.get("classParameters"),
+                method_parameters=body.get("methodParameters"),
+                description=body.get("description", ""),
+            )}
+
+        add("POST", rf"/transform/{TOOL}", transform_create)
+        add("GET", rf"/transform/{TOOL}", self._list_handler("transform"))
+        add("PATCH", rf"/transform/{TOOL}/{NAME}", transform_update)
+        add("GET", rf"/transform/{TOOL}/{NAME}", self._page)
+        add("DELETE", rf"/transform/{TOOL}/{NAME}",
+            self._deleter(self.executor.delete))
+
         # ---- Model ----
         def model_create(m, body, query):
             tool = m.group("tool")
@@ -266,16 +318,29 @@ class APIServer:
         def exec_create(service):
             def handler(m, body, query):
                 tool = m.group("tool")
-                meta = self.executor.create(
-                    body.get("name"),
-                    parent_name=body.get("parentName")
-                    or body.get("modelName"),
-                    method=body.get("method"),
-                    method_parameters=body.get("methodParameters"),
-                    artifact_type=f"{service}/{tool}",
-                    description=body.get("description", ""),
-                    deadline_s=deadline_s(body),
-                )
+                parent = body.get("parentName") or body.get("modelName")
+                if service == "tune" and body.get("paramGrid"):
+                    meta = self.executor.create_tune(
+                        body.get("name"),
+                        parent_name=parent,
+                        method=body.get("method", "fit"),
+                        param_grid=body.get("paramGrid"),
+                        method_parameters=body.get("methodParameters"),
+                        scoring_parameters=body.get("scoringParameters"),
+                        artifact_type=f"tune/{tool}",
+                        description=body.get("description", ""),
+                        deadline_s=deadline_s(body),
+                    )
+                else:
+                    meta = self.executor.create(
+                        body.get("name"),
+                        parent_name=parent,
+                        method=body.get("method"),
+                        method_parameters=body.get("methodParameters"),
+                        artifact_type=f"{service}/{tool}",
+                        description=body.get("description", ""),
+                        deadline_s=deadline_s(body),
+                    )
                 return self._created(f"{service}/{tool}", meta)
 
             return handler
@@ -288,13 +353,42 @@ class APIServer:
                 deadline_s=deadline_s(body),
             )}
 
-        for service in ("train", "evaluate", "predict"):
+        for service in ("tune", "train", "evaluate", "predict"):
             add("POST", rf"/{service}/{TOOL}", exec_create(service))
             add("GET", rf"/{service}/{TOOL}", self._list_handler(service))
             add("PATCH", rf"/{service}/{TOOL}/{NAME}", exec_update)
             add("GET", rf"/{service}/{TOOL}/{NAME}", self._page)
             add("DELETE", rf"/{service}/{TOOL}/{NAME}",
                 self._deleter(self.executor.delete))
+
+        # ---- Builder ----
+        def builder_create(m, body, query):
+            tool = m.group("tool")
+            if tool in ("tensorflow", "pytorch", "horovod"):
+                raise ValidationError(
+                    f"builder/{tool} is the distributed (one function on "
+                    "every rank) builder, not ported to the PyTorch "
+                    "package yet (ROADMAP A.9); use builder/sparkml")
+            metas = self.builder.create(
+                training_dataset=body.get("trainDatasetName"),
+                test_dataset=body.get("testDatasetName"),
+                classifiers=body.get("classifiersList")
+                or body.get("classifiers") or [],
+                label_field=body.get("labelField", "label"),
+                feature_fields=body.get("featureFields"),
+                modeling_code=body.get("modelingCode"),
+                classifier_parameters=body.get("classifierParameters"),
+                description=body.get("description", ""),
+            )
+            return 201, {"result": [
+                f"{self.config.api.api_prefix}/builder/sparkml/{mm['name']}"
+                for mm in metas]}
+
+        add("POST", rf"/builder/{TOOL}", builder_create)
+        add("GET", rf"/builder/{TOOL}", self._list_handler("builder"))
+        add("GET", rf"/builder/{TOOL}/{NAME}", self._page)
+        add("DELETE", rf"/builder/{TOOL}/{NAME}",
+            self._deleter(self.executor.delete))
 
         # ---- Observe: the long poll the client's wait() loops on ----
         def observe_wait(m, body, query):

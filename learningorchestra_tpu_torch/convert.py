@@ -1,5 +1,6 @@
 """Weight carry between the JAX package's flax parameter trees and the
-port's modules.
+port's modules, and state carry for the classical estimators
+(:func:`carry_estimator`).
 
 The port's modules name their submodules after the flax tree
 (``encoder.TransformerBlock_0.MultiHeadSelfAttention_0.qkv`` is
@@ -123,3 +124,39 @@ def params_to_jax(module: nn.Module) -> dict:
     """The module's parameters as the JAX package's flax tree of numpy
     arrays."""
     return to_host(flax_tree(module))
+
+
+#: Classical-estimator attributes that stay host numpy in the port
+#: (labels and bookkeeping, as the JAX package keeps them).
+_HOST_ATTRS = frozenset({"classes_", "labels_", "losses_", "categories_"})
+
+
+def carry_estimator(est, state: dict):
+    """A fitted JAX estimator's state -> the port's estimator ``est`` of
+    the same class, on ``est.device``.  ``state`` maps attribute names to
+    numpy arrays (a flat tree as the tuple ``(feature, threshold, left,
+    right, leaf_value, max_depth)``, a forest as its five padded arrays);
+    arrays become tensors except labels and bookkeeping, Python scalars
+    stay as they are.  An ``SVC``'s ``_w``/``_b`` pin its feature map, so
+    a fit after the carry runs on the JAX package's draw."""
+    from learningorchestra_tpu_torch.toolkit.estimators import svm, trees
+
+    def place(key, value):
+        if key in _HOST_ATTRS:
+            return value
+        if isinstance(value, (tuple, list)):
+            out = [place(None, v) for v in value]
+            return trees._FlatTree(*out[:5], int(out[5])) \
+                if key == "_tree" else tuple(out)
+        if isinstance(value, np.ndarray):
+            dtype = torch.int64 if value.dtype.kind in "iu" else \
+                torch.float32
+            return torch.as_tensor(np.array(value), dtype=dtype,
+                                   device=est.device)
+        return value
+
+    for key, value in state.items():
+        setattr(est, key, place(key, value))
+    if isinstance(est, svm.SVC) and state.get("_w") is not None:
+        est.pin_feature_map(state["_w"], state["_b"])
+    return est

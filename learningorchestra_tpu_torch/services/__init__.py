@@ -1,8 +1,10 @@
 """The pipeline's services — port of ``learningorchestra_tpu/services/``:
-dataset ingest, projection, model creation and the train / evaluate /
-predict executor, each step a named, lineage-tracked, asynchronous job
-whose output is persisted (store rows and volume binaries)."""
+dataset ingest, transforms (projection, dataType cast, generic), model
+creation, the train / evaluate / predict / tune executor and the
+builder, each step a named, lineage-tracked, asynchronous job whose
+output is persisted (store rows and volume binaries)."""
 
+from learningorchestra_tpu_torch.services.builder import BuilderService
 from learningorchestra_tpu_torch.services.context import ServiceContext
 from learningorchestra_tpu_torch.services.dataset import DatasetService
 from learningorchestra_tpu_torch.services.executor import ExecutorService
@@ -10,6 +12,7 @@ from learningorchestra_tpu_torch.services.model import ModelService
 from learningorchestra_tpu_torch.services.transform import TransformService
 
 __all__ = [
+    "BuilderService",
     "DatasetService",
     "ExecutorService",
     "ModelService",

@@ -1,6 +1,5 @@
-"""Executor service: train / evaluate / predict — port of
-``learningorchestra_tpu/services/executor.py`` (grid-search tuning comes
-with ROADMAP A.3 part 2).
+"""Executor service: train / evaluate / predict and grid-search tune —
+port of ``learningorchestra_tpu/services/executor.py``.
 
 A job loads its parent's binary on the context's device, calls
 ``getattr(instance, method)(**treated_params)`` and persists the outcome:
@@ -12,24 +11,39 @@ lineage walk finds the model spec behind any chain of steps.  Each job
 holds a device lease for its device work, so jobs on one card
 serialize, and what it prints is recorded in its execution document.
 
+A tune job (:meth:`ExecutorService.create_tune`) fits one candidate
+per combination of a parameter grid on a thread pool, each neural
+candidate under a device lease of its own (on one card the trials
+serialize there), scores it, stores a result row per trial as it
+finishes and publishes the best candidate.
+
 Managed checkpoints are not ported (ROADMAP A.5): a request carrying
-``checkpoint_dir`` is refused (406) as the JAX package refuses it.
+``checkpoint_dir`` is refused (406) as the JAX package refuses it, and
+neural trials get no per-trial checkpoint directory.  The tune's
+compile-cache and device-time accounting (``compileCache``,
+``deviceTime``) come with A.6.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import time
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Any
 
 import numpy as np
 
 from learningorchestra_tpu_torch import dsl
+from learningorchestra_tpu_torch.jobs import cancel as jobs_cancel
 from learningorchestra_tpu_torch.jobs.leases import placed
 from learningorchestra_tpu_torch.services.context import (
     ServiceContext,
     ValidationError,
 )
 from learningorchestra_tpu_torch.toolkit import registry
+from learningorchestra_tpu_torch.toolkit.base import map_tensors
+from learningorchestra_tpu_torch.train.neural import NeuralEstimator
 
 
 def store_history_rows(documents, name: str, history: dict) -> int:
@@ -183,6 +197,7 @@ class ExecutorService:
 
     def _store_result_rows(self, name: str, result: Any) -> None:
         """Method results as pollable rows."""
+        result = map_tensors(result, lambda t: t.detach().cpu().numpy())
         if isinstance(result, dict):
             self.ctx.documents.insert_one(name, _json_safe(result))
             return
@@ -195,6 +210,136 @@ class ExecutorService:
         else:
             self.ctx.documents.insert_many(
                 name, ({"result": row} for row in arr.tolist()))
+
+    # -- tune: managed grid search -------------------------------------------
+
+    def create_tune(
+        self,
+        name: str,
+        *,
+        parent_name: str,
+        method: str = "fit",
+        param_grid: dict | None = None,
+        method_parameters: dict | None = None,
+        scoring_parameters: dict | None = None,
+        artifact_type: str = "tune/tensorflow",
+        description: str = "",
+        deadline_s: float | None = None,
+    ) -> dict:
+        """Grid search over ``param_grid`` (dict of lists).  Each
+        candidate instantiates the model ancestor's class with one
+        combination on the context's device, runs ``method`` with
+        ``method_parameters``, scores with ``score`` on
+        ``scoring_parameters`` (default: the fit's ``x``/``y``); the best
+        candidate is persisted as this artifact's binary."""
+        if not param_grid:
+            raise ValidationError("param_grid is required for tune")
+        for key, values in param_grid.items():
+            if not isinstance(values, (list, tuple)) or not values:
+                raise ValidationError(
+                    f"param_grid[{key!r}] must be a non-empty list"
+                )
+        self.ctx.require_new_name(name)
+        self._reject_raw_checkpoint_dir(method_parameters)
+        self.ctx.require_finished_parent(parent_name)
+        model_meta = self.ctx.artifacts.metadata.find_model_ancestor(
+            parent_name
+        )
+        module_path, class_name = (model_meta.get("modulePath"),
+                                   model_meta.get("class"))
+        factory = registry.resolve(module_path, class_name)
+        bad = registry.validate_init_params(
+            module_path, class_name, {k: None for k in param_grid})
+        if bad:
+            raise ValidationError(f"param_grid keys not in __init__: {bad}")
+        meta = self.ctx.artifacts.metadata.create(
+            name,
+            artifact_type,
+            parent_name=parent_name,
+            module_path=module_path,
+            class_name=class_name,
+            method=method,
+        )
+        ctx = self.ctx
+        neural = isinstance(factory, type) and issubclass(
+            factory, NeuralEstimator)
+
+        def run():
+            fit_params = dsl.resolve_params(method_parameters, ctx.loader)
+            score_params = dsl.resolve_params(
+                scoring_parameters, ctx.loader
+            ) if scoring_parameters else {
+                k: v for k, v in fit_params.items() if k in ("x", "y")
+            }
+            keys = sorted(param_grid)
+            combos = [dict(zip(keys, combo)) for combo in itertools.product(
+                *(param_grid[k] for k in keys))]
+            # Trials run on pool threads, which do not inherit the job's
+            # context: each binds the job's cancel token itself.
+            token = jobs_cancel.current_cancel_token()
+
+            def eval_candidate(kwargs: dict):
+                if token is not None and token.cancelled():
+                    raise RuntimeError(
+                        f"tune cancelled: {token.reason or 'requested'}")
+                # A neural trial leases a card for its device work and
+                # runs there; on one card the trials serialize.
+                lease = ctx.leaser.lease(1, label=f"{name}:trial") \
+                    if neural else contextlib.nullcontext([])
+                with jobs_cancel.bind(token), lease as devs, placed(devs):
+                    candidate = factory(**kwargs, device=ctx.device)
+                    t0 = time.perf_counter()
+                    getattr(candidate, method)(**fit_params)
+                    fit_time = time.perf_counter() - t0
+                    score = float(candidate.score(**score_params))
+                return candidate, score, fit_time
+
+            # Trials stream: each result row lands as its trial finishes,
+            # and only the best candidate so far stays referenced.
+            best_score, best_instance, best_combo = -np.inf, None, None
+            workers = min(len(combos),
+                          max(4, ctx.leaser.device_count if neural else 0))
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                futures = {pool.submit(eval_candidate, kw): kw
+                           for kw in combos}
+                try:
+                    for fut in as_completed(list(futures)):
+                        # pop: a consumed non-best candidate is collectable
+                        # now, not when the pool exits.
+                        kwargs = futures.pop(fut)
+                        candidate, score, fit_time = fut.result()
+                        ctx.documents.insert_one(name, {
+                            "params": _json_safe(kwargs),
+                            "score": score,
+                            "fitTime": fit_time,
+                        })
+                        if score > best_score:
+                            best_score, best_instance, best_combo = (
+                                score, candidate, kwargs)
+                except BaseException:
+                    # The first failure ends the search: the queued
+                    # trials never start.
+                    for pending in futures:
+                        pending.cancel()
+                    raise
+            lease = ctx.leaser.lease(1, label=name) if neural \
+                else contextlib.nullcontext([])
+            with lease as devs, placed(devs):
+                ctx.volumes.save_estimator(artifact_type, name,
+                                           best_instance)
+            ctx.notify_artifact_changed(name)
+            return {"bestScore": best_score,
+                    "bestParams": _json_safe(best_combo)}
+
+        ctx.engine.submit(
+            name, run,
+            description=description or f"grid search {parent_name}",
+            method=method, parameters=_json_safe(param_grid),
+            on_success=lambda extra: extra,
+            job_class="executor",
+            deadline_s=deadline_s,
+        )
+        return meta
 
     def delete(self, name: str) -> None:
         self.ctx.delete_artifact(name)

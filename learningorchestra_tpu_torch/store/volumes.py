@@ -11,9 +11,12 @@ params to the host (int8 when the fit asked for ``quantize_checkpoint``);
 the port stores :meth:`NeuralEstimator.to_artifact` dicts of numpy arrays
 (:meth:`VolumeStorage.save_estimator`, which runs the quantize kernel
 there) and rebuilds them on a device (:meth:`load_estimator`, which runs
-the dequantize kernel).  Any other result (an evaluate dict, predict
-arrays) is pickled as it is.  Only bytes this program wrote should be
-read back: unpickling runs code.
+the dequantize kernel).  A classical estimator (``TensorEstimator``) is
+pickled as it is, its tensors on the CPU, and any other result (an
+evaluate dict, predict arrays, a transform's tensors) with its tensors
+moved to the CPU: an artifact made on the card loads where there is
+none, and :meth:`load_estimator` places it on the caller's device.  Only
+bytes this program wrote should be read back: unpickling runs code.
 """
 
 from __future__ import annotations
@@ -25,6 +28,10 @@ import shutil
 from pathlib import Path
 from typing import Any
 
+from learningorchestra_tpu_torch.toolkit.base import (
+    TensorEstimator,
+    map_tensors,
+)
 from learningorchestra_tpu_torch.train.neural import (
     NeuralEstimator,
     is_artifact,
@@ -83,7 +90,9 @@ class VolumeStorage:
     # -- pickled objects -------------------------------------------------------
 
     def save_object(self, artifact_type: str, name: str, obj: Any) -> Path:
-        return self._dump_atomic(self.path_for(artifact_type, name), obj)
+        """Pickle ``obj`` with every tensor in it on the CPU."""
+        return self._dump_atomic(self.path_for(artifact_type, name),
+                                 map_tensors(obj, lambda t: t.detach().cpu()))
 
     @staticmethod
     def _dump_atomic(path: Path, obj: Any) -> Path:
@@ -106,18 +115,27 @@ class VolumeStorage:
     # -- estimators as artifacts ---------------------------------------------
 
     def save_estimator(self, artifact_type: str, name: str,
-                       estimator: NeuralEstimator) -> Path:
-        """Persist ``estimator.to_artifact()``: int8 parameters (one
-        grouped quantize launch) when its last fit asked for
-        ``quantize_checkpoint``, else f32 with the optimizer state."""
-        return self.save_object(artifact_type, name, estimator.to_artifact())
+                       estimator: NeuralEstimator | TensorEstimator) -> Path:
+        """Persist a neural estimator as ``estimator.to_artifact()``: int8
+        parameters (one grouped quantize launch) when its last fit asked
+        for ``quantize_checkpoint``, else f32 with the optimizer state;
+        anything else (a classical estimator, a transform's output) as
+        :meth:`save_object` pickles it."""
+        if isinstance(estimator, NeuralEstimator):
+            estimator = estimator.to_artifact()
+        return self.save_object(artifact_type, name, estimator)
 
     def load_estimator(self, artifact_type: str, name: str, *, device):
-        """The stored object, rebuilt as an estimator on ``device`` when
-        it is an estimator artifact (int8 leaves dequantize there in one
-        grouped launch), else as it was pickled."""
+        """The stored object placed on ``device``: an estimator artifact
+        rebuilt there (int8 leaves dequantize in one grouped launch), a
+        classical estimator's state and any other object's tensors
+        moved there."""
         obj = self.read_object(artifact_type, name)
-        return load_artifact(obj, device=device) if is_artifact(obj) else obj
+        if is_artifact(obj):
+            return load_artifact(obj, device=device)
+        if isinstance(obj, TensorEstimator):
+            return obj.to(device)
+        return map_tensors(obj, lambda t: t.to(device))
 
     # -- lifecycle ------------------------------------------------------------
 

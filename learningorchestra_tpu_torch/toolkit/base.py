@@ -2,7 +2,14 @@
 ``learningorchestra_tpu/toolkit/base.py``, over numpy and torch instead of
 jnp.  The helpers coerce to numpy the way ``jnp.asarray`` does with x64
 off (float64 -> float32, int64 -> int32), so the port batches the same
-dtypes the JAX package trains on."""
+dtypes the JAX package trains on.
+
+:class:`TensorEstimator` is the base of the classical estimators: their
+fitted state lives as tensors on the estimator's ``device`` (where the
+JAX package keeps jnp arrays), labels and host-side bookkeeping stay
+numpy, and a pickle of one holds CPU tensors only, so an artifact made
+on the card loads where there is none (:meth:`TensorEstimator.to`
+places it again)."""
 
 from __future__ import annotations
 
@@ -11,6 +18,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from learningorchestra_tpu_torch.device import resolve_device
 
 _NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
            np.dtype(np.uint64): np.uint32}
@@ -51,6 +60,29 @@ def encode_classes(y: Any) -> tuple[np.ndarray, np.ndarray]:
     return classes, inv.astype(np.int32)
 
 
+def map_tensors(obj: Any, fn) -> Any:
+    """``obj`` with ``fn`` applied to every tensor in it, through dicts,
+    lists and tuples (named tuples keep their type)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(v, fn) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(v, fn) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map_tensors(v, fn) for v in obj)
+    return obj
+
+
+def r2_score(y: Any, pred: Any) -> float:
+    """Coefficient of determination (the regressors' ``score``)."""
+    y = as_array(y, np.float32)
+    pred = _host(pred).reshape(y.shape)
+    ss_res = float(((y - pred) ** 2).sum())
+    ss_tot = float(((y - y.mean(0)) ** 2).sum())
+    return 1.0 - ss_res / max(ss_tot, 1e-12)
+
+
 class Estimator:
     """Base class: get_params/set_params over __init__ kwargs, repr."""
 
@@ -76,3 +108,33 @@ class Estimator:
         preds = _host(self.predict(x)).reshape(-1)
         truth = _host(y).reshape(-1)
         return float((preds == truth).mean())
+
+
+class TensorEstimator(Estimator):
+    """A classical estimator whose fitted state is tensors on
+    ``self.device`` (set by each ``__init__`` from its ``device``
+    argument through ``resolve_device``)."""
+
+    device: torch.device
+
+    def _put(self, x: Any, dtype=torch.float32) -> torch.Tensor:
+        """A host array (DataFrame, list, numpy, tensor anywhere) as a
+        ``dtype`` tensor on the estimator's device."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, dtype)
+        arr = np.ascontiguousarray(as_array(x))
+        # torch cannot alias a read-only array (one handed out by JAX).
+        return torch.from_numpy(arr if arr.flags.writeable else arr.copy()
+                                ).to(self.device, dtype)
+
+    def to(self, device) -> "TensorEstimator":
+        """Move the fitted state to ``device`` (in place)."""
+        self.device = resolve_device(device)
+        self.__dict__.update(map_tensors(
+            self.__dict__, lambda t: t.to(self.device)))
+        return self
+
+    def __getstate__(self) -> dict:
+        # CPU tensors only: a pickle with CUDA tensors does not load
+        # where there is no card.
+        return map_tensors(dict(self.__dict__), lambda t: t.detach().cpu())

@@ -1,12 +1,12 @@
 """Constructor registry — port of
 ``learningorchestra_tpu/toolkit/registry.py``.
 
-Maps ``(module_path, class_name)`` to the port's estimator classes, so a
-request or an artifact names its class and a loader rebuilds it.  The
-JAX package's module paths and the reference-era ones (``tensorflow.
-keras.*``, ``torch.nn``) alias to the port's zoo, so one request body
-resolves on both servers.  The ``sklearn.*`` paths name classical
-estimators, which are not ported yet: they raise ``RegistryError`` (406).
+Maps ``(module_path, class_name)`` to the port's classes, so a request
+or an artifact names its class and a loader rebuilds it.  The JAX
+package's module paths (its zoo and ``learningorchestra_tpu.toolkit.
+estimators.*``) and the reference-era ones (``sklearn.*``,
+``tensorflow.keras.*``, ``torch.nn``) alias to the port's modules, so
+one request body resolves on both servers.
 """
 
 from __future__ import annotations
@@ -23,21 +23,34 @@ _loaded = False
 _MLP = "learningorchestra_tpu_torch.models.mlp"
 _TEXT = "learningorchestra_tpu_torch.models.text"
 _VISION = "learningorchestra_tpu_torch.models.vision"
-_MODULES = (_MLP, _TEXT, _VISION)
+_ZOO = (_MLP, _TEXT, _VISION)
+_ESTIMATORS = "learningorchestra_tpu_torch.toolkit.estimators."
+_CLASSICAL = ("linear", "trees", "bayes", "cluster", "decomposition",
+              "preprocessing", "neighbors", "svm")
+_MODULES = _ZOO + tuple(_ESTIMATORS + m for m in _CLASSICAL)
 
 #: Request module path -> the port's modules to look the class up in.
 MODULE_ALIASES: dict[str, tuple[str, ...]] = {
     "learningorchestra_tpu.models.mlp": (_MLP,),
     "learningorchestra_tpu.models.text": (_TEXT,),
     "learningorchestra_tpu.models.vision": (_VISION,),
-    "learningorchestra_tpu.models": _MODULES,
+    "learningorchestra_tpu.models": _ZOO,
     "tensorflow.keras.applications": (_VISION,),
-    "tensorflow.keras.models": _MODULES,
-    "torch.nn": _MODULES,
+    "tensorflow.keras.models": _ZOO,
+    "torch.nn": _ZOO,
+    "sklearn.linear_model": (_ESTIMATORS + "linear",),
+    "sklearn.ensemble": (_ESTIMATORS + "trees",),
+    "sklearn.tree": (_ESTIMATORS + "trees",),
+    "sklearn.naive_bayes": (_ESTIMATORS + "bayes",),
+    "sklearn.cluster": (_ESTIMATORS + "cluster",),
+    "sklearn.decomposition": (_ESTIMATORS + "decomposition",),
+    "sklearn.manifold": (_ESTIMATORS + "decomposition",),
+    "sklearn.preprocessing": (_ESTIMATORS + "preprocessing",),
+    "sklearn.neighbors": (_ESTIMATORS + "neighbors",),
+    "sklearn.svm": (_ESTIMATORS + "svm",),
+    **{f"learningorchestra_tpu.toolkit.estimators.{m}": (_ESTIMATORS + m,)
+       for m in _CLASSICAL},
 }
-
-#: Classical-estimator paths of the JAX package, not ported yet.
-_CLASSICAL_PREFIXES = ("sklearn.", "learningorchestra_tpu.toolkit.")
 
 
 class RegistryError(KeyError):
@@ -73,11 +86,6 @@ def _ensure_loaded() -> None:
 def resolve(module_path: str, class_name: str) -> Callable:
     """The factory for a request's ``(modulePath, class)``."""
     _ensure_loaded()
-    if str(module_path).startswith(_CLASSICAL_PREFIXES):
-        raise RegistryError(
-            f"modulePath={module_path!r} names a classical estimator; "
-            "those are not ported to the PyTorch package yet (ROADMAP A.4)"
-        )
     with _lock:
         for native in MODULE_ALIASES.get(module_path, (module_path,)):
             factory = _registry.get((native, class_name))
