@@ -99,8 +99,26 @@ Phases (each prints its own line; any failure exits nonzero):
    classifiers at once, an RF grid tune (2x2) and a BERT-base tune over
    two learning rates on phase 8's token CSV (K1/K2/K3 launches per
    trial, K4 once at the best candidate's int8 publication); each job's
-   seconds from request to finished (``titanic_rest`` line);
-10. last line: {"ok": true, "device": {...}}.
+   seconds from request to finished (``titanic_rest`` line); every REST
+   fit now saves its final epoch as a managed checkpoint (phase 8's
+   ``final_checkpoints``, the BERT tune's ``trial_checkpoints``);
+10. the crash drill: the port's ``APIServer`` on the card in a child
+   process (``--crash-drill-child``, whose epochs from the third on wait
+   ``CRASH_DELAY_S`` first) with a wildcard webhook aimed at a receiver in
+   this process; phase 8's CSV, projection and BERT-base model, then a
+   train job of 4 epochs checkpointing each (async), ``quantize_checkpoint``;
+   SIGKILL once ``latest.json`` names step 2 or later; a second
+   ``APIServer`` here over the same store replays the journal and
+   re-dispatches the job, which resumes from the committed step and
+   finishes with ``engineEpoch`` 2 and 4 history epochs, K1/K2/K3
+   launched 12 x 8 steps x the epochs after that step, K4 once; the
+   webhook's ``finished`` event received; an evaluate of the recovered
+   artifact (K5 once); the same job run uninterrupted, its final f32
+   checkpoint against the recovered one's (bf16 bar 3e-2; 0 expected);
+   the ``crash_drill`` line (each checkpoint's snapshot wait, writer
+   seconds and bytes; resume-load, journal replay, boot-to-redispatch and
+   to-finished seconds; launches; the parameter difference);
+11. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -1633,20 +1651,27 @@ def rest_rows(port, path, page=100) -> list:
             return docs
 
 
+def write_token_csv(path) -> tuple:
+    """The training phase's 250 rows as the REST phases' CSV."""
+    x, y = make_train_data(30522)
+    with open(path, "w") as fh:
+        fh.write(",".join(REST_FIELDS + ["label"]) + "\n")
+        for row, label in zip(x, y):
+            fh.write(",".join(map(str, row)) + f",{label}\n")
+    return x, y
+
+
 def run_rest_pipeline(tmp) -> dict:
     """The slice's REST main path on the card: CSV ingest -> projection ->
     model -> train (K1/K2/K3 every step, K4 at the int8 publication) ->
     evaluate and predict (K5 at each load, K1) -> serve, then the failure
     path and a PATCH re-run; every job sequential."""
     from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.train import checkpoint as ckpt
     from learningorchestra_tpu_torch.train.neural import load_artifact
 
-    x, y = make_train_data(30522)
     csv = f"{tmp}/tokens.csv"
-    with open(csv, "w") as fh:
-        fh.write(",".join(REST_FIELDS + ["label"]) + "\n")
-        for row, label in zip(x, y):
-            fh.write(",".join(map(str, row)) + f",{label}\n")
+    x, _ = write_token_csv(csv)
     server = APIServer(server_config(f"{tmp}/volumes"), device="cuda")
     port = server.start_background()
     jobs, ok = {}, True
@@ -1833,6 +1858,11 @@ def run_rest_pipeline(tmp) -> dict:
             "model_artifact_load_s": timed["model_load_s"],
             "serve_s": serve_s, "predict_cpu_max_abs_err": err,
             "serve_max_abs_err": serve_err,
+            # Every REST fit saves its final epoch (async, committed
+            # before the job publishes): the train job and its re-run.
+            "final_checkpoints": [
+                s for s in ckpt.recent_saves
+                if s["dir"].endswith("/_checkpoints/bert_fit")],
         },
     }
 
@@ -2198,14 +2228,11 @@ def run_titanic_rest(tmp) -> dict:
 
     from learningorchestra_tpu_torch.api.server import APIServer
     from learningorchestra_tpu_torch.toolkit.base import map_tensors
+    from learningorchestra_tpu_torch.train import checkpoint as ckpt
 
     table = titanic_table()
     write_titanic_csv(f"{tmp}/titanic.csv", table)
-    x_tok, y_tok = make_train_data(30522)
-    with open(f"{tmp}/tokens.csv", "w") as fh:
-        fh.write(",".join(REST_FIELDS + ["label"]) + "\n")
-        for row, label in zip(x_tok, y_tok):
-            fh.write(",".join(map(str, row)) + f",{label}\n")
+    write_token_csv(f"{tmp}/tokens.csv")
     server = APIServer(server_config(f"{tmp}/volumes"), device="cuda")
     port = server.start_background()
     jobs, ok = {}, True
@@ -2379,9 +2406,302 @@ def run_titanic_rest(tmp) -> dict:
                                      for t in bert_trials],
                           "launches_per_trial": {
                               k: v / len(TUNE_RATES) for k, v in got.items()
-                              if k.startswith("flash")}},
+                              if k.startswith("flash")},
+                          # Each trial saves its final epoch under the
+                          # tune's managed tree.
+                          "trial_checkpoints": [
+                              s for s in ckpt.recent_saves
+                              if "/_checkpoints/bert_tune/" in s["dir"]]},
         },
     }
+
+
+# -- phase 10: the crash drill (journal, boot recovery, checkpoint resume) ----
+
+CRASH_JOB, CRASH_EPOCHS = "bert_crash", 4
+# Before each epoch from the third on, the child waits this long: a
+# BERT-base epoch of 8 steps takes well under a second, so without it
+# the fit could finish before the SIGKILL lands.
+CRASH_DELAY_S = 3.0
+CRASH_BAR = 3e-2  # the bf16 bar: recovered vs uninterrupted parameters
+
+
+class WebhookReceiver:
+    """A local endpoint for the drill's wildcard webhook, recording every
+    POSTed body."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        import threading
+
+        got = self.got = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                got.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/hook"
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def crash_child(tmp: str) -> int:
+    """Phase 10's first process (``chip_smoke.py --crash-drill-child
+    <tmp>``): the port's APIServer on the card over ``<tmp>``'s store,
+    its port written to ``<tmp>/child.port``; epochs from the third on
+    wait ``CRASH_DELAY_S`` first.  Runs until the parent's SIGKILL (or
+    exits once its parent is gone)."""
+    import os
+
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.train.neural import NeuralEstimator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    epoch_raw = NeuralEstimator._device_epoch
+
+    def slowed(self, *args):
+        if args[-1] >= 2:  # the epoch index
+            time.sleep(CRASH_DELAY_S)
+        return epoch_raw(self, *args)
+
+    NeuralEstimator._device_epoch = slowed
+    parent = os.getppid()
+    server = APIServer(server_config(f"{tmp}/volumes"), device="cuda")
+    port = server.start_background()
+    with open(f"{tmp}/child.port.tmp", "w") as fh:
+        fh.write(str(port))
+    os.replace(f"{tmp}/child.port.tmp", f"{tmp}/child.port")
+    while os.getppid() == parent:
+        time.sleep(0.5)
+    return 1
+
+
+def _poll(cond, timeout_s: float, what: str, child=None):
+    """Wait for ``cond()`` to return a truthy value, bounded; a child
+    that died first ends the wait."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        got = cond()
+        if got:
+            return got
+        if child is not None and child.poll() is not None:
+            raise RuntimeError(f"{what}: the child exited with "
+                               f"{child.returncode}")
+        time.sleep(0.05)
+    raise RuntimeError(f"{what}: not within {timeout_s:.0f}s")
+
+
+def _read_json(path):
+    try:
+        with open(path) as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return None
+
+
+def run_crash_drill(tmp) -> dict:
+    """Phase 10: a BERT-base REST fine-tune SIGKILLed mid-fit in a child
+    process, recovered by a second boot in this process from its newest
+    checkpoint (K1/K2/K3 only for the epochs after it, K4 at the int8
+    publication), its webhook's ``finished`` event received, an evaluate
+    of the recovered artifact (K5), and the same job run uninterrupted to
+    compare parameters."""
+    import os
+
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.jobs.journal import JOURNAL_COLLECTION
+    from learningorchestra_tpu_torch.train import checkpoint as ckpt
+
+    write_token_csv(f"{tmp}/tokens.csv")
+    vols = f"{tmp}/volumes"
+    fit_params = {"x": "$tokens_x", "y": "$tokens.label",
+                  "epochs": CRASH_EPOCHS, "batch_size": TRAIN_SHAPE[0],
+                  "checkpoint_every": 1, "checkpoint_min_interval_s": 0,
+                  "quantize_checkpoint": True}
+    steps_per_epoch = -(-TRAIN_ROWS // TRAIN_SHAPE[0])
+    receiver = WebhookReceiver()
+    ok, line = True, {"delay_s": CRASH_DELAY_S, "epochs": CRASH_EPOCHS}
+    with open(f"{tmp}/child.log", "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--crash-drill-child", tmp],
+            stdout=log, stderr=subprocess.STDOUT)
+    try:
+        port = int(_poll(lambda: _read_json(f"{tmp}/child.port"), 300,
+                         "child server", child))
+        status, hook = request(port, "POST", "/observe/webhook",
+                               {"url": receiver.url})
+        steps = [
+            ("/dataset/csv", {"datasetName": "tokens",
+                              "url": f"file://{tmp}/tokens.csv"}, "tokens"),
+            ("/transform/projection", {"projectionName": "tokens_x",
+                                       "datasetName": "tokens",
+                                       "fields": REST_FIELDS}, "tokens_x"),
+            ("/model/tensorflow", {"modelName": "bert", "class": "BertModel",
+                                   "modulePath":
+                                   "learningorchestra_tpu.models.text",
+                                   "classParameters": REST_MODEL}, "bert"),
+        ]
+        for path, body, name in steps:
+            request(port, "POST", path, body)
+            wait_done(port, name)
+        t0 = time.perf_counter()
+        status_train, _ = request(port, "POST", "/train/tensorflow", {
+            "name": CRASH_JOB, "parentName": "bert", "method": "fit",
+            "methodParameters": fit_params})
+        marker = f"{vols}/_checkpoints/{CRASH_JOB}/latest.json"
+        _poll(lambda: (_read_json(marker) or {}).get("step", 0) >= 2, 600,
+              "checkpoint step 2", child)
+        child.kill()
+        child.wait(timeout=60)
+        line["child_train_s_to_kill"] = time.perf_counter() - t0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+    killed_at = _read_json(marker)["step"]
+    phase("crash drill kill", status == 201 and status_train == 201
+          and child.returncode == -9 and killed_at >= 2,
+          f"wildcard webhook -> {status}, train POST -> {status_train}; "
+          f"SIGKILL at committed step {killed_at} of {CRASH_EPOCHS} "
+          f"(child exit {child.returncode}, epochs from the third delayed "
+          f"{CRASH_DELAY_S}s)")
+    line["killed_at_step"] = killed_at
+
+    # The second boot: journal replay, recovery, the resumed fit.
+    resume_s = []
+    resume_raw = ckpt.resume_or_none
+
+    def timed_resume(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return resume_raw(*args, **kwargs)
+        finally:
+            resume_s.append(time.perf_counter() - t)
+
+    ckpt.resume_or_none = timed_resume
+    zero_kernel_counts()
+    t_boot, t0 = time.time(), time.perf_counter()
+    server = None
+    try:
+        server = APIServer(server_config(vols), device="cuda")
+        line["boot_s"] = time.perf_counter() - t0
+        port2 = server.start_background()
+        meta = wait_done(port2, CRASH_JOB)
+        line["recovered_to_finished_s"] = time.perf_counter() - t0
+        counts = kernel_counts()
+        ckpt.resume_or_none = resume_raw
+        t1 = time.perf_counter()
+        server.ctx.journal.replay()
+        line["journal_replay_s"] = time.perf_counter() - t1
+        life = [d for d in server.ctx.documents.find(JOURNAL_COLLECTION)
+                if d["job"] == CRASH_JOB and d["epoch"] == 2]
+        at = {d["event"]: d["at"] for d in life}
+        line["boot_to_redispatch_s"] = at.get("queued", t_boot) - t_boot
+        line["boot_to_running_s"] = at.get("running", t_boot) - t_boot
+        line["resume_load_s"] = resume_s
+        _, rows = request(port2, "GET", f"/train/tensorflow/{CRASH_JOB}")
+        history = [r for r in rows if r.get("docType") == "history"]
+        per = REST_LAYERS * steps_per_epoch * (CRASH_EPOCHS - killed_at)
+        want = {"flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+                "quantize_rowwise": 1, "dequantize_rowwise": 0}
+        good = (meta.get("jobState") == "finished"
+                and meta.get("engineEpoch") == 2
+                and len(history) == CRASH_EPOCHS and counts == want
+                and [e["event"] for e in life][:3] == [
+                    "submitted", "queued", "running"])
+        phase("crash drill recovery", good,
+              f"jobState {meta.get('jobState')}, engineEpoch "
+              f"{meta.get('engineEpoch')} (want 2), {len(history)} history "
+              f"epochs (want {CRASH_EPOCHS}); launches {counts} (want "
+              f"{want}: {REST_LAYERS} layers x {steps_per_epoch} steps x "
+              f"{CRASH_EPOCHS - killed_at} epochs after step {killed_at}, "
+              f"one int8 publication); journal epoch 2: "
+              f"{[e['event'] for e in life]}; boot {line['boot_s']:.2f}s, "
+              f"to finished {line['recovered_to_finished_s']:.2f}s")
+        ok &= good
+        hooked = _poll(lambda: [b for b in receiver.got
+                                if b["name"] == CRASH_JOB], 60,
+                       "webhook delivery")
+        good = (hooked[0]["event"] == "finished"
+                and hooked[0]["metadata"].get("engineEpoch") == 2)
+        phase("crash drill webhook", good,
+              f"received {[(b['name'], b['event']) for b in receiver.got]}")
+        ok &= good
+        status, ev, ev_s, ev_counts = rest_job(
+            port2, "POST", "/evaluate/tensorflow",
+            {"name": "crash_eval", "parentName": CRASH_JOB,
+             "method": "evaluate",
+             "methodParameters": {"x": "$tokens_x", "y": "$tokens.label"}},
+            "crash_eval")
+        eval_batches = -(-TRAIN_ROWS // 128)
+        good = (ev.get("jobState") == "finished"
+                and ev_counts["dequantize_rowwise"] == 1
+                and ev_counts["flash_fwd"] == REST_LAYERS * eval_batches)
+        phase("crash drill evaluate", good,
+              f"evaluate of the recovered artifact -> {status}, "
+              f"{ev.get('jobState')} in {ev_s:.2f}s; launches {ev_counts} "
+              f"(want K5 1, K1 {REST_LAYERS} x {eval_batches})")
+        ok &= good
+        status, whole, whole_s, whole_counts = rest_job(
+            port2, "POST", "/train/tensorflow",
+            {"name": "bert_whole", "parentName": "bert", "method": "fit",
+             "methodParameters": fit_params}, "bert_whole")
+        per = REST_LAYERS * steps_per_epoch * CRASH_EPOCHS
+        good = whole.get("jobState") == "finished" and whole_counts == {
+            "flash_fwd": per, "flash_bwd_dq": per, "flash_bwd_dkv": per,
+            "quantize_rowwise": 1, "dequantize_rowwise": 0}
+        phase("crash drill uninterrupted run", good,
+              f"the same job from epoch 0 -> {whole.get('jobState')} in "
+              f"{whole_s:.2f}s; launches {whole_counts}")
+        ok &= good
+        # The final f32 states, recovered against uninterrupted.
+        states = [torch.load(f"{vols}/_checkpoints/{job}/step_"
+                             f"{CRASH_EPOCHS}/{ckpt.STATE_FILE}",
+                             map_location="cpu", weights_only=True)
+                  for job in (CRASH_JOB, "bert_whole")]
+        pairs = list(zip(_flat(states[0]["params"]),
+                         _flat(states[1]["params"])))
+        diff = max(float((a - b).abs().max()) for (_, a), (_, b) in pairs)
+        _, whole_rows = request(port2, "GET", "/train/tensorflow/bert_whole")
+        losses = [[r["loss"] for r in got if r.get("docType") == "history"]
+                  for got in (rows, whole_rows)]
+        loss_diff = max(abs(a - b) for a, b in zip(*losses))
+        good = (len(pairs) > 0 and diff <= CRASH_BAR
+                and len(losses[1]) == CRASH_EPOCHS and loss_diff <= CRASH_BAR)
+        phase("crash drill parameters", good,
+              f"max|recovered - uninterrupted| over {len(pairs)} leaves = "
+              f"{diff:.3g}, history losses {loss_diff:.3g} (expected 0: "
+              f"K1-K3 are bitwise equal run to run; bar {CRASH_BAR})")
+        ok &= good
+        line.update(
+            launches={"recovered_train": counts, "evaluate": ev_counts,
+                      "uninterrupted_train": whole_counts},
+            evaluate_s=ev_s, uninterrupted_s=whole_s,
+            uninterrupted_fit_time_s=whole.get("fitTime"),
+            recovered_fit_time_s=meta.get("fitTime"),
+            param_max_abs_diff=diff, loss_max_abs_diff=loss_diff,
+            checkpoints=[s for s in ckpt.recent_saves
+                         if "/_checkpoints/bert_" in s["dir"]])
+    finally:
+        ckpt.resume_or_none = resume_raw
+        receiver.close()
+        if server is not None:
+            server.shutdown()
+    return {"ok": ok, "line": line}
 
 
 def convert_tree(est):
@@ -2540,6 +2860,21 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     classic_s = time.perf_counter() - t_classic
+
+    # Phase 10: the crash drill (kill -9 mid-fit, boot recovery, resume).
+    tmp, t_drill = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        drill = run_crash_drill(tmp)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("crash drill", False, repr(exc))
+        drill = {"line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    drill_s = time.perf_counter() - t_drill
+    drill_l = drill["line"].get("launches", {})
+    drill_train = [drill_l.get("recovered_train"),
+                   drill_l.get("uninterrupted_train")]
     tune_l = titanic["launches"]
     rest_l = rest["launches"]
     rest_train = list(rest_l.get("rest_train", {}).values())
@@ -2575,11 +2910,14 @@ def main() -> int:
          "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
          "launches": train_counts["flash_fwd"]
-         + rest_sum("flash_fwd", rest_bf16) + tune_l.get("flash_fwd", 0),
+         + rest_sum("flash_fwd", rest_bf16) + tune_l.get("flash_fwd", 0)
+         + rest_sum("flash_fwd", drill_train + [drill_l.get("evaluate")]),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
-             "rest_tune": tune_l.get("flash_fwd", 0)},
+             "rest_tune": tune_l.get("flash_fwd", 0),
+             "crash_drill": rest_sum("flash_fwd", drill_train
+                                     + [drill_l.get("evaluate")])},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -2592,12 +2930,14 @@ def main() -> int:
          "launches": counts["quantize_rowwise"]
          + zoo_art["launches"]["quantize_rowwise"]
          + rest_sum("quantize_rowwise", rest_train)
-         + tune_l.get("quantize_rowwise", 0),
+         + tune_l.get("quantize_rowwise", 0)
+         + rest_sum("quantize_rowwise", drill_train),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
              "rest_train": rest_sum("quantize_rowwise", rest_train),
-             "rest_tune": tune_l.get("quantize_rowwise", 0)},
+             "rest_tune": tune_l.get("quantize_rowwise", 0),
+             "crash_drill": rest_sum("quantize_rowwise", drill_train)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -2608,12 +2948,15 @@ def main() -> int:
          "replaces": "learningorchestra_tpu/ops/quant.py:56",
          "launches": counts["dequantize_rowwise"]
          + zoo_art["launches"]["dequantize_rowwise"]
-         + rest_sum("dequantize_rowwise", rest_k5),
+         + rest_sum("dequantize_rowwise", rest_k5)
+         + rest_sum("dequantize_rowwise", [drill_l.get("evaluate")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
              "rest_evaluate_predict_serve": rest_sum("dequantize_rowwise",
-                                                     rest_k5)},
+                                                     rest_k5),
+             "crash_drill_evaluate": rest_sum("dequantize_rowwise",
+                                              [drill_l.get("evaluate")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -2624,11 +2967,13 @@ def main() -> int:
            "replaces": f"learningorchestra_tpu/ops/attention.py:{line}",
            "launches": train_counts[f"flash_bwd_{key}"]
            + rest_sum(f"flash_bwd_{key}", rest_train)
-           + tune_l.get(f"flash_bwd_{key}", 0),
+           + tune_l.get(f"flash_bwd_{key}", 0)
+           + rest_sum(f"flash_bwd_{key}", drill_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
-               "rest_tune": tune_l.get(f"flash_bwd_{key}", 0)},
+               "rest_tune": tune_l.get(f"flash_bwd_{key}", 0),
+               "crash_drill": rest_sum(f"flash_bwd_{key}", drill_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -2698,9 +3043,13 @@ def main() -> int:
     print("titanic_rest " + json.dumps({
         "card": name.strip(), "power_limit": limit.strip(),
         **titanic["line"]}), flush=True)
+    print("crash_drill " + json.dumps({
+        "card": name.strip(), "power_limit": limit.strip(),
+        **drill["line"]}), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
-          f"and the Titanic pipeline {classic_s:.1f})", flush=True)
+          f"and the Titanic pipeline {classic_s:.1f}, crash drill "
+          f"{drill_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
@@ -2723,4 +3072,6 @@ def _flat(tree, prefix=()):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--crash-drill-child"]:
+        sys.exit(crash_child(sys.argv[2]))
     sys.exit(main())

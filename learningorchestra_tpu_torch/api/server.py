@@ -18,6 +18,15 @@ server's request bodies:
   result artifact each (``builder/tensorflow|pytorch``, the distributed
   builder, answers 406: ROADMAP A.9);
 - ``GET /observe/<name>``: long poll until the job finishes or fails;
+- ``GET /observe/events?sinceId=&limit=``: the event feed, paged by
+  ``_id``; ``POST``/``GET /observe/webhook`` and ``DELETE
+  /observe/webhook/<id>``: wildcard webhooks (every artifact);
+  ``POST``/``GET /observe/<name>/webhook`` and ``DELETE
+  /observe/<name>/webhook/<id>``: one artifact's (a registration on an
+  artifact already terminal fires at once, ``firedImmediately``);
+- ``DELETE /jobs/<name>``: cancel a job: 200 ``cancelled`` while queued,
+  202 ``cancelling`` while running (the body winds down at its next
+  epoch and the job ends ``cancelled``), 409 once terminal, 404 unknown;
 - ``POST /serve/<model>/predict|load|unload``, ``DELETE
   /serve/<model>``, ``GET /serve``: resident serving of a train job's
   artifact;
@@ -406,7 +415,88 @@ class APIServer:
                     return 200, {"metadata": meta}
                 time.sleep(0.1)
 
+        # The feed and the wildcard webhooks come before the NAME route:
+        # "events" and "webhook" would match it (first match wins).
+        def observe_events(m, body, query):
+            try:
+                since = int(query.get("sinceId", -1))
+                limit = int(query.get("limit", 100))
+            except (TypeError, ValueError):
+                raise BadRequest("sinceId/limit must be integers") from None
+            return 200, {"result": self.ctx.webhooks.events(since, limit)}
+
+        def webhook_register_all(m, body, query):
+            try:
+                hook = self.ctx.webhooks.register(
+                    "*", body.get("url"), body.get("events"))
+            except ValueError as exc:
+                raise ValidationError(str(exc)) from None
+            return 201, {"result": hook}
+
+        def webhook_delete(m, body, query):
+            """One artifact's hook, or a wildcard one (no name)."""
+            if not self.ctx.webhooks.unregister(
+                    m.groupdict().get("name") or "*", int(m.group("hook"))):
+                return 404, {"error": "no such webhook"}
+            return 200, {"result": "deleted"}
+
+        add("GET", r"/observe/events", observe_events)
+        add("POST", r"/observe/webhook", webhook_register_all)
+        add("GET", r"/observe/webhook",
+            lambda m, b, q: (200, {"result": self.ctx.webhooks.list("*")}))
+        add("DELETE", r"/observe/webhook/(?P<hook>[0-9]+)", webhook_delete)
         add("GET", rf"/observe/{NAME}", observe_wait)
+
+        # ---- Observe push: one artifact's webhooks ----
+        def webhook_register(m, body, query):
+            name = m.group("name")
+            self.ctx.require_existing(name)
+            try:
+                hook = self.ctx.webhooks.register(
+                    name, body.get("url"), body.get("events"))
+            except ValueError as exc:
+                raise ValidationError(str(exc)) from None
+            # Registered after the job ended: the engine's terminal path
+            # will never fire again, so deliver now.  The metadata is
+            # read after the insert, so a job finishing in between is
+            # seen by the engine or here (at worst both: delivery is at
+            # least once).
+            meta = self.ctx.artifacts.metadata.read(name) or {}
+            event = None
+            if meta.get("jobState") == "failed":
+                event = "failed"
+            elif meta.get("finished"):
+                event = "finished"
+            if event is not None and event in hook["events"]:
+                # Only this late hook: the feed and the wildcard hooks
+                # saw the transition when it happened.
+                self.ctx.webhooks.deliver_to(hook, name, event, meta)
+                hook = {**hook, "firedImmediately": event}
+            return 201, {"result": hook}
+
+        def webhook_list(m, body, query):
+            name = m.group("name")
+            self.ctx.require_existing(name)
+            return 200, {"result": self.ctx.webhooks.list(name)}
+
+        add("POST", rf"/observe/{NAME}/webhook", webhook_register)
+        add("GET", rf"/observe/{NAME}/webhook", webhook_list)
+        add("DELETE", rf"/observe/{NAME}/webhook/(?P<hook>[0-9]+)",
+            webhook_delete)
+
+        # ---- Job control: cancel ----
+        def job_cancel(m, body, query):
+            name = m.group("name")
+            self.ctx.require_existing(name)
+            result = self.ctx.engine.cancel(name)
+            if result is True:
+                return 200, {"job": name, "result": "cancelled"}
+            if result:
+                return 202, {"job": name, "result": "cancelling"}
+            return 409, {"error": f"job {name!r} is not queued or running "
+                                  "(already terminal)"}
+
+        add("DELETE", rf"/jobs/{NAME}", job_cancel)
 
         # ---- Serving ----
         def serve_predict(m, body, query):

@@ -1,7 +1,8 @@
 """Configuration — port of the parts of ``learningorchestra_tpu/config.py``
-the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` and
-``ServeConfig``, with the same fields, defaults and ``LO_TPU_*``
-environment names, plus the ``device`` every entry point runs on.
+the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` (with the job journal's
+switches) and ``ServeConfig``, with the same fields, defaults and
+``LO_TPU_*`` environment names, plus the ``device`` every entry point
+runs on.
 
 The default roots are the port's own (``~/.learningorchestra_tpu_torch``),
 so the two packages never share a store by accident; pointing both at
@@ -64,6 +65,21 @@ class JobConfig:
     # Graceful-shutdown drain budget; <= 0 keeps the unbounded drain.
     # Env: LO_TPU_JOB_DRAIN_S.
     shutdown_drain_s: float = 0.0
+    # Crash-durable job journal (jobs/journal.py): every transition is
+    # group-committed to the _job_journal collection, each boot mints an
+    # engine epoch and stale-epoch commits are refused.  Off: interrupted
+    # jobs are re-flagged failed at boot, nothing is re-dispatched.
+    # Env: LO_TPU_JOB_JOURNAL.
+    journal: bool = True
+    # Boot-time recovery: re-dispatch journaled executor jobs in their
+    # pre-crash queue order (train fits resume from their newest managed
+    # checkpoint).  Off: they fail ``orphaned-by-restart`` instead.
+    # Env: LO_TPU_JOB_JOURNAL_RECOVER.
+    journal_recover: bool = True
+    # Past this many records, boot-time pruning keeps only the last
+    # record of each terminal job; <= 0 disables pruning.
+    # Env: LO_TPU_JOB_JOURNAL_MAX.
+    journal_max_records: int = 4096
 
 
 @dataclasses.dataclass
@@ -120,9 +136,27 @@ class Config:
         for key, section, attr, cast in fields:
             if key in env:
                 setattr(section, attr, cast(env[key]))
+        for key, attr in (("LO_TPU_JOB_JOURNAL", "journal"),
+                          ("LO_TPU_JOB_JOURNAL_RECOVER", "journal_recover")):
+            if key in env:
+                setattr(cfg.jobs, attr, _bool_env(key, env[key]))
+        if "LO_TPU_JOB_JOURNAL_MAX" in env:
+            cfg.jobs.journal_max_records = int(env["LO_TPU_JOB_JOURNAL_MAX"])
         if "LO_TPU_JOB_WEIGHTS" in env:
             cfg.jobs.class_weights = {
                 str(k): int(v)
                 for k, v in json.loads(env["LO_TPU_JOB_WEIGHTS"]).items()
             }
         return cfg
+
+
+def _bool_env(key: str, value: str) -> bool:
+    raw = value.strip().lower()
+    if raw in ("1", "true", "yes", "on"):
+        return True
+    if raw in ("0", "false", "no", "off", ""):
+        return False
+    raise ValueError(
+        f"{key}={value!r} is not a recognized boolean "
+        "(use 1/0, true/false, yes/no, on/off)"
+    )

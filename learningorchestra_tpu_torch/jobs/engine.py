@@ -14,12 +14,18 @@ clients poll:
   queue per class and freed workers go to classes by weighted
   round-robin, so one service's burst cannot starve another's job;
 - a deadline watchdog that fails an overdue job, reclaims its worker and
-  device leases and flips its cancel token, and a bounded shutdown.
+  device leases and flips its cancel token, and a bounded shutdown;
+- two ``None``-able hooks the service context sets: ``journal``
+  (:class:`~learningorchestra_tpu_torch.jobs.journal.JobJournal`), which
+  records every transition and fences each terminal commit against the
+  store's engine epoch (each dispatched body runs under its boot's epoch
+  stamp), and ``notifier`` (the webhooks and event feed), told of every
+  transition.
 
-The JAX engine's optional hooks (journal, cluster claims, tenant
-admission, flight recorder, metrics, tracing, warm-key preference) are
-``None``-able there and absent here: the port behaves as that engine does
-with each of them off.  Its preemption retries are absent too: nothing in
+The JAX engine's other hooks (cluster claims, tenant admission, flight
+recorder, metrics, tracing, warm-key preference) are absent: the port
+behaves as that engine does with each of them off.  Its preemption
+retries are absent too, so ``preempted`` is never journaled: nothing in
 the port preempts a job until the fault plane and the cluster are ported.
 """
 
@@ -33,6 +39,7 @@ from concurrent.futures import Future, InvalidStateError
 from typing import Any, Callable
 
 from learningorchestra_tpu_torch.jobs import cancel as jobs_cancel
+from learningorchestra_tpu_torch.jobs import journal as jobs_journal
 from learningorchestra_tpu_torch.jobs.cancel import CancelToken
 from learningorchestra_tpu_torch.log import (
     capture_thread_stdout,
@@ -100,6 +107,42 @@ class JobEngine:
         self._credits: dict[str, int] = {}
         self._inflight = 0
         self._shutdown = False
+        # Webhooks and the event feed (services/webhooks.py), set by the
+        # service context; None: nobody is told.
+        self.notifier = None
+        # The crash-durable job journal (jobs/journal.py), set by the
+        # service context; None disables journaling and fencing.
+        self.journal = None
+
+    def _journal(self, name: str, event: str, **fields) -> None:
+        """Append one transition record (never raises: the journal counts
+        and logs its own failures)."""
+        if self.journal is not None:
+            self.journal.append(event, name, **fields)
+
+    def _fence_refused(self, name: str) -> bool:
+        """True when the calling body's engine epoch is stale: a newer
+        recovery owns the store, so every terminal write must be
+        skipped."""
+        if self.journal is None:
+            return False
+        try:
+            self.journal.fence_check()
+        except jobs_journal.StaleEpochError as exc:
+            logger.error(kv(job=name, state="fenced", error=str(exc)))
+            return True
+        return False
+
+    def _notify(self, name: str, event: str) -> None:
+        """Tell the notifier of a transition; never raises, never blocks
+        (delivery runs on the notifier's own thread)."""
+        if self.notifier is None:
+            return
+        try:
+            meta = self.artifacts.metadata.read(name) or {}
+            self.notifier.notify(name, event, meta)
+        except Exception:  # noqa: BLE001 — jobs must finish regardless
+            logger.exception(kv(job=name, event="notify_failed"))
 
     # -- submission -----------------------------------------------------------
 
@@ -136,7 +179,10 @@ class JobEngine:
         token = CancelToken()
 
         def run() -> Any:
-            with jobs_cancel.bind(token):
+            # The body carries its boot's engine epoch: terminal commits
+            # and publications compare it with the store's (fencing).
+            epoch = self.journal.epoch if self.journal is not None else None
+            with jobs_cancel.bind(token), jobs_journal.stamp(epoch):
                 return self._run(
                     name, fn, ctl, token, description=description,
                     method=method, parameters=parameters,
@@ -149,18 +195,31 @@ class JobEngine:
         )
         info = {"name": name, "job_class": job_class, "deadline": deadline,
                 "ctl": ctl, "token": token}
+        # Journaled ahead of the in-memory enqueue, outside the engine
+        # lock (a late append drains inline through the store).
+        if self.journal is not None:
+            self.journal.record_submit(
+                name, job_class=job_class, method=method,
+                description=description,
+                deadline_s=deadline if deadline else None)
         with self._lock:
-            if self._shutdown:
-                raise RuntimeError("cannot submit jobs after engine shutdown")
-            queue = self._queues.get(job_class)
-            if queue is None:
-                queue = self._queues[job_class] = deque()
-                self._rr_order.append(job_class)
-                self._credits[job_class] = self._weight(job_class)
-            queue.append((run, future, info))
-            self._futures[name] = future
-            self._prune_locked()
-            self._dispatch_locked()
+            refused = self._shutdown
+            if not refused:
+                queue = self._queues.get(job_class)
+                if queue is None:
+                    queue = self._queues[job_class] = deque()
+                    self._rr_order.append(job_class)
+                    self._credits[job_class] = self._weight(job_class)
+                queue.append((run, future, info))
+                self._futures[name] = future
+                self._prune_locked()
+                self._dispatch_locked()
+        if refused:
+            # The journal already holds the submitted/queued pair: end
+            # that life, or recovery would resurrect a refused job.
+            self._journal(name, "cancelled",
+                          reason="engine shut down before enqueue")
+            raise RuntimeError("cannot submit jobs after engine shutdown")
         return future
 
     def _run(self, name, fn, ctl, token, *, description, method,
@@ -178,9 +237,12 @@ class JobEngine:
         def commit_cancelled(detail: str | None = None):
             """A RUNNING job cancelled through :meth:`cancel`: the body
             wound down (or died doing so) -> CANCELLED, not finished or
-            failed."""
+            failed.  Fenced like every terminal commit."""
+            if self._fence_refused(name):
+                return None
             reason = token.reason or "cancel requested"
             logger.warning(kv(job=name, state="cancelled", reason=reason))
+            self._journal(name, "cancelled", reason=reason)
             meta.update(name, {
                 "jobState": JobState.CANCELLED,
                 "finished": False,
@@ -188,6 +250,7 @@ class JobEngine:
                 + (f" ({detail})" if detail else ""),
             })
             record(JobState.CANCELLED, exception=detail)
+            self._notify(name, "cancelled")
             return None
 
         if ctl["expired"]:
@@ -200,11 +263,15 @@ class JobEngine:
                 return commit_cancelled()
             # The bounded shutdown drain, before the body started.
             logger.warning(kv(job=name, state="cancelled"))
+            self._journal(name, "cancelled", reason=token.reason or None)
             meta.mark_failed(
                 name, f"cancelled: {token.reason or 'engine shutdown'}")
             return None
+        self._journal(name, "running", attempt=1)
         meta.mark_running(name)
         logger.info(kv(job=name, state="running", method=method))
+        # Feed only: webhooks register for finished/failed.
+        self._notify(name, "running")
         buf = io.StringIO()
         try:
             if capture_stdout:
@@ -219,13 +286,19 @@ class JobEngine:
             if ctl["expired"]:
                 logger.warning(kv(job=name, state="abandoned", error=err))
                 return None
+            if self._fence_refused(name):
+                # A stale-epoch straggler: the newer recovery owns this
+                # job's metadata.
+                return None
             if ctl.get("cancelled"):
                 return commit_cancelled(err)
             logger.error(kv(job=name, state="failed", error=err,
                             dt=f"{time.monotonic() - t_start:.2f}s"),
                          exc_info=True)
+            self._journal(name, "failed", reason=err)
             meta.mark_failed(name, err)
             record(JobState.FAILED, exception=err, stdout=buf.getvalue())
+            self._notify(name, "failed")
             return None
         if ctl["expired"]:
             # Finished after its deadline: already failed and its worker
@@ -236,11 +309,19 @@ class JobEngine:
             # Cancelled mid-run: its partial result must not publish as
             # finished.
             return commit_cancelled()
+        if self._fence_refused(name):
+            return None
         extra = on_success(result) if on_success else None
         logger.info(kv(job=name, state="finished",
                        dt=f"{time.monotonic() - t_start:.2f}s"))
+        if self.journal is not None:
+            # Which engine life committed this artifact, on the GET path.
+            extra = {**(extra or {}),
+                     "engineEpoch": jobs_journal.current_stamp()}
+        self._journal(name, "finished")
         meta.mark_finished(name, extra or None)
         record(JobState.FINISHED, stdout=buf.getvalue())
+        self._notify(name, "finished")
         return result
 
     # -- weighted-fair dispatch ----------------------------------------------
@@ -373,6 +454,7 @@ class JobEngine:
         )
         logger.error(kv(job=name, state="deadline",
                         deadlineS=rec["deadline"]))
+        self._journal(name, "deadline", reason=err)
         try:
             self.artifacts.metadata.mark_failed(name, err)
             self.artifacts.ledger.record(name, state="deadline",
@@ -389,6 +471,7 @@ class JobEngine:
             rec["future"].set_exception(JobDeadlineExceeded(err))
         except InvalidStateError:
             pass
+        self._notify(name, "failed")
 
     def _prune_locked(self) -> None:
         done = [n for n, f in self._futures.items() if f.done()]
@@ -435,13 +518,19 @@ class JobEngine:
                     rec["token"].cancel("cancel requested")
                     running = True
         if queued:
+            self._journal(name, "cancelled",
+                          reason="cancelled while queued")
             self.artifacts.metadata.update(
                 name, {"jobState": JobState.CANCELLED, "finished": False})
             self.artifacts.ledger.record(
                 name, state=JobState.CANCELLED,
                 exception="cancelled while queued")
+            self._notify(name, "cancelled")
             return True
-        return "running" if running else False
+        if running:
+            self._journal(name, "cancel_requested")
+            return "running"
+        return False
 
     def shutdown(self, wait: bool = True,
                  drain_timeout_s: float | None = None,
@@ -489,6 +578,8 @@ class JobEngine:
                         dropped.append(info["name"])
                 queue.clear()
         for name in dropped:
+            self._journal(name, "cancelled",
+                          reason="shutdown drain deadline")
             self.artifacts.metadata.update(
                 name, {"jobState": JobState.CANCELLED, "finished": False})
         grace = self.SHUTDOWN_GRACE_S if grace_s is None else float(grace_s)

@@ -2,7 +2,8 @@
 dataset ingest, transforms (projection, dataType cast, generic), model
 creation, the train / evaluate / predict / tune executor and the
 builder, each step a named, lineage-tracked, asynchronous job whose
-output is persisted (store rows and volume binaries)."""
+output is persisted (store rows and volume binaries), with observe
+webhooks and the event feed on its transitions."""
 
 from learningorchestra_tpu_torch.services.builder import BuilderService
 from learningorchestra_tpu_torch.services.context import ServiceContext
@@ -10,6 +11,7 @@ from learningorchestra_tpu_torch.services.dataset import DatasetService
 from learningorchestra_tpu_torch.services.executor import ExecutorService
 from learningorchestra_tpu_torch.services.model import ModelService
 from learningorchestra_tpu_torch.services.transform import TransformService
+from learningorchestra_tpu_torch.services.webhooks import WebhookNotifier
 
 __all__ = [
     "BuilderService",
@@ -18,4 +20,5 @@ __all__ = [
     "ModelService",
     "ServiceContext",
     "TransformService",
+    "WebhookNotifier",
 ]

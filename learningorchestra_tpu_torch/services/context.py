@@ -1,25 +1,32 @@
 """Shared service context — port of the core of
 ``learningorchestra_tpu/services/context.py``: the store, volumes, job
-engine, device leases and the DSL's artifact loader, plus the request
-exceptions the API maps to the reference's status codes (409 duplicate,
-404 missing, 406 semantic errors).
+engine, device leases, the job journal, the webhooks and the DSL's
+artifact loader, plus the request exceptions the API maps to the
+reference's status codes (409 duplicate, 404 missing, 406 semantic
+errors).
 
 The context owns the ``device``: every estimator the services build or
-load goes there.  Job recovery over the journal, the compile-cache
-pre-warm and the cluster plane are not ported.
+load goes there.  Each construction is a boot: it mints an engine epoch
+(jobs/journal.py), prunes the journal and recovers every job a dead
+process left pending or running (:meth:`ServiceContext._recover_jobs`).
+The cluster plane's claim stealing and the compile-cache pre-warm are
+not ported (ROADMAP A.11, A.6).
 """
 
 from __future__ import annotations
 
 import re
+import shutil
 from typing import Any
 
 from learningorchestra_tpu_torch.config import Config
 from learningorchestra_tpu_torch.device import resolve_device
 from learningorchestra_tpu_torch.jobs.engine import JobEngine
+from learningorchestra_tpu_torch.jobs.journal import JobJournal
 from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
 from learningorchestra_tpu_torch.log import get_logger, kv
 from learningorchestra_tpu_torch.services.frame import Frame
+from learningorchestra_tpu_torch.services.webhooks import WebhookNotifier
 from learningorchestra_tpu_torch.store import (
     ArtifactStore,
     VolumeStorage,
@@ -75,6 +82,18 @@ class ServiceContext:
         # Subscribers to artifact changes (the serving registry drops a
         # resident model whose binary was replaced or deleted).
         self._artifact_change_listeners: list = []
+        # Observe push: terminal transitions fire registered webhooks
+        # and every transition lands in the event feed.
+        self.webhooks = WebhookNotifier(self.documents)
+        self.engine.notifier = self.webhooks
+        # Constructing the journal mints this boot's engine epoch, so a
+        # straggler of any previous life is refused at its commit.
+        self.journal = JobJournal(
+            self.documents, self.config.store.store_path(),
+            enabled=jobs.journal, max_records=jobs.journal_max_records)
+        self.engine.journal = self.journal if self.journal.enabled else None
+        self.journal.prune()
+        self._recover_jobs()
 
     def add_artifact_change_listener(self, listener) -> None:
         """Register ``listener(name)``, fired when an artifact's binary
@@ -94,7 +113,127 @@ class ServiceContext:
         # With a drain budget the close waits, bounded; without one it
         # never hangs on an unbounded drain.
         self.engine.shutdown(wait=self.config.jobs.shutdown_drain_s > 0)
+        self.journal.close()  # its final drain needs the open store
         self.documents.close()
+
+    # -- boot-time recovery ---------------------------------------------------
+
+    def _recover_jobs(self) -> None:
+        """Resolve every job a dead process left pending or running.
+
+        Left alone, such a job wedges its artifact: it never finishes,
+        and ``require_not_running`` answers 409 to every PATCH re-run.
+        With the journal on and ``jobs.journal_recover``, journaled jobs
+        whose bodies can be re-derived from metadata (executor jobs) are
+        re-submitted through the PATCH path in their pre-crash queue
+        order, and a train fit resumes from its newest managed
+        checkpoint.  Every other journaled job, and every one when
+        recovery is off, fails ``orphaned-by-restart``; a job with no
+        journal record (a store older than the journal, or the journal
+        off) gets the legacy interrupted message."""
+        journaled = self.journal.replay() if self.journal.enabled else {}
+        recover = self.journal.enabled and self.config.jobs.journal_recover
+        interrupted: list[tuple] = []
+        for name in self.documents.list_collections():
+            if name.startswith("_"):
+                continue  # internal ledgers and the journal hold no jobs
+            meta = self.artifacts.metadata.read(name)
+            if not meta or meta.get("jobState") not in ("pending",
+                                                         "running"):
+                continue
+            rec = journaled.get(name)
+            # Pre-crash queue admission order (the latest ``queued``
+            # sequence number); journal-less jobs last, by name.
+            seq = rec["seq"] if rec and rec["seq"] >= 0 else float("inf")
+            interrupted.append((seq, name, meta, rec))
+        interrupted.sort(key=lambda t: (t[0], t[1]))
+        for _seq, name, meta, rec in interrupted:
+            # A journal-terminal record under live metadata: the job's
+            # life ended (a refused submission, or a crash between the
+            # append and the metadata commit); orphan, never resurrect.
+            kind = (self._recoverable_kind(meta)
+                    if recover and rec is not None
+                    and not rec.get("terminal") else None)
+            if kind is None:
+                self._orphan_job(name, journaled=rec is not None)
+                continue
+            try:
+                self._redispatch(name, rec.get("spec") or {})
+                logger.warning(
+                    f"recovered job {name!r} from the journal (epoch "
+                    f"{self.journal.epoch}): re-dispatched through the "
+                    "checkpoint-resume path")
+            except Exception as exc:  # noqa: BLE001 — one unrecoverable
+                # job (a deleted parent, a bad spec) must not stop the boot.
+                logger.error(
+                    f"could not re-dispatch recovered job {name!r}: "
+                    f"{exc!r} — failing it orphaned-by-restart")
+                self._orphan_job(name, journaled=True, detail=repr(exc))
+
+    @staticmethod
+    def _recoverable_kind(meta: dict) -> str | None:
+        """How a journaled job can be re-dispatched, or None: executor
+        artifacts (train, evaluate, predict with a parent and a method)
+        re-run through PATCH with their last recorded parameters; tune
+        grids, functions and models cannot be re-derived from metadata.
+        (The JAX package's ``distributed`` kind waits for A.9.)"""
+        kind = str(meta.get("type", ""))
+        if (kind.startswith(("train/", "evaluate/", "predict/"))
+                and meta.get("parentName") and meta.get("method")):
+            return "executor"
+        return None
+
+    def _redispatch(self, name: str, spec: dict) -> None:
+        """Re-submit a recovered job through PATCH, under its journaled
+        deadline.  Marking it failed first is what routes a train fit
+        into the checkpoint-resume path (``update`` resumes a failed
+        job from its newest managed checkpoint)."""
+        from learningorchestra_tpu_torch.services.executor import (
+            ExecutorService,
+        )
+
+        self.artifacts.metadata.mark_failed(
+            name, "orphaned-by-restart: re-dispatching from the job journal")
+        ExecutorService(self).update(
+            name, description=spec.get("description") or "",
+            deadline_s=spec.get("deadlineS"))
+
+    def _orphan_job(self, name: str, *, journaled: bool,
+                    detail: str | None = None) -> None:
+        """Fail an interrupted job that cannot (or must not) be
+        re-dispatched, and tell its subscribers."""
+        if journaled:
+            reason = (
+                "orphaned-by-restart: the orchestrator died while "
+                "this job was queued or running and its body is not "
+                "automatically re-dispatchable"
+                + (f" ({detail})" if detail else "")
+                + "; re-run it with a PATCH (bare PATCH re-uses the "
+                "last recorded parameters)"
+            )
+        else:
+            reason = (
+                "job interrupted by a server restart or store "
+                "failover before completing; re-run it with a "
+                "PATCH (bare PATCH re-uses the last recorded "
+                "parameters)"
+            )
+        self.artifacts.metadata.mark_failed(name, reason)
+        if journaled:
+            self.journal.append("failed", name,
+                                reason="orphaned-by-restart")
+        logger.warning(f"re-flagged interrupted job {name!r} (was mid-run "
+                       "when the previous process died)")
+        # A watcher of the dead job sees its terminal transition, as
+        # from the engine's own failure path.
+        self.webhooks.notify(name, "failed",
+                             self.artifacts.metadata.read(name) or {})
+
+    def require_current_epoch(self) -> None:
+        """The epoch fence at artifact publication: a job body from a
+        stale engine epoch raises ``StaleEpochError`` here instead of
+        publishing.  A no-op outside an engine dispatch."""
+        self.journal.fence_check()
 
     # -- validation helpers shared by services --------------------------------
 
@@ -161,13 +300,20 @@ class ServiceContext:
         return (self.artifacts.metadata.read(name) or {}).get(
             "requestParameters")
 
+    def checkpoint_dir(self, name: str):
+        """An artifact's managed train-checkpoint tree: the one place its
+        path is built (the executor and delete share it)."""
+        return self.volumes.root / "_checkpoints" / name
+
     def delete_artifact(self, name: str) -> dict:
-        """Collection + volume binary; subscribers drop derived state
-        now, so a recreated name never serves deleted weights."""
+        """Collection, volume binary and managed checkpoints; subscribers
+        drop derived state now, so a recreated name never serves deleted
+        weights or resumes a deleted job's state."""
         meta = self.require_existing(name)
         self.artifacts.delete(name)
         self.volumes.delete(meta.get("type", ""), name)
         self.notify_artifact_changed(name)
+        shutil.rmtree(self.checkpoint_dir(name), ignore_errors=True)
         return meta
 
 

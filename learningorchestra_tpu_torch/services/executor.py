@@ -17,10 +17,14 @@ candidate under a device lease of its own (on one card the trials
 serialize there), scores it, stores a result row per trial as it
 finishes and publishes the best candidate.
 
-Managed checkpoints are not ported (ROADMAP A.5): a request carrying
-``checkpoint_dir`` is refused (406) as the JAX package refuses it, and
-neural trials get no per-trial checkpoint directory.  The tune's
-compile-cache and device-time accounting (``compileCache``,
+Managed checkpoints: a neural ``fit`` gets the artifact's checkpoint
+directory (``ServiceContext.checkpoint_dir``), wiped on a fresh run and
+resumed when a failed job is PATCHed back (how boot recovery resumes a
+killed fit); a neural tune trial gets ``trial_<idx>`` under the tune's
+directory, removed once the best candidate is published.  A request
+carrying a raw ``checkpoint_dir`` is refused (406).  Each publication is
+fenced against the store's engine epoch (``require_current_epoch``).
+The tune's compile-cache and device-time accounting (``compileCache``,
 ``deviceTime``) come with A.6.
 """
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import shutil
 import time
 from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Any
@@ -128,7 +133,9 @@ class ExecutorService:
         deadline_s: float | None = None,
     ) -> dict:
         """PATCH re-run with new parameters; a bare PATCH re-uses the
-        last recorded ones."""
+        last recorded ones.  A re-run of a FAILED train job resumes from
+        its newest managed checkpoint; a re-run of a finished one is a
+        fresh fit (its stale checkpoints are wiped)."""
         meta = self.ctx.require_existing(name)
         self._reject_raw_checkpoint_dir(method_parameters)
         parent = meta.get("parentName")
@@ -137,16 +144,18 @@ class ExecutorService:
                 f"artifact {name!r} has no parent — not an executor result"
             )
         parent_meta = self.ctx.require_finished_parent(parent)
+        resume = meta.get("jobState") == "failed"
         if not method_parameters:
             method_parameters = self.ctx.last_recorded_parameters(name)
         self.ctx.artifacts.metadata.restart(name)
         self._submit(name, parent_meta, meta.get("method"),
                      method_parameters, meta.get("type"), description,
-                     deadline_s=deadline_s)
+                     resume_checkpoint=resume, deadline_s=deadline_s)
         return self.ctx.artifacts.metadata.read(name)
 
     def _submit(self, name, parent_meta, method, method_parameters,
-                artifact_type, description, *, deadline_s=None):
+                artifact_type, description, *, resume_checkpoint=False,
+                deadline_s=None):
         parent_name = parent_meta["name"]
         parent_type = parent_meta.get("type", "")
         kind = artifact_type.split("/", 1)[0]
@@ -162,9 +171,22 @@ class ExecutorService:
                 instance = ctx.volumes.load_estimator(
                     parent_type, parent_name, device=ctx.device)
                 params = dsl.resolve_params(method_parameters, ctx.loader)
+                if (kind in ("train", "tune") and method == "fit"
+                        and getattr(instance, "supports_managed_checkpoints",
+                                    False)):
+                    # A fresh run must not resurrect old state: its tree
+                    # is wiped; a failed job PATCHed back resumes.
+                    ckdir = ctx.checkpoint_dir(name)
+                    if not resume_checkpoint:
+                        shutil.rmtree(ckdir, ignore_errors=True)
+                    params["checkpoint_dir"] = str(ckdir)
+                    params.setdefault("resume", resume_checkpoint)
                 t0 = time.perf_counter()
                 result = getattr(instance, method)(**params)
                 fit_time = time.perf_counter() - t0
+                # A stale-epoch straggler must not overwrite the artifact
+                # a newer recovery owns.
+                ctx.require_current_epoch()
                 if kind == "train" or result is instance:
                     ctx.volumes.save_estimator(artifact_type, name, instance)
                     # A PATCH re-train replaced this binary: a model
@@ -265,6 +287,10 @@ class ExecutorService:
             factory, NeuralEstimator)
 
         def run():
+            # The engine does not retry a tune (no preemption in the
+            # port), so every run is a fresh grid: old trial state goes.
+            trial_ck_root = ctx.checkpoint_dir(name)
+            shutil.rmtree(trial_ck_root, ignore_errors=True)
             fit_params = dsl.resolve_params(method_parameters, ctx.loader)
             score_params = dsl.resolve_params(
                 scoring_parameters, ctx.loader
@@ -278,10 +304,18 @@ class ExecutorService:
             # context: each binds the job's cancel token itself.
             token = jobs_cancel.current_cancel_token()
 
-            def eval_candidate(kwargs: dict):
+            def eval_candidate(idx: int, kwargs: dict):
                 if token is not None and token.cancelled():
                     raise RuntimeError(
                         f"tune cancelled: {token.reason or 'requested'}")
+                trial_params = fit_params
+                if neural and method == "fit":
+                    # Managed per-trial checkpoints: combos are built in a
+                    # fixed order, so idx names the same trial every run.
+                    trial_params = {
+                        "checkpoint_dir": str(trial_ck_root
+                                              / f"trial_{idx:04d}"),
+                        "resume": False, **fit_params}
                 # A neural trial leases a card for its device work and
                 # runs there; on one card the trials serialize.
                 lease = ctx.leaser.lease(1, label=f"{name}:trial") \
@@ -289,7 +323,7 @@ class ExecutorService:
                 with jobs_cancel.bind(token), lease as devs, placed(devs):
                     candidate = factory(**kwargs, device=ctx.device)
                     t0 = time.perf_counter()
-                    getattr(candidate, method)(**fit_params)
+                    getattr(candidate, method)(**trial_params)
                     fit_time = time.perf_counter() - t0
                     score = float(candidate.score(**score_params))
                 return candidate, score, fit_time
@@ -300,8 +334,8 @@ class ExecutorService:
             workers = min(len(combos),
                           max(4, ctx.leaser.device_count if neural else 0))
             with ThreadPoolExecutor(max_workers=workers) as pool:
-                futures = {pool.submit(eval_candidate, kw): kw
-                           for kw in combos}
+                futures = {pool.submit(eval_candidate, i, kw): kw
+                           for i, kw in enumerate(combos)}
                 try:
                     for fut in as_completed(list(futures)):
                         # pop: a consumed non-best candidate is collectable
@@ -322,12 +356,16 @@ class ExecutorService:
                     for pending in futures:
                         pending.cancel()
                     raise
+            ctx.require_current_epoch()
             lease = ctx.leaser.lease(1, label=name) if neural \
                 else contextlib.nullcontext([])
             with lease as devs, placed(devs):
                 ctx.volumes.save_estimator(artifact_type, name,
                                            best_instance)
             ctx.notify_artifact_changed(name)
+            # Trial checkpoints are this run's scratch: a later grid of
+            # the same name must not find them.
+            shutil.rmtree(trial_ck_root, ignore_errors=True)
             return {"bestScore": best_score,
                     "bestParams": _json_safe(best_combo)}
 

@@ -206,6 +206,10 @@ class DocumentStore:
         with self._lock:
             return sorted(self._collections)
 
+    def collection_exists(self, name: str) -> bool:
+        with self._lock:
+            return name in self._collections
+
     def _get(self, name: str, create: bool = False) -> _Collection:
         with self._lock:
             coll = self._collections.get(name)

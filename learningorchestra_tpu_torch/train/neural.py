@@ -30,8 +30,10 @@ package's policies:
 estimator does; ``state_dict``/``load_state_dict`` keep the JAX package's
 artifact layout: the flax-shaped numpy tree (with ``QuantizedLeaf``s where
 ``quantize_pytree`` puts them) and the optimizer state as plain dicts in
-the optax layout.  Managed checkpoints and sharded (streaming) datasets
-are not ported yet (ROADMAP A.5).
+the optax layout.  ``fit(checkpoint_dir=...)`` saves that state every N
+epochs through ``train/checkpoint.py`` and resumes from the newest
+committed step; sharded (streaming) datasets are not ported yet (ROADMAP
+A.5 part 2).
 
 An artifact is a plain dict (:meth:`NeuralEstimator.to_artifact`) naming
 its class through the registry; :func:`load_artifact` rebuilds it on any
@@ -67,6 +69,7 @@ from learningorchestra_tpu_torch.ops.quant import (
 from learningorchestra_tpu_torch.serve.bucketing import bucket_for, pad_rows
 from learningorchestra_tpu_torch.toolkit import registry
 from learningorchestra_tpu_torch.toolkit.base import Estimator, as_array
+from learningorchestra_tpu_torch.train import checkpoint as ckpt
 
 _log = logging.getLogger("learningorchestra_tpu_torch.train")
 
@@ -727,6 +730,10 @@ def _finalize_metrics(per_batch: list[dict]) -> dict:
 class NeuralEstimator(Estimator):
     """Wraps a ``nn.Module`` with fit/evaluate/predict/save/load."""
 
+    # The executor gives ``fit`` a managed checkpoint directory (and
+    # resume semantics) for any estimator that declares this.
+    supports_managed_checkpoints = True
+
     def __init__(self, module: nn.Module, *, loss: str = "auto",
                  optimizer: Any = None, learning_rate: float = 1e-3,
                  seed: int = 0, compute_dtype: str = "bfloat16",
@@ -966,8 +973,12 @@ class NeuralEstimator(Estimator):
         verbose: int = 0,
         callbacks: list | None = None,
         checkpoint_dir: str | None = None,
+        checkpoint_every: int = 1,
+        checkpoint_min_interval_s: float = 60.0,
+        resume: bool = True,
         accumulate_steps: int = 1,
         quantize_checkpoint: bool = False,
+        checkpoint_async: bool = True,
         early_stopping: dict | EarlyStopping | None = None,
         **_,
     ) -> "NeuralEstimator":
@@ -977,16 +988,21 @@ class NeuralEstimator(Estimator):
         or its REST-JSON dict spec), ``accumulate_steps`` (MultiSteps).
         ``quantize_checkpoint=True`` marks the estimator so its saved
         artifact stores parameters int8 with optimizer state dropped; the
-        live model keeps full precision."""
-        if checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir: managed checkpoints are not ported to the "
-                "PyTorch package yet (ROADMAP A.5)"
-            )
+        live model keeps full precision.
+
+        Managed checkpoints: with ``checkpoint_dir`` set, (params,
+        opt_state) are saved every ``checkpoint_every`` epochs, at most
+        once per ``checkpoint_min_interval_s`` (the final epoch, or an
+        early stop, always saves), asynchronously unless
+        ``checkpoint_async=False``; with ``resume`` a fit starts from the
+        newest committed step, with its history, and walks the batches
+        an uninterrupted fit walks from there (each epoch's order is
+        seeded by its index)."""
         if _is_sharded(x) or _is_sharded(y):
             raise NotImplementedError(
                 "sharded (streaming) datasets are not ported to the PyTorch "
-                "package yet: the sharded store comes with ROADMAP A.3/A.5"
+                "package yet: the sharded store and the streaming fit come "
+                "with ROADMAP A.5 part 2"
             )
         self._quantize_persist = bool(quantize_checkpoint)
         callbacks = build_stop_callbacks(self, callbacks, early_stopping)
@@ -1011,6 +1027,13 @@ class NeuralEstimator(Estimator):
         self._init_params(x[:1])
         if self.opt_state is None:
             self._reset_optimizer()
+        start_epoch = 0
+        if checkpoint_dir and resume:
+            loaded = ckpt.resume_or_none(
+                checkpoint_dir, self._restore_checkpoint, device=self.device)
+            if loaded is not None:
+                start_epoch, past_history = loaded
+                self.history = TrainHistory(past_history)
 
         # Upload the dataset once; each epoch shuffles/batches on device.
         xs = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -1018,8 +1041,9 @@ class NeuralEstimator(Estimator):
         loss_fn = self._loss_and_metrics(loss_kind)
         dtype = self._compute_dtype()
         self.module.train()
+        last_save = time.monotonic()
         try:
-            for epoch_i in range(epochs):
+            for epoch_i in range(start_epoch, epochs):
                 if cancel_requested():
                     # Engine-side cancellation (deadline watchdog, bounded
                     # shutdown drain, REST cancel): wind down exactly like
@@ -1047,16 +1071,63 @@ class NeuralEstimator(Estimator):
                 if verbose:
                     _log.info("epoch %d/%d: %s", epoch_i + 1, epochs,
                               metrics)
+                # Callbacks run before the save decision, so an early stop
+                # counts as the final epoch.
                 for cb in callbacks:
                     if callable(cb):
                         cb(epoch_i, metrics, self)
+                if checkpoint_dir and ckpt.should_save(
+                        epoch_i, epochs, checkpoint_every,
+                        checkpoint_min_interval_s, last_save,
+                        stopped=self.stop_training):
+                    ckpt.save(checkpoint_dir, epoch_i + 1,
+                              self._checkpoint_state(),
+                              history=dict(self.history),
+                              async_save=checkpoint_async)
+                    last_save = time.monotonic()
                 if self.stop_training:
                     if verbose:
                         _log.info("early stop after epoch %d", epoch_i + 1)
                     break
         finally:
             self.module.eval()
+            if checkpoint_dir:
+                # The last save is committed when fit returns (or raises).
+                ckpt.finalize_async(checkpoint_dir)
         return self
+
+    def _checkpoint_state(self) -> dict:
+        """{params, opt_state} in the artifact layout, as live tensors
+        (``checkpoint.save`` snapshots them).  Moments that a restore-best
+        early stop dropped are saved fresh, as optax's ``init`` gives
+        them, so a resume does not replay pre-restore moments."""
+        opt = self._export_opt_state(host=False) \
+            if self.opt_state is not None else self._fresh_opt_state()
+        return {"params": convert.flax_tree(self.module), "opt_state": opt}
+
+    def _fresh_opt_state(self) -> dict:
+        """A never-stepped optimizer's exported state: count 0, no slot
+        written yet (zero moments), and no accumulated gradient."""
+        state = {"count": np.asarray(0, np.int32)}
+        if self._accumulate_steps == 1:
+            return state
+        zero = np.asarray(0, np.int32)
+        return {"mini_step": zero, "gradient_step": zero,
+                "inner_opt_state": state,
+                "acc_grads": convert.flax_tree(
+                    self.module, pick=torch.zeros_like)}
+
+    def _restore_checkpoint(self, state: dict) -> None:
+        """Resume from a checkpoint's state, its tensors on this device."""
+        opt = state["opt_state"]
+        if ("inner_opt_state" in opt) != (self._accumulate_steps > 1):
+            raise ValueError(
+                f"checkpoint accumulates over "
+                f"{'several' if 'inner_opt_state' in opt else 'one'} "
+                f"batch(es); this fit over {self._accumulate_steps}")
+        self.module.load_state_dict(
+            convert.params_from_jax(state["params"]))
+        self._import_opt_state(opt)
 
     # -- evaluation / inference -------------------------------------------------
 
@@ -1131,9 +1202,9 @@ class NeuralEstimator(Estimator):
 
     # -- persistence ----------------------------------------------------------
 
-    def _export_opt_state(self):
+    def _export_opt_state(self, *, host: bool = True):
         """The optimizer state as optax lays it out, numpy leaves in the
-        flax tree shape: ``count`` plus the optimizer's slots (adam, adamw,
+        flax tree shape (live tensors with ``host=False``): ``count`` plus the optimizer's slots (adam, adamw,
         lamb, radam: ``mu``/``nu``; sgd: ``trace``; rmsprop: ``nu``;
         adagrad: ``sum_of_squares``; lion: ``mu``; novograd: ``mu`` and a
         scalar ``nu`` per leaf), wrapped as ``MultiStepsState`` fields when
@@ -1145,10 +1216,11 @@ class NeuralEstimator(Estimator):
         def slot(key):
             return lambda p: opt.state.get(p, {}).get(key, torch.zeros_like(p))
 
+        to_host = convert.to_host if host else (lambda tree: tree)
         state = {"count": np.asarray(self._updates, np.int32)}
         for field, key in self.optimizer.slots.items():
             if any(key in st for st in opt.state.values()):
-                state[field] = convert.to_host(
+                state[field] = to_host(
                     convert.flax_tree(self.module, pick=slot(key)))
         if self._accumulate_steps == 1:
             return state
@@ -1156,7 +1228,7 @@ class NeuralEstimator(Estimator):
             "mini_step": np.asarray(self._mini_step, np.int32),
             "gradient_step": np.asarray(self._updates, np.int32),
             "inner_opt_state": state,
-            "acc_grads": convert.to_host(convert.flax_tree(
+            "acc_grads": to_host(convert.flax_tree(
                 self.module,
                 pick=lambda p: p.grad / max(self._mini_step, 1)
                 if p.grad is not None else torch.zeros_like(p),

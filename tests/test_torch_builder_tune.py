@@ -49,10 +49,9 @@ from learningorchestra_tpu_torch.config import Config, StoreConfig
 from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
 from learningorchestra_tpu_torch.toolkit.estimators import trees
 
-#: Metadata keys of layers the port does not carry (tracing, the job
-#: journal's epoch, compile-cache and device-time accounting).
-UNPORTED_KEYS = {"requestId", "engineEpoch", "compileCache", "deviceTime",
-                 "trace"}
+#: Metadata keys of layers the port does not carry (tracing,
+#: compile-cache and device-time accounting).
+UNPORTED_KEYS = {"requestId", "compileCache", "deviceTime", "trace"}
 CLASSIFIERS = ["LogisticRegression", "DecisionTree", "RandomForest",
                "GradientBoosting", "NaiveBayes"]
 FEATURES = ["Pclass", "SibSp", "Parch", "Fare"]

@@ -42,10 +42,9 @@ BERT = dict(vocab_size=VOCAB, hidden_dim=32, num_layers=2, num_heads=2,
             max_len=T, num_classes=2)
 TOL = dict(atol=1e-4, rtol=1e-4)
 #: Metadata / execution-document keys of layers the port does not carry:
-#: the request-id tracing and span records, the job journal's engine
-#: epoch, the compile cache and device-time accounting.
-UNPORTED_KEYS = {"requestId", "engineEpoch", "compileCache", "deviceTime",
-                 "trace"}
+#: the request-id tracing and span records, the compile cache and
+#: device-time accounting.
+UNPORTED_KEYS = {"requestId", "compileCache", "deviceTime", "trace"}
 FIELDS = [f"t{i}" for i in range(T)]
 
 

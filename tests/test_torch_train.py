@@ -16,6 +16,8 @@ normalizes its own rounding noise into steps of up to the learning rate.
 At BERT's 2e-5 that stays inside 1e-4.
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -361,7 +363,7 @@ def test_schedules_match_optax(spec):
         assert got == pytest.approx(want, rel=1e-6, abs=1e-12), step
 
 
-def test_optimizer_specs_and_compile():
+def test_optimizer_specs_and_compile(tmp_path):
     assert resolve_optimizer("lamb").name == "lamb"  # all nine are ported
     with pytest.raises(ValueError, match="unknown optimizer"):
         resolve_optimizer("bogus")
@@ -379,8 +381,9 @@ def test_optimizer_specs_and_compile():
     est.compile(optimizer=resolve_optimizer("adam"))
     with pytest.raises(ValueError, match="baked in"):
         est.compile(learning_rate=0.1)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        est.fit(np.zeros((2, 3)), np.zeros(2), checkpoint_dir="/nowhere")
+    est.fit(np.zeros((2, 3)), np.zeros(2), checkpoint_dir=tmp_path)
+    assert json.loads((tmp_path / "latest.json").read_text()) == {
+        "step": 1, "history": {k: list(v) for k, v in est.history.items()}}
 
 
 def test_mlp_registry_and_artifact_round_trip():
