@@ -118,7 +118,34 @@ Phases (each prints its own line; any failure exits nonzero):
    the ``crash_drill`` line (each checkpoint's snapshot wait, writer
    seconds and bytes; resume-load, journal replay, boot-to-redispatch and
    to-finished seconds; launches; the parameter difference);
-11. last line: {"ok": true, "device": {...}}.
+11. the text pipeline and beyond-RAM datasets over REST on the card:
+   seeded review CSVs at the Large Movie Review Dataset's split (25,000
+   train and 25,000 test reviews, balanced; a Zipf vocabulary of 20,000
+   synthetic word types with sentiment-bearing ones, lengths long-tailed
+   around 180 words), ``POST /dataset/csv`` of both and a histogram of
+   the label; ``/transform/text`` (BPE trained to 8,000 tokens, maxLen
+   128, 4,096-row shards: 7 with a ragged tail) and the held-out split
+   and a maxLen-80 pair with ``tokenizerFrom``; BERT-base (phase 8's
+   model) trained streaming for 1 epoch at batch 32 with
+   ``quantize_checkpoint`` (782 steps: K1/K2/K3 12 each per step, K4
+   once), a streaming evaluate on the test split (K5 once, K1 per batch)
+   and a predict on the bare test dataset (K5 once, K1 per dispatch;
+   rows within 1e-3 of the same artifact on the CPU); config 3's
+   ``LSTMClassifier()`` trained streaming on the maxLen-80 pair and
+   evaluated; ``/explore/curves`` of both fits, ``/function/python``
+   taking 2,000 test rows and labels, a t-SNE ``/explore/scikitlearn``
+   plot of them coloured by label, every image a valid 960x720 PNG;
+   ``POST /dataset/tensor`` of a seeded (60,000, 28, 28, 1) f32 ``.npy``
+   (15 shards) and a streaming ``MnistCNN`` fit at batch 1,024; a
+   sharded CSV at Covertype's schema cut to 100,000 rows (parsed in
+   Python) and a streaming ``MLPClassifier`` fit; a generic ingest;
+   BERT-base streaming over 2 shards of 256 rows against the in-memory
+   fit of the same rows (bf16 bar 3e-2, 0 expected) and one shard's fit
+   profiled; the ``text_pipeline`` line (each job's seconds and
+   launches, BPE train seconds and encode rows/s, streaming samples/s
+   and step ms beside phase 4's in-memory step, each fit's
+   ``shard_wait_s``, the profiled shard's idle share, evaluate metrics);
+12. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -705,26 +732,31 @@ def _family(name: str, families: dict) -> str:
     return "other"
 
 
+TRAIN_FAMILIES = {
+    "flash_bwd_dq": ("flash_bwd_dq",), "flash_bwd_dkv": ("flash_bwd_dkv",),
+    "flash_fwd": ("flash_fwd",),
+    "gemm": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
+    "optimizer": ("multi_tensor_apply", "adam"),
+}
+
+
 def profile_train_step(est, x, y) -> dict:
     """One BERT train step (a ``fit`` of one 32-row batch) by kernel
     family: :func:`profile_step`."""
     bs = TRAIN_SHAPE[0]
-    return profile_step(est, x[:bs], y[:bs], {
-        "flash_bwd_dq": ("flash_bwd_dq",), "flash_bwd_dkv": ("flash_bwd_dkv",),
-        "flash_fwd": ("flash_fwd",),
-        "gemm": ("gemm", "cutlass", "xmma", "cublas", "nvjet"),
-        "optimizer": ("multi_tensor_apply", "adam"),
-    })
+    return profile_step(est, x[:bs], y[:bs], TRAIN_FAMILIES)
 
 
-def profile_step(est, xs, ys, families: dict) -> dict:
-    """One train step (a ``fit`` of one batch: upload, permute, forward,
-    backward, the optimizer, the metrics' host transfer) by kernel family
-    from torch.profiler; its wall time, measured apart without the
-    profiler, gives the device's busy and idle share inside the step."""
+def profile_step(est, xs, ys, families: dict,
+                 batch_size: int | None = None) -> dict:
+    """One ``fit`` epoch (by default of one batch: upload, permute,
+    forward, backward, the optimizer, the metrics' host transfer; a
+    sharded ``xs`` streams) by kernel family from torch.profiler; its
+    wall time, measured apart without the profiler, gives the device's
+    busy and idle share inside it."""
     from torch.profiler import ProfilerActivity, profile
 
-    bs = len(xs)
+    bs = batch_size or len(xs)
     est.fit(xs, ys, epochs=1, batch_size=bs)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -749,7 +781,8 @@ def profile_step(est, xs, ys, families: dict) -> dict:
                    if not str(ev.device_type).endswith("CUDA")),
                   key=lambda ev: -ev.self_cpu_time_total)[:8]
     return {
-        "steps": 1, "wall_ms": wall_ms, "device_ms": device_ms,
+        "steps": -(-len(xs) // bs), "wall_ms": wall_ms,
+        "device_ms": device_ms,
         "busy_share": device_ms / wall_ms if device_ms else None,
         "idle_share": 1 - device_ms / wall_ms if device_ms else None,
         **{f"{k}_ms": v for k, v in totals.items()},
@@ -2704,6 +2737,513 @@ def run_crash_drill(tmp) -> dict:
     return {"ok": ok, "line": line}
 
 
+# -- phase 11: the text pipeline and beyond-RAM datasets over REST -----------
+
+# The Large Movie Review Dataset's split (Maas et al., 2011), as a shape:
+# 25,000 train and 25,000 test reviews, balanced; the text is seeded.
+IMDB_ROWS = 25_000
+IMDB_TYPES = 20_000  # synthetic word types, Zipf-distributed
+IMDB_SENTIMENT = 200  # sentiment-bearing types per polarity
+IMDB_SENTIMENT_SHARE = 0.03  # of a review's words
+TEXT_VOCAB, TEXT_LEN, TEXT_SHARD = 8000, 128, 4096
+CONFIG3_LEN = 80  # BASELINE config 3's Keras IMDb sequence length
+STREAM_BATCH = 32
+MNIST_ROWS, MNIST_BATCH = 60_000, 1024
+# Covertype's schema (54 features + Cover_Type), cut from 581,012 rows:
+# the sharded CSV ingest parses in Python (the native parser is A.11).
+COVTYPE_STREAM_ROWS, COVTYPE_STREAM_SHARD = 100_000, 16_384
+TSNE_PLOT_ROWS = 2000
+# Streaming against in-memory at BERT-base: 2 shards of this many rows.
+STREAM_CHECK_SHARD, STREAM_CHECK_BAR = 256, 3e-2
+TEXT_CPU_ROWS = [0, 1, 2, 3, 4, 5, 6, 7]
+
+TSNE_DATA_FUNCTION = """
+shard = data.load_shard(0)
+response = (shard["tokens"][:rows].astype("float32"), shard["label"][:rows])
+print("rows", len(response[1]))
+"""
+
+
+def imdb_vocabulary(seed: int = 2011):
+    """(word types in Zipf rank order, positive types, negative types,
+    Zipf probabilities): pronounceable seeded strings."""
+    rng = np.random.default_rng(seed)
+    syllables = np.asarray([c + v for c in "bcdfghjklmnprstvwz"
+                            for v in "aeiou"])
+    want = IMDB_TYPES + 2 * IMDB_SENTIMENT
+    types: dict = {}
+    while len(types) < want:
+        for k in rng.integers(1, 5, want):
+            types.setdefault("".join(rng.choice(syllables, k)), None)
+    words = np.asarray(list(types)[:want])
+    p = 1.0 / np.arange(1, IMDB_TYPES + 1) ** 1.07
+    return (words[:IMDB_TYPES], words[IMDB_TYPES:IMDB_TYPES + IMDB_SENTIMENT],
+            words[IMDB_TYPES + IMDB_SENTIMENT:], p / p.sum())
+
+
+def write_reviews(path, seed: int, vocab) -> np.ndarray:
+    """IMDB_ROWS seeded reviews (long-tailed lengths around 180 words, a
+    share of sentiment-bearing words) as a review,sentiment CSV; returns
+    the labels (1 = pos)."""
+    import csv
+
+    words, pos, neg, p = vocab
+    rng = np.random.default_rng(seed)
+    lengths = np.clip(rng.lognormal(np.log(180), 0.6, IMDB_ROWS), 10,
+                      1500).astype(int)
+    labels = rng.permutation(np.arange(IMDB_ROWS) % 2)
+    total = int(lengths.sum())
+    table = np.concatenate([words, pos, neg])
+    ids = rng.choice(IMDB_TYPES, total, p=p)
+    senti = rng.random(total) < IMDB_SENTIMENT_SHARE
+    polarity = np.repeat(labels, lengths)
+    ids = np.where(senti, IMDB_TYPES + (1 - polarity) * IMDB_SENTIMENT
+                   + rng.integers(0, IMDB_SENTIMENT, total), ids)
+    tokens = table[ids]
+    ends = np.cumsum(lengths)
+    with open(path, "w", newline="") as fh:
+        out = csv.writer(fh)
+        out.writerow(["review", "sentiment"])
+        for i in range(IMDB_ROWS):
+            text = " ".join(tokens[ends[i] - lengths[i]:ends[i]])
+            out.writerow([text.capitalize() + ".",
+                          "pos" if labels[i] else "neg"])
+    return labels
+
+
+def request_raw(port, path) -> tuple:
+    """(status, body bytes) of a GET."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", "/api/learningOrchestra/v1" + path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def png_size(data: bytes) -> tuple | None:
+    """(width, height) of a PNG whose chunk CRCs hold and whose rows
+    decompress to the size its header states, else None."""
+    import struct
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        return None
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != \
+                zlib.crc32(kind + body):
+            return None
+        if kind == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    if size is None or len(zlib.decompress(idat)) != size[1] * (
+            1 + 3 * size[0]):
+        return None
+    return size
+
+
+class FitProbe:
+    """Wraps ``NeuralEstimator.fit`` while the phase runs: for each fit,
+    its class, its streaming stats (the shard waits), its history and
+    how many parameter leaves it moved (copies taken at its first device
+    epoch, when a module sized by its input has been built)."""
+
+    def __init__(self):
+        from learningorchestra_tpu_torch.train import neural
+
+        cls = neural.NeuralEstimator
+        self.cls, self.real = cls, (cls.fit, cls._device_epoch)
+        self.fits: list = []
+        real_fit, real_epoch = self.real
+        probe = self
+
+        def fit(est, *args, **kwargs):
+            est.probe_before = None
+            out = real_fit(est, *args, **kwargs)
+            before = est.probe_before or []
+            probe.fits.append({
+                "class": type(est).__name__,
+                "stream_stats": est.stream_stats,
+                "moved": sum(not torch.equal(p.detach(), b) for p, b in zip(
+                    est.module.parameters(), before)),
+                "leaves": len(before),
+                "history": {k: list(v) for k, v in est.history.items()}})
+            est.probe_before = None
+            return out
+
+        def device_epoch(est, *args, **kwargs):
+            if getattr(est, "probe_before", 0) is None:
+                est.probe_before = [p.detach().clone()
+                                    for p in est.module.parameters()]
+            return real_epoch(est, *args, **kwargs)
+
+        cls.fit, cls._device_epoch = fit, device_epoch
+
+    def close(self):
+        self.cls.fit, self.cls._device_epoch = self.real
+
+
+class BpeProbe:
+    """Times the tokenizer's training and encoding inside the text jobs."""
+
+    def __init__(self):
+        from learningorchestra_tpu_torch.text import bpe
+
+        self.bpe = bpe
+        self.train, self.encode = bpe.BpeTokenizer.train, \
+            bpe.BpeTokenizer.encode_batch
+        self.train_s: list = []
+        self.encode_s, self.encode_rows = 0.0, 0
+        probe, train, encode = self, self.train, self.encode
+
+        def timed_train(cls, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = train.__func__(cls, *args, **kwargs)
+            probe.train_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_encode(tok, texts, max_len):
+            t0 = time.perf_counter()
+            out = encode(tok, texts, max_len)
+            probe.encode_s += time.perf_counter() - t0
+            probe.encode_rows += len(out)
+            return out
+
+        bpe.BpeTokenizer.train = classmethod(timed_train)
+        bpe.BpeTokenizer.encode_batch = timed_encode
+
+    def close(self):
+        self.bpe.BpeTokenizer.train = self.train
+        self.bpe.BpeTokenizer.encode_batch = self.encode
+
+
+def stream_vs_memory(tokens, labels, tmp) -> dict:
+    """BERT-base streaming over 2 shards of STREAM_CHECK_SHARD rows
+    (``shuffle=False``) against the in-memory fit of the same rows in
+    the same order, from one seed; then one shard's fit profiled."""
+    from learningorchestra_tpu_torch.models.text import BertModel
+    from learningorchestra_tpu_torch.store.sharded import (
+        ShardedDataset,
+        ShardedTensorWriter,
+    )
+
+    n = 2 * STREAM_CHECK_SHARD
+    x, y = tokens[:n], labels[:n]
+    for name, rows in (("two", n), ("one", STREAM_CHECK_SHARD)):
+        writer = ShardedTensorWriter(f"{tmp}/{name}", {
+            "tokens": (TEXT_LEN,), "label": ()},
+            rows_per_shard=STREAM_CHECK_SHARD)
+        writer.append_rows({"tokens": x[:rows], "label": y[:rows]})
+        writer.close()
+    two, one = ShardedDataset(f"{tmp}/two"), ShardedDataset(f"{tmp}/one")
+    streamed, memory = (BertModel(**REST_MODEL, device="cuda")
+                        for _ in range(2))
+    streamed.fit(two, two["label"], epochs=1, batch_size=STREAM_BATCH,
+                 shuffle=False)
+    memory.fit(x, y, epochs=1, batch_size=STREAM_BATCH, shuffle=False)
+    err = max(float((a.detach() - b.detach()).abs().max())
+              for a, b in zip(streamed.module.parameters(),
+                              memory.module.parameters()))
+    loss_err = abs(streamed.history["loss"][0] - memory.history["loss"][0])
+    phase("streaming vs in-memory", err <= STREAM_CHECK_BAR
+          and loss_err <= STREAM_CHECK_BAR,
+          f"BERT-base, {n} rows as 2 shards of {STREAM_CHECK_SHARD} vs in "
+          f"memory, shuffle=False, batch {STREAM_BATCH}: max|dparam| "
+          f"{err:.3g}, |dloss| {loss_err:.3g} (bar {STREAM_CHECK_BAR}, 0 "
+          f"expected)")
+    try:
+        prof = profile_step(streamed, one, one["label"], TRAIN_FAMILIES,
+                            batch_size=STREAM_BATCH)
+    except Exception as exc:  # noqa: BLE001 — where CUPTI tracing is
+        # unavailable the share is reported as not measured.
+        prof = {"not_measured": repr(exc)}
+    return {"max_abs_param": err, "loss_abs": loss_err,
+            "profiled_shard": prof}
+
+
+def run_text_pipeline(tmp, in_memory_step_ms) -> dict:
+    """Phase 11 on the card, every job through the port's REST server with
+    the kernels' counters at 0 before its request and read after it."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.store.sharded import ShardedDataset
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    t0 = time.perf_counter()
+    vocab = imdb_vocabulary()
+    write_reviews(f"{tmp}/imdb_train.csv", 11, vocab)
+    write_reviews(f"{tmp}/imdb_test.csv", 12, vocab)
+    rng = np.random.default_rng(60_000)
+    np.save(f"{tmp}/mnist_x.npy",
+            rng.random((MNIST_ROWS, 28, 28, 1), np.float32))
+    np.save(f"{tmp}/mnist_y.npy", rng.integers(0, 10, MNIST_ROWS))
+    cov = covtype_inputs()
+    header = [f"Elevation_{i}" for i in range(10)] + [
+        f"Wilderness_Area{i}" for i in range(4)] + [
+        f"Soil_Type{i}" for i in range(40)] + ["Cover_Type"]
+    np.savetxt(f"{tmp}/covtype.csv", np.concatenate([
+        cov["x"][:COVTYPE_STREAM_ROWS],
+        cov["y"][:COVTYPE_STREAM_ROWS, None]], axis=1),
+        fmt=["%.4f"] * 10 + ["%d"] * 45, delimiter=",",
+        header=",".join(header), comments="")
+    del cov
+    inputs_s = time.perf_counter() - t0
+
+    server = APIServer(server_config(f"{tmp}/volumes"), device="cuda")
+    port = server.start_background()
+    fits, bpe = FitProbe(), BpeProbe()
+    jobs, ok = {}, True
+
+    def run(key, verb, path, body, name):
+        nonlocal ok
+        status, meta, secs, counts = rest_job(port, verb, path, body, name)
+        good = status in (200, 201) and meta.get("jobState") == "finished"
+        jobs[key] = {"seconds": secs, "launches": counts, "meta": meta}
+        phase(f"text job {key}", good,
+              f"{verb} {path} -> {status}, jobState {meta.get('jobState')} "
+              f"in {secs:.2f}s; launches {counts}"
+              + ("" if good else f"; metadata {meta}"))
+        ok &= good
+        return meta
+
+    def fit_of(cls):
+        return next((f for f in reversed(fits.fits) if f["class"] == cls),
+                    {})
+
+    def text(name, parent, max_len, tokenizer_from=None):
+        return run(name, "POST", "/transform/text", {
+            "name": name, "datasetName": parent, "textField": "review",
+            "labelField": "sentiment", "vocabSize": TEXT_VOCAB,
+            "maxLen": max_len, "shardRows": TEXT_SHARD,
+            "tokenizerFrom": tokenizer_from}, name)
+
+    def train(key, model, data, batch, **extra):
+        return run(key, "POST", "/train/tensorflow", {
+            "name": key, "parentName": model, "method": "fit",
+            "methodParameters": {"x": f"${data}", "y": f"${data}.label",
+                                 "epochs": 1, "batch_size": batch,
+                                 **extra}}, key)
+
+    def evaluate(key, parent, data):
+        return run(key, "POST", "/evaluate/tensorflow", {
+            "name": key, "parentName": parent, "method": "evaluate",
+            "methodParameters": {"x": f"${data}", "y": f"${data}.label"}},
+            key)
+
+    def model(key, module, cls, params):
+        return run(key, "POST", "/model/tensorflow", {
+            "modelName": key, "modulePath": f"learningorchestra_tpu.{module}",
+            "class": cls, "classParameters": params}, key)
+
+    layers = REST_LAYERS
+    shard_steps = [-(-r // STREAM_BATCH) for r in
+                   [TEXT_SHARD] * (IMDB_ROWS // TEXT_SHARD)
+                   + [IMDB_ROWS % TEXT_SHARD]]
+    steps = sum(shard_steps)
+    eval_batches = sum(-(-r // 128) for r in [TEXT_SHARD] * (
+        IMDB_ROWS // TEXT_SHARD) + [IMDB_ROWS % TEXT_SHARD])
+    pred_batches = sum(-(-r // 512) for r in [TEXT_SHARD] * (
+        IMDB_ROWS // TEXT_SHARD) + [IMDB_ROWS % TEXT_SHARD])
+    images, line = {}, {}
+    try:
+        # 1. Ingest and the label histogram.
+        for key, split in (("imdb", "train"), ("imdb_test", "test")):
+            run(key, "POST", "/dataset/csv", {
+                "datasetName": key,
+                "url": f"file://{tmp}/imdb_{split}.csv"}, key)
+        run("histogram", "POST", "/explore/histogram", {
+            "histogramName": "imdb_hist", "datasetName": "imdb",
+            "fields": ["sentiment"]}, "imdb_hist")
+        _, hist = request(port, "GET", "/explore/histogram/imdb_hist")
+        counts = [r.get("counts") for r in hist[1:] if "counts" in r]
+        phase("text histogram", counts == [{"neg": IMDB_ROWS // 2,
+                                            "pos": IMDB_ROWS // 2}]
+              or counts == [{"pos": IMDB_ROWS // 2, "neg": IMDB_ROWS // 2}],
+              f"sentiment counts {counts}")
+        # 2. Tokenize: BPE trained on the train split, re-used on the rest.
+        tok = text("tok128", "imdb", TEXT_LEN)
+        text("tok128_test", "imdb_test", TEXT_LEN, "tok128")
+        text("tok80", "imdb", CONFIG3_LEN, "tok128")
+        text("tok80_test", "imdb_test", CONFIG3_LEN, "tok128")
+        shards = ShardedDataset(server.ctx.volumes.path_for(
+            "transform/text", "tok128")).shard_rows
+        phase("text shards", len(shards) == len(shard_steps)
+              and shards[-1] == IMDB_ROWS % TEXT_SHARD
+              and tok.get("labelClasses") == ["neg", "pos"]
+              and tok.get("vocabSize") == TEXT_VOCAB,
+              f"tok128: shard rows {shards}, labelClasses "
+              f"{tok.get('labelClasses')}, vocabSize {tok.get('vocabSize')}")
+        # 3. BERT-base: streaming fit, evaluate, predict on the bare split.
+        model("bert", "models.text", "BertModel", REST_MODEL)
+        bert = train("bert_stream", "bert", "tok128", STREAM_BATCH,
+                     quantize_checkpoint=True)
+        per_step = layers * steps
+        want = {"flash_fwd": per_step, "flash_bwd_dq": per_step,
+                "flash_bwd_dkv": per_step, "quantize_rowwise": 1,
+                "dequantize_rowwise": 0}
+        got = jobs["bert_stream"]["launches"]
+        probe = fit_of("BertModel")
+        hist_loss = probe.get("history", {}).get("loss", [])
+        phase("text BERT-base streaming fit", got == want
+              and probe.get("moved") == probe.get("leaves")
+              and all(math.isfinite(v) for v in hist_loss),
+              f"launches {got} (want {want}: {layers} layers x {steps} "
+              f"steps over {len(shard_steps)} shards); loss {hist_loss}; "
+              f"{probe.get('moved')}/{probe.get('leaves')} leaves moved; "
+              f"fitTime {bert.get('fitTime')}")
+        evaluate("bert_eval", "bert_stream", "tok128_test")
+        run("bert_pred", "POST", "/predict/tensorflow", {
+            "name": "bert_pred", "parentName": "bert_stream",
+            "method": "predict", "methodParameters": {"x": "$tok128_test"}},
+            "bert_pred")
+        ev_l, pr_l = (jobs[k]["launches"] for k in ("bert_eval",
+                                                    "bert_pred"))
+        preds = np.asarray(server.ctx.volumes.read_object(
+            "predict/tensorflow", "bert_pred"), np.float32)
+        phase("text BERT-base evaluate/predict", ev_l["dequantize_rowwise"]
+              == pr_l["dequantize_rowwise"] == 1
+              and ev_l["flash_fwd"] == layers * eval_batches
+              and pr_l["flash_fwd"] == layers * pred_batches
+              and preds.shape == (IMDB_ROWS, 2)
+              and bool(np.isfinite(preds).all()),
+              f"evaluate {ev_l} (want K5 1, K1 {layers} x {eval_batches}), "
+              f"predict {pr_l} (want K5 1, K1 {layers} x {pred_batches} "
+              f"dispatches); predictions {preds.shape}")
+        test_tokens = ShardedDataset(server.ctx.volumes.path_for(
+            "transform/text", "tok128_test")).load_shard(0)
+        ref = load_artifact(server.ctx.volumes.read_object(
+            "train/tensorflow", "bert_stream"), device="cpu").predict(
+            test_tokens["tokens"][TEXT_CPU_ROWS])
+        cpu_err = float(np.abs(preds[TEXT_CPU_ROWS] - ref).max())
+        phase("text predict vs CPU plain path", cpu_err <= CPU_ATOL,
+              f"bare $tok128_test (the fit's feature column), rows "
+              f"{TEXT_CPU_ROWS}: max|dlogit|={cpu_err:.3g} atol={CPU_ATOL}")
+        # 4. Config 3: the LSTM, curves, function/python, t-SNE.
+        model("lstm", "models.text", "LSTMClassifier", {})
+        train("lstm_stream", "lstm", "tok80", STREAM_BATCH)
+        evaluate("lstm_eval", "lstm_stream", "tok80_test")
+        for key, parent in (("bert_curves", "bert_stream"),
+                            ("lstm_curves", "lstm_stream")):
+            run(key, "POST", "/explore/curves",
+                {"name": key, "parentName": parent}, key)
+        fn = run("tsne_data", "POST", "/function/python", {
+            "name": "tsne_data", "function": TSNE_DATA_FUNCTION,
+            "functionParameters": {"data": "$tok80_test",
+                                   "rows": TSNE_PLOT_ROWS}}, "tsne_data")
+        _, fn_rows = request(port, "GET", "/function/python/tsne_data")
+        message = [r.get("functionMessage") for r in fn_rows[1:]
+                   if "functionMessage" in r]
+        run("tsne_plot", "POST", "/explore/scikitlearn", {
+            "name": "imdb_tsne",
+            "modulePath":
+                "learningorchestra_tpu.toolkit.estimators.decomposition",
+            "class": "TSNE", "classParameters": {
+                "n_components": 2, "learning_rate": TSNE_RATE,
+                "random_state": 0},
+            "method": "fit_transform",
+            "methodParameters": {"x": "$tsne_data.0"},
+            "colorBy": "$tsne_data.1"}, "imdb_tsne")
+        for key, path in (("bert_curves", "/explore/curves/bert_curves"),
+                          ("lstm_curves", "/explore/curves/lstm_curves"),
+                          ("tsne", "/explore/scikitlearn/imdb_tsne")):
+            status, data = request_raw(port, path)
+            images[key] = {"status": status, "bytes": len(data),
+                           "size": png_size(data)}
+        phase("text images", all(v["status"] == 200 and v["size"] == (
+            960, 720) for v in images.values())
+              and message == [f"rows {TSNE_PLOT_ROWS}\n"],
+              f"{images}; function message {message}; function "
+              f"{fn.get('jobState')}")
+        # 5. Tensor ingest and the streaming MnistCNN.
+        mnist = run("mnist", "POST", "/dataset/tensor", {
+            "datasetName": "mnist", "url": f"file://{tmp}/mnist_x.npy",
+            "labelsUrl": f"file://{tmp}/mnist_y.npy",
+            "shardRows": TEXT_SHARD}, "mnist")
+        model("cnn", "models.vision", "MnistCNN", {})
+        train("cnn_stream", "cnn", "mnist", MNIST_BATCH)
+        # 6. Sharded CSV (Covertype's schema) and the streaming MLP.
+        covtype = run("covtype", "POST", "/dataset/csv", {
+            "datasetName": "covtype", "url": f"file://{tmp}/covtype.csv",
+            "shardRows": COVTYPE_STREAM_SHARD}, "covtype")
+        model("mlp", "models.mlp", "MLPClassifier",
+              {"hidden_layer_sizes": [256, 256], "num_classes": 8})
+        run("mlp_stream", "POST", "/train/tensorflow", {
+            "name": "mlp_stream", "parentName": "mlp", "method": "fit",
+            "methodParameters": {"x": "$covtype",
+                                 "y": "$covtype.Cover_Type", "epochs": 1,
+                                 "batch_size": 512}}, "mlp_stream")
+        generic = run("generic", "POST", "/dataset/generic", {
+            "datasetName": "blob", "url": f"file://{tmp}/mnist_y.npy"},
+            "blob")
+        stream_fits = {f["class"]: f for f in fits.fits}
+        fit_summary = [(c, f["moved"], f["leaves"], f["history"].get("loss"))
+                       for c, f in stream_fits.items()]
+        phase("text tensor/CSV ingest",
+              mnist.get("shards") == -(-MNIST_ROWS // TEXT_SHARD)
+              and covtype.get("shards") == -(-COVTYPE_STREAM_ROWS
+                                             // COVTYPE_STREAM_SHARD)
+              and covtype.get("rows") == COVTYPE_STREAM_ROWS
+              and generic.get("sizeBytes") == len(open(
+                  f"{tmp}/mnist_y.npy", "rb").read())
+              and all(stream_fits.get(c, {}).get("moved")
+                      == stream_fits.get(c, {}).get("leaves", -1)
+                      for c in ("MnistCNN", "MLPClassifier",
+                                "LSTMClassifier")),
+              f"mnist {mnist.get('shards')} shards of {mnist.get('rows')} "
+              f"rows {mnist.get('featureShape')}; covtype "
+              f"{covtype.get('shards')} shards of {covtype.get('rows')} rows"
+              f" (cut from 581,012); generic {generic.get('sizeBytes')} B; "
+              "streaming fits (class, leaves moved, leaves, losses) "
+              f"{fit_summary}")
+        # 7. Streaming against in-memory, and one profiled shard.
+        tokens = ShardedDataset(server.ctx.volumes.path_for(
+            "transform/text", "tok128")).load_shard(0)
+        check = stream_vs_memory(tokens["tokens"], tokens["label"], tmp)
+        epoch_s = (probe.get("history", {}).get("epoch_time") or [None])[0]
+        ev_rows = {k: next((r for r in request(
+            port, "GET", f"/evaluate/tensorflow/{k}")[1][1:]
+            if "loss" in r), None) for k in ("bert_eval", "lstm_eval")}
+        line = {
+            "jobs": {k: {"seconds": v["seconds"],
+                         "launches": v["launches"]}
+                     for k, v in jobs.items()},
+            "inputs_s": inputs_s,
+            "bpe_train_s": bpe.train_s,
+            "encode_rows_per_s": bpe.encode_rows / bpe.encode_s
+            if bpe.encode_s else None,
+            "bert_streaming": {
+                "steps": steps, "epoch_s": epoch_s,
+                "samples_per_s": IMDB_ROWS / epoch_s if epoch_s else None,
+                "step_ms": 1e3 * epoch_s / steps if epoch_s else None,
+                "in_memory_step_ms": in_memory_step_ms,
+                "fit_time_s": bert.get("fitTime")},
+            "shard_wait_s": {c: (f.get("stream_stats") or {}).get(
+                "shard_wait_s") for c, f in stream_fits.items()},
+            "profiled_shard": check["profiled_shard"],
+            "stream_vs_memory_max_abs": check["max_abs_param"],
+            "predict_cpu_max_abs_err": cpu_err,
+            "evaluate": ev_rows,
+            "train_losses": {c: f["history"].get("loss")
+                             for c, f in stream_fits.items()},
+            "images": images,
+            "reduced": {"covtype_rows": f"{COVTYPE_STREAM_ROWS} of 581012 "
+                        "(the sharded CSV is parsed in Python)"},
+        }
+    finally:
+        fits.close()
+        bpe.close()
+        server.shutdown()
+    launches = {k: jobs[k]["launches"] for k in (
+        "bert_stream", "bert_eval", "bert_pred", "lstm_stream", "lstm_eval")
+        if k in jobs}
+    return {"ok": ok, "launches": launches, "line": line}
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -2872,6 +3412,22 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     drill_s = time.perf_counter() - t_drill
+
+    # Phase 11: the text pipeline and beyond-RAM datasets over REST.
+    tmp, t_text = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        text = run_text_pipeline(tmp, train_res["train"]["step_ms"])
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("text pipeline", False, repr(exc))
+        text = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    text_s = time.perf_counter() - t_text
+    text_l = text["launches"]
+    text_train = [text_l.get("bert_stream")]
+    text_bf16 = text_train + [text_l.get("bert_eval")]
+    text_k5 = [text_l.get("bert_eval"), text_l.get("bert_pred")]
     drill_l = drill["line"].get("launches", {})
     drill_train = [drill_l.get("recovered_train"),
                    drill_l.get("uninterrupted_train")]
@@ -2898,10 +3454,13 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
-         "launches": counts["flash_fwd"] + rest_sum("flash_fwd", rest_f32),
+         "launches": counts["flash_fwd"] + rest_sum("flash_fwd", rest_f32)
+         + rest_sum("flash_fwd", [text_l.get("bert_pred")]),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
-             "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32)},
+             "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
+             "text_predict": rest_sum("flash_fwd",
+                                      [text_l.get("bert_pred")])},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -2911,13 +3470,15 @@ def main() -> int:
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
          "launches": train_counts["flash_fwd"]
          + rest_sum("flash_fwd", rest_bf16) + tune_l.get("flash_fwd", 0)
-         + rest_sum("flash_fwd", drill_train + [drill_l.get("evaluate")]),
+         + rest_sum("flash_fwd", drill_train + [drill_l.get("evaluate")])
+         + rest_sum("flash_fwd", text_bf16),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
              "rest_tune": tune_l.get("flash_fwd", 0),
              "crash_drill": rest_sum("flash_fwd", drill_train
-                                     + [drill_l.get("evaluate")])},
+                                     + [drill_l.get("evaluate")]),
+             "text_train_and_evaluate": rest_sum("flash_fwd", text_bf16)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -2931,13 +3492,15 @@ def main() -> int:
          + zoo_art["launches"]["quantize_rowwise"]
          + rest_sum("quantize_rowwise", rest_train)
          + tune_l.get("quantize_rowwise", 0)
-         + rest_sum("quantize_rowwise", drill_train),
+         + rest_sum("quantize_rowwise", drill_train)
+         + rest_sum("quantize_rowwise", text_train),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
              "rest_train": rest_sum("quantize_rowwise", rest_train),
              "rest_tune": tune_l.get("quantize_rowwise", 0),
-             "crash_drill": rest_sum("quantize_rowwise", drill_train)},
+             "crash_drill": rest_sum("quantize_rowwise", drill_train),
+             "text_train": rest_sum("quantize_rowwise", text_train)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -2949,14 +3512,17 @@ def main() -> int:
          "launches": counts["dequantize_rowwise"]
          + zoo_art["launches"]["dequantize_rowwise"]
          + rest_sum("dequantize_rowwise", rest_k5)
-         + rest_sum("dequantize_rowwise", [drill_l.get("evaluate")]),
+         + rest_sum("dequantize_rowwise", [drill_l.get("evaluate")])
+         + rest_sum("dequantize_rowwise", text_k5),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
              "rest_evaluate_predict_serve": rest_sum("dequantize_rowwise",
                                                      rest_k5),
              "crash_drill_evaluate": rest_sum("dequantize_rowwise",
-                                              [drill_l.get("evaluate")])},
+                                              [drill_l.get("evaluate")]),
+             "text_evaluate_predict": rest_sum("dequantize_rowwise",
+                                               text_k5)},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -2968,12 +3534,14 @@ def main() -> int:
            "launches": train_counts[f"flash_bwd_{key}"]
            + rest_sum(f"flash_bwd_{key}", rest_train)
            + tune_l.get(f"flash_bwd_{key}", 0)
-           + rest_sum(f"flash_bwd_{key}", drill_train),
+           + rest_sum(f"flash_bwd_{key}", drill_train)
+           + rest_sum(f"flash_bwd_{key}", text_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
                "rest_tune": tune_l.get(f"flash_bwd_{key}", 0),
-               "crash_drill": rest_sum(f"flash_bwd_{key}", drill_train)},
+               "crash_drill": rest_sum(f"flash_bwd_{key}", drill_train),
+               "text_train": rest_sum(f"flash_bwd_{key}", text_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -3046,10 +3614,13 @@ def main() -> int:
     print("crash_drill " + json.dumps({
         "card": name.strip(), "power_limit": limit.strip(),
         **drill["line"]}), flush=True)
+    print("text_pipeline " + json.dumps({
+        "card": name.strip(), "power_limit": limit.strip(),
+        **text["line"]}, default=str), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
-          f"{drill_s:.1f})", flush=True)
+          f"{drill_s:.1f}, text pipeline {text_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -5,14 +5,20 @@
 stdlib ``ThreadingHTTPServer`` and a regex route table, with the JAX
 server's request bodies:
 
-- ``POST /dataset/csv``, ``POST /transform/projection``, ``POST
+- ``POST /dataset/csv`` (``shardRows``: sharded), ``POST
+  /dataset/tensor`` (``.npy`` features and ``labelsUrl``), ``POST
+  /dataset/generic``, ``POST /transform/projection``, ``POST
+  /transform/text`` (BPE tokenization into a sharded dataset), ``POST
   /transform/<tool>`` (a generic transform: registry class + method),
-  ``POST /model/<tool>``, ``POST /{train,evaluate,predict,tune}/<tool>``
-  (a tune with ``paramGrid`` is a grid search): each creates a named
+  ``POST /explore/histogram``, ``POST /explore/curves``, ``POST
+  /explore/<tool>`` (a plot), ``POST /model/<tool>``, ``POST
+  /{train,evaluate,predict,tune}/<tool>`` (a tune with ``paramGrid`` is
+  a grid search), ``POST /function/python``: each creates a named
   artifact whose job runs asynchronously (201 with the artifact's GET
   URI); ``GET .../<name>`` polls it (metadata first, then rows),
   ``PATCH`` re-runs it, ``DELETE`` removes it, ``GET .../<tool>`` lists
-  a family;
+  a family; ``GET /explore/<tool>/<name>`` is the PNG and
+  ``.../<name>/metadata`` its documents;
 - ``PATCH /transform/dataType``: cast a dataset's fields in place;
 - ``POST /builder/sparkml``: fit the builder's classifiers at once, one
   result artifact each (``builder/tensorflow|pytorch``, the distributed
@@ -62,6 +68,8 @@ from learningorchestra_tpu_torch.services import (
     BuilderService,
     DatasetService,
     ExecutorService,
+    ExploreService,
+    FunctionService,
     ModelService,
     ServiceContext,
     TransformService,
@@ -130,6 +138,8 @@ class APIServer:
         self.model = ModelService(self.ctx)
         self.executor = ExecutorService(self.ctx)
         self.builder = BuilderService(self.ctx)
+        self.explore = ExploreService(self.ctx)
+        self.function = FunctionService(self.ctx)
         self.serving = ServingService(
             self.ctx.volumes, self.config.serve, device=self.ctx.device
         )
@@ -192,24 +202,39 @@ class APIServer:
         add("GET", r"/health", lambda m, b, q: (200, {"status": "ok"}))
 
         # ---- Dataset ----
+        def shard_rows_of(body, default):
+            raw = body.get("shardRows", default)
+            if raw is None:
+                return None
+            try:
+                rows = int(raw)
+            except (TypeError, ValueError):
+                rows = 0
+            if rows <= 0:
+                # An explicit bad value errors, never takes the default.
+                raise ValidationError("'shardRows' must be a positive integer")
+            return rows
+
         def dataset_create(m, body, query):
             kind = m.group("tool")
             name = body.get("datasetName") or body.get("name")
             url = body.get("url")
             if not url:
                 raise ValidationError("missing 'url'")
-            if kind != "csv":
-                raise ValidationError(
-                    f"dataset/{kind} ingest is not ported to the PyTorch "
-                    "package yet; use dataset/csv"
-                )
-            if body.get("shardRows") is not None:
-                raise ValidationError(
-                    "sharded ingest ('shardRows') is not ported to the "
-                    "PyTorch package yet"
-                )
-            return self._created("dataset/csv",
-                                 self.dataset.create_csv(name, url))
+            if kind == "csv":
+                meta = self.dataset.create_csv(
+                    name, url, shard_rows=shard_rows_of(body, None))
+            elif kind == "tensor":
+                labels_url = body.get("labelsUrl")
+                if not labels_url:
+                    raise ValidationError(
+                        "tensor ingest needs 'labelsUrl' (.npy labels)")
+                meta = self.dataset.create_tensor(
+                    name, url, labels_url=labels_url,
+                    shard_rows=shard_rows_of(body, 4096))
+            else:
+                meta = self.dataset.create_generic(name, url)
+            return self._created(f"dataset/{kind}", meta)
 
         add("POST", rf"/dataset/{TOOL}", dataset_create)
         add("GET", rf"/dataset/{TOOL}", self._list_handler("dataset"))
@@ -254,6 +279,32 @@ class APIServer:
         # DELETE go through the generic routes below.
         add("GET", r"/transform/dataType", self._list_handler("dataset", ""))
 
+        # ---- Transform: text (BPE tokenization) ----
+        def text_create(m, body, query):
+            meta = self.transform.create_text(
+                body.get("name"),
+                body.get("datasetName") or body.get("parentName"),
+                text_field=body.get("textField"),
+                label_field=body.get("labelField"),
+                vocab_size=body.get("vocabSize", 8000),
+                max_len=body.get("maxLen", 128),
+                lowercase=body.get("lowercase", True),
+                tokenizer_from=body.get("tokenizerFrom"),
+                shard_rows=body.get("shardRows", 4096),
+            )
+            return self._created("transform/text", meta)
+
+        def text_update(m, body, query):
+            name = m.groupdict().get("name") or body.get("name")
+            return 200, {"metadata": self.transform.update_text(name)}
+
+        add("POST", r"/transform/text", text_create)
+        add("PATCH", r"/transform/text", text_update)
+        add("PATCH", rf"/transform/text/{NAME}", text_update)
+        add("GET", rf"/transform/text/{NAME}", self._page)
+        add("DELETE", rf"/transform/text/{NAME}",
+            self._deleter(self.dataset.delete))
+
         # ---- Transform: generic (scikitlearn | tensorflow) ----
         def transform_create(m, body, query):
             tool = m.group("tool")
@@ -282,6 +333,68 @@ class APIServer:
         add("PATCH", rf"/transform/{TOOL}/{NAME}", transform_update)
         add("GET", rf"/transform/{TOOL}/{NAME}", self._page)
         add("DELETE", rf"/transform/{TOOL}/{NAME}",
+            self._deleter(self.executor.delete))
+
+        # ---- Explore ----
+        def histogram_create(m, body, query):
+            meta = self.explore.create_histogram(
+                body.get("histogramName") or body.get("name"),
+                body.get("datasetName") or body.get("parentName"),
+                body.get("fields") or [],
+            )
+            return self._created("explore/histogram", meta)
+
+        def curves_create(m, body, query):
+            meta = self.explore.create_curves(
+                body.get("name"), body.get("parentName"),
+                fields=body.get("fields"))
+            return self._created("explore/curves", meta)
+
+        def curves_update(m, body, query):
+            return 200, {"metadata": self.explore.update_curves(
+                m.group("name"), fields=body.get("fields"))}
+
+        def explore_create(m, body, query):
+            tool = m.group("tool")
+            meta = self.explore.create_plot(
+                body.get("name"),
+                module_path=body.get("modulePath"),
+                class_name=body.get("class"),
+                class_parameters=body.get("classParameters"),
+                method=body.get("method", "fit_transform"),
+                method_parameters=body.get("methodParameters"),
+                artifact_type=f"explore/{tool}",
+                color_by=body.get("colorBy"),
+                description=body.get("description", ""),
+            )
+            return self._created(f"explore/{tool}", meta)
+
+        def explore_update(m, body, query):
+            return 200, {"metadata": self.explore.update_plot(
+                m.group("name"),
+                class_parameters=body.get("classParameters"),
+                method_parameters=body.get("methodParameters"),
+                color_by=body.get("colorBy"),
+                description=body.get("description", ""),
+            )}
+
+        def explore_image(m, body, query):
+            return 200, ("image/png", self.explore.read_image(
+                m.group("name")))
+
+        # The histogram and curves routes come before the generic
+        # /explore/{TOOL} ones (first match wins); their GETs of an image
+        # or metadata go through the generic routes.
+        add("POST", r"/explore/histogram", histogram_create)
+        add("GET", rf"/explore/histogram/{NAME}", self._page)
+        add("POST", r"/explore/curves", curves_create)
+        add("PATCH", rf"/explore/curves/{NAME}", curves_update)
+        add("POST", rf"/explore/{TOOL}", explore_create)
+        add("GET", rf"/explore/{TOOL}", self._list_handler("explore"))
+        add("PATCH", rf"/explore/{TOOL}/{NAME}", explore_update)
+        add("GET", rf"/explore/{TOOL}/{NAME}/metadata", self._page)
+        add("GET", rf"/explore/{TOOL}/{NAME}", explore_image)
+        add("DELETE", rf"/explore/{TOOL}/{NAME}",
             self._deleter(self.executor.delete))
 
         # ---- Model ----
@@ -369,6 +482,34 @@ class APIServer:
             add("GET", rf"/{service}/{TOOL}/{NAME}", self._page)
             add("DELETE", rf"/{service}/{TOOL}/{NAME}",
                 self._deleter(self.executor.delete))
+
+        # ---- Function ----
+        def function_create(m, body, query):
+            meta = self.function.create(
+                body.get("name"),
+                function=body.get("function"),
+                function_parameters=body.get("functionParameters"),
+                description=body.get("description", ""),
+                deadline_s=deadline_s(body),
+            )
+            return self._created("function/python", meta)
+
+        def function_update(m, body, query):
+            return 200, {"metadata": self.function.update(
+                m.group("name"),
+                function=body.get("function"),
+                function_parameters=body.get("functionParameters"),
+                description=body.get("description", ""),
+                deadline_s=deadline_s(body),
+            )}
+
+        add("POST", r"/function/python", function_create)
+        add("GET", r"/function/python",
+            self._list_handler("function", "python"))
+        add("PATCH", rf"/function/python/{NAME}", function_update)
+        add("GET", rf"/function/python/{NAME}", self._page)
+        add("DELETE", rf"/function/python/{NAME}",
+            self._deleter(self.function.delete))
 
         # ---- Builder ----
         def builder_create(m, body, query):
@@ -584,11 +725,16 @@ class APIServer:
                 self._send(*api.handle(verb, parsed.path, body, query))
 
             def _send(self, status: int, payload):
-                data = json.dumps(payload, default=str).encode()
+                if isinstance(payload, tuple):  # (content type, bytes)
+                    ctype, data = payload
+                else:
+                    ctype = "application/json"
+                    data = json.dumps(payload, default=str).encode()
                 self.send_response(status)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
-                if status == 429 and payload.get("retryAfter") is not None:
+                if status == 429 and isinstance(payload, dict) \
+                        and payload.get("retryAfter") is not None:
                     self.send_header(
                         "Retry-After", str(payload["retryAfter"])
                     )

@@ -1,7 +1,8 @@
 """The pipeline's services — port of ``learningorchestra_tpu/services/``:
-dataset ingest, transforms (projection, dataType cast, generic), model
-creation, the train / evaluate / predict / tune executor and the
-builder, each step a named, lineage-tracked, asynchronous job whose
+dataset ingest (CSV, sharded CSV, tensor, generic), transforms
+(projection, dataType cast, generic, BPE text), explore (histogram,
+curves, plots), model creation, the train / evaluate / predict / tune
+executor, the builder and ``function/python``, each step a named, lineage-tracked, asynchronous job whose
 output is persisted (store rows and volume binaries), with observe
 webhooks and the event feed on its transitions."""
 
@@ -9,6 +10,8 @@ from learningorchestra_tpu_torch.services.builder import BuilderService
 from learningorchestra_tpu_torch.services.context import ServiceContext
 from learningorchestra_tpu_torch.services.dataset import DatasetService
 from learningorchestra_tpu_torch.services.executor import ExecutorService
+from learningorchestra_tpu_torch.services.explore import ExploreService
+from learningorchestra_tpu_torch.services.function import FunctionService
 from learningorchestra_tpu_torch.services.model import ModelService
 from learningorchestra_tpu_torch.services.transform import TransformService
 from learningorchestra_tpu_torch.services.webhooks import WebhookNotifier
@@ -17,6 +20,8 @@ __all__ = [
     "BuilderService",
     "DatasetService",
     "ExecutorService",
+    "ExploreService",
+    "FunctionService",
     "ModelService",
     "ServiceContext",
     "TransformService",

@@ -32,6 +32,7 @@ from learningorchestra_tpu_torch.store import (
     VolumeStorage,
     open_document_store,
 )
+from learningorchestra_tpu_torch.store.sharded import ShardedDataset
 
 logger = get_logger("context")
 
@@ -175,7 +176,8 @@ class ServiceContext:
         """How a journaled job can be re-dispatched, or None: executor
         artifacts (train, evaluate, predict with a parent and a method)
         re-run through PATCH with their last recorded parameters; tune
-        grids, functions and models cannot be re-derived from metadata.
+        grids, models, ingests, text transforms, explores and functions
+        are orphaned, as the JAX package orphans them.
         (The JAX package's ``distributed`` kind waits for A.9.)"""
         kind = str(meta.get("type", ""))
         if (kind.startswith(("train/", "evaluate/", "predict/"))
@@ -306,21 +308,29 @@ class ServiceContext:
         return self.volumes.root / "_checkpoints" / name
 
     def delete_artifact(self, name: str) -> dict:
-        """Collection, volume binary and managed checkpoints; subscribers
-        drop derived state now, so a recreated name never serves deleted
-        weights or resumes a deleted job's state."""
+        """Collection, volume binary (a sharded dataset's shard
+        directory), a text transform's tokenizer and managed checkpoints;
+        subscribers drop derived state now, so a recreated name never
+        serves deleted weights, resumes a deleted job's state or hands a
+        deleted vocabulary to ``tokenizerFrom``."""
         meta = self.require_existing(name)
+        kind = meta.get("type", "")
         self.artifacts.delete(name)
-        self.volumes.delete(meta.get("type", ""), name)
+        self.volumes.delete(kind, name)
         self.notify_artifact_changed(name)
+        if kind == "transform/text":
+            self.volumes.delete(kind, name + ".tokenizer")
         shutil.rmtree(self.checkpoint_dir(name), ignore_errors=True)
         return meta
 
 
 class StoreLoader:
-    """The DSL's ``$name``: a dataset collection loads as a
-    :class:`Frame`; anything else loads its volume binary (an estimator
-    artifact rebuilt on the context's device)."""
+    """The DSL's ``$name``: a sharded dataset resolves to a lazy
+    :class:`ShardedDataset` (``$name.col`` to one column's view); a
+    dataset collection loads as a :class:`Frame`; a function's response
+    or an explore's binary loads as the object it is; anything else
+    loads its volume binary (an estimator artifact rebuilt on the
+    context's device)."""
 
     def __init__(self, ctx: ServiceContext):
         self.ctx = ctx
@@ -330,10 +340,16 @@ class StoreLoader:
         if meta is None:
             raise KeyError(name)
         kind = str(meta.get("type", ""))
+        if meta.get("sharded"):
+            # Materialising the rows here would be the O(dataset) host
+            # step the sharded format exists to avoid.
+            return ShardedDataset(self.ctx.volumes.path_for(kind, name))
         if kind.startswith("dataset/csv") or not self.ctx.volumes.exists(
             kind, name
         ):
             return self.load_frame(name)
+        if kind.startswith(("function/", "explore/")):
+            return self.ctx.volumes.read_object(kind, name)
         return self.ctx.volumes.load_estimator(kind, name,
                                                device=self.ctx.device)
 

@@ -17,10 +17,17 @@ evaluate dict, predict arrays, a transform's tensors) with its tensors
 moved to the CPU: an artifact made on the card loads where there is
 none, and :meth:`load_estimator` places it on the caller's device.  Only
 bytes this program wrote should be read back: unpickling runs code.
+
+Unpickling never imports the JAX package: a pickle that names one of
+its classes loads as the port's own class where the port has one (the
+BPE tokenizer a JAX server's text transform stored) and fails with a
+clear error otherwise.  Raw bytes (generic ingest, explore PNGs) go
+through :meth:`VolumeStorage.save_stream` and :meth:`read_bytes`.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
 import re
@@ -47,6 +54,28 @@ def _validate_name(name: str) -> str:
     if not _NAME_RE.match(name or "") or ".." in name:
         raise ValueError(f"invalid artifact name: {name!r}")
     return name
+
+
+#: Classes of the JAX package whose pickles load as the port's own.
+_PORTED_CLASSES = {
+    ("learningorchestra_tpu.text.bpe", "BpeTokenizer"):
+        ("learningorchestra_tpu_torch.text.bpe", "BpeTokenizer"),
+}
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """``pickle.Unpickler`` that maps the JAX package's ported classes to
+    the port's and refuses its other classes instead of importing them."""
+
+    def find_class(self, module: str, name: str):
+        if module.split(".", 1)[0] == "learningorchestra_tpu":
+            target = _PORTED_CLASSES.get((module, name))
+            if target is None:
+                raise pickle.UnpicklingError(
+                    f"{module}.{name} is a class of the JAX package, which "
+                    "the PyTorch package does not import")
+            module, name = target
+        return super().find_class(module, name)
 
 
 VOLUME_KEYS = (
@@ -110,7 +139,7 @@ class VolumeStorage:
     def read_object(self, artifact_type: str, name: str) -> Any:
         path = self.path_for(artifact_type, name)
         with open(path, "rb") as fh:
-            return pickle.load(fh)
+            return _PortUnpickler(fh).load()
 
     # -- estimators as artifacts ---------------------------------------------
 
@@ -136,6 +165,21 @@ class VolumeStorage:
         if isinstance(obj, TensorEstimator):
             return obj.to(device)
         return map_tensors(obj, lambda t: t.to(device))
+
+    # -- raw bytes ------------------------------------------------------------
+
+    def save_stream(self, artifact_type: str, name: str,
+                    stream: io.BufferedIOBase,
+                    chunk_size: int = 1 << 20) -> Path:
+        """Copy a byte stream onto the volume in chunks."""
+        path = self.path_for(artifact_type, name)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path, "wb") as fh:
+            shutil.copyfileobj(stream, fh, chunk_size)
+        return path
+
+    def read_bytes(self, artifact_type: str, name: str) -> bytes:
+        return self.path_for(artifact_type, name).read_bytes()
 
     # -- lifecycle ------------------------------------------------------------
 

@@ -32,8 +32,16 @@ artifact layout: the flax-shaped numpy tree (with ``QuantizedLeaf``s where
 ``quantize_pytree`` puts them) and the optimizer state as plain dicts in
 the optax layout.  ``fit(checkpoint_dir=...)`` saves that state every N
 epochs through ``train/checkpoint.py`` and resumes from the newest
-committed step; sharded (streaming) datasets are not ported yet (ROADMAP
-A.5 part 2).
+committed step.
+
+Sharded datasets (``store/sharded.py``) stream: ``fit`` runs one device
+epoch per shard, the next shard loading and uploading on a side stream
+meanwhile; ``evaluate`` weights each shard's metrics by its rows;
+``predict`` on a bare dataset feeds the columns the streaming fit
+trained on (``sharded_fit_cols`` in the artifact state).  The shard order
+is the JAX package's (numpy, seeded by (seed, 3, epoch)); the in-shard
+order comes from a ``torch.Generator``, since the port cannot draw
+threefry's bits.
 
 An artifact is a plain dict (:meth:`NeuralEstimator.to_artifact`) naming
 its class through the registry; :func:`load_artifact` rebuilds it on any
@@ -46,6 +54,7 @@ import logging
 import math
 import re
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable
 
 import numpy as np
@@ -690,11 +699,84 @@ class _NoShuffle:
 
 
 def _is_sharded(obj) -> bool:
-    """Sharded-dataset handles/views (and tuples holding one) expose
-    ``load_shard`` / ``n_shards``; the streaming paths are not ported."""
+    """A sharded dataset or view (both expose ``load_shard``), or a tuple
+    holding one."""
     if isinstance(obj, tuple):
         return any(_is_sharded(o) for o in obj)
-    return hasattr(obj, "load_shard") or hasattr(obj, "n_shards")
+    return hasattr(obj, "load_shard")
+
+
+def _sharded():
+    """``store/sharded.py``, imported at first use: the store package
+    imports this module."""
+    from learningorchestra_tpu_torch.store import sharded
+
+    return sharded
+
+
+class _ShardStream:
+    """Streams the shards of an x/y view pair to the device, shard k+1's
+    disk read and host-to-device copy overlapping shard k's compute.
+
+    An IO thread loads a shard's ``.npz``, narrows x as ``as_array`` does
+    (token ids stay integer) and casts y to the loss's dtype.  On the card
+    it copies both into pinned host memory, starts non-blocking copies on
+    a side stream and records an event; it waits for that event itself,
+    so a pinned buffer is freed only once its copy is done.  The compute
+    stream waits on the event and the tensors are recorded on it
+    (``record_stream``), so the allocator reuses their memory only after
+    the compute that reads them.  At most two shards are resident: the
+    one computing and the one loading.  ``stats["shard_wait_s"]`` holds,
+    per pass, the seconds the compute side waited for its shards."""
+
+    def __init__(self, x, y, y_dtype, device):
+        self.x, self.y, self.y_dtype = x, y, y_dtype
+        self.dataset = x.dataset
+        self.device = device
+        self._io = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="shard-io")
+        self._side = torch.cuda.Stream(device) \
+            if device.type == "cuda" else None
+        self.stats: dict = {"shard_wait_s": []}
+
+    def _load(self, k: int):
+        xs = np.ascontiguousarray(as_array(self.x.load_shard(k)))
+        ys = np.ascontiguousarray(self.y.load_shard(k).astype(self.y_dtype))
+        if self._side is None:
+            return (torch.from_numpy(xs).to(self.device),
+                    torch.from_numpy(ys).to(self.device), None)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._side):
+            xd = torch.from_numpy(xs).pin_memory().to(self.device,
+                                                      non_blocking=True)
+            yd = torch.from_numpy(ys).pin_memory().to(self.device,
+                                                      non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._side)
+        done.synchronize()
+        return xd, yd, done
+
+    def shards(self, order):
+        """Yield ``(position, shard, x, y)`` in ``order``, the next shard
+        loading meanwhile."""
+        wait = 0.0
+        nxt = self._io.submit(self._load, int(order[0]))
+        for pos, k in enumerate(order):
+            t0 = time.perf_counter()
+            xd, yd, done = nxt.result()
+            wait += time.perf_counter() - t0
+            if done is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(done)
+                xd.record_stream(compute)
+                yd.record_stream(compute)
+            if pos + 1 < len(order):
+                nxt = self._io.submit(self._load, int(order[pos + 1]))
+            yield pos, int(k), xd, yd
+            del xd, yd
+        self.stats["shard_wait_s"].append(wait)
+
+    def close(self) -> None:
+        self._io.shutdown(wait=True)
 
 
 def _cast_params(module: nn.Module, dtype) -> dict:
@@ -757,6 +839,10 @@ class NeuralEstimator(Estimator):
         self._accumulate_steps = 1
         self.stop_training = False  # callbacks may set True mid-fit
         self.history = TrainHistory()
+        # The feature columns of the last streaming fit, and its shard
+        # waits (``_ShardStream.stats``).
+        self._sharded_fit_cols: list[str] | None = None
+        self.stream_stats: dict | None = None
         init_params(module, seed)
         module.to(self.device).eval()
 
@@ -934,14 +1020,15 @@ class NeuralEstimator(Estimator):
         return {name: v.detach() for name, v in metrics.items()}
 
     def _device_epoch(self, xs, ys, loss_fn, dtype, batch_size: int,
-                      shuffle: bool, epoch: int) -> dict:
-        """One epoch over a device-resident dataset: permute on the device,
-        pad the tail by cycling the order (mask 0), run the batches, one
-        host transfer of the mean per-batch metrics."""
+                      shuffle: bool, key: int) -> dict:
+        """One epoch over a device-resident dataset: permute on the device
+        (a generator seeded by the estimator's seed and ``key``), pad the
+        tail by cycling the order (mask 0), run the batches, one host
+        transfer of the mean per-batch metrics."""
         n = xs.shape[0]
         if shuffle:
             gen = torch.Generator(device=xs.device).manual_seed(
-                int(self.seed) * 1_000_003 + epoch)
+                int(self.seed) * 1_000_003 + key)
             order = torch.randperm(n, generator=gen, device=xs.device)
         else:
             order = torch.arange(n, device=xs.device)
@@ -958,6 +1045,24 @@ class NeuralEstimator(Estimator):
             per_batch.append(self._train_step(
                 xs[rows], ys[rows], mask[sl], loss_fn, dtype))
         return _finalize_metrics(per_batch)
+
+    def _streaming_epoch(self, stream: "_ShardStream", loss_fn, dtype,
+                         batch_size: int, shuffle: bool, epoch: int) -> dict:
+        """One epoch over a sharded dataset: the shards in a host order
+        seeded by (seed, 3, epoch), the JAX package's; each shard one
+        device epoch (its tail padded like the in-memory tail), its
+        in-shard order seeded by ``epoch * n_shards + position``; the
+        metrics weighted by each shard's rows."""
+        n_shards = stream.dataset.n_shards
+        order = (np.random.default_rng([self.seed, 3, epoch]).permutation(
+            n_shards) if shuffle else np.arange(n_shards))
+        acc = _sharded().WeightedMetrics()
+        for pos, k, xs, ys in stream.shards(order):
+            rows = stream.dataset.shard_rows[k]
+            acc.add(self._device_epoch(xs, ys, loss_fn, dtype,
+                                       min(batch_size, rows), shuffle,
+                                       epoch * n_shards + pos), rows)
+        return acc.result()
 
     # -- keras-fit surface ----------------------------------------------------
 
@@ -990,6 +1095,13 @@ class NeuralEstimator(Estimator):
         artifact stores parameters int8 with optimizer state dropped; the
         live model keeps full precision.
 
+        Sharded ``x``/``y`` (views of one sharded dataset; ``x`` may be
+        the bare dataset, which resolves to every column but ``y``'s)
+        stream: each epoch walks the shards in a fresh order, shard k+1
+        loading from disk and copying to the device while the device
+        runs shard k (:class:`_ShardStream`).  ``validation_split`` is
+        refused there; ``validation_data`` must be in-memory arrays.
+
         Managed checkpoints: with ``checkpoint_dir`` set, (params,
         opt_state) are saved every ``checkpoint_every`` epochs, at most
         once per ``checkpoint_min_interval_s`` (the final epoch, or an
@@ -998,33 +1110,44 @@ class NeuralEstimator(Estimator):
         newest committed step, with its history, and walks the batches
         an uninterrupted fit walks from there (each epoch's order is
         seeded by its index)."""
-        if _is_sharded(x) or _is_sharded(y):
-            raise NotImplementedError(
-                "sharded (streaming) datasets are not ported to the PyTorch "
-                "package yet: the sharded store and the streaming fit come "
-                "with ROADMAP A.5 part 2"
-            )
         self._quantize_persist = bool(quantize_checkpoint)
         callbacks = build_stop_callbacks(self, callbacks, early_stopping)
         self._set_accumulation(accumulate_steps)
-        x = as_array(x)
-        y_arr = as_array(y)
-        y_arr = y_arr.reshape(-1) if y_arr.ndim == 2 and y_arr.shape[1] == 1 \
-            else y_arr
-        loss_kind = self._resolve_loss(y_arr)
-        y_arr = y_arr.astype(np.int32 if loss_kind == "softmax_ce"
-                             else np.float32)
-
-        if validation_data is None and validation_split > 0:
-            n_val = int(len(x) * validation_split)
-            # Tiny datasets: never let the split empty the train set.
-            if 0 < n_val < len(x):
-                x, x_val = x[:-n_val], x[-n_val:]
-                y_arr, y_val = y_arr[:-n_val], y_arr[-n_val:]
-                validation_data = (x_val, y_val)
-        if len(x) == 0:
-            raise ValueError("cannot batch an empty dataset")
-        self._init_params(x[:1])
+        stream = None
+        if _is_sharded(x) or _is_sharded(y):
+            if validation_split:
+                raise ValueError(
+                    "validation_split is unsupported for sharded datasets; "
+                    "pass validation_data=(x, y) arrays")
+            if _is_sharded(validation_data):
+                raise ValueError(
+                    "validation_data must be in-memory arrays, not sharded "
+                    "views (validation sets are small by construction)")
+            x, y = _sharded().resolve_xy_views(x, y)
+            # A later predict on the bare dataset feeds these columns,
+            # not the label.
+            self._sharded_fit_cols = list(x.cols)
+            loss_kind = self._resolve_loss(np.asarray(y.head(256)))
+            x0 = as_array(x.head(1))
+        else:
+            x = as_array(x)
+            y_arr = as_array(y)
+            y_arr = y_arr.reshape(-1) \
+                if y_arr.ndim == 2 and y_arr.shape[1] == 1 else y_arr
+            loss_kind = self._resolve_loss(y_arr)
+            y_arr = y_arr.astype(np.int32 if loss_kind == "softmax_ce"
+                                 else np.float32)
+            if validation_data is None and validation_split > 0:
+                n_val = int(len(x) * validation_split)
+                # Tiny datasets: never let the split empty the train set.
+                if 0 < n_val < len(x):
+                    x, x_val = x[:-n_val], x[-n_val:]
+                    y_arr, y_val = y_arr[:-n_val], y_arr[-n_val:]
+                    validation_data = (x_val, y_val)
+            if len(x) == 0:
+                raise ValueError("cannot batch an empty dataset")
+            x0 = x[:1]
+        self._init_params(x0)
         if self.opt_state is None:
             self._reset_optimizer()
         start_epoch = 0
@@ -1035,11 +1158,29 @@ class NeuralEstimator(Estimator):
                 start_epoch, past_history = loaded
                 self.history = TrainHistory(past_history)
 
-        # Upload the dataset once; each epoch shuffles/batches on device.
-        xs = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        ys = torch.from_numpy(np.ascontiguousarray(y_arr)).to(self.device)
         loss_fn = self._loss_and_metrics(loss_kind)
         dtype = self._compute_dtype()
+        if _is_sharded(x):
+            stream = _ShardStream(
+                x, y, np.int32 if loss_kind == "softmax_ce" else np.float32,
+                self.device)
+            self.stream_stats = stream.stats
+
+            def run_epoch(epoch_i):
+                return self._streaming_epoch(stream, loss_fn, dtype,
+                                             batch_size, bool(shuffle),
+                                             epoch_i)
+        else:
+            # Upload the dataset once; each epoch shuffles/batches on
+            # the device.
+            xs = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            ys = torch.from_numpy(np.ascontiguousarray(y_arr)).to(
+                self.device)
+
+            def run_epoch(epoch_i):
+                return self._device_epoch(xs, ys, loss_fn, dtype,
+                                          batch_size, bool(shuffle), epoch_i)
+
         self.module.train()
         last_save = time.monotonic()
         try:
@@ -1052,9 +1193,7 @@ class NeuralEstimator(Estimator):
                     self.stop_training = True
                     break
                 t0 = time.perf_counter()
-                metrics = self._device_epoch(xs, ys, loss_fn, dtype,
-                                             batch_size, bool(shuffle),
-                                             epoch_i)
+                metrics = run_epoch(epoch_i)
                 metrics["epoch_time"] = time.perf_counter() - t0
                 if validation_data is not None:
                     vx, vy = validation_data
@@ -1080,9 +1219,11 @@ class NeuralEstimator(Estimator):
                         epoch_i, epochs, checkpoint_every,
                         checkpoint_min_interval_s, last_save,
                         stopped=self.stop_training):
+                    # save() copies the history's lists: a marker it
+                    # publishes later holds this epoch's history.
                     ckpt.save(checkpoint_dir, epoch_i + 1,
                               self._checkpoint_state(),
-                              history=dict(self.history),
+                              history=self.history,
                               async_save=checkpoint_async)
                     last_save = time.monotonic()
                 if self.stop_training:
@@ -1091,6 +1232,8 @@ class NeuralEstimator(Estimator):
                     break
         finally:
             self.module.eval()
+            if stream is not None:
+                stream.close()
             if checkpoint_dir:
                 # The last save is committed when fit returns (or raises).
                 ckpt.finalize_async(checkpoint_dir)
@@ -1151,10 +1294,7 @@ class NeuralEstimator(Estimator):
 
     def evaluate(self, x, y, batch_size: int = 128, **_) -> dict:
         if _is_sharded(x) or _is_sharded(y):
-            raise NotImplementedError(
-                "sharded (streaming) datasets are not ported to the PyTorch "
-                "package yet: the sharded store comes with ROADMAP A.3/A.5"
-            )
+            return self._evaluate_streaming(x, y, batch_size)
         x = as_array(x)
         y = as_array(y)
         # Only flatten a single-column matrix; multi-output regression
@@ -1164,6 +1304,22 @@ class NeuralEstimator(Estimator):
         if not self._built():
             raise RuntimeError("evaluate() before fit()")
         return self._evaluate_arrays(x, y, batch_size, self._resolve_loss(y))
+
+    def _evaluate_streaming(self, x, y, batch_size: int) -> dict:
+        """Shard by shard (``fit``'s x/y resolution); the metrics weighted
+        by each shard's rows, perplexity averaged in the log domain."""
+        sharded = _sharded()
+        x, y = sharded.resolve_xy_views(x, y)
+        if not self._built():
+            raise RuntimeError("evaluate() before fit()")
+        loss_kind = self._resolve_loss(np.asarray(y.head(256)))
+        ds = x.dataset
+        acc = sharded.WeightedMetrics()
+        for k in range(ds.n_shards):
+            acc.add(self._evaluate_arrays(
+                as_array(x.load_shard(k)), y.load_shard(k), batch_size,
+                loss_kind), ds.shard_rows[k])
+        return acc.result()
 
     def _built(self) -> bool:
         return next(self.module.parameters(), None) is not None
@@ -1179,6 +1335,8 @@ class NeuralEstimator(Estimator):
             return self.module(xt).float().cpu().numpy()
 
     def predict(self, x, batch_size: int = 512, **_):
+        if _is_sharded(x):
+            return self._predict_streaming(x, batch_size)
         x = as_array(x)
         self.check_input(x)
         if not self._built():
@@ -1193,6 +1351,19 @@ class NeuralEstimator(Estimator):
             bucket = bucket_for(k, batch_size)
             outs.append(self.apply(pad_rows(xb, bucket))[:k])
         return np.concatenate(outs, axis=0)
+
+    def _predict_streaming(self, x, batch_size: int) -> np.ndarray:
+        """Shard by shard, the outputs stitched in order on the host.  A
+        bare dataset feeds the columns the streaming fit trained on (they
+        exclude the label), else all of them."""
+        if isinstance(x, _sharded().ShardedDataset):
+            cols = self._sharded_fit_cols
+            # The list form keeps a one-column fit's (rows, 1) matrix.
+            x = x.view(cols if cols and all(c in x.fields for c in cols)
+                       else x.fields)
+        return np.concatenate([
+            self.predict(x.load_shard(k), batch_size)
+            for k in range(x.dataset.n_shards)], axis=0)
 
     def predict_classes(self, x, batch_size: int = 512):
         return np.argmax(self.predict(x, batch_size), axis=-1)
@@ -1277,7 +1448,9 @@ class NeuralEstimator(Estimator):
             # Copies: a later fit must not grow a saved artifact's lists.
             "history": {k: list(v) for k, v in self.history.items()},
             "accumulate_steps": self._accumulate_steps,
-            "sharded_fit_cols": None,
+            # Survives persistence, or a loaded model's predict on the
+            # bare dataset would feed it the label column.
+            "sharded_fit_cols": self._sharded_fit_cols,
         }
 
     def load_state_dict(self, state: dict) -> None:
@@ -1300,6 +1473,9 @@ class NeuralEstimator(Estimator):
         else:
             self.opt_state = None
         self.history = TrainHistory(state.get("history") or {})
+        cols = state.get("sharded_fit_cols")
+        if cols:
+            self._sharded_fit_cols = list(cols)
 
     def to_artifact(self, *, quantize: bool | None = None) -> dict:
         """A picklable artifact: class name, constructor kwargs (minus the

@@ -1,7 +1,7 @@
 """The port stands alone: neither learningorchestra_tpu_torch/ nor
-chip_smoke.py imports JAX, flax, optax, dill, pandas, requests or the JAX
-package (the card's machine has none of them), checked statically and at
-import time."""
+chip_smoke.py imports JAX, flax, optax, dill, pandas, requests,
+matplotlib or the JAX package (the card's machine has none of them),
+checked statically and at import time."""
 
 import ast
 import pathlib
@@ -13,7 +13,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "learningorchestra_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "dill", "orbax", "pandas",
-             "requests", "learningorchestra_tpu"}
+             "requests", "matplotlib", "learningorchestra_tpu"}
 
 
 def _sources():
@@ -40,6 +40,10 @@ def test_sources_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
     assert "learningorchestra_tpu_torch/ops/attention.py" in names
     assert "chip_smoke.py" in names
+    # The text pipeline and beyond-RAM datasets' own copies.
+    for module in ("text/bpe.py", "store/sharded.py", "services/explore.py",
+                   "services/function.py", "services/png.py"):
+        assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()
     assert (PORT / "csrc" / "quant.cu").is_file()
@@ -66,7 +70,7 @@ def test_import_pulls_in_no_jax():
         "    __import__(m.rstrip('.'))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'requests', "
-        "'learningorchestra_tpu'))\n"
+        "'matplotlib', 'learningorchestra_tpu'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
