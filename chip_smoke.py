@@ -145,7 +145,35 @@ Phases (each prints its own line; any failure exits nonzero):
    launches, BPE train seconds and encode rows/s, streaming samples/s
    and step ms beside phase 4's in-memory step, each fit's
    ``shard_wait_s``, the profiled shard's idle share, evaluate metrics);
-12. last line: {"ok": true, "device": {...}}.
+12. data-parallel training over REST on the card (``run_distributed``),
+   BERT-base at full width and depth on phase 8's 250 token rows at
+   T=128: (a) world 1 over REST, ``POST /train/horovod`` of phase 8's
+   model (2 epochs, global batch 32, ``shuffle: false``,
+   ``quantize_checkpoint``, a ``monitoringPath``) on the server's one
+   leased card, so NCCL: the job finishes with ``distributed`` true,
+   ``meshDevices`` 1 and 2 history rows with ``samples_per_sec``, the rank
+   launches K1/K2/K3 12 per step, the parent K4 once;
+   ``GET /monitoring/tensorflow/<nick>`` names a logdir holding a tfevents
+   file, the CSV and rank 0's ``torch.profiler`` trace; a predict on the
+   job's int8 artifact (K5 once, K1 per batch) within 1e-3 of the same
+   artifact on the CPU; its final f32 checkpoint against a single-device
+   ``BertModel.fit`` of the same rows (bf16 bar 3e-2; 0 expected);
+   (b) world 1 (NCCL) and world 2 (gloo, both ranks on ``cuda:0``)
+   through ``DistributedTrainer`` on 128 of the rows, 1 epoch of plain
+   SGD: each rank launches K1/K2/K3 12 per step, world 2 within the bf16
+   bar of world 1 and its parameter change within ``SYNC_BAR`` of world
+   1's per leaf (as is (a)'s against the single-device fit's), and the
+   planted sync faults (sync skipped or rank 1's gradient lost, emulated
+   by a single-device fit of rank 0's rows; a mean for the sum) read
+   above that bar; each rank's step and gradient-sync ms by CUDA events
+   and the all-reduce's share of a step; (c) ``POST /builder/pytorch`` with
+   ``nWorkers`` 2 running a function that returns its rank and the card's
+   name (rows [0, 1]); (d) the token CSV served by ``http.server`` on
+   localhost, ingested by ``POST /dataset/csv`` (rows equal to the file
+   ingest); the ``distributed`` line (card, power limit, each job's
+   seconds and ``fitTime``, step ms, samples/s, spawn-to-first-step
+   seconds, launches per rank, the parameter differences);
+13. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -158,6 +186,7 @@ import copy
 import http.client
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -3244,6 +3273,377 @@ def run_text_pipeline(tmp, in_memory_step_ms) -> dict:
     return {"ok": ok, "launches": launches, "line": line}
 
 
+# -- phase 12: data-parallel training over REST ------------------------------
+
+DIST_JOB = "bert_dist"
+DIST_ROWS = 128  # world 1 against world 2: 4 global batches of 32
+# (b) runs plain SGD, so a parameter's change is the sum of its synced
+# gradients times the rate: a fault in the sync (skipped, one rank's
+# gradient lost, a mean for a sum) shows in the change at its own size,
+# where Adam's sign-like first steps would hide a scale fault.  At a
+# tenth of this rate the sound reading doubles: updates below a bf16
+# copy's spacing round away unevenly (PERF.md section 6).
+DIST_SGD_LR = 0.05
+# The relative error of one run's parameter change against another's,
+# per leaf (update_error); set from the sound runs' reading, far below
+# what the planted sync faults read (PERF.md section 6).
+SYNC_BAR = 5e-2
+# A leaf whose change is below this share of the model's RMS change per
+# element is held at that floor: its change is rounding noise (the
+# attention key bias has an exactly zero gradient).
+SYNC_FLOOR = 0.1
+DIST_BUILDER = (
+    "def ranks(rank, world_size):\n"
+    "    import torch\n"
+    "    return {'rank': rank, 'world': world_size,\n"
+    "            'device': torch.cuda.get_device_name()}\n")
+
+
+class TrainerProbe:
+    """Keeps each ``DistributedTrainer``'s per-rank stats (launches, step
+    and gradient-sync ms, spawn-to-first-step seconds) while the phase
+    runs; the REST job's metadata keeps only the JAX package's keys."""
+
+    def __init__(self):
+        from learningorchestra_tpu_torch.parallel import distributed
+
+        self.cls, self.real = distributed.DistributedTrainer, \
+            distributed.DistributedTrainer.fit
+        self.fits: list = []
+        real, probe = self.real, self
+
+        def fit(trainer, *args, **kwargs):
+            out = real(trainer, *args, **kwargs)
+            probe.fits.append({"world": trainer.mesh.size,
+                               "backend": trainer.backend,
+                               "rank_stats": trainer.rank_stats,
+                               "history": dict(trainer.history)})
+            return out
+
+        self.cls.fit = fit
+
+    def close(self):
+        self.cls.fit = self.real
+
+
+def rank_summary(fit: dict, steps: int) -> dict:
+    """Per rank: launches, the median step and gradient-sync ms past the
+    first step, and the all-reduce's share of a step, measured."""
+    out = []
+    for s in fit["rank_stats"]:
+        step = float(np.median(s["step_ms"][1:] or s["step_ms"]))
+        sync = float(np.median(s["sync_ms"][1:] or s["sync_ms"]))
+        out.append({"rank": s["rank"], "device": s["device"],
+                    "launches": s["launches"], "steps": len(s["step_ms"]),
+                    "step_ms": step, "sync_ms": sync,
+                    "allreduce_share": sync / step,
+                    "spawn_to_first_step_s": s["spawn_to_first_step_s"]})
+    want = REST_LAYERS * steps
+    ok = len(out) == fit["world"] and all(
+        r["steps"] == steps and all(r["launches"][k] == want for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        for r in out)
+    return {"ok": ok, "ranks": out, "want_per_rank": want}
+
+
+def update_error(init, got, want, scale: float = 1.0) -> dict:
+    """How far ``scale`` times ``got``'s parameter change from ``init`` is
+    from ``want``'s: per leaf ||scale*d_got - d_want|| / ||d_want|| (the
+    denominator floored at ``SYNC_FLOOR`` of the model's RMS change per
+    element), its largest leaf, and the same ratio over the whole
+    model."""
+    leaves = []
+    for (path, p0), (_, pg), (_, pw) in zip(_flat(init), _flat(got),
+                                            _flat(want)):
+        p0, pg, pw = (torch.as_tensor(t).detach().cpu().double()
+                      for t in (p0, pg, pw))
+        leaves.append((".".join(path),
+                       float((scale * (pg - p0) - (pw - p0)).norm()),
+                       float((pw - p0).norm()), p0.numel()))
+    num = math.sqrt(sum(n * n for _, n, _, _ in leaves))
+    den = math.sqrt(sum(d * d for _, _, d, _ in leaves))
+    if not den:  # no change to hold against
+        return {"max_leaf": math.inf, "leaf": None, "model": math.inf,
+                "leaves": len(leaves)}
+    rms = den / math.sqrt(sum(k for *_, k in leaves))
+    worst = max((n / max(d, SYNC_FLOOR * rms * math.sqrt(k)), name)
+                for name, n, d, k in leaves)
+    return {"max_leaf": worst[0], "leaf": worst[1], "model": num / den,
+            "leaves": len(leaves)}
+
+
+def max_tree_diff(a, b) -> tuple:
+    pairs = list(zip(_flat(a), _flat(b)))
+    diff = max(float((torch.as_tensor(u).detach().float().cpu()
+                      - torch.as_tensor(v).detach().float().cpu())
+                     .abs().max())
+               for (_, u), (_, v) in pairs)
+    return diff, len(pairs)
+
+
+def run_distributed(tmp, in_memory_step_ms) -> dict:
+    """Phase 12: BERT-base data-parallel on the card.  (a) World 1 over
+    REST (``POST /train/horovod``: NCCL, one leased card) with a
+    monitoring session, a predict on its int8 artifact, its f32 final
+    checkpoint against a single-device fit; (b) world 1 (NCCL) and world
+    2 (gloo, both ranks on cuda:0) through ``DistributedTrainer`` on the
+    same rows; (c) the distributed builder; (d) a CSV by URL."""
+    import functools
+    import http.server
+    import threading
+
+    from learningorchestra_tpu_torch import convert
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.parallel import DistributedTrainer
+    from learningorchestra_tpu_torch.train import checkpoint as ckpt
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    torch.cuda.empty_cache()
+    csv = f"{tmp}/www/tokens.csv"
+    os.makedirs(f"{tmp}/www")
+    x, y = write_token_csv(csv)
+    vols = f"{tmp}/volumes"
+    server = APIServer(server_config(vols), device="cuda")
+    port = server.start_background()
+    probe = TrainerProbe()
+    httpd = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(
+            http.server.SimpleHTTPRequestHandler, directory=f"{tmp}/www"))
+    httpd.RequestHandlerClass.log_message = lambda *a: None
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    ok, line, launches = True, {}, {}
+
+    def check(name, good, detail):
+        nonlocal ok
+        phase(name, good, detail)
+        ok &= bool(good)
+
+    try:
+        for verb, path, body, name in (
+                ("POST", "/dataset/csv",
+                 {"datasetName": "tokens", "url": f"file://{csv}"}, "tokens"),
+                ("POST", "/transform/projection",
+                 {"projectionName": "tokens_x", "datasetName": "tokens",
+                  "fields": REST_FIELDS}, "tokens_x"),
+                ("POST", "/model/tensorflow",
+                 {"modelName": "bert", "class": "BertModel",
+                  "modulePath": "learningorchestra_tpu.models.text",
+                  "classParameters": REST_MODEL}, "bert")):
+            status, meta, _, _ = rest_job(port, verb, path, body, name)
+            check(f"distributed setup {name}",
+                  meta.get("jobState") == "finished", f"{verb} {path} -> "
+                  f"{status}, jobState {meta.get('jobState')}")
+
+        # (a) world 1 over REST, traced into its monitoring session.
+        steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_SHAPE[0])
+        status, meta, secs, counts = rest_job(
+            port, "POST", "/train/horovod",
+            {"name": DIST_JOB, "parentName": "bert",
+             "trainingParameters": {
+                 "x": "$tokens_x", "y": "$tokens.label",
+                 "epochs": TRAIN_EPOCHS, "batch_size": TRAIN_SHAPE[0],
+                 "shuffle": False, "quantize_checkpoint": True},
+             "monitoringPath": f"{DIST_JOB}_logs"}, DIST_JOB)
+        rest_fit = probe.fits[-1] if probe.fits else {"rank_stats": [],
+                                                      "world": 0}
+        ranks = rank_summary(rest_fit, steps)
+        _, rows = request(port, "GET", f"/train/horovod/{DIST_JOB}")
+        history = [r for r in rows if r.get("docType") == "history"]
+        launches["rest_train_parent"] = counts
+        launches["rest_train_ranks"] = [r["launches"]
+                                        for r in ranks["ranks"]]
+        check("distributed rest train",
+              meta.get("jobState") == "finished"
+              and meta.get("distributed") is True
+              and meta.get("meshDevices") == 1 and ranks["ok"]
+              and rest_fit.get("backend") == "nccl"
+              and len(history) == TRAIN_EPOCHS
+              and all("samples_per_sec" in r and math.isfinite(r["loss"])
+                      for r in history)
+              and counts["quantize_rowwise"] == 1,
+              f"POST /train/horovod -> {status}, {meta.get('jobState')} in "
+              f"{secs:.2f}s, meshDevices {meta.get('meshDevices')}, backend "
+              f"{rest_fit.get('backend')}; rank launches "
+              f"{launches['rest_train_ranks']} (want {ranks['want_per_rank']}"
+              f" each of K1/K2/K3: {REST_LAYERS} layers x {steps} steps); "
+              f"parent {counts} (K4 once at the int8 publication); history "
+              f"{[(r.get('loss'), r.get('samples_per_sec')) for r in history]}"
+              + ("" if meta.get("jobState") == "finished"
+                 else f"; exception {meta.get('exception')}"))
+        _, session = request(port, "GET",
+                             f"/monitoring/tensorflow/{DIST_JOB}_logs")
+        files = [f for _, _, fs in os.walk(session.get("logdir") or
+                                           "/nonexistent") for f in fs]
+        trace = [f for f in files if f.endswith(".pt.trace.json")]
+        check("distributed monitoring session",
+              f"{DIST_JOB}.csv" in files and trace
+              and any(f.startswith("events.out.tfevents.") for f in files),
+              f"logdir {session.get('logdir')}: {sorted(files)}")
+        line["monitoring_files"] = sorted(files)
+
+        status, pmeta, pred_s, pcounts = rest_job(
+            port, "POST", "/predict/tensorflow",
+            {"name": "bert_dist_pred", "parentName": DIST_JOB,
+             "method": "predict", "methodParameters": {"x": "$tokens_x"}},
+            "bert_dist_pred")
+        launches["rest_predict"] = pcounts
+        preds = np.asarray([r["result"] for r in rest_rows(
+            port, "/predict/tensorflow/bert_dist_pred") if "result" in r],
+            np.float32)
+        artifact = server.ctx.volumes.read_object("train/tensorflow",
+                                                  DIST_JOB)
+        ref = load_artifact(artifact, device="cpu").predict(
+            x[REST_CPU_ROWS])
+        pred_err = float(np.abs(preds[REST_CPU_ROWS] - ref).max()) \
+            if preds.shape == (TRAIN_ROWS, 2) else float("inf")
+        check("distributed predict vs CPU plain path",
+              pmeta.get("jobState") == "finished" and pred_err <= CPU_ATOL
+              and pcounts["dequantize_rowwise"] == 1
+              and pcounts["flash_fwd"] == REST_LAYERS,
+              f"predict on {DIST_JOB}'s int8 artifact: launches {pcounts} "
+              f"(want K5 1, K1 {REST_LAYERS} x 1 batch); rows "
+              f"{REST_CPU_ROWS} max|dlogit| {pred_err:.3g} atol {CPU_ATOL}")
+
+        # Its final f32 checkpoint against a single-device fit (the same
+        # model artifact, rows and order).
+        final = torch.load(f"{vols}/_checkpoints/{DIST_JOB}/step_"
+                           f"{TRAIN_EPOCHS}/{ckpt.STATE_FILE}",
+                           map_location="cpu", weights_only=True)
+        single = server.ctx.volumes.load_estimator("model/tensorflow",
+                                                   "bert", device="cuda")
+        init = convert.to_host(convert.flax_tree(single.module))
+        single.fit(x, y, epochs=TRAIN_EPOCHS, batch_size=TRAIN_SHAPE[0],
+                   shuffle=False)
+        want = convert.to_host(convert.flax_tree(single.module))
+        rest_diff, leaves = max_tree_diff(final["params"], want)
+        rest_update = update_error(init, final["params"], want)
+        loss_diff = max(abs(a["loss"] - b) for a, b in zip(
+            history, single.history["loss"]))
+        del single, want
+        check("distributed world 1 vs single device",
+              leaves > 0 and rest_diff <= CRASH_BAR and loss_diff <= CRASH_BAR
+              and rest_update["max_leaf"] <= SYNC_BAR,
+              f"max|world-1 REST - BertModel.fit| over {leaves} leaves = "
+              f"{rest_diff:.3g}, losses {loss_diff:.3g} (expected 0; bar "
+              f"{CRASH_BAR}); parameter change vs the single fit's "
+              f"{rest_update} (bar {SYNC_BAR} per leaf)")
+        line.update(rest_train_s=secs, rest_fit_time_s=meta.get("fitTime"),
+                    rest_predict_s=pred_s, rest_history=history,
+                    rest_ranks=ranks["ranks"], predict_cpu_max_abs_err=pred_err,
+                    world1_rest_vs_single_max_abs_diff=rest_diff,
+                    world1_rest_vs_single_loss_diff=loss_diff,
+                    world1_rest_vs_single_update=rest_update)
+
+        # (b) world 1 and world 2 on the same rows, through the trainer,
+        # under plain SGD from the same initial parameters.
+        steps = -(-DIST_ROWS // TRAIN_SHAPE[0])
+        worlds = {}
+        for key, devices in (("world1", ["cuda:0"]),
+                             ("world2", ["cuda:0", "cuda:0"])):
+            est = server.ctx.volumes.load_estimator("model/tensorflow",
+                                                    "bert", device="cuda")
+            est.compile(optimizer="sgd", learning_rate=DIST_SGD_LR)
+            trainer = DistributedTrainer(est, devices=devices)
+            t0 = time.perf_counter()
+            trainer.fit(x[:DIST_ROWS], y[:DIST_ROWS], epochs=1,
+                        batch_size=TRAIN_SHAPE[0], shuffle=False)
+            secs = time.perf_counter() - t0
+            summary = rank_summary(probe.fits[-1], steps)
+            worlds[key] = {"seconds": secs, "backend": trainer.backend,
+                           "history": dict(trainer.history),
+                           "params": convert.to_host(
+                               convert.flax_tree(est.module)), **summary}
+            launches[f"trainer_{key}"] = [r["launches"]
+                                          for r in summary["ranks"]]
+            check(f"distributed trainer {key}", summary["ok"],
+                  f"{trainer.backend}, {len(devices)} rank(s) on {devices}: "
+                  f"{secs:.2f}s; per rank {summary['ranks']} (want "
+                  f"{summary['want_per_rank']} launches of K1/K2/K3)")
+            del est, trainer
+        w1, w2 = worlds["world1"]["params"], worlds["world2"]["params"]
+        w2_diff, leaves = max_tree_diff(w1, w2)
+        sync = update_error(init, w2, w1)
+        check("distributed world 2 vs world 1",
+              worlds["world1"]["backend"] == "nccl"
+              and worlds["world2"]["backend"] == "gloo"
+              and w2_diff <= CRASH_BAR and sync["max_leaf"] <= SYNC_BAR,
+              f"max|world 2 (gloo) - world 1 (nccl)| over {leaves} leaves = "
+              f"{w2_diff:.3g} (bar {CRASH_BAR}; the reduction order "
+              f"differs); SGD parameter change vs world 1's {sync} (bar "
+              f"{SYNC_BAR} per leaf); losses "
+              f"{worlds['world1']['history'].get('loss')} vs "
+              f"{worlds['world2']['history'].get('loss')}")
+        # What the same check reads for planted sync faults.  A world 2
+        # that skipped the sync, or lost rank 1's gradient, steps rank 0
+        # on its own rows [0, 16) of each batch with the loss over the
+        # global 32 rows: a single-device SGD fit of those rows at batch
+        # 16 and half the rate.  A mean for the sum halves every change.
+        half = TRAIN_SHAPE[0] // 2
+        rows = np.concatenate([np.arange(b, b + half) for b in range(
+            0, DIST_ROWS, TRAIN_SHAPE[0])])
+        alone = server.ctx.volumes.load_estimator("model/tensorflow",
+                                                  "bert", device="cuda")
+        alone.compile(optimizer="sgd", learning_rate=DIST_SGD_LR / 2)
+        alone.fit(x[rows], y[rows], epochs=1, batch_size=half,
+                  shuffle=False)
+        faults = {"sync_skipped_or_rank1_lost": update_error(
+                      init, convert.to_host(convert.flax_tree(alone.module)),
+                      w1),
+                  "mean_for_sum": update_error(init, w2, w1, scale=0.5)}
+        del alone
+        check("distributed sync faults read above the bar",
+              all(f["max_leaf"] > SYNC_BAR for f in faults.values()),
+              f"planted faults {faults} (bar {SYNC_BAR} per leaf)")
+        for key, w in worlds.items():
+            line[key] = {k: w[k] for k in ("seconds", "backend", "ranks")}
+            line[key]["samples_per_sec"] = w["history"].get(
+                "samples_per_sec")
+        line.update(world2_vs_world1_max_abs_diff=w2_diff,
+                    world2_vs_world1_update=sync, sync_faults=faults,
+                    sync_bar=SYNC_BAR)
+
+        # (c) the distributed builder: one function on two ranks.
+        status, bmeta, build_s, _ = rest_job(
+            port, "POST", "/builder/pytorch",
+            {"name": "dist_builder", "function": DIST_BUILDER,
+             "nWorkers": 2}, "dist_builder")
+        _, brows = request(port, "GET", "/builder/pytorch/dist_builder")
+        results = sorted((r["rank"], r["result"]) for r in brows
+                         if "result" in r)
+        check("distributed builder",
+              bmeta.get("jobState") == "finished"
+              and [r for r, _ in results] == [0, 1]
+              and all(res["device"] == torch.cuda.get_device_name(0)
+                      for _, res in results),
+              f"POST /builder/pytorch -> {status}, {bmeta.get('jobState')} "
+              f"in {build_s:.2f}s; rows {results}")
+
+        # (d) the token CSV by URL, against its file ingest.
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/tokens.csv"
+        status, umeta, url_s, _ = rest_job(
+            port, "POST", "/dataset/csv",
+            {"datasetName": "tokens_url", "url": url}, "tokens_url")
+        strip = [[{k: v for k, v in r.items() if k != "_id"}
+                  for r in rest_rows(port, f"/dataset/csv/{name}")[1:]
+                  if r.get("docType") != "execution"]
+                 for name in ("tokens_url", "tokens")]
+        check("distributed URL source",
+              umeta.get("jobState") == "finished"
+              and umeta.get("rows") == TRAIN_ROWS and strip[0] == strip[1],
+              f"POST /dataset/csv from {url} -> {status}, "
+              f"{umeta.get('jobState')} in {url_s:.2f}s, rows "
+              f"{umeta.get('rows')}, equal to the file ingest: "
+              f"{strip[0] == strip[1]}")
+        line.update(builder_s=build_s, url_ingest_s=url_s,
+                    in_memory_step_ms=in_memory_step_ms)
+    finally:
+        probe.close()
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+    return {"ok": ok, "line": line, "launches": launches}
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -3424,6 +3824,26 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     text_s = time.perf_counter() - t_text
+
+    # Phase 12: data-parallel training over REST and through the trainer.
+    tmp, t_dist = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        dist = run_distributed(tmp, train_res["train"]["step_ms"])
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("distributed", False, repr(exc))
+        dist = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dist_s = time.perf_counter() - t_dist
+    dist_l = dist["launches"]
+    # Every rank's K1/K2/K3 (bf16 training), the parent's K4 (the int8
+    # publication), the predict job's K5 and f32 K1.
+    dist_ranks = [c for key in ("rest_train_ranks", "trainer_world1",
+                                "trainer_world2")
+                  for c in dist_l.get(key, [])]
+    dist_parent = [dist_l.get("rest_train_parent")]
+    dist_predict = [dist_l.get("rest_predict")]
     text_l = text["launches"]
     text_train = [text_l.get("bert_stream")]
     text_bf16 = text_train + [text_l.get("bert_eval")]
@@ -3455,12 +3875,14 @@ def main() -> int:
          "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
          "launches": counts["flash_fwd"] + rest_sum("flash_fwd", rest_f32)
-         + rest_sum("flash_fwd", [text_l.get("bert_pred")]),
+         + rest_sum("flash_fwd", [text_l.get("bert_pred")])
+         + rest_sum("flash_fwd", dist_predict),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
              "text_predict": rest_sum("flash_fwd",
-                                      [text_l.get("bert_pred")])},
+                                      [text_l.get("bert_pred")]),
+             "distributed_predict": rest_sum("flash_fwd", dist_predict)},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -3471,14 +3893,16 @@ def main() -> int:
          "launches": train_counts["flash_fwd"]
          + rest_sum("flash_fwd", rest_bf16) + tune_l.get("flash_fwd", 0)
          + rest_sum("flash_fwd", drill_train + [drill_l.get("evaluate")])
-         + rest_sum("flash_fwd", text_bf16),
+         + rest_sum("flash_fwd", text_bf16)
+         + rest_sum("flash_fwd", dist_ranks),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
              "rest_tune": tune_l.get("flash_fwd", 0),
              "crash_drill": rest_sum("flash_fwd", drill_train
                                      + [drill_l.get("evaluate")]),
-             "text_train_and_evaluate": rest_sum("flash_fwd", text_bf16)},
+             "text_train_and_evaluate": rest_sum("flash_fwd", text_bf16),
+             "distributed_ranks": rest_sum("flash_fwd", dist_ranks)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -3493,14 +3917,17 @@ def main() -> int:
          + rest_sum("quantize_rowwise", rest_train)
          + tune_l.get("quantize_rowwise", 0)
          + rest_sum("quantize_rowwise", drill_train)
-         + rest_sum("quantize_rowwise", text_train),
+         + rest_sum("quantize_rowwise", text_train)
+         + rest_sum("quantize_rowwise", dist_parent),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
              "rest_train": rest_sum("quantize_rowwise", rest_train),
              "rest_tune": tune_l.get("quantize_rowwise", 0),
              "crash_drill": rest_sum("quantize_rowwise", drill_train),
-             "text_train": rest_sum("quantize_rowwise", text_train)},
+             "text_train": rest_sum("quantize_rowwise", text_train),
+             "distributed_train": rest_sum("quantize_rowwise",
+                                           dist_parent)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -3513,7 +3940,8 @@ def main() -> int:
          + zoo_art["launches"]["dequantize_rowwise"]
          + rest_sum("dequantize_rowwise", rest_k5)
          + rest_sum("dequantize_rowwise", [drill_l.get("evaluate")])
-         + rest_sum("dequantize_rowwise", text_k5),
+         + rest_sum("dequantize_rowwise", text_k5)
+         + rest_sum("dequantize_rowwise", dist_predict),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -3522,7 +3950,9 @@ def main() -> int:
              "crash_drill_evaluate": rest_sum("dequantize_rowwise",
                                               [drill_l.get("evaluate")]),
              "text_evaluate_predict": rest_sum("dequantize_rowwise",
-                                               text_k5)},
+                                               text_k5),
+             "distributed_predict": rest_sum("dequantize_rowwise",
+                                             dist_predict)},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -3535,13 +3965,16 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", rest_train)
            + tune_l.get(f"flash_bwd_{key}", 0)
            + rest_sum(f"flash_bwd_{key}", drill_train)
-           + rest_sum(f"flash_bwd_{key}", text_train),
+           + rest_sum(f"flash_bwd_{key}", text_train)
+           + rest_sum(f"flash_bwd_{key}", dist_ranks),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
                "rest_tune": tune_l.get(f"flash_bwd_{key}", 0),
                "crash_drill": rest_sum(f"flash_bwd_{key}", drill_train),
-               "text_train": rest_sum(f"flash_bwd_{key}", text_train)},
+               "text_train": rest_sum(f"flash_bwd_{key}", text_train),
+               "distributed_ranks": rest_sum(f"flash_bwd_{key}",
+                                             dist_ranks)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -3617,10 +4050,14 @@ def main() -> int:
     print("text_pipeline " + json.dumps({
         "card": name.strip(), "power_limit": limit.strip(),
         **text["line"]}, default=str), flush=True)
+    print("distributed " + json.dumps({
+        "card": name.strip(), "power_limit": limit.strip(),
+        **dist["line"]}, default=str), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
-          f"{drill_s:.1f}, text pipeline {text_s:.1f})", flush=True)
+          f"{drill_s:.1f}, text pipeline {text_s:.1f}, distributed "
+          f"{dist_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -21,8 +21,17 @@ server's request bodies:
   ``.../<name>/metadata`` its documents;
 - ``PATCH /transform/dataType``: cast a dataset's fields in place;
 - ``POST /builder/sparkml``: fit the builder's classifiers at once, one
-  result artifact each (``builder/tensorflow|pytorch``, the distributed
-  builder, answers 406: ROADMAP A.9);
+  result artifact each; ``POST /builder/tensorflow|pytorch|horovod``: the
+  distributed builder, one function on every rank;
+- ``POST /train/horovod|distributed`` and ``PATCH .../<name>``:
+  data-parallel training (services/distributed_exec.py); ``GET
+  /train/horovod`` lists the ``train/tensorflow`` artifacts it stores, as
+  ``GET /builder/tensorflow|pytorch`` lists ``builder/horovod``;
+- ``GET /monitoring/<tool>`` and ``GET``/``DELETE
+  /monitoring/<tool>/<name>``: monitoring sessions by nickname;
+  ``serving`` answers the serving stats and appends ``serving_*``
+  scalars, ``compileCache`` answers 406 (the program cache is ROADMAP
+  A.6);
 - ``GET /observe/<name>``: long poll until the job finishes or fails;
 - ``GET /observe/events?sinceId=&limit=``: the event feed, paged by
   ``_id``; ``POST``/``GET /observe/webhook`` and ``DELETE
@@ -67,10 +76,12 @@ from learningorchestra_tpu_torch.serve.service import ServingService
 from learningorchestra_tpu_torch.services import (
     BuilderService,
     DatasetService,
+    DistributedExecutorService,
     ExecutorService,
     ExploreService,
     FunctionService,
     ModelService,
+    MonitoringService,
     ServiceContext,
     TransformService,
 )
@@ -79,6 +90,7 @@ from learningorchestra_tpu_torch.services.context import (
     NotFoundError,
     ValidationError,
 )
+from learningorchestra_tpu_torch.services.monitoring import MonitoringError
 from learningorchestra_tpu_torch.store.artifacts import DuplicateArtifact
 from learningorchestra_tpu_torch.toolkit.registry import RegistryError
 
@@ -140,8 +152,15 @@ class APIServer:
         self.builder = BuilderService(self.ctx)
         self.explore = ExploreService(self.ctx)
         self.function = FunctionService(self.ctx)
+        monitoring_root = str(self.config.store.volume_path() / "_monitoring")
+        self.monitoring = MonitoringService(
+            monitoring_root,
+            external_host=self.config.api.monitoring_external_host)
+        self.distributed = DistributedExecutorService(self.ctx,
+                                                      self.monitoring)
         self.serving = ServingService(
-            self.ctx.volumes, self.config.serve, device=self.ctx.device
+            self.ctx.volumes, self.config.serve, device=self.ctx.device,
+            monitoring_root=monitoring_root,
         )
         # A PATCHed or deleted train job's resident params reload before
         # the next predict.
@@ -175,13 +194,24 @@ class APIServer:
                              self.config.api.page_limit_default),
         )
 
+    # URL tool -> the artifact type its POST stores, where they differ (the
+    # reference's gateway maps /train/horovod onto train/tensorflow and
+    # /builder/tensorflow|pytorch onto builder/horovod).
+    _TYPE_ALIASES = {
+        ("train", "horovod"): "train/tensorflow",
+        ("train", "distributed"): "train/tensorflow",
+        ("builder", "tensorflow"): "builder/horovod",
+        ("builder", "pytorch"): "builder/horovod",
+    }
+
     def _list_handler(self, service: str, tool: str | None = None):
         """Collection GET: a family's metadata docs (``tool=None`` reads
         the tool from the URL)."""
 
         def handler(m, body, query):
             t = tool if tool is not None else m.group("tool")
-            docs = self.dataset.list_metadata(f"{service}/{t}")
+            docs = self.dataset.list_metadata(
+                self._TYPE_ALIASES.get((service, t), f"{service}/{t}"))
             # Coordinator artifacts (builder runs) are not the client's.
             return 200, [d for d in docs if not d.get("hidden")]
 
@@ -475,6 +505,61 @@ class APIServer:
                 deadline_s=deadline_s(body),
             )}
 
+        # ---- Distributed training (before the generic train routes: the
+        # first match wins) ----
+        def distributed_train_create(m, body, query):
+            meta, extra = self.distributed.create_train(
+                body.get("name"),
+                parent_name=body.get("parentName") or body.get("modelName"),
+                training_parameters=body.get("trainingParameters")
+                or body.get("methodParameters"),
+                compile_spec=body.get("compile"),
+                mesh=body.get("mesh"),
+                monitoring_path=body.get("monitoringPath"),
+                description=body.get("description", ""),
+            )
+            status, payload = self._created("train/horovod", meta)
+            if extra:
+                payload["extra_results"] = extra
+            return status, payload
+
+        def distributed_train_update(m, body, query):
+            return 200, {"metadata": self.distributed.update_train(
+                m.group("name"),
+                training_parameters=body.get("trainingParameters")
+                or body.get("methodParameters"),
+                compile_spec=body.get("compile"),
+                mesh=body.get("mesh"),
+                description=body.get("description", ""),
+            )}
+
+        add("POST", r"/train/(?:horovod|distributed)",
+            distributed_train_create)
+        add("PATCH", rf"/train/(?:horovod|distributed)/{NAME}",
+            distributed_train_update)
+
+        # ---- Monitoring sessions ----
+        def monitoring_lookup(m, body, query):
+            name = m.group("name")
+            if name in ("compileCache", "compile_cache"):
+                raise ValidationError(
+                    "the compiled-program cache is not ported to the "
+                    "PyTorch package (ROADMAP A.6)")
+            if name == "serving":
+                stats = self.serving.stats()
+                return 200, {**stats,
+                             "scalars": self.serving.snapshot_scalars(stats)}
+            try:
+                return 200, self.monitoring.lookup(name)
+            except MonitoringError as exc:
+                return 404, {"error": str(exc)}
+
+        add("GET", rf"/monitoring/{TOOL}/{NAME}", monitoring_lookup)
+        add("GET", rf"/monitoring/{TOOL}",
+            lambda m, b, q: (200, self.monitoring.list_sessions()))
+        add("DELETE", rf"/monitoring/{TOOL}/{NAME}", lambda m, b, q: (
+            200, {"stopped": self.monitoring.stop(m.group("name"))}))
+
         for service in ("tune", "train", "evaluate", "predict"):
             add("POST", rf"/{service}/{TOOL}", exec_create(service))
             add("GET", rf"/{service}/{TOOL}", self._list_handler(service))
@@ -515,10 +600,19 @@ class APIServer:
         def builder_create(m, body, query):
             tool = m.group("tool")
             if tool in ("tensorflow", "pytorch", "horovod"):
-                raise ValidationError(
-                    f"builder/{tool} is the distributed (one function on "
-                    "every rank) builder, not ported to the PyTorch "
-                    "package yet (ROADMAP A.9); use builder/sparkml")
+                # The distributed builder: one user function on every rank.
+                n_workers = body.get("nWorkers")
+                if n_workers is None:  # explicit: 0 must reach validation
+                    n_workers = body.get("n_workers")
+                meta = self.distributed.create_builder(
+                    body.get("name"),
+                    function=body.get("function")
+                    or body.get("modelingCode"),
+                    function_parameters=body.get("functionParameters"),
+                    n_workers=n_workers,
+                    description=body.get("description", ""),
+                )
+                return self._created(f"builder/{tool}", meta)
             metas = self.builder.create(
                 training_dataset=body.get("trainDatasetName"),
                 test_dataset=body.get("testDatasetName"),
@@ -773,4 +867,5 @@ class APIServer:
             httpd.shutdown()
             httpd.server_close()
         self.serving.close()
+        self.monitoring.close()
         self.ctx.close()

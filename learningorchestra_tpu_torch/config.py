@@ -1,8 +1,9 @@
 """Configuration — port of the parts of ``learningorchestra_tpu/config.py``
 the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` (with the job journal's
-switches) and ``ServeConfig``, with the same fields, defaults and
-``LO_TPU_*`` environment names, plus the ``device`` every entry point
-runs on.
+switches), ``ServeConfig`` and ``DistributedConfig``, with the same
+fields, defaults and ``LO_TPU_*`` environment names, plus the ``device``
+every entry point runs on and ``DistributedConfig.cpu_ranks``, the rank
+devices a CPU context gives a distributed fit.
 
 The default roots are the port's own (``~/.learningorchestra_tpu_torch``),
 so the two packages never share a store by accident; pointing both at
@@ -48,6 +49,9 @@ class APIConfig:
     page_limit_max: int = 100
     page_limit_default: int = 20
     api_prefix: str = "/api/learningOrchestra/v1"
+    # Host advertised in monitoring (TensorBoard) URLs; unset binds and
+    # advertises 127.0.0.1.  Env: LO_TPU_MONITORING_EXTERNAL_HOST.
+    monitoring_external_host: str | None = None
 
 
 @dataclasses.dataclass
@@ -106,11 +110,34 @@ class ServeConfig:
 
 
 @dataclasses.dataclass
+class DistributedConfig:
+    """Data-parallel training (parallel/distributed.py) and the
+    distributed builder."""
+
+    # The distributed builder's default nWorkers.  Env: LO_TPU_WORLD_SIZE.
+    num_processes: int = 1
+    # The rank devices of a context on the CPU: a distributed fit there
+    # runs this many gloo ranks on the CPU (a context on the card gives
+    # one rank per leased card).  Env: LO_TPU_CPU_RANKS.
+    cpu_ranks: int = 1
+    # The JAX package's cluster-mode job budget, kept for parity and read
+    # by nothing until cluster mode is ported (ROADMAP A.11): a local fit
+    # ends with its ranks, bounded by the engine's deadline and cancel.
+    job_timeout_s: float = 86400.0
+    # The JAX package's cluster mode (a task coordinator's "host:port"):
+    # set, a distributed train answers 406 (ROADMAP A.9 part 2, A.11).
+    # Env: LO_TPU_TASK_COORDINATOR.
+    task_coordinator: str | None = None
+
+
+@dataclasses.dataclass
 class Config:
     store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
     api: APIConfig = dataclasses.field(default_factory=APIConfig)
     jobs: JobConfig = dataclasses.field(default_factory=JobConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    dist: DistributedConfig = dataclasses.field(
+        default_factory=DistributedConfig)
     # Where every estimator the services build or load lives.
     device: str = "cuda"
 
@@ -132,6 +159,8 @@ class Config:
             ("LO_TPU_SERVE_MAX_MODELS", cfg.serve, "max_models", int),
             ("LO_TPU_SERVE_MAX_BYTES", cfg.serve, "max_bytes", int),
             ("LO_TPU_SERVE_RETRY_AFTER", cfg.serve, "retry_after_s", float),
+            ("LO_TPU_WORLD_SIZE", cfg.dist, "num_processes", int),
+            ("LO_TPU_CPU_RANKS", cfg.dist, "cpu_ranks", int),
         )
         for key, section, attr, cast in fields:
             if key in env:
@@ -142,6 +171,12 @@ class Config:
                 setattr(cfg.jobs, attr, _bool_env(key, env[key]))
         if "LO_TPU_JOB_JOURNAL_MAX" in env:
             cfg.jobs.journal_max_records = int(env["LO_TPU_JOB_JOURNAL_MAX"])
+        for key, section, attr in (
+                ("LO_TPU_TASK_COORDINATOR", cfg.dist, "task_coordinator"),
+                ("LO_TPU_MONITORING_EXTERNAL_HOST", cfg.api,
+                 "monitoring_external_host")):
+            if key in env:
+                setattr(section, attr, env[key] or None)
         if "LO_TPU_JOB_WEIGHTS" in env:
             cfg.jobs.class_weights = {
                 str(k): int(v)

@@ -1,0 +1,27 @@
+"""Data-parallel execution — port of the data axis of
+``learningorchestra_tpu/parallel/``.
+
+- ``mesh``: the six named axes and ``MeshSpec``; ``build_mesh`` lays a
+  spec over devices (only ``dp`` may exceed 1 here);
+- ``sharding``: which rows of a global batch each rank takes;
+- ``distributed``: ``DistributedTrainer``, one process per rank on
+  ``torch.distributed`` (``rank.py`` is the rank program).
+
+Pipeline and MPMD stages, the multi-host coordinator and launch, and the
+parameter sharding rules (``fsdp``/``tp``) are ROADMAP A.9 part 2; ring
+attention over ``sp`` is A.8.
+"""
+
+from learningorchestra_tpu_torch.parallel.distributed import (  # noqa: F401
+    DistributedTrainer,
+    distributed_fit,
+)
+from learningorchestra_tpu_torch.parallel.mesh import (  # noqa: F401
+    MeshSpec,
+    build_mesh,
+    default_spec,
+)
+from learningorchestra_tpu_torch.parallel.sharding import (  # noqa: F401
+    batch_rows,
+    shard_batch,
+)

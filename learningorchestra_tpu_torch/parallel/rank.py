@@ -1,0 +1,182 @@
+"""The rank program of a data-parallel fit (parallel/distributed.py).
+
+    python -m learningorchestra_tpu_torch.parallel.rank <staging dir> <rank>
+
+The JAX package has no counterpart: there one process drives every
+device of the mesh.  Here each rank joins the fit's process group through
+the ``FileStore`` in its staging directory, rebuilds the estimator from
+the staged artifact on its device, memory-maps the staged inputs (or
+reopens the sharded dataset), runs ``fit`` or ``evaluate`` with its
+:class:`DataParallel` as ``est._dp`` and leaves the process group.  Every
+rank writes its launch counters and timings; rank 0 also writes the
+final state (the artifact layout), the history and the stop flag.  A
+rank that raises prints the traceback and exits 1 at once (without
+tearing the group down): the parent stops the others and fails the fit.
+A rank dies with its parent: the kernel SIGKILLs it when the thread that
+started it exits (``PR_SET_PDEATHSIG``; that thread waits on the ranks
+until they end), so a fit whose server was killed cannot go on writing
+the checkpoints that the server's recovery resumes from.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import os
+import pickle
+import signal
+import sys
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from learningorchestra_tpu_torch import convert
+from learningorchestra_tpu_torch.parallel.distributed import (
+    CANCEL,
+    RESULT,
+    TASK,
+    DataParallel,
+    init_process_group,
+)
+from learningorchestra_tpu_torch.toolkit import registry
+from learningorchestra_tpu_torch.train.neural import (
+    TrainHistory,
+    resolve_optimizer,
+)
+
+PR_SET_PDEATHSIG = 1  # <linux/prctl.h>
+
+
+def load_estimator(spec: dict, device):
+    """The staged artifact rebuilt on ``device`` with the parent's loss and
+    optimizer (set before the state, whose moments follow its layout)."""
+    doc = spec["artifact"]
+    cls = registry.resolve(doc["modulePath"], doc["class"])
+    est = cls(**doc["classParameters"], device=device)
+    est.compute_dtype = doc.get("compute_dtype", est.compute_dtype)
+    est.loss = spec["loss"]
+    est.learning_rate = spec["learning_rate"]
+    est._optimizer_spec = spec["optimizer_spec"]
+    est.optimizer = pickle.loads(spec["optimizer"]) \
+        if spec["optimizer"] is not None \
+        else resolve_optimizer(spec["optimizer_spec"], spec["learning_rate"])
+    est.load_state_dict(doc["state"])
+    est.history = TrainHistory()
+    return est
+
+
+def load_data(data: dict) -> dict:
+    """Staged ``.npy`` files memory-mapped; sharded views reopened."""
+    from learningorchestra_tpu_torch.store.sharded import ShardedDataset
+
+    out = {}
+    for key, src in data.items():
+        out[key] = ShardedDataset(src["root"]).view(src["cols"]) \
+            if isinstance(src, dict) else np.load(src, mmap_mode="r")
+    return out
+
+
+def launch_counts(device) -> dict:
+    """This process's kernel launch counters."""
+    from learningorchestra_tpu_torch.ops import attention, quant
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"flash_fwd": attention.launches,
+            "flash_bwd_dq": attention.bwd_dq_launches,
+            "flash_bwd_dkv": attention.bwd_dkv_launches,
+            "quantize_rowwise": quant.quantize_launches,
+            "dequantize_rowwise": quant.dequantize_launches}
+
+
+def run_fit(est, dp: DataParallel, data: dict, kwargs: dict,
+            trace_dir) -> dict:
+    ran: list[int] = []
+    validation = (data["vx"], data["vy"]) if "vx" in data else None
+    profile = contextlib.nullcontext()
+    if trace_dir and dp.rank == 0:
+        from learningorchestra_tpu_torch.services.monitoring import profiled
+
+        profile = profiled(trace_dir)
+    callbacks = list(kwargs.pop("callbacks")) + [
+        lambda epoch, metrics, model: ran.append(epoch)]
+    with profile:
+        est.fit(data["x"], data["y"], validation_data=validation,
+                callbacks=callbacks, **kwargs)
+    # A fit that stopped part way through an accumulation hands back the
+    # ranks' summed gradients, as its checkpoints do.
+    grads = dp.pending_grads(est.module) if est._mini_step else None
+    history = {k: list(v) for k, v in est.history.items()}
+    n_epochs = len(history.get("loss", ()))
+    return {
+        "state": {
+            "params": convert.to_host(convert.flax_tree(est.module)),
+            "opt_state": est._export_opt_state(grads=grads)
+            if est.opt_state is not None else None,
+            "accumulate_steps": est._accumulate_steps,
+            "sharded_fit_cols": est._sharded_fit_cols,
+        },
+        "history": history,
+        "start_epoch": n_epochs - len(ran),
+        "stop_training": bool(est.stop_training),
+    }
+
+
+def die_with_parent(parent: int) -> None:
+    """SIGKILL this process when its parent goes; exit now if it has gone
+    already (before the request was made)."""
+    if sys.platform.startswith("linux"):
+        libc = ctypes.CDLL(None, use_errno=True)
+        if libc.prctl(PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) != 0:
+            raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG)")
+    if os.getppid() != parent:
+        os._exit(1)
+
+
+def main(argv: list[str]) -> int:
+    stage, rank = Path(argv[0]), int(argv[1])
+    with open(stage / TASK, "rb") as fh:
+        task = pickle.load(fh)
+    die_with_parent(task["parent"])
+    world = len(task["devices"])
+    device = torch.device(task["devices"][rank])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(task["threads"])
+    init_process_group(stage, rank, world, task["backend"])
+    try:
+        dp = DataParallel(rank, world, device, task["backend"],
+                          stage / CANCEL)
+        est = load_estimator(task["estimator"], device)
+        est._dp = dp
+        data = load_data(task["data"])
+        kwargs = dict(task["kwargs"])
+        if task["mode"] == "fit":
+            out = run_fit(est, dp, data, kwargs, task["trace_dir"])
+        else:
+            out = {"metrics": est.evaluate(data["x"], data["y"], **kwargs)}
+        stats = {**dp.stats(), "launches": launch_counts(device)}
+        gathered = [None] * world
+        dist.all_gather_object(gathered, stats)
+        if rank == 0:
+            out["rank_stats"] = gathered
+            tmp = stage / f".{RESULT}.tmp"
+            with open(tmp, "wb") as fh:
+                pickle.dump(out, fh, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(tmp, stage / RESULT)
+    except Exception:
+        # Leave at once: tearing the group down would wait on the ranks
+        # still blocked in a collective with this one.
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -11,12 +11,16 @@ transformer layer runs the flash kernel.
 Artifacts are read from the port's ``VolumeStorage`` by volume key: every
 train job's binary is on the ``binaries`` volume whatever the tool in its
 type (``train/tensorflow``, ``train/pytorch``...), so a REST train job is
-servable under its name.  The JAX service's compile cache, cost probes,
-faults, fleet and decode engine come with later slices.
+servable under its name.  Each ``GET /monitoring/<tool>/serving`` poll
+appends one step of ``serving_*`` scalars (:meth:`snapshot_scalars`) to
+a tfevents file under the monitoring root.  The JAX service's compile
+cache, cost probes, faults, fleet and decode engine come with later
+slices.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -26,6 +30,7 @@ from learningorchestra_tpu_torch.config import ServeConfig
 from learningorchestra_tpu_torch.device import resolve_device
 from learningorchestra_tpu_torch.serve.batcher import MicroBatcher
 from learningorchestra_tpu_torch.serve.registry import ModelRegistry, ServeError
+from learningorchestra_tpu_torch.services.tfevents import write_scalars
 from learningorchestra_tpu_torch.store.volumes import VolumeStorage
 from learningorchestra_tpu_torch.toolkit.registry import RegistryError
 from learningorchestra_tpu_torch.train.neural import is_artifact, load_artifact
@@ -33,6 +38,8 @@ from learningorchestra_tpu_torch.train.neural import is_artifact, load_artifact
 #: An artifact type of the ``binaries`` volume, where every train (and
 #: tune) job's estimator artifact lives, whatever its tool.
 ARTIFACT_TYPE = "train/pytorch"
+#: Steps of serving scalars kept (and rewritten) per snapshot.
+_SCALAR_WINDOW = 512
 
 
 class NotFoundError(Exception):
@@ -41,8 +48,9 @@ class NotFoundError(Exception):
 
 class ServingService:
     def __init__(self, volumes: VolumeStorage, config: ServeConfig | None = None,
-                 *, device="cuda"):
+                 *, device="cuda", monitoring_root: str | None = None):
         self.volumes = volumes
+        self.monitoring_root = monitoring_root
         self.cfg = config or ServeConfig()
         self.device = resolve_device(device)
         self.registry = ModelRegistry(
@@ -55,6 +63,9 @@ class ServingService:
         self._batchers: dict[str, MicroBatcher] = {}
         self._lock = threading.Lock()
         self._closed = False
+        self._scalar_history: dict[str, list] = {}
+        self._scalar_lock = threading.Lock()
+        self._t0 = time.time()
 
     # -- model residency -----------------------------------------------------
 
@@ -180,6 +191,65 @@ class ServingService:
                 "retryAfterS": self.cfg.retry_after_s,
             },
         }
+
+    def aggregate(self, stats: dict | None = None) -> dict:
+        """Roll-up over the served models of :meth:`stats`: summed counts,
+        mean batch occupancy, the worst model's latency quantiles."""
+        if stats is None:
+            stats = self.stats()
+        agg = {"requests": 0, "rows": 0, "batches": 0, "overflows": 0,
+               "padded_rows": 0, "queue_depth": 0}
+        occ: list[float] = []
+        quantiles = {"p50": 0.0, "p95": 0.0, "p99": 0.0}
+        for mstats in stats["models"].values():
+            agg["requests"] += mstats["requests"]
+            agg["rows"] += mstats["rows"]
+            agg["batches"] += mstats["batches"]
+            agg["overflows"] += mstats["overflows"]
+            agg["padded_rows"] += mstats["paddedRows"]
+            agg["queue_depth"] += mstats["queueDepth"]
+            occ.append(mstats["batchOccupancy"])
+            for q in quantiles:
+                quantiles[q] = max(quantiles[q], mstats["latencyMs"][q])
+        agg["occupancy"] = round(sum(occ) / len(occ), 4) if occ else 0.0
+        agg["quantiles"] = quantiles
+        agg["resident_models"] = stats["registry"]["residentModels"]
+        agg["resident_bytes"] = stats["registry"]["residentBytes"]
+        return agg
+
+    def snapshot_scalars(self, stats: dict | None = None) -> dict:
+        """Append the current aggregate as one step of ``serving_*``
+        scalars and rewrite them (the last ``_SCALAR_WINDOW`` steps) as one
+        tfevents file under ``<monitoring root>/serving``."""
+        a = self.aggregate(stats)
+        agg = {
+            "serving_requests": a["requests"],
+            "serving_rows": a["rows"],
+            "serving_batches": a["batches"],
+            "serving_overflows": a["overflows"],
+            "serving_queue_depth": a["queue_depth"],
+            "serving_batch_occupancy": a["occupancy"],
+            "serving_p50_ms": a["quantiles"]["p50"],
+            "serving_p95_ms": a["quantiles"]["p95"],
+            "serving_p99_ms": a["quantiles"]["p99"],
+            "serving_resident_models": a["resident_models"],
+            "serving_resident_bytes": a["resident_bytes"],
+        }
+        with self._scalar_lock:
+            for key, val in agg.items():
+                steps = self._scalar_history.setdefault(key, [])
+                steps.append(float(val))
+                if len(steps) > _SCALAR_WINDOW:
+                    del steps[:-_SCALAR_WINDOW]
+            if self.monitoring_root:
+                try:
+                    # A fixed wall time names one file, rewritten each time.
+                    write_scalars(
+                        os.path.join(str(self.monitoring_root), "serving"),
+                        self._scalar_history, wall_time=self._t0)
+                except OSError:
+                    pass  # observability must never fail the poll
+        return agg
 
     def close(self) -> None:
         with self._lock:

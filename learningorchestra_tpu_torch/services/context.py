@@ -159,7 +159,7 @@ class ServiceContext:
                 self._orphan_job(name, journaled=rec is not None)
                 continue
             try:
-                self._redispatch(name, rec.get("spec") or {})
+                self._redispatch(name, kind, rec.get("spec") or {})
                 logger.warning(
                     f"recovered job {name!r} from the journal (epoch "
                     f"{self.journal.epoch}): re-dispatched through the "
@@ -173,29 +173,39 @@ class ServiceContext:
 
     @staticmethod
     def _recoverable_kind(meta: dict) -> str | None:
-        """How a journaled job can be re-dispatched, or None: executor
-        artifacts (train, evaluate, predict with a parent and a method)
-        re-run through PATCH with their last recorded parameters; tune
-        grids, models, ingests, text transforms, explores and functions
-        are orphaned, as the JAX package orphans them.
-        (The JAX package's ``distributed`` kind waits for A.9.)"""
+        """How a journaled job can be re-dispatched, or None: distributed
+        trains re-run through the distributed PATCH, executor artifacts
+        (train, evaluate, predict with a parent and a method) through the
+        executor's, both with their last recorded parameters; tune grids,
+        models, ingests, text transforms, explores, functions and
+        distributed builders are orphaned, as the JAX package orphans
+        them."""
+        if meta.get("distributed"):
+            return "distributed"
         kind = str(meta.get("type", ""))
         if (kind.startswith(("train/", "evaluate/", "predict/"))
                 and meta.get("parentName") and meta.get("method")):
             return "executor"
         return None
 
-    def _redispatch(self, name: str, spec: dict) -> None:
+    def _redispatch(self, name: str, kind: str, spec: dict) -> None:
         """Re-submit a recovered job through PATCH, under its journaled
         deadline.  Marking it failed first is what routes a train fit
         into the checkpoint-resume path (``update`` resumes a failed
         job from its newest managed checkpoint)."""
+        from learningorchestra_tpu_torch.services.distributed_exec import (
+            DistributedExecutorService,
+        )
         from learningorchestra_tpu_torch.services.executor import (
             ExecutorService,
         )
 
         self.artifacts.metadata.mark_failed(
             name, "orphaned-by-restart: re-dispatching from the job journal")
+        if kind == "distributed":
+            DistributedExecutorService(self).update_train(
+                name, description=spec.get("description") or "")
+            return
         ExecutorService(self).update(
             name, description=spec.get("description") or "",
             deadline_s=spec.get("deadlineS"))

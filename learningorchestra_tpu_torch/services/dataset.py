@@ -13,23 +13,30 @@ path — port of the Python paths of
   features and a ``.npy`` of labels, chunk by chunk;
 - ``POST /dataset/generic`` copies a file onto the datasets volume.
 
-HTTP sources answer 406 (the card's machine has no network and no
-``requests``); the JAX package's native CSV engine is not ported
-(ROADMAP A.11), so a sharded CSV takes its Python path.
+A source is an ``http(s)://`` URL, a ``file://`` URL or a local path.
+HTTP sources stream through the standard library's ``urllib.request``
+(60 s timeout) where the JAX package uses ``requests``; a non-2xx answer
+fails the job with ``requests``' ``raise_for_status`` wording
+(:class:`HTTPError`).  A ``.npy`` source is downloaded to the datasets
+volume first (``npycache_<hash>``), so it can be memory-mapped.  The JAX
+package's native CSV engine is not ported (ROADMAP A.11), so a sharded
+CSV takes its Python path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import hashlib
+import io
 import math
 import re
+import urllib.error
+import urllib.request
 
 import numpy as np
 
-from learningorchestra_tpu_torch.services.context import (
-    ServiceContext,
-    ValidationError,
-)
+from learningorchestra_tpu_torch.services.context import ServiceContext
 from learningorchestra_tpu_torch.store.sharded import (
     ShardedDatasetWriter,
     ShardedTensorWriter,
@@ -75,13 +82,49 @@ def _infer(value: str):
     return f
 
 
-def _local_path(url: str, what: str = "CSV") -> str:
-    if url.startswith(("http://", "https://")):
-        raise ValidationError(
-            f"HTTP {what} sources are not ported to the PyTorch package; "
-            "pass a file:// URL or a local path"
-        )
+FETCH_TIMEOUT_S = 60
+
+
+class HTTPError(OSError):
+    """A non-2xx answer from an HTTP source."""
+
+
+def is_http(url: str) -> bool:
+    return url.startswith(("http://", "https://"))
+
+
+def _local_path(url: str) -> str:
     return url[len("file://"):] if url.startswith("file://") else url
+
+
+@contextlib.contextmanager
+def open_url(url: str):
+    """An HTTP source's body as a binary stream; a non-2xx answer raises
+    :class:`HTTPError` worded as ``requests``' ``raise_for_status``."""
+    try:
+        resp = urllib.request.urlopen(url, timeout=FETCH_TIMEOUT_S)
+    except urllib.error.HTTPError as exc:
+        kind = "Client" if exc.code < 500 else "Server"
+        exc.close()
+        raise HTTPError(
+            f"{exc.code} {kind} Error: {exc.reason} for url: {url}"
+        ) from None
+    with resp:
+        yield resp
+
+
+@contextlib.contextmanager
+def _open_text(url: str):
+    """A CSV source as text lines (``newline=""``: quoted fields keep
+    their line breaks)."""
+    if is_http(url):
+        with open_url(url) as resp:
+            yield io.TextIOWrapper(resp, encoding="utf-8", errors="replace",
+                                   newline="")
+    else:
+        with open(_local_path(url), "r", encoding="utf-8", errors="replace",
+                  newline="") as fh:
+            yield fh
 
 
 class DatasetService:
@@ -100,20 +143,17 @@ class DatasetService:
         rows stream in on a job thread.  ``shard_rows`` switches to
         sharded ingest (:meth:`_ingest_sharded`)."""
         self.ctx.require_new_name(name)
-        path = _local_path(url)
         meta = self.ctx.artifacts.metadata.create(
             name, CSV_TYPE, extra={"url": url}
         )
 
         def ingest():
             if shard_rows:
-                return self._ingest_sharded(name, path, url, int(shard_rows),
+                return self._ingest_sharded(name, url, int(shard_rows),
                                             infer_types)
             n_rows = 0
             fields: list[str] = []
-            # newline="": quoted fields keep their line breaks.
-            with open(path, "r", encoding="utf-8", errors="replace",
-                      newline="") as fh:
+            with _open_text(url) as fh:
                 batch: list[dict] = []
                 for row in csv.reader(fh):
                     if not fields:
@@ -141,8 +181,8 @@ class DatasetService:
         )
         return meta
 
-    def _ingest_sharded(self, name: str, path: str, url: str,
-                        shard_rows: int, infer_types: bool) -> dict:
+    def _ingest_sharded(self, name: str, url: str, shard_rows: int,
+                        infer_types: bool) -> dict:
         """Stream CSV rows into columnar volume shards: peak host memory
         is O(shard_rows x columns) whatever the file size.  The first
         ``PREVIEW_ROWS`` rows also land in the store so GET pages work;
@@ -152,8 +192,7 @@ class DatasetService:
         preview: list[dict] = []
         fields: list[str] = []
         n_rows = 0
-        with open(path, "r", encoding="utf-8", errors="replace",
-                  newline="") as fh:
+        with _open_text(url) as fh:
             for row in csv.reader(fh):
                 if not fields:
                     fields = _clean_header(row)
@@ -196,16 +235,14 @@ class DatasetService:
         self.ctx.require_new_name(name)
         if int(shard_rows) <= 0:
             raise ValueError("shardRows must be a positive integer")
-        feats_path = _local_path(url, ".npy")
-        labels_path = _local_path(labels_url, ".npy")
         meta = self.ctx.artifacts.metadata.create(
             name, TENSOR_TYPE,
             extra={"url": url, "labelsUrl": labels_url},
         )
 
         def ingest():
-            feats = np.load(feats_path, mmap_mode="r")
-            labels = np.load(labels_path, mmap_mode="r")
+            feats = np.load(self._local_npy(url), mmap_mode="r")
+            labels = np.load(self._local_npy(labels_url), mmap_mode="r")
             if feats.ndim < 2:
                 raise ValueError(
                     f"features must be (rows, ...), got {feats.shape}")
@@ -244,18 +281,30 @@ class DatasetService:
         )
         return meta
 
+    def _local_npy(self, url: str) -> str:
+        """A local path for a ``.npy`` source: an HTTP one is downloaded
+        (streamed) to the datasets volume first, so it can be
+        memory-mapped."""
+        if not is_http(url):
+            return _local_path(url)
+        cache = "npycache_" + hashlib.sha1(url.encode()).hexdigest()[:16]
+        with open_url(url) as resp:
+            return str(self.ctx.volumes.save_stream(GENERIC_TYPE, cache,
+                                                    resp))
+
     # -- generic binary -------------------------------------------------------
 
     def create_generic(self, name: str, url: str) -> dict:
-        """Copy a file onto the datasets volume in chunks."""
+        """Copy a file or an HTTP body onto the datasets volume in
+        chunks."""
         self.ctx.require_new_name(name)
-        src = _local_path(url, "generic")
         meta = self.ctx.artifacts.metadata.create(
             name, GENERIC_TYPE, extra={"url": url}
         )
 
         def ingest():
-            with open(src, "rb") as fh:
+            with (open_url(url) if is_http(url)
+                  else open(_local_path(url), "rb")) as fh:
                 path = self.ctx.volumes.save_stream(GENERIC_TYPE, name, fh)
             return {"sizeBytes": path.stat().st_size}
 

@@ -6,8 +6,8 @@ DSL-resolved ``functionParameters`` as globals; the code must set
 ``response``, which is pickled to the volume (``$name`` loads it,
 ``$name.0`` indexes it) and stored, JSON-safe, beside what the code
 printed (``functionMessage``).  The code runs in the service process,
-the reference's trust model.  A function given by URL answers 406: the
-port has no HTTP sources (the card's machine has no network).
+the reference's trust model.  A function given by an ``http(s)://`` URL
+is fetched when its job runs (services/dataset.py's ``open_url``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from learningorchestra_tpu_torch.services.context import (
     ServiceContext,
     ValidationError,
 )
+from learningorchestra_tpu_torch.services.dataset import is_http, open_url
 from learningorchestra_tpu_torch.services.executor import _json_safe
 
 FUNCTION_TYPE = "function/python"
@@ -26,10 +27,14 @@ FUNCTION_TYPE = "function/python"
 def _check_code(function) -> None:
     if not function or not isinstance(function, str):
         raise ValidationError("missing 'function' code")
-    if function.startswith(("http://", "https://")):
-        raise ValidationError(
-            "functions fetched from a URL are not ported to the PyTorch "
-            "package (no HTTP sources); send the code inline")
+
+
+def _fetch_code(function: str) -> str:
+    """Inline code, or the body of the URL it names."""
+    if not is_http(function):
+        return function
+    with open_url(function) as resp:
+        return resp.read().decode()
 
 
 class FunctionService:
@@ -65,12 +70,13 @@ class FunctionService:
         ctx = self.ctx
 
         def run():
+            code = _fetch_code(function)
             params = dsl.resolve_params(function_parameters, ctx.loader)
             globs: dict = {"__name__": f"function_{name}", **params}
             # Thread-scoped: concurrent jobs' prints stay out of this
             # job's message.
             with capture_thread_stdout() as buf:
-                exec(function, globs)  # noqa: S102 — the escape hatch
+                exec(code, globs)  # noqa: S102 — the escape hatch
             if "response" not in globs:
                 raise ValidationError(
                     "function code must set a 'response' variable")

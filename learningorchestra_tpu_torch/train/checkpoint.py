@@ -36,8 +36,10 @@ calls on exit; an ``atexit`` hook covers the rest), exactly as the JAX
 package's orbax slot does.  A writer's error is raised there too, so a
 checkpoint that fails to write fails the fit.
 
-The JAX package's multi-process barrier and primary-process gating
-belong to A.9; on one process they are no-ops and are left out.
+The JAX package gates saves to its primary process behind a barrier.
+In the port's data-parallel fit (parallel/distributed.py) only rank 0
+saves, and every rank resumes from the marker before any rank saves, so
+no barrier is needed.
 """
 
 from __future__ import annotations

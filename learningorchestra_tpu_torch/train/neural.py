@@ -797,13 +797,18 @@ def _cast_input(xb: torch.Tensor, dtype) -> torch.Tensor:
         else xb
 
 
-def _finalize_metrics(per_batch: list[dict]) -> dict:
+def _finalize_metrics(per_batch: list[dict], dp=None) -> dict:
     """Batch-mean the per-step metrics with ONE host transfer, then
-    'perplexity' (raw per-token CE) becomes exp(mean CE)."""
+    'perplexity' (raw per-token CE) becomes exp(mean CE).  Under data
+    parallelism (``dp``, parallel/distributed.py) each rank's metrics are
+    its rows' share of the global batch's masked mean, so one all-reduce
+    sum of the whole epoch's metrics gives every rank the global ones."""
     keys = list(per_batch[0])
     stacked = torch.stack([torch.stack([m[k] for k in keys])
-                           for m in per_batch])
-    out = dict(zip(keys, stacked.float().mean(0).cpu().tolist()))
+                           for m in per_batch]).float()
+    if dp is not None:
+        stacked = dp.all_reduce(stacked)
+    out = dict(zip(keys, stacked.mean(0).cpu().tolist()))
     if "perplexity" in out:
         out["perplexity"] = math.exp(out["perplexity"])
     return out
@@ -815,6 +820,9 @@ class NeuralEstimator(Estimator):
     # The executor gives ``fit`` a managed checkpoint directory (and
     # resume semantics) for any estimator that declares this.
     supports_managed_checkpoints = True
+    # In a rank process of a data-parallel fit, the rank's
+    # ``parallel.distributed.DataParallel``; None everywhere else.
+    _dp = None
 
     def __init__(self, module: nn.Module, *, loss: str = "auto",
                  optimizer: Any = None, learning_rate: float = 1e-3,
@@ -942,11 +950,15 @@ class NeuralEstimator(Estimator):
 
     @staticmethod
     def _loss_and_metrics(loss_kind: str) -> Callable:
-        """(f32 logits, labels, per-row mask) -> (loss, metrics): a masked
-        mean over max(mask.sum(), 1), as the JAX package's losses."""
+        """(f32 logits, labels, per-row mask[, msum]) -> (loss, metrics): a
+        masked mean over ``msum``, by default max(mask.sum(), 1), as the
+        JAX package's losses.  A data-parallel rank passes the global
+        batch's ``msum``, so its loss is its rows' share of the global
+        batch's mean and the ranks' gradients sum to the global one."""
 
-        def fn(logits, y, mask):
-            msum = torch.clamp_min(mask.sum(), 1.0)
+        def fn(logits, y, mask, msum=None):
+            if msum is None:
+                msum = torch.clamp_min(mask.sum(), 1.0)
             if loss_kind == "softmax_ce":
                 y = y.long()
                 # optax.softmax_cross_entropy_with_integer_labels
@@ -993,19 +1005,26 @@ class NeuralEstimator(Estimator):
 
     # -- train step / epoch ---------------------------------------------------
 
-    def _train_step(self, xb, yb, mb, loss_fn, dtype) -> dict:
+    def _train_step(self, xb, yb, mb, loss_fn, dtype, msum=None) -> dict:
         """Forward + backward on bf16 copies of the f32 masters; every
         ``accumulate_steps``-th call applies one optimizer update with the
-        mean gradient.  Returns detached metric tensors (no host sync)."""
+        mean gradient.  Returns detached metric tensors (no host sync).
+        A data-parallel rank normalises by the global batch's ``msum`` and
+        sums the ranks' gradients once per update."""
+        dp = self._dp
+        if dp is not None:
+            dp.step_begin()
         logits = functional_call(
             self.module, _cast_params(self.module, dtype),
             (_cast_input(xb, dtype),),
         ).float()
-        loss, metrics = loss_fn(logits, yb, mb)
+        loss, metrics = loss_fn(logits, yb, mb, msum)
         loss.backward()
         self._mini_step += 1
         k = self._accumulate_steps
         if self._mini_step == k:
+            if dp is not None:
+                dp.sync_grads(self.module)
             if k > 1:
                 for p in self.module.parameters():
                     if p.grad is not None:
@@ -1017,6 +1036,8 @@ class NeuralEstimator(Estimator):
             self.module.zero_grad(set_to_none=True)
             self._updates += 1
             self._mini_step = 0
+        if dp is not None:
+            dp.step_end()
         return {name: v.detach() for name, v in metrics.items()}
 
     def _device_epoch(self, xs, ys, loss_fn, dtype, batch_size: int,
@@ -1024,7 +1045,10 @@ class NeuralEstimator(Estimator):
         """One epoch over a device-resident dataset: permute on the device
         (a generator seeded by the estimator's seed and ``key``), pad the
         tail by cycling the order (mask 0), run the batches, one host
-        transfer of the mean per-batch metrics."""
+        transfer of the mean per-batch metrics.  A data-parallel rank
+        walks the same global batches and steps on its slice of each
+        (``self._dp.rows``)."""
+        dp = self._dp
         n = xs.shape[0]
         if shuffle:
             gen = torch.Generator(device=xs.device).manual_seed(
@@ -1041,10 +1065,14 @@ class NeuralEstimator(Estimator):
         per_batch = []
         for i in range(n_batches):
             sl = slice(i * batch_size, (i + 1) * batch_size)
-            rows = idx[sl]
+            rows, m, msum = idx[sl], mask[sl], None
+            if dp is not None:
+                msum = torch.clamp_min(m.sum(), 1.0)
+                part = dp.rows(batch_size)
+                rows, m = rows[part], m[part]
             per_batch.append(self._train_step(
-                xs[rows], ys[rows], mask[sl], loss_fn, dtype))
-        return _finalize_metrics(per_batch)
+                xs[rows], ys[rows], m, loss_fn, dtype, msum))
+        return _finalize_metrics(per_batch, dp)
 
     def _streaming_epoch(self, stream: "_ShardStream", loss_fn, dtype,
                          batch_size: int, shuffle: bool, epoch: int) -> dict:
@@ -1059,8 +1087,11 @@ class NeuralEstimator(Estimator):
         acc = _sharded().WeightedMetrics()
         for pos, k, xs, ys in stream.shards(order):
             rows = stream.dataset.shard_rows[k]
-            acc.add(self._device_epoch(xs, ys, loss_fn, dtype,
-                                       min(batch_size, rows), shuffle,
+            # A shard shorter than a batch is one batch; a data-parallel
+            # one rounds it up to a multiple of the world size.
+            bs = min(batch_size, rows if self._dp is None
+                     else -(-rows // self._dp.world) * self._dp.world)
+            acc.add(self._device_epoch(xs, ys, loss_fn, dtype, bs, shuffle,
                                        epoch * n_shards + pos), rows)
         return acc.result()
 
@@ -1109,7 +1140,15 @@ class NeuralEstimator(Estimator):
         ``checkpoint_async=False``; with ``resume`` a fit starts from the
         newest committed step, with its history, and walks the batches
         an uninterrupted fit walks from there (each epoch's order is
-        seeded by its index)."""
+        seeded by its index).
+
+        In a rank process of a data-parallel fit
+        (parallel/distributed.py), ``self._dp`` holds the rank's view of
+        the process group: every rank walks the same global batches and
+        steps on its rows of each, the ranks agree on each epoch's stop
+        (early stopping, a relayed cancel) and save, only rank 0 writes
+        checkpoints, and each epoch's metrics gain ``samples_per_sec``."""
+        dp = self._dp
         self._quantize_persist = bool(quantize_checkpoint)
         callbacks = build_stop_callbacks(self, callbacks, early_stopping)
         self._set_accumulation(accumulate_steps)
@@ -1166,6 +1205,8 @@ class NeuralEstimator(Estimator):
                 self.device)
             self.stream_stats = stream.stats
 
+            n_samples = stream.dataset.n_rows
+
             def run_epoch(epoch_i):
                 return self._streaming_epoch(stream, loss_fn, dtype,
                                              batch_size, bool(shuffle),
@@ -1177,6 +1218,8 @@ class NeuralEstimator(Estimator):
             ys = torch.from_numpy(np.ascontiguousarray(y_arr)).to(
                 self.device)
 
+            n_samples = -(-len(x) // batch_size) * batch_size
+
             def run_epoch(epoch_i):
                 return self._device_epoch(xs, ys, loss_fn, dtype,
                                           batch_size, bool(shuffle), epoch_i)
@@ -1185,7 +1228,8 @@ class NeuralEstimator(Estimator):
         last_save = time.monotonic()
         try:
             for epoch_i in range(start_epoch, epochs):
-                if cancel_requested():
+                if (cancel_requested() if dp is None
+                        else dp.cancel_requested()):
                     # Engine-side cancellation (deadline watchdog, bounded
                     # shutdown drain, REST cancel): wind down exactly like
                     # an early stop, params and history at the last
@@ -1195,6 +1239,9 @@ class NeuralEstimator(Estimator):
                 t0 = time.perf_counter()
                 metrics = run_epoch(epoch_i)
                 metrics["epoch_time"] = time.perf_counter() - t0
+                if dp is not None:
+                    metrics["samples_per_sec"] = \
+                        n_samples / metrics["epoch_time"]
                 if validation_data is not None:
                     vx, vy = validation_data
                     vy = as_array(vy)
@@ -1215,16 +1262,23 @@ class NeuralEstimator(Estimator):
                 for cb in callbacks:
                     if callable(cb):
                         cb(epoch_i, metrics, self)
-                if checkpoint_dir and ckpt.should_save(
-                        epoch_i, epochs, checkpoint_every,
-                        checkpoint_min_interval_s, last_save,
-                        stopped=self.stop_training):
-                    # save() copies the history's lists: a marker it
-                    # publishes later holds this epoch's history.
-                    ckpt.save(checkpoint_dir, epoch_i + 1,
-                              self._checkpoint_state(),
-                              history=self.history,
-                              async_save=checkpoint_async)
+                save = bool(checkpoint_dir) and ckpt.should_save(
+                    epoch_i, epochs, checkpoint_every,
+                    checkpoint_min_interval_s, last_save,
+                    stopped=self.stop_training)
+                if dp is not None:
+                    # One decision for every rank, or one breaks out of
+                    # the loop while the others wait in an all-reduce.
+                    self.stop_training, save = dp.agree(
+                        self.stop_training, save)
+                if save:
+                    state = self._checkpoint_state()
+                    if dp is None or dp.rank == 0:
+                        # save() copies the history's lists: a marker it
+                        # publishes later holds this epoch's history.
+                        ckpt.save(checkpoint_dir, epoch_i + 1, state,
+                                  history=self.history,
+                                  async_save=checkpoint_async)
                     last_save = time.monotonic()
                 if self.stop_training:
                     if verbose:
@@ -1243,8 +1297,12 @@ class NeuralEstimator(Estimator):
         """{params, opt_state} in the artifact layout, as live tensors
         (``checkpoint.save`` snapshots them).  Moments that a restore-best
         early stop dropped are saved fresh, as optax's ``init`` gives
-        them, so a resume does not replay pre-restore moments."""
-        opt = self._export_opt_state(host=False) \
+        them, so a resume does not replay pre-restore moments.  A
+        data-parallel rank's accumulated gradients are summed over the
+        ranks first (every rank takes part)."""
+        grads = self._dp.pending_grads(self.module) \
+            if self._dp is not None and self._mini_step else None
+        opt = self._export_opt_state(host=False, grads=grads) \
             if self.opt_state is not None else self._fresh_opt_state()
         return {"params": convert.flax_tree(self.module), "opt_state": opt}
 
@@ -1275,10 +1333,19 @@ class NeuralEstimator(Estimator):
     # -- evaluation / inference -------------------------------------------------
 
     def _evaluate_arrays(self, x, y, batch_size, loss_kind) -> dict:
+        """Metrics over padded batches of ``batch_size`` rows; a
+        data-parallel rank computes its rows of each global batch and the
+        ranks' shares are summed."""
+        dp = self._dp
         y = y.astype(np.int32 if loss_kind == "softmax_ce" else np.float32)
         xb, yb, mb = _batch_data(x, y, batch_size, _NoShuffle())
-        xb, yb, mb = (torch.from_numpy(a).to(self.device)
-                      for a in (xb, yb, mb))
+        msums = [None] * len(mb)
+        if dp is not None:
+            msums = [torch.tensor(max(float(m.sum()), 1.0)) for m in mb]
+            part = dp.rows(batch_size)
+            xb, yb, mb = xb[:, part], yb[:, part], mb[:, part]
+        xb, yb, mb = (torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device) for a in (xb, yb, mb))
         loss_fn = self._loss_and_metrics(loss_kind)
         dtype = self._compute_dtype()
         with torch.inference_mode():
@@ -1287,12 +1354,19 @@ class NeuralEstimator(Estimator):
             per_batch = [
                 loss_fn(functional_call(
                     self.module, params, (_cast_input(xb[i], dtype),)
-                ).float(), yb[i], mb[i])[1]
+                ).float(), yb[i], mb[i],
+                    None if msums[i] is None else msums[i].to(self.device)
+                )[1]
                 for i in range(xb.shape[0])
             ]
-        return _finalize_metrics(per_batch)
+        return _finalize_metrics(per_batch, dp)
 
     def evaluate(self, x, y, batch_size: int = 128, **_) -> dict:
+        if self._dp is not None:
+            # A data-parallel rank rounds up to a global batch the ranks
+            # can split: the batch size is a throughput knob here.
+            world = self._dp.world
+            batch_size = -(-max(1, batch_size) // world) * world
         if _is_sharded(x) or _is_sharded(y):
             return self._evaluate_streaming(x, y, batch_size)
         x = as_array(x)
@@ -1373,19 +1447,25 @@ class NeuralEstimator(Estimator):
 
     # -- persistence ----------------------------------------------------------
 
-    def _export_opt_state(self, *, host: bool = True):
+    def _export_opt_state(self, *, host: bool = True, grads=None):
         """The optimizer state as optax lays it out, numpy leaves in the
         flax tree shape (live tensors with ``host=False``): ``count`` plus the optimizer's slots (adam, adamw,
         lamb, radam: ``mu``/``nu``; sgd: ``trace``; rmsprop: ``nu``;
         adagrad: ``sum_of_squares``; lion: ``mu``; novograd: ``mu`` and a
         scalar ``nu`` per leaf), wrapped as ``MultiStepsState`` fields when
-        gradients accumulate."""
+        gradients accumulate (``grads``, {parameter: gradient}, stands in
+        for the parameters' own accumulated ``.grad``)."""
         opt = self.opt_state
         if opt is None:
             return None
 
         def slot(key):
             return lambda p: opt.state.get(p, {}).get(key, torch.zeros_like(p))
+
+        def acc(p):
+            g = p.grad if grads is None else grads.get(p)
+            return torch.zeros_like(p) if g is None \
+                else g / max(self._mini_step, 1)
 
         to_host = convert.to_host if host else (lambda tree: tree)
         state = {"count": np.asarray(self._updates, np.int32)}
@@ -1399,11 +1479,7 @@ class NeuralEstimator(Estimator):
             "mini_step": np.asarray(self._mini_step, np.int32),
             "gradient_step": np.asarray(self._updates, np.int32),
             "inner_opt_state": state,
-            "acc_grads": to_host(convert.flax_tree(
-                self.module,
-                pick=lambda p: p.grad / max(self._mini_step, 1)
-                if p.grad is not None else torch.zeros_like(p),
-            )),
+            "acc_grads": to_host(convert.flax_tree(self.module, pick=acc)),
         }
 
     def _import_opt_state(self, state) -> None:

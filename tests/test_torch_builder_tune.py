@@ -27,8 +27,9 @@ two neural trials serialize on it (and must not deadlock), as on one
 card.  (Unleased, the JAX package runs a CPU context's trials at once,
 and their managed orbax checkpoints then fail now and then with
 ``FileExistsError`` or OCDBT ``NOT_FOUND``: ROADMAP C.)  Also
-here: the port cancels a tune between trials, and answers 406 naming
-A.9 for ``builder/tensorflow``.
+here: the port cancels a tune between trials, and refuses a
+``builder/tensorflow`` payload that is not one function as the JAX
+server does.
 """
 
 import contextlib
@@ -413,11 +414,17 @@ def test_neural_tune_serializes_on_one_lease(drives):
 
 
 def test_builder_tensorflow_is_refused_on_the_port(drives):
+    # builder/tensorflow is the distributed builder on both packages now
+    # (tests/test_torch_distributed_rest.py): a payload that is not one
+    # function is refused alike.
     _, servers, _ = drives
-    status, body = servers["port"].handle(
+    answers = {side: servers[side].handle(
         "POST", "/api/learningOrchestra/v1/builder/tensorflow",
-        {"name": "dist", "function": "pass"})
-    assert status == 406 and "A.9" in body["error"]
+        {"name": "dist", "function": "pass"}, {})
+        for side in ("jax", "port")}
+    assert answers["port"][0] == answers["jax"][0] == 406
+    assert answers["port"][1]["error"] == answers["jax"][1]["error"]
+    assert "single top-level function" in answers["port"][1]["error"]
 
 
 def test_tune_cancel_stops_between_trials(drives, monkeypatch):

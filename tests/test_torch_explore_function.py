@@ -49,6 +49,7 @@ from tests.torch_rest_pair import (
     carry_weights,
     data_rows,
     recording,
+    serve_dir,
     server_pair,
     status,
 )
@@ -195,9 +196,15 @@ def drives(tmp_path_factory):
         for side, c in clients.items():
             with recording(outs[side]["log"]):
                 _drive(c, tmp, outs[side])
-        # No HTTP sources on the port (the JAX server would fetch it).
-        outs["port"]["url"] = status(lambda: clients["port"].function.create(
-            "byurl", function="https://example.invalid/f.py"))
+        # A function by URL is fetched when its job runs: a localhost
+        # 404 fails the job (tests/test_torch_url_sources.py holds the
+        # fetch against the JAX server's).
+        with serve_dir(tmp) as base:
+            outs["port"]["url"] = status(
+                lambda: clients["port"].function.create(
+                    "byurl", function=f"{base}/nosuch.py"))
+            outs["port"]["url_job"] = clients["port"].function.wait(
+                "byurl", 30)["jobState"]
         x0 = np.asarray(servers["port"].ctx.volumes.read_object(
             "function/python", "imdb_mini")[0][:1])
         carry_weights(servers, "imdb_lstm", x0)
@@ -209,7 +216,8 @@ def drives(tmp_path_factory):
 
 def test_http_statuses_and_job_states_are_equal(drives):
     outs, _, _ = drives
-    assert outs["port"]["url"] == 406
+    assert outs["port"]["url"] == 200
+    assert outs["port"]["url_job"] == "failed"
     assert outs["port"]["log"] == outs["jax"]["log"]
     for key, out in outs["port"].items():
         if isinstance(out, dict) and "jobState" in out:

@@ -42,7 +42,13 @@ def test_sources_exist():
     assert "chip_smoke.py" in names
     # The text pipeline and beyond-RAM datasets' own copies.
     for module in ("text/bpe.py", "store/sharded.py", "services/explore.py",
-                   "services/function.py", "services/png.py"):
+                   "services/function.py", "services/png.py",
+                   # Data parallelism, the distributed services and the
+                   # monitoring sessions' own copies.
+                   "parallel/mesh.py", "parallel/sharding.py",
+                   "parallel/distributed.py", "parallel/rank.py",
+                   "services/distributed_exec.py", "services/monitoring.py",
+                   "services/tfevents.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()

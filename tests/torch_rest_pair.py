@@ -3,6 +3,9 @@ driven through the JAX package's ``client.py``: the helpers the port's
 REST parity tests share."""
 
 import contextlib
+import functools
+import http.server
+import threading
 import urllib.error
 import urllib.request
 
@@ -99,3 +102,24 @@ def carry_weights(servers, model: str, x0: np.ndarray) -> None:
 def data_rows(docs: list) -> list:
     """A GET page's rows without the metadata and execution documents."""
     return [d for d in docs[1:] if d.get("docType") != "execution"]
+
+
+@contextlib.contextmanager
+def serve_dir(root):
+    """An ``http.server`` on localhost serving ``root``; yields its base
+    URL (a missing file answers 404)."""
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Quiet, directory=str(root)))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(10)
