@@ -10,18 +10,21 @@ Phases (each prints its own line; any failure exits nonzero):
 3. kernels against their plain PyTorch versions, on the card:
    K1 flash-attention forward at the serving shape (64, 12, 512, 64) f32
    with a key mask and a fully-masked row, plus the fine-tune shape
-   (32, 12, 128, 64) bf16, bf16 at T=512, causal, causal+window and
-   unaligned lengths; K2 (dQ) and K3 (dK, dV) at the fine-tune shape in
+   (32, 12, 128, 64) bf16, bf16 at T=512, causal, causal+window,
+   unaligned lengths and the decoder's causal (8, 12, 1024, 64) in bf16
+   and f32; K2 (dQ) and K3 (dK, dV) at the fine-tune shape in
    bf16 and f32 with a key mask and a fully-masked row (exact zeros
    asserted), plus (8, 12, 512, 64) bf16, causal, causal+window, unaligned
-   lengths and D = 40 / 128 in bf16; every K1 case and every bf16 K2/K3
+   lengths, D = 40 / 128 and the decoder's causal (8, 12, 1024, 64) in
+   bf16; every K1 case and every bf16 K2/K3
    case launched twice and required bitwise equal (run to run), and no
    register spills in any tensor-core instance of K1, K2 or K3 (ptxas);
    K4 quantize bit-exact and K5 dequantize exact on every quantized leaf
    of a BERT-base model, launched once per leaf and grouped (one launch
    over the whole flax tree through quantize_pytree / dequantize_pytree),
    and on edge matrices (widths 1, 3, 33, 64, 3072, 4100, one row, an
-   all-zero row, +-1e20, exact halves, a misaligned source) in both
+   all-zero row, +-1e20, exact halves, a misaligned source, the decoder's
+   (768, 50257) head and (50257, 768) token table) in both
    routes; stochastic bits equal to plain plus a mean-bias check over 256
    seeds; no register spills in quant.cu;
 4. training: one batch of BERT-base (full width and depth, random weights
@@ -173,7 +176,31 @@ Phases (each prints its own line; any failure exits nonzero):
    ingest); the ``distributed`` line (card, power limit, each job's
    seconds and ``fitTime``, step ms, samples/s, spawn-to-first-step
    seconds, launches per rank, the parameter differences);
-13. last line: {"ok": true, "device": {...}}.
+13. the decoder LM and streaming generation (``run_decoder``): a
+   ``DecoderLM`` at GPT-2 small's published widths (vocab 50257, 768
+   wide, 12 layers of 12 heads, MLP 3072, 1024 positions; learned
+   positions, an untied biased head) seeded from ``torch.Generator`` 0:
+   (a) one f32 step of 2 rows (one with a pad tail) on the card against
+   the CPU at phase 4's bars, T shortened to ``DEC_CPU_T`` there; (b)
+   ``fit`` 2 epochs of 64 rows at T=1024 cut from a seeded 128-token
+   cycle, batch 8, bf16 on f32 masters, lr 3e-4 (losses fall, K1/K2/K3
+   causal 12 per step, step ms, tokens/s, one profiled step's idle
+   share); (c) the int8 artifact (K4 one grouped launch) loaded by
+   ``APIServer`` (K5 one launch) and ``POST /serve/<model>/generate``:
+   JSON for 8 prompts of 16-256 tokens (64 new each; the decode launches
+   no K1), 4 SSE streams of which 2 open while the first 2 are mid-
+   flight, one stream DELETEd after its 5th token (at most one more
+   token, its slot free, a second DELETE 404) and a sampled request
+   (tokens in range, never 0); (d) the cached decode's f32 step logits
+   at every generated position against one causal f32 forward (K1) of
+   the final buffer, ``DEC_LOGIT_BAR``*(1+|ref|), and the engine's tokens
+   against in-process solo decodes (first divergence reported); (e) (d)'s
+   check for rope + GQA 12/4 + window 256 at 2 layers, untrained; (f) the
+   ``decoder`` line: each (S, Tk) step bucket's device and host-paced ms,
+   TTFT p50 / max and ITL p50 / p99 of the SSE streams (client side),
+   engine against sequential solo tokens/s, KV bytes per pool, launches,
+   the phase's seconds;
+14. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -192,6 +219,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -328,6 +356,11 @@ def check_flash(attention, gen) -> dict:
          True, 65, True, 3e-2),
         ("train_bf16", (32, h, 128, 128, d), torch.bfloat16, False, None,
          True, 3e-2),
+        # The decoder LM's fit (bf16) and full forward (f32) at T=1024.
+        ("decoder_causal_bf16", (8, h, 1024, 1024, d), torch.bfloat16, True,
+         None, True, 3e-2),
+        ("decoder_causal_f32", (8, h, 1024, 1024, d), torch.float32, True,
+         None, True, 2e-5),
     ]
     for name, (bb, hh, tq, tk, dd), dtype, causal, window, masked, tol in \
             cases:
@@ -457,7 +490,9 @@ def quant_edge_matrices(gen) -> dict:
     """Matrices that take every row class and its edges: widths 1, 3, 33
     (scalar class), 64 (sub-warp), 3072 (a block a row), 4100 (too wide
     for registers), one row, an all-zero row, +-1e20, rows whose x/scale
-    are exact halves, and a source that is not 16-byte aligned."""
+    are exact halves, a source that is not 16-byte aligned, and the
+    decoder LM's (768, 50257) head (odd rows 50257 wide: K4's general
+    class, K5's one-element chunks) and (50257, 768) token table."""
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
@@ -474,6 +509,8 @@ def quant_edge_matrices(gen) -> dict:
         "d4100": randn(3, 4100), "one_row": randn(1, 768),
         "zero_row": zero_row, "huge": huge, "halves": halves,
         "misaligned": randn(5 * 64 + 1)[1:].view(5, 64),
+        # The decoder LM's LM head (rows 50257 wide) and token table.
+        "gpt2_head": randn(768, 50257), "gpt2_embed": randn(50257, 768),
     }
 
 
@@ -554,6 +591,9 @@ def check_flash_bwd(attention, gen) -> dict:
         ("unaligned_bf16_causal_window", (2, h, 300, 300, 40), bf16, True,
          65, True, 3e-2),
         ("causal_window_bf16_d128", (4, h, 256, 256, 128), bf16, True, 100,
+         True, 3e-2),
+        # The decoder LM's fit at T=1024.
+        ("decoder_causal_bf16", (8, h, 1024, 1024, d), bf16, True, None,
          True, 3e-2),
     ]
     results = {}
@@ -3644,6 +3684,496 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
     return {"ok": ok, "line": line, "launches": launches}
 
 
+# -- phase 13: the decoder LM and streaming generation -----------------------
+
+# GPT-2 small's published widths (openai-community/gpt2 config.json:
+# n_embd 768, n_layer 12, n_head 12, n_inner 3072, vocab 50257,
+# n_positions 1024); the JAX DecoderLM's untied biased head, LayerNorm eps
+# 1e-6 and pad id 0 stay.
+GPT2 = {"vocab_size": 50257, "hidden_dim": 768, "num_layers": 12,
+        "num_heads": 12, "max_len": 1024}
+# (e): rotary positions, grouped-query attention and a window, 2 layers.
+GPT2_ROPE = dict(GPT2, num_layers=2, num_kv_heads=4, attention_window=256,
+                 positional="rope")
+DEC_ROWS, DEC_BATCH, DEC_EPOCHS, DEC_LR = 64, 8, 2, 3e-4
+DEC_T = 1024
+DEC_PERIOD = 128  # the cyclic pattern the fit learns
+DEC_CPU_T = 256  # (a)'s CPU side at this length (stays under ~30 s)
+DEC_PROMPTS = 8
+DEC_PROMPT_LENS = (16, 256)
+DEC_NEW = 64
+DEC_SSE = 4
+DEC_ABORT_AFTER = 5
+# (d): the cached decode's f32 step logits against a full causal forward
+# of the final buffer: |d| <= DEC_LOGIT_BAR * (1 + |ref|).  The path is f32
+# end to end; K1's split-TF32 error (<= 2e-5 on O) rides 12 layers and a
+# 768 -> 50257 head.
+DEC_LOGIT_BAR = 1e-3
+DEC_MODEL = "gpt2_lm"
+DEC_DEVICE = "cuda"
+
+
+def decoder_pattern() -> np.ndarray:
+    """The fixed cycle of ids in 1..50256 the rows are cut from."""
+    rng = np.random.default_rng(13)
+    return rng.permutation(np.arange(1, GPT2["vocab_size"]))[:DEC_PERIOD]
+
+
+def decoder_rows(n: int, t: int, seed: int) -> np.ndarray:
+    """``n`` rows of length ``t``, each at a seeded offset into the cycle."""
+    cyc = decoder_pattern()
+    offs = np.random.default_rng(seed).integers(0, DEC_PERIOD, n)
+    idx = (offs[:, None] + np.arange(t)[None, :]) % DEC_PERIOD
+    return cyc[idx].astype(np.int32)
+
+
+def decoder_data():
+    """(a)'s 2 rows (the second with a pad tail) and (b)'s fit rows; the
+    targets are the next tokens, pad 0 at the end."""
+    x = decoder_rows(DEC_ROWS, DEC_T, seed=1)
+    y = np.concatenate([x[:, 1:], np.zeros((DEC_ROWS, 1), np.int32)], 1)
+    return x, y
+
+
+def decoder_prompts() -> list:
+    rng = np.random.default_rng(21)
+    lens = rng.integers(DEC_PROMPT_LENS[0], DEC_PROMPT_LENS[1] + 1,
+                        DEC_PROMPTS)
+    lens[0], lens[1] = DEC_PROMPT_LENS  # both ends of the range
+    return [decoder_rows(1, int(n), seed=100 + i)[0].tolist()
+            for i, n in enumerate(lens)]
+
+
+def step_logits_check(est, prompts, new: int, label: str) -> dict:
+    """(d): ``generate`` through the KV cache with every step's f32 logits
+    captured, against a full causal f32 forward (K1) of the buffer it
+    produced, at every generated position."""
+    steps = []
+
+    def hook(module, args, kwargs, out):
+        if kwargs.get("cache") is not None:
+            steps.append(out[:, 0].float())
+
+    handle = est.module.register_forward_hook(hook, with_kwargs=True)
+    worst, ok, lines = 0.0, True, []
+    try:
+        for prompt in prompts:
+            steps.clear()
+            buf = est.generate(np.asarray([prompt], np.int32),
+                               max_new_tokens=new)
+            t0 = len(prompt)
+            with torch.inference_mode():
+                ref = est.module(torch.from_numpy(buf).to(DEC_DEVICE))[0]
+                ref = ref.float()
+            got = torch.cat(steps[t0 - 1:], 0)  # positions t0-1..total-2
+            want = ref[t0 - 1:buf.shape[1] - 1]
+            diff = (got - want).abs()
+            excess = float((diff - DEC_LOGIT_BAR * (1 + want.abs())).max())
+            err = float(diff.max())
+            worst = max(worst, err)
+            ok &= excess <= 0 and bool(torch.isfinite(got).all())
+            lines.append(f"t0={t0} total={buf.shape[1]}: max|d|={err:.3g}")
+    finally:
+        handle.remove()
+    phase(f"decoder cache vs full forward {label}", ok,
+          f"{'; '.join(lines)}; bar {DEC_LOGIT_BAR}*(1+|ref|), f32 step "
+          f"logits at every generated position vs one causal forward (K1 "
+          f"f32) of the final buffer")
+    return {"max_abs_err": worst, "ok": ok}
+
+
+def first_divergence(a: list, b: list):
+    """The first index where two token lists differ (None: equal)."""
+    for i, (u, v) in enumerate(zip(a, b)):
+        if u != v:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def read_sse(port, body, on_token=None):
+    """POST a streaming /generate and read its SSE body: (status, events
+    [(name, doc, arrival s)], seconds from the request to each event)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", f"/api/learningOrchestra/v1/serve/{DEC_MODEL}"
+                     "/generate", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return resp.status, [("error", json.loads(resp.read()), 0.0)]
+        events, name = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().strip()
+            if line.startswith("event:"):
+                name = line[6:].strip()
+            elif line.startswith("data:"):
+                doc = json.loads(line[5:].strip())
+                events.append((name, doc, time.perf_counter() - t0))
+                if name == "token" and on_token is not None:
+                    on_token(doc, len([e for e in events
+                                       if e[0] == "token"]))
+        return 200, events
+    finally:
+        conn.close()
+
+
+def time_decode_steps(est, warm: dict, reps: int = 10) -> dict:
+    """Each (S, Tk) bucket the engine stepped, timed on its own: a pool of
+    S live slots at position Tk/2.  The host-paced ms is what a caller
+    waits per step (CUDA events around ``reps`` steps); the device ms is
+    the sum of the step's kernel times from torch.profiler (a device
+    sleep cannot hide a launch rate this slow), so their gap is the
+    device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from learningorchestra_tpu_torch.serve.decode.pages import build_step
+
+    out = {}
+    for nslots, kvlen in sorted(warm):
+        step = build_step(est.module, nslots, kvlen)
+        cache = est.module.init_cache(nslots, kvlen, per_row=True,
+                                      device=DEC_DEVICE)
+        buf = torch.from_numpy(decoder_rows(nslots, kvlen, seed=5)).to(
+            DEC_DEVICE).long()
+        pos = torch.full((nslots,), kvlen // 2, device=DEC_DEVICE)
+        t0s = torch.full((nslots,), kvlen + 1, device=DEC_DEVICE)
+        live = torch.ones(nslots, dtype=torch.bool, device=DEC_DEVICE)
+
+        def run():
+            step(cache, buf, pos, t0s, live)
+
+        with torch.no_grad():
+            host = time_ms(run, reps=reps, hide_launch=False)
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        run()
+                    torch.cuda.synchronize()
+                dev = sum(device_kernels(prof).values()) / reps
+            except Exception as exc:  # noqa: BLE001 — where CUPTI tracing
+                # is unavailable the device time is not measured.
+                dev = None
+                print(f"[info] decode step profile: {exc!r}", flush=True)
+        out[f"s{nslots}_k{kvlen}"] = {
+            "host_paced_ms": host, "device_ms": dev,
+            "idle_share": None if dev is None else max(0.0, 1 - dev / host)}
+    return out
+
+
+def decoder_throughput(server, est, prompts) -> dict:
+    """Continuous batching against sequential solo decodes, as the JAX
+    package's bench measures it: 8 prompts, every one submitted at once to
+    the engine, against one solo ``generate`` after another; best of 2
+    passes each, warm."""
+    new = DEC_NEW
+    eng = server.serving.decode
+    est.generate(np.asarray([prompts[0]], np.int32), max_new_tokens=new)
+    seq = 0.0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for p in prompts:
+            est.generate(np.asarray([p], np.int32), max_new_tokens=new)
+        seq = max(seq, len(prompts) * new / (time.perf_counter() - t0))
+    eng.generate(DEC_MODEL, prompts, max_new_tokens=new)  # warm
+    engine = 0.0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        eng.generate(DEC_MODEL, prompts, max_new_tokens=new)
+        engine = max(engine, len(prompts) * new / (time.perf_counter() - t0))
+    return {"prompts": len(prompts), "prompt_len": len(prompts[0]),
+            "new_tokens": new, "sequential_tok_s": seq,
+            "engine_tok_s": engine, "speedup": engine / seq}
+
+
+def run_decoder(tmp, card: str) -> dict:
+    """Phase 13: the GPT-2-small-width DecoderLM through the port's entry
+    points: (a) one f32 step on the card against the CPU, (b) ``fit``,
+    (c) an int8 artifact served by ``APIServer`` over /generate (JSON, SSE
+    with mid-flight admission, an abort, a sampled request), (d) the cached
+    decode's logits against a full causal forward, (e) the same for a
+    rope + GQA + window configuration, (f) the ``decoder`` line."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.models.text import DecoderLM
+    from learningorchestra_tpu_torch.ops import quant
+    from learningorchestra_tpu_torch.ops.quant import QuantizedLeaf
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+
+    t_phase = time.perf_counter()
+    line: dict = {}
+    launches: dict = {}
+    t0 = time.perf_counter()
+    est = DecoderLM(**GPT2, learning_rate=DEC_LR, seed=0, device=DEC_DEVICE)
+    n_params = sum(p.numel() for p in est.module.parameters())
+    line["build_s"] = time.perf_counter() - t0
+    line["params"] = n_params
+    x, y = decoder_data()
+
+    # (a) one f32 step, card against the CPU, 2 rows (the second with a
+    # pad tail) at DEC_CPU_T.
+    xa = x[:2, :DEC_CPU_T].copy()
+    xa[1, DEC_CPU_T * 3 // 4:] = 0
+    ya = np.concatenate([xa[:, 1:], np.zeros((2, 1), np.int32)], 1)
+    line["step_vs_cpu"] = step_vs_cpu(
+        est, xa, ya, "decoder step vs CPU plain path",
+        f"DecoderLM GPT-2 small widths ({n_params / 1e6:.1f} M parameters) "
+        f"f32, 2 rows (second with a pad tail), T shortened to {DEC_CPU_T} "
+        f"of {DEC_T} for the CPU side")
+
+    # (b) fit: bf16 compute on f32 masters, counters at 0 just before.
+    before = [p.detach().clone() for p in est.module.parameters()]
+    marks = []
+
+    def mark_epoch(epoch, metrics, model):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    est.fit(x, y, epochs=DEC_EPOCHS, batch_size=DEC_BATCH,
+            callbacks=[mark_epoch])
+    fit_s = time.perf_counter() - t0
+    launches["train"] = kernel_counts()
+    per_epoch = -(-DEC_ROWS // DEC_BATCH)
+    steps = DEC_EPOCHS * per_epoch
+    layers = GPT2["num_layers"]
+    losses = list(est.history["loss"])
+    moved = sum(1 for p, p0 in zip(est.module.parameters(), before)
+                if not torch.equal(p.detach(), p0))
+    del before
+    finite = all(math.isfinite(v) for v in losses)
+    epoch2_ms = marks[0].elapsed_time(marks[1])
+    step_ms = epoch2_ms / per_epoch
+    counts = launches["train"]
+    want = {"flash_fwd": layers * steps, "flash_bwd_dq": layers * steps,
+            "flash_bwd_dkv": layers * steps}
+    phase("decoder fit", finite and losses[-1] < losses[0]
+          and moved == len(list(est.module.parameters())),
+          f"{DEC_ROWS} rows T={DEC_T} (a {DEC_PERIOD}-token cycle), batch "
+          f"{DEC_BATCH}, {DEC_EPOCHS} epochs x {per_epoch} steps, bf16 / f32 "
+          f"masters, lr {DEC_LR}: loss {losses}, perplexity "
+          f"{est.history.get('perplexity')}; {moved} parameters moved; fit "
+          f"{fit_s:.2f}s, epoch 2 step {step_ms:.2f} ms")
+    phase("decoder fit launch counters",
+          all(counts[k] == v for k, v in want.items()),
+          f"{ {k: counts[k] for k in want} }; expected {layers} x {steps} "
+          "steps each (causal K1 forward, K2/K3 backward)")
+    tokens = DEC_ROWS * DEC_T
+    line["fit"] = {"losses": losses, "fit_s": fit_s, "step_ms": step_ms,
+                   "tokens_per_s": tokens / (epoch2_ms / 1e3),
+                   "launches": {k: counts[k] for k in want}}
+    try:
+        line["fit"]["profile"] = profile_step(
+            est, x[:DEC_BATCH], y[:DEC_BATCH], TRAIN_FAMILIES)
+    except Exception as exc:  # noqa: BLE001 — where CUPTI tracing is
+        # unavailable this breakdown is reported as not measured.
+        line["fit"]["profile"] = {"not_measured": repr(exc)}
+
+    # (c) publish int8 (K4), load on the server (K5), serve /generate.
+    prompts = decoder_prompts()
+    volumes = VolumeStorage(tmp)
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    artifact = est.to_artifact(quantize=True)
+    volumes.save_object(ARTIFACT_TYPE, DEC_MODEL, artifact)
+    launches["publish"] = kernel_counts()
+    line["artifact_save_s"] = time.perf_counter() - t0
+    leaves = sum(1 for _ in _leaves_of(artifact["state"]["params"],
+                                       QuantizedLeaf))
+    server = APIServer(server_config(tmp), device=DEC_DEVICE)
+    port = server.start_background()
+    try:
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        status, body = request(port, "POST", f"/serve/{DEC_MODEL}/load")
+        launches["load"] = kernel_counts()
+        line["load_s"] = time.perf_counter() - t0
+        n_launch = -(-leaves // quant.MAX_LEAVES)
+        phase("decoder publish and load",
+              status == 200 and launches["publish"]["quantize_rowwise"]
+              == launches["load"]["dequantize_rowwise"] == n_launch == 1,
+              f"int8 artifact of {leaves} leaves (the head's (768, 50257) "
+              f"among them): K4 {launches['publish']['quantize_rowwise']} "
+              f"launch, K5 {launches['load']['dequantize_rowwise']} launch "
+              f"(expected 1 each); save {line['artifact_save_s']:.2f}s, "
+              f"load {line['load_s']:.2f}s -> {status}")
+        served = server.serving.registry.get(DEC_MODEL).estimator
+
+        # JSON: 8 prompts of 16..256 tokens, 64 new each.
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        status, body = request(port, "POST", f"/serve/{DEC_MODEL}/generate",
+                               {"prompts": prompts, "maxNewTokens": DEC_NEW})
+        json_s = time.perf_counter() - t0
+        launches["generate"] = kernel_counts()
+        toks = body.get("tokens", [])
+        good = status == 200 and len(toks) == DEC_PROMPTS and all(
+            len(t) == len(p) + DEC_NEW and t[:len(p)] == p
+            and all(0 <= v < GPT2["vocab_size"] for v in t)
+            for t, p in zip(toks, prompts))
+        phase("decoder generate JSON", good
+              and launches["generate"]["flash_fwd"] == 0,
+              f"{DEC_PROMPTS} prompts of {[len(p) for p in prompts]} tokens,"
+              f" {DEC_NEW} new each -> {status} in {json_s:.2f}s; the decode "
+              f"steps launched K1 {launches['generate']['flash_fwd']} times "
+              "(expected 0: one query attends the cache in plain torch)")
+        # The engine's tokens against in-process solo decodes.
+        solo = [served.generate(np.asarray([p], np.int32),
+                                max_new_tokens=DEC_NEW)[0].tolist()
+                for p in prompts]
+        div = [first_divergence(t[len(p):], s[len(p):])
+               for t, p, s in zip(toks, prompts, solo)]
+        pattern = {int(a): int(b) for a, b in zip(
+            decoder_pattern(), np.roll(decoder_pattern(), -1))}
+        learned = [float(np.mean([pattern.get(t[i - 1]) == t[i]
+                                  for i in range(len(p), len(t))]))
+                   for t, p in zip(toks, prompts)]
+        line["engine_vs_solo_first_divergence"] = div
+        line["pattern_accuracy"] = learned
+        print(f"[info] decoder engine vs solo: first divergent new token "
+              f"per prompt {div} (None: equal); share of new tokens that "
+              f"follow the cycle {learned}", flush=True)
+
+        # SSE: 4 streams, the last 2 opened while the first 2 are mid-
+        # flight (admission into running pools).
+        # The late two share KV buckets with the early two: admission
+        # into pools with a stream mid-flight.
+        sse_prompts = [prompts[0], prompts[1], prompts[1][:200],
+                       prompts[0][:20]]
+        first_tok = [threading.Event() for _ in range(DEC_SSE)]
+        results = [None] * DEC_SSE
+
+        def sse(i):
+            results[i] = read_sse(
+                port, {"prompts": [sse_prompts[i]], "stream": True,
+                       "maxNewTokens": DEC_NEW},
+                on_token=lambda doc, n, i=i: first_tok[i].set())
+
+        threads = [threading.Thread(target=sse, args=(i,))
+                   for i in range(DEC_SSE)]
+        for th in threads[:2]:
+            th.start()
+        first_tok[0].wait(120)
+        midflight = not any(results[:2])  # neither has finished yet
+        for th in threads[2:]:
+            th.start()
+        for th in threads:
+            th.join(300)
+        ttft, itl, sse_ok, sse_div = [], [], True, []
+        for i, res in enumerate(results):
+            status, events = res or (0, [])
+            tok = [(d["t"], s) for n, d, s in events if n == "token"]
+            names = [n for n, _, _ in events]
+            sse_ok &= status == 200 and names[:1] == ["open"] and \
+                names[-1:] == ["done"] and len(tok) == DEC_NEW
+            if tok:
+                ttft.append(tok[0][1] * 1e3)
+                itl += [(b - a) * 1e3 for (_, a), (_, b) in
+                        zip(tok, tok[1:])]
+            ref = solo[i] if i < 2 else served.generate(
+                np.asarray([sse_prompts[i]], np.int32),
+                max_new_tokens=DEC_NEW)[0].tolist()
+            sse_div.append(first_divergence([t for t, _ in tok],
+                                            ref[len(sse_prompts[i]):]))
+        phase("decoder generate SSE", sse_ok and midflight,
+              f"{DEC_SSE} streams (2 admitted while 2 were mid-flight: "
+              f"{midflight}), each open, {DEC_NEW} tokens, done; first "
+              f"divergence from a solo generate {sse_div} (None: equal)")
+
+        # Abort: one stream DELETEd after its 5th token.
+        stream_id, got_ids, deleted = [None], [], {}
+
+        def on_token(doc, n):
+            if n == DEC_ABORT_AFTER and not deleted:
+                dec = server.serving.decode._decoders[DEC_MODEL]
+                sid = next(iter(dec._streams))
+                stream = dec._streams[sid]
+                stream_id[0] = sid
+                deleted["status"], _ = request(
+                    port, "DELETE", f"/serve/{DEC_MODEL}/generate/{sid}")
+                deleted["tokens_at_cancel"] = len(stream.tokens)
+                deleted["stream"] = stream
+
+        status, events = read_sse(port, {"prompts": [prompts[2]],
+                                         "stream": True,
+                                         "maxNewTokens": DEC_NEW},
+                                  on_token=on_token)
+        stream = deleted.get("stream")
+        after = (len(stream.tokens) - deleted["tokens_at_cancel"]
+                 if stream else None)
+        st = server.serving.decode.stats()["models"][DEC_MODEL]
+        status2, _ = request(port, "DELETE",
+                             f"/serve/{DEC_MODEL}/generate/{stream_id[0]}")
+        names = [n for n, _, _ in events]
+        phase("decoder abort", deleted.get("status") == 200
+              and names[-1:] == ["aborted"] and after is not None
+              and after <= 1 and st["activeStreams"] == 0
+              and all(p["live"] == 0 for p in st["pools"])
+              and status2 == 404,
+              f"DELETE after token {DEC_ABORT_AFTER} -> "
+              f"{deleted.get('status')}; stream ended with {names[-1:]}; "
+              f"tokens emitted after the cancel {after} (<= 1: the slot "
+              f"freed at the next step boundary); live slots "
+              f"{[p['live'] for p in st['pools']]}; second DELETE -> "
+              f"{status2}")
+
+        # One sampled request: the solo path.
+        status, body = request(port, "POST", f"/serve/{DEC_MODEL}/generate",
+                               {"prompts": [prompts[0]], "maxNewTokens": 32,
+                                "temperature": 0.8, "topK": 40, "seed": 3})
+        new = (body.get("newTokens") or [[]])[0]
+        phase("decoder sampled generate", status == 200
+              and body.get("sampled") is True and len(new) == 32
+              and all(0 < t < GPT2["vocab_size"] for t in new),
+              f"temperature 0.8, topK 40 -> {status}, {len(new)} tokens in "
+              "(0, 50257)")
+
+        st = server.serving.decode.stats()["models"][DEC_MODEL]
+        line["pools"] = st["pools"]
+        warm = dict(server.serving.registry.get(DEC_MODEL).decode_warm)
+        line["step_ms"] = time_decode_steps(served, warm)
+        line["throughput"] = decoder_throughput(
+            server, served, [p[:DEC_PROMPT_LENS[0]] for p in prompts])
+        line["ttft_ms"] = {"p50": float(np.median(ttft)),
+                           "max": float(np.max(ttft))}
+        line["itl_ms"] = {"p50": float(np.median(itl)),
+                          "p99": float(np.percentile(itl, 99))}
+    finally:
+        server.shutdown()
+
+    # (d) the cache against the model, on the trained f32 masters.
+    zero_kernel_counts()
+    line["cache_vs_forward"] = step_logits_check(
+        est, [prompts[0], prompts[1]], DEC_NEW, "GPT-2 learned")
+    launches["forward_f32"] = kernel_counts()
+    del est
+    torch.cuda.empty_cache()
+
+    # (e) rope + GQA + window at 2 layers, untrained.
+    rope = DecoderLM(**GPT2_ROPE, seed=1, device=DEC_DEVICE)
+    zero_kernel_counts()
+    line["cache_vs_forward_rope"] = step_logits_check(
+        rope, [decoder_rows(1, GPT2_ROPE["attention_window"] + 44,
+                            seed=7)[0].tolist(),
+               decoder_rows(1, 40, seed=8)[0].tolist()], 24,
+        "rope + GQA 12/4 + window 256, 2 layers")
+    launches["forward_f32_rope"] = kernel_counts()
+    del rope
+    torch.cuda.empty_cache()
+
+    line["launches"] = launches
+    line["phase_s"] = time.perf_counter() - t_phase
+    name, _, limit = card.partition(",")
+    line = {"card": name.strip(), "power_limit": limit.strip(), **line}
+    return {"line": line, "launches": launches}
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -3836,6 +4366,21 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     dist_s = time.perf_counter() - t_dist
+
+    # Phase 13: the decoder LM (GPT-2 small widths) and streaming
+    # generation.
+    tmp, t_dec = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        dec = run_decoder(tmp, card)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("decoder", False, repr(exc))
+        dec = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    dec_s = time.perf_counter() - t_dec
+    dec_l = dec["launches"]
+    dec_f32 = [dec_l.get("forward_f32"), dec_l.get("forward_f32_rope")]
     dist_l = dist["launches"]
     # Every rank's K1/K2/K3 (bf16 training), the parent's K4 (the int8
     # publication), the predict job's K5 and f32 K1.
@@ -3876,13 +4421,15 @@ def main() -> int:
          "replaces": "learningorchestra_tpu/ops/attention.py:167",
          "launches": counts["flash_fwd"] + rest_sum("flash_fwd", rest_f32)
          + rest_sum("flash_fwd", [text_l.get("bert_pred")])
-         + rest_sum("flash_fwd", dist_predict),
+         + rest_sum("flash_fwd", dist_predict)
+         + rest_sum("flash_fwd", dec_f32),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
              "text_predict": rest_sum("flash_fwd",
                                       [text_l.get("bert_pred")]),
-             "distributed_predict": rest_sum("flash_fwd", dist_predict)},
+             "distributed_predict": rest_sum("flash_fwd", dist_predict),
+             "decoder_full_forward": rest_sum("flash_fwd", dec_f32)},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -3894,7 +4441,8 @@ def main() -> int:
          + rest_sum("flash_fwd", rest_bf16) + tune_l.get("flash_fwd", 0)
          + rest_sum("flash_fwd", drill_train + [drill_l.get("evaluate")])
          + rest_sum("flash_fwd", text_bf16)
-         + rest_sum("flash_fwd", dist_ranks),
+         + rest_sum("flash_fwd", dist_ranks)
+         + rest_sum("flash_fwd", [dec_l.get("train")]),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -3902,7 +4450,8 @@ def main() -> int:
              "crash_drill": rest_sum("flash_fwd", drill_train
                                      + [drill_l.get("evaluate")]),
              "text_train_and_evaluate": rest_sum("flash_fwd", text_bf16),
-             "distributed_ranks": rest_sum("flash_fwd", dist_ranks)},
+             "distributed_ranks": rest_sum("flash_fwd", dist_ranks),
+             "decoder_train": rest_sum("flash_fwd", [dec_l.get("train")])},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -3918,7 +4467,8 @@ def main() -> int:
          + tune_l.get("quantize_rowwise", 0)
          + rest_sum("quantize_rowwise", drill_train)
          + rest_sum("quantize_rowwise", text_train)
-         + rest_sum("quantize_rowwise", dist_parent),
+         + rest_sum("quantize_rowwise", dist_parent)
+         + rest_sum("quantize_rowwise", [dec_l.get("publish")]),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
@@ -3927,7 +4477,9 @@ def main() -> int:
              "crash_drill": rest_sum("quantize_rowwise", drill_train),
              "text_train": rest_sum("quantize_rowwise", text_train),
              "distributed_train": rest_sum("quantize_rowwise",
-                                           dist_parent)},
+                                           dist_parent),
+             "decoder_publish": rest_sum("quantize_rowwise",
+                                         [dec_l.get("publish")])},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -3941,7 +4493,8 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", rest_k5)
          + rest_sum("dequantize_rowwise", [drill_l.get("evaluate")])
          + rest_sum("dequantize_rowwise", text_k5)
-         + rest_sum("dequantize_rowwise", dist_predict),
+         + rest_sum("dequantize_rowwise", dist_predict)
+         + rest_sum("dequantize_rowwise", [dec_l.get("load")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -3952,7 +4505,9 @@ def main() -> int:
              "text_evaluate_predict": rest_sum("dequantize_rowwise",
                                                text_k5),
              "distributed_predict": rest_sum("dequantize_rowwise",
-                                             dist_predict)},
+                                             dist_predict),
+             "decoder_load": rest_sum("dequantize_rowwise",
+                                      [dec_l.get("load")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -3966,7 +4521,8 @@ def main() -> int:
            + tune_l.get(f"flash_bwd_{key}", 0)
            + rest_sum(f"flash_bwd_{key}", drill_train)
            + rest_sum(f"flash_bwd_{key}", text_train)
-           + rest_sum(f"flash_bwd_{key}", dist_ranks),
+           + rest_sum(f"flash_bwd_{key}", dist_ranks)
+           + rest_sum(f"flash_bwd_{key}", [dec_l.get("train")]),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -3974,7 +4530,9 @@ def main() -> int:
                "crash_drill": rest_sum(f"flash_bwd_{key}", drill_train),
                "text_train": rest_sum(f"flash_bwd_{key}", text_train),
                "distributed_ranks": rest_sum(f"flash_bwd_{key}",
-                                             dist_ranks)},
+                                             dist_ranks),
+               "decoder_train": rest_sum(f"flash_bwd_{key}",
+                                         [dec_l.get("train")])},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -4053,11 +4611,12 @@ def main() -> int:
     print("distributed " + json.dumps({
         "card": name.strip(), "power_limit": limit.strip(),
         **dist["line"]}, default=str), flush=True)
+    print("decoder " + json.dumps(dec["line"], default=str), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
           f"{drill_s:.1f}, text pipeline {text_s:.1f}, distributed "
-          f"{dist_s:.1f})", flush=True)
+          f"{dist_s:.1f}, decoder {dec_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -45,6 +45,11 @@ server's request bodies:
 - ``POST /serve/<model>/predict|load|unload``, ``DELETE
   /serve/<model>``, ``GET /serve``: resident serving of a train job's
   artifact;
+- ``POST /serve/<model>/generate``: LM generation through the decode
+  engine, a JSON body or, with ``stream: true``, a ``text/event-stream``
+  of ``open``/``token``/``done`` events; ``DELETE
+  /serve/<model>/generate/<streamId>`` aborts a stream (404 once it is
+  gone).  A client that hangs up mid-stream aborts it too;
 - ``GET /health``.
 
 Status codes are the JAX server's: 201/200; 409 duplicate name or a job
@@ -161,10 +166,11 @@ class APIServer:
         self.serving = ServingService(
             self.ctx.volumes, self.config.serve, device=self.ctx.device,
             monitoring_root=monitoring_root,
+            decode_config=self.config.decode,
         )
-        # A PATCHed or deleted train job's resident params reload before
-        # the next predict.
-        self.ctx.add_artifact_change_listener(self.serving.registry.invalidate)
+        # A PATCHed or deleted train job's resident params (and decoder)
+        # reload before the next request.
+        self.ctx.add_artifact_change_listener(self.serving.invalidate)
         self.router = Router(self.config.api.api_prefix)
         self._httpd: ThreadingHTTPServer | None = None
         self._register_routes()
@@ -749,7 +755,48 @@ class APIServer:
                 }
             return 200, {"result": "unloaded"}
 
+        def serve_generate(m, body, query):
+            """Autoregressive decode against a resident LM.  With
+            ``stream: true`` the payload is the DecodeStream itself, which
+            the HTTP layer writes as an SSE body (its ``sse_events``)."""
+            prompts = body.get("prompts")
+            if prompts is None:
+                prompts = body.get("instances")
+            if prompts is None:
+                raise ValidationError("missing 'prompts'")
+            try:
+                kwargs = {
+                    "max_new_tokens": int(body.get("maxNewTokens", 32)),
+                    "stream": bool(body.get("stream")),
+                    "seed": int(body.get("seed", 0)),
+                }
+                for key, arg, cast in (("temperature", "temperature", float),
+                                       ("topK", "top_k", int),
+                                       ("topP", "top_p", float)):
+                    if body.get(key) is not None:
+                        kwargs[arg] = cast(body[key])
+            except (TypeError, ValueError) as exc:
+                raise ValidationError(f"bad generate parameter: {exc}") \
+                    from None
+            return 200, self.serving.generate(m.group("name"), prompts,
+                                              **kwargs)
+
+        def serve_generate_abort(m, body, query):
+            """Abort an in-flight stream: its slot frees at the next step
+            boundary, even while its socket is nominally open."""
+            if not self.serving.decode.abort(
+                    m.group("name"), m.group("stream"),
+                    reason="aborted by DELETE"):
+                return 404, {
+                    "error": f"no active stream {m.group('stream')!r} for "
+                             f"model {m.group('name')!r}"
+                }
+            return 200, {"aborted": m.group("stream")}
+
         add("POST", rf"/serve/{NAME}/predict", serve_predict)
+        add("POST", rf"/serve/{NAME}/generate", serve_generate)
+        add("DELETE", rf"/serve/{NAME}/generate/(?P<stream>[A-Za-z0-9]+)",
+            serve_generate_abort)
         add("POST", rf"/serve/{NAME}/load", lambda m, b, q: (
             200, {"result": self.serving.load(m.group("name"))},
         ))
@@ -819,6 +866,10 @@ class APIServer:
                 self._send(*api.handle(verb, parsed.path, body, query))
 
             def _send(self, status: int, payload):
+                events = getattr(payload, "sse_events", None)
+                if callable(events):
+                    self._send_sse(status, payload, events)
+                    return
                 if isinstance(payload, tuple):  # (content type, bytes)
                     ctype, data = payload
                 else:
@@ -834,6 +885,28 @@ class APIServer:
                     )
                 self.end_headers()
                 self.wfile.write(data)
+
+            def _send_sse(self, status: int, stream, events):
+                """A server-sent-events body for a DecodeStream.  Its length
+                is not known up front, so the body ends at EOF
+                (``Connection: close``).  A broken pipe mid-stream is the
+                client's disconnect: it aborts the stream, whose slot frees
+                at the next step boundary."""
+                self.close_connection = True
+                self.send_response(status)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-store")
+                self.send_header("Connection", "close")
+                self.end_headers()
+                try:
+                    for name, doc in events():
+                        self.wfile.write((
+                            f"event: {name}\n"
+                            f"data: {json.dumps(doc, default=str)}\n\n"
+                        ).encode())
+                        self.wfile.flush()
+                except OSError:  # BrokenPipeError, ConnectionResetError
+                    stream.abort("client disconnected")
 
             def do_GET(self):
                 self._run("GET")

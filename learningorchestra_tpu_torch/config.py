@@ -1,6 +1,6 @@
 """Configuration — port of the parts of ``learningorchestra_tpu/config.py``
 the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` (with the job journal's
-switches), ``ServeConfig`` and ``DistributedConfig``, with the same
+switches), ``ServeConfig``, ``DecodeConfig`` and ``DistributedConfig``, with the same
 fields, defaults and ``LO_TPU_*`` environment names, plus the ``device``
 every entry point runs on and ``DistributedConfig.cpu_ranks``, the rank
 devices a CPU context gives a distributed fit.
@@ -110,6 +110,35 @@ class ServeConfig:
 
 
 @dataclasses.dataclass
+class DecodeConfig:
+    """Streaming LM decode engine (serve/decode/): resident KV page pools
+    + continuous batching + SSE token streaming behind
+    ``POST /serve/<model>/generate``.  Env knobs: LO_TPU_DECODE_*."""
+
+    # Master switch: off, /generate still answers non-stream requests
+    # through the solo decode loop; stream=true is refused (406).
+    # Env: LO_TPU_DECODE_ENABLED.
+    enabled: bool = True
+    # Largest slot bucket per KV page pool (power-of-two growth up to
+    # this): bounds concurrent in-flight sequences per (model, kv bucket).
+    # Env: LO_TPU_DECODE_MAX_SLOTS.
+    max_slots: int = 8
+    # Largest KV-length bucket (positions per slot); also caps prompt +
+    # generation length served by the engine.  The effective cap is
+    # min(model max_len, this).  Env: LO_TPU_DECODE_MAX_KV.
+    max_kv: int = 2048
+    # Active + pending stream cap per model; beyond it, submission sheds
+    # load (HTTP 429 + Retry-After).  Env: LO_TPU_DECODE_MAX_STREAMS.
+    max_streams: int = 64
+    # Server-side ceiling on a request's maxNewTokens.
+    # Env: LO_TPU_DECODE_MAX_NEW.
+    max_new_tokens: int = 128
+    # Idle decode workers park and free their resident KV pools after
+    # this long with no streams.  Env: LO_TPU_DECODE_IDLE_S.
+    idle_timeout_s: float = 60.0
+
+
+@dataclasses.dataclass
 class DistributedConfig:
     """Data-parallel training (parallel/distributed.py) and the
     distributed builder."""
@@ -128,6 +157,16 @@ class DistributedConfig:
     # set, a distributed train answers 406 (ROADMAP A.9 part 2, A.11).
     # Env: LO_TPU_TASK_COORDINATOR.
     task_coordinator: str | None = None
+    # Where a distributed fit stages its inputs and task (one directory
+    # per fit); unset: ``_dist_stage`` under the volume root.  Boot
+    # recovery removes the stages no live fit owns.
+    # Env: LO_TPU_DIST_STAGE_ROOT.
+    stage_root: str | None = None
+
+    def stage_path(self, volume_root: Path) -> Path:
+        if self.stage_root:
+            return Path(os.path.expanduser(self.stage_root))
+        return Path(volume_root) / "_dist_stage"
 
 
 @dataclasses.dataclass
@@ -136,6 +175,7 @@ class Config:
     api: APIConfig = dataclasses.field(default_factory=APIConfig)
     jobs: JobConfig = dataclasses.field(default_factory=JobConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
     dist: DistributedConfig = dataclasses.field(
         default_factory=DistributedConfig)
     # Where every estimator the services build or load lives.
@@ -159,20 +199,28 @@ class Config:
             ("LO_TPU_SERVE_MAX_MODELS", cfg.serve, "max_models", int),
             ("LO_TPU_SERVE_MAX_BYTES", cfg.serve, "max_bytes", int),
             ("LO_TPU_SERVE_RETRY_AFTER", cfg.serve, "retry_after_s", float),
+            ("LO_TPU_DECODE_MAX_SLOTS", cfg.decode, "max_slots", int),
+            ("LO_TPU_DECODE_MAX_KV", cfg.decode, "max_kv", int),
+            ("LO_TPU_DECODE_MAX_STREAMS", cfg.decode, "max_streams", int),
+            ("LO_TPU_DECODE_MAX_NEW", cfg.decode, "max_new_tokens", int),
+            ("LO_TPU_DECODE_IDLE_S", cfg.decode, "idle_timeout_s", float),
             ("LO_TPU_WORLD_SIZE", cfg.dist, "num_processes", int),
             ("LO_TPU_CPU_RANKS", cfg.dist, "cpu_ranks", int),
         )
         for key, section, attr, cast in fields:
             if key in env:
                 setattr(section, attr, cast(env[key]))
-        for key, attr in (("LO_TPU_JOB_JOURNAL", "journal"),
-                          ("LO_TPU_JOB_JOURNAL_RECOVER", "journal_recover")):
+        for key, section, attr in (
+                ("LO_TPU_JOB_JOURNAL", cfg.jobs, "journal"),
+                ("LO_TPU_JOB_JOURNAL_RECOVER", cfg.jobs, "journal_recover"),
+                ("LO_TPU_DECODE_ENABLED", cfg.decode, "enabled")):
             if key in env:
-                setattr(cfg.jobs, attr, _bool_env(key, env[key]))
+                setattr(section, attr, _bool_env(key, env[key]))
         if "LO_TPU_JOB_JOURNAL_MAX" in env:
             cfg.jobs.journal_max_records = int(env["LO_TPU_JOB_JOURNAL_MAX"])
         for key, section, attr in (
                 ("LO_TPU_TASK_COORDINATOR", cfg.dist, "task_coordinator"),
+                ("LO_TPU_DIST_STAGE_ROOT", cfg.dist, "stage_root"),
                 ("LO_TPU_MONITORING_EXTERNAL_HOST", cfg.api,
                  "monitoring_external_host")):
             if key in env:

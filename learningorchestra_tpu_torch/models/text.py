@@ -1,7 +1,8 @@
 """Text models — port of ``learningorchestra_tpu/models/text.py``: the
 LSTM sentiment classifier (``LSTMClassifier``, BASELINE config 3), the
 BERT encoder, its classifier head and the estimators over them
-(``BertModel``, BASELINE config 4; ``TransformerClassifier``).
+(``BertModel``, BASELINE config 4; ``TransformerClassifier``), and the
+causal language model ``DecoderLM`` with its KV-cache ``generate``.
 
 Parity with the flax modules: ``LayerNorm`` eps 1e-6, ``gelu`` in its
 tanh form, pre-LN blocks, learned positions, pad id 0 masking keys, the
@@ -9,7 +10,7 @@ tanh form, pre-LN blocks, learned positions, pad id 0 masking keys, the
 tokens included, then mean-pools the non-pad ones.  Submodules carry the
 flax tree's names (``Embed_0``, ``TransformerBlock_3``,
 ``OptimizedLSTMCell_0.hf``, ``Dense_1``...), which is what ``convert.py``
-maps by.  ``DecoderLM`` comes with a later slice.
+maps by.
 """
 
 from __future__ import annotations
@@ -157,23 +158,25 @@ def cls_head(x, pooler: nn.Linear, classifier: nn.Linear):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block over the port's attention layer (kernel K1 on CUDA)."""
+    """Pre-LN block over the port's attention layer (kernel K1 on CUDA);
+    ``rope`` and a decode ``cache`` pass through to the attention."""
 
     def __init__(self, hidden_dim: int, num_heads: int, mlp_dim: int, *,
                  num_kv_heads: int | None = None, causal: bool = False,
-                 window: int | None = None):
+                 window: int | None = None, rope: bool = False):
         super().__init__()
         self.LayerNorm_0 = nn.LayerNorm(hidden_dim, eps=_LN_EPS)
         self.MultiHeadSelfAttention_0 = MultiHeadSelfAttention(
             num_heads, hidden_dim, num_kv_heads=num_kv_heads,
-            causal=causal, window=window,
+            causal=causal, window=window, rope=rope,
         )
         self.LayerNorm_1 = nn.LayerNorm(hidden_dim, eps=_LN_EPS)
         self.Dense_0 = Dense(hidden_dim, mlp_dim)
         self.Dense_1 = Dense(mlp_dim, hidden_dim)
 
-    def forward(self, x, key_mask=None):
-        y = self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), key_mask)
+    def forward(self, x, key_mask=None, cache=None):
+        y = self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), key_mask,
+                                          cache)
         x = x + y
         y = self.Dense_0(self.LayerNorm_1(x))
         y = F.gelu(y, approximate="tanh")  # flax nn.gelu is the tanh form
@@ -303,3 +306,209 @@ class TransformerClassifier(BertModel):
             seed=seed,
             device=device,
         )
+
+
+class _DecoderLM(nn.Module):
+    """GPT-style causal transformer: pre-LN decoder blocks over the causal
+    flash kernel, a final LayerNorm and a per-token LM head.  Positions
+    are a learned table (``Embed_1``) or rotary inside attention
+    (``positional="rope"``, no table)."""
+
+    def __init__(self, vocab_size: int, hidden_dim: int, num_layers: int,
+                 num_heads: int, mlp_dim: int, max_len: int, *,
+                 remat: bool | str = False, window: int | None = None,
+                 num_kv_heads: int | None = None,
+                 positional: str = "learned"):
+        super().__init__()
+        self.num_layers = num_layers
+        self.positional = positional
+        self.Embed_0 = nn.Embedding(vocab_size, hidden_dim)
+        if positional != "rope":
+            self.Embed_1 = nn.Embedding(max_len, hidden_dim)
+        block_cls = remat_block(TransformerBlock, remat)
+        for i in range(num_layers):
+            setattr(self, f"TransformerBlock_{i}", block_cls(
+                hidden_dim, num_heads, mlp_dim, num_kv_heads=num_kv_heads,
+                causal=True, window=window, rope=positional == "rope",
+            ))
+        self.LayerNorm_0 = nn.LayerNorm(hidden_dim, eps=_LN_EPS)
+        self.Dense_0 = Dense(hidden_dim, vocab_size)
+
+    def blocks(self):
+        return [getattr(self, f"TransformerBlock_{i}")
+                for i in range(self.num_layers)]
+
+    def init_cache(self, batch: int, length: int, *, per_row: bool = False,
+                   device=None) -> dict:
+        """Every layer's empty KV cache of ``length`` positions, by block
+        name (the flax ``cache`` collection's tree)."""
+        return {
+            f"TransformerBlock_{i}": {"MultiHeadSelfAttention_0":
+                                      blk.MultiHeadSelfAttention_0.init_cache(
+                                          batch, length, per_row=per_row,
+                                          device=device)}
+            for i, blk in enumerate(self.blocks())
+        }
+
+    def forward(self, tokens, positions=None, key_mask=None, cache=None):
+        tokens = tokens.to(torch.int64)
+        if self.positional == "rope":
+            x = self.Embed_0(tokens)
+        else:
+            x = embed_tokens(tokens, self.Embed_0, self.Embed_1, positions)
+        if key_mask is None:
+            key_mask = tokens != 0  # (B, T), pad id 0
+        for i, blk in enumerate(self.blocks()):
+            layer = None if cache is None else \
+                cache[f"TransformerBlock_{i}"]["MultiHeadSelfAttention_0"]
+            x = blk(x, key_mask, layer)
+        return self.Dense_0(self.LayerNorm_0(x))  # (B, T, V)
+
+
+def _nucleus(scaled, top_p):
+    """Drop the tokens outside the smallest prefix, by descending
+    probability, whose mass passes ``top_p``."""
+    probs = torch.softmax(scaled, dim=-1)
+    srt = torch.sort(probs, dim=-1, descending=True).values
+    csum = torch.cumsum(srt, dim=-1)
+    cut = (csum < top_p).sum(-1, keepdim=True).clamp_max(srt.shape[-1] - 1)
+    thresh = srt.gather(-1, cut)
+    return torch.where(probs < thresh, -torch.inf, scaled)
+
+
+class GreedyDecodeMixin:
+    """Autoregressive decoding for an estimator whose module maps token ids
+    (B, T) to per-token logits (B, T, V) and takes a decode cache."""
+
+    def generate(self, prompts, max_new_tokens: int = 32,
+                 temperature: float | None = None,
+                 top_k: int | None = None,
+                 top_p: float | None = None, seed: int = 0):
+        """Continuation of int prompts (B, T0) -> the int32 buffer (B,
+        total), total = min(max_len, T0 + max_new_tokens): greedy by f32
+        argmax by default, sampled with ``temperature`` (optionally
+        ``top_k``- and/or ``top_p``-truncated) from a ``torch.Generator``
+        seeded with ``seed``.  Pad id 0 is never sampled.
+
+        KV-cache decoding as the JAX package's scan does it: every buffer
+        position is one step (the prompt's too: prefill feeds one token
+        per step), each step embeds one token at its position, attends
+        against the per-layer cache and writes the next token.  The loop
+        makes no host transfer until the end, so the card runs ahead of
+        the host as the scan does."""
+        sample = temperature is not None and temperature > 0.0
+        if top_k is not None and not sample:
+            raise ValueError(
+                "top_k requires a positive temperature (top_k without "
+                "sampling silently degrades to greedy)"
+            )
+        if top_p is not None:
+            if not sample:
+                raise ValueError("top_p requires a positive temperature")
+            if not 0.0 < top_p <= 1.0:
+                raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if top_k == 1:
+            # Deterministic by definition: the greedy path.
+            sample, top_k = False, None
+        prompts = np.asarray(prompts, dtype=np.int32)
+        bsz, t0 = prompts.shape
+        if t0 > self.max_len:
+            raise ValueError(
+                f"prompt length {t0} exceeds max_len={self.max_len}; "
+                "truncate the prompt or build the model with a larger "
+                "max_len"
+            )
+        self.check_input(prompts)
+        total = min(self.max_len, t0 + max_new_tokens)
+        dev = self.device
+        gen = torch.Generator(device=dev).manual_seed(int(seed)) \
+            if sample else None
+        with torch.inference_mode():
+            cache = self.module.init_cache(bsz, total, device=dev)
+            buf = torch.zeros((bsz, total), dtype=torch.int64, device=dev)
+            buf[:, :t0] = torch.from_numpy(prompts).to(dev)
+            slots = torch.arange(total, device=dev)[None, :]
+            for i in range(total - 1):
+                kmask = (slots <= i) & (buf != 0)
+                logits = self.module(
+                    buf[:, i:i + 1],
+                    positions=torch.full((bsz, 1), i, device=dev),
+                    key_mask=kmask, cache=cache)
+                if i + 1 < t0:
+                    continue  # prefill: the next token is the prompt's
+                step = logits[:, 0].float()
+                if not sample:
+                    nxt = step.argmax(-1)
+                else:
+                    # A mid-stream pad would be masked out of every later
+                    # step and read as the end of the sequence.
+                    step[:, 0] = -torch.inf
+                    if top_k is not None:
+                        kth = torch.topk(step, top_k, dim=-1).values[..., -1:]
+                        step = torch.where(step < kth, -torch.inf, step)
+                    scaled = step / temperature
+                    if top_p is not None:
+                        scaled = _nucleus(scaled, top_p)
+                    nxt = torch.multinomial(torch.softmax(scaled, -1), 1,
+                                            generator=gen)[:, 0]
+                buf[:, i + 1] = nxt
+            return buf.to(torch.int32).cpu().numpy()
+
+
+@register(_MODULE)
+class DecoderLM(GreedyDecodeMixin, NeuralEstimator):
+    """Causal (decoder-only) language model.
+
+    ``fit(x, y)`` with x the token ids (B, T) and y the next-token
+    targets (B, T) (``x[:, 1:]`` padded with 0): the softmax_ce loss
+    averages per token over the non-pad targets.  ``generate`` continues
+    prompts through the KV cache.  GPT-2 small's widths are
+    ``DecoderLM(vocab_size=50257, hidden_dim=768, num_layers=12,
+    num_heads=12, max_len=1024)``; training runs K1 forward and K2/K3
+    backward (causal) in every layer on CUDA.
+    """
+
+    def __init__(
+        self,
+        vocab_size: int = 32000,
+        hidden_dim: int = 256,
+        num_layers: int = 4,
+        num_heads: int = 8,
+        mlp_dim: int | None = None,
+        max_len: int = 1024,
+        learning_rate: float = 3e-4,
+        seed: int = 0,
+        remat: bool | str = False,
+        attention_window: int | None = None,
+        num_kv_heads: int | None = None,
+        positional: str = "learned",
+        device="cuda",
+    ):
+        if positional not in ("learned", "rope"):
+            raise ValueError(f"positional must be learned|rope, "
+                             f"got {positional!r}")
+        self.vocab_size = vocab_size
+        self.hidden_dim = hidden_dim
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.mlp_dim = mlp_dim or hidden_dim * 4
+        self.max_len = max_len
+        self.remat = remat
+        self.attention_window = attention_window
+        self.num_kv_heads = num_kv_heads
+        self.positional = positional
+        super().__init__(
+            _DecoderLM(
+                vocab_size, hidden_dim, num_layers, num_heads, self.mlp_dim,
+                max_len, remat=remat, window=attention_window,
+                num_kv_heads=num_kv_heads, positional=positional,
+            ),
+            loss="softmax_ce",
+            learning_rate=learning_rate,
+            seed=seed,
+            device=device,
+        )
+
+    def check_input(self, x: np.ndarray) -> None:
+        _check_tokens(x, self.vocab_size,
+                      None if self.positional == "rope" else self.max_len)

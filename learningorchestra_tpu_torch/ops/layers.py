@@ -3,9 +3,12 @@ flax layers the port's models need in torch's terms.
 
 ``MultiHeadSelfAttention`` is the transformer models' attention layer:
 QKV and output projections around :func:`flash_attention`, which runs
-kernel K1 on CUDA tensors and its plain version on CPU tensors.  Only the
-non-decode branch is ported; the KV cache and rope come with the LM
-slice.  :func:`remat_block` is the family-wide ``remat`` knob on
+kernel K1 on CUDA tensors and its plain version on CPU tensors.  With
+``rope`` it rotates q and k (:func:`apply_rope`); given a KV cache
+(:meth:`MultiHeadSelfAttention.init_cache`) it runs the decode branch:
+one token per call, attended against the cache by
+:func:`_grouped_decode_attend` in plain torch (flash brings nothing for
+one query, in the JAX package as here).  :func:`remat_block` is the family-wide ``remat`` knob on
 ``torch.utils.checkpoint``.  :class:`Conv`, :class:`GroupNorm` and
 :func:`max_pool_same` are flax's ``nn.Conv``, ``nn.GroupNorm`` and
 ``nn.max_pool(padding="SAME")`` on NCHW activations, with flax's padding
@@ -155,17 +158,80 @@ class Dense(nn.Linear):
         super().__init__(in_features, math.prod(self.features), **kw)
 
 
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Rotary position embedding on (B, H, T, hd) with positions (T,) or
+    (B, T): feature pairs (x[..., :hd/2], x[..., hd/2:]) rotate by
+    position-scaled frequencies, the angles in f32; the result keeps x's
+    type."""
+    hd = x.shape[-1]
+    if hd % 2:
+        raise ValueError(f"rope needs an even head_dim, got {hd}")
+    half = hd // 2
+    freqs = theta ** (
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    )  # (half,)
+    pos = torch.as_tensor(positions, device=x.device).to(torch.float32)
+    angles = pos[..., None] * freqs  # (T, half) or (B, T, half)
+    if angles.dim() == 2:  # (T, half): shared across batch and heads
+        angles = angles[None, None]
+    elif angles.dim() == 3:  # (B, T, half): insert the head axis
+        angles = angles[:, None]
+    else:
+        raise ValueError("positions must be (T,) or (B, T)")
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _grouped_decode_attend(q, k, v, key_mask):
+    """One query position against a (possibly grouped) KV cache, in f32.
+
+    q: (B, H, 1, hd); k/v: (B, H_kv, Tk, hd) with H_kv | H: each query
+    head attends its group's KV head directly (no widening of the cache).
+    The mask is the JAX package's double where: a fully masked row gives
+    exact zeros (freed slots and left-padded step-0 rows rely on it),
+    where a softmax over -inf would give NaN."""
+    b, h, _, hd = q.shape
+    kv_heads = k.shape[1]
+    qg = q.reshape(b, kv_heads, h // kv_heads, hd)
+    s = torch.einsum(
+        "bhgd,bhkd->bhgk", qg.float(), k.float()
+    ) * (1.0 / hd ** 0.5)  # (B, H_kv, G, Tk)
+    if key_mask is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        maskb = key_mask.bool()[:, None, None, :]
+        m = torch.where(maskb, s, -1e30).amax(dim=-1, keepdim=True)
+        m = torch.where(m > -5e29, m, 0.0)
+        p = torch.exp(torch.where(maskb, s - m, -1e30))
+        p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    return out.reshape(b, h, 1, hd).to(q.dtype)
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Self-attention with a key-side padding mask (B, T).
 
     ``fused_qkv`` keeps one (H + 2*H_kv, head_dim) projection (the JAX
     default); ``num_kv_heads`` < ``num_heads`` is grouped-query attention,
     each KV head widened to its group of query heads before the kernel.
+    ``rope`` rotates q and k by their positions.
+
+    Decoding: ``forward(x, key_mask, cache)`` with a cache from
+    :meth:`init_cache` feeds ONE position per call.  ``cache_index`` is a
+    scalar (every row at one position) or (B,) (each row at its own, as
+    the continuous-batching engine steps its slots); q and k rotate at
+    that position before k is cached, so the cache holds rotated keys.
+    The layer ANDs its own validity mask (slots up to the position) and
+    the window into ``key_mask``, so an uninitialized slot never takes
+    weight, whatever mask the caller passed.
     """
 
     def __init__(self, num_heads: int, qkv_features: int, *,
                  num_kv_heads: int | None = None, causal: bool = False,
-                 window: int | None = None, fused_qkv: bool = True):
+                 window: int | None = None, fused_qkv: bool = True,
+                 rope: bool = False):
         super().__init__()
         head_dim = qkv_features // num_heads
         if head_dim * num_heads != qkv_features:
@@ -185,6 +251,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.causal = causal
         self.window = window
         self.fused_qkv = fused_qkv
+        self.rope = rope
         if fused_qkv:
             self.qkv = Dense(
                 qkv_features, (num_heads + 2 * kv_heads, head_dim)
@@ -195,7 +262,22 @@ class MultiHeadSelfAttention(nn.Module):
             self.value = Dense(qkv_features, (kv_heads, head_dim))
         self.out = Dense(qkv_features, qkv_features)
 
-    def forward(self, x, key_mask=None):
+    def init_cache(self, batch: int, length: int, *, per_row: bool = False,
+                   dtype=torch.float32, device=None) -> dict:
+        """An empty KV cache of ``length`` positions (the flax ``cache``
+        collection's leaves): zero keys and values (B, H_kv, Tk, hd) and
+        ``cache_index`` 0, a scalar or (B,) with ``per_row``."""
+        device = device if device is not None else self.out.weight.device
+        shape = (batch, self.kv_heads, length, self.head_dim)
+        return {
+            "cached_key": torch.zeros(shape, dtype=dtype, device=device),
+            "cached_value": torch.zeros(shape, dtype=dtype, device=device),
+            "cache_index": torch.zeros(
+                (batch,) if per_row else (), dtype=torch.int64,
+                device=device),
+        }
+
+    def forward(self, x, key_mask=None, cache=None):
         b, t, _ = x.shape
         h, hkv, hd = self.num_heads, self.kv_heads, self.head_dim
         if self.fused_qkv:
@@ -213,6 +295,15 @@ class MultiHeadSelfAttention(nn.Module):
             k = proj(self.key, hkv)
             v = proj(self.value, hkv)
 
+        if cache is not None:
+            out = self._decode(q, k, v, key_mask, cache)
+            return self.out(out.transpose(1, 2).reshape(
+                b, t, self.qkv_features))
+        if self.rope:
+            pos = torch.arange(t, device=x.device)
+            q = apply_rope(q, pos)
+            k = apply_rope(k, pos)
+
         def widen(kv):
             if hkv == h:
                 return kv
@@ -224,6 +315,41 @@ class MultiHeadSelfAttention(nn.Module):
         )  # (B, H, T, hd)
         out = out.transpose(1, 2).reshape(b, t, self.qkv_features)
         return self.out(out)
+
+    def _decode(self, q, k, v, key_mask, cache):
+        """The decode branch: write this position's k/v into the cache
+        (in place), advance ``cache_index`` and attend the one query
+        against the cache."""
+        if q.shape[2] != 1:
+            # A chunk would need an intra-chunk causal mask (key_mask has
+            # no per-query part): position 0 would see positions 1..t-1.
+            raise ValueError(
+                "decode mode feeds ONE position per step; got a "
+                f"{q.shape[2]}-token chunk (prefill runs one token at a "
+                "time)"
+            )
+        idx = cache["cache_index"]
+        per_row = idx.dim() == 1
+        if self.rope:
+            pos = idx[:, None] if per_row else idx.reshape(1)
+            q = apply_rope(q, pos)
+            k = apply_rope(k, pos)
+        ck, cv = cache["cached_key"], cache["cached_value"]
+        b, hkv, tk, hd = ck.shape
+        # Row r writes at slot idx[r] (clamped, as dynamic_update_slice
+        # clamps: an index past the cache never faults the device).
+        at = idx.clamp(0, tk - 1).expand(b).view(b, 1, 1, 1).expand(
+            b, hkv, 1, hd)
+        ck.scatter_(2, at, k.to(ck.dtype))
+        cv.scatter_(2, at, v.to(cv.dtype))
+        cache["cache_index"] = idx + 1
+        slot = torch.arange(tk, device=ck.device)[None, :]
+        bound = idx[:, None] if per_row else idx
+        valid = slot <= bound
+        if self.window is not None:
+            valid = valid & (slot > bound - self.window)
+        key_mask = valid if key_mask is None else (key_mask.bool() & valid)
+        return _grouped_decode_attend(q, ck, cv, key_mask)
 
 
 def migrate_separate_qkv(tree):

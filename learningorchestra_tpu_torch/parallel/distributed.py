@@ -68,6 +68,8 @@ from learningorchestra_tpu_torch.train.neural import (
 
 #: Files of a fit's staging directory.
 TASK, RESULT, CANCEL = "task.pkl", "result.pkl", "cancel"
+#: A staging directory is ``<root>/lo_dist_<owner pid>_<random>``.
+STAGE_PREFIX = "lo_dist_"
 #: Bound on each collective: a rank stuck this long raises and exits.
 COLLECTIVE_TIMEOUT_S = 600.0
 _REPO = str(Path(__file__).resolve().parents[2])
@@ -236,11 +238,15 @@ class DistributedTrainer:
     seconds from its start to its first step.  A call ends when its ranks
     do: a hung collective raises in the ranks after
     ``COLLECTIVE_TIMEOUT_S``, and the engine's deadline or cancel reaches
-    them through the relayed cancel flag."""
+    them through the relayed cancel flag.  Each call stages under
+    ``stage_root`` (default: the system's temporary directory) in a
+    directory named after this process, removed when the call returns;
+    :func:`sweep_stages` removes those a killed process left."""
 
     def __init__(self, estimator: NeuralEstimator,
                  spec: MeshSpec | None = None, mesh: Mesh | None = None,
-                 devices: list | None = None):
+                 devices: list | None = None,
+                 stage_root: str | os.PathLike | None = None):
         self.estimator = estimator
         self.mesh = mesh if mesh is not None else build_mesh(
             spec, devices if devices is not None else _default_devices())
@@ -249,6 +255,9 @@ class DistributedTrainer:
         self.stop_training = False
         self.rank_stats: list[dict] = []
         self._procs: list = []  # the last call's ranks (reaped on return)
+        # Where each call stages (None: the system's temporary directory);
+        # a server names a root of its own, which its boot sweeps.
+        self.stage_root = stage_root
 
     @property
     def data_axes(self) -> int:
@@ -391,7 +400,7 @@ class DistributedTrainer:
             x, y = sh.resolve_xy_views(x, y)
         devices = [str(d) for d in self.mesh.devices]
         world = len(devices)
-        stage = Path(tempfile.mkdtemp(prefix="lo_dist_"))
+        stage = _make_stage(self.stage_root)
         procs = self._procs = []
         try:
             task = {
@@ -442,6 +451,7 @@ class DistributedTrainer:
         finally:
             _stop(procs)
             shutil.rmtree(stage, ignore_errors=True)
+            _live_stages.discard(str(stage))
 
     def _watch(self, procs: list, stage: Path) -> None:
         """Wait for every rank; relay the engine's cancel as a flag file;
@@ -475,6 +485,54 @@ def _stop(procs: list) -> None:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+
+
+#: The staging directories of this process's fits still running.
+_live_stages: set[str] = set()
+
+
+def _make_stage(root) -> Path:
+    """A new staging directory named after this process, under ``root``
+    (None: the system's temporary directory), registered live until its
+    fit returns or raises."""
+    if root is not None:
+        Path(root).mkdir(parents=True, exist_ok=True)
+    stage = tempfile.mkdtemp(prefix=f"{STAGE_PREFIX}{os.getpid()}_",
+                             dir=None if root is None else str(root))
+    _live_stages.add(stage)
+    return Path(stage)
+
+
+def _pid_alive(pid: int) -> bool:
+    """A process that exists and is not a zombie (Linux's ``/proc``)."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def sweep_stages(root) -> list[str]:
+    """Remove every staging directory under ``root`` that no live fit
+    owns: its owner process is gone (a SIGKILLed server never reaches
+    ``_run``'s cleanup), or it is this process and none of its running
+    fits staged there.  Returns the removed paths."""
+    root = Path(root)
+    if not root.is_dir():
+        return []
+    removed = []
+    for entry in root.iterdir():
+        owner = entry.name[len(STAGE_PREFIX):].split("_", 1)[0]
+        if not (entry.is_dir() and entry.name.startswith(STAGE_PREFIX)
+                and owner.isdigit()):
+            continue
+        pid = int(owner)
+        live = (str(entry) in _live_stages if pid == os.getpid()
+                else _pid_alive(pid))
+        if not live:
+            shutil.rmtree(entry, ignore_errors=True)
+            removed.append(str(entry))
+    return removed
 
 
 def distributed_fit(estimator: NeuralEstimator, x, y, *,

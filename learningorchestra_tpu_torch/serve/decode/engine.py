@@ -1,0 +1,479 @@
+"""DecodeEngine — resident continuous-batching LM serving — port of
+``learningorchestra_tpu/serve/decode/engine.py``.
+
+Per-model decode workers step KV page pools (``pages.py``) with one step
+per (slot bucket, KV bucket), admit newly arrived prompts into in-flight
+steps (continuous batching: no barrier batching), emit tokens over SSE,
+and tear a stream down through its cancel token at the next step
+boundary.
+
+The step is eager torch: each pool's step is a plain function memoized
+per (S, Tk) on the model's decoder and recorded in the registry entry's
+``decode_warm``.  Not ported: the Prometheus decode families and the
+TTFT SLO (ROADMAP A.11), the ``serve.decode_step`` fault point (A.11),
+the compile cache's program keys (A.6), the device-time ledger and fleet
+routing (A.7 part 2, A.6).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from learningorchestra_tpu_torch.log import get_logger, kv
+from learningorchestra_tpu_torch.serve.batcher import QueueFull
+from learningorchestra_tpu_torch.serve.bucketing import bucket_for
+from learningorchestra_tpu_torch.serve.decode.pages import PagePool, build_step
+from learningorchestra_tpu_torch.serve.decode.streams import DecodeStream
+from learningorchestra_tpu_torch.serve.registry import ServeError
+
+logger = get_logger("decode")
+
+#: Ceiling on a non-stream request's wait for its streams to finish.
+_NONSTREAM_TIMEOUT_S = 300.0
+
+
+class _ModelDecoder:
+    """One model's decode worker: admission queue, page pools, step loop.
+    All pool state is owned by the worker thread; the condition variable
+    hands streams in and wakes the worker for aborts."""
+
+    def __init__(self, engine: "DecodeEngine", name: str):
+        self.engine = engine
+        self.name = name
+        self.cfg = engine.cfg
+        self._cv = threading.Condition()
+        self._pending: deque = deque()
+        self._pools: dict[int, PagePool] = {}  # kv bucket -> pool
+        self._streams: dict = {}  # stream_id -> DecodeStream (active)
+        self._steps: dict = {}  # (S, kv) -> step function
+        self._thread: threading.Thread | None = None
+        self._closed = False
+        self.steps = 0
+
+    # -- submission (any thread) --------------------------------------------
+
+    def submit(self, stream: DecodeStream) -> None:
+        with self._cv:
+            if self._closed:
+                raise ServeError(f"decode for {self.name!r} is shut down")
+            active = len(self._streams) + len(self._pending)
+            if active >= self.cfg.max_streams:
+                raise QueueFull(
+                    f"decode for {self.name!r} at max_streams="
+                    f"{self.cfg.max_streams}"
+                )
+            self._pending.append(stream)
+            self._streams[stream.stream_id] = stream
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._run, name=f"decode-{self.name}",
+                    daemon=True,
+                )
+                self._thread.start()
+            self._cv.notify_all()
+
+    def abort(self, stream_id: str, reason: str) -> bool:
+        with self._cv:
+            stream = self._streams.get(stream_id)
+            if stream is None:
+                return False
+            stream.token.cancel(reason)
+            self._cv.notify_all()
+            return True
+
+    # -- worker --------------------------------------------------------------
+
+    def _any_live(self) -> bool:
+        return any(p.live for p in self._pools.values())
+
+    def _run(self) -> None:
+        idle_since: float | None = None
+        while True:
+            with self._cv:
+                while (not self._closed and not self._pending
+                       and not self._any_live()):
+                    if idle_since is None:
+                        idle_since = time.monotonic()
+                    waited = time.monotonic() - idle_since
+                    if waited >= self.cfg.idle_timeout_s:
+                        # Idle past the knob: free the resident pools (KV
+                        # memory back to the allocator) and park; the next
+                        # submit restarts the worker.
+                        self._pools.clear()
+                        self._steps.clear()
+                        self._thread = None
+                        return
+                    self._cv.wait(timeout=self.cfg.idle_timeout_s - waited)
+                if self._closed:
+                    self._thread = None
+                    return  # close() fails what is left
+                idle_since = None
+                pending = list(self._pending)
+                self._pending.clear()
+            deferred = []
+            for stream in pending:
+                try:
+                    admitted = self._admit(stream)
+                except Exception as exc:  # noqa: BLE001 — a fault in
+                    # admission costs ONE stream, never the worker: an
+                    # unfinished stream would stall its SSE client.
+                    logger.error("decode admit raised %s", kv(
+                        model=self.name, stream=stream.stream_id,
+                        error=str(exc)))
+                    self._finish(stream, error=f"admission failed: {exc}")
+                    continue
+                if not admitted:
+                    deferred.append(stream)
+            self._step_all()
+            if deferred:
+                with self._cv:
+                    # Back to the FRONT: arrival order is admission order
+                    # once capacity frees up.
+                    self._pending.extendleft(reversed(deferred))
+
+    # -- admission -----------------------------------------------------------
+
+    def _admit(self, stream: DecodeStream) -> bool:
+        if stream.token.cancelled():
+            self._finish(stream, aborted=True)
+            return True
+        kvlen = bucket_for(stream.total,
+                           min(self.cfg.max_kv, self._max_len()))
+        pool = self._pools.get(kvlen)
+        if pool is None:
+            pool = self._pools[kvlen] = PagePool(kvlen, self.cfg.max_slots)
+        module = self._module()
+        slot = pool.admit(stream, lambda want: module.init_cache(
+            want, kvlen, per_row=True))
+        return slot is not None
+
+    def _module(self):
+        return self.engine.service.registry.get(self.name).estimator.module
+
+    def _max_len(self) -> int:
+        entry = self.engine.service.registry.get(self.name)
+        return int(getattr(entry.estimator, "max_len", self.cfg.max_kv))
+
+    # -- stepping ------------------------------------------------------------
+
+    def _step_for(self, nslots: int, kvlen: int):
+        """The step of one (S, Tk) cell, memoized on the decoder (it dies
+        with the model's teardown) and recorded in the registry entry's
+        ``decode_warm``."""
+        step = self._steps.get((nslots, kvlen))
+        if step is None:
+            entry = self.engine.service.registry.get(self.name)
+            step = self._steps[(nslots, kvlen)] = build_step(
+                entry.estimator.module, nslots, kvlen)
+            entry.decode_warm[(nslots, kvlen)] = True
+        return step
+
+    def _step_all(self) -> None:
+        for kvlen in list(self._pools):
+            pool = self._pools[kvlen]
+            # Abort sweep FIRST: a cancelled stream's slot is freed within
+            # one step boundary of the cancel, even if the step then fails.
+            for slot, stream in enumerate(pool.streams):
+                if stream is not None and stream.token.cancelled():
+                    pool.release(slot)
+                    self._finish(stream, aborted=True)
+            if not pool.live:
+                continue
+            try:
+                with torch.no_grad():
+                    self._step_pool(pool)
+            except Exception as exc:  # noqa: BLE001 — a device fault's
+                # blast radius is this pool's in-flight streams; the worker
+                # and the other pools stay healthy.
+                logger.error("decode step failed %s", kv(
+                    model=self.name, pool=kvlen, error=str(exc)))
+                for slot, stream in enumerate(pool.streams):
+                    if stream is not None:
+                        pool.release(slot)
+                        self._finish(stream,
+                                     error=f"decode step failed: {exc}")
+
+    def _step_pool(self, pool: PagePool) -> None:
+        step = self._step_for(pool.nslots, pool.kv)
+        dev = pool.buf.device
+        live = np.array([s is not None for s in pool.streams])
+        t0s = np.array([s.t0 if s is not None else pool.kv + 1
+                        for s in pool.streams], np.int64)
+        eager = any(s is not None and s.eager for s in pool.streams)
+        # ``pool.pos`` is host state mutated in place right after this
+        # dispatch, and a CPU tensor made from it (``torch.from_numpy``,
+        # or ``.to`` of one) aliases it: a step still queued would read
+        # positions from the future.  Snapshot per dispatch.
+        col = step(pool.cache, pool.buf,
+                   torch.tensor(pool.pos, device=dev),
+                   torch.tensor(t0s, device=dev),
+                   torch.tensor(live, device=dev))
+        pool.steps += 1
+        self.steps += 1
+        # SSE wants the token now; lazy streams read their row at the end.
+        col_host = col.cpu().numpy() if eager else None
+        now = time.perf_counter()
+        for slot, stream in enumerate(pool.streams):
+            if stream is None:
+                continue
+            nxt_pos = int(pool.pos[slot]) + 1
+            pool.pos[slot] = nxt_pos
+            if nxt_pos >= stream.t0 and stream.eager:
+                self._emit(stream, int(col_host[slot]), nxt_pos, now)
+            if nxt_pos >= stream.total - 1:
+                # Terminal: the whole row (prompt + continuation) is in
+                # the buffer; lazy streams surface everything here.
+                row = pool.buf[slot].cpu().numpy()
+                if not stream.eager:
+                    stream.tokens = [int(t)
+                                     for t in row[stream.t0:stream.total]]
+                    stream.first_at = stream.first_at or time.perf_counter()
+                pool.release(slot)
+                self._finish(stream)
+
+    @staticmethod
+    def _emit(stream: DecodeStream, tok: int, pos: int, now: float) -> None:
+        if stream.first_at is None:
+            stream.first_at = now
+        stream.push_token(tok, pos)
+
+    def _finish(self, stream: DecodeStream, *, error: str | None = None,
+                aborted: bool = False) -> None:
+        if error is not None:
+            stream.fail(error)
+        elif aborted:
+            stream.mark_aborted()
+        else:
+            stream.finish()
+        with self._cv:
+            self._streams.pop(stream.stream_id, None)
+
+    # -- lifecycle / observability -------------------------------------------
+
+    def stats(self) -> dict:
+        with self._cv:
+            pending = len(self._pending)
+            active = len(self._streams)
+            # Snapshot under the cv: the worker parks (clearing the pools)
+            # and admits concurrently.
+            pools = list(self._pools.values())
+        return {
+            "activeStreams": active,
+            "pending": pending,
+            "steps": self.steps,
+            "pools": [{"kv": p.kv, "slots": p.nslots, "live": p.live,
+                       "steps": p.steps, "pageBytes": p.page_bytes()}
+                      for p in pools],
+        }
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            thread = self._thread
+            self._cv.notify_all()
+        if thread is not None and thread.is_alive() \
+                and thread is not threading.current_thread():
+            thread.join(timeout=10.0)
+        with self._cv:
+            pending = list(self._pending)
+            self._pending.clear()
+            self._streams.clear()
+            pools = list(self._pools.values())
+            self._pools.clear()
+            self._steps.clear()
+        for stream in pending:
+            stream.fail("decode engine shut down")
+        for pool in pools:
+            for slot, stream in enumerate(pool.streams):
+                if stream is not None:
+                    pool.release(slot)
+                    stream.fail("decode engine shut down")
+
+
+class DecodeEngine:
+    """Facade the serving service owns: per-model decoders, request
+    validation, the stream and non-stream transports.  Dormant (no
+    thread, no pool) until the first ``/generate``."""
+
+    def __init__(self, service, config):
+        self.service = service
+        self.cfg = config
+        self._lock = threading.Lock()
+        self._decoders: dict[str, _ModelDecoder] = {}
+        self._closed = False
+
+    # -- request surface -----------------------------------------------------
+
+    def _decoder_for(self, name: str) -> _ModelDecoder:
+        with self._lock:
+            if self._closed:
+                raise ServeError("decode engine is shut down")
+            decoder = self._decoders.get(name)
+            if decoder is None:
+                decoder = self._decoders[name] = _ModelDecoder(self, name)
+            return decoder
+
+    @staticmethod
+    def _as_prompt_rows(prompts) -> list[np.ndarray]:
+        """Request JSON -> per-stream prompt rows.  Rows may be ragged
+        (each stream carries its own t0); pad id 0 is reserved."""
+        if isinstance(prompts, np.ndarray):
+            prompts = prompts.tolist()
+        if not isinstance(prompts, (list, tuple)) or not prompts:
+            raise ServeError("'prompts' must be a non-empty array")
+        if not isinstance(prompts[0], (list, tuple, np.ndarray)):
+            prompts = [prompts]
+        rows = []
+        for row in prompts:
+            try:
+                r = np.asarray(row, dtype=np.int32)
+            except (ValueError, TypeError) as exc:
+                raise ServeError(
+                    f"prompt row is not an int array: {exc}") from None
+            if r.ndim != 1 or r.shape[0] == 0:
+                raise ServeError(
+                    "each prompt must be a non-empty 1-D token array")
+            if (r == 0).any():
+                raise ServeError("prompts must not contain pad id 0")
+            rows.append(r)
+        return rows
+
+    def _open_stream(self, name: str, decoder: _ModelDecoder,
+                     prompt: np.ndarray, max_new: int, max_len: int,
+                     *, eager: bool) -> DecodeStream:
+        t0 = int(prompt.shape[0])
+        cap = min(max_len, self.cfg.max_kv)
+        if t0 >= cap:
+            raise ServeError(
+                f"prompt length {t0} exceeds decode capacity {cap} "
+                "(model max_len / DecodeConfig.max_kv)"
+            )
+        max_new = max(1, min(int(max_new), self.cfg.max_new_tokens))
+        stream = DecodeStream(name, prompt, t0, min(cap, t0 + max_new),
+                              eager=eager)
+        decoder.submit(stream)
+        return stream
+
+    def generate(self, name: str, prompts, *, max_new_tokens: int = 32,
+                 stream: bool = False, temperature=None, top_k=None,
+                 top_p=None, seed: int = 0):
+        """Entry point behind ``POST /serve/<model>/generate``.
+
+        Greedy decodes run on the resident engine (stream or not);
+        sampling parameters (or ``enabled`` off) take the solo decode loop
+        (non-stream only: a sampled decode has no per-step identity to
+        stream against the engine's greedy step)."""
+        entry = self.service.registry.get(name)
+        estimator = entry.estimator
+        if not hasattr(estimator, "generate"):
+            raise ServeError(
+                f"artifact {name!r} ({type(estimator).__name__}) is not a "
+                "generative LM; only GreedyDecodeMixin models can serve "
+                "/generate"
+            )
+        sampling = (temperature is not None or top_k is not None
+                    or top_p is not None)
+        rows = self._as_prompt_rows(prompts)
+        if sampling or not self.cfg.enabled:
+            if stream:
+                raise ServeError(
+                    "streaming decode requires the resident engine (greedy "
+                    "only, DecodeConfig.enabled); drop the sampling "
+                    "parameters or set stream=false"
+                )
+            return self._solo_generate(
+                name, entry, rows, max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed)
+        if stream and len(rows) != 1:
+            raise ServeError("stream=true serves exactly one prompt per "
+                             "request")
+        decoder = self._decoder_for(name)
+        max_len = int(getattr(estimator, "max_len", self.cfg.max_kv))
+        streams = [self._open_stream(name, decoder, row, max_new_tokens,
+                                     max_len, eager=stream)
+                   for row in rows]
+        entry.requests += 1
+        if stream:
+            return streams[0]
+        t0 = time.perf_counter()
+        for s in streams:
+            remaining = _NONSTREAM_TIMEOUT_S - (time.perf_counter() - t0)
+            if not s.wait_done(max(0.1, remaining)):
+                for other in streams:
+                    other.abort("decode timed out")
+                raise ServeError("decode timed out")
+        failed = [s for s in streams if s.error is not None]
+        if failed:
+            raise ServeError(failed[0].error)
+        aborted = [s for s in streams if s.token.cancelled()]
+        if aborted:
+            raise ServeError(f"decode aborted: {aborted[0].token.reason}")
+        return {
+            "model": name,
+            "tokens": [s.prompt.tolist() + s.tokens for s in streams],
+            "newTokens": [s.tokens for s in streams],
+            "streams": [s.summary() for s in streams],
+        }
+
+    def _solo_generate(self, name, entry, rows, max_new_tokens, *,
+                       temperature, top_k, top_p, seed):
+        """The solo decode loop (sampling, or the engine off): one call per
+        prompt, so ragged rows stay legal."""
+        out_tokens: list[list[int]] = []
+        for row in rows:
+            try:
+                buf = entry.estimator.generate(
+                    row[None, :], max_new_tokens=int(max_new_tokens),
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    seed=int(seed))
+            except ValueError as exc:
+                # A bad sampling spec is the client's error: 406.
+                raise ServeError(str(exc)) from None
+            out_tokens.append(np.asarray(buf)[0].tolist())
+        entry.requests += 1
+        return {
+            "model": name,
+            "tokens": out_tokens,
+            "newTokens": [t[rows[i].shape[0]:]
+                          for i, t in enumerate(out_tokens)],
+            "sampled": temperature is not None,
+        }
+
+    def abort(self, name: str, stream_id: str,
+              reason: str = "aborted by client") -> bool:
+        with self._lock:
+            decoder = self._decoders.get(name)
+        if decoder is None:
+            return False
+        return decoder.abort(stream_id, reason)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def drop_model(self, name: str) -> None:
+        """Tear down ``name``'s decoder: its in-flight streams fail, and the
+        next ``/generate`` builds against the reloaded artifact."""
+        with self._lock:
+            decoder = self._decoders.pop(name, None)
+        if decoder is not None:
+            decoder.close()
+
+    def stats(self) -> dict:
+        with self._lock:
+            decoders = dict(self._decoders)
+        return {
+            "enabled": bool(self.cfg.enabled),
+            "models": {name: d.stats() for name, d in decoders.items()},
+        }
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            decoders = list(self._decoders.values())
+            self._decoders.clear()
+        for decoder in decoders:
+            decoder.close()

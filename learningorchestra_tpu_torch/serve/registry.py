@@ -24,7 +24,8 @@ class ServeError(Exception):
 
 
 class _Resident:
-    __slots__ = ("name", "estimator", "nbytes", "loaded_at", "requests")
+    __slots__ = ("name", "estimator", "nbytes", "loaded_at", "requests",
+                 "decode_warm")
 
     def __init__(self, name, estimator, nbytes):
         self.name = name
@@ -32,6 +33,10 @@ class _Resident:
         self.nbytes = nbytes
         self.loaded_at = time.time()
         self.requests = 0
+        # (slot bucket, KV bucket) -> True for every decode step this
+        # model ran (serve/decode/engine.py); dies with the entry, so an
+        # invalidation never replays a stale architecture's shapes.
+        self.decode_warm: dict = {}
 
     def to_dict(self) -> dict:
         return {

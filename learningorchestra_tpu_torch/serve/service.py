@@ -13,9 +13,10 @@ train job's binary is on the ``binaries`` volume whatever the tool in its
 type (``train/tensorflow``, ``train/pytorch``...), so a REST train job is
 servable under its name.  Each ``GET /monitoring/<tool>/serving`` poll
 appends one step of ``serving_*`` scalars (:meth:`snapshot_scalars`) to
-a tfevents file under the monitoring root.  The JAX service's compile
-cache, cost probes, faults, fleet and decode engine come with later
-slices.
+a tfevents file under the monitoring root.  ``generate`` (``POST
+/serve/<model>/generate``) belongs to the decode engine
+(``serve/decode``), dormant until the first request.  The JAX service's
+compile cache, cost probes, faults and fleet come with later slices.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ import time
 
 import numpy as np
 
-from learningorchestra_tpu_torch.config import ServeConfig
+from learningorchestra_tpu_torch.config import DecodeConfig, ServeConfig
 from learningorchestra_tpu_torch.device import resolve_device
 from learningorchestra_tpu_torch.serve.batcher import MicroBatcher
+from learningorchestra_tpu_torch.serve.decode import DecodeEngine
 from learningorchestra_tpu_torch.serve.registry import ModelRegistry, ServeError
 from learningorchestra_tpu_torch.services.tfevents import write_scalars
 from learningorchestra_tpu_torch.store.volumes import VolumeStorage
@@ -48,7 +50,8 @@ class NotFoundError(Exception):
 
 class ServingService:
     def __init__(self, volumes: VolumeStorage, config: ServeConfig | None = None,
-                 *, device="cuda", monitoring_root: str | None = None):
+                 *, device="cuda", monitoring_root: str | None = None,
+                 decode_config: DecodeConfig | None = None):
         self.volumes = volumes
         self.monitoring_root = monitoring_root
         self.cfg = config or ServeConfig()
@@ -58,9 +61,13 @@ class ServingService:
             device=self.device,
             max_models=self.cfg.max_models,
             max_bytes=self.cfg.max_bytes,
-            on_evict=self._drop_batcher,
+            on_evict=self._teardown_model,
         )
         self._batchers: dict[str, MicroBatcher] = {}
+        # Streaming decode: resident KV page pools and continuous batching
+        # for GreedyDecodeMixin models; no thread and no pool until the
+        # first /generate.
+        self.decode = DecodeEngine(self, decode_config or DecodeConfig())
         self._lock = threading.Lock()
         self._closed = False
         self._scalar_history: dict[str, list] = {}
@@ -92,8 +99,21 @@ class ServingService:
         return self.registry.get(name).to_dict()
 
     def unload(self, name: str) -> bool:
-        self._drop_batcher(name)
+        self._teardown_model(name)
         return self.registry.unload(name)
+
+    def invalidate(self, name: str) -> bool:
+        """A PATCHed or deleted train job's artifact changed: drop its
+        resident params and its decoder, so the next request reloads."""
+        self._teardown_model(name)
+        return self.registry.invalidate(name)
+
+    def _teardown_model(self, name: str) -> None:
+        """Release what serves ``name``: its batcher, and its decoder (the
+        pools hold the old architecture's KV shapes and steps over its
+        module; in-flight streams fail fast)."""
+        self._drop_batcher(name)
+        self.decode.drop_model(name)
 
     def list_loaded(self) -> list[dict]:
         return self.registry.list()
@@ -172,6 +192,12 @@ class ServingService:
             "latencyMs": round(dt * 1e3, 3),
         }
 
+    def generate(self, name: str, prompts, **kwargs):
+        """LM generation, the decode engine's facade: a dict for a
+        non-stream request, the :class:`~learningorchestra_tpu_torch.serve.
+        decode.DecodeStream` (the SSE payload) for ``stream=True``."""
+        return self.decode.generate(name, prompts, **kwargs)
+
     # -- observability -------------------------------------------------------
 
     def stats(self) -> dict:
@@ -182,6 +208,7 @@ class ServingService:
         return {
             "registry": self.registry.stats(),
             "models": per_model,
+            "decode": self.decode.stats(),
             "config": {
                 "maxBatch": self.cfg.max_batch,
                 "maxQueue": self.cfg.max_queue,
@@ -256,6 +283,8 @@ class ServingService:
             self._closed = True
             batchers = list(self._batchers.values())
             self._batchers.clear()
+        # Decode first: in-flight streams get a terminal event.
+        self.decode.close()
         for batcher in batchers:
             batcher.close()
         self.registry.clear()

@@ -132,6 +132,16 @@ class ServiceContext:
         recovery is off, fails ``orphaned-by-restart``; a job with no
         journal record (a store older than the journal, or the journal
         off) gets the legacy interrupted message."""
+        # A dead server's distributed fits left their staging directories
+        # (staged inputs) behind: remove every one no live fit owns, before
+        # a recovered fit stages anew.
+        from learningorchestra_tpu_torch.parallel.distributed import (
+            sweep_stages,
+        )
+
+        for stage in sweep_stages(self.stage_root()):
+            logger.warning(f"removed the staging directory {stage!r} of a "
+                           "distributed fit no live process owns")
         journaled = self.journal.replay() if self.journal.enabled else {}
         recover = self.journal.enabled and self.config.jobs.journal_recover
         interrupted: list[tuple] = []
@@ -311,6 +321,10 @@ class ServiceContext:
             return rows[-1]["parameters"]
         return (self.artifacts.metadata.read(name) or {}).get(
             "requestParameters")
+
+    def stage_root(self):
+        """Where this context's distributed fits stage their inputs."""
+        return self.config.dist.stage_path(self.volumes.root)
 
     def checkpoint_dir(self, name: str):
         """An artifact's managed train-checkpoint tree: the one place its

@@ -234,7 +234,8 @@ class DistributedExecutorService:
                         **dsl.resolve_params(compile_spec, ctx.loader))
                 trainer = DistributedTrainer(
                     instance, spec=spec, devices=rank_devices(
-                        ctx.device, devs, ctx.config.dist.cpu_ranks))
+                        ctx.device, devs, ctx.config.dist.cpu_ranks),
+                    stage_root=ctx.stage_root())
                 t0 = time.perf_counter()
                 trainer.fit(**params)
                 fit_time = time.perf_counter() - t0

@@ -31,6 +31,7 @@ from learningorchestra_tpu.services import distributed_exec as jax_dist
 from learningorchestra_tpu.services import executor as jax_executor
 from learningorchestra_tpu.store import DocumentStore as JaxStore
 from learningorchestra_tpu.store import Metadata as JaxMeta
+from learningorchestra_tpu_torch.parallel.distributed import STAGE_PREFIX
 from learningorchestra_tpu_torch.services import (
     distributed_exec as port_dist,
 )
@@ -500,6 +501,11 @@ def test_kill9_of_a_distributed_fit_leaves_no_rank_and_recovers(tmp_path):
         marker = tmp_path / "vol" / "_checkpoints" / "dfit" / "latest.json"
         step = json.loads(marker.read_text())["step"]
         assert 1 <= step < DRILL_EPOCHS  # killed mid-fit
+        # The dead fit's staging directory (its staged inputs) is left
+        # under the server's stage root, never in the bare TMPDIR.
+        stage_root = tmp_path / "vol" / "_dist_stage"
+        left = [p.name for p in stage_root.iterdir()]
+        assert len(left) == 1 and left[0].startswith(STAGE_PREFIX), left
         second = subprocess.run([sys.executable, "-c", _DRILL_RECOVERY],
                                 env=env, capture_output=True, text=True,
                                 timeout=180)
@@ -508,6 +514,9 @@ def test_kill9_of_a_distributed_fit_leaves_no_rank_and_recovers(tmp_path):
         assert result["jobState"] == "finished", result
         assert result["meshDevices"] == 2
         assert result["history"] == DRILL_EPOCHS
+        # The boot removed the dead fit's stage; the recovered fit's own
+        # went when it finished.
+        assert list(stage_root.iterdir()) == []
     finally:
         for pid in ranks:
             if _alive(pid):

@@ -48,7 +48,10 @@ def test_sources_exist():
                    "parallel/mesh.py", "parallel/sharding.py",
                    "parallel/distributed.py", "parallel/rank.py",
                    "services/distributed_exec.py", "services/monitoring.py",
-                   "services/tfevents.py"):
+                   "services/tfevents.py",
+                   # The streaming decode engine's own copies.
+                   "serve/decode/__init__.py", "serve/decode/engine.py",
+                   "serve/decode/pages.py", "serve/decode/streams.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()
