@@ -200,7 +200,28 @@ Phases (each prints its own line; any failure exits nonzero):
    TTFT p50 / max and ITL p50 / p99 of the SSE streams (client side),
    engine against sequential solo tokens/s, KV bytes per pool, launches,
    the phase's seconds;
-14. last line: {"ok": true, "device": {...}}.
+14. fleet serving over REST (``run_fleet``), after every phase that
+   trains (a replica holds the card): phase 4's int8 BERT-base and phase
+   13's DecoderLM artifacts on one server: (a) with the context's own
+   one-card pool, ``POST /serve/<bert>/replicas {min 1, max 2}`` cuts
+   the model over to one replica holding ``cuda:0`` (K5 0: it shares the
+   resident module), phase 4's 24 requests come back from replica 0
+   within ``CPU_ATOL`` of the single path with K1 = 12 x dispatches, a
+   second replica answers 503 + Retry-After within the lease budget
+   while predicts go on, and a REST train job waits for the card until
+   ``DELETE /serve/<bert>/replicas``; (b) ``ctx.leaser`` replaced by two
+   lease units on the one card (the JAX fleet tests' seam): 16 clients
+   of 8-row T=512 requests make the autoscaler scale 1 -> 2 (pre-warm on)
+   and, once they stop, drain back to 1 with its unit returned, only 429s
+   allowed; then the same burst at 1 and at 2 replicas, and K1 = 12 x
+   (dispatches + pre-warm dispatches); (c) the DecoderLM at 2 replicas
+   after a pre-warm that replays its decode steps: 8 JSON prompts and 2
+   SSE streams split over both replicas' pools and equal to solo
+   decodes, an abort that frees its replica's slot; the ``fleet`` line
+   (cutover, scale-up and drain seconds, each window's rows/s, p50, p99
+   and requests per replica, the 2/1 ratio, decode streams per replica
+   and tokens/s, K1 and K5 on the fleet paths, the 503 and 429 counts);
+15. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -1067,6 +1088,7 @@ def run_slice(est, tmp) -> dict:
             "artifact_save_s": save_s, "load_s": load_s,
             "cpu_max_abs_err": err,
         },
+        "artifact": artifact,
     }
 
 
@@ -4171,6 +4193,518 @@ def run_decoder(tmp, card: str) -> dict:
     line["phase_s"] = time.perf_counter() - t_phase
     name, _, limit = card.partition(",")
     line = {"card": name.strip(), "power_limit": limit.strip(), **line}
+    return {"line": line, "launches": launches, "artifact": artifact}
+
+
+# -- phase 14: fleet serving (replica sets, the P2C router, the autoscaler) --
+
+FLEET_MODEL = "bert-base"
+FLEET_DEVICE = "cuda"
+FLEET_CLIENTS = 16  # client threads of the drill and of each A/B window
+FLEET_ROWS = 8  # rows of every drill / window request, T = SEQ_LEN
+FLEET_WINDOW = 6  # requests per client in each A/B window
+FLEET_TICK_S = 0.1  # the autoscaler's interval
+FLEET_LEASE_S = 2.0  # FleetConfig.lease_timeout_s
+FLEET_WAIT_S = 30.0  # deadline of each move the phase waits for
+FLEET_ABORT_AFTER = 5
+
+
+def fleet_config(tmp):
+    """Phase 8's server config with the fleet knobs of the phase: both
+    models resident at once, a fast autoscaler, replica pre-warm on."""
+    cfg = server_config(tmp)
+    cfg.serve.max_bytes = 4 << 30
+    cfg.fleet.interval_s = FLEET_TICK_S
+    cfg.fleet.up_queue_frac = 0.1
+    cfg.fleet.up_ticks = 2
+    cfg.fleet.down_ticks = 3
+    cfg.fleet.lease_timeout_s = FLEET_LEASE_S
+    cfg.aot.replica_prewarm = True
+    return cfg
+
+
+def request_h(port, verb, path, body=None):
+    """(status, headers, JSON body) of one request."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(verb, "/api/learningOrchestra/v1" + path,
+                     body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def write_fleet_csv(path) -> None:
+    """64 rows of 4 seeded features and a label: the small train job."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((64, 4))
+    with open(path, "w") as fh:
+        fh.write("f0,f1,f2,f3,label\n")
+        for row in x:
+            fh.write(",".join(f"{v:.6f}" for v in row)
+                     + f",{int(row[0] > 0)}\n")
+
+
+def fleet_batch(vocab: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, vocab, (FLEET_ROWS, SEQ_LEN)).astype(np.int32)
+    for r in range(FLEET_ROWS):
+        x[r, int(rng.integers(16, SEQ_LEN + 1)):] = 0  # pad tail
+    return x.tolist()
+
+
+def fleet_load(port, body, n=None, stop=None) -> tuple:
+    """``FLEET_CLIENTS`` threads each sending ``n`` predicts of ``body``
+    (or until ``stop`` is set): [(status, latency s, replica)], wall s."""
+    results, lock = [], threading.Lock()
+
+    def client():
+        k = 0
+        while (n is None or k < n) and not (stop and stop.is_set()):
+            t0 = time.perf_counter()
+            status, doc = request(port, "POST",
+                                  f"/serve/{FLEET_MODEL}/predict", body)
+            with lock:
+                results.append((status, time.perf_counter() - t0,
+                                doc.get("replica")))
+            k += 1
+            if status == 429:
+                time.sleep(0.01)
+
+    threads = [threading.Thread(target=client) for _ in range(FLEET_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return results, time.perf_counter() - t0
+
+
+def window_stats(results, wall: float) -> dict:
+    ok = [r for r in results if r[0] == 200]
+    lat = sorted(r[1] * 1e3 for r in ok) or [float("nan")]
+    per: dict = {}
+    for r in ok:
+        per[str(r[2])] = per.get(str(r[2]), 0) + 1
+    return {"requests": len(results), "ok": len(ok),
+            "status_429": sum(r[0] == 429 for r in results),
+            "rows_per_s": len(ok) * FLEET_ROWS / wall, "wall_s": wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "requests_per_replica": dict(sorted(per.items()))}
+
+
+def _poll_until(cond, timeout_s: float) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.05)
+    return cond()
+
+
+def run_fleet(tmp, card: str, bert_artifact, dec_artifact) -> dict:
+    """Phase 14: fleet serving through the REST entry points on one card.
+    (a) the real one-card pool: the cutover onto one replica holding
+    ``cuda:0``, 24 concurrent requests through it against the single
+    path, a second replica refused 503 while serving goes on, a REST train
+    job waiting for the card until the fleet is dissolved; (b) two lease
+    units on the one card (``ctx.leaser`` replaced, the JAX fleet tests'
+    seam): the autoscaler scales 1 -> 2 -> 1 under 16 clients, then the
+    same burst at 1 and at 2 replicas; (c) the DecoderLM's streams over
+    two replicas against solo decodes, an abort, pre-warm of the decode
+    steps."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+
+    t_phase = time.perf_counter()
+    line: dict = {}
+    launches: dict = {}
+    volumes = VolumeStorage(tmp)
+    volumes.save_object(ARTIFACT_TYPE, FLEET_MODEL, bert_artifact)
+    volumes.save_object(ARTIFACT_TYPE, DEC_MODEL, dec_artifact)
+    csv = f"{tmp}/fleet_rows.csv"
+    write_fleet_csv(csv)
+    server = APIServer(fleet_config(tmp), device=FLEET_DEVICE)
+    port = server.start_background()
+    serving = server.serving
+    # Each pre-warm's buckets, decode steps and seconds, observed by
+    # wrapping the service's warm-up binder.
+    warm_log: list = []
+    real_factory = serving.replica_warmup_factory
+
+    def timed_factory(name):
+        warm = real_factory(name)
+        if warm is None:
+            return None
+
+        def timed(replica):
+            entry = serving.registry.peek(name)
+            rec = {"model": name, "replica": replica.idx,
+                   "buckets": len(entry.warm_shapes) if entry else 0,
+                   "decode_steps": len(entry.decode_warm) if entry else 0}
+            t0 = time.perf_counter()
+            warm(replica)
+            torch.cuda.synchronize()
+            rec["s"] = time.perf_counter() - t0
+            warm_log.append(rec)
+
+        return timed
+
+    serving.replica_warmup_factory = timed_factory
+
+    def replicas_doc(name):
+        return request(port, "GET", f"/serve/{name}/replicas")[1]
+
+    try:
+        # Jobs that lease the card themselves go first, before any replica
+        # holds it: the dataset, its projection and the model binary.
+        setup = []
+        for path, body, name in (
+                ("/dataset/csv", {"datasetName": "fl_rows",
+                                  "url": f"file://{csv}"}, "fl_rows"),
+                ("/transform/projection",
+                 {"projectionName": "fl_x", "datasetName": "fl_rows",
+                  "fields": ["f0", "f1", "f2", "f3"]}, "fl_x"),
+                ("/model/tensorflow",
+                 {"modelName": "fl_mlp", "class": "MLPClassifier",
+                  "modulePath": "learningorchestra_tpu.models.mlp",
+                  "classParameters": {"hidden_layer_sizes": [8],
+                                      "num_classes": 2}}, "fl_mlp")):
+            status, meta, _, _ = rest_job(port, "POST", path, body, name)
+            setup.append((name, status, meta.get("jobState")))
+
+        # (a) the one-card pool as the context built it.
+        reqs = make_requests(30522)
+        zero_kernel_counts()
+        status, _ = request(port, "POST", f"/serve/{FLEET_MODEL}/load")
+        launches["fleet_bert_load"] = kernel_counts()
+        with concurrent.futures.ThreadPoolExecutor(N_REQUESTS) as pool:
+            single = list(pool.map(
+                lambda x: request(port, "POST",
+                                  f"/serve/{FLEET_MODEL}/predict",
+                                  {"instances": x.tolist()}), reqs))
+        phase("fleet single path", status == 200
+              and all(s == 200 for s, _ in single)
+              and all(st == 201 and js == "finished"
+                      for _, st, js in setup)
+              and launches["fleet_bert_load"]["dequantize_rowwise"] == 1,
+              f"setup jobs {setup}; load -> {status} (K5 "
+              f"{launches['fleet_bert_load']['dequantize_rowwise']} launch);"
+              f" {N_REQUESTS} requests on the single path -> "
+              f"{sorted({s for s, _ in single})}")
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        status, doc = request(port, "POST", f"/serve/{FLEET_MODEL}/replicas",
+                              {"min": 1, "max": 2})
+        line["cutover_s"] = time.perf_counter() - t0
+        launches["fleet_cutover"] = kernel_counts()
+        free = server.ctx.leaser.snapshot()["free"]
+        reps = doc.get("replicas") or [{}]
+        phase("fleet cutover (one-card pool)", status == 200
+              and doc.get("size") == 1 and reps[0].get("device") == "cuda:0"
+              and free == []
+              and launches["fleet_cutover"]["dequantize_rowwise"] == 0,
+              f"POST /serve/{FLEET_MODEL}/replicas {{min 1, max 2}} -> "
+              f"{status} in {line['cutover_s']:.3f}s: size "
+              f"{doc.get('size')}, device {reps[0].get('device')}, free "
+              f"lease units {free} (the replica holds the card); K5 "
+              f"{launches['fleet_cutover']['dequantize_rowwise']} launches "
+              f"(0: the replica shares the resident module); pre-warm "
+              f"{warm_log}")
+        batches0 = sum(r["batches"] for r in replicas_doc(FLEET_MODEL)
+                       ["replicas"])
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(N_REQUESTS) as pool:
+            routed = list(pool.map(
+                lambda x: request(port, "POST",
+                                  f"/serve/{FLEET_MODEL}/predict",
+                                  {"instances": x.tolist()}), reqs))
+        wall = time.perf_counter() - t0
+        launches["fleet_predict_one_card"] = kernel_counts()
+        dispatches = sum(r["batches"] for r in replicas_doc(FLEET_MODEL)
+                         ["replicas"]) - batches0
+        err = max(float(np.abs(np.asarray(b.get("predictions", np.nan))
+                               - np.asarray(s["predictions"])).max())
+                  for (_, b), (_, s) in zip(routed, single))
+        k1 = launches["fleet_predict_one_card"]["flash_fwd"]
+        phase("fleet predict (one-card pool)",
+              all(st == 200 and b.get("replica") == 0
+                  and b.get("device") == "cuda:0" for st, b in routed)
+              and err <= CPU_ATOL and k1 == 12 * dispatches,
+              f"{N_REQUESTS} concurrent requests -> statuses "
+              f"{sorted({s for s, _ in routed})}, replicas "
+              f"{sorted({b.get('replica') for _, b in routed}, key=str)} in "
+              f"{wall:.3f}s; max|fleet - single path| = {err:.3g} (bar "
+              f"{CPU_ATOL}); K1 {k1} launches = 12 x {dispatches} "
+              "dispatches")
+        line["one_card"] = {"requests": N_REQUESTS, "wall_s": wall,
+                            "dispatches": dispatches,
+                            "max_abs_vs_single_path": err}
+
+        # A train job submitted while the replica holds the card, then a
+        # second replica: 503 within the lease budget, serving goes on.
+        t_train = time.perf_counter()
+        st_train, _ = request(port, "POST", "/train/tensorflow", {
+            "name": "fl_fit", "parentName": "fl_mlp", "method": "fit",
+            "methodParameters": {"x": "$fl_x", "y": "$fl_rows.label",
+                                 "epochs": 2, "batch_size": 16}})
+        stop, during = threading.Event(), []
+
+        def keep_predicting():
+            while not stop.is_set():
+                during.append(request(
+                    port, "POST", f"/serve/{FLEET_MODEL}/predict",
+                    {"instances": reqs[0].tolist()})[0])
+
+        keeper = threading.Thread(target=keep_predicting)
+        keeper.start()
+        t0 = time.perf_counter()
+        st503, hdrs, _ = request_h(
+            port, "POST", f"/serve/{FLEET_MODEL}/replicas", {"count": 2})
+        wait503 = time.perf_counter() - t0
+        stop.set()
+        keeper.join()
+        _, polled = request(port, "GET", "/observe/fl_fit?timeout=0")
+        waiting = polled.get("metadata", polled)
+        free_held = server.ctx.leaser.snapshot()["free"]
+        t0 = time.perf_counter()
+        st_del, dissolved = request(port, "DELETE",
+                                    f"/serve/{FLEET_MODEL}/replicas")
+        line["dissolve_s"] = time.perf_counter() - t0
+        trained = wait_done(port, "fl_fit")
+        line["train_job_s"] = time.perf_counter() - t_train
+        free_after = server.ctx.leaser.snapshot()["free"]
+        line["status_503"] = int(st503 == 503)
+        line["wait_503_s"] = wait503
+        phase("fleet lease hand-off (one-card pool)",
+              st_train == 201 and st503 == 503
+              and "Retry-After" in hdrs and wait503 <= 2 * FLEET_LEASE_S + 1
+              and bool(during) and all(s == 200 for s in during)
+              and not waiting.get("finished") and free_held == []
+              and st_del == 200 and dissolved.get("dissolved") is True
+              and trained.get("jobState") == "finished"
+              and free_after == ["cuda:0"],
+              f"train POST -> {st_train}; count 2 -> {st503} "
+              f"(Retry-After {hdrs.get('Retry-After')}) after "
+              f"{wait503:.2f}s (lease budget {FLEET_LEASE_S}s); "
+              f"{len(during)} predicts meanwhile -> {sorted(set(during))}; "
+              f"the train job then: finished {waiting.get('finished')}, "
+              f"free units {free_held}; DELETE -> {st_del} "
+              f"{dissolved} in {line['dissolve_s']:.2f}s; the job "
+              f"{trained.get('jobState')} {line['train_job_s']:.2f}s after "
+              f"its POST; free units {free_after}")
+
+        # (b) two lease units on the one card.
+        server.ctx.leaser = DeviceLeaser(["cuda:0", "cuda:0"])
+        print("[info] fleet (b): ctx.leaser replaced by DeviceLeaser("
+              "['cuda:0', 'cuda:0']), two lease units on the one card "
+              "(the seam the JAX fleet tests use; no config knob)",
+              flush=True)
+        zero_kernel_counts()
+        n_warm = len(warm_log)
+        body = {"instances": fleet_batch(30522, 1)}
+        status, doc = request(port, "POST", f"/serve/{FLEET_MODEL}/replicas",
+                              {"min": 1, "max": 2})
+        results, stop = [], threading.Event()
+        t_load = time.time()
+        loader = threading.Thread(target=lambda: results.extend(
+            fleet_load(port, body, stop=stop)[0]))
+        loader.start()
+        reached = _poll_until(lambda: any(
+            r["replica"] == 1 and r["requests"] > 0
+            for r in replicas_doc(FLEET_MODEL)["replicas"]), FLEET_WAIT_S)
+        stop.set()
+        loader.join()
+        t_stop = time.perf_counter()
+        drained = _poll_until(lambda: replicas_doc(FLEET_MODEL)["size"] == 1
+                              and len(server.ctx.leaser.snapshot()["free"])
+                              == 1, FLEET_WAIT_S)
+        line["drain_wait_s"] = time.perf_counter() - t_stop
+        auto = request(port, "GET", "/serve/fleet")[1]["autoscaler"]
+        ledger = [r for r in auto["ledger"]
+                  if r["model"] == FLEET_MODEL and r["t"] >= t_load]
+        downs = [r for r in ledger if r["action"] == "down"]
+        decisions = [d for d in auto["decisions"]
+                     if d["model"] == FLEET_MODEL and d["t"] >= t_load]
+        dec_up = next((d for d in decisions if d["to"] > d["from"]), None)
+        dec_down = next((d for d in decisions if d["to"] < d["from"]), None)
+        pressured = next((r for r in ledger if r["upStreak"] >= 1), None)
+        if dec_up and pressured:
+            line["scale_up_s"] = dec_up["t"] - pressured["t"]
+        if dec_down and downs:
+            line["scale_down_drain_s"] = dec_down["t"] - downs[0]["t"]
+        warm_b = [w for w in warm_log[n_warm:] if w["model"] == FLEET_MODEL]
+        line["scale_up_warmup"] = warm_b
+        drill = window_stats(results, 1.0)
+        bad = [r[0] for r in results if r[0] not in (200, 429)]
+        line["drill"] = {"requests": len(results),
+                         "status_429": drill["status_429"],
+                         "requests_per_replica":
+                             drill["requests_per_replica"],
+                         "up": dec_up, "down": dec_down}
+        phase("fleet autoscale drill (two units)", status == 200
+              and reached and drained and dec_up is not None
+              and dec_down is not None and not bad
+              and any(w["replica"] == 1 for w in warm_b),
+              f"{FLEET_CLIENTS} clients of {FLEET_ROWS}-row T={SEQ_LEN} "
+              f"requests: replica 1 served: {reached}; scale-up "
+              f"{line.get('scale_up_s')}s from the first pressured tick "
+              f"({dec_up and dec_up['signal']}), pre-warm {warm_b}; after "
+              f"the load stopped, back to 1 with a unit free: {drained} "
+              f"({line['drain_wait_s']:.2f}s; the drain itself "
+              f"{line.get('scale_down_drain_s')}s); {len(results)} "
+              f"requests, {drill['status_429']} answered 429, others "
+              f"failed {len(bad)}; per replica "
+              f"{drill['requests_per_replica']}")
+
+        windows = {}
+        for n in (1, 2):
+            request(port, "POST", f"/serve/{FLEET_MODEL}/replicas",
+                    {"min": n, "max": n})
+            res, wall = fleet_load(port, body, n=FLEET_WINDOW)
+            windows[n] = window_stats(res, wall)
+        line["windows"] = {f"replicas_{n}": w for n, w in windows.items()}
+        line["ratio_2_over_1"] = (windows[2]["rows_per_s"]
+                                  / windows[1]["rows_per_s"])
+        merged = serving.stats()["models"][FLEET_MODEL]
+        counts = kernel_counts()
+        launches["fleet_predict_two_units"] = counts
+        warm_dispatches = sum(w["buckets"] for w in warm_log[n_warm:]
+                              if w["model"] == FLEET_MODEL)
+        want = 12 * (merged["batches"] + warm_dispatches)
+        phase("fleet manual A/B and K1 launches (two units)",
+              all(w["ok"] == FLEET_CLIENTS * FLEET_WINDOW
+                  for w in windows.values())
+              and set(windows[2]["requests_per_replica"]) == {"0", "1"}
+              and counts["flash_fwd"] == want,
+              f"1 replica {windows[1]['rows_per_s']:.1f} rows/s, 2 replicas "
+              f"{windows[2]['rows_per_s']:.1f} rows/s (ratio "
+              f"{line['ratio_2_over_1']:.3f}), per replica "
+              f"{windows[2]['requests_per_replica']}; K1 over (b) "
+              f"{counts['flash_fwd']} = 12 x ({merged['batches']} "
+              f"dispatches + {warm_dispatches} pre-warm) = {want}")
+        request(port, "DELETE", f"/serve/{FLEET_MODEL}/replicas")
+
+        # (c) the decoder's streams over two replicas.
+        zero_kernel_counts()
+        status, _ = request(port, "POST", f"/serve/{DEC_MODEL}/load")
+        launches["fleet_decoder_load"] = kernel_counts()
+        request(port, "POST", f"/serve/{DEC_MODEL}/replicas",
+                {"min": 1, "max": 1})
+        prompts = decoder_prompts()
+        request(port, "POST", f"/serve/{DEC_MODEL}/generate",
+                {"prompts": [prompts[0]], "maxNewTokens": 8})
+        n_warm = len(warm_log)
+        st_up, doc = request(port, "POST", f"/serve/{DEC_MODEL}/replicas",
+                             {"min": 2, "max": 2})
+        warm_d = warm_log[n_warm:]
+        # Which replica's pool each stream was seated in, observed by
+        # wrapping the decoder's admission (on its worker thread).
+        decoder = serving.decode._decoder_for(DEC_MODEL)
+        routed_to: list = []
+        real_admit = decoder._admit
+
+        def admit(stream):
+            seated = real_admit(stream)
+            routed_to.extend(key[0] for key, p in decoder._pools.items()
+                             if seated and stream in p.streams)
+            return seated
+
+        decoder._admit = admit
+        t0 = time.perf_counter()
+        st_json, out = request(port, "POST", f"/serve/{DEC_MODEL}/generate",
+                               {"prompts": prompts, "maxNewTokens": DEC_NEW})
+        json_s = time.perf_counter() - t0
+        served = serving.registry.get(DEC_MODEL).estimator
+        solo = [served.generate(np.asarray([p], np.int32),
+                                max_new_tokens=DEC_NEW)[0].tolist()
+                for p in prompts]
+        toks = out.get("tokens", [])
+        results = [None, None]
+
+        def sse(i):
+            results[i] = read_sse(port, {"prompts": [prompts[i]],
+                                         "stream": True,
+                                         "maxNewTokens": DEC_NEW})
+
+        threads = [threading.Thread(target=sse, args=(i,)) for i in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        sse_ok = all(
+            res is not None and res[0] == 200
+            and prompts[i] + [d["t"] for n, d, _ in res[1] if n == "token"]
+            == solo[i] for i, res in enumerate(results))
+        aborted = {}
+
+        def on_token(doc, n):
+            if n == FLEET_ABORT_AFTER and not aborted:
+                sid = next(iter(decoder._streams))
+                key = next(k for k, p in list(decoder._pools.items())
+                           for s in p.streams
+                           if s is not None and s.stream_id == sid)
+                aborted["replica"] = key[0]
+                aborted["status"] = request(
+                    port, "DELETE", f"/serve/{DEC_MODEL}/generate/{sid}")[0]
+
+        _, events = read_sse(port, {"prompts": [prompts[2]], "stream": True,
+                                    "maxNewTokens": DEC_NEW},
+                             on_token=on_token)
+        pools = serving.decode.stats()["models"][DEC_MODEL]["pools"]
+        freed = [p["live"] for p in pools
+                 if p["replica"] == aborted.get("replica")]
+        per_replica = {str(k): routed_to.count(k) for k in sorted(
+            set(routed_to), key=str)}
+        line["decode"] = {
+            "streams_per_replica": per_replica,
+            "json_s": json_s,
+            "tokens_per_s": len(prompts) * DEC_NEW / json_s,
+            "scale_up_warmup": warm_d,
+            "pools": pools}
+        phase("fleet decode through two replicas",
+              status == 200 and st_up == 200 and doc.get("size") == 2
+              and st_json == 200 and toks == solo and sse_ok
+              and set(per_replica) == {"0", "1"}
+              and any(w["replica"] == 1 and w["decode_steps"] >= 1
+                      for w in warm_d)
+              and aborted.get("status") == 200
+              and [n for n, _, _ in events][-1:] == ["aborted"]
+              and bool(freed) and all(v == 0 for v in freed)
+              and launches["fleet_decoder_load"]["dequantize_rowwise"] == 1,
+              f"load K5 {launches['fleet_decoder_load']['dequantize_rowwise']}"
+              f" launch; {{min 2, max 2}} -> {st_up}, size {doc.get('size')},"
+              f" pre-warm {warm_d}; {len(prompts)} prompts x {DEC_NEW} new "
+              f"-> {st_json} in {json_s:.2f}s, streams per replica "
+              f"{per_replica}, equal to solo decodes: {toks == solo}; 2 SSE "
+              f"streams equal to solo: {sse_ok}; abort after token "
+              f"{FLEET_ABORT_AFTER} on replica {aborted.get('replica')} -> "
+              f"{aborted.get('status')}, ended "
+              f"{[n for n, _, _ in events][-1:]}, that replica's live slots "
+              f"{freed}")
+        request(port, "DELETE", f"/serve/{DEC_MODEL}/replicas")
+        line["free_units_at_end"] = len(server.ctx.leaser.snapshot()["free"])
+    finally:
+        server.shutdown()
+    launches["fleet_predict"] = {"flash_fwd": sum(
+        launches.get(k, {}).get("flash_fwd", 0)
+        for k in ("fleet_cutover", "fleet_predict_one_card",
+                  "fleet_predict_two_units"))}
+    launches["fleet_load"] = {"dequantize_rowwise": sum(
+        launches.get(k, {}).get("dequantize_rowwise", 0)
+        for k in ("fleet_bert_load", "fleet_cutover",
+                  "fleet_predict_one_card", "fleet_predict_two_units",
+                  "fleet_decoder_load"))}
+    line["launches"] = launches
+    line["phase_s"] = time.perf_counter() - t_phase
+    name, _, limit = card.partition(",")
+    line = {"card": name.strip(), "power_limit": limit.strip(), **line}
     return {"line": line, "launches": launches}
 
 
@@ -4379,6 +4913,21 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     dec_s = time.perf_counter() - t_dec
+
+    # Phase 14: fleet serving, last: a replica holds the card, so it runs
+    # after every phase that trains.
+    tmp, t_fleet = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        fleet = run_fleet(tmp, card, slice_res["artifact"],
+                          dec.get("artifact"))
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("fleet", False, repr(exc))
+        fleet = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fleet_s = time.perf_counter() - t_fleet
+    fleet_l = fleet["launches"]
     dec_l = dec["launches"]
     dec_f32 = [dec_l.get("forward_f32"), dec_l.get("forward_f32_rope")]
     dist_l = dist["launches"]
@@ -4422,14 +4971,17 @@ def main() -> int:
          "launches": counts["flash_fwd"] + rest_sum("flash_fwd", rest_f32)
          + rest_sum("flash_fwd", [text_l.get("bert_pred")])
          + rest_sum("flash_fwd", dist_predict)
-         + rest_sum("flash_fwd", dec_f32),
+         + rest_sum("flash_fwd", dec_f32)
+         + rest_sum("flash_fwd", [fleet_l.get("fleet_predict")]),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
              "text_predict": rest_sum("flash_fwd",
                                       [text_l.get("bert_pred")]),
              "distributed_predict": rest_sum("flash_fwd", dist_predict),
-             "decoder_full_forward": rest_sum("flash_fwd", dec_f32)},
+             "decoder_full_forward": rest_sum("flash_fwd", dec_f32),
+             "fleet_predict": rest_sum("flash_fwd",
+                                       [fleet_l.get("fleet_predict")])},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -4494,7 +5046,8 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", [drill_l.get("evaluate")])
          + rest_sum("dequantize_rowwise", text_k5)
          + rest_sum("dequantize_rowwise", dist_predict)
-         + rest_sum("dequantize_rowwise", [dec_l.get("load")]),
+         + rest_sum("dequantize_rowwise", [dec_l.get("load")])
+         + rest_sum("dequantize_rowwise", [fleet_l.get("fleet_load")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -4507,7 +5060,9 @@ def main() -> int:
              "distributed_predict": rest_sum("dequantize_rowwise",
                                              dist_predict),
              "decoder_load": rest_sum("dequantize_rowwise",
-                                      [dec_l.get("load")])},
+                                      [dec_l.get("load")]),
+             "fleet_load": rest_sum("dequantize_rowwise",
+                                    [fleet_l.get("fleet_load")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -4612,11 +5167,13 @@ def main() -> int:
         "card": name.strip(), "power_limit": limit.strip(),
         **dist["line"]}, default=str), flush=True)
     print("decoder " + json.dumps(dec["line"], default=str), flush=True)
+    print("fleet " + json.dumps(fleet["line"], default=str), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
           f"{drill_s:.1f}, text pipeline {text_s:.1f}, distributed "
-          f"{dist_s:.1f}, decoder {dec_s:.1f})", flush=True)
+          f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f})",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

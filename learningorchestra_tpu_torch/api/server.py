@@ -50,14 +50,20 @@ server's request bodies:
   of ``open``/``token``/``done`` events; ``DELETE
   /serve/<model>/generate/<streamId>`` aborts a stream (404 once it is
   gone).  A client that hangs up mid-stream aborts it too;
+- ``GET /serve/fleet``: every replica set, the bounds and the
+  autoscaler's status with its decisions and ledger; ``GET|POST|DELETE
+  /serve/<model>/replicas``: one model's replica set (404 without one),
+  created or resized by ``min``, ``max``, ``count``,
+  ``devicesPerReplica``, dissolved back to single-path serving;
 - ``GET /health``.
 
 Status codes are the JAX server's: 201/200; 409 duplicate name or a job
 still running; 404 unknown artifact, model or route; 406 semantic errors
 (bad body, unknown class, ``checkpoint_dir``); 429 + ``Retry-After``
-under serving backpressure; 400 for a body that is not JSON or a bad
-query parameter.  The client's ``X-Idempotency-Key`` header is accepted
-and ignored (the idempotency ledger is not ported).
+under serving backpressure; 503 + ``Retry-After`` when no card lease
+frees up within ``FleetConfig.lease_timeout_s``; 400 for a body that is
+not JSON or a bad query parameter.  The client's ``X-Idempotency-Key``
+header is accepted and ignored (the idempotency ledger is not ported).
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from typing import Callable
 from urllib.parse import parse_qs, urlparse
 
 from learningorchestra_tpu_torch.config import Config
+from learningorchestra_tpu_torch.jobs.leases import LeaseTimeout
 from learningorchestra_tpu_torch.log import get_logger
 from learningorchestra_tpu_torch.serve.batcher import QueueFull
 from learningorchestra_tpu_torch.serve.registry import ServeError
@@ -167,10 +174,17 @@ class APIServer:
             self.ctx.volumes, self.config.serve, device=self.ctx.device,
             monitoring_root=monitoring_root,
             decode_config=self.config.decode,
+            fleet_config=self.config.fleet, aot_config=self.config.aot,
+            # By reference: fleet replicas lease from whatever leaser the
+            # context holds when they are placed.
+            leaser=lambda: self.ctx.leaser,
         )
-        # A PATCHed or deleted train job's resident params (and decoder)
-        # reload before the next request.
-        self.ctx.add_artifact_change_listener(self.serving.invalidate)
+        # A PATCHed or deleted train job's resident params (decoder,
+        # replicas) reload before the next request; a deleted one also
+        # forgets its fleet bounds.
+        self.ctx.add_artifact_change_listener(
+            lambda name: self.serving.invalidate(
+                name, gone=not self.ctx.artifacts.metadata.exists(name)))
         self.router = Router(self.config.api.api_prefix)
         self._httpd: ThreadingHTTPServer | None = None
         self._register_routes()
@@ -793,6 +807,59 @@ class APIServer:
                 }
             return 200, {"aborted": m.group("stream")}
 
+        # Fleet: registered BEFORE the per-model routes, so the literal
+        # "fleet" never parses as a model name.
+        add("GET", r"/serve/fleet",
+            lambda m, b, q: (200, self.serving.fleet.snapshot()))
+
+        def serve_replicas_get(m, body, query):
+            status = self.serving.fleet.status_for(m.group("name"))
+            if not status:
+                return 404, {
+                    "error": f"model {m.group('name')!r} has no replica "
+                             "set (POST bounds/count to create one)"
+                }
+            return 200, status
+
+        def serve_replicas_post(m, body, query):
+            """Create or resize a model's replica set: any of ``min``,
+            ``max`` (autoscaler bounds), ``count`` (manual scale, clamped
+            to the bounds) and ``devicesPerReplica``.  Each replica
+            leases a card; an exhausted pool is the LeaseTimeout 503."""
+            def _int(key):
+                val = body.get(key)
+                if val is None:
+                    return None
+                try:
+                    return int(val)
+                except (TypeError, ValueError):
+                    raise ValidationError(
+                        f"{key!r} must be an integer, got {val!r}"
+                    ) from None
+
+            mn, mx, count = _int("min"), _int("max"), _int("count")
+            dpr = _int("devicesPerReplica")
+            if mn is None and mx is None and count is None and dpr is None:
+                raise ValidationError(
+                    "body needs at least one of 'min', 'max', 'count', "
+                    "'devicesPerReplica'"
+                )
+            return 200, self.serving.fleet.configure(
+                m.group("name"), min_replicas=mn, max_replicas=mx,
+                count=count, devices_per_replica=dpr,
+            )
+
+        def serve_replicas_delete(m, body, query):
+            """Dissolve the model's fleet: drain replicas, release cards,
+            back to single-path serving (the model stays loaded).
+            Idempotent."""
+            name = m.group("name")
+            return 200, {"model": name,
+                         "dissolved": self.serving.fleet.dissolve(name)}
+
+        add("GET", rf"/serve/{NAME}/replicas", serve_replicas_get)
+        add("POST", rf"/serve/{NAME}/replicas", serve_replicas_post)
+        add("DELETE", rf"/serve/{NAME}/replicas", serve_replicas_delete)
         add("POST", rf"/serve/{NAME}/predict", serve_predict)
         add("POST", rf"/serve/{NAME}/generate", serve_generate)
         add("DELETE", rf"/serve/{NAME}/generate/(?P<stream>[A-Za-z0-9]+)",
@@ -827,6 +894,13 @@ class APIServer:
             return 404, {"error": str(exc)}
         except (ValidationError, RegistryError, ServeError) as exc:
             return 406, {"error": str(exc)}
+        except LeaseTimeout as exc:
+            # No card lease within the placement budget: the pool is
+            # saturated, not broken; retriable like a 429.
+            return 503, {
+                "error": str(exc),
+                "retryAfter": self.config.serve.retry_after_s,
+            }
         except QueueFull as exc:
             # Backpressure: shed load with an explicit retry budget.
             return 429, {
@@ -878,7 +952,7 @@ class APIServer:
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
-                if status == 429 and isinstance(payload, dict) \
+                if status in (429, 503) and isinstance(payload, dict) \
                         and payload.get("retryAfter") is not None:
                     self.send_header(
                         "Retry-After", str(payload["retryAfter"])

@@ -1,9 +1,11 @@
 """Configuration — port of the parts of ``learningorchestra_tpu/config.py``
-the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` (with the job journal's
-switches), ``ServeConfig``, ``DecodeConfig`` and ``DistributedConfig``, with the same
-fields, defaults and ``LO_TPU_*`` environment names, plus the ``device``
-every entry point runs on and ``DistributedConfig.cpu_ranks``, the rank
-devices a CPU context gives a distributed fit.
+the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` (with the job
+journal's switches), ``ServeConfig``, ``DecodeConfig``, ``FleetConfig``,
+``AotConfig`` (its ``replica_prewarm`` flag alone) and
+``DistributedConfig``, with the same fields, defaults and ``LO_TPU_*``
+environment names, plus the ``device`` every entry point runs on and
+``DistributedConfig.cpu_ranks``, the rank devices a CPU context gives a
+distributed fit.
 
 The default roots are the port's own (``~/.learningorchestra_tpu_torch``),
 so the two packages never share a store by accident; pointing both at
@@ -139,6 +141,88 @@ class DecodeConfig:
 
 
 @dataclasses.dataclass
+class FleetConfig:
+    """Fleet serving (serve/fleet/): replica sets over leased cards with
+    a metrics-driven autoscaler.  Env knobs: LO_TPU_FLEET_*.  The
+    defaults keep the fleet off (max 1 replica: single-batcher serving)
+    until a deployment raises the bounds globally or per model
+    (``POST /serve/<model>/replicas``)."""
+
+    # Autoscaler loop switch (replica sets and manual scaling still work
+    # when off).  Env: LO_TPU_FLEET_ENABLED.
+    enabled: bool = True
+    # Deployment-wide default replica bounds per served model; max > 1
+    # puts every served model on the fleet path.
+    # Env: LO_TPU_FLEET_MIN / LO_TPU_FLEET_MAX.
+    min_replicas: int = 1
+    max_replicas: int = 1
+    # Autoscaler tick; <= 0 disables the loop thread.
+    # Env: LO_TPU_FLEET_INTERVAL_S.
+    interval_s: float = 2.0
+    # Scale up when the fleet's queued rows over its queue capacity stay
+    # at or above up_queue_frac for up_ticks ticks, on any shed (429)
+    # request, or when p99 crosses up_p99_ms (0 = off).
+    # Env: LO_TPU_FLEET_UP_QUEUE_FRAC / _UP_TICKS / _UP_P99_MS.
+    up_queue_frac: float = 0.25
+    up_ticks: int = 2
+    up_p99_ms: float = 0.0
+    # Scale down after this many consecutive ticks with no traffic.
+    # Env: LO_TPU_FLEET_DOWN_TICKS.
+    down_ticks: int = 5
+    # The JAX package's queue-growth-slope trigger (rows/s over the
+    # rollup series) and device-time-fraction trigger: their sources are
+    # not ported (obs/rollup, ROADMAP A.11; obs/costs, A.6), so a value
+    # above 0 is refused at boot.  Env: LO_TPU_FLEET_UP_SLOPE /
+    # LO_TPU_FLEET_SLOPE_WINDOW_S / LO_TPU_FLEET_UP_DEVICE_FRAC.
+    up_slope: float = 0.0
+    slope_window_s: float = 30.0
+    up_device_frac: float = 0.0
+    # Lease budget for placing a new replica; on timeout a scale-up is
+    # skipped (autoscaler) or answered 503 (REST).
+    # Env: LO_TPU_FLEET_LEASE_TIMEOUT_S.
+    lease_timeout_s: float = 5.0
+    # Router RNG seed (P2C is seeded-deterministic).
+    router_seed: int = 0
+    # Cards leased per replica (per model: POST devicesPerReplica).
+    # Env: LO_TPU_FLEET_DEVICES_PER_REPLICA.
+    devices_per_replica: int = 1
+
+    def validate(self) -> None:
+        """Refuse at boot what would otherwise first fail inside a
+        predict's lazy replica set, or read nothing at all."""
+        if self.devices_per_replica < 1:
+            raise ValueError(
+                "LO_TPU_FLEET_DEVICES_PER_REPLICA must be >= 1, got "
+                f"{self.devices_per_replica}")
+        if not 1 <= self.min_replicas <= self.max_replicas:
+            raise ValueError(
+                "fleet replica bounds need 1 <= LO_TPU_FLEET_MIN "
+                f"({self.min_replicas}) <= LO_TPU_FLEET_MAX "
+                f"({self.max_replicas})")
+        if self.up_slope > 0:
+            raise ValueError(
+                f"LO_TPU_FLEET_UP_SLOPE={self.up_slope}: the queue-slope "
+                "trigger reads the rollup series (obs/rollup), not ported "
+                "yet (ROADMAP A.11); leave it 0")
+        if self.up_device_frac > 0:
+            raise ValueError(
+                f"LO_TPU_FLEET_UP_DEVICE_FRAC={self.up_device_frac}: the "
+                "device-time trigger reads the cost ledger (obs/costs), "
+                "not ported yet (ROADMAP A.6); leave it 0")
+
+
+@dataclasses.dataclass
+class AotConfig:
+    """The JAX package's ahead-of-time program store; the port has only
+    the fleet's flag so far (the store is ROADMAP A.6)."""
+
+    # Warm a fresh replica against its model's recorded buckets (and
+    # decode steps) BEFORE the router may pick it.
+    # Env: LO_TPU_AOT_REPLICA_PREWARM.
+    replica_prewarm: bool = False
+
+
+@dataclasses.dataclass
 class DistributedConfig:
     """Data-parallel training (parallel/distributed.py) and the
     distributed builder."""
@@ -176,6 +260,8 @@ class Config:
     jobs: JobConfig = dataclasses.field(default_factory=JobConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
+    aot: AotConfig = dataclasses.field(default_factory=AotConfig)
     dist: DistributedConfig = dataclasses.field(
         default_factory=DistributedConfig)
     # Where every estimator the services build or load lives.
@@ -206,6 +292,23 @@ class Config:
             ("LO_TPU_DECODE_IDLE_S", cfg.decode, "idle_timeout_s", float),
             ("LO_TPU_WORLD_SIZE", cfg.dist, "num_processes", int),
             ("LO_TPU_CPU_RANKS", cfg.dist, "cpu_ranks", int),
+            ("LO_TPU_FLEET_MIN", cfg.fleet, "min_replicas", int),
+            ("LO_TPU_FLEET_MAX", cfg.fleet, "max_replicas", int),
+            ("LO_TPU_FLEET_INTERVAL_S", cfg.fleet, "interval_s", float),
+            ("LO_TPU_FLEET_UP_QUEUE_FRAC", cfg.fleet, "up_queue_frac",
+             float),
+            ("LO_TPU_FLEET_UP_TICKS", cfg.fleet, "up_ticks", int),
+            ("LO_TPU_FLEET_DOWN_TICKS", cfg.fleet, "down_ticks", int),
+            ("LO_TPU_FLEET_UP_P99_MS", cfg.fleet, "up_p99_ms", float),
+            ("LO_TPU_FLEET_UP_SLOPE", cfg.fleet, "up_slope", float),
+            ("LO_TPU_FLEET_SLOPE_WINDOW_S", cfg.fleet, "slope_window_s",
+             float),
+            ("LO_TPU_FLEET_UP_DEVICE_FRAC", cfg.fleet, "up_device_frac",
+             float),
+            ("LO_TPU_FLEET_LEASE_TIMEOUT_S", cfg.fleet, "lease_timeout_s",
+             float),
+            ("LO_TPU_FLEET_DEVICES_PER_REPLICA", cfg.fleet,
+             "devices_per_replica", int),
         )
         for key, section, attr, cast in fields:
             if key in env:
@@ -213,7 +316,9 @@ class Config:
         for key, section, attr in (
                 ("LO_TPU_JOB_JOURNAL", cfg.jobs, "journal"),
                 ("LO_TPU_JOB_JOURNAL_RECOVER", cfg.jobs, "journal_recover"),
-                ("LO_TPU_DECODE_ENABLED", cfg.decode, "enabled")):
+                ("LO_TPU_DECODE_ENABLED", cfg.decode, "enabled"),
+                ("LO_TPU_FLEET_ENABLED", cfg.fleet, "enabled"),
+                ("LO_TPU_AOT_REPLICA_PREWARM", cfg.aot, "replica_prewarm")):
             if key in env:
                 setattr(section, attr, _bool_env(key, env[key]))
         if "LO_TPU_JOB_JOURNAL_MAX" in env:
@@ -230,6 +335,7 @@ class Config:
                 str(k): int(v)
                 for k, v in json.loads(env["LO_TPU_JOB_WEIGHTS"]).items()
             }
+        cfg.fleet.validate()
         return cfg
 
 

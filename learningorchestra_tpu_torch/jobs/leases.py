@@ -9,8 +9,10 @@ runs under ``torch.cuda.device(k)`` (:func:`placed`).
 
 On a CPU context leasing is a no-op (there is nothing to contend for)
 unless a device list is injected, which is how the tests exercise the
-serialization.  Serving is not leased: its batcher threads may run
-forwards while a train job holds the card.
+serialization.  Single-path serving is not leased: its batcher threads
+may run forwards while a train job holds the card.  A fleet replica
+(``serve/fleet``) is: it holds its card through :meth:`DeviceLeaser.
+acquire` for its whole life, so a train job queues behind it.
 """
 
 from __future__ import annotations
@@ -57,6 +59,17 @@ class DeviceLeaser:
     def device_count(self) -> int:
         return len(self._all)
 
+    def snapshot(self) -> dict:
+        """Lock-consistent view for dashboards and tests: the free and
+        all device ids and the last ten history records."""
+        with self._cv:
+            return {
+                "initialized": True,
+                "free": list(self._free),
+                "all": list(self._all),
+                "recent": list(self.history)[-10:],
+            }
+
     @contextlib.contextmanager
     def lease(self, n_devices: int = 1, *, label: str = "",
               timeout: float | None = None):
@@ -98,6 +111,17 @@ class DeviceLeaser:
                 logger.info(kv(event="release", job=label, devices=taken,
                                held=f"{t1 - t0:.2f}s"))
 
+    def acquire(self, n_devices: int = 1, *, label: str = "",
+                timeout: float | None = None) -> "LeaseHandle":
+        """A lease for a LONG-LIVED holder, detached from a with-block: a
+        fleet replica keeps its card for its lifetime, and the thread
+        that acquires it (a REST handler, the autoscaler) is not the one
+        that releases it (a scale-down, shutdown).  Same blocking and
+        timeout semantics as :meth:`lease`; call ``release()`` on the
+        returned :class:`LeaseHandle` (idempotent, any thread)."""
+        cm = self.lease(n_devices, label=label, timeout=timeout)
+        return LeaseHandle(cm, list(cm.__enter__()))
+
     def revoke(self, label: str) -> list[str]:
         """Force-release every device leased as ``label`` or ``label:*``
         (the deadline watchdog's reclaim).  The holder may still be
@@ -119,6 +143,41 @@ class DeviceLeaser:
             if freed:
                 self._cv.notify_all()
         return freed
+
+
+class LeaseHandle:
+    """A held lease detached from its with-block (see
+    :meth:`DeviceLeaser.acquire`).  ``devices`` is the granted id list
+    (empty on a CPU context).  ``release()`` is idempotent and may run
+    on any thread."""
+
+    __slots__ = ("devices", "_cm", "_lock", "_released")
+
+    def __init__(self, cm, devices: list[str]):
+        self._cm = cm
+        self.devices = devices
+        self._lock = threading.Lock()
+        self._released = False
+
+    def release(self) -> None:
+        with self._lock:
+            if self._released:
+                return
+            self._released = True
+        self._cm.__exit__(None, None, None)
+
+
+def device_for(device_id: str) -> torch.device | None:
+    """A lease's device id back to the ``torch.device`` it names:
+    ``cuda:k`` for ``k < torch.cuda.device_count()``, else None (an
+    injected id with no card behind it leaves its holder unplaced)."""
+    platform, _, idx = device_id.partition(":")
+    if platform != "cuda" or not idx.isdigit():
+        return None
+    k = int(idx)
+    if k >= torch.cuda.device_count():
+        return None
+    return torch.device("cuda", k)
 
 
 @contextlib.contextmanager

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -35,6 +36,16 @@ launches = 0
 #: K2 / K3 launches made by ``flash_attention_bwd`` in this process.
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+_count_lock = threading.Lock()
+
+
+def count_launch(counter: str, n: int = 1) -> None:
+    """Add ``n`` to the module counter ``counter`` under a lock: replica
+    batchers launch K1 from several threads at once, and ``+=`` on a
+    module global is a read, an add and a store."""
+    with _count_lock:
+        globals()[counter] += n
+
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -207,7 +218,6 @@ def flash_attention_fwd(q, k, v, key_mask=None, causal: bool = False,
     is allocated (B, Tq, H, D) and returned as its (B, H, Tq, D)
     transpose, so merging heads afterwards is free.
     """
-    global launches
     _validate_window(window, causal)
     _check_inputs(q, k, v, key_mask)
     if q.device.type == "cpu":
@@ -219,7 +229,7 @@ def flash_attention_fwd(q, k, v, key_mask=None, causal: bool = False,
     lse = torch.empty((b, h, tq, 1), device=q.device, dtype=torch.float32)
     _launch("lo_flash_fwd", (q, k, v, km, o, lse), (q, k, v, o), q, k,
             causal, window)
-    launches += 1
+    count_launch("launches")
     return o, lse
 
 
@@ -330,21 +340,19 @@ def _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal, window):
 
 def _launch_dq(q, k, v, do, km, lse, delta, causal, window):
     """K2 on checked inputs; dq is allocated (B, T, H, D) in memory."""
-    global bwd_dq_launches
     dq = _like_heads_last(q)
     _launch("lo_flash_bwd_dq", (q, k, v, km, do, lse, delta, dq),
             (q, k, v, do, dq), q, k, causal, window)
-    bwd_dq_launches += 1
+    count_launch("bwd_dq_launches")
     return dq
 
 
 def _launch_dkv(q, k, v, do, km, lse, delta, causal, window):
     """K3 on checked inputs; dk, dv are allocated (B, T, H, D) in memory."""
-    global bwd_dkv_launches
     dk, dv = _like_heads_last(k), _like_heads_last(v)
     _launch("lo_flash_bwd_dkv", (q, k, v, km, do, lse, delta, dk, dv),
             (q, k, v, do, dk, dv), q, k, causal, window)
-    bwd_dkv_launches += 1
+    count_launch("bwd_dkv_launches")
     return dk, dv
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -41,6 +42,17 @@ quantize_launches = 0
 quantize_leaves = 0
 dequantize_launches = 0
 dequantize_leaves = 0
+_count_lock = threading.Lock()
+
+
+def count_launch(**deltas: int) -> None:
+    """Add each delta to its module counter under one lock, so a launch's
+    count and its leaves move together and concurrent loads count
+    exactly."""
+    with _count_lock:
+        for counter, n in deltas.items():
+            globals()[counter] += n
+
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -249,8 +261,6 @@ def _launch(direction: str, plan: GroupPlan, pointers, device, *,
             stochastic: bool = False, seed: int = 0) -> None:
     """Launch the plan's kernels on ``device``'s current stream; pointers
     are (src, dst, scales) per leaf."""
-    global quantize_launches, quantize_leaves
-    global dequantize_launches, dequantize_leaves
     if plan.direction != direction:
         raise ValueError(f"a {plan.direction} plan cannot launch the "
                          f"{direction} kernel")
@@ -273,11 +283,10 @@ def _launch(direction: str, plan: GroupPlan, pointers, device, *,
                 status = fn(ctypes.addressof(table), len(descs), stream)
             build.check(status, f"{direction}_rowwise")
             if direction == "quantize":
-                quantize_launches += 1
-                quantize_leaves += len(descs)
+                count_launch(quantize_launches=1, quantize_leaves=len(descs))
             else:
-                dequantize_launches += 1
-                dequantize_leaves += len(descs)
+                count_launch(dequantize_launches=1,
+                             dequantize_leaves=len(descs))
 
 
 def _aligned(t: torch.Tensor) -> bool:

@@ -106,16 +106,25 @@ class MicroBatcher:
         """Enqueue ``x`` (rows on axis 0), block until its outputs are
         ready.  Raises :class:`QueueFull` under backpressure (chunks
         already queued still dispatch, their results abandoned: the
-        caller retries the whole request); re-raises the dispatch's
+        caller retries the whole request; ``partial`` is set on the
+        exception then); re-raises the dispatch's
         exception on model failure.  Oversized requests chunk to
         ``max_batch`` and enqueue all chunks before waiting."""
         x = np.asarray(x)
         if x.ndim == 0 or x.shape[0] == 0:
             raise ValueError("submit needs at least one row")
-        pendings = [
-            self._enqueue(x[i:i + self.max_batch])
-            for i in range(0, x.shape[0], self.max_batch)
-        ]
+        pendings: list[_Pending] = []
+        try:
+            for i in range(0, x.shape[0], self.max_batch):
+                pendings.append(self._enqueue(x[i:i + self.max_batch]))
+        except QueueFull as exc:
+            if pendings:
+                # Earlier chunks are queued and WILL dispatch: the flag
+                # tells a routing layer not to replay the whole request
+                # on another replica (duplicate device work under the
+                # very saturation that overflowed this one).
+                exc.partial = True
+            raise
         outs = []
         for p in pendings:
             p.event.wait()
@@ -217,6 +226,13 @@ class MicroBatcher:
 
     # -- observability / lifecycle -------------------------------------------
 
+    @property
+    def queue_depth(self) -> int:
+        """Racy snapshot of the queued rows: the fleet router's load
+        signal, read per routing decision without the condition lock
+        (balancing needs freshness, not exactness)."""
+        return self._rows_queued
+
     def stats(self) -> dict:
         with self._cond:
             lat = sorted(self._latencies)
@@ -250,11 +266,22 @@ class MicroBatcher:
                 },
             }
 
-    def close(self) -> None:
-        """Stop accepting work, flush what's queued, join the worker."""
+    def close(self, join: bool = True) -> None:
+        """Stop accepting work, flush what's queued, join the worker.
+        ``join=False`` only signals: a fleet closing many batchers
+        signals them all first so the drains overlap, then waits in
+        :meth:`wait_drained`."""
         with self._cond:
             if self._closed:
                 return
             self._closed = True
             self._cond.notify_all()
-        self._worker.join(timeout=30)
+        if join:
+            self._worker.join(timeout=30)
+
+    def wait_drained(self, timeout: float | None = None) -> bool:
+        """True once the worker thread has exited: the fleet returns a
+        replica's card to the lease pool only after this, never while
+        the batcher could still be dispatching on it."""
+        self._worker.join(timeout)
+        return not self._worker.is_alive()

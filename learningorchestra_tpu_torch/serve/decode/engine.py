@@ -8,11 +8,19 @@ and tear a stream down through its cancel token at the next step
 boundary.
 
 The step is eager torch: each pool's step is a plain function memoized
-per (S, Tk) on the model's decoder and recorded in the registry entry's
-``decode_warm``.  Not ported: the Prometheus decode families and the
-TTFT SLO (ROADMAP A.11), the ``serve.decode_step`` fault point (A.11),
-the compile cache's program keys (A.6), the device-time ledger and fleet
-routing (A.7 part 2, A.6).
+per (module, S, Tk) on the model's decoder and recorded, per (S, Tk), in
+the registry entry's ``decode_warm``.
+
+Fleet routing: when the model has a live replica set, each new stream is
+routed to a replica by the set's P2C router over live decode slots per
+replica; pools are keyed (replica index or None, Tk) and step with their
+replica's placed module (replicas sharing the resident module share its
+step memo).  A pool whose replica was scaled away finishes on the
+resident module.  A fresh replica's pre-warm replays every recorded
+(S, Tk) step (:meth:`DecodeEngine.warm_replica`).  Not ported: the
+Prometheus decode families and the TTFT SLO (ROADMAP A.11), the
+``serve.decode_step`` fault point (A.11), the compile cache's program
+keys and the device-time ledger (A.6).
 """
 
 from __future__ import annotations
@@ -48,9 +56,12 @@ class _ModelDecoder:
         self.cfg = engine.cfg
         self._cv = threading.Condition()
         self._pending: deque = deque()
-        self._pools: dict[int, PagePool] = {}  # kv bucket -> pool
+        # (replica index | None, kv bucket) -> pool
+        self._pools: dict[tuple, PagePool] = {}
         self._streams: dict = {}  # stream_id -> DecodeStream (active)
-        self._steps: dict = {}  # (S, kv) -> step function
+        # (id(module), S, kv) -> (module, step function); holding the
+        # module keeps its id from being reused while the memo lives.
+        self._steps: dict = {}
         self._thread: threading.Thread | None = None
         self._closed = False
         self.steps = 0
@@ -142,18 +153,44 @@ class _ModelDecoder:
         if stream.token.cancelled():
             self._finish(stream, aborted=True)
             return True
+        replica = self._route_replica()
+        ridx = None if replica is None else replica.idx
         kvlen = bucket_for(stream.total,
                            min(self.cfg.max_kv, self._max_len()))
-        pool = self._pools.get(kvlen)
+        pool = self._pools.get((ridx, kvlen))
         if pool is None:
-            pool = self._pools[kvlen] = PagePool(kvlen, self.cfg.max_slots)
-        module = self._module()
+            pool = self._pools[(ridx, kvlen)] = PagePool(
+                kvlen, self.cfg.max_slots, replica_idx=ridx)
+        module = self._module_for(pool)
         slot = pool.admit(stream, lambda want: module.init_cache(
             want, kvlen, per_row=True))
         return slot is not None
 
-    def _module(self):
-        return self.engine.service.registry.get(self.name).estimator.module
+    def _route_replica(self):
+        """P2C-pick a replica for a new stream when the model is
+        fleet-served (live decode slots per replica are the depths);
+        None keeps the registry-resident single path."""
+        rs = self.engine.service.fleet.registered_set(self.name)
+        replicas = rs.replicas() if rs is not None else []
+        if not replicas:
+            return None
+        depths = [sum(pool.live for key, pool in self._pools.items()
+                      if key[0] == replica.idx) for replica in replicas]
+        return replicas[rs.router.choose(depths)[0]]
+
+    def _module_for(self, pool: PagePool):
+        """The module ``pool`` steps with: its replica's placed module,
+        or the resident one for the single path and for a pool whose
+        replica was scaled away (its pages move to that module's card)."""
+        entry = self.engine.service.registry.get(self.name)
+        module = entry.estimator.module
+        if pool.replica_idx is not None:
+            rs = self.engine.service.fleet.registered_set(self.name)
+            for replica in rs.replicas() if rs is not None else []:
+                if replica.idx == pool.replica_idx:
+                    return replica.place(entry)
+            pool.to(next(module.parameters()).device)
+        return module
 
     def _max_len(self) -> int:
         entry = self.engine.service.registry.get(self.name)
@@ -161,21 +198,42 @@ class _ModelDecoder:
 
     # -- stepping ------------------------------------------------------------
 
-    def _step_for(self, nslots: int, kvlen: int):
-        """The step of one (S, Tk) cell, memoized on the decoder (it dies
-        with the model's teardown) and recorded in the registry entry's
+    def _step_for(self, module, nslots: int, kvlen: int):
+        """The step of one (S, Tk) cell over ``module``, memoized on the
+        decoder (it dies with the model's teardown; replicas that share a
+        module share it) and recorded in the registry entry's
         ``decode_warm``."""
-        step = self._steps.get((nslots, kvlen))
-        if step is None:
+        key = (id(module), nslots, kvlen)
+        memo = self._steps.get(key)
+        if memo is None:
             entry = self.engine.service.registry.get(self.name)
-            step = self._steps[(nslots, kvlen)] = build_step(
-                entry.estimator.module, nslots, kvlen)
+            memo = self._steps[key] = (
+                module, build_step(module, nslots, kvlen))
             entry.decode_warm[(nslots, kvlen)] = True
-        return step
+        return memo[1]
+
+    def warm_replica(self, replica, entry) -> None:
+        """One dummy step per recorded (S, Tk) cell on the replica's
+        placed module (every slot free, so the buffer stays all pad):
+        builds its step before the router may pick the replica."""
+        module = replica.place(entry)
+        # A copy: the worker records new cells concurrently.
+        for nslots, kvlen in sorted(entry.decode_warm.copy()):
+            step = self._step_for(module, nslots, kvlen)
+            pool = PagePool(kvlen, nslots, replica_idx=replica.idx)
+            pool._alloc(lambda want: module.init_cache(
+                want, kvlen, per_row=True), nslots)
+            dev = pool.buf.device
+            with torch.no_grad():
+                step(pool.cache, pool.buf,
+                     torch.zeros(nslots, dtype=torch.int64, device=dev),
+                     torch.full((nslots,), kvlen + 1, dtype=torch.int64,
+                                device=dev),
+                     torch.zeros(nslots, dtype=torch.bool, device=dev))
 
     def _step_all(self) -> None:
-        for kvlen in list(self._pools):
-            pool = self._pools[kvlen]
+        for key in list(self._pools):
+            pool = self._pools[key]
             # Abort sweep FIRST: a cancelled stream's slot is freed within
             # one step boundary of the cancel, even if the step then fails.
             for slot, stream in enumerate(pool.streams):
@@ -191,7 +249,7 @@ class _ModelDecoder:
                 # blast radius is this pool's in-flight streams; the worker
                 # and the other pools stay healthy.
                 logger.error("decode step failed %s", kv(
-                    model=self.name, pool=kvlen, error=str(exc)))
+                    model=self.name, pool=f"{key}", error=str(exc)))
                 for slot, stream in enumerate(pool.streams):
                     if stream is not None:
                         pool.release(slot)
@@ -199,7 +257,7 @@ class _ModelDecoder:
                                      error=f"decode step failed: {exc}")
 
     def _step_pool(self, pool: PagePool) -> None:
-        step = self._step_for(pool.nslots, pool.kv)
+        step = self._step_for(self._module_for(pool), pool.nslots, pool.kv)
         dev = pool.buf.device
         live = np.array([s is not None for s in pool.streams])
         t0s = np.array([s.t0 if s is not None else pool.kv + 1
@@ -267,7 +325,8 @@ class _ModelDecoder:
             "pending": pending,
             "steps": self.steps,
             "pools": [{"kv": p.kv, "slots": p.nslots, "live": p.live,
-                       "steps": p.steps, "pageBytes": p.page_bytes()}
+                       "steps": p.steps, "pageBytes": p.page_bytes(),
+                       "replica": p.replica_idx}
                       for p in pools],
         }
 
@@ -451,6 +510,15 @@ class DecodeEngine:
         if decoder is None:
             return False
         return decoder.abort(stream_id, reason)
+
+    def warm_replica(self, name: str, replica) -> None:
+        """Decode leg of replica pre-warm: replay every recorded (S, Tk)
+        step on the new replica's placed module.  Failures are the
+        caller's to log: a replica that cannot warm serves cold."""
+        entry = self.service.registry.peek(name)
+        if entry is None or not entry.decode_warm:
+            return
+        self._decoder_for(name).warm_replica(replica, entry)
 
     # -- lifecycle -----------------------------------------------------------
 

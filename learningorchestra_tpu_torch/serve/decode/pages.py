@@ -1,10 +1,11 @@
 """KV page pools — resident decode state, bucketed on both axes — port of
 ``learningorchestra_tpu/serve/decode/pages.py``.
 
-One pool per (model, KV-length bucket): a batch of S decode *slots* over
-a KV cache of Tk positions per slot.  Both S and Tk are power-of-two
-buckets (``serve/bucketing.py``), so a deployment steps at most
-``log2(max_slots)+1`` x ``log2(max_kv)+1`` shapes per architecture.
+One pool per (model, routed replica, KV-length bucket): a batch of S
+decode *slots* over a KV cache of Tk positions per slot.  Both S and Tk
+are power-of-two buckets (``serve/bucketing.py``), so a deployment steps
+at most ``log2(max_slots)+1`` x ``log2(max_kv)+1`` shapes per
+architecture.
 
 The continuous-batching trick is the per-row ``cache_index``: the
 attention's decode branch (``ops/layers.py``) takes an (S,) index, so
@@ -86,10 +87,15 @@ class PagePool:
     synchronization point for admission and abort."""
 
     __slots__ = ("kv", "nslots", "max_slots", "cache", "buf", "pos",
-                 "streams", "steps")
+                 "streams", "steps", "replica_idx")
 
-    def __init__(self, kv: int, max_slots: int):
+    def __init__(self, kv: int, max_slots: int,
+                 replica_idx: int | None = None):
         self.kv = int(kv)
+        # The fleet replica this pool's streams were routed to (None: the
+        # registry-resident single path); its pages live on that
+        # replica's card and its steps run the replica's module.
+        self.replica_idx = replica_idx
         self.nslots = 0
         self.max_slots = int(max_slots)
         self.cache = None  # per-layer KV tensors, allocated on first admit
@@ -119,6 +125,13 @@ class PagePool:
         self.pos = np.zeros(nslots, np.int64)
         self.streams = [None] * nslots
         self.nslots = nslots
+
+    def to(self, device) -> None:
+        """Move the pool's pages and buffer to ``device`` (a pool whose
+        replica was scaled away finishes on the resident module)."""
+        if self.buf is not None and self.buf.device != device:
+            self.cache = _tree_map(lambda t: t.to(device), self.cache)
+            self.buf = self.buf.to(device)
 
     def _grow(self, nslots: int) -> None:
         """Pad every per-slot axis up to the next slot bucket; the slots

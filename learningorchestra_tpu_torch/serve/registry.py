@@ -25,7 +25,7 @@ class ServeError(Exception):
 
 class _Resident:
     __slots__ = ("name", "estimator", "nbytes", "loaded_at", "requests",
-                 "decode_warm")
+                 "replica_devices", "warm_shapes", "decode_warm")
 
     def __init__(self, name, estimator, nbytes):
         self.name = name
@@ -33,6 +33,13 @@ class _Resident:
         self.nbytes = nbytes
         self.loaded_at = time.time()
         self.requests = 0
+        # replica index -> device id ("host" when unplaced), mirrored in
+        # by the fleet manager after every scale event; empty for a
+        # single-path model.
+        self.replica_devices: dict = {}
+        # bucket rows -> (padded shape, dtype str) of every bucket this
+        # model dispatched: the set a fresh replica is pre-warmed on.
+        self.warm_shapes: dict = {}
         # (slot bucket, KV bucket) -> True for every decode step this
         # model ran (serve/decode/engine.py); dies with the entry, so an
         # invalidation never replays a stale architecture's shapes.
@@ -46,6 +53,9 @@ class _Resident:
             "loadedAt": self.loaded_at,
             "requests": self.requests,
             "device": str(self.estimator.device),
+            "replicaDevices": {
+                str(k): v for k, v in self.replica_devices.items()
+            },
         }
 
 
@@ -158,6 +168,11 @@ class ModelRegistry:
                 except Exception:  # noqa: BLE001 — never fail a load
                     pass
         return entry
+
+    def peek(self, name: str) -> _Resident | None:
+        """Resident entry or None; never loads."""
+        with self._lock:
+            return self._entries.get(name)
 
     def unload(self, name: str) -> bool:
         with self._lock:

@@ -15,22 +15,44 @@ servable under its name.  Each ``GET /monitoring/<tool>/serving`` poll
 appends one step of ``serving_*`` scalars (:meth:`snapshot_scalars`) to
 a tfevents file under the monitoring root.  ``generate`` (``POST
 /serve/<model>/generate``) belongs to the decode engine
-(``serve/decode``), dormant until the first request.  The JAX service's
-compile cache, cost probes, faults and fleet come with later slices.
+(``serve/decode``), dormant until the first request.
+
+Fleet serving (``serve/fleet``): a model with replica bounds serves from
+a replica set, each replica a card lease + a batcher + its placed module;
+``predict`` routes through the set and answers which replica served.
+Replica sets read the context's leaser through the ``leaser`` callable
+when they are created.  The JAX service's compile cache, cost probes and faults
+come with later slices (ROADMAP A.6, A.11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
+from typing import Callable
 
 import numpy as np
 
-from learningorchestra_tpu_torch.config import DecodeConfig, ServeConfig
+from learningorchestra_tpu_torch.config import (
+    AotConfig,
+    DecodeConfig,
+    FleetConfig,
+    ServeConfig,
+)
 from learningorchestra_tpu_torch.device import resolve_device
-from learningorchestra_tpu_torch.serve.batcher import MicroBatcher
+from learningorchestra_tpu_torch.jobs.leases import (
+    DeviceLeaser,
+    LeaseTimeout,
+    placed,
+)
+from learningorchestra_tpu_torch.serve.batcher import (
+    BatcherClosed,
+    MicroBatcher,
+)
 from learningorchestra_tpu_torch.serve.decode import DecodeEngine
+from learningorchestra_tpu_torch.serve.fleet import FleetManager
 from learningorchestra_tpu_torch.serve.registry import ModelRegistry, ServeError
 from learningorchestra_tpu_torch.services.tfevents import write_scalars
 from learningorchestra_tpu_torch.store.volumes import VolumeStorage
@@ -51,11 +73,22 @@ class NotFoundError(Exception):
 class ServingService:
     def __init__(self, volumes: VolumeStorage, config: ServeConfig | None = None,
                  *, device="cuda", monitoring_root: str | None = None,
-                 decode_config: DecodeConfig | None = None):
+                 decode_config: DecodeConfig | None = None,
+                 fleet_config: FleetConfig | None = None,
+                 aot_config: AotConfig | None = None,
+                 leaser: Callable[[], DeviceLeaser] | None = None):
         self.volumes = volumes
         self.monitoring_root = monitoring_root
         self.cfg = config or ServeConfig()
+        self.fleet_cfg = fleet_config or FleetConfig()
+        self.fleet_cfg.validate()
+        self.aot_cfg = aot_config or AotConfig()
         self.device = resolve_device(device)
+        if leaser is None:
+            own = DeviceLeaser(device=self.device)
+            leaser = lambda: own  # noqa: E731
+        # The lease pool replicas are placed from, read at each ensure.
+        self.leaser = leaser
         self.registry = ModelRegistry(
             self._load_estimator,
             device=self.device,
@@ -64,6 +97,10 @@ class ServingService:
             on_evict=self._teardown_model,
         )
         self._batchers: dict[str, MicroBatcher] = {}
+        # Fleet serving: per-model replica sets over leased cards and the
+        # shared autoscaler; dormant (one dict read per predict, no
+        # thread) until a model's bounds allow a set.
+        self.fleet = FleetManager(self)
         # Streaming decode: resident KV page pools and continuous batching
         # for GreedyDecodeMixin models; no thread and no pool until the
         # first /generate.
@@ -99,21 +136,28 @@ class ServingService:
         return self.registry.get(name).to_dict()
 
     def unload(self, name: str) -> bool:
-        self._teardown_model(name)
+        self._teardown_model(name, keep_bounds=False)
         return self.registry.unload(name)
 
-    def invalidate(self, name: str) -> bool:
+    def invalidate(self, name: str, *, gone: bool = False) -> bool:
         """A PATCHed or deleted train job's artifact changed: drop its
-        resident params and its decoder, so the next request reloads."""
-        self._teardown_model(name)
+        resident params, its decoder and its replica set, so the next
+        request reloads.  A DELETED artifact (``gone``) also forgets its
+        fleet bounds, so a new model of that name does not inherit them;
+        an overwrite keeps them."""
+        self._teardown_model(name, keep_bounds=not gone)
         return self.registry.invalidate(name)
 
-    def _teardown_model(self, name: str) -> None:
-        """Release what serves ``name``: its batcher, and its decoder (the
+    def _teardown_model(self, name: str, *, keep_bounds: bool = True
+                        ) -> None:
+        """Release what serves ``name``: its batcher, its decoder (the
         pools hold the old architecture's KV shapes and steps over its
-        module; in-flight streams fail fast)."""
+        module; in-flight streams fail fast) and its replica set (drained,
+        cards released).  ``keep_bounds`` survives invalidation and
+        eviction; an explicit unload forgets the model's fleet bounds."""
         self._drop_batcher(name)
         self.decode.drop_model(name)
+        self.fleet.drop(name, keep_bounds=keep_bounds)
 
     def list_loaded(self) -> list[dict]:
         return self.registry.list()
@@ -132,6 +176,15 @@ class ServingService:
             if batcher is None:
                 if self._closed:
                     raise RuntimeError("serving is shut down")
+                if self.fleet.engaged(name):
+                    # Raced a fleet cutover: refuse retriably (429 +
+                    # Retry-After) instead of resurrecting the batcher
+                    # the fleet just retired; the retry routes onto the
+                    # replicas.
+                    raise BatcherClosed(
+                        f"model {name!r} is moving to fleet serving; "
+                        "retry"
+                    )
                 batcher = self._batchers[name] = MicroBatcher(
                     lambda padded, _n=name: self._dispatch(_n, padded),
                     max_batch=self.cfg.max_batch,
@@ -141,12 +194,66 @@ class ServingService:
                 )
             return batcher
 
-    def _dispatch(self, name: str, padded: np.ndarray) -> np.ndarray:
+    def _dispatch(self, name: str, padded: np.ndarray, replica=None
+                  ) -> np.ndarray:
         """Run one padded bucket; returns the host array.  Resolving the
         entry HERE means an invalidation between requests serves the
-        reloaded artifact, never a stale module."""
+        reloaded artifact, never a stale module.  ``replica`` (a fleet
+        Replica) runs it through the replica's placed module, with its
+        card current so the kernels launch there."""
         entry = self.registry.get(name)
-        return entry.estimator.apply(padded)
+        # The bucket's shape and dtype: what a fresh replica's pre-warm
+        # replays (dies with the entry, like decode_warm).
+        entry.warm_shapes[padded.shape[0]] = (padded.shape,
+                                              str(padded.dtype))
+        if replica is None:
+            return entry.estimator.apply(padded)
+        module = replica.place(entry)
+        where = (placed(replica.devices) if replica.cards is not None
+                 else contextlib.nullcontext())
+        with where:
+            return entry.estimator.apply(padded, module=module)
+
+    def replica_dispatch_factory(self, name: str):
+        """Per-replica dispatch binder for the fleet manager: the
+        single-path dispatch plus the replica's placement.  The
+        single-path batcher is retired (``pop_single_path``) only after
+        the first replica places, so a failed scale-up leaves the model
+        serving as before."""
+        def factory(replica):
+            return lambda padded: self._dispatch(
+                name, padded, replica=replica)
+
+        return factory
+
+    def replica_warmup_factory(self, name: str):
+        """Pre-warm binder for the fleet manager, or None when
+        ``AotConfig.replica_prewarm`` is off: dummy dispatches of every
+        bucket the model served (``warm_shapes``) through the new
+        replica, then the decode leg (every recorded (S, Tk) step), all
+        before the router may pick it."""
+        if not self.aot_cfg.replica_prewarm:
+            return None
+
+        def warm(replica):
+            entry = self.registry.peek(name)
+            if entry is None:
+                return  # not resident: nothing recorded to replay
+            # A copy: batcher threads record buckets concurrently.
+            for _rows, (shape, dtype) in sorted(
+                    entry.warm_shapes.copy().items()):
+                self._dispatch(name, np.zeros(shape, dtype=dtype),
+                               replica=replica)
+            self.decode.warm_replica(name, replica)
+
+        return warm
+
+    def pop_single_path(self, name: str) -> MicroBatcher | None:
+        """Detach (NOT close) the model's single-path batcher: the fleet
+        cutover absorbs its counters, registers the set, and only then
+        drains it, so predicts route onto replicas at once."""
+        with self._lock:
+            return self._batchers.pop(name, None)
 
     @staticmethod
     def _as_batch(instances) -> np.ndarray:
@@ -183,6 +290,27 @@ class ServingService:
         except ValueError as exc:
             raise ServeError(str(exc)) from None
         t0 = time.perf_counter()
+        try:
+            rs = self.fleet.routing_set(name)
+        except LeaseTimeout:
+            # A PARTIAL cutover registers a routable set before
+            # re-raising: serve on it; otherwise the single-path batcher
+            # is only retired after the first replica places, so degrade
+            # to it.  With neither, the 503 + Retry-After surfaces.
+            rs = self.fleet.registered_set(name)
+            if rs is None and self._batchers.get(name) is None:
+                raise
+        if rs is not None:
+            out, replica = rs.submit(x)
+            entry.requests += 1
+            dt = time.perf_counter() - t0
+            return {
+                "model": name,
+                "predictions": out.tolist(),
+                "latencyMs": round(dt * 1e3, 3),
+                "replica": replica.idx,
+                "device": replica.device_id or "host",
+            }
         out = self._batcher_for(name).submit(x)
         entry.requests += 1
         dt = time.perf_counter() - t0
@@ -205,9 +333,14 @@ class ServingService:
             per_model = {
                 name: b.stats() for name, b in self._batchers.items()
             }
+        # Fleet models in the same per-model shape (replica batchers
+        # merged); per-replica detail rides the "fleet" key.
+        for name, rs in self.fleet.sets_snapshot():
+            per_model[name] = rs.merged_stats()
         return {
             "registry": self.registry.stats(),
             "models": per_model,
+            "fleet": self.fleet.snapshot(),
             "decode": self.decode.stats(),
             "config": {
                 "maxBatch": self.cfg.max_batch,
@@ -283,8 +416,11 @@ class ServingService:
             self._closed = True
             batchers = list(self._batchers.values())
             self._batchers.clear()
-        # Decode first: in-flight streams get a terminal event.
+        # Decode first: in-flight streams get a terminal event before
+        # their replicas go away; then the fleet (autoscaler stopped,
+        # replica batchers drained, cards released).
         self.decode.close()
+        self.fleet.close()
         for batcher in batchers:
             batcher.close()
         self.registry.clear()

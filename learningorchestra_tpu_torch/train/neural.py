@@ -1402,11 +1402,18 @@ class NeuralEstimator(Estimator):
         """Raise ValueError for input the module cannot take (validated on
         the host: a bad index on the card would fault the device)."""
 
-    def apply(self, x: np.ndarray) -> np.ndarray:
-        """One f32 forward over a host batch; returns host f32 outputs."""
+    def apply(self, x: np.ndarray, module=None) -> np.ndarray:
+        """One f32 forward over a host batch; returns host f32 outputs.
+        ``module``: a placed copy of this estimator's module to run
+        instead (a fleet replica's on another card); the batch goes from
+        the host to its card in one transfer."""
+        if module is None:
+            module, device = self.module, self.device
+        else:
+            device = next(module.parameters()).device
         with torch.inference_mode():
-            xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            return self.module(xt).float().cpu().numpy()
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            return module(xt).float().cpu().numpy()
 
     def predict(self, x, batch_size: int = 512, **_):
         if _is_sharded(x):

@@ -51,7 +51,11 @@ def test_sources_exist():
                    "services/tfevents.py",
                    # The streaming decode engine's own copies.
                    "serve/decode/__init__.py", "serve/decode/engine.py",
-                   "serve/decode/pages.py", "serve/decode/streams.py"):
+                   "serve/decode/pages.py", "serve/decode/streams.py",
+                   # The fleet tier's own copies.
+                   "serve/fleet/__init__.py", "serve/fleet/router.py",
+                   "serve/fleet/replicaset.py", "serve/fleet/autoscaler.py",
+                   "serve/fleet/manager.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()
