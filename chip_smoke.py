@@ -90,7 +90,11 @@ Phases (each prints its own line; any failure exits nonzero):
    builder's 7 features, 2 classes, seeded at train.csv's schema) and UCI
    Covertype's (54 features, 7 classes, every predict over the published
    581,012 rows; fit rows cut per estimator in ``COVTYPE_FIT_ROWS``, each
-   cut in its line as ``fit_rows``), t-SNE at 2,000 points; labels
+   cut in its line as ``fit_rows``; the CPU reference answers every row
+   too, and computes its decision scores only where a label differs),
+   t-SNE at 2,000 points; the CPU reference runs in a child process
+   (``--cpu-reference``) from the phase's start, beside the card's side
+   and (b), and the Covertype comparisons come after (b); labels
    equal but at ties within f32 rounding (``MARGIN_RTOL``, each flip
    counted in the line), f32 answers within ``ANSWER_RTOL``, the
    solvers' coefficients within ``COEF_RTOL``, t-SNE by its KL
@@ -122,17 +126,18 @@ Phases (each prints its own line; any failure exits nonzero):
    seconds and bytes; resume-load, journal replay, boot-to-redispatch and
    to-finished seconds; launches; the parameter difference);
 11. the text pipeline and beyond-RAM datasets over REST on the card:
-   seeded review CSVs at the Large Movie Review Dataset's split (25,000
-   train and 25,000 test reviews, balanced; a Zipf vocabulary of 20,000
-   synthetic word types with sentiment-bearing ones, lengths long-tailed
-   around 180 words), ``POST /dataset/csv`` of both and a histogram of
-   the label; ``/transform/text`` (BPE trained to 8,000 tokens, maxLen
-   128, 4,096-row shards: 7 with a ragged tail) and the held-out split
-   and a maxLen-80 pair with ``tokenizerFrom``; BERT-base (phase 8's
-   model) trained streaming for 1 epoch at batch 32 with
-   ``quantize_checkpoint`` (782 steps: K1/K2/K3 12 each per step, K4
-   once), a streaming evaluate on the test split (K5 once, K1 per batch)
-   and a predict on the bare test dataset (K5 once, K1 per dispatch;
+   seeded review CSVs at the Large Movie Review Dataset's row shape (its
+   25,000 + 25,000 reviews cut to ``IMDB_ROWS`` each, balanced; a Zipf
+   vocabulary of 20,000 synthetic word types with sentiment-bearing ones,
+   lengths long-tailed around 180 words), ``POST /dataset/csv`` of both
+   and a histogram of the label; ``/transform/text`` (BPE trained to
+   8,000 tokens, maxLen 128, 4,096-row shards: 3 with a ragged tail of 8
+   rows) and the held-out split and a maxLen-80 pair with
+   ``tokenizerFrom``; BERT-base (phase 8's model) trained streaming for 1
+   epoch at batch 32 with ``quantize_checkpoint`` (257 steps: K1/K2/K3 12
+   each per step, K4 once; one program per distinct shard length), a
+   streaming evaluate on the test split (K5 once, K1 per batch) and a
+   predict on the bare test dataset (K5 once, K1 per dispatch;
    rows within 1e-3 of the same artifact on the CPU); config 3's
    ``LSTMClassifier()`` trained streaming on the maxLen-80 pair and
    evaluated; ``/explore/curves`` of both fits, ``/function/python``
@@ -196,10 +201,10 @@ Phases (each prints its own line; any failure exits nonzero):
    the final buffer, ``DEC_LOGIT_BAR``*(1+|ref|), and the engine's tokens
    against in-process solo decodes (first divergence reported); (e) (d)'s
    check for rope + GQA 12/4 + window 256 at 2 layers, untrained; (f) the
-   ``decoder`` line: each (S, Tk) step bucket's device and host-paced ms,
-   TTFT p50 / max and ITL p50 / p99 of the SSE streams (client side),
-   engine against sequential solo tokens/s, KV bytes per pool, launches,
-   the phase's seconds;
+   ``decoder`` line: TTFT p50 / max and ITL p50 / p99 of the SSE streams
+   (client side), engine (best of 2) against sequential solo (1 pass)
+   tokens/s, KV bytes per pool, the engine's graph captures, launches,
+   the phase's seconds (each step cell is timed in phase 15);
 14. fleet serving over REST (``run_fleet``), after every phase that
    trains (a replica holds the card): phase 4's int8 BERT-base and phase
    13's DecoderLM artifacts on one server: (a) with the context's own
@@ -221,7 +226,26 @@ Phases (each prints its own line; any failure exits nonzero):
    (cutover, scale-up and drain seconds, each window's rows/s, p50, p99
    and requests per replica, the 2/1 ratio, decode streams per replica
    and tokens/s, K1 and K5 on the fleet paths, the 503 and 429 counts);
-15. last line: {"ok": true, "device": {...}}.
+15. the program cache and the cost plane (``run_program_cache``), with
+   ``LO_TPU_COSTS_PEAK_FLOPS`` set to the card's dense bf16 peak for the
+   whole run: (a) from a cold program cache and cost ledger, phase 8's
+   CSV, projection and BERT-base model, then the same train spec twice
+   over REST (the first job's ``compileCache`` misses >= 1 and it runs
+   FLOP analyses; the second's misses 0, hits >= 1, no analysis; both
+   jobs' seconds; K1/K2/K3 12 per step, K4 once each), a
+   2-candidate tune of one architecture (its ``compileCache``: every
+   program a hit), ``GET /monitoring/tensorflow/compileCache``; (b) each
+   train job's ``deviceTime`` (device s, FLOPs, MFU in (0, 1]) and its
+   FLOPs per step within ``PC_FLOPS_BAR`` of the analytic BERT-base count
+   at (32, 128), 4 predicts of the trained artifact (K5 once, K1 12 each)
+   and ``GET /observability/costs`` by model and bucket (phase 14's
+   models included); (c) phase 13's int8 DecoderLM on a fresh server: 8
+   JSON prompts and 2 SSE streams through the step programs' CUDA
+   graphs, token for token equal to phase 13's solo decodes, then each
+   (S, Tk) cell's graph step against the eager ``build_step`` (host-paced
+   and device ms, capture ms, graph-pool bytes); the ``program_cache``
+   line;
+16. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -2006,13 +2030,18 @@ COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
 # Fit rows at the Covertype shape, where the whole table would outgrow
 # the phase's time (host tree growth; CPU reference fits of the f32
 # solvers; kNN's CPU predict against its training rows; kmeans++ seeding
-# on the host).  Every predict runs over all 581,012 rows.
-COVTYPE_FIT_ROWS = {"RandomForestClassifier": 50_000,
+# on the host).  Every predict on the card runs over all 581,012 rows.
+COVTYPE_FIT_ROWS = {"RandomForestClassifier": 25_000,
                     "GradientBoostingClassifier": 5_000,
                     "KNeighborsClassifier": 5_000,
+                    "DecisionTreeClassifier": 100_000,
+                    "DecisionTreeRegressor": 100_000,
                     "LogisticRegression": 100_000, "SGDClassifier": 100_000,
                     "LinearSVC": 100_000, "SVC": 50_000, "KMeans": 100_000}
 TSNE_POINTS = 2000
+# Bound on the wait for one estimator's CPU reference (the slowest, the
+# Covertype gradient boosting's fit and predict, takes ~50 s alone).
+CPU_REFERENCE_TIMEOUT_S = 600
 # Card against the CPU: f32 answers within ANSWER_RTOL of their largest
 # value; labels equal, but where the CPU's own top-2 margin is within
 # MARGIN_RTOL of its score scale (a tie at f32 rounding, ``_tie_margins``:
@@ -2161,15 +2190,13 @@ def covtype_inputs(seed: int = 54) -> dict:
             "shape": "covtype", "fit_rows": COVTYPE_FIT_ROWS}
 
 
-def _answer_arrays(est, cls, x_pred, method):
-    """(answer, decision scores or None) of one fitted estimator."""
-    out = getattr(est, method)(x_pred)
-    scores = None
+def _decision_scores(est, cls, x_pred):
+    """The decision scores of one fitted estimator, or None."""
     if hasattr(est, "decision_function"):
-        scores = est.decision_function(x_pred)
-    elif cls in ("GaussianNB", "MultinomialNB"):
-        scores = est._joint_log_likelihood(x_pred)
-    return out, scores
+        return est.decision_function(x_pred)
+    if cls in ("GaussianNB", "MultinomialNB"):
+        return est._joint_log_likelihood(x_pred)
+    return None
 
 
 def _host(a):
@@ -2178,8 +2205,10 @@ def _host(a):
 
 
 def fit_estimator(case, inputs, device) -> dict:
-    """Fit one of the 19 on ``device`` and answer over every row:
-    seconds of each (the card's synchronised)."""
+    """Fit one of the 19 on ``device`` and answer over every row: seconds
+    of each (the card's synchronised).  The card also gives its decision
+    scores; the CPU's are computed only where a comparison needs them
+    (a second walk of every tree over every row otherwise)."""
     from learningorchestra_tpu_torch.toolkit import registry
 
     mod, cls, kwargs, kind, method = case
@@ -2205,7 +2234,8 @@ def fit_estimator(case, inputs, device) -> dict:
         sync()
         fit_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        answer, scores = _answer_arrays(est, cls, x, method)
+        answer = getattr(est, method)(x)
+        scores = None if device == "cpu" else _decision_scores(est, cls, x)
         sync()
         predict_s = time.perf_counter() - t0
     return {"est": est, "x": x, "answer": _host(answer),
@@ -2275,7 +2305,10 @@ def compare_estimator(cls, card: dict, cpu: dict, inputs) -> tuple:
     else:
         # Labels: equal, but where the CPU's own scores tie at rounding.
         bad = np.flatnonzero(a != b)
-        scores = cpu["scores"]
+        scores = None
+        if bad.size:
+            scores = _decision_scores(cpu["est"], cls, cpu["x"])
+            scores = None if scores is None else _host(scores)
         margins = _tie_margins(
             cls, cpu["est"], cpu["x"][bad],
             None if scores is None else scores[bad],
@@ -2305,20 +2338,130 @@ def compare_estimator(cls, card: dict, cpu: dict, inputs) -> tuple:
     return ok, detail
 
 
-def run_estimator_zoo(inputs) -> list:
-    """Every classical estimator fitted and answering at one shape on the
-    card and on the CPU, held against each other."""
+def prepare_zoo_inputs(inputs) -> dict:
+    """Add the t-SNE rows (``TSNE_POINTS`` of the shape's, seeded,
+    standardised) to a shape's inputs."""
     rng = np.random.default_rng(9)
     pick = rng.choice(len(inputs["x"]), min(TSNE_POINTS, len(inputs["x"])),
                       replace=False)
     xs = inputs["x"][pick]
     inputs["tsne_x"] = (xs - xs.mean(0)) / np.maximum(xs.std(0), 1e-6)
+    return inputs
+
+
+def _inputs_digest(inputs) -> str:
+    import hashlib
+
+    digest = hashlib.sha1()
+    for key in ("x", "y", "cat", "tsne_x"):
+        digest.update(np.ascontiguousarray(inputs[key]).tobytes())
+    return digest.hexdigest()
+
+
+def fit_card_side(inputs) -> dict:
+    """Every classical estimator fitted and answering on the card at one
+    shape: {class: fit_estimator's result, or the exception it raised}."""
+    out = {}
+    for case in ESTIMATORS:
+        try:
+            out[case[1]] = fit_estimator(case, inputs, "cuda")
+        except Exception as exc:  # noqa: BLE001 — fails that estimator
+            out[case[1]] = exc
+    return out
+
+
+def zoo_shapes() -> list:
+    """Phase 9's two shapes, built the same way in the script and in its
+    CPU-reference child."""
+    return [prepare_zoo_inputs(titanic_inputs(titanic_table())),
+            prepare_zoo_inputs(covtype_inputs())]
+
+
+def cpu_reference_child(outdir: str) -> int:
+    """Phase 9's CPU reference (``chip_smoke.py --cpu-reference DIR``): at
+    each shape, every estimator fitted and answering on the CPU, written
+    to ``DIR/<shape>_<class>.pkl`` as it finishes (the error's repr where
+    it raised), after ``DIR/<shape>.digest`` of the inputs it used.  It
+    runs beside the card's side of phase 9, so the host-bound reference
+    overlaps the card's work; it never touches the card."""
+    import pickle
+
+    def dump(name, obj):
+        with open(f"{outdir}/{name}.tmp", "wb") as f:
+            pickle.dump(obj, f)
+        os.replace(f"{outdir}/{name}.tmp", f"{outdir}/{name}.pkl")
+
+    for inputs in zoo_shapes():
+        shape = inputs["shape"]
+        dump(f"{shape}.digest", _inputs_digest(inputs))
+        for case in ESTIMATORS:
+            try:
+                res = fit_estimator(case, inputs, "cpu")
+                res.pop("x")
+            except Exception as exc:  # noqa: BLE001 — the parent fails
+                # that estimator with it.
+                res = {"error": repr(exc)}
+            dump(f"{shape}_{case[1]}", res)
+    return 0
+
+
+class CpuReference:
+    """The CPU-reference child of phase 9, started at once; ``get`` waits
+    (bounded) for one estimator's result and checks that the child built
+    the same inputs; ``stop`` ends the child."""
+
+    def __init__(self, outdir: str):
+        import pickle
+
+        self._pickle = pickle
+        self.dir = outdir
+        os.makedirs(outdir, exist_ok=True)
+        # The child keeps this process's thread counts: a CPU fit's
+        # reductions, and so a 100,000-row KMeans fit's labels, depend on
+        # them.
+        with open(f"{outdir}/child.log", "w") as log:
+            self.child = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--cpu-reference", outdir],
+                stdout=log, stderr=subprocess.STDOUT)
+        self._checked = set()
+
+    def _load(self, name: str):
+        path = f"{self.dir}/{name}.pkl"
+        _poll(lambda: os.path.exists(path), CPU_REFERENCE_TIMEOUT_S,
+              f"CPU reference {name}", self.child)
+        with open(path, "rb") as f:
+            return self._pickle.load(f)
+
+    def get(self, inputs, cls: str) -> dict:
+        shape = inputs["shape"]
+        if shape not in self._checked:
+            if self._load(f"{shape}.digest") != _inputs_digest(inputs):
+                raise RuntimeError(f"the CPU reference built other "
+                                   f"{shape} inputs than the card's")
+            self._checked.add(shape)
+        res = self._load(f"{shape}_{cls}")
+        if "error" in res:
+            raise RuntimeError(f"CPU reference: {res['error']}")
+        return res
+
+    def stop(self) -> None:
+        if self.child.poll() is None:
+            self.child.kill()
+        self.child.wait()
+
+
+def run_estimator_zoo(inputs, cards: dict, reference: CpuReference) -> list:
+    """Every classical estimator's answers on the card (``cards``) held
+    against the CPU reference's at one shape."""
     lines = []
     for case in ESTIMATORS:
         cls = case[1]
         try:
-            card = fit_estimator(case, inputs, "cuda")
-            cpu = fit_estimator(case, inputs, "cpu")
+            card = cards[cls]
+            if isinstance(card, Exception):
+                raise card
+            cpu = {**reference.get(inputs, cls), "x": card["x"]}
             ok, detail = compare_estimator(cls, card, cpu, inputs)
         except Exception as exc:  # noqa: BLE001 — the failed estimator
             # fails the phase; the others still run.
@@ -2594,6 +2737,9 @@ def crash_child(tmp: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The cost plane reports MFU against the card's dense bf16 peak (read
+    # at its first use, so before any phase runs).
+    os.environ["LO_TPU_COSTS_PEAK_FLOPS"] = repr(COSTS_PEAK_FLOPS)
     epoch_raw = NeuralEstimator._device_epoch
 
     def slowed(self, *args):
@@ -2831,8 +2977,10 @@ def run_crash_drill(tmp) -> dict:
 # -- phase 11: the text pipeline and beyond-RAM datasets over REST -----------
 
 # The Large Movie Review Dataset's split (Maas et al., 2011), as a shape:
-# 25,000 train and 25,000 test reviews, balanced; the text is seeded.
-IMDB_ROWS = 25_000
+# 25,000 train and 25,000 test reviews, balanced; the text is seeded.  Cut
+# to this many per split (2 full 4,096-row shards and a tail of 8) to
+# bound the run's time; the row shape, vocabulary and lengths stay.
+IMDB_ROWS = 8_200
 IMDB_TYPES = 20_000  # synthetic word types, Zipf-distributed
 IMDB_SENTIMENT = 200  # sentiment-bearing types per polarity
 IMDB_SENTIMENT_SHARE = 0.03  # of a review's words
@@ -3323,7 +3471,8 @@ def run_text_pipeline(tmp, in_memory_step_ms) -> dict:
                              for c, f in stream_fits.items()},
             "images": images,
             "reduced": {"covtype_rows": f"{COVTYPE_STREAM_ROWS} of 581012 "
-                        "(the sharded CSV is parsed in Python)"},
+                        "(the sharded CSV is parsed in Python)",
+                        "imdb_rows": f"{IMDB_ROWS} of 25000 per split"},
         }
     finally:
         fits.close()
@@ -3844,63 +3993,90 @@ def read_sse(port, body, on_token=None):
 
 
 def time_decode_steps(est, warm: dict, reps: int = 10) -> dict:
-    """Each (S, Tk) bucket the engine stepped, timed on its own: a pool of
-    S live slots at position Tk/2.  The host-paced ms is what a caller
-    waits per step (CUDA events around ``reps`` steps); the device ms is
-    the sum of the step's kernel times from torch.profiler (a device
-    sleep cannot hide a launch rate this slow), so their gap is the
-    device's idle share."""
+    """Each (S, Tk) cell the engine stepped, timed on its own: a pool of S
+    live slots at position Tk/2, stepped by the cell's program as the
+    engine steps it (a CUDA graph replay after one copy of the step's
+    inputs) and, in the same run, by the eager ``build_step`` called
+    directly.  Host-paced ms is what a caller waits per step (CUDA events
+    around ``reps`` steps, launches not hidden).  Device ms: the graph's
+    bare replays queued behind a device sleep; the eager step's kernel
+    times summed from torch.profiler (a device sleep cannot hide a launch
+    rate that slow).  Their gap is the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from learningorchestra_tpu_torch.serve.decode.pages import build_step
+    from learningorchestra_tpu_torch.serve.decode.pages import (
+        DecodeStepProgram,
+        PagePool,
+        build_step,
+    )
 
     out = {}
     for nslots, kvlen in sorted(warm):
-        step = build_step(est.module, nslots, kvlen)
-        cache = est.module.init_cache(nslots, kvlen, per_row=True,
-                                      device=DEC_DEVICE)
-        buf = torch.from_numpy(decoder_rows(nslots, kvlen, seed=5)).to(
-            DEC_DEVICE).long()
-        pos = torch.full((nslots,), kvlen // 2, device=DEC_DEVICE)
-        t0s = torch.full((nslots,), kvlen + 1, device=DEC_DEVICE)
-        live = torch.ones(nslots, dtype=torch.bool, device=DEC_DEVICE)
+        module = est.module
+        program = DecodeStepProgram(nslots, kvlen)
+        pool = PagePool(kvlen, nslots)
+        pool._alloc(lambda want: module.init_cache(
+            want, kvlen, per_row=True, device=DEC_DEVICE), nslots)
+        pool.buf.copy_(torch.from_numpy(decoder_rows(
+            nslots, kvlen, seed=5)).to(DEC_DEVICE).long())
+        pos = np.full(nslots, kvlen // 2, np.int64)
+        t0s = np.full(nslots, kvlen + 1, np.int64)
+        live = np.ones(nslots, bool)
+        step = build_step(module, nslots, kvlen)
+        dpos = torch.from_numpy(pos).to(DEC_DEVICE)
+        dt0s = torch.from_numpy(t0s).to(DEC_DEVICE)
+        dlive = torch.from_numpy(live).to(DEC_DEVICE)
 
-        def run():
-            step(cache, buf, pos, t0s, live)
+        def graph_step():
+            program(module, pool, pos, t0s, live)
+
+        def eager_step():
+            step(pool.cache, pool.buf, dpos, dt0s, dlive)
 
         with torch.no_grad():
-            host = time_ms(run, reps=reps, hide_launch=False)
+            graph_step()  # captures
+            cell = {"graph_host_paced_ms": time_ms(graph_step, reps=reps,
+                                                   hide_launch=False),
+                    "graph_device_ms": time_ms(pool.graph.graph.replay,
+                                               reps=reps),
+                    "capture_ms": 1e3 * pool.graph.capture_s,
+                    "graph_pool_bytes": pool.graph.pool_bytes,
+                    "eager_host_paced_ms": time_ms(eager_step, reps=reps,
+                                                   hide_launch=False)}
             try:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     for _ in range(reps):
-                        run()
+                        eager_step()
                     torch.cuda.synchronize()
-                dev = sum(device_kernels(prof).values()) / reps
+                cell["eager_device_ms"] = sum(
+                    device_kernels(prof).values()) / reps
             except Exception as exc:  # noqa: BLE001 — where CUPTI tracing
                 # is unavailable the device time is not measured.
-                dev = None
+                cell["eager_device_ms"] = None
                 print(f"[info] decode step profile: {exc!r}", flush=True)
-        out[f"s{nslots}_k{kvlen}"] = {
-            "host_paced_ms": host, "device_ms": dev,
-            "idle_share": None if dev is None else max(0.0, 1 - dev / host)}
+        for kind in ("graph", "eager"):
+            host, dev = cell[f"{kind}_host_paced_ms"], cell[
+                f"{kind}_device_ms"]
+            cell[f"{kind}_idle_share"] = None if dev is None else max(
+                0.0, 1 - dev / host)
+        out[f"s{nslots}_k{kvlen}"] = cell
+        del pool, program, step
     return out
 
 
 def decoder_throughput(server, est, prompts) -> dict:
     """Continuous batching against sequential solo decodes, as the JAX
     package's bench measures it: 8 prompts, every one submitted at once to
-    the engine, against one solo ``generate`` after another; best of 2
-    passes each, warm."""
+    the engine (best of 2 passes), against one solo ``generate`` after
+    another (one pass); warm."""
     new = DEC_NEW
     eng = server.serving.decode
     est.generate(np.asarray([prompts[0]], np.int32), max_new_tokens=new)
-    seq = 0.0
-    for _ in range(2):
-        t0 = time.perf_counter()
-        for p in prompts:
-            est.generate(np.asarray([p], np.int32), max_new_tokens=new)
-        seq = max(seq, len(prompts) * new / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    for p in prompts:
+        est.generate(np.asarray([p], np.int32), max_new_tokens=new)
+    seq = len(prompts) * new / (time.perf_counter() - t0)
     eng.generate(DEC_MODEL, prompts, max_new_tokens=new)  # warm
     engine = 0.0
     for _ in range(2):
@@ -4158,8 +4334,9 @@ def run_decoder(tmp, card: str) -> dict:
 
         st = server.serving.decode.stats()["models"][DEC_MODEL]
         line["pools"] = st["pools"]
+        line["graphs"] = st["graphs"]
+        # Each cell's step is timed in phase 15, graph against eager.
         warm = dict(server.serving.registry.get(DEC_MODEL).decode_warm)
-        line["step_ms"] = time_decode_steps(served, warm)
         line["throughput"] = decoder_throughput(
             server, served, [p[:DEC_PROMPT_LENS[0]] for p in prompts])
         line["ttft_ms"] = {"p50": float(np.median(ttft)),
@@ -4193,7 +4370,8 @@ def run_decoder(tmp, card: str) -> dict:
     line["phase_s"] = time.perf_counter() - t_phase
     name, _, limit = card.partition(",")
     line = {"card": name.strip(), "power_limit": limit.strip(), **line}
-    return {"line": line, "launches": launches, "artifact": artifact}
+    return {"line": line, "launches": launches, "artifact": artifact,
+            "prompts": prompts, "solo": solo, "warm": warm}
 
 
 # -- phase 14: fleet serving (replica sets, the P2C router, the autoscaler) --
@@ -4708,6 +4886,272 @@ def run_fleet(tmp, card: str, bert_artifact, dec_artifact) -> dict:
     return {"line": line, "launches": launches}
 
 
+# -- phase 15: the program cache and the cost plane ---------------------------
+
+# The card's dense bf16 peak (NVIDIA H100 SXM data sheet): the cost plane's
+# LO_TPU_COSTS_PEAK_FLOPS for this run, so MFU is reported.
+COSTS_PEAK_FLOPS = 989.4e12
+PC_TUNE_SEEDS = [1, 2]  # a 2-candidate grid over one architecture
+# The train job's FLOPs per step (FlopCounterMode over one real epoch,
+# K1-K3 by formula) against the analytic BERT-base count at (32, 128).
+PC_FLOPS_BAR = 1e-2
+PC_SERVE_REQUESTS = 4
+PC_SSE = 2
+
+
+def bert_step_flops(batch: int, t: int, hidden=768, layers=12, heads=12,
+                    mlp=3072, classes=2) -> float:
+    """Analytic FLOPs of one BERT-base fine-tune step: every GEMM of the
+    forward (QKV, output, MLP per layer over all tokens; the pooler and
+    the classifier over the [CLS] rows) three times (forward, input
+    gradient, weight gradient), plus K1, K2 and K3 at 4, 6 and 8 FLOPs
+    per (query, key) pair and head dimension."""
+    tokens = batch * t
+    per_layer = hidden * 3 * hidden + hidden * hidden + 2 * hidden * mlp
+    gemm = 2 * tokens * per_layer * layers + 2 * batch * (
+        hidden * hidden + hidden * classes)
+    attention = (4 + 6 + 8) * batch * heads * t * t * (hidden // heads) \
+        * layers
+    return 3 * gemm + attention
+
+
+def run_program_cache(tmp, card: str, dec: dict) -> dict:
+    """Phase 15 on the card: (a) the same BERT-base train spec twice over
+    REST (the second job resolves every program from the cache), a
+    2-candidate tune of one architecture, ``GET /monitoring/tensorflow/
+    compileCache``; (b) the train job's ``deviceTime`` (device s, FLOPs,
+    MFU against COSTS_PEAK_FLOPS) and its FLOPs per step against the
+    analytic count, the cost plane's per-model and per-bucket view after
+    fresh serving requests; (c) phase 13's DecoderLM served from its int8
+    artifact: ``/generate`` of 8 prompts and 2 SSE streams through the
+    step programs' CUDA graphs, held to phase 13's solo decodes token for
+    token, and each (S, Tk) cell's graph step against the eager step."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.obs import costs
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+    from learningorchestra_tpu_torch.train import compile_cache
+
+    t_phase = time.perf_counter()
+    # A cold start, as a fresh process has (before the server, whose
+    # context listens on the cache): earlier phases' programs and FLOP
+    # analyses go, so job 1 builds and analyzes what job 2 then resolves.
+    compile_cache.reset_cache()
+    costs.reset()
+    csv = f"{tmp}/tokens.csv"
+    x, _ = write_token_csv(csv)
+    server = APIServer(server_config(f"{tmp}/volumes"), device="cuda")
+    port = server.start_background()
+    jobs, line, launches = {}, {}, {}
+
+    def run(key, verb, path, body, name):
+        status, meta, secs, counts = rest_job(port, verb, path, body, name)
+        good = status in (200, 201) and meta.get("jobState") == "finished"
+        jobs[key] = {"seconds": secs, "launches": counts, "meta": meta}
+        phase(f"program cache job {key}", good,
+              f"{verb} {path} -> {status}, jobState {meta.get('jobState')} "
+              f"in {secs:.2f}s; launches {counts}"
+              + ("" if good else f"; metadata {meta}"))
+        return meta
+
+    steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_SHAPE[0])
+    fit_params = {"x": "$tokens_x", "y": "$tokens.label",
+                  "epochs": TRAIN_EPOCHS, "batch_size": TRAIN_SHAPE[0],
+                  "shuffle": False, "quantize_checkpoint": True}
+    try:
+        run("ingest", "POST", "/dataset/csv",
+            {"datasetName": "tokens", "url": f"file://{csv}"}, "tokens")
+        run("projection", "POST", "/transform/projection",
+            {"projectionName": "tokens_x", "datasetName": "tokens",
+             "fields": REST_FIELDS}, "tokens_x")
+        run("model", "POST", "/model/tensorflow",
+            {"modelName": "bert", "class": "BertModel",
+             "modulePath": "learningorchestra_tpu.models.text",
+             "classParameters": REST_MODEL}, "bert")
+        # (a) the same spec twice.
+        per_job = {"flash_fwd": REST_LAYERS * steps,
+                   "flash_bwd_dq": REST_LAYERS * steps,
+                   "flash_bwd_dkv": REST_LAYERS * steps,
+                   "quantize_rowwise": 1, "dequantize_rowwise": 0}
+        # A hit skips the program's build and its first call's FLOP
+        # analysis (the ledger's count of analyses); the programs are
+        # eager, so the build itself costs next to nothing.
+        metas, analyses = [], []
+        for key in ("pc_fit1", "pc_fit2"):
+            before = costs.get_ledger().snapshot()
+            metas.append(run(key, "POST", "/train/tensorflow",
+                             {"name": key, "parentName": "bert",
+                              "method": "fit",
+                              "methodParameters": fit_params}, key))
+            after = costs.get_ledger().snapshot()
+            analyses.append(after["analyses"] - before["analyses"])
+        caches = [m.get("compileCache", {}) for m in metas]
+        job_s = [jobs[k]["seconds"] for k in ("pc_fit1", "pc_fit2")]
+        launches["train"] = [jobs[k]["launches"]
+                             for k in ("pc_fit1", "pc_fit2")]
+        phase("program cache second identical job",
+              caches[0].get("misses", 0) >= 1 and analyses[0] >= 1
+              and caches[1].get("misses") == 0
+              and caches[1].get("hits", 0) >= 1 and analyses[1] == 0
+              and all(c == per_job for c in launches["train"]),
+              f"from a cold cache: compileCache job 1 {caches[0]}, job 2 "
+              f"{caches[1]} (want misses >= 1, then misses 0, hits >= 1); "
+              f"FLOP analyses {analyses} (want >= 1, then 0); seconds "
+              f"{job_s}; launches {launches['train']} (want {per_job} "
+              f"each)")
+        tune = run("tune", "POST", "/tune/tensorflow", {
+            "name": "pc_tune", "parentName": "bert", "method": "fit",
+            "paramGrid": {"seed": PC_TUNE_SEEDS,
+                          **{k: [v] for k, v in REST_MODEL.items()}},
+            "methodParameters": fit_params}, "pc_tune")
+        score_batches = -(-TRAIN_ROWS // 128)
+        n = len(PC_TUNE_SEEDS)
+        want_tune = {"flash_fwd": REST_LAYERS * (steps + score_batches) * n,
+                     "flash_bwd_dq": REST_LAYERS * steps * n,
+                     "flash_bwd_dkv": REST_LAYERS * steps * n,
+                     "quantize_rowwise": 1, "dequantize_rowwise": 0}
+        launches["tune"] = jobs["tune"]["launches"]
+        tcache = tune.get("compileCache", {})
+        phase("program cache tune", launches["tune"] == want_tune
+              and tcache.get("misses") == 0
+              and tcache.get("hits") == 2 * n,
+              f"{n} candidates of one architecture: compileCache {tcache} "
+              f"(want misses 0: both programs built by the train jobs, "
+              f"hits {2 * n}: epoch_fns and device_epoch per candidate); "
+              f"launches {launches['tune']} (want {want_tune})")
+        status, cache_doc = request(
+            port, "GET", "/monitoring/tensorflow/compileCache")
+        phase("program cache monitoring", status == 200
+              and {"hits", "misses", "programs", "programCosts", "aot"}
+              <= set(cache_doc),
+              f"GET /monitoring/tensorflow/compileCache -> {status}: "
+              f"entries {cache_doc.get('entries')}, hits "
+              f"{cache_doc.get('hits')}, misses {cache_doc.get('misses')}, "
+              f"programs {cache_doc.get('programs')}")
+        line["compile_cache"] = {"train_jobs": caches, "tune": tcache,
+                                 "train_job_s": job_s,
+                                 "train_job_analyses": analyses,
+                                 "monitoring": {k: cache_doc.get(k) for k in (
+                                     "entries", "hits", "misses",
+                                     "coalesced", "evictions",
+                                     "traceTimeS")}}
+
+        # (b) device time, FLOPs and MFU of the train jobs.
+        dts = [m.get("deviceTime") or {} for m in metas]
+        flops_step = [d.get("flops", 0) / steps for d in dts]
+        analytic = bert_step_flops(TRAIN_SHAPE[0], TRAIN_SHAPE[2])
+        rel = [abs(f - analytic) / analytic for f in flops_step]
+        mfu = [d.get("mfu") for d in dts]
+        phase("program cache deviceTime",
+              all(d.get("dispatches") == TRAIN_EPOCHS for d in dts)
+              and all(r <= PC_FLOPS_BAR for r in rel)
+              and all(m is not None and 0 < m <= 1 for m in mfu),
+              f"train jobs: device s {[d.get('deviceTimeS') for d in dts]}, "
+              f"FLOPs {[d.get('flops') for d in dts]}, MFU {mfu} (peak "
+              f"{COSTS_PEAK_FLOPS:.4g} FLOP/s); FLOPs per step "
+              f"{flops_step} vs analytic {analytic:.6g} at (32, 128): "
+              f"relative {rel} (bar {PC_FLOPS_BAR})")
+        line["device_time"] = {"train_jobs": dts, "tune": tune.get(
+            "deviceTime"), "flops_per_step": flops_step,
+            "analytic_flops_per_step": analytic, "relative_error": rel,
+            "peak_flops": COSTS_PEAK_FLOPS}
+        # Fresh serving requests of the trained artifact (K5 at the load).
+        zero_kernel_counts()
+        served_ok = True
+        for i in range(PC_SERVE_REQUESTS):
+            status, body = request(port, "POST", "/serve/pc_fit2/predict",
+                                   {"instances": x[8 * i:8 * i + 8].tolist()})
+            served_ok &= status == 200 and len(body.get(
+                "predictions", [])) == 8
+        launches["serve"] = kernel_counts()
+        status, cost_doc = request(port, "GET", "/observability/costs")
+        models = cost_doc.get("deviceTime", {}).get("models", {})
+        buckets = cost_doc.get("deviceTime", {}).get("buckets", {})
+        phase("program cache serving costs", status == 200 and served_ok
+              and "pc_fit2" in models and "pc_fit2:8" in buckets
+              and launches["serve"]["dequantize_rowwise"] == 1
+              and launches["serve"]["flash_fwd"] == 12 * PC_SERVE_REQUESTS,
+              f"{PC_SERVE_REQUESTS} predicts of 8 rows -> {served_ok}, "
+              f"launches {launches['serve']} (want K5 1, K1 12 x "
+              f"{PC_SERVE_REQUESTS}); GET /observability/costs -> {status}")
+        print("costs_by_model " + json.dumps(models), flush=True)
+        print("costs_by_bucket " + json.dumps(buckets), flush=True)
+        line["costs_by_model"] = models
+        line["costs_by_bucket"] = buckets
+    finally:
+        server.shutdown()
+
+    # (c) the decode step as a CUDA graph, on phase 13's int8 artifact.
+    volumes = VolumeStorage(f"{tmp}/dec")
+    volumes.save_object(ARTIFACT_TYPE, DEC_MODEL, dec["artifact"])
+    server = APIServer(server_config(f"{tmp}/dec"), device=DEC_DEVICE)
+    port = server.start_background()
+    try:
+        prompts, solo = dec["prompts"], dec["solo"]
+        zero_kernel_counts()
+        status, _ = request(port, "POST", f"/serve/{DEC_MODEL}/load")
+        launches["decoder_load"] = kernel_counts()
+        served = server.serving.registry.get(DEC_MODEL).estimator
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        status, body = request(port, "POST", f"/serve/{DEC_MODEL}/generate",
+                               {"prompts": prompts, "maxNewTokens": DEC_NEW})
+        json_s = time.perf_counter() - t0
+        launches["generate"] = kernel_counts()
+        toks = body.get("tokens", [])
+        results = [None] * PC_SSE
+
+        def sse(i):
+            results[i] = read_sse(port, {"prompts": [prompts[i]],
+                                         "stream": True,
+                                         "maxNewTokens": DEC_NEW})
+
+        threads = [threading.Thread(target=sse, args=(i,))
+                   for i in range(PC_SSE)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        sse_ok = all(
+            res is not None and res[0] == 200
+            and prompts[i] + [d["t"] for n, d, _ in res[1] if n == "token"]
+            == solo[i] for i, res in enumerate(results))
+        st = server.serving.decode.stats()["models"][DEC_MODEL]
+        phase("program cache graph decode", status == 200 and toks == solo
+              and sse_ok and st["graphs"]["captures"] >= 1
+              and launches["generate"]["flash_fwd"] == 0
+              and launches["decoder_load"]["dequantize_rowwise"] == 1,
+              f"{len(prompts)} prompts x {DEC_NEW} new -> {status} in "
+              f"{json_s:.2f}s, equal to phase 13's solo decodes: "
+              f"{toks == solo}; {PC_SSE} SSE streams equal: {sse_ok}; "
+              f"graphs {st['graphs']}; K5 at the load "
+              f"{launches['decoder_load']['dequantize_rowwise']}")
+        line["decode"] = {
+            "json_s": json_s,
+            "engine_tok_s": len(prompts) * DEC_NEW / json_s,
+            "graphs": st["graphs"], "pools": st["pools"],
+            "step_ms": time_decode_steps(served, dec["warm"])}
+        for cell, t in line["decode"]["step_ms"].items():
+            print(f"decode step {cell}: graph host-paced "
+                  f"{t['graph_host_paced_ms']:.4f} ms, device "
+                  f"{t['graph_device_ms']:.4f} ms; eager host-paced "
+                  f"{t['eager_host_paced_ms']:.4f} ms, device "
+                  f"{t['eager_device_ms']} ms; capture "
+                  f"{t['capture_ms']:.1f} ms, graph pool "
+                  f"{t['graph_pool_bytes']} B ({card})", flush=True)
+        costs_doc = costs.devtime().snapshot()
+        line["decode"]["devtime_buckets"] = {
+            k: v for k, v in costs_doc["buckets"].items()
+            if k.startswith(f"{DEC_MODEL}:dec")}
+    finally:
+        server.shutdown()
+    line["launches"] = launches
+    line["phase_s"] = time.perf_counter() - t_phase
+    name, _, limit = card.partition(",")
+    line = {"card": name.strip(), "power_limit": limit.strip(), **line}
+    return {"line": line, "launches": launches}
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -4730,6 +5174,9 @@ def main() -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The cost plane reports MFU against the card's dense bf16 peak (read
+    # at its first use, so before any phase runs).
+    os.environ["LO_TPU_COSTS_PEAK_FLOPS"] = repr(COSTS_PEAK_FLOPS)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4848,20 +5295,30 @@ def main() -> int:
 
     # Phase 9: the classical estimators at two shapes, card against CPU,
     # then the Titanic pipeline over REST with its two tunes.
+    # The CPU reference runs in a child from the start; the Covertype
+    # comparisons come after the Titanic pipeline, so the reference's
+    # host-bound fits overlap the card's side and the pipeline.
     t_classic = time.perf_counter()
     zoo9 = {}
-    for make in (lambda: titanic_inputs(titanic_table()), covtype_inputs):
-        inputs = make()
-        zoo9[inputs["shape"]] = run_estimator_zoo(inputs)
-        del inputs
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    reference = CpuReference(f"{tmp}/cpu_reference")
     try:
-        titanic = run_titanic_rest(tmp)
-    except Exception as exc:  # noqa: BLE001 — reported as the phase's
-        # failure, which fails the script.
-        phase("titanic rest", False, repr(exc))
-        titanic = {"launches": {}, "line": {"error": repr(exc)}}
+        titanic_zoo, covtype_zoo = zoo_shapes()
+        zoo9["titanic"] = run_estimator_zoo(
+            titanic_zoo, fit_card_side(titanic_zoo), reference)
+        covtype_cards = fit_card_side(covtype_zoo)
+        os.makedirs(f"{tmp}/rest")
+        try:
+            titanic = run_titanic_rest(f"{tmp}/rest")
+        except Exception as exc:  # noqa: BLE001 — reported as the phase's
+            # failure, which fails the script.
+            phase("titanic rest", False, repr(exc))
+            titanic = {"launches": {}, "line": {"error": repr(exc)}}
+        zoo9["covtype"] = run_estimator_zoo(covtype_zoo, covtype_cards,
+                                            reference)
+        del titanic_zoo, covtype_zoo, covtype_cards
     finally:
+        reference.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     classic_s = time.perf_counter() - t_classic
 
@@ -4927,6 +5384,23 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     fleet_s = time.perf_counter() - t_fleet
+
+    # Phase 15: the program cache and the cost plane, after phase 14's
+    # serving traffic; its decode leg serves phase 13's artifact.
+    tmp, t_pc = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        if "artifact" not in dec:
+            raise RuntimeError("phase 13 left no decoder artifact")
+        pcache = run_program_cache(tmp, card, dec)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("program cache", False, repr(exc))
+        pcache = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pc_s = time.perf_counter() - t_pc
+    pc_l = pcache["launches"]
+    pc_train = list(pc_l.get("train", [])) + [pc_l.get("tune")]
     fleet_l = fleet["launches"]
     dec_l = dec["launches"]
     dec_f32 = [dec_l.get("forward_f32"), dec_l.get("forward_f32_rope")]
@@ -4972,7 +5446,8 @@ def main() -> int:
          + rest_sum("flash_fwd", [text_l.get("bert_pred")])
          + rest_sum("flash_fwd", dist_predict)
          + rest_sum("flash_fwd", dec_f32)
-         + rest_sum("flash_fwd", [fleet_l.get("fleet_predict")]),
+         + rest_sum("flash_fwd", [fleet_l.get("fleet_predict")])
+         + rest_sum("flash_fwd", [pc_l.get("serve")]),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
@@ -4981,7 +5456,9 @@ def main() -> int:
              "distributed_predict": rest_sum("flash_fwd", dist_predict),
              "decoder_full_forward": rest_sum("flash_fwd", dec_f32),
              "fleet_predict": rest_sum("flash_fwd",
-                                       [fleet_l.get("fleet_predict")])},
+                                       [fleet_l.get("fleet_predict")]),
+             "program_cache_serve": rest_sum("flash_fwd",
+                                             [pc_l.get("serve")])},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -4994,7 +5471,8 @@ def main() -> int:
          + rest_sum("flash_fwd", drill_train + [drill_l.get("evaluate")])
          + rest_sum("flash_fwd", text_bf16)
          + rest_sum("flash_fwd", dist_ranks)
-         + rest_sum("flash_fwd", [dec_l.get("train")]),
+         + rest_sum("flash_fwd", [dec_l.get("train")])
+         + rest_sum("flash_fwd", pc_train),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -5003,7 +5481,9 @@ def main() -> int:
                                      + [drill_l.get("evaluate")]),
              "text_train_and_evaluate": rest_sum("flash_fwd", text_bf16),
              "distributed_ranks": rest_sum("flash_fwd", dist_ranks),
-             "decoder_train": rest_sum("flash_fwd", [dec_l.get("train")])},
+             "decoder_train": rest_sum("flash_fwd", [dec_l.get("train")]),
+             "program_cache_train_and_tune": rest_sum("flash_fwd",
+                                                      pc_train)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -5020,7 +5500,8 @@ def main() -> int:
          + rest_sum("quantize_rowwise", drill_train)
          + rest_sum("quantize_rowwise", text_train)
          + rest_sum("quantize_rowwise", dist_parent)
-         + rest_sum("quantize_rowwise", [dec_l.get("publish")]),
+         + rest_sum("quantize_rowwise", [dec_l.get("publish")])
+         + rest_sum("quantize_rowwise", pc_train),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
@@ -5031,7 +5512,9 @@ def main() -> int:
              "distributed_train": rest_sum("quantize_rowwise",
                                            dist_parent),
              "decoder_publish": rest_sum("quantize_rowwise",
-                                         [dec_l.get("publish")])},
+                                         [dec_l.get("publish")]),
+             "program_cache_train_and_tune": rest_sum("quantize_rowwise",
+                                                      pc_train)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -5047,7 +5530,9 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", text_k5)
          + rest_sum("dequantize_rowwise", dist_predict)
          + rest_sum("dequantize_rowwise", [dec_l.get("load")])
-         + rest_sum("dequantize_rowwise", [fleet_l.get("fleet_load")]),
+         + rest_sum("dequantize_rowwise", [fleet_l.get("fleet_load")])
+         + rest_sum("dequantize_rowwise", [pc_l.get("serve"),
+                                           pc_l.get("decoder_load")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -5062,7 +5547,10 @@ def main() -> int:
              "decoder_load": rest_sum("dequantize_rowwise",
                                       [dec_l.get("load")]),
              "fleet_load": rest_sum("dequantize_rowwise",
-                                    [fleet_l.get("fleet_load")])},
+                                    [fleet_l.get("fleet_load")]),
+             "program_cache_loads": rest_sum(
+                 "dequantize_rowwise", [pc_l.get("serve"),
+                                        pc_l.get("decoder_load")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -5077,7 +5565,8 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", drill_train)
            + rest_sum(f"flash_bwd_{key}", text_train)
            + rest_sum(f"flash_bwd_{key}", dist_ranks)
-           + rest_sum(f"flash_bwd_{key}", [dec_l.get("train")]),
+           + rest_sum(f"flash_bwd_{key}", [dec_l.get("train")])
+           + rest_sum(f"flash_bwd_{key}", pc_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -5087,7 +5576,9 @@ def main() -> int:
                "distributed_ranks": rest_sum(f"flash_bwd_{key}",
                                              dist_ranks),
                "decoder_train": rest_sum(f"flash_bwd_{key}",
-                                         [dec_l.get("train")])},
+                                         [dec_l.get("train")]),
+               "program_cache_train_and_tune": rest_sum(
+                   f"flash_bwd_{key}", pc_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -5168,12 +5659,14 @@ def main() -> int:
         **dist["line"]}, default=str), flush=True)
     print("decoder " + json.dumps(dec["line"], default=str), flush=True)
     print("fleet " + json.dumps(fleet["line"], default=str), flush=True)
+    print("program_cache " + json.dumps(pcache["line"], default=str),
+          flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
           f"{drill_s:.1f}, text pipeline {text_s:.1f}, distributed "
-          f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f})",
-          flush=True)
+          f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f}, "
+          f"program cache {pc_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
@@ -5198,4 +5691,6 @@ def _flat(tree, prefix=()):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--crash-drill-child"]:
         sys.exit(crash_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--cpu-reference"]:
+        sys.exit(cpu_reference_child(sys.argv[2]))
     sys.exit(main())

@@ -30,8 +30,12 @@ server's request bodies:
 - ``GET /monitoring/<tool>`` and ``GET``/``DELETE
   /monitoring/<tool>/<name>``: monitoring sessions by nickname;
   ``serving`` answers the serving stats and appends ``serving_*``
-  scalars, ``compileCache`` answers 406 (the program cache is ROADMAP
-  A.6);
+  scalars, ``compileCache`` the program cache's counters with the
+  per-program costs (``programCosts``) and the durable store's disabled
+  ``aot`` block;
+- ``GET /observability/costs``: the cost plane (obs/costs.py): the
+  per-program FLOPs ledger and the device-time ledgers per job, model
+  and bucket;
 - ``GET /observe/<name>``: long poll until the job finishes or fails;
 - ``GET /observe/events?sinceId=&limit=``: the event feed, paged by
   ``_id``; ``POST``/``GET /observe/webhook`` and ``DELETE
@@ -79,6 +83,7 @@ from urllib.parse import parse_qs, urlparse
 from learningorchestra_tpu_torch.config import Config
 from learningorchestra_tpu_torch.jobs.leases import LeaseTimeout
 from learningorchestra_tpu_torch.log import get_logger
+from learningorchestra_tpu_torch.obs import costs
 from learningorchestra_tpu_torch.serve.batcher import QueueFull
 from learningorchestra_tpu_torch.serve.registry import ServeError
 from learningorchestra_tpu_torch.serve.service import (
@@ -562,9 +567,7 @@ class APIServer:
         def monitoring_lookup(m, body, query):
             name = m.group("name")
             if name in ("compileCache", "compile_cache"):
-                raise ValidationError(
-                    "the compiled-program cache is not ported to the "
-                    "PyTorch package (ROADMAP A.6)")
+                return 200, self.monitoring.compile_cache_stats()
             if name == "serving":
                 stats = self.serving.stats()
                 return 200, {**stats,
@@ -575,6 +578,9 @@ class APIServer:
                 return 404, {"error": str(exc)}
 
         add("GET", rf"/monitoring/{TOOL}/{NAME}", monitoring_lookup)
+        # The cost plane's JSON view (obs/costs.py).
+        add("GET", r"/observability/costs",
+            lambda m, b, q: (200, costs.snapshot()))
         add("GET", rf"/monitoring/{TOOL}",
             lambda m, b, q: (200, self.monitoring.list_sessions()))
         add("DELETE", rf"/monitoring/{TOOL}/{NAME}", lambda m, b, q: (

@@ -1,11 +1,13 @@
 """Configuration — port of the parts of ``learningorchestra_tpu/config.py``
 the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` (with the job
-journal's switches), ``ServeConfig``, ``DecodeConfig``, ``FleetConfig``,
-``AotConfig`` (its ``replica_prewarm`` flag alone) and
+journal's switches), ``CompileCacheConfig``, ``AotConfig``,
+``ServeConfig``, ``DecodeConfig``, ``FleetConfig``, ``CostsConfig`` and
 ``DistributedConfig``, with the same fields, defaults and ``LO_TPU_*``
 environment names, plus the ``device`` every entry point runs on and
 ``DistributedConfig.cpu_ranks``, the rank devices a CPU context gives a
-distributed fit.
+distributed fit.  :func:`get_config` is the process-wide config the
+compile cache and the cost ledgers size themselves from, as in the JAX
+package.
 
 The default roots are the port's own (``~/.learningorchestra_tpu_torch``),
 so the two packages never share a store by accident; pointing both at
@@ -17,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 from pathlib import Path
 
 
@@ -86,6 +89,23 @@ class JobConfig:
     # record of each terminal job; <= 0 disables pruning.
     # Env: LO_TPU_JOB_JOURNAL_MAX.
     journal_max_records: int = 4096
+
+
+@dataclasses.dataclass
+class CompileCacheConfig:
+    """Process-wide program cache (train/compile_cache.py): the programs
+    of a train, tune, predict, serve or decode job survive across jobs,
+    so a repeated spec or a same-architecture tune sweep builds once."""
+
+    # Entry cap; <= 0 disables the cache (every lookup builds).
+    # Env: LO_TPU_COMPILE_CACHE_ENTRIES.
+    max_entries: int = 64
+    # Estimated-resident-bytes cap (each entry charges ``entry_bytes``
+    # unless the cost ledger measured a size).
+    # Env: LO_TPU_COMPILE_CACHE_BYTES.
+    max_bytes: int = 2 << 30
+    # Per-entry byte estimate. Env: LO_TPU_COMPILE_CACHE_ENTRY_BYTES.
+    entry_bytes: int = 32 << 20
 
 
 @dataclasses.dataclass
@@ -170,12 +190,14 @@ class FleetConfig:
     # Env: LO_TPU_FLEET_DOWN_TICKS.
     down_ticks: int = 5
     # The JAX package's queue-growth-slope trigger (rows/s over the
-    # rollup series) and device-time-fraction trigger: their sources are
-    # not ported (obs/rollup, ROADMAP A.11; obs/costs, A.6), so a value
-    # above 0 is refused at boot.  Env: LO_TPU_FLEET_UP_SLOPE /
-    # LO_TPU_FLEET_SLOPE_WINDOW_S / LO_TPU_FLEET_UP_DEVICE_FRAC.
+    # rollup series): its source is not ported (obs/rollup, ROADMAP
+    # A.11), so a value above 0 is refused at boot.
+    # Env: LO_TPU_FLEET_UP_SLOPE / LO_TPU_FLEET_SLOPE_WINDOW_S.
     up_slope: float = 0.0
     slope_window_s: float = 30.0
+    # Scale up when the model's attributed device seconds per wall
+    # second (obs/costs.py) reach this fraction (0 = off).
+    # Env: LO_TPU_FLEET_UP_DEVICE_FRAC.
     up_device_frac: float = 0.0
     # Lease budget for placing a new replica; on timeout a scale-up is
     # skipped (autoscaler) or answered 503 (REST).
@@ -204,22 +226,62 @@ class FleetConfig:
                 f"LO_TPU_FLEET_UP_SLOPE={self.up_slope}: the queue-slope "
                 "trigger reads the rollup series (obs/rollup), not ported "
                 "yet (ROADMAP A.11); leave it 0")
-        if self.up_device_frac > 0:
-            raise ValueError(
-                f"LO_TPU_FLEET_UP_DEVICE_FRAC={self.up_device_frac}: the "
-                "device-time trigger reads the cost ledger (obs/costs), "
-                "not ported yet (ROADMAP A.6); leave it 0")
 
 
 @dataclasses.dataclass
 class AotConfig:
-    """The JAX package's ahead-of-time program store; the port has only
-    the fleet's flag so far (the store is ROADMAP A.6)."""
+    """The JAX package's durable executable store (train/aot_store.py),
+    field for field.  The port's store is ROADMAP A.6 part 2, so
+    ``enabled`` is refused at boot; ``replica_prewarm`` works."""
 
+    # Master switch (off by default, as in the JAX package).
+    # Env: LO_TPU_AOT_ENABLED.
+    enabled: bool = False
+    # On-disk store.  Env: LO_TPU_AOT_DIR.
+    dir: str = "~/.learningorchestra_tpu_torch/aot_cache"
+    # Persisted-entry cap.  Env: LO_TPU_AOT_MAX_ENTRIES.
+    max_entries: int = 64
+    # Persisted-bytes cap.  Env: LO_TPU_AOT_MAX_BYTES.
+    max_bytes: int = 1 << 30
+    # Boot pre-warm of the store's hot set.  Env: LO_TPU_AOT_PREWARM.
+    prewarm: bool = True
     # Warm a fresh replica against its model's recorded buckets (and
     # decode steps) BEFORE the router may pick it.
     # Env: LO_TPU_AOT_REPLICA_PREWARM.
     replica_prewarm: bool = False
+
+    def validate(self) -> None:
+        """Refuse at boot a store that would persist nothing."""
+        if self.enabled:
+            raise ValueError(
+                "LO_TPU_AOT_ENABLED=1: the durable program store is not "
+                "ported yet (ROADMAP A.6 part 2); leave it off")
+
+
+@dataclasses.dataclass
+class CostsConfig:
+    """Cost accounting (obs/costs.py): per-program FLOPs and memory
+    ledgers, and sampled device-time attribution per job, served model
+    and serving bucket.  Env knobs: LO_TPU_COSTS_*."""
+
+    # Master switch: off, builders skip analysis and the per-dispatch
+    # hook is one config check.  Env: LO_TPU_COSTS_ENABLED.
+    enabled: bool = True
+    # Deep analysis: the peak device memory of the analyzed call (on a
+    # card).  Env: LO_TPU_COSTS_DEEP.
+    deep: bool = True
+    # Per-dispatch attribution sampling (0.0-1.0), quantized to
+    # 1/round(1/sample): every k-th dispatch records, scaled by k.
+    # Env: LO_TPU_COSTS_SAMPLE.
+    sample: float = 1.0
+    # Ledger bounds: distinct program fingerprints / freshest jobs.
+    # Env: LO_TPU_COSTS_MAX_PROGRAMS / LO_TPU_COSTS_MAX_JOBS.
+    max_programs: int = 256
+    max_jobs: int = 64
+    # Per-card peak FLOP/s for model-FLOPs-utilization (e.g. 9.894e14
+    # for an H100 SXM's dense bf16).  0 = unknown: MFU is omitted, not
+    # made up.  Env: LO_TPU_COSTS_PEAK_FLOPS.
+    peak_flops: float = 0.0
 
 
 @dataclasses.dataclass
@@ -258,10 +320,13 @@ class Config:
     store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
     api: APIConfig = dataclasses.field(default_factory=APIConfig)
     jobs: JobConfig = dataclasses.field(default_factory=JobConfig)
+    compile_cache: CompileCacheConfig = dataclasses.field(
+        default_factory=CompileCacheConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     decode: DecodeConfig = dataclasses.field(default_factory=DecodeConfig)
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     aot: AotConfig = dataclasses.field(default_factory=AotConfig)
+    costs: CostsConfig = dataclasses.field(default_factory=CostsConfig)
     dist: DistributedConfig = dataclasses.field(
         default_factory=DistributedConfig)
     # Where every estimator the services build or load lives.
@@ -309,6 +374,18 @@ class Config:
              float),
             ("LO_TPU_FLEET_DEVICES_PER_REPLICA", cfg.fleet,
              "devices_per_replica", int),
+            ("LO_TPU_COMPILE_CACHE_ENTRIES", cfg.compile_cache,
+             "max_entries", int),
+            ("LO_TPU_COMPILE_CACHE_BYTES", cfg.compile_cache, "max_bytes",
+             int),
+            ("LO_TPU_COMPILE_CACHE_ENTRY_BYTES", cfg.compile_cache,
+             "entry_bytes", int),
+            ("LO_TPU_AOT_DIR", cfg.aot, "dir", str),
+            ("LO_TPU_AOT_MAX_ENTRIES", cfg.aot, "max_entries", int),
+            ("LO_TPU_AOT_MAX_BYTES", cfg.aot, "max_bytes", int),
+            ("LO_TPU_COSTS_MAX_PROGRAMS", cfg.costs, "max_programs", int),
+            ("LO_TPU_COSTS_MAX_JOBS", cfg.costs, "max_jobs", int),
+            ("LO_TPU_COSTS_PEAK_FLOPS", cfg.costs, "peak_flops", float),
         )
         for key, section, attr, cast in fields:
             if key in env:
@@ -318,7 +395,11 @@ class Config:
                 ("LO_TPU_JOB_JOURNAL_RECOVER", cfg.jobs, "journal_recover"),
                 ("LO_TPU_DECODE_ENABLED", cfg.decode, "enabled"),
                 ("LO_TPU_FLEET_ENABLED", cfg.fleet, "enabled"),
-                ("LO_TPU_AOT_REPLICA_PREWARM", cfg.aot, "replica_prewarm")):
+                ("LO_TPU_AOT_REPLICA_PREWARM", cfg.aot, "replica_prewarm"),
+                ("LO_TPU_AOT_ENABLED", cfg.aot, "enabled"),
+                ("LO_TPU_AOT_PREWARM", cfg.aot, "prewarm"),
+                ("LO_TPU_COSTS_ENABLED", cfg.costs, "enabled"),
+                ("LO_TPU_COSTS_DEEP", cfg.costs, "deep")):
             if key in env:
                 setattr(section, attr, _bool_env(key, env[key]))
         if "LO_TPU_JOB_JOURNAL_MAX" in env:
@@ -335,8 +416,30 @@ class Config:
                 str(k): int(v)
                 for k, v in json.loads(env["LO_TPU_JOB_WEIGHTS"]).items()
             }
+        if "LO_TPU_COSTS_SAMPLE" in env:
+            cfg.costs.sample = float(env["LO_TPU_COSTS_SAMPLE"])
+            if not 0.0 <= cfg.costs.sample <= 1.0:
+                # A typo'd rate must not silently clamp.
+                raise ValueError(
+                    f"LO_TPU_COSTS_SAMPLE={env['LO_TPU_COSTS_SAMPLE']!r} "
+                    "must be a fraction in [0.0, 1.0]")
         cfg.fleet.validate()
+        cfg.aot.validate()
         return cfg
+
+
+_config: Config | None = None
+_config_lock = threading.Lock()
+
+
+def get_config() -> Config:
+    """The process-wide config (from the environment on first use): the
+    compile cache and the cost ledgers size themselves from it."""
+    global _config
+    with _config_lock:
+        if _config is None:
+            _config = Config.from_env()
+        return _config
 
 
 def _bool_env(key: str, value: str) -> bool:

@@ -15,6 +15,11 @@ clients poll:
   round-robin, so one service's burst cannot starve another's job;
 - a deadline watchdog that fails an overdue job, reclaims its worker and
   device leases and flips its cancel token, and a bounded shutdown;
+- warm-start preference: a submission may carry a ``warm_key`` (its
+  programs' fingerprint, train/compile_cache.py); once a job reports it
+  warm (:meth:`JobEngine.note_warm`), queued jobs with that key dispatch
+  first within their class's round-robin turn, at most four times in a
+  row past the class's FIFO head;
 - two ``None``-able hooks the service context sets: ``journal``
   (:class:`~learningorchestra_tpu_torch.jobs.journal.JobJournal`), which
   records every transition and fences each terminal commit against the
@@ -23,7 +28,7 @@ clients poll:
   transition.
 
 The JAX engine's other hooks (cluster claims, tenant admission, flight
-recorder, metrics, tracing, warm-key preference) are absent: the port
+recorder, metrics, tracing) are absent: the port
 behaves as that engine does with each of them off.  Its preemption
 retries are absent too, so ``preempted`` is never journaled: nothing in
 the port preempts a job until the fault plane and the cluster are ported.
@@ -34,7 +39,7 @@ from __future__ import annotations
 import io
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import Future, InvalidStateError
 from typing import Any, Callable
 
@@ -107,6 +112,15 @@ class JobEngine:
         self._credits: dict[str, int] = {}
         self._inflight = 0
         self._shutdown = False
+        # Warm-start hints (train/compile_cache.py): within a class's
+        # turn the dispatcher prefers queued jobs whose programs are
+        # already built.  A bounded FIFO registry of hints, not a ledger.
+        self._warm_keys: "OrderedDict[str, None]" = OrderedDict()
+        self._max_warm_keys = 512
+        # Starvation bound: after this many CONSECUTIVE warm bypasses of
+        # a class's FIFO head, the head dispatches regardless.
+        self._warm_bypass: dict[str, int] = {}
+        self._max_warm_bypass = 4
         # Webhooks and the event feed (services/webhooks.py), set by the
         # service context; None: nobody is told.
         self.notifier = None
@@ -157,6 +171,7 @@ class JobEngine:
         capture_stdout: bool = False,
         on_success: Callable[[Any], dict | None] | None = None,
         job_class: str = "default",
+        warm_key: str | None = None,
         deadline_s: float | None = None,
     ) -> Future:
         """Run ``fn`` asynchronously as the job of artifact ``name``, whose
@@ -165,6 +180,9 @@ class JobEngine:
 
         ``on_success(result)`` may return fields to merge into the
         finished metadata.  ``job_class`` is the fairness pool.
+        ``warm_key`` is the job's program tag: once any job reports it
+        warm (:meth:`note_warm`), queued jobs with the same tag go first
+        within their class's turn.
         ``deadline_s`` bounds the body's wall clock per dispatch (None
         inherits the engine default, ``<= 0`` disables)."""
         # Persist the request parameters now, not only in the terminal
@@ -194,7 +212,7 @@ class JobEngine:
             else float(deadline_s)
         )
         info = {"name": name, "job_class": job_class, "deadline": deadline,
-                "ctl": ctl, "token": token}
+                "ctl": ctl, "token": token, "warm_key": warm_key}
         # Journaled ahead of the in-memory enqueue, outside the engine
         # lock (a late append drains inline through the store).
         if self.journal is not None:
@@ -329,6 +347,46 @@ class JobEngine:
     def _weight(self, job_class: str) -> int:
         return max(1, int(self.class_weights.get(job_class, 1)))
 
+    def note_warm(self, warm_key: str | None) -> None:
+        """Record that the programs of ``warm_key`` are built and cached:
+        queued jobs with this tag dispatch first within their class.
+        Bounded FIFO; never raises."""
+        if not warm_key:
+            return
+        with self._lock:
+            self._warm_keys.pop(warm_key, None)
+            self._warm_keys[warm_key] = None
+            while len(self._warm_keys) > self._max_warm_keys:
+                self._warm_keys.popitem(last=False)
+
+    def clear_warm_keys(self) -> None:
+        """Drop every warm hint: wired to the program cache's device-set
+        invalidation (services/context.py), after which nothing is
+        warm."""
+        with self._lock:
+            self._warm_keys.clear()
+
+    def _pop_queued_locked(self, queue: deque, job_class: str):
+        """Pop the next job of one class's queue: the first queued job
+        whose ``warm_key`` is known warm if any, else strict FIFO.
+        Cancelled entries are skipped.  At most ``_max_warm_bypass``
+        consecutive dispatches may jump the FIFO head; then the head
+        runs (cold jobs are delayed, never starved)."""
+        if (self._warm_keys and self._warm_bypass.get(job_class, 0)
+                < self._max_warm_bypass):
+            for i, item in enumerate(queue):
+                if item[1].cancelled():
+                    continue
+                wk = item[2].get("warm_key")
+                if wk is not None and wk in self._warm_keys:
+                    self._warm_bypass[job_class] = (
+                        self._warm_bypass.get(job_class, 0) + 1
+                        if i > 0 else 0)
+                    del queue[i]
+                    return item
+        self._warm_bypass[job_class] = 0
+        return queue.popleft()
+
     def _dispatch_locked(self) -> None:
         """Hand freed workers to queued jobs, class by class."""
         while self._inflight < self.max_workers:
@@ -367,7 +425,7 @@ class JobEngine:
             queue = self._queues[cls]
             if queue and self._credits.get(cls, 0) > 0:
                 self._credits[cls] -= 1
-                return queue.popleft()
+                return self._pop_queued_locked(queue, cls)
             self._credits[cls] = self._weight(cls)
             self._rr_idx += 1
         return None

@@ -26,6 +26,7 @@ from learningorchestra_tpu_torch.ops.layers import (
     remat_block,
 )
 from learningorchestra_tpu_torch.toolkit.registry import register
+from learningorchestra_tpu_torch.train import compile_cache as cc
 from learningorchestra_tpu_torch.train.neural import NeuralEstimator
 
 _MODULE = __name__
@@ -395,7 +396,8 @@ class GreedyDecodeMixin:
         per step), each step embeds one token at its position, attends
         against the per-layer cache and writes the next token.  The loop
         makes no host transfer until the end, so the card runs ahead of
-        the host as the scan does."""
+        the host as the scan does.  The loop is the cached ``decode``
+        program of the prompt's shape (:func:`_decode_program`)."""
         sample = temperature is not None and temperature > 0.0
         if top_k is not None and not sample:
             raise ValueError(
@@ -420,39 +422,68 @@ class GreedyDecodeMixin:
             )
         self.check_input(prompts)
         total = min(self.max_len, t0 + max_new_tokens)
-        dev = self.device
-        gen = torch.Generator(device=dev).manual_seed(int(seed)) \
-            if sample else None
-        with torch.inference_mode():
-            cache = self.module.init_cache(bsz, total, device=dev)
-            buf = torch.zeros((bsz, total), dtype=torch.int64, device=dev)
-            buf[:, :t0] = torch.from_numpy(prompts).to(dev)
-            slots = torch.arange(total, device=dev)[None, :]
-            for i in range(total - 1):
-                kmask = (slots <= i) & (buf != 0)
-                logits = self.module(
-                    buf[:, i:i + 1],
-                    positions=torch.full((bsz, 1), i, device=dev),
-                    key_mask=kmask, cache=cache)
-                if i + 1 < t0:
-                    continue  # prefill: the next token is the prompt's
-                step = logits[:, 0].float()
-                if not sample:
-                    nxt = step.argmax(-1)
-                else:
-                    # A mid-stream pad would be masked out of every later
-                    # step and read as the end of the sequence.
-                    step[:, 0] = -torch.inf
-                    if top_k is not None:
-                        kth = torch.topk(step, top_k, dim=-1).values[..., -1:]
-                        step = torch.where(step < kth, -torch.inf, step)
-                    scaled = step / temperature
-                    if top_p is not None:
-                        scaled = _nucleus(scaled, top_p)
-                    nxt = torch.multinomial(torch.softmax(scaled, -1), 1,
-                                            generator=gen)[:, 0]
-                buf[:, i + 1] = nxt
-            return buf.to(torch.int32).cpu().numpy()
+        # The solo decode program of this prompt shape, through the
+        # process-wide program cache under the JAX ``decode`` key: two
+        # estimators of one architecture share it (the module is an
+        # argument, never closed over).
+        shape_sig = (bsz, total, t0, sample, top_k, top_p is not None)
+        key = cc.program_key(
+            "decode",
+            module=cc.module_fingerprint(self.module),
+            optimizer=None,
+            loss="-",
+            dtype="-",
+            shapes=("decode", *shape_sig),
+        )
+        label = f"decode:{type(self.module).__name__}:b{bsz}:t{total}"
+        program = cc.get_cache().get_or_build(
+            key, lambda: cc.Program(_decode_program, key, label,
+                                    analyze=False), label=label)
+        return program(self.module, prompts, total, temperature if sample
+                       else None, top_k, top_p, seed)
+
+
+def _decode_program(module, prompts: np.ndarray, total: int, temperature,
+                    top_k, top_p, seed: int) -> np.ndarray:
+    """The solo ``decode`` program: every buffer position is one step
+    (the prompt's too), each step embeds one token at its position,
+    attends against the per-layer cache and writes the next token; no host
+    transfer until the end.  ``temperature`` None is greedy."""
+    sample = temperature is not None
+    bsz, t0 = prompts.shape
+    dev = next(module.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(int(seed)) \
+        if sample else None
+    with torch.inference_mode():
+        cache = module.init_cache(bsz, total, device=dev)
+        buf = torch.zeros((bsz, total), dtype=torch.int64, device=dev)
+        buf[:, :t0] = torch.from_numpy(prompts).to(dev)
+        slots = torch.arange(total, device=dev)[None, :]
+        for i in range(total - 1):
+            kmask = (slots <= i) & (buf != 0)
+            logits = module(
+                buf[:, i:i + 1],
+                positions=torch.full((bsz, 1), i, device=dev),
+                key_mask=kmask, cache=cache)
+            if i + 1 < t0:
+                continue  # prefill: the next token is the prompt's
+            step = logits[:, 0].float()
+            if not sample:
+                nxt = step.argmax(-1)
+            else:
+                # A mid-stream pad would be masked out of every later
+                # step and read as the end of the sequence.
+                step[:, 0] = -torch.inf
+                if top_k is not None:
+                    kth = torch.topk(step, top_k, dim=-1).values[..., -1:]
+                    step = torch.where(step < kth, -torch.inf, step)
+                scaled = step / temperature
+                if top_p is not None:
+                    scaled = _nucleus(scaled, top_p)
+                nxt = torch.multinomial(torch.softmax(scaled, -1), 1,
+                                        generator=gen)[:, 0]
+            buf[:, i + 1] = nxt
+        return buf.to(torch.int32).cpu().numpy()
 
 
 @register(_MODULE)

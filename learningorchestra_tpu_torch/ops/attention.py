@@ -16,6 +16,13 @@ kernel, not by padding copies), fully-masked rows give O = 0 and LSE =
 counterpart of the JAX ``_flash_core`` custom_vjp) whenever grad is on and
 an input requires it, on both devices. The kernels' own tiles are 64 x 64
 (the TPU's 256 x 512 blocks do not carry over to a Hopper SM).
+
+FLOPs: an active FLOP counter (obs/costs.py) cannot see a ctypes
+launch, so each wrapper adds its kernel's count by formula — 4 (K1), 6
+(K2) and 8 (K3) · B·H·D · the live (query, key) pairs
+(:func:`~learningorchestra_tpu_torch.obs.costs.attention_pairs`) — and
+runs a plain version uncounted, so a program counts the same FLOPs on
+the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import threading
 import torch
 
 from learningorchestra_tpu_torch.kernels import build
+from learningorchestra_tpu_torch.obs import costs
 
 _NEG_BIG = -1e30  # additive mask value; exp(_NEG_BIG - lse) == 0 in f32
 _LSE_EMPTY = 1e30  # lse sentinel for fully-masked rows
@@ -48,6 +56,22 @@ def count_launch(counter: str, n: int = 1) -> None:
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: FLOPs per (query, key) pair and head dimension of K1, K2 and K3: Q.K
+#: and P.V forward; Q.K, dO.V and dS.K for dQ; Q.K, dO.V, dS.Q and P.dO
+#: for dK, dV.
+_FLOPS_PER_PAIR = {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 6,
+                   "flash_attention_bwd_dkv": 8}
+
+
+def _note_flops(name: str, q, k, causal, window) -> None:
+    """Add ``name``'s FLOPs by formula to an active FLOP counter."""
+    if not costs.counting():
+        return
+    b, h, tq, d = q.shape
+    costs.note_kernel_flops(name, _FLOPS_PER_PAIR[name] * b * h * d
+                            * costs.attention_pairs(tq, k.shape[2],
+                                                    bool(causal), window))
 
 
 def _validate_window(window, causal) -> None:
@@ -220,8 +244,11 @@ def flash_attention_fwd(q, k, v, key_mask=None, causal: bool = False,
     """
     _validate_window(window, causal)
     _check_inputs(q, k, v, key_mask)
+    _note_flops("flash_attention_fwd", q, k, causal, window)
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, key_mask, causal, window)
+        with costs.uncounted():
+            return flash_attention_fwd_plain(q, k, v, key_mask, causal,
+                                             window)
     km = _check_kernel_inputs(q, k, v, key_mask)
     b, h, tq, d = q.shape
     o = _like_heads_last(q)
@@ -365,9 +392,11 @@ def flash_attention_bwd_dq(q, k, v, key_mask, do, lse, delta,
     view, like the forward's O."""
     dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
                             window)
+    _note_flops("flash_attention_bwd_dq", q, k, causal, window)
     if dev is None:
-        return flash_attention_bwd_dq_plain(q, k, v, key_mask, do, lse,
-                                            delta, causal, window)
+        with costs.uncounted():
+            return flash_attention_bwd_dq_plain(q, k, v, key_mask, do, lse,
+                                                delta, causal, window)
     return _launch_dq(q, k, v, do, *dev, causal, window)
 
 
@@ -377,9 +406,11 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, do, lse, delta,
     CUDA it launches K3."""
     dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
                             window)
+    _note_flops("flash_attention_bwd_dkv", q, k, causal, window)
     if dev is None:
-        return flash_attention_bwd_dkv_plain(q, k, v, key_mask, do, lse,
-                                             delta, causal, window)
+        with costs.uncounted():
+            return flash_attention_bwd_dkv_plain(q, k, v, key_mask, do,
+                                                 lse, delta, causal, window)
     return _launch_dkv(q, k, v, do, *dev, causal, window)
 
 
@@ -390,9 +421,12 @@ def flash_attention_bwd(q, k, v, key_mask, do, lse, delta,
     q's, k's and v's types."""
     dev = _check_bwd_inputs(q, k, v, key_mask, do, lse, delta, causal,
                             window)
+    _note_flops("flash_attention_bwd_dq", q, k, causal, window)
+    _note_flops("flash_attention_bwd_dkv", q, k, causal, window)
     if dev is None:
-        return flash_attention_bwd_plain(q, k, v, key_mask, do, lse, delta,
-                                         causal, window)
+        with costs.uncounted():
+            return flash_attention_bwd_plain(q, k, v, key_mask, do, lse,
+                                             delta, causal, window)
     args = (q, k, v, do, *dev, causal, window)
     return (_launch_dq(*args), *_launch_dkv(*args))
 

@@ -72,6 +72,8 @@ def remat_block(cls, remat):
 
     class Remat(cls):
         _replaying = False
+        # The policy, readable by the program cache's fingerprint.
+        remat_policy = remat
 
         def forward(self, *args, **kwargs):
             if self._replaying or not torch.is_grad_enabled():

@@ -60,6 +60,7 @@ from learningorchestra_tpu_torch.jobs.cancel import cancel_requested
 from learningorchestra_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh
 from learningorchestra_tpu_torch.parallel.sharding import batch_rows
 from learningorchestra_tpu_torch.toolkit.base import as_array
+from learningorchestra_tpu_torch.train import compile_cache
 from learningorchestra_tpu_torch.train.neural import (
     NeuralEstimator,
     TrainHistory,
@@ -100,8 +101,11 @@ class DataParallel:
     ranks, the agreed stop flags, and per-step timings."""
 
     def __init__(self, rank: int, world: int, device, backend: str,
-                 cancel_flag: Path):
+                 cancel_flag: Path, mesh_key=None):
         self.rank, self.world = rank, world
+        # The mesh's fingerprint (axis names, sizes, device list): part
+        # of every program key of this rank (train/compile_cache.py).
+        self.mesh_key = mesh_key
         self.device = torch.device(device)
         self.backend = backend
         # NCCL reduces device tensors; gloo's are staged on the host.
@@ -254,6 +258,9 @@ class DistributedTrainer:
         self.history = TrainHistory()
         self.stop_training = False
         self.rank_stats: list[dict] = []
+        # Rank 0's program-cache counter delta over the last call (each
+        # rank process starts with an empty cache).
+        self.compile_cache: dict | None = None
         self._procs: list = []  # the last call's ranks (reaped on return)
         # Where each call stages (None: the system's temporary directory);
         # a server names a root of its own, which its boot sweeps.
@@ -405,6 +412,7 @@ class DistributedTrainer:
         try:
             task = {
                 "mode": mode, "devices": devices, "backend": self.backend,
+                "mesh_key": compile_cache.mesh_fingerprint(self.mesh),
                 "parent": os.getpid(),
                 "threads": max(1, (os.cpu_count() or 1) // world),
                 "estimator": self._stage_estimator(x),
@@ -443,6 +451,7 @@ class DistributedTrainer:
             with open(stage / RESULT, "rb") as fh:
                 result = pickle.load(fh)
             self.rank_stats = result["rank_stats"]
+            self.compile_cache = result.get("compile_cache")
             for stats in self.rank_stats:
                 first = stats.pop("first_step_wall")
                 stats["spawn_to_first_step_s"] = (

@@ -42,6 +42,7 @@ from learningorchestra_tpu_torch.parallel.distributed import (
     init_process_group,
 )
 from learningorchestra_tpu_torch.toolkit import registry
+from learningorchestra_tpu_torch.train import compile_cache
 from learningorchestra_tpu_torch.train.neural import (
     TrainHistory,
     resolve_optimizer,
@@ -150,7 +151,8 @@ def main(argv: list[str]) -> int:
     init_process_group(stage, rank, world, task["backend"])
     try:
         dp = DataParallel(rank, world, device, task["backend"],
-                          stage / CANCEL)
+                          stage / CANCEL, mesh_key=task.get("mesh_key"))
+        cache_before = compile_cache.counters_snapshot()
         est = load_estimator(task["estimator"], device)
         est._dp = dp
         data = load_data(task["data"])
@@ -164,6 +166,7 @@ def main(argv: list[str]) -> int:
         dist.all_gather_object(gathered, stats)
         if rank == 0:
             out["rank_stats"] = gathered
+            out["compile_cache"] = compile_cache.delta_since(cache_before)
             tmp = stage / f".{RESULT}.tmp"
             with open(tmp, "wb") as fh:
                 pickle.dump(out, fh, protocol=pickle.HIGHEST_PROTOCOL)

@@ -7,9 +7,15 @@ steps (continuous batching: no barrier batching), emit tokens over SSE,
 and tear a stream down through its cancel token at the next step
 boundary.
 
-The step is eager torch: each pool's step is a plain function memoized
-per (module, S, Tk) on the model's decoder and recorded, per (S, Tk), in
-the registry entry's ``decode_warm``.
+Each (S, Tk) cell's step resolves through the process-wide program cache
+under the JAX ``decode_step`` key (the module's architecture and the cell),
+memoized per (module, S, Tk) on the model's decoder and recorded, per
+(S, Tk), in the registry entry's ``decode_warm``.  The program is a
+:class:`~learningorchestra_tpu_torch.serve.decode.pages.DecodeStepProgram`:
+eager ops on the CPU, a CUDA graph per pool on a card (the decoder's
+``stats()`` counts the captures).  The device time of the steps between
+two host syncs goes to the cost plane's ledger per model, under the
+bucket ``dec{S}x{Tk}`` (obs/costs.py).
 
 Fleet routing: when the model has a live replica set, each new stream is
 routed to a replica by the set's P2C router over live decode slots per
@@ -18,9 +24,8 @@ replica's placed module (replicas sharing the resident module share its
 step memo).  A pool whose replica was scaled away finishes on the
 resident module.  A fresh replica's pre-warm replays every recorded
 (S, Tk) step (:meth:`DecodeEngine.warm_replica`).  Not ported: the
-Prometheus decode families and the TTFT SLO (ROADMAP A.11), the
-``serve.decode_step`` fault point (A.11), the compile cache's program
-keys and the device-time ledger (A.6).
+Prometheus decode families and the TTFT SLO (ROADMAP A.11) and the
+``serve.decode_step`` fault point (A.11).
 """
 
 from __future__ import annotations
@@ -33,9 +38,14 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch.log import get_logger, kv
+from learningorchestra_tpu_torch.obs import costs
 from learningorchestra_tpu_torch.serve.batcher import QueueFull
 from learningorchestra_tpu_torch.serve.bucketing import bucket_for
-from learningorchestra_tpu_torch.serve.decode.pages import PagePool, build_step
+from learningorchestra_tpu_torch.serve.decode.pages import (
+    DecodeStepProgram,
+    PagePool,
+)
+from learningorchestra_tpu_torch.train import compile_cache as cc
 from learningorchestra_tpu_torch.serve.decode.streams import DecodeStream
 from learningorchestra_tpu_torch.serve.registry import ServeError
 
@@ -59,9 +69,11 @@ class _ModelDecoder:
         # (replica index | None, kv bucket) -> pool
         self._pools: dict[tuple, PagePool] = {}
         self._streams: dict = {}  # stream_id -> DecodeStream (active)
-        # (id(module), S, kv) -> (module, step function); holding the
+        # (id(module), S, kv) -> (module, DecodeStepProgram); holding the
         # module keeps its id from being reused while the memo lives.
         self._steps: dict = {}
+        # CUDA graphs its pools captured: count, seconds, graph-pool bytes.
+        self._graphs = [0, 0.0, 0]
         self._thread: threading.Thread | None = None
         self._closed = False
         self.steps = 0
@@ -162,8 +174,10 @@ class _ModelDecoder:
             pool = self._pools[(ridx, kvlen)] = PagePool(
                 kvlen, self.cfg.max_slots, replica_idx=ridx)
         module = self._module_for(pool)
-        slot = pool.admit(stream, lambda want: module.init_cache(
-            want, kvlen, per_row=True))
+        slot = pool.admit(
+            stream,
+            lambda want: module.init_cache(want, kvlen, per_row=True),
+            cell=lambda want: self._step_for(module, want, kvlen))
         return slot is not None
 
     def _route_replica(self):
@@ -198,38 +212,49 @@ class _ModelDecoder:
 
     # -- stepping ------------------------------------------------------------
 
-    def _step_for(self, module, nslots: int, kvlen: int):
-        """The step of one (S, Tk) cell over ``module``, memoized on the
-        decoder (it dies with the model's teardown; replicas that share a
-        module share it) and recorded in the registry entry's
-        ``decode_warm``."""
-        key = (id(module), nslots, kvlen)
-        memo = self._steps.get(key)
+    def _step_for(self, module, nslots: int, kvlen: int
+                  ) -> DecodeStepProgram:
+        """The step program of one (S, Tk) cell, resolved through the
+        process-wide program cache under the JAX ``decode_step`` key,
+        memoized per module on the decoder (it dies with the model's
+        teardown; replicas that share a module share it) and recorded in
+        the registry entry's ``decode_warm``."""
+        memo_key = (id(module), nslots, kvlen)
+        memo = self._steps.get(memo_key)
         if memo is None:
             entry = self.engine.service.registry.get(self.name)
-            memo = self._steps[key] = (
-                module, build_step(module, nslots, kvlen))
+            key = cc.program_key(
+                "decode_step",
+                module=cc.module_fingerprint(module),
+                optimizer=None,
+                loss="-",
+                dtype="-",
+                shapes=("decode_step", nslots, kvlen),
+            )
+            program = cc.get_cache().get_or_build(
+                key, lambda: DecodeStepProgram(nslots, kvlen),
+                label=f"decode:{type(module).__name__}"
+                      f":s{nslots}:k{kvlen}")
+            memo = self._steps[memo_key] = (module, program)
             entry.decode_warm[(nslots, kvlen)] = True
         return memo[1]
 
     def warm_replica(self, replica, entry) -> None:
-        """One dummy step per recorded (S, Tk) cell on the replica's
+        """One dummy eager step per recorded (S, Tk) cell on the replica's
         placed module (every slot free, so the buffer stays all pad):
-        builds its step before the router may pick the replica."""
+        resolves its step programs before the router may pick the
+        replica; its pools capture their graphs at their first step."""
         module = replica.place(entry)
         # A copy: the worker records new cells concurrently.
         for nslots, kvlen in sorted(entry.decode_warm.copy()):
-            step = self._step_for(module, nslots, kvlen)
+            program = self._step_for(module, nslots, kvlen)
             pool = PagePool(kvlen, nslots, replica_idx=replica.idx)
             pool._alloc(lambda want: module.init_cache(
                 want, kvlen, per_row=True), nslots)
-            dev = pool.buf.device
             with torch.no_grad():
-                step(pool.cache, pool.buf,
-                     torch.zeros(nslots, dtype=torch.int64, device=dev),
-                     torch.full((nslots,), kvlen + 1, dtype=torch.int64,
-                                device=dev),
-                     torch.zeros(nslots, dtype=torch.bool, device=dev))
+                program.run_eager(module, pool, np.zeros(nslots, np.int64),
+                                  np.full(nslots, kvlen + 1, np.int64),
+                                  np.zeros(nslots, bool))
 
     def _step_all(self) -> None:
         for key in list(self._pools):
@@ -252,29 +277,42 @@ class _ModelDecoder:
                     model=self.name, pool=f"{key}", error=str(exc)))
                 for slot, stream in enumerate(pool.streams):
                     if stream is not None:
-                        pool.release(slot)
+                        try:
+                            pool.release(slot)
+                        except Exception:  # noqa: BLE001 — a device
+                            # fault can fail the buffer write too; the
+                            # stream still fails instead of hanging.
+                            pool.streams[slot] = None
                         self._finish(stream,
                                      error=f"decode step failed: {exc}")
 
     def _step_pool(self, pool: PagePool) -> None:
-        step = self._step_for(self._module_for(pool), pool.nslots, pool.kv)
-        dev = pool.buf.device
+        module = self._module_for(pool)
+        program = self._step_for(module, pool.nslots, pool.kv)
         live = np.array([s is not None for s in pool.streams])
         t0s = np.array([s.t0 if s is not None else pool.kv + 1
                         for s in pool.streams], np.int64)
         eager = any(s is not None and s.eager for s in pool.streams)
-        # ``pool.pos`` is host state mutated in place right after this
-        # dispatch, and a CPU tensor made from it (``torch.from_numpy``,
-        # or ``.to`` of one) aliases it: a step still queued would read
-        # positions from the future.  Snapshot per dispatch.
-        col = step(pool.cache, pool.buf,
-                   torch.tensor(pool.pos, device=dev),
-                   torch.tensor(t0s, device=dev),
-                   torch.tensor(live, device=dev))
+        interval = costs.Interval(pool.buf.device) \
+            if costs.enabled() else None
+        # The program snapshots pool.pos (host state mutated right after
+        # this dispatch) into its inputs.
+        graph = pool.graph
+        col = program(module, pool, pool.pos, t0s, live)
+        if pool.graph is not graph and pool.graph is not None:
+            # This step captured: its interval spans the capture's host
+            # work, not device time, and is left out of the ledger.
+            self._graphs[0] += 1
+            self._graphs[1] += pool.graph.capture_s
+            self._graphs[2] += pool.graph.pool_bytes
+            interval = None
+        if interval is not None:
+            pool.pending.append(interval.stop())
         pool.steps += 1
         self.steps += 1
         # SSE wants the token now; lazy streams read their row at the end.
         col_host = col.cpu().numpy() if eager else None
+        synced = eager
         now = time.perf_counter()
         for slot, stream in enumerate(pool.streams):
             if stream is None:
@@ -287,12 +325,27 @@ class _ModelDecoder:
                 # Terminal: the whole row (prompt + continuation) is in
                 # the buffer; lazy streams surface everything here.
                 row = pool.buf[slot].cpu().numpy()
+                synced = True
                 if not stream.eager:
                     stream.tokens = [int(t)
                                      for t in row[stream.t0:stream.total]]
                     stream.first_at = stream.first_at or time.perf_counter()
                 pool.release(slot)
                 self._finish(stream)
+        if synced and pool.pending:
+            self._record_devtime(pool)
+
+    def _record_devtime(self, pool: PagePool) -> None:
+        """At a host sync (an eager token read or a terminal row read),
+        the device time of the steps since the last one goes to the
+        ledger per model, bucket ``dec{S}x{Tk}``."""
+        pending, pool.pending = pool.pending, []
+        led = costs.devtime()
+        weight = led.will_record(self.name)
+        if weight:
+            led.record_model(
+                weight, sum(iv.seconds() for iv in pending), None, None,
+                self.name, f"dec{pool.nslots}x{pool.kv}")
 
     @staticmethod
     def _emit(stream: DecodeStream, tok: int, pos: int, now: float) -> None:
@@ -320,6 +373,7 @@ class _ModelDecoder:
             # Snapshot under the cv: the worker parks (clearing the pools)
             # and admits concurrently.
             pools = list(self._pools.values())
+            graphs = list(self._graphs)
         return {
             "activeStreams": active,
             "pending": pending,
@@ -328,6 +382,11 @@ class _ModelDecoder:
                        "steps": p.steps, "pageBytes": p.page_bytes(),
                        "replica": p.replica_idx}
                       for p in pools],
+            # CUDA graphs captured by this model's step programs (0 on
+            # the CPU), their capture seconds and graph-pool bytes.
+            "graphs": {"captures": graphs[0],
+                       "captureS": round(graphs[1], 6),
+                       "poolBytes": graphs[2]},
         }
 
     def close(self) -> None:

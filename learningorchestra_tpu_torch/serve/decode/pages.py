@@ -18,6 +18,8 @@ double where), so stale KV pages cost nothing and need no scrubbing.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -66,6 +68,108 @@ def build_step(module, nslots: int, kv: int):
     return step
 
 
+class _PoolGraph:
+    """One pool's captured step: the graph, its static input (3, S) int64
+    on the card (pos, t0s, live) with the pinned host buffer it is copied
+    from, the static output column, what it was captured over, and the
+    step function itself: a graph holds no reference to the tensors it
+    reads, so the step's own constants (its slot and row ranges) must
+    live as long as the graph."""
+
+    __slots__ = ("graph", "inp", "host", "copied", "col", "module", "buf",
+                 "step", "capture_s", "pool_bytes")
+
+
+class DecodeStepProgram:
+    """The ``decode_step`` program of one (S, Tk) cell: ``program(module,
+    pool, pos, t0s, live) -> col`` steps ``pool`` (host arrays in, the
+    (S,) next-token column on the pool's device out).  Shared through the
+    program cache by every module of one architecture; each pool keeps
+    its own graph (``pool.graph``)."""
+
+    def __init__(self, nslots: int, kv: int):
+        self.nslots = int(nslots)
+        self.kv = int(kv)
+
+    def __call__(self, module, pool: "PagePool", pos, t0s, live):
+        if pool.buf.device.type != "cuda":
+            return self.run_eager(module, pool, pos, t0s, live)
+        g = pool.graph
+        if g is None or g.module is not module or g.buf is not pool.buf:
+            return self._capture(module, pool, pos, t0s, live)
+        # The host may run one step ahead: the pinned buffer is rewritten
+        # only once the previous step's copy has executed.
+        g.copied.synchronize()
+        _fill(g.host, pos, t0s, live)
+        g.inp.copy_(g.host, non_blocking=True)
+        g.copied.record()
+        g.graph.replay()
+        return g.col
+
+    def eager_step(self, module, pool: "PagePool"):
+        """The pool's eager step over ``module`` (memoized on the pool)."""
+        memo = pool.eager
+        if memo is None or memo[0] is not module:
+            memo = pool.eager = (module,
+                                 build_step(module, self.nslots, self.kv))
+        return memo[1]
+
+    def run_eager(self, module, pool: "PagePool", pos, t0s, live):
+        """One eager step (the CPU's program; a replica's pre-warm).  The
+        positions are a fresh tensor per call: a CPU tensor made from
+        ``pool.pos`` would alias host state mutated right after."""
+        dev = pool.buf.device
+        return self.eager_step(module, pool)(
+            pool.cache, pool.buf, torch.tensor(pos, device=dev),
+            torch.tensor(t0s, dtype=torch.int64, device=dev),
+            torch.tensor(live, dtype=torch.bool, device=dev))
+
+    def _capture(self, module, pool: "PagePool", pos, t0s, live):
+        """This call's step runs eagerly on a side stream (it also warms
+        the libraries the step uses there), then the same step is
+        captured on that stream; the replays run on the current one."""
+        t_start = time.perf_counter()
+        dev = pool.buf.device
+        pool.graph = None
+        g = _PoolGraph()
+        g.module, g.buf = module, pool.buf
+        g.host = torch.empty((3, self.nslots), dtype=torch.int64,
+                             pin_memory=True)
+        g.inp = torch.empty((3, self.nslots), dtype=torch.int64, device=dev)
+        g.copied = torch.cuda.Event()
+        _fill(g.host, pos, t0s, live)
+        g.inp.copy_(g.host, non_blocking=True)
+        g.copied.record()
+        step = g.step = build_step(module, self.nslots, self.kv)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            col = step(pool.cache, pool.buf, g.inp[0], g.inp[1],
+                       g.inp[2] != 0)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        col.record_stream(torch.cuda.current_stream(dev))
+        reserved = torch.cuda.memory_reserved(dev)
+        g.graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads (serving batchers, train jobs) keep
+        # using the card while this one captures.
+        with torch.cuda.graph(g.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            g.col = step(pool.cache, pool.buf, g.inp[0], g.inp[1],
+                         g.inp[2] != 0)
+        g.capture_s = time.perf_counter() - t_start
+        g.pool_bytes = max(0, torch.cuda.memory_reserved(dev) - reserved)
+        pool.graph = g
+        return col
+
+
+def _fill(host, pos, t0s, live) -> None:
+    """Write one step's (pos, t0s, live) into the pinned host buffer."""
+    view = host.numpy()
+    view[0] = pos
+    view[1] = t0s
+    view[2] = live
+
+
 def _tree_leaves(tree):
     for val in tree.values():
         if isinstance(val, dict):
@@ -87,7 +191,8 @@ class PagePool:
     synchronization point for admission and abort."""
 
     __slots__ = ("kv", "nslots", "max_slots", "cache", "buf", "pos",
-                 "streams", "steps", "replica_idx")
+                 "streams", "steps", "replica_idx", "graph", "eager",
+                 "pending")
 
     def __init__(self, kv: int, max_slots: int,
                  replica_idx: int | None = None):
@@ -103,6 +208,12 @@ class PagePool:
         self.pos = np.zeros(0, np.int64)  # host positions, one per slot
         self.streams: list = []
         self.steps = 0
+        # The step's captured graph on a card (DecodeStepProgram), the
+        # eager step memo, and the device intervals of the steps since
+        # the last host sync (the device-time ledger's pending share).
+        self.graph = None
+        self.eager = None
+        self.pending: list = []
 
     # -- capacity ------------------------------------------------------------
 
@@ -132,6 +243,7 @@ class PagePool:
         if self.buf is not None and self.buf.device != device:
             self.cache = _tree_map(lambda t: t.to(device), self.cache)
             self.buf = self.buf.to(device)
+            self.graph = self.eager = None  # captured over the old pages
 
     def _grow(self, nslots: int) -> None:
         """Pad every per-slot axis up to the next slot bucket; the slots
@@ -143,16 +255,19 @@ class PagePool:
 
         self.cache = _tree_map(pad, self.cache)
         self.buf = pad(self.buf)
+        self.graph = self.eager = None  # captured over the old pages
         self.pos = np.concatenate([self.pos, np.zeros(extra, np.int64)])
         self.streams.extend([None] * extra)
         self.nslots = nslots
 
     # -- slot lifecycle ------------------------------------------------------
 
-    def admit(self, stream, new_cache) -> int | None:
-        """Seat ``stream`` in a free slot (growing to the next slot bucket
-        if needed, up to ``max_slots``; ``new_cache(S)`` makes an empty
-        cache of S slots); None when full.  The slot's buffer row gets the
+    def admit(self, stream, new_cache, cell=None) -> int | None:
+        """Seat ``stream`` in a free slot (growing to the next slot
+        bucket if needed, up to ``max_slots``; ``new_cache(S)`` makes an
+        empty cache of S slots, and ``cell(S)``, when given, is told of
+        every slot bucket the pool takes, as the JAX admission resolves
+        that cell's step); None when full.  The slot's buffer row gets the
         prompt, position 0: prefill runs through the shared step one token
         at a time, as the solo loop does."""
         slot = next((i for i, s in enumerate(self.streams) if s is None),
@@ -161,6 +276,8 @@ class PagePool:
             if self.nslots >= self.max_slots:
                 return None
             want = bucket_for(self.nslots + 1, self.max_slots)
+            if cell is not None:
+                cell(want)
             if self.nslots == 0:
                 self._alloc(new_cache, want)
             else:

@@ -17,11 +17,11 @@ counts) and turns sustained pressure into replicas instead of 429s:
 Sustain counts are the hysteresis, and a tick moves a model by at most
 one replica.  The tick body, its ``decisions`` and its ``ledger`` (every
 evaluation, holds included, with the signals and streaks it read) are
-the JAX package's, key for key.  The JAX loop's two further triggers, the
-queue-growth slope (obs/rollup, ROADMAP A.11) and the device-time
-fraction (obs/costs, A.6), have no source in the port: their readings
-are what the JAX ones give with those subsystems off (None and 0.0), and
-the config refuses turning them on.
+the JAX package's, key for key.  The device-time fraction
+(``up_device_frac``) reads the model's attributed device seconds from the
+cost plane (obs/costs.py) as the JAX loop does; the queue-growth slope
+(obs/rollup, ROADMAP A.11) has no source in the port: its reading is the
+JAX one with rollup off (None), and the config refuses turning it on.
 
 The loop is a daemon thread owned by the FleetManager, started only when
 some model can scale (max > 1).  ``tick()`` is public and thread-safe so
@@ -304,10 +304,16 @@ class Autoscaler:
         return None
 
     def _device_seconds(self, name: str) -> float:
-        """The JAX package's device-seconds read the cost ledger
-        (obs/costs, ROADMAP A.6): 0.0, as there with costs off; the
-        config refuses ``up_device_frac > 0`` at boot."""
-        return 0.0
+        """This model's accumulated device seconds from the cost plane's
+        attribution ledger (serving dispatches + decode syncs); 0.0 when
+        cost tracking is off or errs — the autoscaler must never die on
+        an observability hiccup."""
+        try:
+            from learningorchestra_tpu_torch.obs import costs
+
+            return costs.devtime().model_device_s(name)
+        except Exception:  # noqa: BLE001
+            return 0.0
 
     def forget(self, name: str) -> None:
         """Drop a dissolved model's streak state (manager drop path)."""

@@ -25,7 +25,8 @@ class ServeError(Exception):
 
 class _Resident:
     __slots__ = ("name", "estimator", "nbytes", "loaded_at", "requests",
-                 "replica_devices", "warm_shapes", "decode_warm")
+                 "replica_devices", "warm_shapes", "decode_warm",
+                 "apply_fns", "apply_costs")
 
     def __init__(self, name, estimator, nbytes):
         self.name = name
@@ -44,6 +45,11 @@ class _Resident:
         # model ran (serve/decode/engine.py); dies with the entry, so an
         # invalidation never replays a stale architecture's shapes.
         self.decode_warm: dict = {}
+        # bucket rows -> the cached ``apply`` program (train/
+        # compile_cache.py) and its ProgramCost (False: none recorded),
+        # resolved once per bucket, never per request.
+        self.apply_fns: dict = {}
+        self.apply_costs: dict = {}
 
     def to_dict(self) -> dict:
         return {

@@ -21,8 +21,16 @@ Fleet serving (``serve/fleet``): a model with replica bounds serves from
 a replica set, each replica a card lease + a batcher + its placed module;
 ``predict`` routes through the set and answers which replica served.
 Replica sets read the context's leaser through the ``leaser`` callable
-when they are created.  The JAX service's compile cache, cost probes and faults
-come with later slices (ROADMAP A.6, A.11).
+when they are created.
+
+Programs and costs: each bucket's ``apply`` resolves once through the
+process-wide program cache (``compile_cache.apply_program_key``, shared
+with predict jobs; misses count buckets, never requests), and each
+dispatch records its device interval and the bucket's FLOPs in the
+device-time ledger per model and bucket (obs/costs.py, sampled).  The
+apply stays eager: the fleet's launch-count checks read the kernel
+wrappers' counters, which a graph replay would bypass.  The JAX service's
+faults come with ROADMAP A.11.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from learningorchestra_tpu_torch.jobs.leases import (
     LeaseTimeout,
     placed,
 )
+from learningorchestra_tpu_torch.obs import costs
 from learningorchestra_tpu_torch.serve.batcher import (
     BatcherClosed,
     MicroBatcher,
@@ -57,7 +66,11 @@ from learningorchestra_tpu_torch.serve.registry import ModelRegistry, ServeError
 from learningorchestra_tpu_torch.services.tfevents import write_scalars
 from learningorchestra_tpu_torch.store.volumes import VolumeStorage
 from learningorchestra_tpu_torch.toolkit.registry import RegistryError
-from learningorchestra_tpu_torch.train.neural import is_artifact, load_artifact
+from learningorchestra_tpu_torch.train.neural import (
+    apply_program,
+    is_artifact,
+    load_artifact,
+)
 
 #: An artifact type of the ``binaries`` volume, where every train (and
 #: tune) job's estimator artifact lives, whatever its tool.
@@ -200,19 +213,57 @@ class ServingService:
         entry HERE means an invalidation between requests serves the
         reloaded artifact, never a stale module.  ``replica`` (a fleet
         Replica) runs it through the replica's placed module, with its
-        card current so the kernels launch there."""
+        card current so the kernels launch there.  The bucket's program
+        comes from the program cache once per entry; a sampled dispatch
+        books its device interval and FLOPs against the model and
+        bucket."""
         entry = self.registry.get(name)
+        rows = padded.shape[0]
+        apply = entry.apply_fns.get(rows)
+        if apply is None:
+            apply = entry.apply_fns[rows] = apply_program(
+                entry.estimator.module, rows,
+                label=f"serve:{type(entry.estimator.module).__name__}"
+                      f":b{rows}")
         # The bucket's shape and dtype: what a fresh replica's pre-warm
         # replays (dies with the entry, like decode_warm).
-        entry.warm_shapes[padded.shape[0]] = (padded.shape,
-                                              str(padded.dtype))
+        entry.warm_shapes[rows] = (padded.shape, str(padded.dtype))
         if replica is None:
-            return entry.estimator.apply(padded)
-        module = replica.place(entry)
-        where = (placed(replica.devices) if replica.cards is not None
-                 else contextlib.nullcontext())
+            module, where = entry.estimator.module, contextlib.nullcontext()
+        else:
+            module = replica.place(entry)
+            where = (placed(replica.devices) if replica.cards is not None
+                     else contextlib.nullcontext())
         with where:
-            return entry.estimator.apply(padded, module=module)
+            if not costs.enabled():
+                return apply(module, padded)
+            led = costs.devtime()
+            weight = led.will_record(name)
+            if not weight:
+                return apply(module, padded)
+            interval = costs.Interval(next(module.parameters()).device)
+            out = apply(module, padded)
+            cost = self._apply_cost(entry, rows, apply)
+            led.record_model(
+                weight, interval.stop().seconds(),
+                cost.flops if cost is not None else None,
+                cost.bytes_accessed if cost is not None else None,
+                name, rows)
+            return out
+
+    @staticmethod
+    def _apply_cost(entry, rows: int, apply):
+        """The bucket's ProgramCost, memoized on the entry next to the
+        program; a missing record memoizes too (False) once the program
+        has been analyzed."""
+        cost = entry.apply_costs.get(rows)
+        if cost is None:
+            cost = apply.cost()
+            if cost is not None and cost.analyzed:
+                entry.apply_costs[rows] = cost
+            elif apply.analyzed:
+                entry.apply_costs[rows] = cost = False
+        return cost or None
 
     def replica_dispatch_factory(self, name: str):
         """Per-replica dispatch binder for the fleet manager: the
@@ -395,6 +446,12 @@ class ServingService:
             "serving_resident_models": a["resident_models"],
             "serving_resident_bytes": a["resident_bytes"],
         }
+        # Attributed device seconds across served models, and MFU when
+        # the card's peak is configured (obs/costs.py).
+        totals = costs.serving_totals()
+        agg["serving_device_time_s"] = totals["deviceTimeS"]
+        if "mfu" in totals:
+            agg["serving_mfu"] = totals["mfu"]
         with self._scalar_lock:
             for key, val in agg.items():
                 steps = self._scalar_history.setdefault(key, [])

@@ -9,14 +9,18 @@ The context owns the ``device``: every estimator the services build or
 load goes there.  Each construction is a boot: it mints an engine epoch
 (jobs/journal.py), prunes the journal and recovers every job a dead
 process left pending or running (:meth:`ServiceContext._recover_jobs`).
-The cluster plane's claim stealing and the compile-cache pre-warm are
-not ported (ROADMAP A.11, A.6).
+When the process-wide program cache (train/compile_cache.py) clears on a
+device-set change, the engine's warm-start hints go with it (a listener
+held through a weak reference, deregistered by :meth:`close`).  The
+cluster plane's claim stealing and the durable program store's boot
+pre-warm are not ported (ROADMAP A.11, A.6 part 2).
 """
 
 from __future__ import annotations
 
 import re
 import shutil
+import weakref
 from typing import Any
 
 from learningorchestra_tpu_torch.config import Config
@@ -33,6 +37,7 @@ from learningorchestra_tpu_torch.store import (
     open_document_store,
 )
 from learningorchestra_tpu_torch.store.sharded import ShardedDataset
+from learningorchestra_tpu_torch.train import compile_cache
 
 logger = get_logger("context")
 
@@ -59,6 +64,7 @@ class ConflictError(Exception):
 class ServiceContext:
     def __init__(self, config: Config | None = None, *, device=None):
         self.config = config or Config.from_env()
+        self.config.aot.validate()
         self.device = resolve_device(device or self.config.device)
         self.documents = open_document_store(
             self.config.store.store_path(),
@@ -79,6 +85,20 @@ class ServiceContext:
         # watchdog revokes an expired job's leases through the same pool.
         self.leaser = DeviceLeaser(device=self.device)
         self.engine.leaser = self.leaser
+        # A device-set change clears the program cache, so the engine's
+        # warm-start hints are stale then.  Weakly bound: short-lived
+        # contexts (tests) must not pin dead engines through the
+        # process-wide cache.
+        engine_ref = weakref.ref(self.engine)
+
+        def _drop_warm_hints():
+            engine = engine_ref()
+            if engine is not None:
+                engine.clear_warm_keys()
+
+        self._warm_hint_listener = _drop_warm_hints
+        compile_cache.get_cache().add_invalidation_listener(
+            _drop_warm_hints)
         self.loader = StoreLoader(self)
         # Subscribers to artifact changes (the serving registry drops a
         # resident model whose binary was replaced or deleted).
@@ -111,6 +131,8 @@ class ServiceContext:
                                     artifact=name))
 
     def close(self) -> None:
+        compile_cache.get_cache().remove_invalidation_listener(
+            self._warm_hint_listener)
         # With a drain budget the close waits, bounded; without one it
         # never hangs on an unbounded drain.
         self.engine.shutdown(wait=self.config.jobs.shutdown_drain_s > 0)

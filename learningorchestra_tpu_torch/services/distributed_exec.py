@@ -8,7 +8,8 @@
   failed job resumes it), the published artifact (int8 with
   ``quantize_checkpoint``), one history row per epoch and, with a
   ``monitoringPath``, a monitoring session whose logdir gets the scalars
-  and rank 0's profiler trace;
+  (with rank 0's ``compile_cache_*`` counter deltas, also published as
+  the job's ``compileCache``) and rank 0's profiler trace;
 - ``POST /builder/tensorflow|pytorch|horovod``: one validated user
   function run once per rank with ``rank``/``world_size`` keyword
   arguments, the ranks as host threads (the function is user code; no
@@ -250,10 +251,16 @@ class DistributedExecutorService:
                                           query={"docType": "history"}):
                 ctx.documents.delete_one(name, doc["_id"])
             store_history_rows(ctx.documents, name, dict(trainer.history))
+            # Rank 0's program-cache counters: the job's compileCache, and
+            # single-step scalars beside the training curves.
+            cache_delta = trainer.compile_cache
             if session_logdir is not None:
-                write_scalar_logs(session_logdir, dict(trainer.history),
-                                  prefix=name)
-            return {"fitTime": fit_time, "meshDevices": trainer.mesh.size}
+                logged = dict(trainer.history)
+                logged.update({f"compile_cache_{key}": [float(val)]
+                               for key, val in (cache_delta or {}).items()})
+                write_scalar_logs(session_logdir, logged, prefix=name)
+            return {"fitTime": fit_time, "meshDevices": trainer.mesh.size,
+                    "compileCache": cache_delta}
 
         ctx.engine.submit(
             name,

@@ -24,8 +24,14 @@ killed fit); a neural tune trial gets ``trial_<idx>`` under the tune's
 directory, removed once the best candidate is published.  A request
 carrying a raw ``checkpoint_dir`` is refused (406).  Each publication is
 fenced against the store's engine epoch (``require_current_epoch``).
-The tune's compile-cache and device-time accounting (``compileCache``,
-``deviceTime``) come with A.6.
+
+Programs and costs: a train or tune job publishes ``compileCache``, its
+delta of the program cache's counters (train/compile_cache.py), and, when
+any epoch was attributed to it, ``deviceTime`` (device seconds, FLOPs,
+MFU when the card's peak is configured; obs/costs.py): the body (and
+each tune trial, on its pool thread) runs in ``costs.job_scope``.  Each
+submission carries its spec's ``warm_fingerprint`` as the engine's warm
+key, and a finished neural job reports it warm.
 """
 
 from __future__ import annotations
@@ -42,12 +48,14 @@ import numpy as np
 from learningorchestra_tpu_torch import dsl
 from learningorchestra_tpu_torch.jobs import cancel as jobs_cancel
 from learningorchestra_tpu_torch.jobs.leases import placed
+from learningorchestra_tpu_torch.obs import costs
 from learningorchestra_tpu_torch.services.context import (
     ServiceContext,
     ValidationError,
 )
 from learningorchestra_tpu_torch.toolkit import registry
 from learningorchestra_tpu_torch.toolkit.base import map_tensors
+from learningorchestra_tpu_torch.train import compile_cache
 from learningorchestra_tpu_torch.train.neural import NeuralEstimator
 
 
@@ -121,7 +129,10 @@ class ExecutorService:
             method=method,
         )
         self._submit(name, parent_meta, method, method_parameters,
-                     artifact_type, description, deadline_s=deadline_s)
+                     artifact_type, description,
+                     warm_key=_warm_key(model_meta, method,
+                                        method_parameters),
+                     deadline_s=deadline_s)
         return meta
 
     def update(
@@ -150,18 +161,22 @@ class ExecutorService:
         self.ctx.artifacts.metadata.restart(name)
         self._submit(name, parent_meta, meta.get("method"),
                      method_parameters, meta.get("type"), description,
-                     resume_checkpoint=resume, deadline_s=deadline_s)
+                     resume_checkpoint=resume,
+                     warm_key=_warm_key(meta, meta.get("method"),
+                                        method_parameters),
+                     deadline_s=deadline_s)
         return self.ctx.artifacts.metadata.read(name)
 
     def _submit(self, name, parent_meta, method, method_parameters,
                 artifact_type, description, *, resume_checkpoint=False,
-                deadline_s=None):
+                warm_key=None, deadline_s=None):
         parent_name = parent_meta["name"]
         parent_type = parent_meta.get("type", "")
         kind = artifact_type.split("/", 1)[0]
         ctx = self.ctx
 
         def run():
+            cache_before = compile_cache.counters_snapshot()
             # The lease covers all of the job's device work: the parent's
             # load (dequantize), the method and the publication (quantize).
             with ctx.leaser.lease(1, label=name) as devs, placed(devs):
@@ -182,8 +197,17 @@ class ExecutorService:
                     params["checkpoint_dir"] = str(ckdir)
                     params.setdefault("resume", resume_checkpoint)
                 t0 = time.perf_counter()
-                result = getattr(instance, method)(**params)
+                # The body's dispatches (the fit's epochs) book against
+                # this job's device-time entry.
+                with costs.job_scope(name):
+                    result = getattr(instance, method)(**params)
                 fit_time = time.perf_counter() - t0
+                if isinstance(instance, NeuralEstimator) and \
+                        compile_cache.enabled():
+                    # Its programs are cached now: queued jobs of the same
+                    # spec may start ahead of cold ones.
+                    ctx.engine.note_warm(warm_key)
+                cache_delta = compile_cache.delta_since(cache_before)
                 # A stale-epoch straggler must not overwrite the artifact
                 # a newer recovery owns.
                 ctx.require_current_epoch()
@@ -200,7 +224,12 @@ class ExecutorService:
                         ):
                             ctx.documents.delete_one(name, doc["_id"])
                         store_history_rows(ctx.documents, name, hist)
-                    return {"fitTime": fit_time}
+                    extra = {"fitTime": fit_time,
+                             "compileCache": cache_delta}
+                    device_time = costs.job_summary(name)
+                    if device_time is not None:
+                        extra["deviceTime"] = device_time
+                    return extra
                 ctx.volumes.save_object(artifact_type, name, result)
             self._store_result_rows(name, result)
             return {"fitTime": fit_time}
@@ -214,6 +243,7 @@ class ExecutorService:
             capture_stdout=True,
             on_success=lambda extra: extra,
             job_class="executor",
+            warm_key=warm_key,
             deadline_s=deadline_s,
         )
 
@@ -285,8 +315,10 @@ class ExecutorService:
         ctx = self.ctx
         neural = isinstance(factory, type) and issubclass(
             factory, NeuralEstimator)
+        warm_key = _warm_key(model_meta, method, param_grid)
 
         def run():
+            cache_before = compile_cache.counters_snapshot()
             # The engine does not retry a tune (no preemption in the
             # port), so every run is a fresh grid: old trial state goes.
             trial_ck_root = ctx.checkpoint_dir(name)
@@ -320,7 +352,10 @@ class ExecutorService:
                 # runs there; on one card the trials serialize.
                 lease = ctx.leaser.lease(1, label=f"{name}:trial") \
                     if neural else contextlib.nullcontext([])
-                with jobs_cancel.bind(token), lease as devs, placed(devs):
+                # Re-bind the job scope too: every trial's epochs book
+                # against this tune job.
+                with jobs_cancel.bind(token), lease as devs, placed(devs), \
+                        costs.job_scope(name):
                     candidate = factory(**kwargs, device=ctx.device)
                     t0 = time.perf_counter()
                     getattr(candidate, method)(**trial_params)
@@ -366,8 +401,17 @@ class ExecutorService:
             # Trial checkpoints are this run's scratch: a later grid of
             # the same name must not find them.
             shutil.rmtree(trial_ck_root, ignore_errors=True)
-            return {"bestScore": best_score,
-                    "bestParams": _json_safe(best_combo)}
+            if neural and compile_cache.enabled():
+                ctx.engine.note_warm(warm_key)
+            # Same-architecture candidates coalesce onto one build per
+            # program kind; the rest hit.
+            out = {"bestScore": best_score,
+                   "bestParams": _json_safe(best_combo),
+                   "compileCache": compile_cache.delta_since(cache_before)}
+            device_time = costs.job_summary(name)
+            if device_time is not None:
+                out["deviceTime"] = device_time
+            return out
 
         ctx.engine.submit(
             name, run,
@@ -375,12 +419,25 @@ class ExecutorService:
             method=method, parameters=_json_safe(param_grid),
             on_success=lambda extra: extra,
             job_class="executor",
+            warm_key=warm_key,
             deadline_s=deadline_s,
         )
         return meta
 
     def delete(self, name: str) -> None:
         self.ctx.delete_artifact(name)
+
+
+def _warm_key(meta: dict, method, parameters: dict | None = None):
+    """The engine's warm-start hint for a submission: its spec's
+    trace-shaping parameters through ``compile_cache.warm_fingerprint``
+    (None without a model class to name)."""
+    module_path = meta.get("modulePath")
+    class_name = meta.get("class")
+    if not module_path or not class_name:
+        return None
+    return compile_cache.warm_fingerprint(module_path, class_name, method,
+                                          parameters)
 
 
 def _json_safe(obj):

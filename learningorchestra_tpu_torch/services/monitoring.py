@@ -168,6 +168,34 @@ class MonitoringService:
         with self._lock:
             return [s.to_dict() for s in self._sessions.values()]
 
+    @staticmethod
+    def compile_cache_stats() -> dict:
+        """The process-wide program cache's counters
+        (train/compile_cache.py), served at ``GET
+        /monitoring/<tool>/compileCache``, with the per-program FLOPs and
+        memory records under ``programCosts`` (obs/costs.py) and the
+        durable program store's counters under ``aot``: the JAX store's
+        disabled shape, zeros (the store is ROADMAP A.6 part 2)."""
+        from learningorchestra_tpu_torch.obs import costs
+        from learningorchestra_tpu_torch.train import compile_cache
+
+        stats = compile_cache.get_cache().stats()
+        if costs.enabled():
+            stats["programCosts"] = costs.get_ledger().snapshot()
+        stats["aot"] = {
+            "enabled": False,
+            "persistedEntries": 0,
+            "persistedBytes": 0,
+            "hits": 0,
+            "misses": 0,
+            "loadErrors": 0,
+            "stores": 0,
+            "storeErrors": 0,
+            "evictions": 0,
+            "callFallbacks": 0,
+        }
+        return stats
+
     def stop(self, nickname: str) -> bool:
         with self._lock:
             session = self._sessions.pop(nickname, None)

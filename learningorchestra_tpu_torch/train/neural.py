@@ -46,6 +46,19 @@ threefry's bits.
 An artifact is a plain dict (:meth:`NeuralEstimator.to_artifact`) naming
 its class through the registry; :func:`load_artifact` rebuilds it on any
 device.
+
+Programs resolve through the process-wide program cache
+(train/compile_cache.py) under the JAX package's kinds: ``epoch_fns`` (the
+evaluate program), ``device_epoch`` keyed by (n, batch size, shuffle) for
+the in-memory fit and by each distinct shard length for the streaming
+fit, and ``apply`` per rows bucket for predict.  Each program takes the
+estimator (or module) as an argument, so two estimators of one
+architecture share it.  A program's first call is counted for FLOPs
+(obs/costs.py), and each in-memory epoch's device interval (CUDA events
+on the card, the host clock on the CPU) is attributed to the job.  The
+programs stay eager: the optimizer's host-side learning rate and counts
+and the autograd kernels make capturing a training step a design of its
+own.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ from torch.func import functional_call
 from learningorchestra_tpu_torch import convert
 from learningorchestra_tpu_torch.device import resolve_device
 from learningorchestra_tpu_torch.jobs.cancel import cancel_requested
+from learningorchestra_tpu_torch.obs import costs
 from learningorchestra_tpu_torch.ops.layers import (
     MultiHeadSelfAttention,
     has_separate_qkv,
@@ -79,6 +93,7 @@ from learningorchestra_tpu_torch.serve.bucketing import bucket_for, pad_rows
 from learningorchestra_tpu_torch.toolkit import registry
 from learningorchestra_tpu_torch.toolkit.base import Estimator, as_array
 from learningorchestra_tpu_torch.train import checkpoint as ckpt
+from learningorchestra_tpu_torch.train import compile_cache as cc
 
 _log = logging.getLogger("learningorchestra_tpu_torch.train")
 
@@ -814,6 +829,66 @@ def _finalize_metrics(per_batch: list[dict], dp=None) -> dict:
     return out
 
 
+def _cached_program(kind: str, est, loss_kind, *, shapes=None, mesh=None,
+                    donate=None, fn, analyze: bool = True) -> cc.Program:
+    """Fetch (or build once) the program ``fn`` through the process-wide
+    program cache, keyed by the estimator's architecture, optimizer, loss
+    and compute dtype plus what the program is specialised to.  A rank of
+    a data-parallel fit keys on its mesh too (axis names, sizes, the
+    device list).  ``fn`` takes the estimator (or module) as an argument,
+    so the program never closes over one estimator's weights."""
+    if mesh is None and est._dp is not None:
+        mesh = est._dp.mesh_key
+    key = cc.program_key(
+        kind,
+        module=cc.module_fingerprint(est.module),
+        optimizer=cc.optimizer_fingerprint(est),
+        loss=loss_kind,
+        dtype=est.compute_dtype,
+        shapes=shapes,
+        mesh=mesh,
+        donate=donate,
+    )
+    label = f"{kind}:{type(est.module).__name__}"
+    return cc.get_cache().get_or_build(
+        key, lambda: cc.Program(fn, key, label, analyze=analyze),
+        label=label)
+
+
+def _device_epoch_program(est, xs, ys, loss_fn, dtype, batch_size: int,
+                          shuffle: bool, key: int) -> dict:
+    """The ``device_epoch`` program: one epoch over a device-resident
+    dataset (:meth:`NeuralEstimator._device_epoch`)."""
+    return est._device_epoch(xs, ys, loss_fn, dtype, batch_size, shuffle,
+                             key)
+
+
+def _evaluate_program(est, x, y, batch_size: int, loss_kind) -> dict:
+    """The ``epoch_fns`` program: metrics over padded batches
+    (:meth:`NeuralEstimator._evaluate_batches`)."""
+    return est._evaluate_batches(x, y, batch_size, loss_kind)
+
+
+def _apply_program(module: nn.Module, x: np.ndarray) -> np.ndarray:
+    """The ``apply`` program: one f32 forward of a host batch on the
+    module's device, in one transfer; host f32 outputs."""
+    device = next(module.parameters()).device
+    with torch.inference_mode():
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        return module(xt).float().cpu().numpy()
+
+
+def apply_program(module: nn.Module, rows: int, *,
+                  label: str | None = None) -> cc.Program:
+    """The cached ``apply`` program of ``module``'s architecture for a
+    ``rows``-row bucket (``compile_cache.apply_program_key``): predict and
+    serving share it, and the cache's misses count buckets."""
+    key = cc.apply_program_key(module, rows=rows)
+    label = label or f"apply:{type(module).__name__}:b{rows}"
+    return cc.get_cache().get_or_build(
+        key, lambda: cc.Program(_apply_program, key, label), label=label)
+
+
 class NeuralEstimator(Estimator):
     """Wraps a ``nn.Module`` with fit/evaluate/predict/save/load."""
 
@@ -851,6 +926,7 @@ class NeuralEstimator(Estimator):
         # waits (``_ShardStream.stats``).
         self._sharded_fit_cols: list[str] | None = None
         self.stream_stats: dict | None = None
+        self._invalidate_programs()
         init_params(module, seed)
         module.to(self.device).eval()
 
@@ -871,6 +947,16 @@ class NeuralEstimator(Estimator):
         """Hook for modules that size themselves from the first input
         (flax's ``module.init``); parameters of fixed-size modules exist
         from construction."""
+
+    def _invalidate_programs(self) -> None:
+        """Drop this estimator's references to its cached programs; the
+        next fit, evaluate or predict resolves them again through the
+        cache (a hit when nothing that keys them changed)."""
+        self._eval_fn = None
+        self._eval_loss_kind = None
+        self._device_epoch_prog = None
+        self._device_epoch_key = None
+        self._apply_fns: dict = {}
 
     def _reset_optimizer(self) -> None:
         """Fresh optimizer state (moments from zero, count 0, no pending
@@ -924,6 +1010,7 @@ class NeuralEstimator(Estimator):
                 self._reset_optimizer()
         if loss is not None:
             self.loss = loss
+        self._invalidate_programs()
 
     def _set_accumulation(self, accumulate_steps: int) -> None:
         """``optax.MultiSteps(every_k_schedule=accumulate_steps)``: the
@@ -938,6 +1025,8 @@ class NeuralEstimator(Estimator):
             self._accumulate_steps = accumulate_steps
             self._mini_step = 0
             self.module.zero_grad(set_to_none=True)
+            # Accumulation is part of the programs' optimizer key.
+            self._invalidate_programs()
 
     # -- loss -----------------------------------------------------------------
 
@@ -1002,6 +1091,16 @@ class NeuralEstimator(Estimator):
 
     def _compute_dtype(self):
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else None
+
+    def _build_step(self, loss_kind: str) -> None:
+        """Resolve the evaluate program under the JAX ``epoch_fns`` key
+        (once per loss kind, as the JAX estimator builds its (step,
+        evaluate) pair)."""
+        if self._eval_fn is None or self._eval_loss_kind != loss_kind:
+            self._eval_fn = _cached_program(
+                "epoch_fns", self, loss_kind, donate=False,
+                fn=_evaluate_program, analyze=False)
+            self._eval_loss_kind = loss_kind
 
     # -- train step / epoch ---------------------------------------------------
 
@@ -1072,10 +1171,15 @@ class NeuralEstimator(Estimator):
                 rows, m = rows[part], m[part]
             per_batch.append(self._train_step(
                 xs[rows], ys[rows], m, loss_fn, dtype, msum))
+            if i == 0:
+                # Every batch has the first one's shapes: a FLOP count of
+                # this call stops here and scales (obs/costs.py).
+                costs.repeats(n_batches)
         return _finalize_metrics(per_batch, dp)
 
     def _streaming_epoch(self, stream: "_ShardStream", loss_fn, dtype,
-                         batch_size: int, shuffle: bool, epoch: int) -> dict:
+                         batch_size: int, shuffle: bool, epoch: int,
+                         program_for) -> dict:
         """One epoch over a sharded dataset: the shards in a host order
         seeded by (seed, 3, epoch), the JAX package's; each shard one
         device epoch (its tail padded like the in-memory tail), its
@@ -1091,8 +1195,9 @@ class NeuralEstimator(Estimator):
             # one rounds it up to a multiple of the world size.
             bs = min(batch_size, rows if self._dp is None
                      else -(-rows // self._dp.world) * self._dp.world)
-            acc.add(self._device_epoch(xs, ys, loss_fn, dtype, bs, shuffle,
-                                       epoch * n_shards + pos), rows)
+            acc.add(program_for(rows, bs)(
+                self, xs, ys, loss_fn, dtype, bs, shuffle,
+                epoch * n_shards + pos), rows)
         return acc.result()
 
     # -- keras-fit surface ----------------------------------------------------
@@ -1189,6 +1294,7 @@ class NeuralEstimator(Estimator):
         self._init_params(x0)
         if self.opt_state is None:
             self._reset_optimizer()
+        self._build_step(loss_kind)
         start_epoch = 0
         if checkpoint_dir and resume:
             loaded = ckpt.resume_or_none(
@@ -1206,11 +1312,24 @@ class NeuralEstimator(Estimator):
             self.stream_stats = stream.stats
 
             n_samples = stream.dataset.n_rows
+            # One program per distinct shard length: the full shards
+            # share one, the tail adds a second.
+            progs: dict = {}
+
+            def program_for(rows, bs):
+                if rows not in progs:
+                    progs[rows] = _cached_program(
+                        "device_epoch", self, loss_kind,
+                        shapes=(rows, bs, bool(shuffle)),
+                        fn=_device_epoch_program)
+                return progs[rows]
+
+            attributed = None
 
             def run_epoch(epoch_i):
                 return self._streaming_epoch(stream, loss_fn, dtype,
                                              batch_size, bool(shuffle),
-                                             epoch_i)
+                                             epoch_i, program_for)
         else:
             # Upload the dataset once; each epoch shuffles/batches on
             # the device.
@@ -1219,10 +1338,21 @@ class NeuralEstimator(Estimator):
                 self.device)
 
             n_samples = -(-len(x) // batch_size) * batch_size
+            epoch_key = (len(x), batch_size, bool(shuffle), loss_kind)
+            if self._device_epoch_key != epoch_key:
+                self._device_epoch_prog = _cached_program(
+                    "device_epoch", self, loss_kind,
+                    shapes=(len(x), batch_size, bool(shuffle)),
+                    fn=_device_epoch_program)
+                self._device_epoch_key = epoch_key
+            # Each epoch's device interval goes to the job's device-time
+            # ledger with the program's FLOPs (as the JAX in-memory fit
+            # attributes; its streaming fit does not).
+            attributed = self._device_epoch_prog
 
             def run_epoch(epoch_i):
-                return self._device_epoch(xs, ys, loss_fn, dtype,
-                                          batch_size, bool(shuffle), epoch_i)
+                return attributed(self, xs, ys, loss_fn, dtype, batch_size,
+                                  bool(shuffle), epoch_i)
 
         self.module.train()
         last_save = time.monotonic()
@@ -1237,8 +1367,13 @@ class NeuralEstimator(Estimator):
                     self.stop_training = True
                     break
                 t0 = time.perf_counter()
+                interval = costs.Interval(self.device) \
+                    if attributed is not None and costs.enabled() else None
                 metrics = run_epoch(epoch_i)
                 metrics["epoch_time"] = time.perf_counter() - t0
+                if interval is not None:
+                    costs.attribute(interval.stop().seconds(),
+                                    cost=attributed.cost())
                 if dp is not None:
                     metrics["samples_per_sec"] = \
                         n_samples / metrics["epoch_time"]
@@ -1333,6 +1468,12 @@ class NeuralEstimator(Estimator):
     # -- evaluation / inference -------------------------------------------------
 
     def _evaluate_arrays(self, x, y, batch_size, loss_kind) -> dict:
+        """Metrics over padded batches, through the cached evaluate
+        program."""
+        self._build_step(loss_kind)
+        return self._eval_fn(self, x, y, batch_size, loss_kind)
+
+    def _evaluate_batches(self, x, y, batch_size, loss_kind) -> dict:
         """Metrics over padded batches of ``batch_size`` rows; a
         data-parallel rank computes its rows of each global batch and the
         ranks' shares are summed."""
@@ -1407,13 +1548,15 @@ class NeuralEstimator(Estimator):
         ``module``: a placed copy of this estimator's module to run
         instead (a fleet replica's on another card); the batch goes from
         the host to its card in one transfer."""
-        if module is None:
-            module, device = self.module, self.device
-        else:
-            device = next(module.parameters()).device
-        with torch.inference_mode():
-            xt = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-            return module(xt).float().cpu().numpy()
+        return _apply_program(self.module if module is None else module, x)
+
+    def _apply_for(self, rows: int) -> cc.Program:
+        """The cached ``apply`` program for a ``rows``-row bucket,
+        memoized on the estimator (:func:`apply_program`)."""
+        prog = self._apply_fns.get(rows)
+        if prog is None:
+            prog = self._apply_fns[rows] = apply_program(self.module, rows)
+        return prog
 
     def predict(self, x, batch_size: int = 512, **_):
         if _is_sharded(x):
@@ -1430,7 +1573,8 @@ class NeuralEstimator(Estimator):
             # (capped at batch_size) and the pad rows are sliced off: the
             # same discipline as the serving path.
             bucket = bucket_for(k, batch_size)
-            outs.append(self.apply(pad_rows(xb, bucket))[:k])
+            outs.append(self._apply_for(bucket)(
+                self.module, pad_rows(xb, bucket))[:k])
         return np.concatenate(outs, axis=0)
 
     def _predict_streaming(self, x, batch_size: int) -> np.ndarray:

@@ -634,7 +634,6 @@ class TestFleetConfigAtBoot:
 
     @pytest.mark.parametrize("key,value,names", [
         ("LO_TPU_FLEET_UP_SLOPE", "0.5", "A.11"),
-        ("LO_TPU_FLEET_UP_DEVICE_FRAC", "0.8", "A.6"),
     ])
     def test_unported_triggers_are_refused_at_boot(self, monkeypatch,
                                                     tmp_path, key, value,

@@ -55,7 +55,10 @@ def test_sources_exist():
                    # The fleet tier's own copies.
                    "serve/fleet/__init__.py", "serve/fleet/router.py",
                    "serve/fleet/replicaset.py", "serve/fleet/autoscaler.py",
-                   "serve/fleet/manager.py"):
+                   "serve/fleet/manager.py",
+                   # The program cache and the cost plane's own copies.
+                   "obs/__init__.py", "obs/costs.py",
+                   "train/compile_cache.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()

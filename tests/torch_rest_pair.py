@@ -20,10 +20,9 @@ from learningorchestra_tpu_torch.api.server import APIServer
 from learningorchestra_tpu_torch.config import Config, StoreConfig
 
 #: Metadata / execution-document keys of layers the port does not carry:
-#: request-id tracing and spans, the compile cache and device-time
-#: accounting, and the JAX package's native CSV engine's tag.
-UNPORTED_KEYS = {"requestId", "compileCache", "deviceTime", "trace",
-                 "engine"}
+#: request-id tracing and spans, and the JAX package's native CSV
+#: engine's tag.
+UNPORTED_KEYS = {"requestId", "trace", "engine"}
 
 
 @contextlib.contextmanager
