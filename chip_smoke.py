@@ -131,10 +131,10 @@ Phases (each prints its own line; any failure exits nonzero):
    vocabulary of 20,000 synthetic word types with sentiment-bearing ones,
    lengths long-tailed around 180 words), ``POST /dataset/csv`` of both
    and a histogram of the label; ``/transform/text`` (BPE trained to
-   8,000 tokens, maxLen 128, 4,096-row shards: 3 with a ragged tail of 8
-   rows) and the held-out split and a maxLen-80 pair with
+   8,000 tokens, maxLen 128, 4,096-row shards: 2, the second a ragged
+   tail of 8 rows) and the held-out split and a maxLen-80 pair with
    ``tokenizerFrom``; BERT-base (phase 8's model) trained streaming for 1
-   epoch at batch 32 with ``quantize_checkpoint`` (257 steps: K1/K2/K3 12
+   epoch at batch 32 with ``quantize_checkpoint`` (129 steps: K1/K2/K3 12
    each per step, K4 once; one program per distinct shard length), a
    streaming evaluate on the test split (K5 once, K1 per batch) and a
    predict on the bare test dataset (K5 once, K1 per dispatch;
@@ -245,7 +245,30 @@ Phases (each prints its own line; any failure exits nonzero):
    (S, Tk) cell's graph step against the eager ``build_step`` (host-paced
    and device ms, capture ms, graph-pool bytes); the ``program_cache``
    line;
-16. last line: {"ok": true, "device": {...}}.
+16. durable warm start and live profiling (``run_warm_start``): (a) the
+   restart drill: two fresh child processes (``chip_smoke.py --aot-child
+   A|B DIR``) sharing one durable program store (``LO_TPU_AOT_ENABLED``,
+   ``LO_TPU_AOT_PREWARM``, ``LO_TPU_AOT_DIR``), each with its own store
+   and volumes, drive the REST server through the same requests: phase
+   8's CSV, projection and BERT-base model, a train job of 1 epoch (8
+   steps at 32x128 bf16, K1/K2/K3 12 each per step, K4 at the int8
+   publication), one predict per row count 1-8 of its artifact (K5 at the
+   load, K1 12 per dispatch), ``/load`` of phase 13's int8 DecoderLM (K5)
+   and one SSE stream of 64 tokens; A starts cold and writes the store, B
+   joins its boot pre-warm first and must read ``aot.hits`` = A's stored
+   programs, ``misses`` 0 and no FLOP analysis, its restored decode cell
+   captured at ``/load`` (none during the stream), K1-K5 launched as A
+   did, losses within 1e-5 (relative), answers within 1e-6, tokens
+   equal; each child's job s, first answer s, TTFT, pre-warm s and store
+   bytes; (b) a live capture in this process: phase 4's int8 BERT-base
+   served, 2 rounds of 8 concurrent predicts at T=128 without and then
+   under ``POST /observability/profile/start`` (a second start 409),
+   stopped over REST, its ``.pt.trace.json`` fetched through ``?file=``:
+   K1's kernel events equal K1's launch counter over the capture (12 per
+   dispatch, the batcher's thread); serve p50 with and without the
+   capture, the trace's bytes; a 1 s capture stopped by its timer within
+   3 s, the retention bound (2) and DELETE; the ``warm_start`` line;
+17. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -2978,9 +3001,10 @@ def run_crash_drill(tmp) -> dict:
 
 # The Large Movie Review Dataset's split (Maas et al., 2011), as a shape:
 # 25,000 train and 25,000 test reviews, balanced; the text is seeded.  Cut
-# to this many per split (2 full 4,096-row shards and a tail of 8) to
-# bound the run's time; the row shape, vocabulary and lengths stay.
-IMDB_ROWS = 8_200
+# to this many per split (1 full 4,096-row shard and a tail of 8: two
+# shard lengths, so two streaming programs) to bound the run's time; the
+# row shape, vocabulary and lengths stay.
+IMDB_ROWS = 4_104
 IMDB_TYPES = 20_000  # synthetic word types, Zipf-distributed
 IMDB_SENTIMENT = 200  # sentiment-bearing types per polarity
 IMDB_SENTIMENT_SHARE = 0.03  # of a review's words
@@ -5152,6 +5176,447 @@ def run_program_cache(tmp, card: str, dec: dict) -> dict:
     return {"line": line, "launches": launches}
 
 
+# -- phase 16: durable warm start and live profiling --------------------------
+
+# (a) the restart drill: two fresh processes over one durable program store.
+WS_EPOCHS = 1  # the children's train job: 8 steps at (32, 128)
+WS_SERVE_ROWS = tuple(range(1, 9))  # one request each: buckets 1, 2, 4, 8
+WS_ANSWER_ATOL = 1e-6
+AOT_CHILD_TIMEOUT_S = 300
+# (b) a live capture of the serving path.
+PROF_CLIENTS = 8
+PROF_ROUNDS = 6
+PROF_MAX_CAPTURES = 2
+PROF_TIMER_BAR_S = 3.0
+K1_SYMBOL = "flash_fwd_tc_kernel"  # csrc/flash_fwd.cu
+
+
+def request_bytes(port, path) -> tuple:
+    """GET ``path`` -> (status, raw body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", "/api/learningOrchestra/v1" + path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def aot_child(role: str, tmp: str) -> int:
+    """Phase 16's restart-drill process (``chip_smoke.py --aot-child A|B
+    DIR``): the port's APIServer on the card over ``DIR/<role>``'s store
+    and volumes, the durable program store at ``LO_TPU_AOT_DIR`` (shared by
+    both roles) with the boot pre-warm on; it joins the pre-warm thread,
+    then drives a BERT-base train job (K1-K3, K4 at its int8
+    publication), one predict per row count 1-8 of its artifact (K5 at the
+    load, K1 12 a dispatch) and one SSE stream of the DecoderLM the parent
+    placed in its volumes (K5 at ``/load``), and writes what it saw to
+    ``DIR/<role>/result.json``."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.obs import costs
+    from learningorchestra_tpu_torch.train import aot_store, compile_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LO_TPU_COSTS_PEAK_FLOPS"] = repr(COSTS_PEAK_FLOPS)
+    root = f"{tmp}/{role}"
+    out = {"role": role}
+    t0 = time.perf_counter()
+    cfg = server_config(root)
+    cfg.aot = Config.from_env().aot
+    server = APIServer(cfg, device="cuda")
+    port = server.start_background()
+    thread = server.ctx._aot_prewarm_thread
+    if thread is not None:
+        thread.join(120)
+    out["boot_s"] = time.perf_counter() - t0
+    out["prewarm"] = server.ctx.aot_prewarm_stats
+    out["prewarm_alive"] = thread is not None and thread.is_alive()
+    jobs, launches = {}, {}
+    try:
+        x, _ = write_token_csv(f"{root}/tokens.csv")
+        fit = {"x": "$tokens_x", "y": "$tokens.label", "epochs": WS_EPOCHS,
+               "batch_size": TRAIN_SHAPE[0], "shuffle": False,
+               "quantize_checkpoint": True}
+        for key, path, body in (
+                ("tokens", "/dataset/csv", {
+                    "datasetName": "tokens",
+                    "url": f"file://{root}/tokens.csv"}),
+                ("tokens_x", "/transform/projection", {
+                    "projectionName": "tokens_x", "datasetName": "tokens",
+                    "fields": REST_FIELDS}),
+                ("bert", "/model/tensorflow", {
+                    "modelName": "bert", "class": "BertModel",
+                    "modulePath": "learningorchestra_tpu.models.text",
+                    "classParameters": REST_MODEL}),
+                ("ws_fit", "/train/tensorflow", {
+                    "name": "ws_fit", "parentName": "bert", "method": "fit",
+                    "methodParameters": fit})):
+            status, meta, secs, counts = rest_job(port, "POST", path, body,
+                                                  key)
+            jobs[key] = {"status": status, "state": meta.get("jobState"),
+                         "seconds": secs,
+                         "compileCache": meta.get("compileCache")}
+            launches[key] = counts
+        _, rows = request(port, "GET", "/train/tensorflow/ws_fit")
+        out["losses"] = [r.get("loss") for r in rows
+                         if r.get("docType") == "history"]
+        answers, latency = [], []
+        zero_kernel_counts()
+        for n in WS_SERVE_ROWS:
+            t1 = time.perf_counter()
+            status, body = request(port, "POST", "/serve/ws_fit/predict",
+                                   {"instances": x[:n].tolist()})
+            latency.append(time.perf_counter() - t1)
+            answers.append(body.get("predictions") if status == 200
+                           else {"status": status, "body": body})
+        launches["serve"] = kernel_counts()
+        out["answers"], out["serve_latency_s"] = answers, latency
+
+        def captures():
+            st = server.serving.decode.stats()["models"].get(DEC_MODEL, {})
+            return st.get("graphs", {}).get("captures", 0)
+
+        zero_kernel_counts()
+        t1 = time.perf_counter()
+        status, _ = request(port, "POST", f"/serve/{DEC_MODEL}/load")
+        out["decoder_load"] = {"status": status,
+                               "seconds": time.perf_counter() - t1,
+                               "captures": captures()}
+        launches["decoder_load"] = kernel_counts()
+        zero_kernel_counts()
+        prompt = decoder_prompts()[0]
+        status, events = read_sse(port, {"prompts": [prompt], "stream": True,
+                                         "maxNewTokens": DEC_NEW})
+        launches["stream"] = kernel_counts()
+        tok = [(d["t"], s) for n, d, s in events if n == "token"]
+        out["stream"] = {"status": status, "tokens": [t for t, _ in tok],
+                         "ttft_s": tok[0][1] if tok else None,
+                         "captures": captures()}
+        stats = compile_cache.get_cache().stats()
+        out["cache"] = {k: stats[k] for k in ("hits", "misses", "entries")}
+        out["analyses"] = costs.get_ledger().analyses
+        out["aot"] = {k: v for k, v in aot_store.stats_snapshot().items()
+                      if k != "entries_detail"}
+        out["aot"]["skipped"] = aot_store.get_store().skipped
+    finally:
+        server.shutdown()
+    out["jobs"], out["launches"] = jobs, launches
+    with open(f"{root}/result.json.tmp", "w") as fh:
+        json.dump(out, fh, default=str)
+    os.replace(f"{root}/result.json.tmp", f"{root}/result.json")
+    return 0
+
+
+def _rel_close(a, b, rtol) -> bool:
+    return len(a) == len(b) and all(
+        isinstance(u, float) and isinstance(v, float)
+        and abs(u - v) <= rtol * max(abs(u), abs(v)) for u, v in zip(a, b))
+
+
+def run_restart_drill(tmp, dec_artifact) -> dict:
+    """Phase 16 (a): child A from an empty store, then child B over the
+    store A wrote; B must restore every program A stored (its pre-warm's
+    hits), resolve every program as a hit with no FLOP analysis, capture
+    the restored decode cell's graph at the decoder's load (none during
+    its stream), launch K1-K5 as A did, and answer as A did."""
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+
+    env = {**os.environ, "LO_TPU_AOT_ENABLED": "1",
+           "LO_TPU_AOT_PREWARM": "1", "LO_TPU_AOT_DIR": f"{tmp}/aot"}
+    runs = {}
+    for role in ("A", "B"):
+        VolumeStorage(f"{tmp}/{role}").save_object(ARTIFACT_TYPE, DEC_MODEL,
+                                                   dec_artifact)
+        t0 = time.perf_counter()
+        with open(f"{tmp}/{role}.log", "w") as log:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--aot-child",
+                 role, tmp], env=env, stdout=log, stderr=subprocess.STDOUT,
+                timeout=AOT_CHILD_TIMEOUT_S)
+        res = _read_json(f"{tmp}/{role}/result.json")
+        if proc.returncode != 0 or res is None:
+            with open(f"{tmp}/{role}.log") as log:
+                tail = log.read()[-3000:]
+            raise RuntimeError(f"child {role} exited {proc.returncode}: "
+                               f"{tail}")
+        res["process_s"] = time.perf_counter() - t0
+        runs[role] = res
+        print(f"  warm start child {role}: " + json.dumps({
+            k: res.get(k) for k in ("process_s", "boot_s", "prewarm",
+                                    "cache", "analyses", "aot",
+                                    "decoder_load")}, default=str),
+              flush=True)
+    a, b = runs["A"], runs["B"]
+    stored = a["aot"]["persistedEntries"]
+    answers_err = max(
+        (float(np.max(np.abs(np.asarray(u, np.float64)
+                             - np.asarray(v, np.float64))))
+         for u, v in zip(a["answers"], b["answers"])), default=math.inf)
+    jobs_ok = all(j["status"] in (200, 201) and j["state"] == "finished"
+                  for r in (a, b) for j in r["jobs"].values())
+    steps = WS_EPOCHS * -(-TRAIN_ROWS // TRAIN_SHAPE[0])
+    want_train = {"flash_fwd": REST_LAYERS * steps,
+                  "flash_bwd_dq": REST_LAYERS * steps,
+                  "flash_bwd_dkv": REST_LAYERS * steps,
+                  "quantize_rowwise": 1, "dequantize_rowwise": 0}
+    dispatches = len(WS_SERVE_ROWS)
+    ok = (jobs_ok and a["launches"] == b["launches"]
+          and a["launches"]["ws_fit"] == want_train
+          and a["launches"]["serve"]["flash_fwd"] == REST_LAYERS * dispatches
+          and a["launches"]["serve"]["dequantize_rowwise"] == 1
+          and a["launches"]["decoder_load"]["dequantize_rowwise"] == 1
+          and a["launches"]["stream"]["flash_fwd"] == 0
+          and stored >= 1 and a["aot"]["loadErrors"] == 0
+          and a["analyses"] >= 1 and a["stream"]["captures"] >= 1
+          and a["decoder_load"]["captures"] == 0
+          and b["prewarm"] is not None and not b["prewarm_alive"]
+          and b["prewarm"]["warmed"] == stored
+          and b["aot"]["hits"] == stored and b["aot"]["loadErrors"] == 0
+          and b["cache"]["misses"] == 0 and b["analyses"] == 0
+          and all((j["compileCache"] or {}).get("misses", 0) == 0
+                  for j in b["jobs"].values())
+          and b["decoder_load"]["captures"] >= 1
+          and b["stream"]["captures"] == b["decoder_load"]["captures"]
+          and _rel_close(a["losses"], b["losses"], LOSS_RTOL)
+          and len(a["losses"]) == WS_EPOCHS
+          and answers_err <= WS_ANSWER_ATOL
+          and a["stream"]["status"] == b["stream"]["status"] == 200
+          and len(a["stream"]["tokens"]) == DEC_NEW
+          and a["stream"]["tokens"] == b["stream"]["tokens"])
+    line = {role: {
+        "job_s": r["jobs"]["ws_fit"]["seconds"],
+        "first_answer_s": r["serve_latency_s"][0],
+        "serve_latency_s": r["serve_latency_s"],
+        "decoder_load_s": r["decoder_load"]["seconds"],
+        "ttft_s": r["stream"]["ttft_s"], "boot_s": r["boot_s"],
+        "prewarm": r["prewarm"], "process_s": r["process_s"],
+        "store_bytes": r["aot"]["persistedBytes"],
+        "store_entries": r["aot"]["persistedEntries"],
+        "aot": r["aot"], "cache": r["cache"], "analyses": r["analyses"],
+        "captures": [r["decoder_load"]["captures"],
+                     r["stream"]["captures"]],
+        "launches": r["launches"],
+        "train_compile_cache": r["jobs"]["ws_fit"]["compileCache"]}
+        for role, r in runs.items()}
+    line["losses"] = [a["losses"], b["losses"]]
+    line["answers_max_abs_diff"] = answers_err
+    phase("warm start restart drill", ok,
+          f"child A stored {stored} programs ({a['aot']['persistedBytes']} "
+          f"B; {a['analyses']} FLOP analyses, misses "
+          f"{a['cache']['misses']}); child B pre-warmed {b['prewarm']}, aot "
+          f"hits {b['aot']['hits']}, misses {b['cache']['misses']}, "
+          f"analyses {b['analyses']}, load errors {b['aot']['loadErrors']}; "
+          f"decode graphs captured at the load / by the stream: A "
+          f"{line['A']['captures']}, B {line['B']['captures']}; launches "
+          f"equal {a['launches'] == b['launches']} ({a['launches']}); "
+          f"losses {line['losses']} (rtol {LOSS_RTOL}); answers max |diff| "
+          f"{answers_err:.3g} (bar {WS_ANSWER_ATOL}); tokens equal "
+          f"{a['stream']['tokens'] == b['stream']['tokens']}; job s "
+          f"{line['A']['job_s']:.2f} / {line['B']['job_s']:.2f}, first "
+          f"answer s {line['A']['first_answer_s']:.3f} / "
+          f"{line['B']['first_answer_s']:.3f}, TTFT s "
+          f"{line['A']['ttft_s']} / {line['B']['ttft_s']}")
+    return {"line": line,
+            "launches": [r["launches"] for r in runs.values()]}
+
+
+def unrecorded_launches(events: list) -> tuple:
+    """A trace's runtime launches and copies that have no device record
+    (where the profiler lost the card's side of the work), and all of
+    them, in time order."""
+    device = {e["args"]["correlation"] for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "correlation" in e.get("args", {})}
+    runtime = sorted(
+        (e for e in events if e.get("cat") == "cuda_runtime"
+         and ("Launch" in e["name"] or "Memcpy" in e["name"])),
+        key=lambda e: e["ts"])
+    return ([e for e in runtime
+             if e.get("args", {}).get("correlation") not in device],
+            runtime)
+
+
+def run_live_capture(tmp, bert_artifact) -> dict:
+    """Phase 16 (b): a live ``torch.profiler`` capture over REST of a
+    served int8 BERT-base: 8 concurrent predicts at T=128 (dispatched by
+    the batcher's thread) under a capture started from a REST thread; the
+    trace's K1 kernel events against K1's launch counter over the
+    capture, and no traced launch without its device record; the same
+    count under a bare ``torch.profiler`` start for comparison; the serve
+    p50 with and without the capture; a second start's 409, the
+    auto-stop timer, the retention bound and DELETE."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.config import ProfilingConfig
+    from learningorchestra_tpu_torch.obs import profiling
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+
+    VolumeStorage(tmp).save_object(ARTIFACT_TYPE, "bert-base", bert_artifact)
+    cfg = server_config(tmp)
+    cfg.profiling = ProfilingConfig(max_captures=PROF_MAX_CAPTURES)
+    server = APIServer(cfg, device="cuda")
+    port = server.start_background()
+    rng = np.random.default_rng(16)
+    reqs = [rng.integers(1, 30522, (n, TRAIN_SHAPE[2])).astype(np.int32)
+            for n in range(1, PROF_CLIENTS + 1)]
+    launches, line = {}, {}
+
+    def burst():
+        def one(x):
+            t0 = time.perf_counter()
+            status, body = request(port, "POST", "/serve/bert-base/predict",
+                                   {"instances": x.tolist()})
+            return status, time.perf_counter() - t0, body
+
+        with concurrent.futures.ThreadPoolExecutor(PROF_CLIENTS) as pool:
+            return list(pool.map(one, reqs))
+
+    try:
+        zero_kernel_counts()
+        request(port, "POST", "/serve/bert-base/load")
+        for x in reqs:  # every bucket built and analyzed before timing
+            request(port, "POST", "/serve/bert-base/predict",
+                    {"instances": x.tolist()})
+        burst()  # the first burst still warms the path: not timed
+        launches["warm"] = kernel_counts()
+        base = [r for _ in range(PROF_ROUNDS) for r in burst()]
+        zero_kernel_counts()
+        st_start, started = request(port, "POST",
+                                    "/observability/profile/start",
+                                    {"name": "live", "maxSeconds": 60})
+        st_dup, dup = request(port, "POST", "/observability/profile/start",
+                              {"name": "second"})
+        captured = [r for _ in range(PROF_ROUNDS) for r in burst()]
+        launches["capture"] = kernel_counts()
+        t0 = time.perf_counter()
+        st_stop, stopped = request(port, "POST",
+                                   "/observability/profile/stop", {})
+        stop_s = time.perf_counter() - t0
+        # Without the capture again, after it: the p50 without reads both
+        # windows around the captured one.
+        base += [r for _ in range(PROF_ROUNDS) for r in burst()]
+        files = stopped.get("capture", {}).get("files", [])
+        trace = [f["path"] for f in files
+                 if f["path"].endswith(".pt.trace.json")]
+        st_file, raw = request_bytes(
+            port, f"/observability/profile/captures/live?file={trace[0]}"
+        ) if trace else (0, b"{}")
+        events = json.loads(raw).get("traceEvents", [])
+        k1_events = sum(1 for e in events if e.get("cat") == "kernel"
+                        and K1_SYMBOL in str(e.get("name", "")))
+        kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+        unrecorded, runtime = unrecorded_launches(events)
+        unrecorded_ms = (unrecorded[-1]["ts"] - runtime[0]["ts"]) / 1e3 \
+            if unrecorded else 0.0
+        # The comparison: the same traffic under a bare torch.profiler
+        # start (no warm-up, obs/profiling.py::start_warm): what a capture
+        # loses without it, late in this process.
+        bare = profiling.new_profile()
+        bare.start()
+        for _ in range(2):
+            burst()
+        bare.stop()
+        bare_path = os.path.join(tmp, "bare.pt.trace.json")
+        bare.export_chrome_trace(bare_path)
+        with open(bare_path) as fh:
+            bare_lost, bare_runtime = unrecorded_launches(
+                json.load(fh).get("traceEvents", []))
+        # (auto-stop) a 1 s capture stopped by its timer.
+        t0 = time.perf_counter()
+        st_timer, _ = request(port, "POST", "/observability/profile/start",
+                              {"name": "timer", "maxSeconds": 1})
+        while time.perf_counter() - t0 < 2 * PROF_TIMER_BAR_S:
+            _, status_doc = request(port, "GET", "/observability/profile")
+            if status_doc["active"] is None and status_doc["autoStops"]:
+                break
+            time.sleep(0.05)
+        timer_s = time.perf_counter() - t0
+        # A third capture: the retention bound prunes the oldest ("live").
+        request(port, "POST", "/observability/profile/start",
+                {"name": "extra"})
+        request(port, "POST", "/observability/profile/stop", {})
+        _, listed = request(port, "GET", "/observability/profile/captures")
+        names = [c["name"] for c in listed.get("captures", [])]
+        st_del, _ = request(port, "DELETE",
+                            "/observability/profile/captures/extra")
+        st_del2, _ = request(port, "DELETE",
+                             "/observability/profile/captures/extra")
+    finally:
+        server.shutdown()
+    k1 = launches["capture"]["flash_fwd"]
+    p50 = [float(np.median([s for _, s, _ in rs])) for rs in (base,
+                                                              captured)]
+    # Each burst's own median: the spread an overhead must leave to be
+    # read as one.
+    burst_p50 = [[float(np.median([s for _, s, _ in rs[i:i + PROF_CLIENTS]]))
+                  for i in range(0, len(rs), PROF_CLIENTS)]
+                 for rs in (base, captured)]
+    resolved = (min(burst_p50[1]) > max(burst_p50[0])
+                or max(burst_p50[1]) < min(burst_p50[0]))
+    served_ok = all(st == 200 and len(b.get("predictions", [])) == len(x)
+                    for rs in (base, captured)
+                    for (st, _, b), x in zip(rs, reqs * 2 * PROF_ROUNDS))
+    ok = (served_ok and st_start == 201 and st_dup == 409
+          and st_stop == 200 and st_file == 200 and k1 > 0
+          and k1 % REST_LAYERS == 0 and k1_events == k1 and not unrecorded
+          and st_timer == 201 and timer_s <= PROF_TIMER_BAR_S
+          and status_doc["autoStops"] == 1
+          and len(names) <= PROF_MAX_CAPTURES and "live" not in names
+          and st_del == 200 and st_del2 == 404)
+    line.update({
+        "trace_bytes": len(raw), "trace_events": len(events),
+        "kernel_events": kernel_events, "k1_events": k1_events,
+        "launches_without_device_record": len(unrecorded),
+        "their_span_ms": unrecorded_ms,
+        "bare_start": {"launches": len(bare_runtime),
+                       "without_device_record": len(bare_lost)},
+        "k1_launches": k1, "dispatches": k1 // REST_LAYERS,
+        "serve_p50_s": {"without": p50[0], "with": p50[1]},
+        "capture_overhead": p50[1] / p50[0] - 1,
+        "burst_p50_s": {"without": burst_p50[0], "with": burst_p50[1]},
+        "overhead_resolved": resolved, "stop_s": stop_s,
+        "timer_stop_s": timer_s, "retained": names,
+        "launches": launches})
+    phase("warm start live capture", ok,
+          f"start {st_start}, second start {st_dup} "
+          f"({dup.get('error', '')[:60]}), stop {st_stop} in {stop_s:.2f}s, "
+          f"?file= {st_file}: {len(raw)} B, {len(events)} events, "
+          f"{kernel_events} kernels, {k1_events} {K1_SYMBOL} events vs K1 "
+          f"launch counter {k1} over the capture ({k1 // REST_LAYERS} "
+          f"dispatches x {REST_LAYERS}); {len(unrecorded)} of "
+          f"{len(runtime)} traced launches/copies without a device record, "
+          f"within the first {unrecorded_ms:.1f} ms of the capture's work "
+          f"(a bare torch.profiler start over 2 bursts: {len(bare_lost)} of "
+          f"{len(bare_runtime)}); "
+          f"serve p50 {p50[0] * 1e3:.1f} ms "
+          f"without, {p50[1] * 1e3:.1f} ms with the capture over "
+          f"{len(base)} / {len(captured)} requests (burst medians "
+          f"{min(burst_p50[0]) * 1e3:.1f}-{max(burst_p50[0]) * 1e3:.1f} / "
+          f"{min(burst_p50[1]) * 1e3:.1f}-{max(burst_p50[1]) * 1e3:.1f} ms: "
+          f"{'resolved' if resolved else 'not resolved'}); 1 s capture "
+          f"stopped by its timer in {timer_s:.2f}s (autoStops "
+          f"{status_doc['autoStops']}); retained {names} (max "
+          f"{PROF_MAX_CAPTURES}); DELETE {st_del}, again {st_del2}")
+    return {"line": line, "launches": launches}
+
+
+def run_warm_start(tmp, card: str, bert_artifact, dec_artifact) -> dict:
+    """Phase 16: (a) the restart drill in two child processes, (b) a live
+    capture in this process."""
+    t_phase = time.perf_counter()
+    drill = run_restart_drill(f"{tmp}/drill", dec_artifact)
+    live = run_live_capture(f"{tmp}/live", bert_artifact)
+    name, _, limit = card.partition(",")
+    line = {"card": name.strip(), "power_limit": limit.strip(),
+            "restart_drill": drill["line"], "live_capture": live["line"],
+            "phase_s": time.perf_counter() - t_phase}
+    return {"line": line, "launches": {"children": drill["launches"],
+                                       "live": live["launches"]}}
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -5399,6 +5864,32 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     pc_s = time.perf_counter() - t_pc
+
+    # Phase 16: durable warm start (two child processes over one program
+    # store) and a live profiler capture of the serving path.
+    tmp, t_ws = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        if "artifact" not in dec:
+            raise RuntimeError("phase 13 left no decoder artifact")
+        warm = run_warm_start(tmp, card, slice_res["artifact"],
+                              dec["artifact"])
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("warm start", False, repr(exc))
+        warm = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ws_s = time.perf_counter() - t_ws
+    ws_l = warm["launches"]
+    ws_live = ws_l.get("live", {})
+    ws_children = ws_l.get("children", [])
+    # The children's train jobs (bf16 K1-K3, K4), their serving (f32 K1,
+    # K5 at the load) and decoder loads (K5); the live capture's server.
+    ws_train = [c.get("ws_fit") for c in ws_children]
+    ws_f32 = [c.get("serve") for c in ws_children] + [
+        ws_live.get("warm"), ws_live.get("capture")]
+    ws_k5 = [c.get(k) for c in ws_children
+             for k in ("serve", "decoder_load")] + [ws_live.get("warm")]
     pc_l = pcache["launches"]
     pc_train = list(pc_l.get("train", [])) + [pc_l.get("tune")]
     fleet_l = fleet["launches"]
@@ -5447,7 +5938,8 @@ def main() -> int:
          + rest_sum("flash_fwd", dist_predict)
          + rest_sum("flash_fwd", dec_f32)
          + rest_sum("flash_fwd", [fleet_l.get("fleet_predict")])
-         + rest_sum("flash_fwd", [pc_l.get("serve")]),
+         + rest_sum("flash_fwd", [pc_l.get("serve")])
+         + rest_sum("flash_fwd", ws_f32),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
@@ -5458,7 +5950,9 @@ def main() -> int:
              "fleet_predict": rest_sum("flash_fwd",
                                        [fleet_l.get("fleet_predict")]),
              "program_cache_serve": rest_sum("flash_fwd",
-                                             [pc_l.get("serve")])},
+                                             [pc_l.get("serve")]),
+             "warm_start_serve_and_capture": rest_sum("flash_fwd",
+                                                      ws_f32)},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -5472,7 +5966,8 @@ def main() -> int:
          + rest_sum("flash_fwd", text_bf16)
          + rest_sum("flash_fwd", dist_ranks)
          + rest_sum("flash_fwd", [dec_l.get("train")])
-         + rest_sum("flash_fwd", pc_train),
+         + rest_sum("flash_fwd", pc_train)
+         + rest_sum("flash_fwd", ws_train),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -5483,7 +5978,8 @@ def main() -> int:
              "distributed_ranks": rest_sum("flash_fwd", dist_ranks),
              "decoder_train": rest_sum("flash_fwd", [dec_l.get("train")]),
              "program_cache_train_and_tune": rest_sum("flash_fwd",
-                                                      pc_train)},
+                                                      pc_train),
+             "warm_start_train": rest_sum("flash_fwd", ws_train)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -5501,7 +5997,8 @@ def main() -> int:
          + rest_sum("quantize_rowwise", text_train)
          + rest_sum("quantize_rowwise", dist_parent)
          + rest_sum("quantize_rowwise", [dec_l.get("publish")])
-         + rest_sum("quantize_rowwise", pc_train),
+         + rest_sum("quantize_rowwise", pc_train)
+         + rest_sum("quantize_rowwise", ws_train),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
@@ -5514,7 +6011,8 @@ def main() -> int:
              "decoder_publish": rest_sum("quantize_rowwise",
                                          [dec_l.get("publish")]),
              "program_cache_train_and_tune": rest_sum("quantize_rowwise",
-                                                      pc_train)},
+                                                      pc_train),
+             "warm_start_train": rest_sum("quantize_rowwise", ws_train)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -5532,7 +6030,8 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", [dec_l.get("load")])
          + rest_sum("dequantize_rowwise", [fleet_l.get("fleet_load")])
          + rest_sum("dequantize_rowwise", [pc_l.get("serve"),
-                                           pc_l.get("decoder_load")]),
+                                           pc_l.get("decoder_load")])
+         + rest_sum("dequantize_rowwise", ws_k5),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -5550,7 +6049,8 @@ def main() -> int:
                                     [fleet_l.get("fleet_load")]),
              "program_cache_loads": rest_sum(
                  "dequantize_rowwise", [pc_l.get("serve"),
-                                        pc_l.get("decoder_load")])},
+                                        pc_l.get("decoder_load")]),
+             "warm_start_loads": rest_sum("dequantize_rowwise", ws_k5)},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -5566,7 +6066,8 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", text_train)
            + rest_sum(f"flash_bwd_{key}", dist_ranks)
            + rest_sum(f"flash_bwd_{key}", [dec_l.get("train")])
-           + rest_sum(f"flash_bwd_{key}", pc_train),
+           + rest_sum(f"flash_bwd_{key}", pc_train)
+           + rest_sum(f"flash_bwd_{key}", ws_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -5578,7 +6079,8 @@ def main() -> int:
                "decoder_train": rest_sum(f"flash_bwd_{key}",
                                          [dec_l.get("train")]),
                "program_cache_train_and_tune": rest_sum(
-                   f"flash_bwd_{key}", pc_train)},
+                   f"flash_bwd_{key}", pc_train),
+               "warm_start_train": rest_sum(f"flash_bwd_{key}", ws_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -5661,12 +6163,13 @@ def main() -> int:
     print("fleet " + json.dumps(fleet["line"], default=str), flush=True)
     print("program_cache " + json.dumps(pcache["line"], default=str),
           flush=True)
+    print("warm_start " + json.dumps(warm["line"], default=str), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
           f"{drill_s:.1f}, text pipeline {text_s:.1f}, distributed "
           f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f}, "
-          f"program cache {pc_s:.1f})", flush=True)
+          f"program cache {pc_s:.1f}, warm start {ws_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
@@ -5693,4 +6196,6 @@ if __name__ == "__main__":
         sys.exit(crash_child(sys.argv[2]))
     if sys.argv[1:2] == ["--cpu-reference"]:
         sys.exit(cpu_reference_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--aot-child"]:
+        sys.exit(aot_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

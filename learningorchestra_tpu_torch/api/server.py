@@ -31,11 +31,17 @@ server's request bodies:
   /monitoring/<tool>/<name>``: monitoring sessions by nickname;
   ``serving`` answers the serving stats and appends ``serving_*``
   scalars, ``compileCache`` the program cache's counters with the
-  per-program costs (``programCosts``) and the durable store's disabled
-  ``aot`` block;
+  per-program costs (``programCosts``) and the durable program store's
+  live ``aot`` block (train/aot_store.py);
 - ``GET /observability/costs``: the cost plane (obs/costs.py): the
   per-program FLOPs ledger and the device-time ledgers per job, model
   and bucket;
+- ``POST /observability/profile/start`` (201; ``name``, ``maxSeconds``)
+  and ``.../stop``, ``GET /observability/profile`` (status), ``GET
+  /observability/profile/captures`` and ``GET|DELETE
+  .../captures/<name>`` (``?file=`` answers the file's bytes): on-demand
+  ``torch.profiler`` captures of the live process (obs/profiling.py; 409
+  while one runs or another ``torch.profiler`` is active);
 - ``GET /observe/<name>``: long poll until the job finishes or fails;
 - ``GET /observe/events?sinceId=&limit=``: the event feed, paged by
   ``_id``; ``POST``/``GET /observe/webhook`` and ``DELETE
@@ -84,6 +90,12 @@ from learningorchestra_tpu_torch.config import Config
 from learningorchestra_tpu_torch.jobs.leases import LeaseTimeout
 from learningorchestra_tpu_torch.log import get_logger
 from learningorchestra_tpu_torch.obs import costs
+from learningorchestra_tpu_torch.obs.profiling import (
+    ProfilerConflict,
+    ProfilerError,
+    ProfilerNotFound,
+    ProfilerService,
+)
 from learningorchestra_tpu_torch.serve.batcher import QueueFull
 from learningorchestra_tpu_torch.serve.registry import ServeError
 from learningorchestra_tpu_torch.serve.service import (
@@ -190,6 +202,14 @@ class APIServer:
         self.ctx.add_artifact_change_listener(
             lambda name: self.serving.invalidate(
                 name, gone=not self.ctx.artifacts.metadata.exists(name)))
+        # On-demand profiler capture (obs/profiling.py): one capture at a
+        # time into a bounded dir, with an auto-stop deadline.
+        prof = self.config.profiling
+        self.profiler = ProfilerService(
+            prof.dir or str(self.config.store.volume_path() / "_profiles"),
+            max_seconds=prof.max_seconds,
+            max_captures=prof.max_captures,
+        )
         self.router = Router(self.config.api.api_prefix)
         self._httpd: ThreadingHTTPServer | None = None
         self._register_routes()
@@ -583,6 +603,41 @@ class APIServer:
             lambda m, b, q: (200, costs.snapshot()))
         add("GET", rf"/monitoring/{TOOL}",
             lambda m, b, q: (200, self.monitoring.list_sessions()))
+
+        # ---- On-demand profiler capture (obs/profiling.py), in the JAX
+        # server's order: /start before /stop.
+        def profile_start(m, body, query):
+            return 201, {"capture": self.profiler.start(
+                name=body.get("name"), max_seconds=body.get("maxSeconds"))}
+
+        def profile_capture(m, body, query):
+            name = m.group("name")
+            rel = query.get("file")
+            if rel:
+                # One capture file's bytes (path traversal is rejected in
+                # read_file).
+                return 200, ("application/octet-stream",
+                             self.profiler.read_file(name, rel))
+            doc = self.profiler.capture(name)
+            if doc is None:
+                return 404, {"error": f"no capture {name!r}"}
+            return 200, doc
+
+        add("POST", r"/observability/profile/start", profile_start)
+        add("POST", r"/observability/profile/stop",
+            lambda m, b, q: (200, {"capture": self.profiler.stop()}))
+        add("GET", r"/observability/profile",
+            lambda m, b, q: (200, self.profiler.status()))
+        add("GET", r"/observability/profile/captures",
+            lambda m, b, q: (200, {
+                "captures": self.profiler.list_captures()}))
+        add("GET", rf"/observability/profile/captures/{NAME}",
+            profile_capture)
+        add("DELETE", rf"/observability/profile/captures/{NAME}",
+            lambda m, b, q: (
+                (200, {"result": "deleted"})
+                if self.profiler.delete(m.group("name"))
+                else (404, {"error": f"no capture {m.group('name')!r}"})))
         add("DELETE", rf"/monitoring/{TOOL}/{NAME}", lambda m, b, q: (
             200, {"stopped": self.monitoring.stop(m.group("name"))}))
 
@@ -894,11 +949,12 @@ class APIServer:
             return 406, {"error": "request body must be a JSON object"}
         try:
             return handler(m, body, query or {})
-        except (DuplicateArtifact, ConflictError) as exc:
+        except (DuplicateArtifact, ConflictError, ProfilerConflict) as exc:
             return 409, {"error": str(exc)}
-        except (NotFoundError, ServeNotFound) as exc:
+        except (NotFoundError, ServeNotFound, ProfilerNotFound) as exc:
             return 404, {"error": str(exc)}
-        except (ValidationError, RegistryError, ServeError) as exc:
+        except (ValidationError, RegistryError, ServeError,
+                ProfilerError) as exc:
             return 406, {"error": str(exc)}
         except LeaseTimeout as exc:
             # No card lease within the placement budget: the pool is
@@ -1019,6 +1075,7 @@ class APIServer:
         if httpd is not None:
             httpd.shutdown()
             httpd.server_close()
+        self.profiler.close()
         self.serving.close()
         self.monitoring.close()
         self.ctx.close()

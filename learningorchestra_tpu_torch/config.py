@@ -1,11 +1,11 @@
 """Configuration — port of the parts of ``learningorchestra_tpu/config.py``
 the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` (with the job
 journal's switches), ``CompileCacheConfig``, ``AotConfig``,
-``ServeConfig``, ``DecodeConfig``, ``FleetConfig``, ``CostsConfig`` and
-``DistributedConfig``, with the same fields, defaults and ``LO_TPU_*``
-environment names, plus the ``device`` every entry point runs on and
-``DistributedConfig.cpu_ranks``, the rank devices a CPU context gives a
-distributed fit.  :func:`get_config` is the process-wide config the
+``ServeConfig``, ``DecodeConfig``, ``FleetConfig``, ``CostsConfig``,
+``ProfilingConfig`` and ``DistributedConfig``, with the same fields,
+defaults and ``LO_TPU_*`` environment names, plus the ``device`` every
+entry point runs on and ``DistributedConfig.cpu_ranks``, the rank devices
+a CPU context gives a distributed fit.  :func:`get_config` is the process-wide config the
 compile cache and the cost ledgers size themselves from, as in the JAX
 package.
 
@@ -230,32 +230,29 @@ class FleetConfig:
 
 @dataclasses.dataclass
 class AotConfig:
-    """The JAX package's durable executable store (train/aot_store.py),
-    field for field.  The port's store is ROADMAP A.6 part 2, so
-    ``enabled`` is refused at boot; ``replica_prewarm`` works."""
+    """The durable program store (train/aot_store.py) and the boot
+    pre-warm, field for field the JAX package's ``AOTConfig``.  A blob
+    holds a program's identity and cost record, not an executable: off by
+    default all the same, as in the JAX package."""
 
     # Master switch (off by default, as in the JAX package).
     # Env: LO_TPU_AOT_ENABLED.
     enabled: bool = False
-    # On-disk store.  Env: LO_TPU_AOT_DIR.
+    # On-disk store (blobs + hot-set manifest).  Env: LO_TPU_AOT_DIR.
     dir: str = "~/.learningorchestra_tpu_torch/aot_cache"
-    # Persisted-entry cap.  Env: LO_TPU_AOT_MAX_ENTRIES.
+    # Persisted-entry cap; <= 0 disables the store.
+    # Env: LO_TPU_AOT_MAX_ENTRIES.
     max_entries: int = 64
     # Persisted-bytes cap.  Env: LO_TPU_AOT_MAX_BYTES.
     max_bytes: int = 1 << 30
-    # Boot pre-warm of the store's hot set.  Env: LO_TPU_AOT_PREWARM.
+    # Boot pre-warm: install the manifest's hot set into the program cache
+    # on a background thread at ServiceContext boot.
+    # Env: LO_TPU_AOT_PREWARM.
     prewarm: bool = True
     # Warm a fresh replica against its model's recorded buckets (and
     # decode steps) BEFORE the router may pick it.
     # Env: LO_TPU_AOT_REPLICA_PREWARM.
     replica_prewarm: bool = False
-
-    def validate(self) -> None:
-        """Refuse at boot a store that would persist nothing."""
-        if self.enabled:
-            raise ValueError(
-                "LO_TPU_AOT_ENABLED=1: the durable program store is not "
-                "ported yet (ROADMAP A.6 part 2); leave it off")
 
 
 @dataclasses.dataclass
@@ -282,6 +279,24 @@ class CostsConfig:
     # for an H100 SXM's dense bf16).  0 = unknown: MFU is omitted, not
     # made up.  Env: LO_TPU_COSTS_PEAK_FLOPS.
     peak_flops: float = 0.0
+
+
+@dataclasses.dataclass
+class ProfilingConfig:
+    """On-demand profiler capture (obs/profiling.py): ``torch.profiler``
+    behind POST /observability/profile/start|stop.  Env knobs:
+    LO_TPU_PROF_*."""
+
+    # Capture root; "" derives <volume_root>/_profiles at server
+    # construction.  Env: LO_TPU_PROF_DIR.
+    dir: str = ""
+    # Auto-stop deadline per capture (also the cap on a request's
+    # maxSeconds): a forgotten capture must not trace forever.
+    # Env: LO_TPU_PROF_MAX_S.
+    max_seconds: float = 60.0
+    # Retained captures; older ones are deleted on the next start.
+    # Env: LO_TPU_PROF_MAX_CAPTURES.
+    max_captures: int = 8
 
 
 @dataclasses.dataclass
@@ -327,6 +342,8 @@ class Config:
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     aot: AotConfig = dataclasses.field(default_factory=AotConfig)
     costs: CostsConfig = dataclasses.field(default_factory=CostsConfig)
+    profiling: ProfilingConfig = dataclasses.field(
+        default_factory=ProfilingConfig)
     dist: DistributedConfig = dataclasses.field(
         default_factory=DistributedConfig)
     # Where every estimator the services build or load lives.
@@ -386,6 +403,10 @@ class Config:
             ("LO_TPU_COSTS_MAX_PROGRAMS", cfg.costs, "max_programs", int),
             ("LO_TPU_COSTS_MAX_JOBS", cfg.costs, "max_jobs", int),
             ("LO_TPU_COSTS_PEAK_FLOPS", cfg.costs, "peak_flops", float),
+            ("LO_TPU_PROF_DIR", cfg.profiling, "dir", str),
+            ("LO_TPU_PROF_MAX_S", cfg.profiling, "max_seconds", float),
+            ("LO_TPU_PROF_MAX_CAPTURES", cfg.profiling, "max_captures",
+             int),
         )
         for key, section, attr, cast in fields:
             if key in env:
@@ -424,7 +445,6 @@ class Config:
                     f"LO_TPU_COSTS_SAMPLE={env['LO_TPU_COSTS_SAMPLE']!r} "
                     "must be a fraction in [0.0, 1.0]")
         cfg.fleet.validate()
-        cfg.aot.validate()
         return cfg
 
 

@@ -26,6 +26,7 @@ from learningorchestra_tpu_torch.ops.layers import (
     remat_block,
 )
 from learningorchestra_tpu_torch.toolkit.registry import register
+from learningorchestra_tpu_torch.train import aot_store
 from learningorchestra_tpu_torch.train import compile_cache as cc
 from learningorchestra_tpu_torch.train.neural import NeuralEstimator
 
@@ -443,6 +444,7 @@ class GreedyDecodeMixin:
                        else None, top_k, top_p, seed)
 
 
+@aot_store.program_function
 def _decode_program(module, prompts: np.ndarray, total: int, temperature,
                     top_k, top_p, seed: int) -> np.ndarray:
     """The solo ``decode`` program: every buffer position is one step

@@ -23,7 +23,10 @@ Two ledgers, both process-wide singletons sized from
   live) and their plain versions run uncounted (:func:`uncounted`): a
   program's FLOPs are the same on the CPU and on the card.  The compile
   cache calls :func:`note_build` on EVERY build, so every program has an
-  entry even when nothing analyzed it.
+  entry even when nothing analyzed it.  With the durable program store on
+  (train/aot_store.py), each analysis offers its record there, and a
+  program restored from the store seeds its entry (:func:`seed`, marked
+  analyzed), so its first call skips the FLOP counter.
 
 - :class:`DeviceTimeLedger` — sampled per-dispatch attribution.  Dispatch
   sites (the fit's epoch loop, the serving dispatch, the decode engine's
@@ -70,6 +73,7 @@ __all__ = [
     "note_kernel_flops",
     "repeats",
     "reset",
+    "seed",
     "serialized_bytes",
     "serving_totals",
     "snapshot",
@@ -186,6 +190,21 @@ class CostLedger:
             cost.analyzed = True
             self.analyses += 1
             self.analysis_time_s += float(analysis_s)
+            return cost
+
+    def seed(self, key: str, label: str | None, record: dict
+             ) -> ProgramCost:
+        """Install a stored record (train/aot_store.py) as ``key``'s
+        analyzed cost without counting an analysis: the restored
+        program's first call skips the FLOP counter."""
+        fields = {f.name for f in dataclasses.fields(ProgramCost)} - {
+            "key", "label", "builds", "built_s", "analyzed", "created_at"}
+        with self._lock:
+            cost = self._entry_locked(key, label or "")
+            for name, value in record.items():
+                if name in fields:
+                    setattr(cost, name, value)
+            cost.analyzed = True
             return cost
 
     def note_failure(self) -> None:
@@ -475,6 +494,12 @@ def note_build(key: str, label: str | None, built_s: float) -> None:
     get_ledger().note_build(key, label, built_s)
 
 
+def seed(key: str, label: str | None, record: dict) -> None:
+    """A restored program's stored cost record lands here."""
+    if enabled():
+        get_ledger().seed(key, label, record)
+
+
 def serialized_bytes(key: str) -> int | None:
     """Measured program size for the cache's byte cap, or None (the
     cache charges its flat estimate; a PyTorch program has no serialized
@@ -640,8 +665,10 @@ def analyze_program(key: str, label: str | None, fn, example_args: tuple):
     never reset: when the call did not raise it, the call's peak is
     unknown and stays None; what other threads allocate on the card
     meanwhile counts in it.  A key already analyzed, or costs off, just
-    calls ``fn``.  A failure to count never fails the call; a failure of
-    the call itself propagates, unrecorded."""
+    calls ``fn``.  The record is offered to the durable program store
+    (train/aot_store.py) when it is on and the key survives the process.
+    A failure to count or to offer never fails the call; a failure of the
+    call itself propagates, unrecorded."""
     if not enabled():
         return fn(*example_args)
     ledger = get_ledger()
@@ -683,11 +710,15 @@ def analyze_program(key: str, label: str | None, fn, example_args: tuple):
             memory = types.SimpleNamespace(
                 argument_size_in_bytes=_tensor_bytes(example_args),
                 temp_size_in_bytes=temp)
-        ledger.record_analysis(
+        record = ledger.record_analysis(
             key, label, flops=counter.get_total_flops() * state["scale"],
             memory=memory, analysis_s=analysis_s)
     except Exception:  # noqa: BLE001
         ledger.note_failure()
+        return result
+    from learningorchestra_tpu_torch.train import aot_store
+
+    aot_store.offer_program(key, label, fn=fn, cost=record)
     return result
 
 

@@ -15,7 +15,12 @@ memoized per (module, S, Tk) on the model's decoder and recorded, per
 eager ops on the CPU, a CUDA graph per pool on a card (the decoder's
 ``stats()`` counts the captures).  The device time of the steps between
 two host syncs goes to the cost plane's ledger per model, under the
-bucket ``dec{S}x{Tk}`` (obs/costs.py).
+bucket ``dec{S}x{Tk}`` (obs/costs.py).  With the durable program store on
+(train/aot_store.py), each cell's step is offered there as its
+architecture key and (S, Tk); in a process that restored such cells, a
+decoder of that architecture captures them, one resident pool per KV
+bucket at its smallest restored slot bucket, when its model is loaded and
+before its first stream (:meth:`_ModelDecoder.prewarm`).
 
 Fleet routing: when the model has a live replica set, each new stream is
 routed to a replica by the set's P2C router over live decode slots per
@@ -45,9 +50,10 @@ from learningorchestra_tpu_torch.serve.decode.pages import (
     DecodeStepProgram,
     PagePool,
 )
-from learningorchestra_tpu_torch.train import compile_cache as cc
 from learningorchestra_tpu_torch.serve.decode.streams import DecodeStream
 from learningorchestra_tpu_torch.serve.registry import ServeError
+from learningorchestra_tpu_torch.train import aot_store
+from learningorchestra_tpu_torch.train import compile_cache as cc
 
 logger = get_logger("decode")
 
@@ -74,6 +80,8 @@ class _ModelDecoder:
         self._steps: dict = {}
         # CUDA graphs its pools captured: count, seconds, graph-pool bytes.
         self._graphs = [0, 0.0, 0]
+        # Whether the restored-cell pre-warm ran (once per decoder).
+        self._prewarmed = False
         self._thread: threading.Thread | None = None
         self._closed = False
         self.steps = 0
@@ -223,18 +231,24 @@ class _ModelDecoder:
         memo = self._steps.get(memo_key)
         if memo is None:
             entry = self.engine.service.registry.get(self.name)
+            arch = cc.module_fingerprint(module)
             key = cc.program_key(
                 "decode_step",
-                module=cc.module_fingerprint(module),
+                module=arch,
                 optimizer=None,
                 loss="-",
                 dtype="-",
                 shapes=("decode_step", nslots, kvlen),
             )
-            program = cc.get_cache().get_or_build(
-                key, lambda: DecodeStepProgram(nslots, kvlen),
-                label=f"decode:{type(module).__name__}"
-                      f":s{nslots}:k{kvlen}")
+            label = f"decode:{type(module).__name__}:s{nslots}:k{kvlen}"
+
+            def build():
+                aot_store.offer_program(key, label,
+                                        arch=cc.fingerprint(arch),
+                                        cell=(nslots, kvlen))
+                return DecodeStepProgram(nslots, kvlen)
+
+            program = cc.get_cache().get_or_build(key, build, label=label)
             memo = self._steps[memo_key] = (module, program)
             entry.decode_warm[(nslots, kvlen)] = True
         return memo[1]
@@ -255,6 +269,45 @@ class _ModelDecoder:
                 program.run_eager(module, pool, np.zeros(nslots, np.int64),
                                   np.full(nslots, kvlen + 1, np.int64),
                                   np.zeros(nslots, bool))
+
+    def prewarm(self, entry) -> int:
+        """Capture the graphs of the (S, Tk) cells this process restored
+        for the model's architecture (train/aot_store.py) before its first
+        stream: each cell's step resolves (recorded in ``decode_warm``),
+        and per KV bucket one resident pool at its smallest restored slot
+        bucket (where a first stream is seated) takes one dummy step, all
+        slots free, which captures its graph on a card.  A decoder warms
+        once, and only before it has a pool or a worker.  Returns the
+        graphs captured."""
+        captured = 0
+        with self._cv:
+            if self._prewarmed or self._pools or self._thread is not None:
+                return 0
+            self._prewarmed = True
+            module = entry.estimator.module
+            cap = min(self.cfg.max_kv, self._max_len())
+            cells = [(s, kv) for s, kv in aot_store.restored_cells(
+                cc.fingerprint(cc.module_fingerprint(module)))
+                if s <= self.cfg.max_slots and kv <= cap]
+            smallest: dict = {}  # kv bucket -> (slot bucket, program)
+            for nslots, kvlen in cells:
+                smallest.setdefault(kvlen, (nslots, self._step_for(
+                    module, nslots, kvlen)))
+            for kvlen, (nslots, program) in smallest.items():
+                pool = PagePool(kvlen, self.cfg.max_slots)
+                pool._alloc(lambda want, kv=kvlen: module.init_cache(
+                    want, kv, per_row=True), nslots)
+                with torch.no_grad():
+                    program(module, pool, np.zeros(nslots, np.int64),
+                            np.full(nslots, kvlen + 1, np.int64),
+                            np.zeros(nslots, bool))
+                if pool.graph is not None:
+                    captured += 1
+                    self._graphs[0] += 1
+                    self._graphs[1] += pool.graph.capture_s
+                    self._graphs[2] += pool.graph.pool_bytes
+                self._pools[(None, kvlen)] = pool
+        return captured
 
     def _step_all(self) -> None:
         for key in list(self._pools):
@@ -510,6 +563,7 @@ class DecodeEngine:
         if stream and len(rows) != 1:
             raise ServeError("stream=true serves exactly one prompt per "
                              "request")
+        self.prewarm(name)
         decoder = self._decoder_for(name)
         max_len = int(getattr(estimator, "max_len", self.cfg.max_kv))
         streams = [self._open_stream(name, decoder, row, max_new_tokens,
@@ -569,6 +623,19 @@ class DecodeEngine:
         if decoder is None:
             return False
         return decoder.abort(stream_id, reason)
+
+    def prewarm(self, name: str) -> int:
+        """Restored-cell leg of the durable warm start: capture, before the
+        model's first stream, the step graphs of every (S, Tk) cell this
+        process restored for its architecture (a no-op without restored
+        cells, or for a model that is not a generative LM, or once its
+        decoder has pools).  Returns the graphs captured."""
+        if not aot_store.restored_cells():
+            return 0
+        entry = self.service.registry.get(name)
+        if not hasattr(entry.estimator, "generate") or not self.cfg.enabled:
+            return 0
+        return self._decoder_for(name).prewarm(entry)
 
     def warm_replica(self, name: str, replica) -> None:
         """Decode leg of replica pre-warm: replay every recorded (S, Tk)

@@ -145,8 +145,13 @@ class ServingService:
             raise ServeError(str(exc)) from None
 
     def load(self, name: str) -> dict:
-        """Pin ``name`` resident (idempotent)."""
-        return self.registry.get(name).to_dict()
+        """Pin ``name`` resident (idempotent).  A generative LM whose
+        architecture's decode steps this process restored from the durable
+        program store captures their graphs here, before its first
+        stream."""
+        doc = self.registry.get(name).to_dict()
+        self.decode.prewarm(name)
+        return doc
 
     def unload(self, name: str) -> bool:
         self._teardown_model(name, keep_bounds=False)

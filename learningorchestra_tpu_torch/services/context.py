@@ -11,15 +11,20 @@ load goes there.  Each construction is a boot: it mints an engine epoch
 process left pending or running (:meth:`ServiceContext._recover_jobs`).
 When the process-wide program cache (train/compile_cache.py) clears on a
 device-set change, the engine's warm-start hints go with it (a listener
-held through a weak reference, deregistered by :meth:`close`).  The
-cluster plane's claim stealing and the durable program store's boot
-pre-warm are not ported (ROADMAP A.11, A.6 part 2).
+held through a weak reference, deregistered by :meth:`close`).  With the
+durable program store on (``AotConfig.enabled`` and ``prewarm``), each
+boot starts the pre-warm (:meth:`ServiceContext._start_aot_prewarm`): a
+daemon thread that installs the store's hot set into the program cache
+while the API already serves.  The cluster plane's claim stealing is not
+ported (ROADMAP A.11).
 """
 
 from __future__ import annotations
 
 import re
 import shutil
+import threading
+import time
 import weakref
 from typing import Any
 
@@ -37,7 +42,7 @@ from learningorchestra_tpu_torch.store import (
     open_document_store,
 )
 from learningorchestra_tpu_torch.store.sharded import ShardedDataset
-from learningorchestra_tpu_torch.train import compile_cache
+from learningorchestra_tpu_torch.train import aot_store, compile_cache
 
 logger = get_logger("context")
 
@@ -47,6 +52,10 @@ _ARTIFACT_NAME_RE = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]*")
 
 #: Data rows of a collection: not the metadata, not execution records.
 DATA_ROWS = {"_id": {"$gte": 1}, "docType": {"$ne": "execution"}}
+
+
+#: How long ``close`` waits for a running boot pre-warm.
+_PREWARM_JOIN_S = 30.0
 
 
 class ValidationError(Exception):
@@ -64,7 +73,6 @@ class ConflictError(Exception):
 class ServiceContext:
     def __init__(self, config: Config | None = None, *, device=None):
         self.config = config or Config.from_env()
-        self.config.aot.validate()
         self.device = resolve_device(device or self.config.device)
         self.documents = open_document_store(
             self.config.store.store_path(),
@@ -115,6 +123,11 @@ class ServiceContext:
         self.engine.journal = self.journal if self.journal.enabled else None
         self.journal.prune()
         self._recover_jobs()
+        # The boot pre-warm of the durable program store's hot set: in the
+        # background, so readiness never waits for it.
+        self._aot_prewarm_thread: threading.Thread | None = None
+        self.aot_prewarm_stats: dict | None = None
+        self._start_aot_prewarm()
 
     def add_artifact_change_listener(self, listener) -> None:
         """Register ``listener(name)``, fired when an artifact's binary
@@ -133,11 +146,70 @@ class ServiceContext:
     def close(self) -> None:
         compile_cache.get_cache().remove_invalidation_listener(
             self._warm_hint_listener)
+        thread = self._aot_prewarm_thread
+        if thread is not None:
+            thread.join(timeout=_PREWARM_JOIN_S)
         # With a drain budget the close waits, bounded; without one it
         # never hangs on an unbounded drain.
         self.engine.shutdown(wait=self.config.jobs.shutdown_drain_s > 0)
         self.journal.close()  # its final drain needs the open store
         self.documents.close()
+
+    # -- boot pre-warm --------------------------------------------------------
+
+    def _start_aot_prewarm(self) -> None:
+        """Start the boot pre-warm when the durable program store is on
+        (``AotConfig.enabled`` and ``prewarm``; a context whose config
+        enables the store serves it from that config) and has a manifest
+        to walk.  Background by design: the API comes up at once, and a
+        program not yet restored simply builds live."""
+        try:
+            if self.config.aot.enabled:
+                aot_store.configure(self.config.aot)
+            if not (aot_store.enabled() and self.config.aot.prewarm
+                    and compile_cache.enabled()):
+                return
+            store = aot_store.get_store()
+            work = store.manifest_entries() if store is not None else []
+        except Exception:  # noqa: BLE001 — warm start is best effort
+            return
+        if not work:
+            return
+        self._aot_prewarm_thread = threading.Thread(
+            target=self._aot_prewarm, args=(store, work),
+            name="aot-prewarm", daemon=True)
+        self._aot_prewarm_thread.start()
+
+    def _aot_prewarm(self, store, work: list[dict]) -> None:
+        """Walk the manifest hottest first, restoring each blob and
+        installing the program into the program cache; a key already
+        resident is skipped, and a bad blob costs its key (a live build
+        later), never the boot."""
+        cache = compile_cache.get_cache()
+        warmed = skipped = failed = 0
+        t0 = time.perf_counter()
+        for rec in work:
+            key = rec.get("key")
+            if not key or cache.contains(key):
+                skipped += 1
+                continue
+            label = rec.get("label")
+            try:
+                stored = store.load(key)
+                if stored is None:
+                    failed += 1
+                    continue
+                ok = cache.install(
+                    key, compile_cache.restore(key, stored, label=label),
+                    label=label)
+                warmed += 1 if ok else 0
+            except Exception:  # noqa: BLE001 — a bad blob costs one key
+                failed += 1
+        self.aot_prewarm_stats = {
+            "warmed": warmed, "skipped": skipped, "failed": failed,
+            "total": len(work),
+            "seconds": round(time.perf_counter() - t0, 6)}
+        logger.info(kv(event="aot_prewarm_done", **self.aot_prewarm_stats))
 
     # -- boot-time recovery ---------------------------------------------------
 

@@ -23,8 +23,6 @@ import subprocess
 import threading
 import time
 
-import torch
-
 from learningorchestra_tpu_torch.services.tfevents import write_scalars
 
 # First char alphanumeric/underscore: forbids '.', '..' and path escapes.
@@ -174,26 +172,15 @@ class MonitoringService:
         (train/compile_cache.py), served at ``GET
         /monitoring/<tool>/compileCache``, with the per-program FLOPs and
         memory records under ``programCosts`` (obs/costs.py) and the
-        durable program store's counters under ``aot``: the JAX store's
-        disabled shape, zeros (the store is ROADMAP A.6 part 2)."""
+        durable program store's live counters under ``aot``
+        (train/aot_store.py; the JAX disabled shape when it is off)."""
         from learningorchestra_tpu_torch.obs import costs
-        from learningorchestra_tpu_torch.train import compile_cache
+        from learningorchestra_tpu_torch.train import aot_store, compile_cache
 
         stats = compile_cache.get_cache().stats()
         if costs.enabled():
             stats["programCosts"] = costs.get_ledger().snapshot()
-        stats["aot"] = {
-            "enabled": False,
-            "persistedEntries": 0,
-            "persistedBytes": 0,
-            "hits": 0,
-            "misses": 0,
-            "loadErrors": 0,
-            "stores": 0,
-            "storeErrors": 0,
-            "evictions": 0,
-            "callFallbacks": 0,
-        }
+        stats["aot"] = aot_store.stats_snapshot()
         return stats
 
     def stop(self, nickname: str) -> bool:
@@ -235,29 +222,32 @@ def profiled(logdir: str):
     of the with-block, written as a Chrome trace to
     ``<logdir>/plugins/profile/<time>/<host>.pt.trace.json`` (the
     TensorBoard profile plugin's layout).  Skipped, not failed, when
-    another profile is active."""
-    from torch.profiler import ProfilerActivity, profile
+    another profile is active (``obs.profiling.claim``: a second
+    ``torch.profiler`` would break the first)."""
+    from torch.profiler import profile
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    try:
-        prof.__enter__()
-        started = True
-    except Exception:  # noqa: BLE001 — another profile is active
-        started = False
+    from learningorchestra_tpu_torch.obs.profiling import (
+        activities,
+        claim,
+        start_warm,
+        trace_path,
+    )
+
+    prof = profile(activities=activities())
+    with claim() as free:
+        started = free
+        if free:
+            try:
+                start_warm(prof)
+            except Exception:  # noqa: BLE001 — the trace is optional
+                started = False
     try:
         yield
     finally:
         if started:
-            prof.__exit__(None, None, None)
-            run = os.path.join(logdir, "plugins", "profile",
-                               time.strftime("%Y_%m_%d_%H_%M_%S"))
-            os.makedirs(run, exist_ok=True)
+            prof.stop()
             with contextlib.suppress(Exception):
-                prof.export_chrome_trace(os.path.join(
-                    run, f"{socket.gethostname() or 'host'}.pt.trace.json"))
+                prof.export_chrome_trace(trace_path(logdir))
 
 
 def write_scalar_logs(logdir: str, history: dict, *, prefix: str = "") -> int:

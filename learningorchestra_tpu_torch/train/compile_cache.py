@@ -29,9 +29,14 @@ uncached across jobs.
 The cache clears itself when the visible set of CUDA devices changes
 (index, name, capability; ``()`` on a host without a card), and a build
 still in flight across that change is handed to its caller but never
-inserted.  The JAX cache's compile span, flight-recorder entry and
-``compile.build`` fault point are ROADMAP A.11; its durable AOT store is
-A.6 part 2.  Counters surface at ``GET /monitoring/<tool>/compileCache``,
+inserted.  Durable warm start (train/aot_store.py): a miss consults the
+on-disk store before building, and the boot pre-warm installs the store's
+hot set through :meth:`CompiledProgramCache.install`, so lookups resolve
+restored programs as hits.  A key is offered to the store only when it
+survives the process (:func:`persistable`): one holding an opaque serial
+or an object address names this process's objects.  The JAX cache's
+compile span, flight-recorder entry and ``compile.build`` fault point are
+ROADMAP A.11.  Counters surface at ``GET /monitoring/<tool>/compileCache``,
 as per-job deltas in train and tune metadata (services/executor.py) and
 as tfevents scalars of monitored distributed jobs.  Sizing knobs:
 ``config.CompileCacheConfig`` (``LO_TPU_COMPILE_CACHE_*``).
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import hashlib
 import itertools
+import re
 import sys
 import threading
 import time
@@ -61,6 +67,7 @@ __all__ = [
     "mesh_fingerprint",
     "module_fingerprint",
     "optimizer_fingerprint",
+    "persistable",
     "program_key",
     "reset_cache",
     "warm_fingerprint",
@@ -74,6 +81,14 @@ def _costs():
     from learningorchestra_tpu_torch.obs import costs
 
     return costs
+
+
+def _aot():
+    """Lazy durable-store handle (train/aot_store.py): a miss consults the
+    on-disk store before building."""
+    from learningorchestra_tpu_torch.train import aot_store
+
+    return aot_store
 
 
 # -- canonical fingerprinting -------------------------------------------------
@@ -209,10 +224,32 @@ def optimizer_fingerprint(estimator: Any) -> Any:
     )
 
 
-def fingerprint(*parts: Any) -> str:
+class ProgramKey(str):
+    """A cache key (a sha256 hexdigest) that knows whether it survives the
+    process: ``persistable`` is False when its spec held an opaque serial
+    (serials restart at 1 in every process, so another process's serial
+    can name another object) or an object address."""
+
+    __slots__ = ("persistable",)
+
+
+#: An address in a ``str()``/``repr()`` (``<function f at 0x7f...>``).
+_ADDRESS = re.compile(r" at 0x[0-9a-fA-F]+")
+
+
+def fingerprint(*parts: Any) -> ProgramKey:
     """Stable digest of canonicalized parts — the cache key."""
     payload = repr(tuple(canonical(p) for p in parts))
-    return hashlib.sha256(payload.encode()).hexdigest()
+    key = ProgramKey(hashlib.sha256(payload.encode()).hexdigest())
+    key.persistable = "('opaque', " not in payload and \
+        _ADDRESS.search(payload) is None
+    return key
+
+
+def persistable(key) -> bool:
+    """Whether ``key`` may be written to the durable store: only keys
+    :func:`fingerprint` made from process-independent parts."""
+    return bool(getattr(key, "persistable", False))
 
 
 def program_key(
@@ -423,7 +460,14 @@ class CompiledProgramCache:
                     return self._entries[key].value
         t0 = time.perf_counter()
         try:
-            value = builder()
+            # Durable warm start: a stored program satisfies the miss
+            # without a build (and, with its cost record, without its
+            # first call's FLOP analysis); any bad blob returns None and
+            # the live build proceeds as if no store existed.
+            value = self._aot_restore(key, label)
+            restored = value is not None
+            if not restored:
+                value = builder()
         except BaseException:
             with self._lock:
                 ev = self._building.pop(key, None)
@@ -439,7 +483,8 @@ class CompiledProgramCache:
         with self._lock:
             ev = self._building.pop(key, None)
             self.misses += 1
-            self.trace_time_s += built_s
+            if not restored:
+                self.trace_time_s += built_s
             if build_generation == self._generation:
                 self._entries[key] = _Entry(
                     value,
@@ -453,9 +498,26 @@ class CompiledProgramCache:
             ev.set()
         return value
 
+    @staticmethod
+    def _aot_restore(key: str, label):
+        """The program ``key``'s stored blob restores to, or None (build
+        live).  Never raises: a broken store must not break the build path
+        it shortcuts."""
+        try:
+            store = _aot().get_store()
+            if store is None:
+                return None
+            stored = store.load(key)
+            if stored is None:
+                return None
+            return restore(key, stored, label=label)
+        except Exception:  # noqa: BLE001
+            return None
+
     def install(self, key: str, value, *, label: str | None = None,
                 nbytes: int | None = None) -> bool:
-        """Install an externally built program WITHOUT counting a hit or
+        """Install an externally built program (the boot pre-warm's
+        restored ones, services/context.py) WITHOUT counting a hit or
         a miss.  Respects the device-set check and eviction; a resident
         key wins.  True when the key is resident afterwards."""
         if self.max_entries <= 0:
@@ -607,15 +669,20 @@ class Program:
     estimator holding it) and its inputs — never closing over one model's
     weights — and the ``key`` its costs are recorded under.  Its first
     call runs under the cost plane's FLOP counter
-    (``obs.costs.analyze_program``) unless ``analyze`` is off."""
+    (``obs.costs.analyze_program``, which offers the program and its cost
+    record to the durable store) unless ``analyze`` is off; a program that
+    is never analyzed is offered when it is made."""
 
-    __slots__ = ("fn", "key", "label", "analyzed")
+    __slots__ = ("fn", "key", "label", "analyze", "analyzed")
 
     def __init__(self, fn, key: str, label: str, *, analyze: bool = True):
         self.fn = fn
         self.key = key
         self.label = label
+        self.analyze = analyze
         self.analyzed = not analyze
+        if not analyze:
+            _aot().offer_program(key, label, fn=fn, analyze=False)
 
     def __call__(self, *args):
         if self.analyzed:
@@ -627,3 +694,55 @@ class Program:
         """This program's ProgramCost, or None (costs off, not built)."""
         costs = _costs()
         return costs.get_ledger().get(self.key) if costs.enabled() else None
+
+
+class _Restored(Program):
+    """A program restored from the durable store.  Its cost record was
+    seeded from the blob, so it runs no FLOP analysis and offers nothing.
+
+    Unlike the JAX package's ``_AOTRestored``, a call that raises is NOT
+    rebuilt and retried: the restored function is the very table entry a
+    live build would use, so a rebuild re-runs the same code, and a
+    program that mutates its arguments (an epoch program's weights and
+    optimizer state) would apply its first steps twice.  The failure
+    counts ``callFallbacks`` and raises as a live program's would; a
+    renamed or missing function is refused at load (``aot_store``)."""
+
+    __slots__ = ()
+
+    def __init__(self, fn, key: str, label: str, *, analyze: bool):
+        self.fn = fn
+        self.key = key
+        self.label = label
+        self.analyze = analyze
+        self.analyzed = True
+
+    def __call__(self, *args):
+        try:
+            return self.fn(*args)
+        except Exception:
+            try:
+                store = _aot().get_store()
+                if store is not None:
+                    store.note_call_fallback()
+            except Exception:  # noqa: BLE001 — accounting only
+                pass
+            raise
+
+
+def restore(key: str, stored, *, label: str | None = None):
+    """The program a validated blob (``aot_store.StoredProgram``) stands
+    for: a :class:`_Restored` program whose cost record seeds the ledger
+    (marked analyzed), or a decode step's ``DecodeStepProgram`` (its cell
+    noted for the decoders of its architecture)."""
+    label = label or stored.label or ""
+    if stored.kind == "decode_step":
+        from learningorchestra_tpu_torch.serve.decode.pages import (
+            DecodeStepProgram,
+        )
+
+        _aot().note_restored_cell(stored.arch, stored.cell)
+        return DecodeStepProgram(*stored.cell)
+    if stored.cost is not None:
+        _costs().seed(key, label, stored.cost)
+    return _Restored(stored.fn, key, label, analyze=stored.analyze)

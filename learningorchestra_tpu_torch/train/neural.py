@@ -92,6 +92,7 @@ from learningorchestra_tpu_torch.ops.quant import (
 from learningorchestra_tpu_torch.serve.bucketing import bucket_for, pad_rows
 from learningorchestra_tpu_torch.toolkit import registry
 from learningorchestra_tpu_torch.toolkit.base import Estimator, as_array
+from learningorchestra_tpu_torch.train import aot_store
 from learningorchestra_tpu_torch.train import checkpoint as ckpt
 from learningorchestra_tpu_torch.train import compile_cache as cc
 
@@ -855,6 +856,7 @@ def _cached_program(kind: str, est, loss_kind, *, shapes=None, mesh=None,
         label=label)
 
 
+@aot_store.program_function
 def _device_epoch_program(est, xs, ys, loss_fn, dtype, batch_size: int,
                           shuffle: bool, key: int) -> dict:
     """The ``device_epoch`` program: one epoch over a device-resident
@@ -863,12 +865,14 @@ def _device_epoch_program(est, xs, ys, loss_fn, dtype, batch_size: int,
                              key)
 
 
+@aot_store.program_function
 def _evaluate_program(est, x, y, batch_size: int, loss_kind) -> dict:
     """The ``epoch_fns`` program: metrics over padded batches
     (:meth:`NeuralEstimator._evaluate_batches`)."""
     return est._evaluate_batches(x, y, batch_size, loss_kind)
 
 
+@aot_store.program_function
 def _apply_program(module: nn.Module, x: np.ndarray) -> np.ndarray:
     """The ``apply`` program: one f32 forward of a host batch on the
     module's device, in one transfer; host f32 outputs."""

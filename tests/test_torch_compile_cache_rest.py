@@ -7,7 +7,7 @@ with the JAX key sets; a same-architecture tune's counters follow their
 arithmetic (one miss per program, every other lookup a hit); the decode
 engine's ``decode_step`` and the solo ``decode`` lookups count as the JAX
 engine's for the same ``/generate`` sequence; and
-``LO_TPU_AOT_ENABLED=1`` is refused at boot, naming A.6 part 2.
+``LO_TPU_AOT_ENABLED=1`` boots with a live ``aot`` block.
 """
 
 import jax
@@ -190,12 +190,26 @@ def test_decode_program_lookups_count_as_the_jax_engine(tmp_path):
 
 
 def test_aot_enabled_is_refused_at_boot(monkeypatch, tmp_path):
+    """Kept by name: the store was refused at boot until it was ported
+    (train/aot_store.py).  ``LO_TPU_AOT_ENABLED=1`` now boots, and the
+    ``aot`` block of ``compileCache`` is the store's live counters."""
+    from learningorchestra_tpu_torch.train import aot_store
+
     monkeypatch.setenv("LO_TPU_AOT_ENABLED", "1")
-    with pytest.raises(ValueError, match="A.6 part 2"):
-        Config.from_env()
-    with pytest.raises(ValueError, match="A.6 part 2"):
-        APIServer(Config(store=StoreConfig(
-            root=str(tmp_path / "s"), volume_root=str(tmp_path / "v")),
-            aot=AotConfig(enabled=True)), device="cpu")
+    assert Config.from_env().aot.enabled is True
+    server = APIServer(Config(store=StoreConfig(
+        root=str(tmp_path / "s"), volume_root=str(tmp_path / "v")),
+        aot=AotConfig(enabled=True, dir=str(tmp_path / "aot"))),
+        device="cpu")
+    try:
+        status, doc = server.handle(
+            "GET", "/api/learningOrchestra/v1/monitoring/tensorflow/"
+            "compileCache", {})
+        assert status == 200
+        assert doc["aot"]["enabled"] is True
+        assert doc["aot"]["dir"] == str(tmp_path / "aot")
+    finally:
+        server.shutdown()
+        aot_store.reset_store()
     monkeypatch.setenv("LO_TPU_AOT_ENABLED", "0")
     assert Config.from_env().aot.enabled is False

@@ -58,7 +58,9 @@ def test_sources_exist():
                    "serve/fleet/manager.py",
                    # The program cache and the cost plane's own copies.
                    "obs/__init__.py", "obs/costs.py",
-                   "train/compile_cache.py"):
+                   "train/compile_cache.py",
+                   # The durable program store and the live profiler.
+                   "train/aot_store.py", "obs/profiling.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()
