@@ -11,12 +11,13 @@ Phases (each prints its own line; any failure exits nonzero):
    K1 flash-attention forward at the serving shape (64, 12, 512, 64) f32
    with a key mask and a fully-masked row, plus the fine-tune shape
    (32, 12, 128, 64) bf16, bf16 at T=512, causal, causal+window,
-   unaligned lengths and the decoder's causal (8, 12, 1024, 64) in bf16
-   and f32; K2 (dQ) and K3 (dK, dV) at the fine-tune shape in
+   unaligned lengths, the decoder's causal (8, 12, 1024, 64) in bf16
+   and f32 and the MoE decoder's causal (8, 8, 1024, 32) in bf16 and f32;
+   K2 (dQ) and K3 (dK, dV) at the fine-tune shape in
    bf16 and f32 with a key mask and a fully-masked row (exact zeros
    asserted), plus (8, 12, 512, 64) bf16, causal, causal+window, unaligned
-   lengths, D = 40 / 128 and the decoder's causal (8, 12, 1024, 64) in
-   bf16; every K1 case and every bf16 K2/K3
+   lengths, D = 40 / 128 and the decoders' causal (8, 12, 1024, 64) and
+   (8, 8, 1024, 32) in bf16; every K1 case and every bf16 K2/K3
    case launched twice and required bitwise equal (run to run), and no
    register spills in any tensor-core instance of K1, K2 or K3 (ptxas);
    K4 quantize bit-exact and K5 dequantize exact on every quantized leaf
@@ -268,7 +269,29 @@ Phases (each prints its own line; any failure exits nonzero):
    dispatch, the batcher's thread); serve p50 with and without the
    capture, the trace's bytes; a 1 s capture stopped by its timer within
    3 s, the retention bound (2) and DELETE; the ``warm_start`` line;
-17. last line: {"ok": true, "device": {...}}.
+17. mixture-of-experts models (``run_moe``) at the JAX package's default
+   widths, created over REST through its module path: ``MoEDecoderLM``
+   (vocab 32000, 256 wide, 4 layers of 8 heads of 32, MLP 1024, 1024
+   positions, 8 experts top-2 at capacity 1.5, MoE on every second
+   block) fitted 2 epochs of 4 steps on 32 rows at T=1024 and
+   ``MoETransformerClassifier`` (vocab 20000, 128 wide, 2 layers, 256
+   positions, 8 experts) 2 epochs of 4 steps on 128 rows at T=256, both
+   bf16 on f32 masters over ``/train/tensorflow`` (K1/K2/K3 one each per
+   layer per step; the loss beside the MoE layers' aux terms; the card's
+   peak memory over the fit); the decoder's f32 forward on the card against
+   the CPU's from the same weights (logits within ``MOE_LOGIT_BAR``, the
+   share of token routings whose top-2 experts agree, the routings the
+   bf16 cast flips); each model saved as an int8 artifact (K4, one
+   launch) and loaded by the server (K5, one launch), every expert leaf's
+   int8 bits equal to the plain quantize of the trained leaf and its
+   served values to the plain dequantize; 4 SSE ``/generate`` streams of
+   the decoder through the CUDA-graph decode step, 2 admitted while 2
+   are mid-flight, each equal to a solo ``generate`` (TTFT, ITL, each
+   cell's graph and eager step ms); 8 concurrent classifier
+   ``/predict`` requests (K1 2 per dispatch, rows within ``CPU_ATOL`` of
+   the artifact on the CPU); K1 causal bf16 at the decoder's (8, 8,
+   1024, 32) beside its bound and SDPA; the ``moe`` line;
+18. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -429,6 +452,15 @@ def check_flash(attention, gen) -> dict:
          None, True, 3e-2),
         ("decoder_causal_f32", (8, h, 1024, 1024, d), torch.float32, True,
          None, True, 2e-5),
+        # The MoE decoder's fit (bf16) and card-vs-CPU forward (f32): 8
+        # heads of 32 at T=1024.
+        ("moe_lm_causal_bf16_d32", (8, 8, 1024, 1024, 32), torch.bfloat16,
+         True, None, True, 3e-2),
+        ("moe_lm_causal_f32_d32", (8, 8, 1024, 1024, 32), torch.float32,
+         True, None, True, 2e-5),
+        # The MoE classifier's fit: 4 heads of 32 at T=256, a key mask.
+        ("moe_cls_bf16_d32", (32, 4, 256, 256, 32), torch.bfloat16, False,
+         None, True, 3e-2),
     ]
     for name, (bb, hh, tq, tk, dd), dtype, causal, window, masked, tol in \
             cases:
@@ -663,6 +695,12 @@ def check_flash_bwd(attention, gen) -> dict:
         # The decoder LM's fit at T=1024.
         ("decoder_causal_bf16", (8, h, 1024, 1024, d), bf16, True, None,
          True, 3e-2),
+        # The MoE decoder's fit: 8 heads of 32 at T=1024.
+        ("moe_lm_causal_bf16_d32", (8, 8, 1024, 1024, 32), bf16, True, None,
+         True, 3e-2),
+        # The MoE classifier's fit: 4 heads of 32 at T=256, a key mask.
+        ("moe_cls_bf16_d32", (32, 4, 256, 256, 32), bf16, False, None, True,
+         3e-2),
     ]
     results = {}
     for name, (bb, hh, tq, tk, dd), dtype, causal, window, masked, tol in \
@@ -934,26 +972,31 @@ def profile_step(est, xs, ys, families: dict,
 def time_bwd(attention, bwd_res) -> dict:
     """K2 and K3 in bf16 at the fine-tune shape ("train") and at (8, 12,
     512, 64) ("long"), each with a key mask with pad tails and no empty
-    row: their plain versions, the backward of
-    ``F.scaled_dot_product_attention`` with the same boolean mask (its
-    fwd+bwd time minus its fwd time) as the yardstick for the pair, and K1
-    beside its bound and SDPA's forward."""
-    return {label: _time_bwd_at(attention, bwd_res[case]["args"])
-            for label, case in (("train", "path_bf16"),
-                                ("long", "long_bf16"))}
+    row, and causal with no mask at the MoE decoder's (8, 8, 1024, 32)
+    ("moe_lm"): their plain versions, the backward of
+    ``F.scaled_dot_product_attention`` with the same mask (its fwd+bwd
+    time minus its fwd time) as the yardstick for the pair, and K1 beside
+    its bound and SDPA's forward."""
+    return {label: _time_bwd_at(attention, bwd_res[case]["args"], causal)
+            for label, case, causal in (("train", "path_bf16", False),
+                                        ("long", "long_bf16", False),
+                                        ("moe_lm", "moe_lm_causal_bf16_d32",
+                                         True))}
 
 
-def _time_bwd_at(attention, args) -> dict:
+def _time_bwd_at(attention, args, causal: bool = False) -> dict:
     import torch.nn.functional as F
 
     q, k, v, _, do, *_ = args
     b, h, t, d = q.shape
-    km = torch.ones(b, t, dtype=torch.bool, device="cuda")
-    km[:, -37:] = False
+    km = None
+    if not causal:
+        km = torch.ones(b, t, dtype=torch.bool, device="cuda")
+        km[:, -37:] = False
     with torch.inference_mode():
-        o, lse = attention.flash_attention_fwd(q, k, v, km)
+        o, lse = attention.flash_attention_fwd(q, k, v, km, causal)
         delta = (do.float() * o.float()).sum(-1, keepdim=True)
-        args = (q, k, v, km, do, lse, delta)
+        args = (q, k, v, km, do, lse, delta, causal)
         dq_ms = time_ms(lambda: attention.flash_attention_bwd_dq(*args),
                         reps=30)
         dkv_ms = time_ms(lambda: attention.flash_attention_bwd_dkv(*args),
@@ -962,28 +1005,35 @@ def _time_bwd_at(attention, args) -> dict:
             lambda: attention.flash_attention_bwd_dq_plain(*args), reps=3)
         dkv_plain = time_ms(
             lambda: attention.flash_attention_bwd_dkv_plain(*args), reps=3)
-        k1_ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v, km),
-                        reps=30)
+        k1_ms = time_ms(
+            lambda: attention.flash_attention_fwd(q, k, v, km, causal),
+            reps=30)
         k1_plain = time_ms(
-            lambda: attention.flash_attention_fwd_plain(q, k, v, km), reps=3)
+            lambda: attention.flash_attention_fwd_plain(q, k, v, km, causal),
+            reps=3)
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    mask4 = km[:, None, None, :]
+    mask4 = None if causal else km[:, None, None, :]
 
     def lib_fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4)
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4,
+                                              is_causal=causal)
 
     lib_fb = time_ms(lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg),
                                                  do), reps=30)
     lib_f = time_ms(lib_fwd, reps=30)
+    # Causal: only the live (query, key) pairs, the diagonal included.
+    pairs = t * (t + 1) // 2 if causal else t * t
     elems = b * h * t * d * q.element_size()
-    rows = 2 * b * h * t * 4 + b * t * 4  # LSE + delta, key mask
+    mask = 0 if causal else b * t * 4
+    rows = 2 * b * h * t * 4 + mask  # LSE + delta, key mask
     work = {
-        "dq": (6 * b * h * t * t * d, 5 * elems + rows),
-        "dkv": (8 * b * h * t * t * d, 6 * elems + rows),
+        "dq": (6 * b * h * pairs * d, 5 * elems + rows),
+        "dkv": (8 * b * h * pairs * d, 6 * elems + rows),
         # K1: q, k, v read, O written, LSE written, the key mask read.
-        "k1": (4 * b * h * t * t * d, 4 * elems + b * h * t * 4 + b * t * 4),
+        "k1": (4 * b * h * pairs * d, 4 * elems + b * h * t * 4 + mask),
     }
-    out = {"shape": [b, h, t, d], "library_bwd_ms": lib_fb - lib_f,
+    out = {"shape": [b, h, t, d], "causal": causal,
+           "library_bwd_ms": lib_fb - lib_f,
            "library_fwd_bwd_ms": lib_fb, "library_fwd_ms": lib_f}
     for key, ms, plain in (("dq", dq_ms, dq_plain), ("dkv", dkv_ms,
                                                         dkv_plain),
@@ -1674,15 +1724,56 @@ def run_zoo(kind: str) -> dict:
     return {"est": est, "x": x, "y": y, "result": res}
 
 
+def artifact_leaves(art: dict, live, loaded) -> dict:
+    """Every leaf of an artifact's params against the estimator ``live``
+    it was saved from and the estimator ``loaded`` from it: an int8
+    leaf's bits against the plain K4 of the live f32 leaf flattened to
+    (-1, last), its loaded values against the plain K5 of those bits; a
+    leaf left f32 (under the 4,096-element floor) loaded bit-equal to the
+    live one.  Returns the int8 leaves' names and (rows, d), the f32
+    leaves' names, the failing names and the largest differences."""
+    from learningorchestra_tpu_torch.ops import quant
+    from learningorchestra_tpu_torch.ops.quant import QuantizedLeaf
+
+    live_tree = dict(_flat(convert_tree(live)))
+    back_tree = dict(_flat(convert_tree(loaded)))
+    out = {"int8": [], "f32": [], "bad": [],
+           "max_abs_err": {"quantize": 0.0, "dequantize": 0.0}}
+    for key, leaf in _flat(art["state"]["params"]):
+        name = "/".join(key)
+        want = live_tree[key].detach()
+        got = back_tree[key].detach()
+        if not isinstance(leaf, QuantizedLeaf):
+            out["f32"].append(name)
+            if not torch.equal(got, want):
+                out["bad"].append(name)
+            continue
+        shape = leaf.values.shape
+        out["int8"].append((name, shape))
+        v_ref, s_ref = quant.quantize_rowwise_plain(
+            want.float().reshape(shape).contiguous())
+        v = torch.from_numpy(leaf.values).to(want.device)
+        s = torch.from_numpy(leaf.scales).to(want.device)
+        deq_ref = quant.dequantize_rowwise_plain(v, s)
+        deq = got.float().reshape(deq_ref.shape)
+        err = out["max_abs_err"]
+        err["quantize"] = max(err["quantize"], max_abs(v, v_ref),
+                              max_abs(s, s_ref))
+        err["dequantize"] = max(err["dequantize"], max_abs(deq, deq_ref))
+        if not (torch.equal(v, v_ref) and torch.equal(s, s_ref)
+                and torch.equal(deq, deq_ref)):
+            out["bad"].append(name)
+    return out
+
+
 def zoo_artifacts(zoo: dict) -> dict:
     """Each trained model saved with ``to_artifact(quantize=True)`` (K4:
     one grouped launch a save) and loaded back on the card (K5: one a
     load), counters at 0 just before each and read just after; every
-    leaf's bits against the plain K4 and K5 on the card, its (rows, d)
+    leaf held by :func:`artifact_leaves`, each int8 leaf's (rows, d)
     and the row class its grouped launch gave it; predictions of the
     loaded artifact against the same artifact on the CPU."""
     from learningorchestra_tpu_torch.ops import quant
-    from learningorchestra_tpu_torch.ops.quant import QuantizedLeaf
     from learningorchestra_tpu_torch.train.neural import load_artifact
 
     classes = {quant.SUBWARP: "SUBWARP", quant.WARP: "WARP",
@@ -1705,30 +1796,13 @@ def zoo_artifacts(zoo: dict) -> dict:
         out["launches"]["quantize_rowwise"] += q[0]
         out["launches"]["dequantize_rowwise"] += d[0]
 
-        leaves = [("/".join(path), leaf)
-                  for path, leaf in _flat(art["state"]["params"])
-                  if isinstance(leaf, QuantizedLeaf)]
-        shapes = [leaf.values.shape for _, leaf in leaves]
+        held = artifact_leaves(art, est, loaded)
+        leaves, bad = held["int8"], held["bad"]
+        shapes = [shape for _, shape in leaves]
         plan = quant.plan_group(shapes, "quantize")
-        live = dict(_flat(convert_tree(est)))
-        back = dict(_flat(convert_tree(loaded)))
-        bad = []
-        for (name, leaf), shape in zip(leaves, shapes):
-            key = tuple(name.split("/"))
-            x = live[key].detach().float().reshape(shape).contiguous()
-            v_ref, s_ref = quant.quantize_rowwise_plain(x)
-            v = torch.from_numpy(leaf.values).cuda()
-            s = torch.from_numpy(leaf.scales).cuda()
-            out["max_abs_err"]["quantize"] = max(
-                out["max_abs_err"]["quantize"], max_abs(v, v_ref),
-                max_abs(s, s_ref))
-            deq_ref = quant.dequantize_rowwise_plain(v, s)
-            deq = back[key].detach().float().reshape(deq_ref.shape)
-            out["max_abs_err"]["dequantize"] = max(
-                out["max_abs_err"]["dequantize"], max_abs(deq, deq_ref))
-            if not (torch.equal(v, v_ref) and torch.equal(s, s_ref)
-                    and torch.equal(deq, deq_ref)):
-                bad.append(name)
+        for key in ("quantize", "dequantize"):
+            out["max_abs_err"][key] = max(out["max_abs_err"][key],
+                                          held["max_abs_err"][key])
         want = -(-len(leaves) // quant.MAX_LEAVES)
         rows = np.arange(0, len(run["x"]), max(1, len(run["x"]) // 6))[:6]
         xs = run["x"][rows]
@@ -1745,9 +1819,10 @@ def zoo_artifacts(zoo: dict) -> dict:
                      "bit_mismatches": bad}
         phase(f"{kind} artifact", not bad and q == d == (want, len(leaves))
               and err <= CPU_ATOL,
-              f"{type(est).__name__}: {len(leaves)} int8 leaves, K4 "
-              f"(launches, leaves) {q}, K5 {d}, expected ({want}, "
-              f"{len(leaves)}); bits vs plain K4/K5 on the card: mismatches "
+              f"{type(est).__name__}: {len(leaves)} int8 leaves and "
+              f"{len(held['f32'])} f32, K4 (launches, leaves) {q}, K5 {d}, "
+              f"expected ({want}, {len(leaves)}); int8 bits vs plain K4/K5 "
+              f"on the card, f32 leaves loaded unchanged: mismatches "
               f"{bad[:4]}; save {save_s:.3f}s load {load_s:.3f}s; "
               f"predict rows {rows.tolist()} vs the CPU: max|d| {err:.3g} "
               f"(atol {CPU_ATOL}, CPU {cpu_s:.1f}s)")
@@ -3985,13 +4060,13 @@ def first_divergence(a: list, b: list):
     return None if len(a) == len(b) else min(len(a), len(b))
 
 
-def read_sse(port, body, on_token=None):
+def read_sse(port, body, on_token=None, model=DEC_MODEL):
     """POST a streaming /generate and read its SSE body: (status, events
     [(name, doc, arrival s)], seconds from the request to each event)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.perf_counter()
     try:
-        conn.request("POST", f"/api/learningOrchestra/v1/serve/{DEC_MODEL}"
+        conn.request("POST", f"/api/learningOrchestra/v1/serve/{model}"
                      "/generate", body=json.dumps(body),
                      headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
@@ -4016,7 +4091,8 @@ def read_sse(port, body, on_token=None):
         conn.close()
 
 
-def time_decode_steps(est, warm: dict, reps: int = 10) -> dict:
+def time_decode_steps(est, warm: dict, reps: int = 10,
+                      rows=None) -> dict:
     """Each (S, Tk) cell the engine stepped, timed on its own: a pool of S
     live slots at position Tk/2, stepped by the cell's program as the
     engine steps it (a CUDA graph replay after one copy of the step's
@@ -4025,7 +4101,8 @@ def time_decode_steps(est, warm: dict, reps: int = 10) -> dict:
     around ``reps`` steps, launches not hidden).  Device ms: the graph's
     bare replays queued behind a device sleep; the eager step's kernel
     times summed from torch.profiler (a device sleep cannot hide a launch
-    rate that slow).  Their gap is the device's idle share."""
+    rate that slow).  Their gap is the device's idle share.  ``rows(n,
+    t, seed)`` fills the pools' tokens (default: ``decoder_rows``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from learningorchestra_tpu_torch.serve.decode.pages import (
@@ -4041,7 +4118,7 @@ def time_decode_steps(est, warm: dict, reps: int = 10) -> dict:
         pool = PagePool(kvlen, nslots)
         pool._alloc(lambda want: module.init_cache(
             want, kvlen, per_row=True, device=DEC_DEVICE), nslots)
-        pool.buf.copy_(torch.from_numpy(decoder_rows(
+        pool.buf.copy_(torch.from_numpy((rows or decoder_rows)(
             nslots, kvlen, seed=5)).to(DEC_DEVICE).long())
         pos = np.full(nslots, kvlen // 2, np.int64)
         t0s = np.full(nslots, kvlen + 1, np.int64)
@@ -5617,6 +5694,429 @@ def run_warm_start(tmp, card: str, bert_artifact, dec_artifact) -> dict:
                                        "live": live["launches"]}}
 
 
+# -- phase 17: mixture-of-experts models -------------------------------------
+
+# The JAX package's defaults (learningorchestra_tpu/models/moe.py:148,200),
+# created over REST with no widths given: the decoder LM at vocab 32000,
+# 256 wide, 4 layers of 8 heads (head dim 32), MLP 1024, 1024 positions;
+# the classifier at vocab 20000, 128 wide, 2 layers of 4 heads, 256
+# positions; both with 8 experts, top-2, capacity 1.5, an MoE FFN on every
+# second block.  Depth is not cut; the fits are a few steps.
+MOE_PATH = "learningorchestra_tpu.models.moe"
+MOE_LM, MOE_CLS = "moe_lm", "moe_cls"
+MOE_LM_SHAPE = {"vocab_size": 32000, "hidden_dim": 256, "num_layers": 4,
+                "num_heads": 8, "max_len": 1024, "num_experts": 8}
+MOE_CLS_SHAPE = {"vocab_size": 20000, "hidden_dim": 128, "num_layers": 2,
+                 "num_heads": 4, "max_len": 256, "num_experts": 8}
+MOE_LM_ROWS, MOE_LM_BATCH, MOE_LM_EPOCHS = 32, 8, 2  # 8 steps at T=1024
+MOE_CLS_ROWS, MOE_CLS_BATCH, MOE_CLS_EPOCHS = 128, 32, 2  # 8 at T=256
+MOE_PERIOD = 128  # the cycle of ids the decoder's rows are cut from
+MOE_CPU_ROWS = 2  # the card-vs-CPU forward, at T=1024
+# f32 logits of the card's forward (K1's split TF32 in 4 layers, f32
+# GEMMs, the router in f32) against the CPU's plain forward.
+MOE_LOGIT_BAR = 1e-4
+MOE_STREAMS, MOE_NEW = 4, 32
+MOE_PROMPT_LENS = (24, 200, 64, 130)
+MOE_PREDICTS = 8
+# A profiled MoE train step by kernel family (first match wins): the
+# routing's elementwise passes, reductions, softmaxes and cumsums beside
+# the GEMMs (the dispatch / combine / expert einsums run as batched GEMMs).
+MOE_FAMILIES = {**TRAIN_FAMILIES, "softmax": ("softmax",),
+                "scan": ("scan", "cumsum"), "reduce": ("reduce",),
+                "elementwise": ("elementwise",)}
+
+
+def moe_rows(n: int, t: int, seed: int) -> np.ndarray:
+    """``n`` rows of ``t`` ids in the MoE decoder's vocabulary, each at a
+    seeded offset into a fixed cycle of ``MOE_PERIOD`` ids."""
+    cyc = np.random.default_rng(17).permutation(
+        np.arange(1, MOE_LM_SHAPE["vocab_size"]))[:MOE_PERIOD]
+    offs = np.random.default_rng(seed).integers(0, MOE_PERIOD, n)
+    idx = (offs[:, None] + np.arange(t)[None, :]) % MOE_PERIOD
+    return cyc[idx].astype(np.int32)
+
+
+def moe_classifier_rows(n: int, seed: int) -> np.ndarray:
+    """``n`` rows at the classifier's max_len, seeded pad tails."""
+    t = MOE_CLS_SHAPE["max_len"]
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, MOE_CLS_SHAPE["vocab_size"], (n, t)).astype(np.int32)
+    for r, keep in enumerate(rng.integers(16, t + 1, n)):
+        x[r, keep:] = 0
+    return x
+
+
+def moe_fit(server, port, name: str, cls: str, shape: dict, x, y,
+            epochs: int, batch: int) -> tuple:
+    """POST /model/tensorflow (the JAX package's module path, default
+    widths), then /train/tensorflow over ``x``/``y`` in bf16 on f32
+    masters: the job's launches, the card's peak memory over the fit, and
+    the trained f32 estimator loaded back on the card."""
+    from torch.func import functional_call
+
+    from learningorchestra_tpu_torch.train.neural import _cast_params
+
+    status, meta, model_s, _ = rest_job(
+        port, "POST", "/model/tensorflow",
+        {"name": name, "modulePath": MOE_PATH, "class": cls,
+         "classParameters": {"seed": 0}}, name)
+    phase(f"moe {name} model", status == 201 and bool(meta.get("finished")),
+          f"POST /model/tensorflow {MOE_PATH}.{cls} -> {status}, "
+          f"finished {meta.get('finished')} in {model_s:.2f}s")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fit_name = f"{name}_fit"
+    status, meta, fit_s, counts = rest_job(
+        port, "POST", "/train/tensorflow",
+        {"name": fit_name, "modelName": name, "parentName": name,
+         "method": "fit", "methodParameters": {
+             "x": x.tolist(), "y": y.tolist(), "epochs": epochs,
+             "batch_size": batch}}, fit_name)
+    peak = torch.cuda.max_memory_allocated() - resident
+    trained = server.ctx.volumes.load_estimator(
+        "train/tensorflow", fit_name, device="cuda")
+    widths = {k: getattr(trained, k) for k in shape}
+    per_epoch = -(-len(x) // batch)
+    steps = epochs * per_epoch
+    layers = shape["num_layers"]
+    want = {k: layers * steps
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    losses = list(trained.history["loss"])
+    # The objective of the first batch on the trained masters, under the
+    # fit's bf16 cast: the loss and the MoE layers' aux terms beside it.
+    aux: list = []
+    with torch.no_grad():
+        xb = torch.from_numpy(x[:batch]).to(trained.device)
+        logits = functional_call(
+            trained.module, _cast_params(trained.module, torch.bfloat16),
+            (xb,), {"aux_losses": aux}).float()
+        loss, _ = trained._loss_and_metrics("softmax_ce")(
+            logits, torch.from_numpy(y[:batch]).to(trained.device),
+            torch.ones(batch, device=trained.device))
+    aux_terms = [float(a) for a in aux]
+    moe_layers = layers // trained.moe_every
+    step_ms = 1e3 * trained.history["epoch_time"][-1] / per_epoch
+    phase(f"moe {name} fit", status == 201 and bool(meta.get("finished"))
+          and widths == shape and all(math.isfinite(v) for v in losses)
+          and len(aux_terms) == moe_layers
+          and all(math.isfinite(a) and a > 0 for a in aux_terms)
+          and all(counts[k] == v for k, v in want.items()),
+          f"{cls}({widths}) over REST: {len(x)} rows T={x.shape[1]}, batch "
+          f"{batch}, {epochs} epoch(s) x {per_epoch} steps, bf16 / f32 "
+          f"masters: loss {losses}; first batch after the fit: loss "
+          f"{float(loss):.6f} + aux {aux_terms} ({moe_layers} MoE layers) = "
+          f"{float(loss) + sum(aux_terms):.6f}; launches "
+          f"{ {k: counts[k] for k in want} } (want {layers} layers x "
+          f"{steps} steps each); job {fit_s:.2f}s, last epoch's step "
+          f"{step_ms:.2f} ms; peak memory over the fit "
+          f"{peak / 2**20:.1f} MiB above {resident / 2**20:.1f} resident")
+    return trained, {
+        "losses": losses, "aux_first_batch": aux_terms,
+        "loss_first_batch": float(loss), "job_s": fit_s,
+        "fit_time_s": meta.get("fitTime"), "step_ms": step_ms,
+        "tokens_per_s": batch * x.shape[1] / (step_ms / 1e3),
+        "peak_mib": peak / 2**20, "resident_mib": resident / 2**20,
+        "launches": counts}
+
+
+def moe_publish(server, port, volumes, trained, name: str) -> dict:
+    """The trained model saved as an int8 artifact (K4) and loaded by the
+    server (K5), every leaf of it held against the trained and the served
+    estimator by :func:`artifact_leaves`; at least one expert leaf must be
+    int8 (a leaf under the 4,096-element floor stays f32)."""
+    from learningorchestra_tpu_torch.ops import quant
+    from learningorchestra_tpu_torch.ops.moe import EXPERT_LEAVES
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    artifact = trained.to_artifact(quantize=True)
+    volumes.save_object(ARTIFACT_TYPE, name, artifact)
+    k4 = kernel_counts()
+    save_s = time.perf_counter() - t0
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    status, _ = request(port, "POST", f"/serve/{name}/load")
+    k5 = kernel_counts()
+    load_s = time.perf_counter() - t0
+    served = server.serving.registry.get(name).estimator
+    held = artifact_leaves(artifact, trained, served)
+    n_quant = len(held["int8"])
+    n_launch = -(-n_quant // quant.MAX_LEAVES)
+
+    def expert(leaf):
+        return leaf.rsplit("/", 1)[-1] in EXPERT_LEAVES
+
+    int8_experts = [n for n, _ in held["int8"] if expert(n)]
+    f32_experts = [n for n in held["f32"] if expert(n)]
+    phase(f"moe {name} int8 artifact", status == 200 and not held["bad"]
+          and int8_experts and k4["quantize_rowwise"] == n_launch
+          and k5["dequantize_rowwise"] == n_launch,
+          f"save {save_s:.2f}s (K4 {k4['quantize_rowwise']} launch over "
+          f"{n_quant} leaves), POST /serve/{name}/load -> {status} in "
+          f"{load_s:.2f}s (K5 {k5['dequantize_rowwise']}; want {n_launch} "
+          f"each); every leaf: {n_quant} int8 (bits equal to the plain "
+          f"quantize, served values equal to the plain dequantize, max|d| "
+          f"{held['max_abs_err']}), {len(held['f32'])} f32 served "
+          f"unchanged; expert leaves {len(int8_experts)} int8, "
+          f"{len(f32_experts)} f32; failing {held['bad']}")
+    return {"artifact": artifact, "served": served, "save_s": save_s,
+            "load_s": load_s, "k4": k4, "k5": k5, "int8_leaves": n_quant,
+            "f32_leaves": len(held["f32"]),
+            "expert_leaves": len(int8_experts) + len(f32_experts),
+            "int8_expert_leaves": len(int8_experts)}
+
+
+def moe_vs_cpu(trained) -> dict:
+    """The trained decoder's forward on the card against the port's CPU
+    plain forward from the same weights: f32 logits within MOE_LOGIT_BAR,
+    the share of tokens whose top-k experts agree in every MoE layer, and
+    the tokens whose top-k set differs when the card runs the fit's bf16
+    cast instead."""
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    from learningorchestra_tpu_torch import convert
+    from learningorchestra_tpu_torch.models.moe import MoEDecoderLM
+    from learningorchestra_tpu_torch.ops.moe import MoEMlp
+    from learningorchestra_tpu_torch.train.neural import _cast_params
+
+    t0 = time.perf_counter()
+    kwargs = {k: v for k, v in trained.get_params().items() if k != "device"}
+    cpu = MoEDecoderLM(**kwargs, device="cpu")
+    cpu.load_state_dict({"params": convert.params_to_jax(trained.module)})
+    x = moe_rows(MOE_CPU_ROWS, MOE_LM_SHAPE["max_len"], seed=9)
+    x[1, 700:] = 0  # a pad tail
+    routes: dict = {}
+
+    def forward(est, key, params=None):
+        handles = []
+        for name, mod in est.module.named_modules():
+            if isinstance(mod, MoEMlp):
+                def pre(m, args, name=name):
+                    logits = F.linear(args[0].float(),
+                                      m.router.weight.float())
+                    routes.setdefault(key, {})[name] = torch.topk(
+                        logits, m.top_k, dim=-1).indices.sort(-1).values.cpu()
+                handles.append(mod.register_forward_pre_hook(pre))
+        try:
+            with torch.inference_mode():
+                xt = torch.from_numpy(x).to(est.device)
+                out = est.module(xt) if params is None else \
+                    functional_call(est.module, params, (xt,))
+                return out.float().cpu()
+        finally:
+            for h in handles:
+                h.remove()
+
+    zero_kernel_counts()
+    card = forward(trained, "card")
+    f32_launches = kernel_counts()
+    ref = forward(cpu, "cpu")
+    zero_kernel_counts()
+    bf16 = forward(trained, "bf16",
+                   _cast_params(trained.module, torch.bfloat16))
+    bf16_launches = kernel_counts()
+    err = float((card - ref).abs().max())
+    tokens = sum(v.shape[0] * v.shape[1] for v in routes["cpu"].values())
+
+    def agree(key):
+        return sum(int((routes[key][n] == routes["cpu"][n]).all(-1).sum())
+                   for n in routes["cpu"])
+
+    share = agree("card") / tokens
+    bf16_flips = tokens - agree("bf16")
+    bf16_err = float((bf16 - ref).abs().max())
+    phase("moe card vs CPU forward", err <= MOE_LOGIT_BAR
+          and bool(torch.isfinite(card).all())
+          and f32_launches["flash_fwd"] == MOE_LM_SHAPE["num_layers"],
+          f"trained MoEDecoderLM f32, {MOE_CPU_ROWS} rows at T={x.shape[1]} "
+          f"(second with a pad tail): logits max|d| {err:.3g} (bar "
+          f"{MOE_LOGIT_BAR}); top-{trained.top_k} experts equal for "
+          f"{100 * share:.2f} % of {tokens} token-layer routings; the fit's "
+          f"bf16 cast on the card: {bf16_flips} routings differ, logits "
+          f"max|d| {bf16_err:.3g}; K1 {f32_launches['flash_fwd']} launches "
+          f"f32 (want {MOE_LM_SHAPE['num_layers']}), "
+          f"{bf16_launches['flash_fwd']} bf16 (CPU side "
+          f"{time.perf_counter() - t0:.1f}s)")
+    return {"max_abs_err": err, "route_agreement": share,
+            "routings": tokens, "bf16_route_flips": bf16_flips,
+            "bf16_max_abs_err": bf16_err, "launches_f32": f32_launches,
+            "launches_bf16": bf16_launches}
+
+
+def run_moe(tmp, card: str) -> dict:
+    """Phase 17: the mixture-of-experts models through the port's entry
+    points on the card: both fitted over REST at the JAX package's
+    default widths (K1/K2/K3 one each per layer per step), published as
+    int8 artifacts (K4) and loaded by the server (K5) with every leaf
+    held against the plain versions; the classifier's ``/predict``;
+    ``/generate`` SSE streams of the decoder through the CUDA-graph decode
+    step, two admitted while two are mid-flight, each equal to a solo
+    ``generate``; the decoder's card forward against the CPU's; a profiled
+    decoder step; the ``moe`` line.  K1-K3 at the decoder's attention
+    shape are timed in phase 3 (``time_bwd``)."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    t_phase = time.perf_counter()
+    line: dict = {}
+    launches: dict = {}
+    volumes = VolumeStorage(tmp)
+    server = APIServer(server_config(tmp), device="cuda")
+    port = server.start_background()
+    try:
+        # The decoder LM: 32 rows of T=1024 cut from a seeded cycle.
+        x = moe_rows(MOE_LM_ROWS, MOE_LM_SHAPE["max_len"], seed=1)
+        y = np.concatenate([x[:, 1:], np.zeros((len(x), 1), np.int32)], 1)
+        lm, line["lm_fit"] = moe_fit(
+            server, port, MOE_LM, "MoEDecoderLM", MOE_LM_SHAPE, x, y,
+            MOE_LM_EPOCHS, MOE_LM_BATCH)
+        launches["lm_train"] = line["lm_fit"]["launches"]
+        line["vs_cpu"] = moe_vs_cpu(lm)
+        launches["forward_f32"] = line["vs_cpu"].pop("launches_f32")
+        launches["forward_bf16"] = line["vs_cpu"].pop("launches_bf16")
+        pub = moe_publish(server, port, volumes, lm, MOE_LM)
+        launches["lm_publish"], launches["lm_load"] = pub["k4"], pub["k5"]
+        line["lm_artifact"] = {k: pub[k] for k in (
+            "save_s", "load_s", "int8_leaves", "f32_leaves",
+            "expert_leaves", "int8_expert_leaves")}
+        served = pub["served"]
+
+        # /generate: 4 SSE streams, the last 2 opened while the first 2
+        # are mid-flight, each against a solo generate on the card.
+        prompts = [moe_rows(1, n, seed=100 + i)[0].tolist()
+                   for i, n in enumerate(MOE_PROMPT_LENS)]
+        first_tok = [threading.Event() for _ in range(MOE_STREAMS)]
+        results = [None] * MOE_STREAMS
+
+        def sse(i):
+            results[i] = read_sse(
+                port, {"prompts": [prompts[i]], "stream": True,
+                       "maxNewTokens": MOE_NEW},
+                on_token=lambda doc, n, i=i: first_tok[i].set(),
+                model=MOE_LM)
+
+        zero_kernel_counts()
+        threads = [threading.Thread(target=sse, args=(i,))
+                   for i in range(MOE_STREAMS)]
+        for th in threads[:2]:
+            th.start()
+        first_tok[0].wait(120)
+        midflight = not any(results[:2])
+        for th in threads[2:]:
+            th.start()
+        for th in threads:
+            th.join(300)
+        launches["lm_generate"] = kernel_counts()
+        ttft, itl, ok, div = [], [], True, []
+        for prompt, res in zip(prompts, results):
+            status, events = res or (0, [])
+            tok = [(d["t"], s) for n, d, s in events if n == "token"]
+            names = [n for n, _, _ in events]
+            ok &= status == 200 and names[:1] == ["open"] and \
+                names[-1:] == ["done"] and len(tok) == MOE_NEW
+            if tok:
+                ttft.append(tok[0][1] * 1e3)
+                itl += [(b - a) * 1e3 for (_, a), (_, b) in
+                        zip(tok, tok[1:])]
+            solo = served.generate(np.asarray([prompt], np.int32),
+                                   max_new_tokens=MOE_NEW)[0].tolist()
+            div.append(first_divergence([t for t, _ in tok],
+                                        solo[len(prompt):]))
+        st = server.serving.decode.stats()["models"][MOE_LM]
+        phase("moe generate streams", ok and midflight
+              and all(d is None for d in div)
+              and st["graphs"].get("captures", 0) >= 1
+              and launches["lm_generate"]["flash_fwd"] == 0,
+              f"{MOE_STREAMS} SSE streams of prompts {list(MOE_PROMPT_LENS)} "
+              f"tokens, {MOE_NEW} new each, 2 admitted while 2 were mid-"
+              f"flight: {midflight}; first divergence from a solo generate "
+              f"{div} (None: equal); decode graphs {st['graphs']}; K1 "
+              f"{launches['lm_generate']['flash_fwd']} (want 0: one query "
+              f"attends the cache in plain torch)")
+        warm = dict(server.serving.registry.get(MOE_LM).decode_warm)
+        line["generate"] = {
+            "streams": MOE_STREAMS, "new_tokens": MOE_NEW,
+            "first_divergence": div, "graphs": st["graphs"],
+            "ttft_ms": {"p50": float(np.median(ttft)),
+                        "max": float(np.max(ttft))},
+            "itl_ms": {"p50": float(np.median(itl)),
+                       "p99": float(np.percentile(itl, 99))},
+            "step_ms": time_decode_steps(served, warm, rows=moe_rows)}
+        del served, pub
+        # Last, since it steps the trained decoder further: the published
+        # and served model above is the /train/tensorflow job's own.
+        try:
+            line["lm_fit"]["profile"] = profile_step(
+                lm, x[:MOE_LM_BATCH], y[:MOE_LM_BATCH], MOE_FAMILIES)
+        except Exception as exc:  # noqa: BLE001 — where CUPTI tracing is
+            # unavailable this breakdown is reported as not measured.
+            line["lm_fit"]["profile"] = {"not_measured": repr(exc)}
+        del lm
+
+        # The classifier: 128 rows at T=256 with pad tails, two epochs.
+        xc = moe_classifier_rows(MOE_CLS_ROWS, seed=3)
+        yc = (xc[:, 0] % 2).astype(np.int32)
+        cls, line["cls_fit"] = moe_fit(
+            server, port, MOE_CLS, "MoETransformerClassifier", MOE_CLS_SHAPE,
+            xc, yc, MOE_CLS_EPOCHS, MOE_CLS_BATCH)
+        launches["cls_train"] = line["cls_fit"]["launches"]
+        pub = moe_publish(server, port, volumes, cls, MOE_CLS)
+        launches["cls_publish"], launches["cls_load"] = pub["k4"], pub["k5"]
+        line["cls_artifact"] = {k: pub[k] for k in (
+            "save_s", "load_s", "int8_leaves", "f32_leaves",
+            "expert_leaves", "int8_expert_leaves")}
+        del cls
+        rng = np.random.default_rng(31)
+        reqs = [moe_classifier_rows(int(rng.integers(1, 9)), seed=40 + i)
+                for i in range(MOE_PREDICTS)]
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(MOE_PREDICTS) as pool:
+            answers = list(pool.map(lambda r: request(
+                port, "POST", f"/serve/{MOE_CLS}/predict",
+                {"instances": r.tolist()}), reqs))
+        wall_s = time.perf_counter() - t0
+        launches["cls_serve"] = kernel_counts()
+        _, listing = request(port, "GET", "/serve")
+        dispatches = listing["stats"]["models"][MOE_CLS]["batches"]
+        preds = [np.asarray(b.get("predictions", []), np.float32)
+                 for _, b in answers]
+        ok = all(s == 200 and p.shape == (len(r), 2)
+                 and bool(np.isfinite(p).all())
+                 for (s, _), p, r in zip(answers, preds, reqs))
+        ref = load_artifact(pub["artifact"], device="cpu").predict(
+            np.concatenate([reqs[0], reqs[-1]]))
+        err = float(np.abs(np.concatenate([preds[0], preds[-1]])
+                           - ref).max()) if ok else math.inf
+        lat = sorted(b.get("latencyMs", 0.0) for _, b in answers)
+        layers = MOE_CLS_SHAPE["num_layers"]
+        phase("moe classifier predict", ok and err <= CPU_ATOL
+              and launches["cls_serve"]["flash_fwd"] == layers * dispatches,
+              f"{MOE_PREDICTS} concurrent POST /serve/{MOE_CLS}/predict of "
+              f"{[len(r) for r in reqs]} rows at T={MOE_CLS_SHAPE['max_len']}"
+              f": statuses {sorted({s for s, _ in answers})}, {dispatches} "
+              f"dispatches, K1 {launches['cls_serve']['flash_fwd']} (want "
+              f"{layers} x {dispatches}); two requests' rows against the "
+              f"int8 artifact on the CPU max|d| {err:.3g} (atol {CPU_ATOL})")
+        line["cls_predict"] = {"requests": MOE_PREDICTS, "wall_s": wall_s,
+                               "dispatches": dispatches,
+                               "latency_ms_p50": lat[len(lat) // 2],
+                               "latency_ms_max": lat[-1],
+                               "cpu_max_abs_err": err}
+    finally:
+        server.shutdown()
+    torch.cuda.empty_cache()
+    line["launches"] = launches
+    line["phase_s"] = time.perf_counter() - t_phase
+    name, _, limit = card.partition(",")
+    line = {"card": name.strip(), "power_limit": limit.strip(), **line}
+    return {"line": line, "launches": launches}
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -5880,6 +6380,27 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     ws_s = time.perf_counter() - t_ws
+
+    # Phase 17: the mixture-of-experts models, fitted over REST, int8
+    # artifacts, /predict and graph-decoded /generate streams.
+    tmp, t_moe = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        moe = run_moe(tmp, card)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("moe", False, repr(exc))
+        moe = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    moe_s = time.perf_counter() - t_moe
+    moe_l = moe["launches"]
+    # bf16 K1-K3 in the two fits (and K1 in the bf16 forward), f32 K1 in
+    # the card-vs-CPU forward and the classifier's serving, K4 at the two
+    # publications, K5 at the two loads.
+    moe_train = [moe_l.get("lm_train"), moe_l.get("cls_train")]
+    moe_f32 = [moe_l.get("forward_f32"), moe_l.get("cls_serve")]
+    moe_k4 = [moe_l.get("lm_publish"), moe_l.get("cls_publish")]
+    moe_k5 = [moe_l.get("lm_load"), moe_l.get("cls_load")]
     ws_l = warm["launches"]
     ws_live = ws_l.get("live", {})
     ws_children = ws_l.get("children", [])
@@ -5939,7 +6460,8 @@ def main() -> int:
          + rest_sum("flash_fwd", dec_f32)
          + rest_sum("flash_fwd", [fleet_l.get("fleet_predict")])
          + rest_sum("flash_fwd", [pc_l.get("serve")])
-         + rest_sum("flash_fwd", ws_f32),
+         + rest_sum("flash_fwd", ws_f32)
+         + rest_sum("flash_fwd", moe_f32),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
@@ -5952,7 +6474,8 @@ def main() -> int:
              "program_cache_serve": rest_sum("flash_fwd",
                                              [pc_l.get("serve")]),
              "warm_start_serve_and_capture": rest_sum("flash_fwd",
-                                                      ws_f32)},
+                                                      ws_f32),
+             "moe_forward_and_predict": rest_sum("flash_fwd", moe_f32)},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -5967,7 +6490,8 @@ def main() -> int:
          + rest_sum("flash_fwd", dist_ranks)
          + rest_sum("flash_fwd", [dec_l.get("train")])
          + rest_sum("flash_fwd", pc_train)
-         + rest_sum("flash_fwd", ws_train),
+         + rest_sum("flash_fwd", ws_train)
+         + rest_sum("flash_fwd", moe_train + [moe_l.get("forward_bf16")]),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -5979,7 +6503,9 @@ def main() -> int:
              "decoder_train": rest_sum("flash_fwd", [dec_l.get("train")]),
              "program_cache_train_and_tune": rest_sum("flash_fwd",
                                                       pc_train),
-             "warm_start_train": rest_sum("flash_fwd", ws_train)},
+             "warm_start_train": rest_sum("flash_fwd", ws_train),
+             "moe_train_and_forward": rest_sum(
+                 "flash_fwd", moe_train + [moe_l.get("forward_bf16")])},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -5998,7 +6524,8 @@ def main() -> int:
          + rest_sum("quantize_rowwise", dist_parent)
          + rest_sum("quantize_rowwise", [dec_l.get("publish")])
          + rest_sum("quantize_rowwise", pc_train)
-         + rest_sum("quantize_rowwise", ws_train),
+         + rest_sum("quantize_rowwise", ws_train)
+         + rest_sum("quantize_rowwise", moe_k4),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
@@ -6012,7 +6539,8 @@ def main() -> int:
                                          [dec_l.get("publish")]),
              "program_cache_train_and_tune": rest_sum("quantize_rowwise",
                                                       pc_train),
-             "warm_start_train": rest_sum("quantize_rowwise", ws_train)},
+             "warm_start_train": rest_sum("quantize_rowwise", ws_train),
+             "moe_publish": rest_sum("quantize_rowwise", moe_k4)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -6031,7 +6559,8 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", [fleet_l.get("fleet_load")])
          + rest_sum("dequantize_rowwise", [pc_l.get("serve"),
                                            pc_l.get("decoder_load")])
-         + rest_sum("dequantize_rowwise", ws_k5),
+         + rest_sum("dequantize_rowwise", ws_k5)
+         + rest_sum("dequantize_rowwise", moe_k5),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -6050,7 +6579,8 @@ def main() -> int:
              "program_cache_loads": rest_sum(
                  "dequantize_rowwise", [pc_l.get("serve"),
                                         pc_l.get("decoder_load")]),
-             "warm_start_loads": rest_sum("dequantize_rowwise", ws_k5)},
+             "warm_start_loads": rest_sum("dequantize_rowwise", ws_k5),
+             "moe_loads": rest_sum("dequantize_rowwise", moe_k5)},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -6067,7 +6597,8 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", dist_ranks)
            + rest_sum(f"flash_bwd_{key}", [dec_l.get("train")])
            + rest_sum(f"flash_bwd_{key}", pc_train)
-           + rest_sum(f"flash_bwd_{key}", ws_train),
+           + rest_sum(f"flash_bwd_{key}", ws_train)
+           + rest_sum(f"flash_bwd_{key}", moe_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -6080,7 +6611,8 @@ def main() -> int:
                                          [dec_l.get("train")]),
                "program_cache_train_and_tune": rest_sum(
                    f"flash_bwd_{key}", pc_train),
-               "warm_start_train": rest_sum(f"flash_bwd_{key}", ws_train)},
+               "warm_start_train": rest_sum(f"flash_bwd_{key}", ws_train),
+               "moe_train": rest_sum(f"flash_bwd_{key}", moe_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -6164,12 +6696,14 @@ def main() -> int:
     print("program_cache " + json.dumps(pcache["line"], default=str),
           flush=True)
     print("warm_start " + json.dumps(warm["line"], default=str), flush=True)
+    print("moe " + json.dumps(moe["line"], default=str), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
           f"{drill_s:.1f}, text pipeline {text_s:.1f}, distributed "
           f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f}, "
-          f"program cache {pc_s:.1f}, warm start {ws_s:.1f})", flush=True)
+          f"program cache {pc_s:.1f}, warm start {ws_s:.1f}, moe "
+          f"{moe_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

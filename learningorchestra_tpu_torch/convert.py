@@ -14,7 +14,11 @@ the carry is a per-leaf layout change:
   ``weight`` OIHW (cout, cin/groups, kh, kw); a depthwise kernel
   (kh, kw, 1, C) is (C, 1, kh, kw);
 - ``Embed`` ``embedding`` <-> ``nn.Embedding`` ``weight``;
-- ``LayerNorm``/``GroupNorm`` ``scale``/``bias`` <-> ``weight``/``bias``.
+- ``LayerNorm``/``GroupNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
+- an MoE layer's expert leaves (``ops/moe.py::EXPERT_LEAVES``: the 3-D
+  ``expert_w1`` (E, H, M) and ``expert_w2`` (E, M, H), the biases
+  (E, M) and (E, H)) keep their names and layouts both ways; its
+  ``router`` is a bias-free Dense.
 
 A flax tree is the variables dict ``{"params": {...}}`` whose leaves are
 numpy arrays (or tensors, e.g. a dequantized artifact on the card).  A
@@ -28,6 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from learningorchestra_tpu_torch.ops.moe import EXPERT_LEAVES, MoEMlp
 
 
 def _tensor(x) -> torch.Tensor:
@@ -49,7 +55,9 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
                 walk(val, f"{prefix}{key}.")
                 continue
             t = _tensor(val)
-            if t.dim() == 0:
+            if key in EXPERT_LEAVES:
+                out[prefix + key] = t
+            elif t.dim() == 0:
                 out[prefix + ("bias" if key == "bias" else "weight")] = t
             elif key == "kernel" and t.dim() == 4:
                 out[prefix + "weight"] = t.permute(3, 2, 0, 1).contiguous()
@@ -96,6 +104,8 @@ def flax_tree(module: nn.Module, pick=None) -> dict:
             leaves = {"embedding": leaf(mod.weight)}
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             leaves = {"scale": leaf(mod.weight), "bias": leaf(mod.bias)}
+        elif isinstance(mod, MoEMlp):
+            leaves = {key: leaf(getattr(mod, key)) for key in EXPERT_LEAVES}
         elif next(mod.parameters(recurse=False), None) is not None:
             raise TypeError(
                 f"no flax layout for {type(mod).__name__} at {name!r}"
@@ -103,7 +113,7 @@ def flax_tree(module: nn.Module, pick=None) -> dict:
         else:
             continue
         node = root
-        for part in name.split("."):
+        for part in filter(None, name.split(".")):  # "" is the root
             node = node.setdefault(part, {})
         node.update(leaves)
     return {"params": root}

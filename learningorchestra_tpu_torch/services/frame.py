@@ -5,7 +5,7 @@ the toolkit edge coerces it with ``to_numpy()``; the card's machine has
 no pandas, so the port has this instead.  It matches pandas on what the
 pipeline uses: columns in order of first appearance in the rows,
 ``frame[col]`` as a 1-D column with ``to_numpy()``, ``len``,
-``columns``, and ``to_numpy()`` dtypes:
+``columns``, ``np.asarray`` of either, and ``to_numpy()`` dtypes:
 
 - all ints -> ``int64``; ints with floats -> ``float64``;
 - a missing value (``None``, or a key absent from a row) in a numeric
@@ -80,6 +80,9 @@ class Column:
     def to_numpy(self) -> np.ndarray:
         return _column_array(self._values)
 
+    def __array__(self, dtype=None, copy=None):
+        return _as(self.to_numpy(), dtype)
+
 
 class Frame:
     """Rows (dicts) as named columns, in order of first appearance."""
@@ -118,3 +121,12 @@ class Frame:
         else:
             dtype = object
         return np.stack([c.astype(dtype) for c in cols], axis=1)
+
+    def __array__(self, dtype=None, copy=None):
+        """``np.asarray(frame)``, as pandas allows: a method that takes
+        an array (``generate``'s prompts) gets the table's values."""
+        return _as(self.to_numpy(), dtype)
+
+
+def _as(arr: np.ndarray, dtype) -> np.ndarray:
+    return arr if dtype is None else arr.astype(dtype)

@@ -23,7 +23,8 @@ _loaded = False
 _MLP = "learningorchestra_tpu_torch.models.mlp"
 _TEXT = "learningorchestra_tpu_torch.models.text"
 _VISION = "learningorchestra_tpu_torch.models.vision"
-_ZOO = (_MLP, _TEXT, _VISION)
+_MOE = "learningorchestra_tpu_torch.models.moe"
+_ZOO = (_MLP, _TEXT, _VISION, _MOE)
 _ESTIMATORS = "learningorchestra_tpu_torch.toolkit.estimators."
 _CLASSICAL = ("linear", "trees", "bayes", "cluster", "decomposition",
               "preprocessing", "neighbors", "svm")
@@ -34,6 +35,7 @@ MODULE_ALIASES: dict[str, tuple[str, ...]] = {
     "learningorchestra_tpu.models.mlp": (_MLP,),
     "learningorchestra_tpu.models.text": (_TEXT,),
     "learningorchestra_tpu.models.vision": (_VISION,),
+    "learningorchestra_tpu.models.moe": (_MOE,),
     "learningorchestra_tpu.models": _ZOO,
     "tensorflow.keras.applications": (_VISION,),
     "tensorflow.keras.models": _ZOO,

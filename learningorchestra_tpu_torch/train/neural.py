@@ -123,6 +123,10 @@ def init_params(module: nn.Module, seed: int) -> None:
             elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            elif hasattr(mod, "init_leaves"):
+                # Raw parameters of the module's own (an MoE layer's
+                # expert leaves) seed themselves.
+                mod.init_leaves(gen)
 
 
 # -- learning-rate schedules and optimizers ----------------------------------
@@ -1115,13 +1119,26 @@ class NeuralEstimator(Estimator):
         A data-parallel rank normalises by the global batch's ``msum`` and
         sums the ranks' gradients once per update."""
         dp = self._dp
+        # A module whose forward takes ``aux_losses`` (the MoE models)
+        # appends its auxiliary losses to the list; their sum joins the
+        # objective, not the metrics (the JAX package's _apply_with_aux).
+        aux = [] if getattr(self.module, "takes_aux_losses", False) \
+            else None
+        if aux is not None and dp is not None:
+            raise NotImplementedError(
+                "a data-parallel fit of a model with auxiliary losses (a "
+                "mixture of experts) is not ported: each rank's aux loss "
+                "would see only its rows of the global batch")
         if dp is not None:
             dp.step_begin()
         logits = functional_call(
             self.module, _cast_params(self.module, dtype),
             (_cast_input(xb, dtype),),
+            {} if aux is None else {"aux_losses": aux},
         ).float()
         loss, metrics = loss_fn(logits, yb, mb, msum)
+        if aux:
+            loss = loss + sum(aux)
         loss.backward()
         self._mini_step += 1
         k = self._accumulate_steps

@@ -60,7 +60,9 @@ def test_sources_exist():
                    "obs/__init__.py", "obs/costs.py",
                    "train/compile_cache.py",
                    # The durable program store and the live profiler.
-                   "train/aot_store.py", "obs/profiling.py"):
+                   "train/aot_store.py", "obs/profiling.py",
+                   # The mixture-of-experts layer and models.
+                   "ops/moe.py", "models/moe.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()

@@ -324,8 +324,10 @@ def test_rest_trained_job_serves_and_reloads_after_a_rerun(drives):
 def test_frame_matches_pandas(docs):
     want, got = pd.DataFrame(docs), Frame(docs)
     assert got.columns == list(want.columns) and len(got) == len(want)
-    pairs = [(got.to_numpy(), want.to_numpy())] + [
-        (got[c].to_numpy(), want[c].to_numpy()) for c in want.columns]
+    pairs = [(got.to_numpy(), want.to_numpy()),
+             (np.asarray(got), np.asarray(want))] + [
+        (got[c].to_numpy(), want[c].to_numpy()) for c in want.columns] + [
+        (np.asarray(got[c]), np.asarray(want[c])) for c in want.columns]
     for a, b in pairs:
         assert a.dtype == b.dtype and a.shape == b.shape
         for u, v in zip(a.ravel(), b.ravel()):
