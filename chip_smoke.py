@@ -93,9 +93,10 @@ Phases (each prints its own line; any failure exits nonzero):
    581,012 rows; fit rows cut per estimator in ``COVTYPE_FIT_ROWS``, each
    cut in its line as ``fit_rows``; the CPU reference answers every row
    too, and computes its decision scores only where a label differs),
-   t-SNE at 2,000 points; the CPU reference runs in a child process
-   (``--cpu-reference``) from the phase's start, beside the card's side
-   and (b), and the Covertype comparisons come after (b); labels
+   t-SNE at 2,000 points; the CPU reference runs in two child processes
+   (``--cpu-reference``, Covertype gradient boosting in the second,
+   ``CPU_REFERENCE_SECOND``) from the phase's start, beside the card's
+   side and (b), and the Covertype comparisons come after (b); labels
    equal but at ties within f32 rounding (``MARGIN_RTOL``, each flip
    counted in the line), f32 answers within ``ANSWER_RTOL``, the
    solvers' coefficients within ``COEF_RTOL``, t-SNE by its KL
@@ -291,7 +292,30 @@ Phases (each prints its own line; any failure exits nonzero):
    ``/predict`` requests (K1 2 per dispatch, rows within ``CPU_ATOL`` of
    the artifact on the CPU); K1 causal bf16 at the decoder's (8, 8,
    1024, 32) beside its bound and SDPA; the ``moe`` line;
-18. last line: {"ok": true, "device": {...}}.
+18. long-context training over a sequence-parallel ring
+   (``run_long_context``), ``LongContextTransformer`` at the JAX
+   package's defaults (vocab 32000, 256 wide, 4 layers of 8 heads of 32,
+   MLP 1024, 65,536 positions, 2 classes): (a) two gloo rank processes
+   on cuda:0 (``--ring-child``) hold ``ring_flash_attention`` at (2,
+   4096, 8, 32) in f32 and bf16, causal and not, with a fully masked
+   row, against ``mha_reference`` over the whole sequence (O and
+   dQ/dK/dV: f32 2e-5 / 5e-5, bf16 3e-2; the masked row exactly 0;
+   K1/K2/K3 sp per rank, s + 1 on causal rank s), and one f32 step of 2
+   rows at T = 4,096 over the ring against one device (loss and gradient
+   norm within 1e-4); meanwhile (c) a server whose leaser holds two units
+   of cuda:0 creates the model over REST, trains it with ``POST
+   /train/horovod`` and ``"mesh": {"sp": 2}`` (2 steps at T = 4,096,
+   K1/K2/K3 8 per rank per step), publishes it int8 (K4) and loads it
+   (K5) with every leaf exact, and answers 8 concurrent ``/predict``
+   requests at T = 4,096 on one device (K1 4 per dispatch; the one-row
+   request against the CPU); then (b) ``DistributedTrainer(spec=
+   MeshSpec(sp=2), devices=["cuda:0"] * 2)`` fits 4 bf16 steps of 2 rows
+   at T = 65,536 (K1/K2/K3 8 per rank per step; each rank's step ms and
+   peak memory), and K1-K3 at a ring step's (2, 8, 32768, 32) are held
+   against their plain versions in chunks of 2,048 query rows (bf16
+   3e-2, absolute and of the largest plain value), then timed beside
+   their bounds and SDPA; the ``long_context`` line;
+19. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -984,33 +1008,44 @@ def time_bwd(attention, bwd_res) -> dict:
                                          True))}
 
 
-def _time_bwd_at(attention, args, causal: bool = False) -> dict:
+def _timing_mask(b: int, t: int, device):
+    """The timed shapes' key mask: the last 37 keys of every row masked."""
+    km = torch.ones(b, t, dtype=torch.bool, device=device)
+    km[:, -37:] = False
+    return km
+
+
+def _time_bwd_at(attention, args, causal: bool = False, *,
+                 plain: bool = True, reps: int = 30) -> dict:
+    """See :func:`time_bwd`; ``plain=False`` leaves the plain versions
+    out (``plain_ms`` None: at a long T their (B, H, T, T) f32 scores do
+    not fit the card)."""
     import torch.nn.functional as F
 
     q, k, v, _, do, *_ = args
     b, h, t, d = q.shape
-    km = None
-    if not causal:
-        km = torch.ones(b, t, dtype=torch.bool, device="cuda")
-        km[:, -37:] = False
+    km = None if causal else _timing_mask(b, t, q.device)
     with torch.inference_mode():
         o, lse = attention.flash_attention_fwd(q, k, v, km, causal)
         delta = (do.float() * o.float()).sum(-1, keepdim=True)
         args = (q, k, v, km, do, lse, delta, causal)
         dq_ms = time_ms(lambda: attention.flash_attention_bwd_dq(*args),
-                        reps=30)
+                        reps=reps)
         dkv_ms = time_ms(lambda: attention.flash_attention_bwd_dkv(*args),
-                         reps=30)
-        dq_plain = time_ms(
-            lambda: attention.flash_attention_bwd_dq_plain(*args), reps=3)
-        dkv_plain = time_ms(
-            lambda: attention.flash_attention_bwd_dkv_plain(*args), reps=3)
+                         reps=reps)
         k1_ms = time_ms(
             lambda: attention.flash_attention_fwd(q, k, v, km, causal),
-            reps=30)
-        k1_plain = time_ms(
-            lambda: attention.flash_attention_fwd_plain(q, k, v, km, causal),
-            reps=3)
+            reps=reps)
+        dq_plain = dkv_plain = k1_plain = None
+        if plain:
+            dq_plain = time_ms(
+                lambda: attention.flash_attention_bwd_dq_plain(*args),
+                reps=3)
+            dkv_plain = time_ms(
+                lambda: attention.flash_attention_bwd_dkv_plain(*args),
+                reps=3)
+            k1_plain = time_ms(lambda: attention.flash_attention_fwd_plain(
+                q, k, v, km, causal), reps=3)
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
     mask4 = None if causal else km[:, None, None, :]
 
@@ -1019,8 +1054,8 @@ def _time_bwd_at(attention, args, causal: bool = False) -> dict:
                                               is_causal=causal)
 
     lib_fb = time_ms(lambda: torch.autograd.grad(lib_fwd(), (qg, kg, vg),
-                                                 do), reps=30)
-    lib_f = time_ms(lib_fwd, reps=30)
+                                                 do), reps=reps)
+    lib_f = time_ms(lib_fwd, reps=reps)
     # Causal: only the live (query, key) pairs, the diagonal included.
     pairs = t * (t + 1) // 2 if causal else t * t
     elems = b * h * t * d * q.element_size()
@@ -2136,6 +2171,11 @@ COVTYPE_FIT_ROWS = {"RandomForestClassifier": 25_000,
                     "DecisionTreeRegressor": 100_000,
                     "LogisticRegression": 100_000, "SGDClassifier": 100_000,
                     "LinearSVC": 100_000, "SVC": 50_000, "KMeans": 100_000}
+# The (shape, estimator) pairs of the CPU reference's second child: the
+# Covertype gradient boosting's host tree growth and walks over every
+# row (~70 s) run beside the first child's other ~80 s, where one child
+# in series set phase 9's critical path.
+CPU_REFERENCE_SECOND = {("covtype", "GradientBoostingClassifier")}
 TSNE_POINTS = 2000
 # Bound on the wait for one estimator's CPU reference (the slowest, the
 # Covertype gradient boosting's fit and predict, takes ~50 s alone).
@@ -2475,13 +2515,19 @@ def zoo_shapes() -> list:
             prepare_zoo_inputs(covtype_inputs())]
 
 
-def cpu_reference_child(outdir: str) -> int:
-    """Phase 9's CPU reference (``chip_smoke.py --cpu-reference DIR``): at
-    each shape, every estimator fitted and answering on the CPU, written
-    to ``DIR/<shape>_<class>.pkl`` as it finishes (the error's repr where
-    it raised), after ``DIR/<shape>.digest`` of the inputs it used.  It
-    runs beside the card's side of phase 9, so the host-bound reference
-    overlaps the card's work; it never touches the card."""
+def _reference_part(shape: str, cls: str) -> int:
+    """Which CPU-reference child answers ``cls`` at ``shape``."""
+    return int((shape, cls) in CPU_REFERENCE_SECOND)
+
+
+def cpu_reference_child(outdir: str, part: int) -> int:
+    """Phase 9's CPU reference (``chip_smoke.py --cpu-reference DIR
+    PART``): at each shape, every estimator of this part
+    (``_reference_part``) fitted and answering on the CPU, written to
+    ``DIR/<shape>_<class>.pkl`` as it finishes (the error's repr where it
+    raised), after ``DIR/<shape>.<part>.digest`` of the inputs it used.
+    It runs beside the card's side of phase 9, so the host-bound
+    reference overlaps the card's work; it never touches the card."""
     import pickle
 
     def dump(name, obj):
@@ -2491,8 +2537,12 @@ def cpu_reference_child(outdir: str) -> int:
 
     for inputs in zoo_shapes():
         shape = inputs["shape"]
-        dump(f"{shape}.digest", _inputs_digest(inputs))
-        for case in ESTIMATORS:
+        cases = [case for case in ESTIMATORS
+                 if _reference_part(shape, case[1]) == part]
+        if not cases:
+            continue
+        dump(f"{shape}.{part}.digest", _inputs_digest(inputs))
+        for case in cases:
             try:
                 res = fit_estimator(case, inputs, "cpu")
                 res.pop("x")
@@ -2504,9 +2554,9 @@ def cpu_reference_child(outdir: str) -> int:
 
 
 class CpuReference:
-    """The CPU-reference child of phase 9, started at once; ``get`` waits
-    (bounded) for one estimator's result and checks that the child built
-    the same inputs; ``stop`` ends the child."""
+    """The two CPU-reference children of phase 9, started at once; ``get``
+    waits (bounded) for one estimator's result and checks that its child
+    built the same inputs; ``stop`` ends the children."""
 
     def __init__(self, outdir: str):
         import pickle
@@ -2514,39 +2564,44 @@ class CpuReference:
         self._pickle = pickle
         self.dir = outdir
         os.makedirs(outdir, exist_ok=True)
-        # The child keeps this process's thread counts: a CPU fit's
+        # Each child keeps this process's thread counts: a CPU fit's
         # reductions, and so a 100,000-row KMeans fit's labels, depend on
         # them.
-        with open(f"{outdir}/child.log", "w") as log:
-            self.child = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--cpu-reference", outdir],
-                stdout=log, stderr=subprocess.STDOUT)
+        self.children = []
+        for part in (0, 1):
+            with open(f"{outdir}/child{part}.log", "w") as log:
+                self.children.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--cpu-reference", outdir, str(part)],
+                    stdout=log, stderr=subprocess.STDOUT))
         self._checked = set()
 
-    def _load(self, name: str):
+    def _load(self, name: str, part: int):
         path = f"{self.dir}/{name}.pkl"
         _poll(lambda: os.path.exists(path), CPU_REFERENCE_TIMEOUT_S,
-              f"CPU reference {name}", self.child)
+              f"CPU reference {name}", self.children[part])
         with open(path, "rb") as f:
             return self._pickle.load(f)
 
     def get(self, inputs, cls: str) -> dict:
         shape = inputs["shape"]
-        if shape not in self._checked:
-            if self._load(f"{shape}.digest") != _inputs_digest(inputs):
+        part = _reference_part(shape, cls)
+        if (shape, part) not in self._checked:
+            if (self._load(f"{shape}.{part}.digest", part)
+                    != _inputs_digest(inputs)):
                 raise RuntimeError(f"the CPU reference built other "
                                    f"{shape} inputs than the card's")
-            self._checked.add(shape)
-        res = self._load(f"{shape}_{cls}")
+            self._checked.add((shape, part))
+        res = self._load(f"{shape}_{cls}", part)
         if "error" in res:
             raise RuntimeError(f"CPU reference: {res['error']}")
         return res
 
     def stop(self) -> None:
-        if self.child.poll() is None:
-            self.child.kill()
-        self.child.wait()
+        for child in self.children:
+            if child.poll() is None:
+                child.kill()
+            child.wait()
 
 
 def run_estimator_zoo(inputs, cards: dict, reference: CpuReference) -> list:
@@ -5820,13 +5875,12 @@ def moe_fit(server, port, name: str, cls: str, shape: dict, x, y,
         "launches": counts}
 
 
-def moe_publish(server, port, volumes, trained, name: str) -> dict:
+def publish_int8(server, port, volumes, trained, name: str) -> dict:
     """The trained model saved as an int8 artifact (K4) and loaded by the
-    server (K5), every leaf of it held against the trained and the served
-    estimator by :func:`artifact_leaves`; at least one expert leaf must be
-    int8 (a leaf under the 4,096-element floor stays f32)."""
+    server (K5), each with the counters at 0 just before and read just
+    after, every leaf of it held against the trained and the served
+    estimator by :func:`artifact_leaves`."""
     from learningorchestra_tpu_torch.ops import quant
-    from learningorchestra_tpu_torch.ops.moe import EXPERT_LEAVES
     from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
 
     zero_kernel_counts()
@@ -5842,8 +5896,22 @@ def moe_publish(server, port, volumes, trained, name: str) -> dict:
     load_s = time.perf_counter() - t0
     served = server.serving.registry.get(name).estimator
     held = artifact_leaves(artifact, trained, served)
+    return {"artifact": artifact, "served": served, "status": status,
+            "save_s": save_s, "load_s": load_s, "k4": k4, "k5": k5,
+            "held": held, "n_launch": -(-len(held["int8"])
+                                        // quant.MAX_LEAVES)}
+
+
+def moe_publish(server, port, volumes, trained, name: str) -> dict:
+    """:func:`publish_int8` of an MoE model: at least one expert leaf must
+    be int8 (a leaf under the 4,096-element floor stays f32)."""
+    from learningorchestra_tpu_torch.ops.moe import EXPERT_LEAVES
+
+    pub = publish_int8(server, port, volumes, trained, name)
+    artifact, served, held = pub["artifact"], pub["served"], pub["held"]
+    status, k4, k5 = pub["status"], pub["k4"], pub["k5"]
+    save_s, load_s, n_launch = pub["save_s"], pub["load_s"], pub["n_launch"]
     n_quant = len(held["int8"])
-    n_launch = -(-n_quant // quant.MAX_LEAVES)
 
     def expert(leaf):
         return leaf.rsplit("/", 1)[-1] in EXPERT_LEAVES
@@ -6110,6 +6178,562 @@ def run_moe(tmp, card: str) -> dict:
     finally:
         server.shutdown()
     torch.cuda.empty_cache()
+    line["launches"] = launches
+    line["phase_s"] = time.perf_counter() - t_phase
+    name, _, limit = card.partition(",")
+    line = {"card": name.strip(), "power_limit": limit.strip(), **line}
+    return {"line": line, "launches": launches}
+
+
+# -- phase 18: long-context training over a sequence-parallel ring -----------
+
+# LongContextTransformer at the JAX package's defaults
+# (learningorchestra_tpu/models/longcontext.py:101): vocab 32000, 256 wide,
+# 4 layers of 8 heads (head dim 32), MLP 1024, 65,536 positions, 2
+# classes, not causal.  Depth is not cut; the fits are a few steps.
+LONG_PATH = "learningorchestra_tpu.models.longcontext"
+LONG_MODEL = "long_ctx"
+LONG_SHAPE = {"vocab_size": 32000, "hidden_dim": 256, "num_layers": 4,
+              "num_heads": 8, "mlp_dim": 1024, "max_len": 65536,
+              "num_classes": 2, "causal": False}
+LONG_SP = 2  # two gloo ranks on the one card
+LONG_DEVICE = "cuda:0"
+LONG_CHECK = (2, 4096, 8, 32)  # (a): the ring against plain, (B, T, H, D)
+LONG_STEP_T = 4096  # (a)'s f32 step, (c)'s REST fit and /predict
+LONG_STEP_BAR = 1e-4  # the f32 sp = 2 step against one device
+# Its largest leaf difference over that leaf's largest gradient: sound
+# runs read 5.5e-5; an sp-sum fault in a token-local leaf reads of
+# order 1.
+LONG_LEAF_BAR = 1e-3
+LONG_FIT_T, LONG_FIT_EPOCHS = 65536, 4  # (b): 4 steps of 2 rows
+LONG_REST_ROWS = 4  # (c): 2 steps of a global batch of 2
+LONG_PREDICTS = 8
+# Query rows per chunk of the plain version at a ring step's (2, 8,
+# 32768, 32): 4.3 GB of f32 scores a chunk, where whole rows take 68.7 GB.
+LONG_PLAIN_CHUNK = 2048
+LONG_BF16_TOL = 3e-2
+RING_CHILD_TIMEOUT_S = 300
+
+
+def long_rows(n: int, t: int, seed: int) -> np.ndarray:
+    """``n`` seeded rows of ``t`` ids in the model's vocabulary; the last
+    row ends in a pad tail of t/8 (pad id 0)."""
+    x = np.random.default_rng(seed).integers(
+        1, LONG_SHAPE["vocab_size"], (n, t)).astype(np.int32)
+    x[-1, t - t // 8:] = 0
+    return x
+
+
+def ring_child(tmp: str, rank: int) -> int:
+    """(a) of phase 18 in one of two gloo ranks on cuda:0 (``python3
+    chip_smoke.py --ring-child DIR RANK``): the port's ``DataParallel``
+    makes the sp = 2 ring; ``ring_flash_attention`` at ``LONG_CHECK`` in
+    f32 and bf16, causal and not, with a key mask holding a fully masked
+    row, its O and dQ/dK/dV (the backward of sum(O * cotangent)) held
+    against ``mha_reference`` over the whole sequence at this rank's
+    tokens, the masked row exactly 0, K1/K2/K3 counted per case; then one
+    f32 train step of the full-width model at T = LONG_STEP_T over the
+    ring (the loss divided by sp, the gradients summed over the ranks) and,
+    on rank 0, the same step on one device from the same seed.  Writes
+    ``DIR/rank<r>.json``."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from learningorchestra_tpu_torch.models.longcontext import (
+        LongContextTransformer,
+    )
+    from learningorchestra_tpu_torch.ops.attention import mha_reference
+    from learningorchestra_tpu_torch.parallel.distributed import (
+        DataParallel,
+        init_process_group,
+    )
+    from learningorchestra_tpu_torch.parallel.ring_attention import (
+        ring_flash_attention,
+    )
+    from learningorchestra_tpu_torch.parallel.sharding import sequence_slice
+
+    stage = Path(tmp)
+    dev = torch.device(LONG_DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_process_group(stage, rank, LONG_SP, "gloo")
+    dp = DataParallel(rank, LONG_SP, dev, "gloo", stage / "cancel",
+                      sp=LONG_SP)
+    ring = dp.ring
+    b, t, h, d = LONG_CHECK
+    toks = sequence_slice(t, ring.index, LONG_SP)
+    out: dict = {"rank": rank, "sp_index": ring.index, "cases": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            gen = torch.Generator().manual_seed(7)
+            q, k, v, g = (torch.randn(b, t, h, d, generator=gen)
+                          for _ in range(4))
+            km = torch.rand(b, t, generator=gen) > 0.1
+            km[:, 0] = True
+            km[1] = False  # row 1: no valid key
+            q, k, v = (x.to(dev, dtype) for x in (q, k, v))
+            g, km = g.to(dev), km.to(dev)
+            mine = [x[:, toks].clone().requires_grad_() for x in (q, k, v)]
+            zero_kernel_counts()
+            o = ring_flash_attention(*mine, ring=ring, kmask=km[:, toks],
+                                     causal=causal)
+            (o.float() * g[:, toks]).sum().backward()
+            counts = kernel_counts()
+            whole = [x.float().requires_grad_() for x in (q, k, v)]
+            ref = mha_reference(*(x.transpose(1, 2) for x in whole), km,
+                                causal).transpose(1, 2)
+            (ref * g).sum().backward()
+            errs = {"o": max_abs(o.float(), ref[:, toks])}
+            for name, mine_x, whole_x in zip(("dq", "dk", "dv"), mine,
+                                             whole):
+                errs[name] = max_abs(mine_x.grad.float(),
+                                     whole_x.grad[:, toks])
+            steps = ring.index + 1 if causal else LONG_SP
+            out["cases"].append({
+                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+                "errs": errs, "masked_row_zero": bool((o[1] == 0).all()),
+                "finite": bool(torch.isfinite(o).all()),
+                "launches": counts, "want": steps})
+            del q, k, v, g, mine, whole, ref, o
+    # The f32 step at full width: sp = 2 against one device.
+    x = long_rows(2, LONG_STEP_T, seed=5)
+    y = torch.tensor([0, 1], device=dev)
+    est = LongContextTransformer(**LONG_SHAPE, seed=0, device=dev)
+    loss_fn = est._loss_and_metrics("softmax_ce")
+    ones = torch.ones(2, device=dev)
+    est.bind_mesh(ring)
+    zero_kernel_counts()
+    cut = sequence_slice(LONG_STEP_T, ring.index, LONG_SP)
+    logits = est.module(torch.from_numpy(x[:, cut]).to(dev))
+    loss, _ = loss_fn(logits.float(), y, ones)
+    (loss / LONG_SP).backward()
+    dp.sync_grads(est.module)
+    step_counts = kernel_counts()
+    est.bind_mesh(None)
+    grads = {n: p.grad for n, p in est.module.named_parameters()}
+    out["step"] = {"loss": float(loss), "launches": step_counts,
+                   "grad_norm": float(torch.sqrt(sum(
+                       (gr.double() ** 2).sum() for gr in grads.values())))}
+    if rank == 0:
+        one = LongContextTransformer(**LONG_SHAPE, seed=0, device=dev)
+        zero_kernel_counts()
+        loss1, _ = loss_fn(one.module(torch.from_numpy(x).to(dev)).float(),
+                           y, ones)
+        loss1.backward()
+        one_counts = kernel_counts()
+        ref_grads = {n: p.grad for n, p in one.module.named_parameters()}
+        out["single"] = {
+            "loss": float(loss1), "launches": one_counts,
+            "grad_norm": float(torch.sqrt(sum(
+                (gr.double() ** 2).sum() for gr in ref_grads.values()))),
+            # The largest leaf difference over that leaf's largest entry.
+            "max_leaf_rel": max(
+                float((grads[n] - gr).abs().max()
+                      / gr.abs().max().clamp_min(1e-30))
+                for n, gr in ref_grads.items())}
+    with open(stage / f"rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def ring_results(procs: list, stage: str) -> tuple:
+    """(a): wait for the ring children (bounded), read their results,
+    print the ring and the f32 step's phase lines."""
+    deadline = time.monotonic() + RING_CHILD_TIMEOUT_S
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    res = []
+    for r, proc in enumerate(procs):
+        path = os.path.join(stage, f"rank{r}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(stage, f"rank{r}.log"), "rb") as fh:
+                tail = fh.read()[-3000:].decode(errors="replace")
+            raise RuntimeError(f"ring child {r} exited {proc.returncode}:"
+                               f"\n{tail}")
+        with open(path) as fh:
+            res.append(json.load(fh))
+    tol = {"float32": {"o": 2e-5, "dq": 5e-5, "dk": 5e-5, "dv": 5e-5},
+           "bfloat16": {"o": 3e-2, "dq": 3e-2, "dk": 3e-2, "dv": 3e-2}}
+    ok, worst = True, {}
+    for child in res:
+        for case in child["cases"]:
+            bar = tol[case["dtype"]]
+            n = case["want"]
+            ok &= all(case["errs"][k] <= bar[k] for k in bar) and \
+                case["masked_row_zero"] and case["finite"] and all(
+                    case["launches"][k] == n for k in (
+                        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+            key = f"{case['dtype']}{' causal' if case['causal'] else ''}"
+            prev = worst.setdefault(key, {k: 0.0 for k in bar})
+            for k in bar:
+                prev[k] = max(prev[k], case["errs"][k])
+    launches = {f"rank{c['rank']}": {
+        f"{case['dtype']}{'_causal' if case['causal'] else ''}":
+        [case["launches"][k] for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")]
+        for case in c["cases"]} for c in res}
+    b, t, h, d = LONG_CHECK
+    phase("long context ring", ok,
+          f"ring_flash_attention over 2 gloo ranks on {LONG_DEVICE} at "
+          f"(B, T, H, "
+          f"D) = {LONG_CHECK}, each rank {t // LONG_SP} tokens, a key mask "
+          f"with row 1 fully masked; O and dQ/dK/dV against mha_reference "
+          f"over the whole sequence, max|d| by case {worst} (f32 bars 2e-5 "
+          f"/ 5e-5, bf16 3e-2); masked row exactly 0 on every rank; K1/K2/"
+          f"K3 per rank {launches} (want sp = {LONG_SP} each, a causal "
+          f"rank s: s + 1)")
+    one = res[0]["single"]
+    step = [c["step"] for c in res]
+    d_loss = abs(step[0]["loss"] - one["loss"])
+    d_norm = abs(step[0]["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    layers = LONG_SHAPE["num_layers"]
+    ok = d_loss <= LONG_STEP_BAR and d_norm <= LONG_STEP_BAR \
+        and one["max_leaf_rel"] <= LONG_LEAF_BAR and all(
+        s["loss"] == step[0]["loss"] and s["grad_norm"] == step[0][
+            "grad_norm"] for s in step) and all(
+        s["launches"][k] == layers * LONG_SP for s in step
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    phase("long context f32 step", ok,
+          f"LongContextTransformer({LONG_SHAPE}) f32, one step of 2 rows "
+          f"at T={LONG_STEP_T} (the second with a pad tail): sp = 2 loss "
+          f"{step[0]['loss']:.7f}, grad norm {step[0]['grad_norm']:.7g} "
+          f"(equal on both ranks: {all(s == step[0] for s in step)}); one "
+          f"device loss {one['loss']:.7f}, grad norm "
+          f"{one['grad_norm']:.7g}: |d loss| {d_loss:.3g}, grad norm rel "
+          f"{d_norm:.3g} (bar {LONG_STEP_BAR}), largest leaf difference / "
+          f"its largest gradient {one['max_leaf_rel']:.3g} (bar "
+          f"{LONG_LEAF_BAR}); K1/K2/K3 per "
+          f"rank {[s['launches']['flash_fwd'] for s in step]} (want "
+          f"{layers} layers x {LONG_SP} steps), one device "
+          f"{one['launches']['flash_fwd']}")
+    return ({"max_abs_err": worst, "launches": launches},
+            {"sp2": step[0], "single": one, "loss_abs_diff": d_loss,
+             "grad_norm_rel_diff": d_norm})
+
+
+def long_fit() -> dict:
+    """(b): ``DistributedTrainer(spec=MeshSpec(sp=2))`` over two gloo
+    ranks on cuda:0 fits the full-width model 4 bf16 steps of 2 rows at
+    T = 65,536 (each rank 32,768 tokens of each row)."""
+    from learningorchestra_tpu_torch.models.longcontext import (
+        LongContextTransformer,
+    )
+    from learningorchestra_tpu_torch.parallel import (
+        DistributedTrainer,
+        MeshSpec,
+    )
+
+    est = LongContextTransformer(**LONG_SHAPE, seed=0,
+                                 device=LONG_DEVICE)
+    x = long_rows(2, LONG_FIT_T, seed=11)
+    y = np.array([0, 1], np.int32)
+    trainer = DistributedTrainer(est, spec=MeshSpec(sp=LONG_SP),
+                                 devices=[LONG_DEVICE] * LONG_SP)
+    t0 = time.perf_counter()
+    trainer.fit(x, y, epochs=LONG_FIT_EPOCHS, batch_size=2, shuffle=False)
+    fit_s = time.perf_counter() - t0
+    layers = LONG_SHAPE["num_layers"]
+    want = layers * LONG_SP * LONG_FIT_EPOCHS
+    ranks = [{"rank": s["rank"], "sp_index": s["sp_index"],
+              "launches": s["launches"], "step_ms": s["step_ms"],
+              "sync_ms": s["sync_ms"],
+              "peak_gib": s.get("peak_memory_bytes", 0) / 2**30,
+              "spawn_to_first_step_s": s["spawn_to_first_step_s"]}
+             for s in trainer.rank_stats]
+    losses = list(trainer.history["loss"])
+    ok = trainer.backend == "gloo" and len(ranks) == LONG_SP and all(
+        len(r["step_ms"]) == LONG_FIT_EPOCHS and all(
+            r["launches"][k] == want for k in (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        for r in ranks) and len(losses) == LONG_FIT_EPOCHS and all(
+        math.isfinite(v) for v in losses)
+    phase("long context fit", ok,
+          f"DistributedTrainer(LongContextTransformer(), MeshSpec(sp=2), "
+          f"devices=['{LONG_DEVICE}'] x 2, {trainer.backend}): "
+          f"{LONG_FIT_EPOCHS} "
+          f"bf16 steps of 2 rows at T={LONG_FIT_T} ({LONG_FIT_T // LONG_SP}"
+          f" tokens a rank): losses {losses}; per rank step ms "
+          f"{[[round(v, 1) for v in r['step_ms']] for r in ranks]} (the "
+          f"gradient all-reduce "
+          f"{[[round(v, 1) for v in r['sync_ms']] for r in ranks]}), peak "
+          f"memory {[round(r['peak_gib'], 2) for r in ranks]} GiB; K1/K2/"
+          f"K3 per rank {[[r['launches'][k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')] for r in ranks]} "
+          f"(want {layers} layers x sp {LONG_SP} x {LONG_FIT_EPOCHS} steps"
+          f" = {want}); fit {fit_s:.1f}s, spawn to first step "
+          f"{[round(r['spawn_to_first_step_s'], 1) for r in ranks]} s")
+    return {"losses": losses, "fit_s": fit_s, "ranks": ranks,
+            "want_per_rank": want}
+
+
+def long_rest(tmp, card: str) -> tuple:
+    """(c): the port's server with two lease units of cuda:0: the model
+    created over REST at its defaults, ``POST /train/horovod`` with
+    ``"mesh": {"sp": 2}`` at T = LONG_STEP_T, the trained model published
+    int8 (K4) and loaded (K5) with every leaf held by
+    :func:`artifact_leaves`, then ``LONG_PREDICTS`` concurrent
+    ``/predict`` requests through K1 on one device, the one-row request
+    against the artifact on the CPU."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    line: dict = {}
+    launches: dict = {}
+    layers = LONG_SHAPE["num_layers"]
+    server = APIServer(server_config(tmp), device=LONG_DEVICE)
+    port = server.start_background()
+    server.ctx.leaser = server.ctx.engine.leaser = DeviceLeaser(
+        [LONG_DEVICE] * LONG_SP)
+    probe = TrainerProbe()
+    try:
+        status, meta, model_s, _ = rest_job(
+            port, "POST", "/model/tensorflow",
+            {"name": LONG_MODEL, "modulePath": LONG_PATH,
+             "class": "LongContextTransformer",
+             "classParameters": {"seed": 0}}, LONG_MODEL)
+        phase("long context model", status == 201
+              and bool(meta.get("finished")),
+              f"POST /model/tensorflow {LONG_PATH}.LongContextTransformer "
+              f"-> {status}, finished {meta.get('finished')} in "
+              f"{model_s:.2f}s")
+        x = long_rows(LONG_REST_ROWS, LONG_STEP_T, seed=13)
+        y = (np.arange(LONG_REST_ROWS) % 2).astype(np.int32)
+        fit_name = f"{LONG_MODEL}_fit"
+        status, meta, fit_s, parent = rest_job(
+            port, "POST", "/train/horovod",
+            {"name": fit_name, "parentName": LONG_MODEL,
+             "trainingParameters": {"x": x.tolist(), "y": y.tolist(),
+                                    "epochs": 1, "batch_size": 2,
+                                    "shuffle": False},
+             "mesh": {"sp": LONG_SP}}, fit_name)
+        fit = probe.fits[-1] if probe.fits else {"rank_stats": [],
+                                                 "world": 0}
+        steps = LONG_REST_ROWS // 2
+        want = layers * LONG_SP * steps
+        ranks = [s["launches"] for s in fit["rank_stats"]]
+        launches["rest_ranks"] = ranks
+        _, rows = request(port, "GET", f"/train/horovod/{fit_name}")
+        history = [r.get("loss") for r in rows
+                   if r.get("docType") == "history"]
+        phase("long context rest fit", status == 201
+              and bool(meta.get("finished")) and fit["world"] == LONG_SP
+              and meta.get("mesh") == {"sp": LONG_SP} and len(history) == 1
+              and all(math.isfinite(v) for v in history)
+              and len(ranks) == LONG_SP and all(
+                  r[k] == want for r in ranks for k in (
+                      "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+              f"POST /train/horovod mesh {{'sp': {LONG_SP}}}, {LONG_REST_ROWS}"
+              f" rows at T={LONG_STEP_T}, batch 2: {meta.get('jobState')} "
+              f"in {fit_s:.2f}s (fitTime {meta.get('fitTime')}), world "
+              f"{fit['world']}, loss {history}; K1/K2/K3 per rank "
+              f"{[[r[k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')] for r in ranks]}"
+              f" (want {want}), parent {parent}")
+        line["fit"] = {"job_s": fit_s, "fit_time_s": meta.get("fitTime"),
+                       "losses": history, "rank_stats": [
+                           {"rank": s["rank"], "step_ms": s["step_ms"],
+                            "spawn_to_first_step_s":
+                            s["spawn_to_first_step_s"]}
+                           for s in fit["rank_stats"]]}
+        trained = server.ctx.volumes.load_estimator(
+            "train/tensorflow", fit_name, device=LONG_DEVICE)
+        name = f"{LONG_MODEL}_int8"
+        pub = publish_int8(server, port, server.ctx.volumes, trained, name)
+        held = pub["held"]
+        launches["publish"], launches["load"] = pub["k4"], pub["k5"]
+        phase("long context int8 artifact", pub["status"] == 200
+              and not held["bad"] and len(held["int8"]) > 0
+              and pub["k4"]["quantize_rowwise"] == pub["n_launch"]
+              and pub["k5"]["dequantize_rowwise"] == pub["n_launch"],
+              f"save {pub['save_s']:.2f}s (K4 {pub['k4']['quantize_rowwise']}"
+              f" launch over {len(held['int8'])} leaves), POST /serve/{name}/"
+              f"load -> {pub['status']} in {pub['load_s']:.2f}s (K5 "
+              f"{pub['k5']['dequantize_rowwise']}; want {pub['n_launch']} "
+              f"each); every leaf: {len(held['int8'])} int8 (bits equal to "
+              f"the plain quantize, served values equal to the plain "
+              f"dequantize, max|d| {held['max_abs_err']}), "
+              f"{len(held['f32'])} f32 served unchanged; failing "
+              f"{held['bad']}")
+        line["artifact"] = {"save_s": pub["save_s"], "load_s": pub["load_s"],
+                            "int8_leaves": len(held["int8"]),
+                            "f32_leaves": len(held["f32"])}
+        rng = np.random.default_rng(37)
+        reqs = [long_rows(1 if i == 0 else int(rng.integers(1, 5)),
+                          LONG_STEP_T, seed=50 + i)
+                for i in range(LONG_PREDICTS)]
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(LONG_PREDICTS) as pool:
+            answers = list(pool.map(lambda r: request(
+                port, "POST", f"/serve/{name}/predict",
+                {"instances": r.tolist()}), reqs))
+        wall_s = time.perf_counter() - t0
+        launches["predict"] = kernel_counts()
+        _, listing = request(port, "GET", "/serve")
+        dispatches = listing["stats"]["models"][name]["batches"]
+        preds = [np.asarray(b.get("predictions", []), np.float32)
+                 for _, b in answers]
+        ok = all(s == 200 and p.shape == (len(r), 2)
+                 and bool(np.isfinite(p).all())
+                 for (s, _), p, r in zip(answers, preds, reqs))
+        t_cpu = time.perf_counter()
+        ref = load_artifact(pub["artifact"], device="cpu").predict(reqs[0])
+        cpu_s = time.perf_counter() - t_cpu
+        err = float(np.abs(preds[0] - ref).max()) if ok else math.inf
+        lat = sorted(b.get("latencyMs", 0.0) for _, b in answers)
+        phase("long context predict", ok and err <= CPU_ATOL
+              and launches["predict"]["flash_fwd"] == layers * dispatches,
+              f"{LONG_PREDICTS} concurrent POST /serve/{name}/predict of "
+              f"{[len(r) for r in reqs]} rows at T={LONG_STEP_T}: statuses "
+              f"{sorted({s for s, _ in answers})}, {dispatches} dispatches, "
+              f"K1 {launches['predict']['flash_fwd']} (want {layers} x "
+              f"{dispatches}); the one-row request against the int8 "
+              f"artifact on the CPU max|d| {err:.3g} (atol {CPU_ATOL}; CPU "
+              f"{cpu_s:.1f}s)")
+        line["predict"] = {"requests": LONG_PREDICTS, "wall_s": wall_s,
+                           "dispatches": dispatches,
+                           "latency_ms_p50": lat[len(lat) // 2],
+                           "latency_ms_max": lat[-1],
+                           "cpu_max_abs_err": err}
+    finally:
+        probe.close()
+        server.shutdown()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def ring_step_kernels(attention) -> dict:
+    """K1, K2 and K3 in bf16 at a ring step's shape, (2, 8, 32768, 32)
+    non-causal with the timed shapes' key mask: each held against its
+    plain version run in chunks of ``LONG_PLAIN_CHUNK`` query rows against
+    every key (K2 and K3 on the kernel's own LSE and delta; K3's dK/dV
+    partials summed over the chunks in f32): O, LSE, dQ, dK and dV within
+    ``LONG_BF16_TOL`` of the plain values and of their largest magnitude;
+    then timed beside their bounds and SDPA's forward and backward with
+    the same mask, ``plain_ms`` the chunks' summed device time."""
+    h = LONG_SHAPE["num_heads"]
+    b, t, d = 2, LONG_FIT_T // LONG_SP, LONG_SHAPE["hidden_dim"] // h
+    gen = torch.Generator(device=LONG_DEVICE).manual_seed(3)
+    q, k, v, do = (torch.randn(b, h, t, d, device=LONG_DEVICE, generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    km = _timing_mask(b, t, q.device)
+
+    def once(fn):
+        out = []
+        return out, time_ms(lambda: out.append(fn()), reps=1, warmup=0)
+
+    with torch.inference_mode():
+        o, lse = attention.flash_attention_fwd(q, k, v, km, False)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        bwd = (km, do, lse, delta, False)
+        dq = attention.flash_attention_bwd_dq(q, k, v, *bwd)
+        dk, dv = attention.flash_attention_bwd_dkv(q, k, v, *bwd)
+        mine = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+        err = dict.fromkeys(mine, 0.0)
+        top = dict.fromkeys(mine, 0.0)
+        plain_ms = {"k1": 0.0, "dq": 0.0, "dkv": 0.0}
+        dk_ref = torch.zeros(dk.shape, device=q.device)
+        dv_ref = torch.zeros(dv.shape, device=q.device)
+        for i in range(0, t, LONG_PLAIN_CHUNK):
+            rows = slice(i, i + LONG_PLAIN_CHUNK)
+            qc, doc = q[:, :, rows], do[:, :, rows]
+            cut = (km, doc, lse[:, :, rows], delta[:, :, rows], False)
+            got, ms = once(lambda: attention.flash_attention_fwd_plain(
+                qc, k, v, km, False))
+            plain_ms["k1"] += ms
+            got_dq, ms = once(lambda: attention.flash_attention_bwd_dq_plain(
+                qc, k, v, *cut))
+            plain_ms["dq"] += ms
+            got_dkv, ms = once(
+                lambda: attention.flash_attention_bwd_dkv_plain(qc, k, v,
+                                                                *cut))
+            plain_ms["dkv"] += ms
+            dk_ref += got_dkv[0][0].float()
+            dv_ref += got_dkv[0][1].float()
+            for name, ref in (("o", got[0][0]), ("lse", got[0][1]),
+                              ("dq", got_dq[0])):
+                err[name] = max(err[name], max_abs(mine[name][:, :, rows],
+                                                   ref))
+                top[name] = max(top[name], float(ref.float().abs().max()))
+            del got, got_dq, got_dkv
+        for name, ref in (("dk", dk_ref), ("dv", dv_ref)):
+            err[name] = max_abs(mine[name], ref)
+            top[name] = float(ref.abs().max())
+        finite = all(bool(torch.isfinite(x).all()) for x in mine.values())
+        del mine, dk_ref, dv_ref, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    # LSE (~log T) by its absolute error alone; the others also against
+    # their largest magnitude, which at T = 32,768 is far below 1.
+    ok = finite and all(
+        err[n] <= LONG_BF16_TOL
+        and (n == "lse" or err[n] <= LONG_BF16_TOL * top[n]) for n in err)
+    out = _time_bwd_at(attention, (q, k, v, None, do), plain=False, reps=5)
+    for key, ms in plain_ms.items():
+        out[key]["plain_ms"] = ms
+    out["check"] = {"max_abs_err": err, "max_abs_ref": top,
+                    "chunk_rows": LONG_PLAIN_CHUNK, "finite": finite}
+    phase("long context ring step kernels", ok,
+          f"K1/K2/K3 bf16 at a ring step's {tuple(q.shape)}, key mask "
+          f"(last 37 keys), against their plain versions in "
+          f"{t // LONG_PLAIN_CHUNK} chunks of {LONG_PLAIN_CHUNK} query rows"
+          f": max|d| {err}, largest |plain| {top} (bar {LONG_BF16_TOL} "
+          f"absolute and of the largest |plain|, LSE absolute only); "
+          f"finite {finite}; plain ms {plain_ms}")
+    return out
+
+
+def run_long_context(tmp, card: str) -> dict:
+    """Phase 18: long-context training over the sequence-parallel ring.
+    (a) two gloo rank processes on cuda:0 (``--ring-child``) check the
+    flash ring against the plain version and the f32 sp = 2 step against
+    one device, while (c) drives the REST path (``/train/horovod`` with
+    ``{"sp": 2}``, the int8 artifact, ``/predict``); then (b) the 4-step
+    bf16 fit at T = 65,536 through ``DistributedTrainer``, and K1-K3
+    checked and timed at a ring step's shape; the ``long_context``
+    line."""
+    from learningorchestra_tpu_torch.ops import attention
+
+    t_phase = time.perf_counter()
+    line: dict = {}
+    stage = os.path.join(tmp, "ring")
+    os.makedirs(stage)
+    logs = [open(os.path.join(stage, f"rank{r}.log"), "wb")
+            for r in range(LONG_SP)]
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ring-child", stage,
+         str(r)], stdout=logs[r], stderr=subprocess.STDOUT,
+        stdin=subprocess.DEVNULL, env=env) for r in range(LONG_SP)]
+    try:
+        line["rest"], launches = long_rest(os.path.join(tmp, "rest"), card)
+        line["ring"], line["f32_step"] = ring_results(procs, stage)
+        line["fit"] = long_fit()
+        launches["fit_ranks"] = [r["launches"] for r in line["fit"]["ranks"]]
+        line["timing"] = ring_step_kernels(attention)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in logs:
+            fh.close()
+    t = line["timing"]
+    print(f"[info] long context kernels at {tuple(t['shape'])} bf16, "
+          f"non-causal, key mask: K1 {t['k1']['ms']:.3f} ms "
+          f"(bound {t['k1']['bound_ms']:.3f}), K2 {t['dq']['ms']:.3f} "
+          f"(bound {t['dq']['bound_ms']:.3f}), K3 {t['dkv']['ms']:.3f} "
+          f"(bound {t['dkv']['bound_ms']:.3f}); SDPA forward "
+          f"{t['library_fwd_ms']:.3f}, backward {t['library_bwd_ms']:.3f}",
+          flush=True)
     line["launches"] = launches
     line["phase_s"] = time.perf_counter() - t_phase
     name, _, limit = card.partition(",")
@@ -6393,6 +7017,24 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     moe_s = time.perf_counter() - t_moe
+
+    # Phase 18: long-context training over the sequence-parallel ring,
+    # its REST path, the int8 artifact and /predict.
+    tmp, t_long = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        long = run_long_context(tmp, card)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("long context", False, repr(exc))
+        long = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    long_s = time.perf_counter() - t_long
+    long_l = long["launches"]
+    # bf16 K1-K3 in every rank of the two sp = 2 fits, K4 at the
+    # publication, K5 at the load, f32 K1 in the /predict dispatches.
+    long_train = list(long_l.get("fit_ranks", [])) + list(
+        long_l.get("rest_ranks", []))
     moe_l = moe["launches"]
     # bf16 K1-K3 in the two fits (and K1 in the bf16 forward), f32 K1 in
     # the card-vs-CPU forward and the classifier's serving, K4 at the two
@@ -6461,7 +7103,8 @@ def main() -> int:
          + rest_sum("flash_fwd", [fleet_l.get("fleet_predict")])
          + rest_sum("flash_fwd", [pc_l.get("serve")])
          + rest_sum("flash_fwd", ws_f32)
-         + rest_sum("flash_fwd", moe_f32),
+         + rest_sum("flash_fwd", moe_f32)
+         + rest_sum("flash_fwd", [long_l.get("predict")]),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
@@ -6475,7 +7118,9 @@ def main() -> int:
                                              [pc_l.get("serve")]),
              "warm_start_serve_and_capture": rest_sum("flash_fwd",
                                                       ws_f32),
-             "moe_forward_and_predict": rest_sum("flash_fwd", moe_f32)},
+             "moe_forward_and_predict": rest_sum("flash_fwd", moe_f32),
+             "long_context_predict": rest_sum("flash_fwd",
+                                              [long_l.get("predict")])},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -6491,7 +7136,8 @@ def main() -> int:
          + rest_sum("flash_fwd", [dec_l.get("train")])
          + rest_sum("flash_fwd", pc_train)
          + rest_sum("flash_fwd", ws_train)
-         + rest_sum("flash_fwd", moe_train + [moe_l.get("forward_bf16")]),
+         + rest_sum("flash_fwd", moe_train + [moe_l.get("forward_bf16")])
+         + rest_sum("flash_fwd", long_train),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -6505,7 +7151,8 @@ def main() -> int:
                                                       pc_train),
              "warm_start_train": rest_sum("flash_fwd", ws_train),
              "moe_train_and_forward": rest_sum(
-                 "flash_fwd", moe_train + [moe_l.get("forward_bf16")])},
+                 "flash_fwd", moe_train + [moe_l.get("forward_bf16")]),
+             "long_context_ranks": rest_sum("flash_fwd", long_train)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -6525,7 +7172,8 @@ def main() -> int:
          + rest_sum("quantize_rowwise", [dec_l.get("publish")])
          + rest_sum("quantize_rowwise", pc_train)
          + rest_sum("quantize_rowwise", ws_train)
-         + rest_sum("quantize_rowwise", moe_k4),
+         + rest_sum("quantize_rowwise", moe_k4)
+         + rest_sum("quantize_rowwise", [long_l.get("publish")]),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
@@ -6540,7 +7188,9 @@ def main() -> int:
              "program_cache_train_and_tune": rest_sum("quantize_rowwise",
                                                       pc_train),
              "warm_start_train": rest_sum("quantize_rowwise", ws_train),
-             "moe_publish": rest_sum("quantize_rowwise", moe_k4)},
+             "moe_publish": rest_sum("quantize_rowwise", moe_k4),
+             "long_context_publish": rest_sum("quantize_rowwise",
+                                              [long_l.get("publish")])},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -6560,7 +7210,8 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", [pc_l.get("serve"),
                                            pc_l.get("decoder_load")])
          + rest_sum("dequantize_rowwise", ws_k5)
-         + rest_sum("dequantize_rowwise", moe_k5),
+         + rest_sum("dequantize_rowwise", moe_k5)
+         + rest_sum("dequantize_rowwise", [long_l.get("load")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -6580,7 +7231,9 @@ def main() -> int:
                  "dequantize_rowwise", [pc_l.get("serve"),
                                         pc_l.get("decoder_load")]),
              "warm_start_loads": rest_sum("dequantize_rowwise", ws_k5),
-             "moe_loads": rest_sum("dequantize_rowwise", moe_k5)},
+             "moe_loads": rest_sum("dequantize_rowwise", moe_k5),
+             "long_context_load": rest_sum("dequantize_rowwise",
+                                           [long_l.get("load")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -6598,7 +7251,8 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", [dec_l.get("train")])
            + rest_sum(f"flash_bwd_{key}", pc_train)
            + rest_sum(f"flash_bwd_{key}", ws_train)
-           + rest_sum(f"flash_bwd_{key}", moe_train),
+           + rest_sum(f"flash_bwd_{key}", moe_train)
+           + rest_sum(f"flash_bwd_{key}", long_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -6612,7 +7266,9 @@ def main() -> int:
                "program_cache_train_and_tune": rest_sum(
                    f"flash_bwd_{key}", pc_train),
                "warm_start_train": rest_sum(f"flash_bwd_{key}", ws_train),
-               "moe_train": rest_sum(f"flash_bwd_{key}", moe_train)},
+               "moe_train": rest_sum(f"flash_bwd_{key}", moe_train),
+               "long_context_ranks": rest_sum(f"flash_bwd_{key}",
+                                              long_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -6697,13 +7353,15 @@ def main() -> int:
           flush=True)
     print("warm_start " + json.dumps(warm["line"], default=str), flush=True)
     print("moe " + json.dumps(moe["line"], default=str), flush=True)
+    print("long_context " + json.dumps(long["line"], default=str),
+          flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
           f"{drill_s:.1f}, text pipeline {text_s:.1f}, distributed "
           f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f}, "
           f"program cache {pc_s:.1f}, warm start {ws_s:.1f}, moe "
-          f"{moe_s:.1f})", flush=True)
+          f"{moe_s:.1f}, long context {long_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
@@ -6729,7 +7387,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--crash-drill-child"]:
         sys.exit(crash_child(sys.argv[2]))
     if sys.argv[1:2] == ["--cpu-reference"]:
-        sys.exit(cpu_reference_child(sys.argv[2]))
+        sys.exit(cpu_reference_child(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--aot-child"]:
         sys.exit(aot_child(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--ring-child"]:
+        sys.exit(ring_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

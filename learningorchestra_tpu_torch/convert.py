@@ -10,6 +10,8 @@ the carry is a per-leaf layout change:
 - ``Dense``/``DenseGeneral`` ``kernel`` (in, *features) <-> ``nn.Linear``
   ``weight`` (prod(features), in); ``bias`` (*features) <-> (prod,);
   a Dense without a bias (the LSTM cell's input kernels) has no ``bias``;
+  the long-context attention's ``qkv`` kernel (hidden, 3, H, D) is the
+  one 4-D DenseGeneral kernel (its bias (3, H, D));
 - ``Conv`` ``kernel`` HWIO (kh, kw, cin/groups, cout) <-> ``nn.Conv2d``
   ``weight`` OIHW (cout, cin/groups, kh, kw); a depthwise kernel
   (kh, kw, 1, C) is (C, 1, kh, kw);
@@ -23,8 +25,8 @@ the carry is a per-leaf layout change:
 A flax tree is the variables dict ``{"params": {...}}`` whose leaves are
 numpy arrays (or tensors, e.g. a dequantized artifact on the card).  A
 0-d leaf (an optimizer's per-parameter scalar, as novograd's ``nu``)
-keeps its layout both ways.  The port's Dense kernels are at most 3-D,
-so a 4-D ``kernel`` is a conv's.
+keeps its layout both ways.  The port's Dense kernels are at most 3-D
+but ``qkv``'s, so any other 4-D ``kernel`` is a conv's.
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(x if x.flags.writeable else x.copy())
 
 
+#: Nodes whose 4-D ``kernel`` is a DenseGeneral's, not a conv's: the
+#: long-context attention's ``qkv`` (hidden, 3, H, D).
+_DENSE_GENERAL_4D = (".qkv.",)
+
+
 def params_from_jax(tree) -> dict[str, torch.Tensor]:
     """Flax variables ``{"params": ...}`` -> a state_dict for the port's
     module of the same architecture."""
@@ -59,7 +66,8 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
                 out[prefix + key] = t
             elif t.dim() == 0:
                 out[prefix + ("bias" if key == "bias" else "weight")] = t
-            elif key == "kernel" and t.dim() == 4:
+            elif key == "kernel" and t.dim() == 4 and \
+                    not ("." + prefix).endswith(_DENSE_GENERAL_4D):
                 out[prefix + "weight"] = t.permute(3, 2, 0, 1).contiguous()
             elif key == "kernel":
                 out[prefix + "weight"] = t.reshape(t.shape[0], -1).T \

@@ -26,7 +26,19 @@ all-reduces the gradients:
   ``accumulate_steps`` batches); each epoch's metrics are all-reduced
   once, so every rank sees the same numbers and early stopping decides
   alike; the ranks agree on each epoch's stop and save (a MAX
-  all-reduce), and only rank 0 writes checkpoints.
+  all-reduce), and only rank 0 writes checkpoints;
+- with an ``sp`` axis (parallel/mesh.py: rank ``r`` is dp index
+  ``r // sp``, sp index ``r % sp``) the rows of a global batch go to
+  the ranks by dp index, and the sp ranks of one dp index form a ring
+  (parallel/ring_attention.py): a model with ``bind_mesh`` (the
+  long-context transformer) gets the ring for the length of the call and
+  each rank steps on tokens ``[s*T/sp, (s+1)*T/sp)`` of its rows.  Every
+  sp rank of a replica then computes the same loss (the model's pool sums
+  over the ring), so each rank's loss is divided by sp and the gradients
+  are summed over all ranks: the token-local parameters' partials add up
+  and the head's sp equal copies count once.  The epoch metrics are
+  summed over the rank's dp group (one rank per replica).  A model without
+  ``bind_mesh`` sees whole rows on every sp rank, the same arithmetic.
 
 The backend follows the device list: NCCL when every rank has a card of
 its own, gloo when ranks share a card or run on the CPU (gloo's CUDA
@@ -58,7 +70,12 @@ import torch.distributed as dist
 
 from learningorchestra_tpu_torch.jobs.cancel import cancel_requested
 from learningorchestra_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh
-from learningorchestra_tpu_torch.parallel.sharding import batch_rows
+from learningorchestra_tpu_torch.parallel.sharding import (
+    batch_rows,
+    check_seq_divisible,
+    rank_coords,
+    sequence_slice,
+)
 from learningorchestra_tpu_torch.toolkit.base import as_array
 from learningorchestra_tpu_torch.train import compile_cache
 from learningorchestra_tpu_torch.train.neural import (
@@ -97,12 +114,19 @@ def backend_for(devices) -> str:
 
 class DataParallel:
     """One rank's view of the process group, as ``est._dp`` in the rank
-    process: which rows of a global batch are its own, the sums over the
-    ranks, the agreed stop flags, and per-step timings."""
+    process: which rows of a global batch are its own (and, with
+    ``shard_tokens``, which tokens of them), the sums over the ranks, the
+    agreed stop flags, and per-step timings.  With ``sp`` > 1 every rank
+    creates the same groups in the same order: one ring per dp index
+    (``ring``) and one dp group per sp index (``dp_group``)."""
 
     def __init__(self, rank: int, world: int, device, backend: str,
-                 cancel_flag: Path, mesh_key=None):
+                 cancel_flag: Path, mesh_key=None, sp: int = 1):
         self.rank, self.world = rank, world
+        self.sp, self.dp_size = sp, world // sp
+        self.dp_index, self.sp_index = rank_coords(rank, sp)
+        # Set by the rank program when the model runs over the ring.
+        self.shard_tokens = False
         # The mesh's fingerprint (axis names, sizes, device list): part
         # of every program key of this rank (train/compile_cache.py).
         self.mesh_key = mesh_key
@@ -117,30 +141,62 @@ class DataParallel:
         self._syncs: list = []
         self._open = None
         self.first_step_wall: float | None = None
+        self.ring = self.dp_group = None
+        if sp > 1:
+            self._make_groups()
+
+    def _make_groups(self) -> None:
+        from learningorchestra_tpu_torch.parallel.ring_attention import Ring
+
+        sp, timeout = self.sp, timedelta(seconds=COLLECTIVE_TIMEOUT_S)
+        for d in range(self.dp_size):
+            group = dist.new_group([d * sp + s for s in range(sp)],
+                                   timeout=timeout)
+            if d == self.dp_index:
+                self.ring = Ring(group, self.sp_index, sp, self.device,
+                                 self.backend, COLLECTIVE_TIMEOUT_S)
+        for s in range(sp):
+            group = dist.new_group(
+                [d * sp + s for d in range(self.dp_size)], timeout=timeout)
+            if s == self.sp_index:
+                self.dp_group = group
 
     def rows(self, batch_size: int) -> slice:
-        return batch_rows(batch_size, self.rank, self.world)
+        return batch_rows(batch_size, self.dp_index, self.dp_size)
+
+    def local_tokens(self, x, axis: int = 1):
+        """This rank's tokens of a batch of token rows (axis ``axis`` the
+        sequence) when it steps on a ring; anything else as it is."""
+        if not self.shard_tokens or x.ndim <= axis or \
+                x.dtype.is_floating_point:
+            return x
+        cut = sequence_slice(x.shape[axis], self.sp_index, self.sp)
+        return x[(slice(None),) * axis + (cut,)]
 
     # -- collectives ----------------------------------------------------------
 
-    def _reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-        """All-reduce ``t`` in place (through a pinned host buffer when a
-        gloo rank holds it on a card)."""
+    def _reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM,
+                 group=None) -> torch.Tensor:
+        """All-reduce ``t`` in place over ``group`` (None: every rank),
+        through a pinned host buffer when a gloo rank holds it on a
+        card."""
         if t.device == self.comm:
-            dist.all_reduce(t, op=op)
+            dist.all_reduce(t, op=op, group=group)
             return t
         if self._host is None or self._host.numel() < t.numel():
             self._host = torch.empty(t.numel(), dtype=torch.float32,
                                      pin_memory=self._cuda)
         host = self._host[:t.numel()].view(t.shape)
         host.copy_(t)
-        dist.all_reduce(host, op=op)
+        dist.all_reduce(host, op=op, group=group)
         t.copy_(host)
         return t
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` (f32) over the ranks, on ``t``'s device."""
-        return self._reduce_(t.float().clone())
+    def replica_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` (f32) over one rank per data-parallel replica
+        (this rank's dp group): the sp ranks of a replica hold equal
+        metrics, counted once."""
+        return self._reduce_(t.float().clone(), group=self.dp_group)
 
     def agree(self, *flags) -> tuple:
         """Each flag true on every rank when it is true on any."""
@@ -208,7 +264,8 @@ class DataParallel:
             return a.elapsed_time(b) if self._cuda else (b - a) * 1e3
 
         return {"rank": self.rank, "device": str(self.device),
-                "backend": self.backend,
+                "backend": self.backend, "dp_index": self.dp_index,
+                "sp_index": self.sp_index,
                 "step_ms": [ms(a, b) for a, b in self._steps],
                 "sync_ms": [ms(a, b) for a, b in self._syncs],
                 "first_step_wall": self.first_step_wall}
@@ -237,7 +294,10 @@ class DistributedTrainer:
 
     ``batch_size`` is the GLOBAL batch size, split across the ranks.
     ``devices`` lists one device per rank (default: every card); the
-    mesh's ``dp`` is the world size.  ``rank_stats`` holds, after a call,
+    mesh's ``dp`` times its ``sp`` is the world size.  ``shard_sequence``
+    (default: on iff ``sp`` > 1) splits each token row over the sp ranks
+    of its replica, for a model with ``bind_mesh``; off, every sp rank
+    holds whole rows.  ``rank_stats`` holds, after a call,
     each rank's launch counters, step and gradient-sync milliseconds and
     seconds from its start to its first step.  A call ends when its ranks
     do: a hung collective raises in the ranks after
@@ -250,10 +310,14 @@ class DistributedTrainer:
     def __init__(self, estimator: NeuralEstimator,
                  spec: MeshSpec | None = None, mesh: Mesh | None = None,
                  devices: list | None = None,
-                 stage_root: str | os.PathLike | None = None):
+                 stage_root: str | os.PathLike | None = None,
+                 shard_sequence: bool | None = None):
         self.estimator = estimator
         self.mesh = mesh if mesh is not None else build_mesh(
             spec, devices if devices is not None else _default_devices())
+        sp = self.mesh.shape["sp"]
+        self.shard_sequence = sp > 1 if shard_sequence is None \
+            else bool(shard_sequence)
         self.backend = backend_for(self.mesh.devices)
         self.history = TrainHistory()
         self.stop_training = False
@@ -269,6 +333,14 @@ class DistributedTrainer:
     @property
     def data_axes(self) -> int:
         return self.mesh.shape["dp"] * self.mesh.shape["fsdp"]
+
+    def _check_seq_divisible(self, x) -> None:
+        """Raise the JAX trainer's error before any rank starts when the
+        sp axis cannot split the token rows."""
+        if self.shard_sequence:
+            check_seq_divisible(
+                as_array(x.head(1)) if _is_sharded(x) else as_array(x),
+                self.mesh.shape["sp"])
 
     # -- public surface -------------------------------------------------------
 
@@ -312,6 +384,9 @@ class DistributedTrainer:
             raise ValueError(
                 f"global batch_size {batch_size} not divisible by "
                 f"dp*fsdp={self.data_axes}")
+        self._check_seq_divisible(x)
+        if validation_data is not None:
+            self._check_seq_divisible(validation_data[0])
         est = self.estimator
         est._set_accumulation(accumulate_steps)
         est._quantize_persist = bool(quantize_checkpoint)
@@ -345,7 +420,8 @@ class DistributedTrainer:
 
     def evaluate(self, x, y, batch_size: int = 128, **_) -> dict:
         """Metrics over the ranks; the batch rounds up to a multiple of
-        the world size (a throughput knob, not a semantic one)."""
+        the dp size (a throughput knob, not a semantic one)."""
+        self._check_seq_divisible(x)
         return self._run("evaluate", x, y, None,
                          {"batch_size": batch_size}, None)["metrics"]
 
@@ -413,6 +489,8 @@ class DistributedTrainer:
             task = {
                 "mode": mode, "devices": devices, "backend": self.backend,
                 "mesh_key": compile_cache.mesh_fingerprint(self.mesh),
+                "sp": self.mesh.shape["sp"],
+                "shard_sequence": self.shard_sequence,
                 "parent": os.getpid(),
                 "threads": max(1, (os.cpu_count() or 1) // world),
                 "estimator": self._stage_estimator(x),

@@ -1,13 +1,17 @@
 """Named device meshes — port of ``learningorchestra_tpu/parallel/mesh.py``.
 
 The six axes of the JAX package exist here too, so a request's ``mesh``
-body means the same on both packages, but only the data axis ``dp`` is
-ported: a rank is one process holding a full replica of the model, and
-the gradients are all-reduced over the ranks (parallel/distributed.py).
-``fsdp`` shards parameters and ``tp``/``sp``/``pp``/``ep`` shard the
-model's work in the JAX package; replicating them here would be a
-different memory contract, so a spec with any of them above 1 is refused
-(ROADMAP A.9 part 2 for ``fsdp``/``tp``/``pp``, A.8 for ``sp``/``ep``).
+body means the same on both packages.  Two are ported: ``dp`` (a rank is
+one process holding a full replica of the model; gradients are
+all-reduced over the ranks, parallel/distributed.py) and ``sp`` (the
+ranks of one data-parallel replica split each row's sequence and run
+ring attention, parallel/ring_attention.py).  Ranks follow the JAX axis
+order with ``sp`` fastest: rank ``r`` is dp index ``r // sp`` and sp
+index ``r % sp``.  ``fsdp`` shards parameters and ``tp``/``pp``/``ep``
+shard the model's work in the JAX package; replicating them here would
+be a different memory contract, so a spec with any of them above 1 is
+refused (ROADMAP A.9 part 2 for ``fsdp``/``tp``/``pp``, A.8 part 3 for
+``ep``).
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Devices laid out by a spec: one ``torch.device`` per rank, in rank
-    order, and the axis sizes (every axis but ``dp`` is 1)."""
+    order, and the axis sizes (every axis but ``dp`` and ``sp`` is 1)."""
 
     devices: tuple
     shape: dict
@@ -67,12 +71,13 @@ def validate_spec(spec: MeshSpec) -> None:
             raise ValueError(f"mesh axis {axis} must be a positive int")
     if spec.sp > 1 and spec.sp & (spec.sp - 1):
         raise ValueError("sp axis should be a power of two")
-    model_axes = {a: getattr(spec, a) for a in AXES[1:] if getattr(spec, a) > 1}
-    if model_axes:
+    refused = {a: getattr(spec, a) for a in ("fsdp", "pp", "ep", "tp")
+               if getattr(spec, a) > 1}
+    if refused:
         raise ValueError(
-            f"mesh axes {model_axes} are not ported to the PyTorch package: "
-            "only the data axis dp is (fsdp/tp/pp: ROADMAP A.9 part 2; "
-            "sp/ep: ROADMAP A.8)")
+            f"mesh axes {refused} are not ported to the PyTorch package: "
+            "only the data axis dp and the sequence axis sp are (ep: "
+            "ROADMAP A.8 part 3; fsdp/tp/pp: ROADMAP A.9 part 2)")
 
 
 def build_mesh(spec: MeshSpec | None = None, devices: list | None = None
@@ -81,7 +86,7 @@ def build_mesh(spec: MeshSpec | None = None, devices: list | None = None
     one rank per entry, so a card named twice holds two ranks).  The
     spec's size must divide the device count; spare devices fold into
     ``dp``, as in the JAX package, so ``{"dp": 2}`` over 8 devices is a
-    world of 8."""
+    world of 8 and ``{"sp": 2}`` over 4 devices is dp 2 x sp 2."""
     if devices is None:
         devices = [f"cuda:{k}" for k in range(torch.cuda.device_count())]
     devs = tuple(torch.device(d) for d in devices)

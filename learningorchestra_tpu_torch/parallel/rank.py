@@ -7,7 +7,9 @@ device of the mesh.  Here each rank joins the fit's process group through
 the ``FileStore`` in its staging directory, rebuilds the estimator from
 the staged artifact on its device, memory-maps the staged inputs (or
 reopens the sharded dataset), runs ``fit`` or ``evaluate`` with its
-:class:`DataParallel` as ``est._dp`` and leaves the process group.  Every
+:class:`DataParallel` as ``est._dp`` (and, on a sequence-parallel mesh, a
+model with ``bind_mesh`` bound to its ring for the call) and leaves the
+process group.  Every
 rank writes its launch counters and timings; rank 0 also writes the
 final state (the artifact layout), the history and the stop flag.  A
 rank that raises prints the traceback and exits 1 at once (without
@@ -126,6 +128,25 @@ def run_fit(est, dp: DataParallel, data: dict, kwargs: dict,
     }
 
 
+@contextlib.contextmanager
+def ring_bound(est, dp: DataParallel, shard_sequence: bool):
+    """A model with ``bind_mesh`` runs over the rank's ring, on its share
+    of each row's tokens, for the length of the call only (the JAX
+    trainer's ``_mesh_bound``)."""
+    bound = shard_sequence and dp.ring is not None and \
+        hasattr(est, "bind_mesh")
+    if not bound:
+        yield
+        return
+    est.bind_mesh(dp.ring)
+    dp.shard_tokens = True
+    try:
+        yield
+    finally:
+        dp.shard_tokens = False
+        est.bind_mesh(None)
+
+
 def die_with_parent(parent: int) -> None:
     """SIGKILL this process when its parent goes; exit now if it has gone
     already (before the request was made)."""
@@ -151,17 +172,23 @@ def main(argv: list[str]) -> int:
     init_process_group(stage, rank, world, task["backend"])
     try:
         dp = DataParallel(rank, world, device, task["backend"],
-                          stage / CANCEL, mesh_key=task.get("mesh_key"))
+                          stage / CANCEL, mesh_key=task.get("mesh_key"),
+                          sp=task.get("sp", 1))
         cache_before = compile_cache.counters_snapshot()
         est = load_estimator(task["estimator"], device)
         est._dp = dp
         data = load_data(task["data"])
         kwargs = dict(task["kwargs"])
-        if task["mode"] == "fit":
-            out = run_fit(est, dp, data, kwargs, task["trace_dir"])
-        else:
-            out = {"metrics": est.evaluate(data["x"], data["y"], **kwargs)}
+        with ring_bound(est, dp, task.get("shard_sequence", False)):
+            if task["mode"] == "fit":
+                out = run_fit(est, dp, data, kwargs, task["trace_dir"])
+            else:
+                out = {"metrics": est.evaluate(data["x"], data["y"],
+                                               **kwargs)}
         stats = {**dp.stats(), "launches": launch_counts(device)}
+        if device.type == "cuda":
+            stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
+                device)
         gathered = [None] * world
         dist.all_gather_object(gathered, stats)
         if rank == 0:

@@ -4,7 +4,10 @@
 In the JAX package a batch enters sharded over ``("dp", "fsdp")``: device
 r of a world of W holds rows ``[r*B/W, (r+1)*B/W)`` of each global batch
 of B rows (``batch_sharding`` / ``shard_batch``).  Here the same rule
-picks the rows each rank process feeds its replica.  The parameter rules
+picks the rows each rank process feeds its replica, by the rank's dp
+index; with an ``sp`` axis the ranks of one replica split each row's
+tokens the same way (the JAX ``P(("dp", "fsdp"), "sp")`` token sharding).
+The parameter rules
 (``leaf_spec``, ``param_shardings``) shard leaves over ``fsdp``/``tp`` and
 wait for ROADMAP A.9 part 2.
 """
@@ -25,3 +28,25 @@ def batch_rows(batch_size: int, rank: int, world: int) -> slice:
 def shard_batch(arrays: tuple, rank: int, world: int) -> tuple:
     """Rank ``rank``'s slice of each array's leading (batch) axis."""
     return tuple(a[batch_rows(a.shape[0], rank, world)] for a in arrays)
+
+
+def rank_coords(rank: int, sp: int) -> tuple[int, int]:
+    """(dp index, sp index) of ``rank``: ``sp`` varies fastest, as the JAX
+    mesh's last axis."""
+    return rank // sp, rank % sp
+
+
+def check_seq_divisible(x, sp: int) -> None:
+    """The JAX trainer's error for a token matrix whose sequence length
+    the sp axis cannot split."""
+    if sp > 1 and x.ndim > 1 and x.dtype.kind in "iu" and x.shape[1] % sp:
+        raise ValueError(
+            f"sequence length {x.shape[1]} not divisible by sp={sp}")
+
+
+def sequence_slice(t: int, sp_index: int, sp: int) -> slice:
+    """Tokens ``[s*T/sp, (s+1)*T/sp)`` of a row of ``t`` for sp index s."""
+    if t % sp:
+        raise ValueError(f"sequence length {t} not divisible by sp={sp}")
+    per = t // sp
+    return slice(sp_index * per, (sp_index + 1) * per)

@@ -3,7 +3,9 @@
 
 - ``POST /train/horovod|distributed``: the train request's parameters
   drive :class:`DistributedTrainer` over every leased card (one rank
-  each; on a CPU context ``dist.cpu_ranks`` gloo ranks on the CPU), with
+  each; on a CPU context ``dist.cpu_ranks`` gloo ranks on the CPU; a
+  ``mesh`` body's ``sp`` splits each token row over a ring of ranks,
+  ``"shardSequence"`` forcing that on or off), with
   managed checkpoints (a fresh POST wipes stale state, a PATCH of a
   failed job resumes it), the published artifact (int8 with
   ``quantize_checkpoint``), one history row per epoch and, with a
@@ -210,6 +212,9 @@ class DistributedExecutorService:
 
             params = dsl.resolve_params(training_parameters, ctx.loader)
             spec = MeshSpec.from_dict(mesh) if mesh else None
+            # None: the trainer's default (on iff sp > 1); the mesh body
+            # forces it with "shardSequence".
+            shard_seq = (mesh or {}).get("shardSequence")
             ckdir = ctx.checkpoint_dir(name)
             params.setdefault("resume", resume_default)
             if not params["resume"]:
@@ -236,7 +241,9 @@ class DistributedExecutorService:
                 trainer = DistributedTrainer(
                     instance, spec=spec, devices=rank_devices(
                         ctx.device, devs, ctx.config.dist.cpu_ranks),
-                    stage_root=ctx.stage_root())
+                    stage_root=ctx.stage_root(),
+                    shard_sequence=None if shard_seq is None
+                    else bool(shard_seq))
                 t0 = time.perf_counter()
                 trainer.fit(**params)
                 fit_time = time.perf_counter() - t0

@@ -24,7 +24,8 @@ _MLP = "learningorchestra_tpu_torch.models.mlp"
 _TEXT = "learningorchestra_tpu_torch.models.text"
 _VISION = "learningorchestra_tpu_torch.models.vision"
 _MOE = "learningorchestra_tpu_torch.models.moe"
-_ZOO = (_MLP, _TEXT, _VISION, _MOE)
+_LONG = "learningorchestra_tpu_torch.models.longcontext"
+_ZOO = (_MLP, _TEXT, _VISION, _MOE, _LONG)
 _ESTIMATORS = "learningorchestra_tpu_torch.toolkit.estimators."
 _CLASSICAL = ("linear", "trees", "bayes", "cluster", "decomposition",
               "preprocessing", "neighbors", "svm")
@@ -36,6 +37,7 @@ MODULE_ALIASES: dict[str, tuple[str, ...]] = {
     "learningorchestra_tpu.models.text": (_TEXT,),
     "learningorchestra_tpu.models.vision": (_VISION,),
     "learningorchestra_tpu.models.moe": (_MOE,),
+    "learningorchestra_tpu.models.longcontext": (_LONG,),
     "learningorchestra_tpu.models": _ZOO,
     "tensorflow.keras.applications": (_VISION,),
     "tensorflow.keras.models": _ZOO,

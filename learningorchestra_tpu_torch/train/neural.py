@@ -822,12 +822,13 @@ def _finalize_metrics(per_batch: list[dict], dp=None) -> dict:
     'perplexity' (raw per-token CE) becomes exp(mean CE).  Under data
     parallelism (``dp``, parallel/distributed.py) each rank's metrics are
     its rows' share of the global batch's masked mean, so one all-reduce
-    sum of the whole epoch's metrics gives every rank the global ones."""
+    sum of the whole epoch's metrics over one rank per replica gives every
+    rank the global ones."""
     keys = list(per_batch[0])
     stacked = torch.stack([torch.stack([m[k] for k in keys])
                            for m in per_batch]).float()
     if dp is not None:
-        stacked = dp.all_reduce(stacked)
+        stacked = dp.replica_sum(stacked)
     out = dict(zip(keys, stacked.mean(0).cpu().tolist()))
     if "perplexity" in out:
         out["perplexity"] = math.exp(out["perplexity"])
@@ -1117,7 +1118,9 @@ class NeuralEstimator(Estimator):
         ``accumulate_steps``-th call applies one optimizer update with the
         mean gradient.  Returns detached metric tensors (no host sync).
         A data-parallel rank normalises by the global batch's ``msum`` and
-        sums the ranks' gradients once per update."""
+        sums the ranks' gradients once per update; on a sequence-parallel
+        mesh it steps on its tokens of the rows and divides its loss by sp
+        (each sp rank of a replica computes the replica's loss)."""
         dp = self._dp
         # A module whose forward takes ``aux_losses`` (the MoE models)
         # appends its auxiliary losses to the list; their sum joins the
@@ -1131,6 +1134,7 @@ class NeuralEstimator(Estimator):
                 "would see only its rows of the global batch")
         if dp is not None:
             dp.step_begin()
+            xb = dp.local_tokens(xb)
         logits = functional_call(
             self.module, _cast_params(self.module, dtype),
             (_cast_input(xb, dtype),),
@@ -1139,6 +1143,8 @@ class NeuralEstimator(Estimator):
         loss, metrics = loss_fn(logits, yb, mb, msum)
         if aux:
             loss = loss + sum(aux)
+        if dp is not None and dp.sp > 1:
+            loss = loss / dp.sp
         loss.backward()
         self._mini_step += 1
         k = self._accumulate_steps
@@ -1213,9 +1219,9 @@ class NeuralEstimator(Estimator):
         for pos, k, xs, ys in stream.shards(order):
             rows = stream.dataset.shard_rows[k]
             # A shard shorter than a batch is one batch; a data-parallel
-            # one rounds it up to a multiple of the world size.
+            # one rounds it up to a multiple of the dp size.
             bs = min(batch_size, rows if self._dp is None
-                     else -(-rows // self._dp.world) * self._dp.world)
+                     else -(-rows // self._dp.dp_size) * self._dp.dp_size)
             acc.add(program_for(rows, bs)(
                 self, xs, ys, loss_fn, dtype, bs, shuffle,
                 epoch * n_shards + pos), rows)
@@ -1508,6 +1514,8 @@ class NeuralEstimator(Estimator):
             xb, yb, mb = xb[:, part], yb[:, part], mb[:, part]
         xb, yb, mb = (torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device) for a in (xb, yb, mb))
+        if dp is not None:
+            xb = dp.local_tokens(xb, axis=2)
         loss_fn = self._loss_and_metrics(loss_kind)
         dtype = self._compute_dtype()
         with torch.inference_mode():
@@ -1525,9 +1533,9 @@ class NeuralEstimator(Estimator):
 
     def evaluate(self, x, y, batch_size: int = 128, **_) -> dict:
         if self._dp is not None:
-            # A data-parallel rank rounds up to a global batch the ranks
-            # can split: the batch size is a throughput knob here.
-            world = self._dp.world
+            # A data-parallel rank rounds up to a global batch the
+            # replicas can split: the batch size is a throughput knob here.
+            world = self._dp.dp_size
             batch_size = -(-max(1, batch_size) // world) * world
         if _is_sharded(x) or _is_sharded(y):
             return self._evaluate_streaming(x, y, batch_size)

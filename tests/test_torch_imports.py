@@ -62,7 +62,9 @@ def test_sources_exist():
                    # The durable program store and the live profiler.
                    "train/aot_store.py", "obs/profiling.py",
                    # The mixture-of-experts layer and models.
-                   "ops/moe.py", "models/moe.py"):
+                   "ops/moe.py", "models/moe.py",
+                   # Ring attention and the long-context model.
+                   "parallel/ring_attention.py", "models/longcontext.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()

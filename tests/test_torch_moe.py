@@ -502,9 +502,22 @@ def test_registry_resolves_the_moe_classes():
         assert registry.resolve(path, "MoEDecoderLM") is MoEDecoderLM
         assert registry.resolve(path, "MoETransformerClassifier") is \
             MoETransformerClassifier
+    # The long-context family resolves through the same zoo paths.
+    from learningorchestra_tpu_torch.models.longcontext import (
+        LongContextTransformer,
+    )
+
+    for path in ("learningorchestra_tpu.models",
+                 "learningorchestra_tpu.models.longcontext"):
+        assert registry.resolve(path, "LongContextTransformer") is \
+            LongContextTransformer
+    est = registry.resolve("learningorchestra_tpu.models",
+                           "LongContextTransformer")(
+        vocab_size=64, hidden_dim=16, num_layers=1, num_heads=2,
+        max_len=32, device="cpu")
+    assert est.max_len == 32 and est.module.Embed_1.num_embeddings == 32
     with pytest.raises(registry.RegistryError):
-        registry.resolve("learningorchestra_tpu.models",
-                         "LongContextTransformer")
+        registry.resolve("learningorchestra_tpu.models", "NoSuchModel")
     assert registry.validate_init_params(
         "learningorchestra_tpu.models.moe", "MoEDecoderLM",
         {"num_experts": 4, "device": "cpu"}) == ["device"]

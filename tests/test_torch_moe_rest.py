@@ -9,8 +9,8 @@ module path and given the same initial weights in f32:
 - the decoder LM: create, ``fit``, a ``generate`` predict job (8 prompt
   tokens + 4 new, equal on both servers), then one ``/serve/<model>/
   generate`` SSE stream on the port equal to its predict job's tokens;
-- ``LongContextTransformer`` (not ported) gets the port's unknown-class
-  answer, 406.
+- ``LongContextTransformer``, through the JAX package's zoo path, is
+  created (``tests/test_torch_longcontext.py`` holds the model itself).
 """
 
 import numpy as np
@@ -101,7 +101,10 @@ def flows(tmp_path_factory):
         out["port"]["unknown"] = status(lambda: port.model.create(
             "rlong", module_path="learningorchestra_tpu.models",
             class_name="LongContextTransformer",
-            class_parameters={"vocab_size": 64}))
+            class_parameters={"vocab_size": 64, "hidden_dim": 16,
+                              "num_layers": 1, "num_heads": 2,
+                              "max_len": 32}))
+        out["port"]["long"] = _finished(port, "rlong")
         out["port"]["decode_stats"] = \
             servers["port"].serving.decode.stats()["models"]
     return out
@@ -139,4 +142,9 @@ def test_moe_decoder_streams_through_the_decode_engine(flows):
 
 
 def test_unported_long_context_model_is_an_unknown_class(flows):
-    assert flows["port"]["unknown"] == 406
+    # Ported since: the JAX package's zoo path resolves the long-context
+    # model, and the create job finishes.
+    assert flows["port"]["unknown"] == 200
+    long = flows["port"]["long"]
+    assert long["class"] == "LongContextTransformer"
+    assert long["modulePath"] == "learningorchestra_tpu.models"
