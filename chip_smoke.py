@@ -315,7 +315,27 @@ Phases (each prints its own line; any failure exits nonzero):
    against their plain versions in chunks of 2,048 query rows (bf16
    3e-2, absolute and of the largest plain value), then timed beside
    their bounds and SDPA; the ``long_context`` line;
-19. last line: {"ok": true, "device": {...}}.
+19. expert parallelism and the data-parallel MoE fit
+   (``run_expert_parallel``): (a) four gloo rank processes on cuda:0
+   (``--ep-child``) lay dp 2 x ep 2 and step ``MoETransformerClassifier``
+   at the JAX package's defaults (vocab 20000, 128 wide, 2 layers of 4
+   heads, 8 experts top-2, T = 256) once in f32 on 16 of 32 rows each,
+   each rank holding 4 of the 8 experts, against the same step of the
+   whole batch on one device (objective within 1e-5, every gradient leaf
+   within 1e-3 of its largest entry; after an SGD update the replicated
+   leaves bit-equal across each expert group); meanwhile (c) a server
+   whose leaser holds two units of cuda:0 trains ``MoEDecoderLM`` at its
+   defaults with ``POST /train/horovod`` and ``"mesh": {"ep": 2}`` (2
+   steps of 8 rows at T = 1,024), publishes it int8 (K4, all 8 experts of
+   each layer) and loads it (K5), and ``/generate`` of 8 tokens equals a
+   one-device greedy decode of the same artifact; then (b)
+   ``DistributedTrainer(spec=MeshSpec(dp=2, ep=2), devices=["cuda:0"] *
+   4)`` fits the classifier 8 bf16 steps of 32 rows (each rank's step,
+   gradient sync and expert exchange ms, peak memory, parameter bytes,
+   K1/K2/K3 2 per step), and K1-K3 at a rank's (16, 4, 256, 32) with a
+   key mask are held against their plain versions (bf16 3e-2); the
+   ``expert_parallel`` line;
+20. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -6741,6 +6761,468 @@ def run_long_context(tmp, card: str) -> dict:
     return {"line": line, "launches": launches}
 
 
+# -- phase 19: expert parallelism and data-parallel MoE training -------------
+
+# MoETransformerClassifier at the JAX package's defaults
+# (learningorchestra_tpu/models/moe.py:148, MOE_CLS_SHAPE) over dp 2 x ep 2:
+# four gloo ranks on the one card, each holding 4 of the 8 experts and
+# stepping on 16 rows of each global batch of 32 at T = 256.  MoEDecoderLM
+# at its defaults (MOE_LM_SHAPE) over REST with {"ep": 2}.  Depth is not
+# cut.
+EP_MESH = {"dp": 2, "ep": 2}
+EP_WORLD = 4
+EP_DEVICE = "cuda:0"
+EP_STEP_ROWS = 32  # (a): one f32 step of the global batch, T = 256
+EP_LR = 0.1  # (a)'s SGD step, after which the replicas are compared
+EP_LOSS_BAR = 1e-5  # (a): |objective - one device's|
+EP_LEAF_BAR = 1e-3  # (a): each gradient leaf, of its largest entry
+EP_FIT_ROWS, EP_FIT_BATCH, EP_FIT_EPOCHS = 128, 32, 2  # (b): 8 steps
+EP_REST_ROWS, EP_REST_BATCH = 16, 8  # (c): 2 steps at T = 1024
+EP_PROMPT_LENS = (48, 200)
+EP_NEW = 8
+EP_MODEL = "ep_lm"
+EP_CHILD_TIMEOUT_S = 300
+EP_BF16_TOL = 3e-2
+
+
+def _split_bytes(shape: dict, ep: int) -> int:
+    """Bytes of the f32 expert leaves a rank does not hold under ``ep``:
+    (E - E/ep) experts of each MoE layer (the last of every 2 blocks)."""
+    e, h = shape["num_experts"], shape["hidden_dim"]
+    m = shape.get("mlp_dim") or 4 * h
+    per_expert = 2 * h * m + m + h
+    return 4 * (shape["num_layers"] // 2) * (e - e // ep) * per_expert
+
+
+def ep_child(tmp: str, rank: int) -> int:
+    """(a) of phase 19 in one of four gloo ranks on cuda:0 (``python3
+    chip_smoke.py --ep-child DIR RANK``): the port's ``DataParallel`` lays
+    dp 2 x ep 2; the classifier split over the rank's expert group loads
+    its slice of the seeded state; one f32 step of its 16 rows of the
+    global batch (the aux loss over the global batch, the gradients
+    summed over the ranks holding each copy) against the same step of
+    the whole batch on one device, then an SGD update and the replicated
+    leaves compared bit for bit across the expert group.  Writes
+    ``DIR/rank<r>.json``."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from learningorchestra_tpu_torch.models.moe import (
+        MoETransformerClassifier,
+    )
+    from learningorchestra_tpu_torch.ops.moe import (
+        AuxLosses,
+        split_expert_parameters,
+    )
+    from learningorchestra_tpu_torch.parallel.distributed import (
+        DataParallel,
+        init_process_group,
+    )
+
+    stage = Path(tmp)
+    dev = torch.device(EP_DEVICE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_process_group(stage, rank, EP_WORLD, "gloo")
+    dp = DataParallel(rank, EP_WORLD, dev, "gloo", stage / "cancel",
+                      ep=EP_MESH["ep"])
+    x = moe_classifier_rows(EP_STEP_ROWS, seed=21)
+    xt = torch.from_numpy(x).to(dev)
+    yt = torch.from_numpy((x[:, 0] % 2).astype(np.int64)).to(dev)
+    ones = torch.ones(EP_STEP_ROWS, device=dev)
+    one = MoETransformerClassifier(**MOE_CLS_SHAPE, seed=0, device=dev)
+    est = MoETransformerClassifier(**MOE_CLS_SHAPE, seed=0, device=dev)
+    for e in (one, est):
+        e.compute_dtype = "float32"
+        e.compile(optimizer="sgd", learning_rate=EP_LR)
+    split_layers = est.bind_experts(dp.ep_comm)
+    est.load_state_dict(dp.local_experts(one.state_dict(), est.module))
+    est._dp = dp
+    est._reset_optimizer()
+    split = {id(p) for p in split_expert_parameters(est.module)}
+    loss_fn = est._loss_and_metrics("softmax_ce")
+    rows = dp.rows(EP_STEP_ROWS)
+    zero_kernel_counts()
+    aux = AuxLosses(dp.replicas)
+    logits = est.module(xt[rows], aux_losses=aux).float()
+    ce, _ = loss_fn(logits, yt[rows], ones[rows], ones.sum())
+    (ce + sum(aux)).backward()
+    dp.sync_grads(est.module)
+    counts = kernel_counts()
+    total = float(dp.replicas.all_reduce(ce.detach().reshape(1))[0]
+                  + sum(aux).detach())
+    aux1: list = []
+    ce1, _ = loss_fn(one.module(xt, aux_losses=aux1).float(), yt, ones)
+    (ce1 + sum(aux1)).backward()
+    ref = dict(one.module.named_parameters())
+    lo = dp.ep_index * (MOE_CLS_SHAPE["num_experts"] // EP_MESH["ep"])
+    worst, worst_name, n_split = 0.0, None, 0
+    for name, p in est.module.named_parameters():
+        want = ref[name].grad
+        if id(p) in split:
+            want = want[lo:lo + p.shape[0]]
+            n_split += 1
+        rel = float((p.grad - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    est.opt_state.step()
+    unequal = []
+    for name, p in est.module.named_parameters():
+        if id(p) in split:
+            continue
+        both = dp.ep_comm.all_gather(p.detach()[None], timed=False)
+        if not torch.equal(both[0], both[1]):
+            unequal.append(name)
+    out = {"rank": rank, "dp_index": dp.dp_index, "ep_index": dp.ep_index,
+           "objective": total, "objective_one": float(ce1 + sum(aux1)),
+           "aux": [float(a) for a in aux], "aux_one": [float(a)
+                                                      for a in aux1],
+           "max_leaf_rel": worst, "worst_leaf": worst_name,
+           "split_layers": split_layers, "split_leaves": n_split,
+           "replicated_unequal": unequal, "launches": counts,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in est.module.parameters()),
+           "param_bytes_one": sum(p.numel() * p.element_size()
+                                  for p in one.module.parameters())}
+    with open(stage / f"rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def ep_results(procs: list, stage: str) -> dict:
+    """(a): wait for the children (bounded), read their results, print
+    the f32 step's phase line."""
+    deadline = time.monotonic() + EP_CHILD_TIMEOUT_S
+    for proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    res = []
+    for r, proc in enumerate(procs):
+        path = os.path.join(stage, f"rank{r}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(stage, f"rank{r}.log"), "rb") as fh:
+                tail = fh.read()[-3000:].decode(errors="replace")
+            raise RuntimeError(f"ep child {r} exited {proc.returncode}:"
+                               f"\n{tail}")
+        with open(path) as fh:
+            res.append(json.load(fh))
+    layers = MOE_CLS_SHAPE["num_layers"]
+    d_loss = max(abs(c["objective"] - c["objective_one"]) for c in res)
+    worst = max(c["max_leaf_rel"] for c in res)
+    dropped = _split_bytes(MOE_CLS_SHAPE, EP_MESH["ep"])
+    ok = d_loss <= EP_LOSS_BAR and worst <= EP_LEAF_BAR and all(
+        not c["replicated_unequal"] and c["split_leaves"] == 4
+        and c["param_bytes"] == c["param_bytes_one"] - dropped
+        and all(c["launches"][k] == layers for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")) for c in res) \
+        and [(c["dp_index"], c["ep_index"]) for c in res] == [
+            (r // 2, r % 2) for r in range(EP_WORLD)]
+    phase("expert parallel f32 step", ok,
+          f"MoETransformerClassifier({MOE_CLS_SHAPE}) f32 over dp 2 x ep 2 "
+          f"(4 gloo ranks on {EP_DEVICE}, 16 rows of {EP_STEP_ROWS} at "
+          f"T={MOE_CLS_SHAPE['max_len']} each, "
+          f"{MOE_CLS_SHAPE['num_experts'] // EP_MESH['ep']} of "
+          f"{MOE_CLS_SHAPE['num_experts']} experts): objective "
+          f"(CE summed over the replicas + the global-batch aux loss) "
+          f"{res[0]['objective']:.8f}, one device "
+          f"{res[0]['objective_one']:.8f}, max |d| {d_loss:.3g} (bar "
+          f"{EP_LOSS_BAR}); aux {res[0]['aux']} vs {res[0]['aux_one']}; "
+          f"largest gradient-leaf difference / its largest entry {worst:.3g}"
+          f" (bar {EP_LEAF_BAR}; worst {[c['worst_leaf'] for c in res]}); "
+          f"after an SGD step the replicated leaves unequal across each "
+          f"expert group: {[c['replicated_unequal'] for c in res]}; "
+          f"parameter bytes a rank {res[0]['param_bytes']} vs one device "
+          f"{res[0]['param_bytes_one']} (want {dropped} fewer); K1/K2/K3 "
+          f"per rank {[[c['launches'][k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')] for c in res]}"
+          f" (want {layers} each)")
+    return {"objective_abs_diff": d_loss, "max_leaf_rel": worst,
+            "ranks": res}
+
+
+def ep_step_kernels(attention) -> dict:
+    """K1, K2 and K3 in bf16 at a rank's attention shape in (b), (16, 4,
+    256, 32) with the timed shapes' key mask, each against its plain
+    version on the same inputs (bar ``EP_BF16_TOL``)."""
+    h = MOE_CLS_SHAPE["num_heads"]
+    b, t = EP_FIT_BATCH // EP_MESH["dp"], MOE_CLS_SHAPE["max_len"]
+    d = MOE_CLS_SHAPE["hidden_dim"] // h
+    gen = torch.Generator(device=EP_DEVICE).manual_seed(19)
+    q, k, v, do = (torch.randn(b, h, t, d, device=EP_DEVICE, generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    km = _timing_mask(b, t, q.device)
+    with torch.inference_mode():
+        o, lse = attention.flash_attention_fwd(q, k, v, km, False)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        bwd = (km, do, lse, delta, False)
+        dq = attention.flash_attention_bwd_dq(q, k, v, *bwd)
+        dk, dv = attention.flash_attention_bwd_dkv(q, k, v, *bwd)
+        o_ref, lse_ref = attention.flash_attention_fwd_plain(q, k, v, km,
+                                                             False)
+        dq_ref = attention.flash_attention_bwd_dq_plain(q, k, v, *bwd)
+        dk_ref, dv_ref = attention.flash_attention_bwd_dkv_plain(q, k, v,
+                                                                 *bwd)
+    err = {"o": max_abs(o, o_ref), "lse": max_abs(lse, lse_ref),
+           "dq": max_abs(dq, dq_ref), "dk": max_abs(dk, dk_ref),
+           "dv": max_abs(dv, dv_ref)}
+    ok = all(v <= EP_BF16_TOL for v in err.values())
+    phase("expert parallel step kernels", ok,
+          f"K1/K2/K3 bf16 at a rank's {tuple(q.shape)} with a key mask "
+          f"(last 37 keys) against their plain versions: max|d| {err} "
+          f"(bar {EP_BF16_TOL})")
+    return {"shape": list(q.shape), "max_abs_err": err}
+
+
+def ep_fit() -> dict:
+    """(b): ``DistributedTrainer(spec=MeshSpec(dp=2, ep=2))`` over four
+    gloo ranks on cuda:0 fits the classifier 8 bf16 steps of 32 rows at
+    T = 256."""
+    from learningorchestra_tpu_torch.models.moe import (
+        MoETransformerClassifier,
+    )
+    from learningorchestra_tpu_torch.parallel import (
+        DistributedTrainer,
+        MeshSpec,
+    )
+
+    est = MoETransformerClassifier(**MOE_CLS_SHAPE, seed=0, device=EP_DEVICE)
+    x = moe_classifier_rows(EP_FIT_ROWS, seed=23)
+    y = (x[:, 0] % 2).astype(np.int32)
+    trainer = DistributedTrainer(est, spec=MeshSpec(**EP_MESH),
+                                 devices=[EP_DEVICE] * EP_WORLD)
+    t0 = time.perf_counter()
+    trainer.fit(x, y, epochs=EP_FIT_EPOCHS, batch_size=EP_FIT_BATCH,
+                shuffle=False)
+    fit_s = time.perf_counter() - t0
+    steps = EP_FIT_EPOCHS * EP_FIT_ROWS // EP_FIT_BATCH
+    layers = MOE_CLS_SHAPE["num_layers"]
+    full = sum(p.numel() * p.element_size() for p in est.module.parameters())
+    dropped = _split_bytes(MOE_CLS_SHAPE, EP_MESH["ep"])
+
+    def median(v):
+        return float(np.median(v[1:] or v)) if v else None
+
+    ranks = [{"rank": s["rank"], "dp_index": s["dp_index"],
+              "ep_index": s["ep_index"],
+              "step_ms": s["step_ms"], "step_ms_p50": median(s["step_ms"]),
+              "sync_ms_p50": median(s["sync_ms"]),
+              "ep_exchange_ms_per_step": sum(s["ep_ms"]) / steps,
+              "ep_collectives": len(s["ep_ms"]),
+              "peak_mib": s.get("peak_memory_bytes", 0) / 2**20,
+              "param_bytes": s["param_bytes"],
+              "launches_per_step": {k: s["launches"][k] / steps for k in (
+                  "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+              "launches": s["launches"],
+              "spawn_to_first_step_s": s["spawn_to_first_step_s"]}
+             for s in trainer.rank_stats]
+    losses = list(trainer.history["loss"])
+    ok = trainer.backend == "gloo" and len(ranks) == EP_WORLD and all(
+        len(r["step_ms"]) == steps and r["ep_collectives"] == 2 * steps
+        and r["param_bytes"] == full - dropped
+        and all(v == layers for v in r["launches_per_step"].values())
+        for r in ranks) and len(losses) == EP_FIT_EPOCHS and all(
+        math.isfinite(v) for v in losses)
+    phase("expert parallel fit", ok,
+          f"DistributedTrainer(MoETransformerClassifier(), MeshSpec(dp=2, "
+          f"ep=2), devices=['{EP_DEVICE}'] x 4, {trainer.backend}): {steps} "
+          f"bf16 steps of {EP_FIT_BATCH} rows at T="
+          f"{MOE_CLS_SHAPE['max_len']}: losses {losses}; per rank step ms "
+          f"p50 {[round(r['step_ms_p50'], 2) for r in ranks]}, gradient "
+          f"sync p50 {[round(r['sync_ms_p50'], 2) for r in ranks]}, expert "
+          f"exchange per step "
+          f"{[round(r['ep_exchange_ms_per_step'], 2) for r in ranks]} "
+          f"({2 * steps} collectives each), peak memory "
+          f"{[round(r['peak_mib'], 1) for r in ranks]} MiB, parameter bytes "
+          f"{[r['param_bytes'] for r in ranks]} (one device {full}, want "
+          f"{dropped} fewer); K1/K2/K3 per step "
+          f"{[list(r['launches_per_step'].values()) for r in ranks]} (want "
+          f"{layers} each); fit {fit_s:.1f}s")
+    return {"losses": losses, "fit_s": fit_s, "ranks": ranks,
+            "param_bytes_one_device": full}
+
+
+def ep_rest(tmp, card: str) -> tuple:
+    """(c): the port's server with two lease units of cuda:0: MoEDecoderLM
+    created over REST at its defaults, ``POST /train/horovod`` with
+    ``"mesh": {"ep": 2}`` (2 steps of 8 rows at T = 1024), the trained
+    model published int8 (K4, all 8 experts of each layer) and loaded
+    (K5), then ``/generate`` of 8 tokens for two prompts against a
+    one-device greedy decode of the same artifact."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
+    from learningorchestra_tpu_torch.ops.moe import EXPERT_LEAVES
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    line: dict = {}
+    launches: dict = {}
+    layers = MOE_LM_SHAPE["num_layers"]
+    volumes = VolumeStorage(tmp)
+    server = APIServer(server_config(tmp), device=EP_DEVICE)
+    port = server.start_background()
+    server.ctx.leaser = server.ctx.engine.leaser = DeviceLeaser(
+        [EP_DEVICE] * EP_MESH["ep"])
+    probe = TrainerProbe()
+    try:
+        status, meta, model_s, _ = rest_job(
+            port, "POST", "/model/tensorflow",
+            {"name": EP_MODEL, "modulePath": MOE_PATH,
+             "class": "MoEDecoderLM", "classParameters": {"seed": 0}},
+            EP_MODEL)
+        phase("expert parallel model", status == 201
+              and bool(meta.get("finished")),
+              f"POST /model/tensorflow {MOE_PATH}.MoEDecoderLM -> {status}, "
+              f"finished {meta.get('finished')} in {model_s:.2f}s")
+        x = moe_rows(EP_REST_ROWS, MOE_LM_SHAPE["max_len"], seed=29)
+        y = np.concatenate([x[:, 1:], np.zeros((len(x), 1), np.int32)], 1)
+        fit_name = f"{EP_MODEL}_fit"
+        status, meta, fit_s, parent = rest_job(
+            port, "POST", "/train/horovod",
+            {"name": fit_name, "parentName": EP_MODEL,
+             "trainingParameters": {"x": x.tolist(), "y": y.tolist(),
+                                    "epochs": 1,
+                                    "batch_size": EP_REST_BATCH,
+                                    "shuffle": False},
+             "mesh": {"ep": EP_MESH["ep"]}}, fit_name)
+        fit = probe.fits[-1] if probe.fits else {"rank_stats": [],
+                                                 "world": 0}
+        steps = EP_REST_ROWS // EP_REST_BATCH
+        want = layers * steps
+        ranks = [s["launches"] for s in fit["rank_stats"]]
+        launches["rest_ranks"] = ranks
+        _, rows = request(port, "GET", f"/train/horovod/{fit_name}")
+        history = [r.get("loss") for r in rows
+                   if r.get("docType") == "history"]
+        trained = server.ctx.volumes.load_estimator(
+            "train/tensorflow", fit_name, device=EP_DEVICE)
+        experts = {
+            f"{name}.{key}": getattr(mod, key).shape[0]
+            for name, mod in trained.module.named_modules()
+            if hasattr(mod, "expert_w1") for key in EXPERT_LEAVES}
+        dropped = _split_bytes(MOE_LM_SHAPE, EP_MESH["ep"])
+        full = sum(p.numel() * p.element_size()
+                   for p in trained.module.parameters())
+        phase("expert parallel rest fit", status == 201
+              and bool(meta.get("finished")) and fit["world"] == 2
+              and meta.get("mesh") == {"ep": EP_MESH["ep"]}
+              and len(history) == 1 and all(math.isfinite(v)
+                                            for v in history)
+              and len(ranks) == 2 and all(
+                  r[k] == want for r in ranks for k in (
+                      "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+              and experts and all(
+                  v == MOE_LM_SHAPE["num_experts"] for v in experts.values())
+              and all(s["param_bytes"] == full - dropped
+                      for s in fit["rank_stats"]),
+              f"POST /train/horovod mesh {{'ep': {EP_MESH['ep']}}}, "
+              f"{EP_REST_ROWS} rows at T={MOE_LM_SHAPE['max_len']}, batch "
+              f"{EP_REST_BATCH}: {meta.get('jobState')} in {fit_s:.2f}s "
+              f"(fitTime {meta.get('fitTime')}), world {fit['world']}, loss "
+              f"{history}; K1/K2/K3 per rank "
+              f"{[[r[k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')] for r in ranks]}"
+              f" (want {want}); the trained artifact's experts per leaf "
+              f"{sorted(set(experts.values()))} (want "
+              f"{MOE_LM_SHAPE['num_experts']}); parameter bytes per rank "
+              f"{[s['param_bytes'] for s in fit['rank_stats']]} (one device "
+              f"{full}), parent {parent}")
+        line["fit"] = {"job_s": fit_s, "fit_time_s": meta.get("fitTime"),
+                       "losses": history, "rank_stats": [
+                           {"rank": s["rank"], "step_ms": s["step_ms"],
+                            "sync_ms": s["sync_ms"],
+                            "ep_exchange_ms": sum(s["ep_ms"]),
+                            "peak_mib": s.get("peak_memory_bytes", 0)
+                            / 2**20, "param_bytes": s["param_bytes"],
+                            "spawn_to_first_step_s":
+                            s["spawn_to_first_step_s"]}
+                           for s in fit["rank_stats"]]}
+        pub = moe_publish(server, port, volumes, trained, EP_MODEL)
+        launches["publish"], launches["load"] = pub["k4"], pub["k5"]
+        line["artifact"] = {k: pub[k] for k in (
+            "save_s", "load_s", "int8_leaves", "f32_leaves",
+            "expert_leaves", "int8_expert_leaves")}
+        prompts = [moe_rows(1, n, seed=60 + i)[0].tolist()
+                   for i, n in enumerate(EP_PROMPT_LENS)]
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        status, body = request(port, "POST", f"/serve/{EP_MODEL}/generate",
+                               {"prompts": prompts, "maxNewTokens": EP_NEW})
+        gen_s = time.perf_counter() - t0
+        launches["generate"] = kernel_counts()
+        toks = body.get("tokens", [])
+        solo_est = load_artifact(pub["artifact"], device=EP_DEVICE)
+        solo = [solo_est.generate(np.asarray([p], np.int32),
+                                  max_new_tokens=EP_NEW)[0].tolist()
+                for p in prompts]
+        del solo_est
+        phase("expert parallel generate", status == 200 and toks == solo
+              and all(len(t) == len(p) + EP_NEW for t, p in zip(toks,
+                                                                prompts)),
+              f"POST /serve/{EP_MODEL}/generate of prompts "
+              f"{list(EP_PROMPT_LENS)} tokens, {EP_NEW} new each, from the "
+              f"int8 artifact of the {{'ep': 2}} fit -> {status} in "
+              f"{gen_s:.2f}s; equal to a one-device greedy decode of the "
+              f"same artifact: {toks == solo}; K1 "
+              f"{launches['generate']['flash_fwd']}")
+        line["generate"] = {"prompts": list(EP_PROMPT_LENS),
+                            "new_tokens": EP_NEW, "s": gen_s,
+                            "equal_to_one_device": toks == solo}
+    finally:
+        probe.close()
+        server.shutdown()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def run_expert_parallel(tmp, card: str) -> dict:
+    """Phase 19: expert parallelism and the data-parallel MoE fit.  (a)
+    four gloo rank processes on cuda:0 (``--ep-child``) check one f32
+    dp 2 x ep 2 step against one device while (c) drives the REST path
+    (``/train/horovod`` with ``{"ep": 2}`` on the decoder LM, the int8
+    artifact, ``/generate``); then (b) the 8-step bf16 fit of the
+    classifier through ``DistributedTrainer`` and K1-K3 checked at a
+    rank's attention shape; the ``expert_parallel`` line."""
+    from learningorchestra_tpu_torch.ops import attention
+
+    t_phase = time.perf_counter()
+    line: dict = {}
+    stage = os.path.join(tmp, "ep")
+    os.makedirs(stage)
+    logs = [open(os.path.join(stage, f"rank{r}.log"), "wb")
+            for r in range(EP_WORLD)]
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ep-child", stage,
+         str(r)], stdout=logs[r], stderr=subprocess.STDOUT,
+        stdin=subprocess.DEVNULL, env=env) for r in range(EP_WORLD)]
+    try:
+        line["rest"], launches = ep_rest(os.path.join(tmp, "rest"), card)
+        line["f32_step"] = ep_results(procs, stage)
+        line["fit"] = ep_fit()
+        launches["fit_ranks"] = [r["launches"] for r in line["fit"]["ranks"]]
+        line["kernels"] = ep_step_kernels(attention)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in logs:
+            fh.close()
+    line["launches"] = launches
+    line["phase_s"] = time.perf_counter() - t_phase
+    name, _, limit = card.partition(",")
+    line = {"card": name.strip(), "power_limit": limit.strip(), **line}
+    return {"line": line, "launches": launches}
+
+
 def convert_tree(est):
     from learningorchestra_tpu_torch import convert
 
@@ -7030,6 +7512,24 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     long_s = time.perf_counter() - t_long
+
+    # Phase 19: expert parallelism and the data-parallel MoE fit, its REST
+    # path, the int8 artifact and /generate.
+    tmp, t_ep = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        ep = run_expert_parallel(tmp, card)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("expert parallel", False, repr(exc))
+        ep = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ep_s = time.perf_counter() - t_ep
+    ep_l = ep["launches"]
+    # bf16 K1-K3 in every rank of the dp 2 x ep 2 fit and of the REST
+    # {"ep": 2} fit, K4 at the publication, K5 at the load.
+    ep_train = list(ep_l.get("fit_ranks", [])) + list(
+        ep_l.get("rest_ranks", []))
     long_l = long["launches"]
     # bf16 K1-K3 in every rank of the two sp = 2 fits, K4 at the
     # publication, K5 at the load, f32 K1 in the /predict dispatches.
@@ -7137,7 +7637,8 @@ def main() -> int:
          + rest_sum("flash_fwd", pc_train)
          + rest_sum("flash_fwd", ws_train)
          + rest_sum("flash_fwd", moe_train + [moe_l.get("forward_bf16")])
-         + rest_sum("flash_fwd", long_train),
+         + rest_sum("flash_fwd", long_train)
+         + rest_sum("flash_fwd", ep_train),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -7152,7 +7653,8 @@ def main() -> int:
              "warm_start_train": rest_sum("flash_fwd", ws_train),
              "moe_train_and_forward": rest_sum(
                  "flash_fwd", moe_train + [moe_l.get("forward_bf16")]),
-             "long_context_ranks": rest_sum("flash_fwd", long_train)},
+             "long_context_ranks": rest_sum("flash_fwd", long_train),
+             "expert_parallel_ranks": rest_sum("flash_fwd", ep_train)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -7173,7 +7675,8 @@ def main() -> int:
          + rest_sum("quantize_rowwise", pc_train)
          + rest_sum("quantize_rowwise", ws_train)
          + rest_sum("quantize_rowwise", moe_k4)
-         + rest_sum("quantize_rowwise", [long_l.get("publish")]),
+         + rest_sum("quantize_rowwise", [long_l.get("publish")])
+         + rest_sum("quantize_rowwise", [ep_l.get("publish")]),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
@@ -7190,7 +7693,9 @@ def main() -> int:
              "warm_start_train": rest_sum("quantize_rowwise", ws_train),
              "moe_publish": rest_sum("quantize_rowwise", moe_k4),
              "long_context_publish": rest_sum("quantize_rowwise",
-                                              [long_l.get("publish")])},
+                                              [long_l.get("publish")]),
+             "expert_parallel_publish": rest_sum("quantize_rowwise",
+                                                 [ep_l.get("publish")])},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -7211,7 +7716,8 @@ def main() -> int:
                                            pc_l.get("decoder_load")])
          + rest_sum("dequantize_rowwise", ws_k5)
          + rest_sum("dequantize_rowwise", moe_k5)
-         + rest_sum("dequantize_rowwise", [long_l.get("load")]),
+         + rest_sum("dequantize_rowwise", [long_l.get("load")])
+         + rest_sum("dequantize_rowwise", [ep_l.get("load")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -7233,7 +7739,9 @@ def main() -> int:
              "warm_start_loads": rest_sum("dequantize_rowwise", ws_k5),
              "moe_loads": rest_sum("dequantize_rowwise", moe_k5),
              "long_context_load": rest_sum("dequantize_rowwise",
-                                           [long_l.get("load")])},
+                                           [long_l.get("load")]),
+             "expert_parallel_load": rest_sum("dequantize_rowwise",
+                                              [ep_l.get("load")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -7252,7 +7760,8 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", pc_train)
            + rest_sum(f"flash_bwd_{key}", ws_train)
            + rest_sum(f"flash_bwd_{key}", moe_train)
-           + rest_sum(f"flash_bwd_{key}", long_train),
+           + rest_sum(f"flash_bwd_{key}", long_train)
+           + rest_sum(f"flash_bwd_{key}", ep_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -7268,7 +7777,9 @@ def main() -> int:
                "warm_start_train": rest_sum(f"flash_bwd_{key}", ws_train),
                "moe_train": rest_sum(f"flash_bwd_{key}", moe_train),
                "long_context_ranks": rest_sum(f"flash_bwd_{key}",
-                                              long_train)},
+                                              long_train),
+               "expert_parallel_ranks": rest_sum(f"flash_bwd_{key}",
+                                                 ep_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -7355,13 +7866,16 @@ def main() -> int:
     print("moe " + json.dumps(moe["line"], default=str), flush=True)
     print("long_context " + json.dumps(long["line"], default=str),
           flush=True)
+    print("expert_parallel " + json.dumps(ep["line"], default=str),
+          flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
           f"{drill_s:.1f}, text pipeline {text_s:.1f}, distributed "
           f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f}, "
           f"program cache {pc_s:.1f}, warm start {ws_s:.1f}, moe "
-          f"{moe_s:.1f}, long context {long_s:.1f})", flush=True)
+          f"{moe_s:.1f}, long context {long_s:.1f}, expert parallel "
+          f"{ep_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:
@@ -7392,4 +7906,6 @@ if __name__ == "__main__":
         sys.exit(aot_child(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--ring-child"]:
         sys.exit(ring_child(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--ep-child"]:
+        sys.exit(ep_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

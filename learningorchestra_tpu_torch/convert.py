@@ -20,7 +20,11 @@ the carry is a per-leaf layout change:
 - an MoE layer's expert leaves (``ops/moe.py::EXPERT_LEAVES``: the 3-D
   ``expert_w1`` (E, H, M) and ``expert_w2`` (E, M, H), the biases
   (E, M) and (E, H)) keep their names and layouts both ways; its
-  ``router`` is a bias-free Dense.
+  ``router`` is a bias-free Dense.  Under expert parallelism a rank
+  holds E/ep of them: :func:`split_experts` cuts a tree (parameters,
+  optimizer slots, accumulated gradients) to an ep index's experts and
+  :func:`join_experts` puts the ep ranks' slices back together in the
+  layout above.
 
 A flax tree is the variables dict ``{"params": {...}}`` whose leaves are
 numpy arrays (or tensors, e.g. a dequantized artifact on the card).  A
@@ -136,6 +140,55 @@ def to_host(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True).contiguous().numpy()
     return tree
+
+
+def expert_layers(module: nn.Module) -> set:
+    """The flax paths (tuples of names) of ``module``'s MoE layers split
+    over an expert group (``MoEMlp.bind_experts``)."""
+    return {tuple(filter(None, name.split(".")))
+            for name, mod in module.named_modules()
+            if isinstance(mod, MoEMlp) and mod.ep_group is not None}
+
+
+def map_expert_leaves(tree, layers: set, fn):
+    """``tree`` with ``fn`` applied to every expert leaf of the layers
+    ``layers`` (:func:`expert_layers`); ``tree`` is a flax variables tree
+    or a state holding such trees (an optimizer's slots, ``acc_grads``),
+    each expert leaf found under its layer's path after a ``params`` key.
+    A 0-d leaf (a per-leaf scalar) is left as it is."""
+
+    def walk(node, path):
+        out = {}
+        for key, val in node.items():
+            if isinstance(val, dict):
+                out[key] = walk(val, path + (key,))
+            elif key in EXPERT_LEAVES and getattr(val, "ndim", 0) >= 1 \
+                    and "params" in path and path[len(path) - path[
+                        ::-1].index("params"):] in layers:
+                out[key] = fn(val)
+            else:
+                out[key] = val
+        return out
+
+    return walk(tree, ())
+
+
+def split_experts(tree, layers: set, index: int, ep: int):
+    """Each expert leaf of ``layers`` cut to experts
+    ``[index*E/ep, (index+1)*E/ep)``."""
+    # Imported here: the parallel package imports this module.
+    from learningorchestra_tpu_torch.parallel.sharding import expert_slice
+
+    return map_expert_leaves(
+        tree, layers,
+        lambda leaf: leaf[expert_slice(leaf.shape[0], index, ep)])
+
+
+def join_experts(tree, layers: set, gather):
+    """Each expert leaf of ``layers`` replaced by ``gather(leaf)``, the ep
+    ranks' slices concatenated in ep order (a collective every rank of
+    the group makes, leaf by leaf in the same order)."""
+    return map_expert_leaves(tree, layers, gather)
 
 
 def params_to_jax(module: nn.Module) -> dict:

@@ -15,6 +15,13 @@ the flax tree's names (``MoEBlock_1.MoEMlp_0.router``,
 The forward takes ``aux_losses``: given a list, every MoE block appends
 its auxiliary loss to it (the JAX modules' ``sow("losses", ...)``); the
 fit loop adds their sum to the objective (``train/neural.py``).
+
+Both models train expert-parallel: in a rank of a fit over an ``ep``
+mesh axis, ``bind_experts`` splits each MoE layer's experts over the
+rank's expert group for the length of the fit (``parallel/rank.py``,
+as ``ring_bound`` binds the long-context model).  The estimators of a
+server, its predict, ``/generate`` and the captured decode graph are
+never bound.
 """
 
 from __future__ import annotations
@@ -140,8 +147,35 @@ class _MoETransformer(nn.Module):
         return cls_head(x, self.Dense_0, self.Dense_1)
 
 
+#: Optimizers whose update reads a whole leaf's norm (lamb's trust ratio,
+#: novograd's second moment): an expert slice's norm is not the leaf's.
+_LEAF_NORM_OPTIMIZERS = ("lamb", "novograd")
+
+
+class _ExpertParallel:
+    """``bind_experts`` for an estimator whose module holds MoE layers."""
+
+    def bind_experts(self, group) -> list[str]:
+        """Split every MoE layer whose expert count divides by
+        ``group.size`` over the expert group ``group`` (a rank's
+        ``GroupComm``): the rank holds and computes ``group.index``'s
+        E/ep experts of each.  The parameters are replaced, so a rank
+        binds before it loads its state.  Returns the split layers'
+        names."""
+        if group.size > 1 and self.optimizer.name in _LEAF_NORM_OPTIMIZERS:
+            raise ValueError(
+                f"optimizer {self.optimizer.name!r} reads each leaf's norm;"
+                " an expert-parallel rank holds a slice of the expert "
+                "leaves (use another optimizer, or ep=1)")
+        split = [name for name, mod in self.module.named_modules()
+                 if isinstance(mod, MoEMlp) and mod.bind_experts(group)]
+        self.opt_state = None
+        self._invalidate_programs()
+        return split
+
+
 @register(_MODULE)
-class MoETransformerClassifier(NeuralEstimator):
+class MoETransformerClassifier(_ExpertParallel, NeuralEstimator):
     """Sequence classifier with routed-expert FFNs."""
 
     def __init__(
@@ -190,7 +224,7 @@ class MoETransformerClassifier(NeuralEstimator):
 
 
 @register(_MODULE)
-class MoEDecoderLM(GreedyDecodeMixin, NeuralEstimator):
+class MoEDecoderLM(_ExpertParallel, GreedyDecodeMixin, NeuralEstimator):
     """Causal LM with routed-expert FFNs (a sparse GPT shape).
 
     ``fit(x, y)`` with y the next-token targets; ``generate`` decodes

@@ -485,6 +485,8 @@ def _decode_program(module, prompts: np.ndarray, total: int, temperature,
                 nxt = torch.multinomial(torch.softmax(scaled, -1), 1,
                                         generator=gen)[:, 0]
             buf[:, i + 1] = nxt
+        # The program's one host transfer, the finished tokens:
+        # lo-check: disable=jit-host-sync
         return buf.to(torch.int32).cpu().numpy()
 
 

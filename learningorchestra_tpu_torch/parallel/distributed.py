@@ -38,7 +38,21 @@ all-reduces the gradients:
   are summed over all ranks: the token-local parameters' partials add up
   and the head's sp equal copies count once.  The epoch metrics are
   summed over the rank's dp group (one rank per replica).  A model without
-  ``bind_mesh`` sees whole rows on every sp rank, the same arithmetic.
+  ``bind_mesh`` sees whole rows on every sp rank, the same arithmetic;
+- with an ``ep`` axis (rank ``r = (dp_index * ep + ep_index) * sp +
+  sp_index``) the ep ranks of one dp index see the same rows, and a model
+  with ``bind_experts`` (the MoE models) holds E/ep of each MoE layer's
+  experts on each (``rank.py`` loads only its slice; ops/moe.py gathers
+  the expert outputs over the rank's ep group).  The gradients are summed
+  over the ranks that hold the same copy of each leaf in ONE all-reduce
+  over the world: an expert slice's in its ep index's section of the
+  buffer (its dp group's ranks add into it), a replicated leaf's from ep
+  index 0 only (the other ep ranks of a replica hold the same gradient
+  and add zeros), so every rank of a replica ends the step with
+  bit-equal replicated leaves.  Checkpoints and the handed-back state
+  join the slices in the single-device layout; a data-parallel MoE
+  model's auxiliary loss runs over the global batch (its sums over one
+  rank per replica, :attr:`DataParallel.replicas`).
 
 The backend follows the device list: NCCL when every rank has a card of
 its own, gloo when ranks share a card or run on the CPU (gloo's CUDA
@@ -68,7 +82,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from learningorchestra_tpu_torch import convert
 from learningorchestra_tpu_torch.jobs.cancel import cancel_requested
+from learningorchestra_tpu_torch.ops.moe import split_expert_parameters
 from learningorchestra_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh
 from learningorchestra_tpu_torch.parallel.sharding import (
     batch_rows,
@@ -112,19 +128,70 @@ def backend_for(devices) -> str:
     return "nccl" if len(set(index)) == len(index) else "gloo"
 
 
+class GroupComm:
+    """A process group of this rank with its index in it and its size:
+    sums and gathers of tensors over it (new tensors on the input's
+    device), staged through host copies when a gloo group carries CUDA
+    tensors.  Each timed collective's start and end marks go to
+    ``marks`` (``DataParallel.stats`` reads them)."""
+
+    def __init__(self, group, index: int, size: int, device, backend: str,
+                 mark=None):
+        self.group, self.index, self.size = group, index, size
+        self.host_staged = backend != "nccl" and \
+            torch.device(device).type == "cuda"
+        self._mark = mark
+        self.marks: list = []
+
+    def _timed(self, fn, t: torch.Tensor, timed: bool) -> torch.Tensor:
+        start = self._mark() if timed and self._mark else None
+        out = fn(t.detach().cpu() if self.host_staged else t.detach())
+        out = out.to(t.device)
+        if start is not None:
+            self.marks.append((start, self._mark()))
+        return out
+
+    def all_reduce(self, t: torch.Tensor, timed: bool = True
+                   ) -> torch.Tensor:
+        """The sum of ``t`` over the group."""
+
+        def reduce(x):
+            x = x.clone()
+            dist.all_reduce(x, group=self.group)
+            return x
+
+        return self._timed(reduce, t, timed)
+
+    def all_gather(self, t: torch.Tensor, timed: bool = True
+                   ) -> torch.Tensor:
+        """The group's tensors of ``t``'s shape, concatenated along the
+        first axis in group order."""
+
+        def gather(x):
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            dist.all_gather(parts, x.contiguous(), group=self.group)
+            return torch.cat(parts)
+
+        return self._timed(gather, t, timed)
+
+
 class DataParallel:
-    """One rank's view of the process group, as ``est._dp`` in the rank
-    process: which rows of a global batch are its own (and, with
-    ``shard_tokens``, which tokens of them), the sums over the ranks, the
-    agreed stop flags, and per-step timings.  With ``sp`` > 1 every rank
-    creates the same groups in the same order: one ring per dp index
-    (``ring``) and one dp group per sp index (``dp_group``)."""
+    """One rank's view of the process group: which rows of a global batch
+    are its own (and, with ``shard_tokens``, which tokens of them), the
+    sums over the ranks, the agreed stop flags, and per-step timings.
+    With ``sp`` or ``ep`` > 1 every rank creates the same groups in the
+    same order: one ring per (dp, ep) index (``ring``), one expert group
+    per (dp, sp) index (``ep_comm``) and one dp group per (ep, sp) index
+    (``dp_group``, one rank per replica; ``replicas`` sums over it when
+    there are several)."""
 
     def __init__(self, rank: int, world: int, device, backend: str,
-                 cancel_flag: Path, mesh_key=None, sp: int = 1):
+                 cancel_flag: Path, mesh_key=None, sp: int = 1,
+                 ep: int = 1):
         self.rank, self.world = rank, world
-        self.sp, self.dp_size = sp, world // sp
-        self.dp_index, self.sp_index = rank_coords(rank, sp)
+        self.sp, self.ep, self.dp_size = sp, ep, world // (sp * ep)
+        self.dp_index, self.ep_index, self.sp_index = rank_coords(
+            rank, sp, ep)
         # Set by the rank program when the model runs over the ring.
         self.shard_tokens = False
         # The mesh's fingerprint (axis names, sizes, device list): part
@@ -141,25 +208,50 @@ class DataParallel:
         self._syncs: list = []
         self._open = None
         self.first_step_wall: float | None = None
-        self.ring = self.dp_group = None
-        if sp > 1:
+        self.ring = self.dp_group = self.ep_comm = self.replicas = None
+        if sp > 1 or ep > 1:
             self._make_groups()
+        if self.dp_size > 1:
+            self.replicas = GroupComm(self.dp_group, self.dp_index,
+                                      self.dp_size, self.device, backend)
 
     def _make_groups(self) -> None:
         from learningorchestra_tpu_torch.parallel.ring_attention import Ring
 
-        sp, timeout = self.sp, timedelta(seconds=COLLECTIVE_TIMEOUT_S)
-        for d in range(self.dp_size):
-            group = dist.new_group([d * sp + s for s in range(sp)],
-                                   timeout=timeout)
-            if d == self.dp_index:
-                self.ring = Ring(group, self.sp_index, sp, self.device,
-                                 self.backend, COLLECTIVE_TIMEOUT_S)
-        for s in range(sp):
-            group = dist.new_group(
-                [d * sp + s for d in range(self.dp_size)], timeout=timeout)
-            if s == self.sp_index:
-                self.dp_group = group
+        sp, ep, timeout = self.sp, self.ep, timedelta(
+            seconds=COLLECTIVE_TIMEOUT_S)
+        here = (self.dp_index, self.ep_index, self.sp_index)
+
+        def rank_of(d, e, s):
+            return (d * ep + e) * sp + s
+
+        if sp > 1:
+            for d in range(self.dp_size):
+                for e in range(ep):
+                    group = dist.new_group(
+                        [rank_of(d, e, s) for s in range(sp)],
+                        timeout=timeout)
+                    if (d, e) == here[:2]:
+                        self.ring = Ring(group, self.sp_index, sp,
+                                         self.device, self.backend,
+                                         COLLECTIVE_TIMEOUT_S)
+        if ep > 1:
+            for d in range(self.dp_size):
+                for s in range(sp):
+                    group = dist.new_group(
+                        [rank_of(d, e, s) for e in range(ep)],
+                        timeout=timeout)
+                    if (d, s) == (here[0], here[2]):
+                        self.ep_comm = GroupComm(
+                            group, self.ep_index, ep, self.device,
+                            self.backend, mark=self._mark)
+        for e in range(ep):
+            for s in range(sp):
+                group = dist.new_group(
+                    [rank_of(d, e, s) for d in range(self.dp_size)],
+                    timeout=timeout)
+                if (e, s) == here[1:]:
+                    self.dp_group = group
 
     def rows(self, batch_size: int) -> slice:
         return batch_rows(batch_size, self.dp_index, self.dp_size)
@@ -209,33 +301,69 @@ class DataParallel:
         gets its answer, so all of them stop at the same epoch."""
         return self.agree(self.rank == 0 and self.cancel_flag.exists())[0]
 
-    def _flat_sum(self, grads: list) -> torch.Tensor:
-        return self._reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    def _sum_copies(self, module, params: list, grads: list) -> list:
+        """Each gradient summed over the ranks that hold the same copy of
+        its parameter, in one flat all-reduce over the world: an expert
+        slice (ep > 1) in its ep index's section, a replicated leaf from
+        ep index 0 alone (module docstring)."""
+        split = {id(p) for p in split_expert_parameters(module)}
+        chunks, spans, offset = [], [], 0
+        for p, g in zip(params, grads):
+            g, n = g.reshape(-1), g.numel()
+            if id(p) in split:
+                section = g.new_zeros(self.ep * n)
+                section[self.ep_index * n:(self.ep_index + 1) * n] = g
+                chunks.append(section)
+                spans.append(offset + self.ep_index * n)
+                offset += self.ep * n
+            else:
+                chunks.append(g if self.ep_index == 0 else
+                              torch.zeros_like(g))
+                spans.append(offset)
+                offset += n
+        flat = self._reduce_(torch.cat(chunks))
+        return [flat[at:at + g.numel()].view_as(g)
+                for at, g in zip(spans, grads)]
 
     def sync_grads(self, module) -> None:
-        """Replace every accumulated ``.grad`` with its sum over the ranks:
-        one flat buffer, one all-reduce."""
+        """Replace every accumulated ``.grad`` with its sum over the ranks
+        holding its parameter: one flat buffer, one all-reduce."""
         params = [p for p in module.parameters() if p.grad is not None]
         t0 = self._mark()
-        flat, offset = self._flat_sum([p.grad for p in params]), 0
-        for p in params:
-            n = p.grad.numel()
-            p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
-            offset += n
+        for p, g in zip(params, self._sum_copies(
+                module, params, [p.grad for p in params])):
+            p.grad.copy_(g)
         self._syncs.append((t0, self._mark()))
 
     def pending_grads(self, module) -> dict:
-        """{parameter: its accumulated gradient summed over the ranks},
-        leaving ``.grad`` as it is (a checkpoint of a fit stopped part way
-        through an accumulation)."""
+        """{parameter: its accumulated gradient summed over the ranks
+        holding it}, leaving ``.grad`` as it is (a checkpoint of a fit
+        stopped part way through an accumulation)."""
         params = list(module.parameters())
-        flat = self._flat_sum([torch.zeros_like(p) if p.grad is None
-                               else p.grad for p in params])
-        out, offset = {}, 0
-        for p in params:
-            out[p] = flat[offset:offset + p.numel()].view_as(p)
-            offset += p.numel()
-        return out
+        return dict(zip(params, self._sum_copies(
+            module, params, [torch.zeros_like(p) if p.grad is None
+                             else p.grad for p in params])))
+
+    # -- the expert slices of a state -----------------------------------------
+
+    def local_experts(self, tree, module):
+        """A single-device state tree (parameters, optimizer state) cut to
+        this rank's experts of ``module``'s split layers."""
+        if self.ep_comm is None or tree is None:
+            return tree
+        return convert.split_experts(tree, convert.expert_layers(module),
+                                     self.ep_index, self.ep)
+
+    def join_experts(self, tree, module):
+        """This rank's state tree with every split expert leaf gathered
+        over its ep group: the single-device layout (every rank takes
+        part, leaf by leaf)."""
+        if self.ep_comm is None or tree is None:
+            return tree
+        return convert.join_experts(
+            tree, convert.expert_layers(module),
+            lambda t: self.ep_comm.all_gather(torch.as_tensor(t),
+                                              timed=False))
 
     # -- timing ---------------------------------------------------------------
 
@@ -255,8 +383,9 @@ class DataParallel:
         self._steps.append((self._open, self._mark()))
 
     def stats(self) -> dict:
-        """Each step's milliseconds and each gradient sync's (CUDA events
-        on a card, the host clock on the CPU)."""
+        """Each step's milliseconds, each gradient sync's and each
+        collective's of the expert exchange (CUDA events on a card, the
+        host clock on the CPU)."""
         if self._cuda:
             torch.cuda.synchronize(self.device)
 
@@ -265,9 +394,11 @@ class DataParallel:
 
         return {"rank": self.rank, "device": str(self.device),
                 "backend": self.backend, "dp_index": self.dp_index,
-                "sp_index": self.sp_index,
+                "ep_index": self.ep_index, "sp_index": self.sp_index,
                 "step_ms": [ms(a, b) for a, b in self._steps],
                 "sync_ms": [ms(a, b) for a, b in self._syncs],
+                "ep_ms": [] if self.ep_comm is None else [
+                    ms(a, b) for a, b in self.ep_comm.marks],
                 "first_step_wall": self.first_step_wall}
 
 
@@ -294,12 +425,13 @@ class DistributedTrainer:
 
     ``batch_size`` is the GLOBAL batch size, split across the ranks.
     ``devices`` lists one device per rank (default: every card); the
-    mesh's ``dp`` times its ``sp`` is the world size.  ``shard_sequence``
-    (default: on iff ``sp`` > 1) splits each token row over the sp ranks
-    of its replica, for a model with ``bind_mesh``; off, every sp rank
-    holds whole rows.  ``rank_stats`` holds, after a call,
-    each rank's launch counters, step and gradient-sync milliseconds and
-    seconds from its start to its first step.  A call ends when its ranks
+    mesh's ``dp`` times its ``ep`` times its ``sp`` is the world size.
+    ``shard_sequence`` (default: on iff ``sp`` > 1) splits each token row
+    over the sp ranks of its replica, for a model with ``bind_mesh``;
+    off, every sp rank holds whole rows.  ``rank_stats`` holds, after a call,
+    each rank's launch counters, step, gradient-sync and expert-exchange
+    milliseconds, parameter bytes and seconds from its start to its first
+    step.  A call ends when its ranks
     do: a hung collective raises in the ranks after
     ``COLLECTIVE_TIMEOUT_S``, and the engine's deadline or cancel reaches
     them through the relayed cancel flag.  Each call stages under
@@ -489,7 +621,7 @@ class DistributedTrainer:
             task = {
                 "mode": mode, "devices": devices, "backend": self.backend,
                 "mesh_key": compile_cache.mesh_fingerprint(self.mesh),
-                "sp": self.mesh.shape["sp"],
+                "sp": self.mesh.shape["sp"], "ep": self.mesh.shape["ep"],
                 "shard_sequence": self.shard_sequence,
                 "parent": os.getpid(),
                 "threads": max(1, (os.cpu_count() or 1) // world),

@@ -7,8 +7,10 @@ device of the mesh.  Here each rank joins the fit's process group through
 the ``FileStore`` in its staging directory, rebuilds the estimator from
 the staged artifact on its device, memory-maps the staged inputs (or
 reopens the sharded dataset), runs ``fit`` or ``evaluate`` with its
-:class:`DataParallel` as ``est._dp`` (and, on a sequence-parallel mesh, a
-model with ``bind_mesh`` bound to its ring for the call) and leaves the
+:class:`DataParallel` as ``est._dp`` (on a sequence-parallel mesh a
+model with ``bind_mesh`` bound to its ring for the call; on an
+expert-parallel mesh a model with ``bind_experts`` split over its expert
+group from its load on, holding only its experts) and leaves the
 process group.  Every
 rank writes its launch counters and timings; rank 0 also writes the
 final state (the artifact layout), the history and the stop flag.  A
@@ -53,9 +55,12 @@ from learningorchestra_tpu_torch.train.neural import (
 PR_SET_PDEATHSIG = 1  # <linux/prctl.h>
 
 
-def load_estimator(spec: dict, device):
+def load_estimator(spec: dict, device, dp: DataParallel | None = None):
     """The staged artifact rebuilt on ``device`` with the parent's loss and
-    optimizer (set before the state, whose moments follow its layout)."""
+    optimizer (set before the state, whose moments follow its layout).
+    On an expert-parallel rank (``dp.ep_comm``) a model with
+    ``bind_experts`` is split over the rank's expert group first and
+    loads only its slice of the staged parameters and moments."""
     doc = spec["artifact"]
     cls = registry.resolve(doc["modulePath"], doc["class"])
     est = cls(**doc["classParameters"], device=device)
@@ -66,7 +71,12 @@ def load_estimator(spec: dict, device):
     est.optimizer = pickle.loads(spec["optimizer"]) \
         if spec["optimizer"] is not None \
         else resolve_optimizer(spec["optimizer_spec"], spec["learning_rate"])
-    est.load_state_dict(doc["state"])
+    state = doc["state"]
+    if dp is not None and dp.ep_comm is not None and \
+            hasattr(est, "bind_experts"):
+        est.bind_experts(dp.ep_comm)
+        state = dp.local_experts(state, est.module)
+    est.load_state_dict(state)
     est.history = TrainHistory()
     return est
 
@@ -110,15 +120,19 @@ def run_fit(est, dp: DataParallel, data: dict, kwargs: dict,
         est.fit(data["x"], data["y"], validation_data=validation,
                 callbacks=callbacks, **kwargs)
     # A fit that stopped part way through an accumulation hands back the
-    # ranks' summed gradients, as its checkpoints do.
+    # ranks' summed gradients, as its checkpoints do; an expert-parallel
+    # rank's slices are joined into the single-device layout (every rank
+    # takes part).
     grads = dp.pending_grads(est.module) if est._mini_step else None
     history = {k: list(v) for k, v in est.history.items()}
     n_epochs = len(history.get("loss", ()))
+    opt = est._export_opt_state(host=False, grads=grads) \
+        if est.opt_state is not None else None
     return {
         "state": {
-            "params": convert.to_host(convert.flax_tree(est.module)),
-            "opt_state": est._export_opt_state(grads=grads)
-            if est.opt_state is not None else None,
+            "params": convert.to_host(dp.join_experts(
+                convert.flax_tree(est.module), est.module)),
+            "opt_state": convert.to_host(dp.join_experts(opt, est.module)),
             "accumulate_steps": est._accumulate_steps,
             "sharded_fit_cols": est._sharded_fit_cols,
         },
@@ -173,9 +187,9 @@ def main(argv: list[str]) -> int:
     try:
         dp = DataParallel(rank, world, device, task["backend"],
                           stage / CANCEL, mesh_key=task.get("mesh_key"),
-                          sp=task.get("sp", 1))
+                          sp=task.get("sp", 1), ep=task.get("ep", 1))
         cache_before = compile_cache.counters_snapshot()
-        est = load_estimator(task["estimator"], device)
+        est = load_estimator(task["estimator"], device, dp)
         est._dp = dp
         data = load_data(task["data"])
         kwargs = dict(task["kwargs"])
@@ -185,7 +199,10 @@ def main(argv: list[str]) -> int:
             else:
                 out = {"metrics": est.evaluate(data["x"], data["y"],
                                                **kwargs)}
-        stats = {**dp.stats(), "launches": launch_counts(device)}
+        stats = {**dp.stats(), "launches": launch_counts(device),
+                 # What the rank holds: E/ep of each split MoE layer.
+                 "param_bytes": sum(p.numel() * p.element_size()
+                                    for p in est.module.parameters())}
         if device.type == "cuda":
             stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
                 device)

@@ -1,4 +1,5 @@
-"""Batch placement over the data axis — port of the batch half of
+"""Batch placement over the data axis and the expert rule — port of the
+batch half and of the expert leaves of
 ``learningorchestra_tpu/parallel/sharding.py``.
 
 In the JAX package a batch enters sharded over ``("dp", "fsdp")``: device
@@ -7,9 +8,13 @@ of B rows (``batch_sharding`` / ``shard_batch``).  Here the same rule
 picks the rows each rank process feeds its replica, by the rank's dp
 index; with an ``sp`` axis the ranks of one replica split each row's
 tokens the same way (the JAX ``P(("dp", "fsdp"), "sp")`` token sharding).
-The parameter rules
-(``leaf_spec``, ``param_shardings``) shard leaves over ``fsdp``/``tp`` and
-wait for ROADMAP A.9 part 2.
+The batch is not sharded over ``ep``: the ep ranks of one replica see the
+same rows.  Of the parameter rules (``leaf_spec``) the expert one is
+ported: a 2-D or 3-D leaf whose name holds ``expert`` and whose leading
+(expert) dimension divides by ``ep`` is split into E/ep whole experts per
+ep index (:func:`expert_slice`); a leaf that does not divide stays whole
+on every rank, the JAX fall-through that replicates it.  The
+``fsdp``/``tp`` rules wait for ROADMAP A.9 part 2.
 """
 
 from __future__ import annotations
@@ -30,10 +35,24 @@ def shard_batch(arrays: tuple, rank: int, world: int) -> tuple:
     return tuple(a[batch_rows(a.shape[0], rank, world)] for a in arrays)
 
 
-def rank_coords(rank: int, sp: int) -> tuple[int, int]:
-    """(dp index, sp index) of ``rank``: ``sp`` varies fastest, as the JAX
-    mesh's last axis."""
-    return rank // sp, rank % sp
+def rank_coords(rank: int, sp: int, ep: int = 1) -> tuple[int, int, int]:
+    """(dp index, ep index, sp index) of ``rank``, the JAX mesh's axis
+    order with ``sp`` fastest: ``rank = (dp * ep + ep_index) * sp + sp``."""
+    return rank // (sp * ep), (rank // sp) % ep, rank % sp
+
+
+def splits_experts(name: str, shape, ep: int) -> bool:
+    """The JAX ``leaf_spec``'s expert rule: a 2-D (experts, features) or
+    3-D (experts, in, out) leaf named ``expert`` whose leading dimension
+    divides by ``ep`` > 1 is sharded over ``ep``."""
+    return ep > 1 and len(shape) in (2, 3) and "expert" in name.lower() \
+        and shape[0] % ep == 0
+
+
+def expert_slice(num_experts: int, ep_index: int, ep: int) -> slice:
+    """Experts ``[i*E/ep, (i+1)*E/ep)`` of ep index i."""
+    per = num_experts // ep
+    return slice(ep_index * per, (ep_index + 1) * per)
 
 
 def check_seq_divisible(x, sp: int) -> None:

@@ -5,7 +5,8 @@
   drive :class:`DistributedTrainer` over every leased card (one rank
   each; on a CPU context ``dist.cpu_ranks`` gloo ranks on the CPU; a
   ``mesh`` body's ``sp`` splits each token row over a ring of ranks,
-  ``"shardSequence"`` forcing that on or off), with
+  ``"shardSequence"`` forcing that on or off, and its ``ep`` splits an MoE
+  model's experts over the ranks of each replica), with
   managed checkpoints (a fresh POST wipes stale state, a PATCH of a
   failed job resumes it), the published artifact (int8 with
   ``quantize_checkpoint``), one history row per epoch and, with a

@@ -84,6 +84,7 @@ from learningorchestra_tpu_torch.ops.layers import (
     has_separate_qkv,
     migrate_separate_qkv,
 )
+from learningorchestra_tpu_torch.ops.moe import AuxLosses
 from learningorchestra_tpu_torch.ops.quant import (
     dequantize_pytree,
     has_quantized_leaves,
@@ -829,6 +830,8 @@ def _finalize_metrics(per_batch: list[dict], dp=None) -> dict:
                            for m in per_batch]).float()
     if dp is not None:
         stacked = dp.replica_sum(stacked)
+    # The epoch's one host transfer, its metrics:
+    # lo-check: disable=jit-host-sync
     out = dict(zip(keys, stacked.mean(0).cpu().tolist()))
     if "perplexity" in out:
         out["perplexity"] = math.exp(out["perplexity"])
@@ -884,6 +887,8 @@ def _apply_program(module: nn.Module, x: np.ndarray) -> np.ndarray:
     device = next(module.parameters()).device
     with torch.inference_mode():
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        # The program's host output, in one transfer:
+        # lo-check: disable=jit-host-sync
         return module(xt).float().cpu().numpy()
 
 
@@ -1120,18 +1125,16 @@ class NeuralEstimator(Estimator):
         A data-parallel rank normalises by the global batch's ``msum`` and
         sums the ranks' gradients once per update; on a sequence-parallel
         mesh it steps on its tokens of the rows and divides its loss by sp
-        (each sp rank of a replica computes the replica's loss)."""
+        (each sp rank of a replica computes the replica's loss); an MoE
+        model's auxiliary loss is the global batch's (``ops/moe.py``)."""
         dp = self._dp
         # A module whose forward takes ``aux_losses`` (the MoE models)
         # appends its auxiliary losses to the list; their sum joins the
         # objective, not the metrics (the JAX package's _apply_with_aux).
-        aux = [] if getattr(self.module, "takes_aux_losses", False) \
-            else None
-        if aux is not None and dp is not None:
-            raise NotImplementedError(
-                "a data-parallel fit of a model with auxiliary losses (a "
-                "mixture of experts) is not ported: each rank's aux loss "
-                "would see only its rows of the global batch")
+        # A data-parallel rank's list names its replicas, so the terms
+        # are the global batch's.
+        aux = AuxLosses(None if dp is None else dp.replicas) \
+            if getattr(self.module, "takes_aux_losses", False) else None
         if dp is not None:
             dp.step_begin()
             xb = dp.local_tokens(xb)
@@ -1461,12 +1464,17 @@ class NeuralEstimator(Estimator):
         early stop dropped are saved fresh, as optax's ``init`` gives
         them, so a resume does not replay pre-restore moments.  A
         data-parallel rank's accumulated gradients are summed over the
-        ranks first (every rank takes part)."""
-        grads = self._dp.pending_grads(self.module) \
-            if self._dp is not None and self._mini_step else None
+        ranks first, and its expert slices joined (every rank takes
+        part)."""
+        dp = self._dp
+        grads = dp.pending_grads(self.module) \
+            if dp is not None and self._mini_step else None
         opt = self._export_opt_state(host=False, grads=grads) \
             if self.opt_state is not None else self._fresh_opt_state()
-        return {"params": convert.flax_tree(self.module), "opt_state": opt}
+        state = {"params": convert.flax_tree(self.module), "opt_state": opt}
+        # An expert-parallel rank's slices, joined: the single-device
+        # layout.
+        return state if dp is None else dp.join_experts(state, self.module)
 
     def _fresh_opt_state(self) -> dict:
         """A never-stepped optimizer's exported state: count 0, no slot
@@ -1481,7 +1489,10 @@ class NeuralEstimator(Estimator):
                     self.module, pick=torch.zeros_like)}
 
     def _restore_checkpoint(self, state: dict) -> None:
-        """Resume from a checkpoint's state, its tensors on this device."""
+        """Resume from a checkpoint's state, its tensors on this device (an
+        expert-parallel rank's cut to its experts)."""
+        if self._dp is not None:
+            state = self._dp.local_experts(state, self.module)
         opt = state["opt_state"]
         if ("inner_opt_state" in opt) != (self._accumulate_steps > 1):
             raise ValueError(

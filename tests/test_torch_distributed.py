@@ -15,9 +15,10 @@ parameters (carried with ``convert.py``) and the same batch order
   the moments dropped), the first epoch's loss (of the one-call
   ``distributed_fit``) equal to a single-device fit's, and the
   global-batch divisibility error;
-- the mesh refuses every axis but ``dp`` and ``sp`` (accepted with its
-  rank layout), and folds spare devices into ``dp``; the backend follows
-  the device list;
+- the mesh refuses every axis but ``dp``, ``ep`` and ``sp`` (``sp``
+  accepted with its rank layout; ``ep`` is
+  ``tests/test_torch_expert_parallel.py``'s), and folds spare devices
+  into ``dp``; the backend follows the device list;
 - a streaming world-2 fit over a sharded dataset equals the in-memory
   world-2 fit of the same rows;
 - a checkpointed fit killed in its second epoch resumes to the
@@ -241,7 +242,7 @@ def test_distributed_contract(contract):
 
 # -- mesh and backend ---------------------------------------------------------
 
-@pytest.mark.parametrize("axis", ["fsdp", "pp", "ep", "tp"])
+@pytest.mark.parametrize("axis", ["fsdp", "pp", "tp"])
 def test_model_axes_are_refused(axis):
     with pytest.raises(ValueError, match="only the data axis"):
         build_mesh(MeshSpec(**{axis: 2}), ["cpu"] * 4)
@@ -251,9 +252,10 @@ def test_sequence_axis_is_accepted_with_its_rank_layout():
     mesh = build_mesh(MeshSpec(sp=2), ["cpu"] * 4)
     assert mesh.size == 4 and mesh.shape["sp"] == 2 \
         and mesh.shape["dp"] == 2  # spare devices fold into dp
-    # sp varies fastest: rank r is dp index r // sp, sp index r % sp.
+    # sp varies fastest: rank r is dp index r // sp, sp index r % sp
+    # (and ep index 0).
     assert [rank_coords(r, 2) for r in range(4)] == [
-        (0, 0), (0, 1), (1, 0), (1, 1)]
+        (0, 0, 0), (0, 0, 1), (1, 0, 0), (1, 0, 1)]
     assert sequence_slice(12, 1, 2) == slice(6, 12)
     with pytest.raises(ValueError, match="power of two"):
         build_mesh(MeshSpec(sp=3), ["cpu"] * 3)

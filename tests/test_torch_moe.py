@@ -356,21 +356,6 @@ def test_bf16_fit_matches_jax():
                                **BF16)
 
 
-def test_data_parallel_fit_of_an_moe_model_is_refused():
-    class _Rank:
-        def step_begin(self):
-            raise AssertionError("refused before the step")
-
-    est = MoETransformerClassifier(**CLS, device="cpu")
-    x, y = _cls_data()
-    est._reset_optimizer()
-    est._dp = _Rank()
-    loss_fn = est._loss_and_metrics("softmax_ce")
-    with pytest.raises(NotImplementedError, match="auxiliary losses"):
-        est._train_step(torch.from_numpy(x[:4]), torch.from_numpy(y[:4]),
-                        torch.ones(4), loss_fn, None)
-
-
 # -- MoEDecoderLM decode ----------------------------------------------------
 
 
