@@ -335,7 +335,32 @@ Phases (each prints its own line; any failure exits nonzero):
    K1/K2/K3 2 per step), and K1-K3 at a rank's (16, 4, 256, 32) with a
    key mask are held against their plain versions (bf16 3e-2); the
    ``expert_parallel`` line;
-20. last line: {"ok": true, "device": {...}}.
+20. the operations plane (``run_operations_plane``) on a server with a
+   0.25 s rollup tick and SLO windows of 2 and 4 s: (a) phase 8's
+   BERT-base over REST on 96 rows, a train job of 3 epochs of 3 bf16
+   steps at 32x128 (``checkpoint_every`` 1) under an armed
+   ``train.epoch`` preempt (``after`` 2, ``max_triggers`` 1): it finishes
+   with one ``preempted`` record and ``preemptions`` 1, K1/K2/K3 12 per
+   step of epochs 0-2 run once (a restart would add 6 steps), K4 once,
+   its two leases released in turn and the card's allocated bytes back
+   at their level before the job, its losses within 1e-5 (relative) of
+   an unfaulted twin job's; (b) its span tree under the submit's
+   ``X-Request-Id`` (queue wait, two leases, the two attempts, epochs 0
+   and 1 under attempt 1 and epoch 2 under attempt 2); (d) the int8
+   artifact loaded (K5) and 24 one-row predicts under ``serve.apply``
+   armed ``error`` once: one dispatch's requests fail, the rest answer
+   within ``CPU_ATOL`` of the CPU, K1 12 per successful dispatch, the
+   server live after; (c) ``/metrics.prom`` deltas over (a)-(d) (fault
+   triggers, finished and preempted jobs, predicts answered, the
+   predict route's 5xx) and phase 13's SSE streams' token and TTFT
+   deltas against what they received; (e) a runtime predict-latency
+   objective under a ``serve.apply`` delay fires, exactly one bundle
+   lands (``slo_firing``, its ``flight.json`` holding the delay triggers
+   and the predicts' request ids), and the alert resolves after the
+   disarm; (f) the disabled cost of ``faults.hit`` and of a ``span`` (ns,
+   in process) and the predict p50 with the plane on, beside the card;
+   the ``operations_plane`` line;
+21. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -4431,6 +4456,9 @@ def run_decoder(tmp, card: str) -> dict:
 
         threads = [threading.Thread(target=sse, args=(i,))
                    for i in range(DEC_SSE)]
+        # The registry's decode families around the streams: phase 20 (c)
+        # holds their deltas to what the streams received.
+        registry_before = decode_registry(DEC_MODEL)
         for th in threads[:2]:
             th.start()
         first_tok[0].wait(120)
@@ -4439,6 +4467,14 @@ def run_decoder(tmp, card: str) -> dict:
             th.start()
         for th in threads:
             th.join(300)
+        registry_after = decode_registry(DEC_MODEL)
+        line["registry_sse"] = {
+            key: registry_after[key] - registry_before[key]
+            for key in registry_after}
+        line["registry_sse"]["tokens_received"] = sum(
+            sum(1 for n, _, _ in (res or (0, []))[1] if n == "token")
+            for res in results)
+        line["registry_sse"]["streams"] = DEC_SSE
         ttft, itl, sse_ok, sse_div = [], [], True, []
         for i, res in enumerate(results):
             status, events = res or (0, [])
@@ -7229,6 +7265,494 @@ def convert_tree(est):
     return convert.flax_tree(est.module)
 
 
+# -- phase 20: the operations plane ------------------------------------------
+
+OPS_ROWS = 96  # 3 steps of 32 a epoch at T=128
+OPS_EPOCHS = 3
+OPS_PREDICTS = 24
+# Phase 20 (e): a predict-latency objective over a fast rollup clock.
+OPS_TICK_S = 0.25
+OPS_FAST_S, OPS_SLOW_S = 2.0, 4.0
+OPS_THRESHOLD_MS = 300.0
+OPS_DELAY_MS = 700.0
+OPS_LOSS_RTOL = 1e-5
+# A finished job's allocations are freed: what stays allocated after it
+# is the cached programs' and the resident models' (none new here).
+OPS_MEM_SLACK = 64 << 20
+_PROM_LINE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$")
+_PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+_PROM_ESCAPE = re.compile(r"\\(.)")
+
+
+def parse_prom(text: str) -> dict:
+    """Prometheus text 0.0.4 -> {(name, frozenset(labels)): value}."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_LINE.match(line)
+        if m is None:
+            raise ValueError(f"not a sample line: {line!r}")
+        labels = frozenset(
+            (k, _PROM_ESCAPE.sub(
+                lambda e: "\n" if e.group(1) == "n" else e.group(1), v))
+            for k, v in _PROM_LABEL.findall(m.group(3) or ""))
+        out[(m.group(1), labels)] = float(m.group(4))
+    return out
+
+
+def prom_sum(samples: dict, name: str, **labels) -> float:
+    """The sum of a family's samples whose labels include ``labels``."""
+    want = set(labels.items())
+    return sum(v for (n, ls), v in samples.items()
+               if n == name and want <= set(ls))
+
+
+def decode_registry(model: str) -> dict:
+    """The process registry's decode token count and TTFT observations
+    for ``model`` (the families /metrics.prom exposes)."""
+    from learningorchestra_tpu_torch.obs.metrics import get_registry
+    from learningorchestra_tpu_torch.serve.decode.engine import (
+        DECODE_TOKENS,
+        DECODE_TTFT,
+    )
+
+    samples = parse_prom(get_registry().render_prometheus())
+    return {"tokens": prom_sum(samples, DECODE_TOKENS, model=model),
+            "ttft_count": prom_sum(samples, DECODE_TTFT + "_count",
+                                   model=model)}
+
+
+def rid_request(port, verb, path, body=None, rid=None):
+    """``request`` with an ``X-Request-Id``: -> (status, JSON or text,
+    the echoed request id)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    headers = {"Content-Type": "application/json"}
+    if rid:
+        headers["X-Request-Id"] = rid
+    try:
+        conn.request(verb, "/api/learningOrchestra/v1" + path,
+                     body=None if body is None else json.dumps(body),
+                     headers=headers)
+        resp = conn.getresponse()
+        raw = resp.read()
+        ctype = resp.getheader("Content-Type", "")
+        doc = json.loads(raw) if "json" in ctype else raw.decode()
+        return resp.status, doc, resp.getheader("X-Request-Id")
+    finally:
+        conn.close()
+
+
+def disabled_costs() -> dict:
+    """ns per call of the fault plane's ``hit`` with nothing armed and of
+    a ``span`` with no active trace, in this process."""
+    from learningorchestra_tpu_torch import faults
+    from learningorchestra_tpu_torch.obs import tracing
+
+    n = 200_000
+    hit = faults.hit
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        hit("serve.apply")
+    hit_ns = (time.perf_counter_ns() - t0) / n
+    span = tracing.span
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        with span("x"):
+            pass
+    span_ns = (time.perf_counter_ns() - t0) / n
+    return {"fault_hit_ns": hit_ns, "span_ns": span_ns, "calls": n}
+
+
+def run_operations_plane(tmp, card: str, dec_line: dict) -> dict:
+    """Phase 20 on the card: (a) a BERT-base REST train job preempted by
+    an armed ``train.epoch`` fault resumes from its checkpoint on the
+    engine's retry (K1-K3 counts show no restart), equal to its unfaulted
+    twin; its int8 artifact served (K4, K5); (b) its span tree under the
+    submit's ``X-Request-Id``; (c) ``/metrics.prom`` deltas against what
+    the phase did, and phase 13's decode deltas against its streams; (d)
+    ``serve.apply`` armed to fail once under 24 predicts; (e) a
+    predict-latency objective fired by a ``serve.apply`` delay, one
+    bundle, then resolved; (f) the disabled costs and a predict p50."""
+    import gc
+
+    from learningorchestra_tpu_torch import faults
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.config import (
+        BundleConfig,
+        RollupConfig,
+        SLOConfig,
+    )
+    from learningorchestra_tpu_torch.obs import bundle, rollup, slo
+    from learningorchestra_tpu_torch.serve.service import PREDICT_DURATION
+
+    t_phase = time.perf_counter()
+    line: dict = {"card": card}
+    launches: dict = {}
+    x, _ = make_train_data(30522)
+    x = x[:OPS_ROWS]
+    csv = f"{tmp}/ops_tokens.csv"
+    _, y = make_train_data(30522)
+    with open(csv, "w") as fh:
+        fh.write(",".join(REST_FIELDS + ["label"]) + "\n")
+        for row, label in zip(x, y[:OPS_ROWS]):
+            fh.write(",".join(map(str, row)) + f",{label}\n")
+    # The phase's own clocks: a fast rollup tick, SLO windows of seconds
+    # and only the runtime objective (e) adds; a bundle store of its own.
+    rollup.reset_engine(RollupConfig(tick_s=OPS_TICK_S, points=256))
+    slo.reset_service(SLOConfig(
+        availability_target=0.0, predict_p99_ms=0.0, job_success_target=0.0,
+        fast_window_s=OPS_FAST_S, slow_window_s=OPS_SLOW_S,
+        burn_threshold=2.0, for_s=0.5, resolve_s=1.0))
+    bundle.reset_service()
+    cfg = server_config(f"{tmp}/volumes")
+    cfg.bundle = BundleConfig(dir=f"{tmp}/bundles", debounce_s=300.0)
+    cfg.jobs.retry_backoff_s = 0.05
+    server = APIServer(cfg, device="cuda")
+    port = server.start_background()
+    steps = OPS_EPOCHS * (OPS_ROWS // TRAIN_SHAPE[0])
+    fit = {"x": "$ops_x", "y": "$ops.label", "epochs": OPS_EPOCHS,
+           "batch_size": TRAIN_SHAPE[0], "shuffle": False,
+           "checkpoint_every": 1, "checkpoint_min_interval_s": 0,
+           "checkpoint_async": False, "quantize_checkpoint": True}
+    per_job = {"flash_fwd": REST_LAYERS * steps,
+               "flash_bwd_dq": REST_LAYERS * steps,
+               "flash_bwd_dkv": REST_LAYERS * steps,
+               "quantize_rowwise": 1, "dequantize_rowwise": 0}
+    try:
+        status, text, _ = rid_request(port, "GET", "/metrics.prom")
+        prom0 = parse_prom(text)
+        jobs_run = 0
+        for key, path, body, name in (
+                ("ingest", "/dataset/csv",
+                 {"datasetName": "ops", "url": f"file://{csv}"}, "ops"),
+                ("projection", "/transform/projection",
+                 {"projectionName": "ops_x", "datasetName": "ops",
+                  "fields": REST_FIELDS}, "ops_x"),
+                ("model", "/model/tensorflow",
+                 {"modelName": "ops_bert", "class": "BertModel",
+                  "modulePath": "learningorchestra_tpu.models.text",
+                  "classParameters": REST_MODEL}, "ops_bert")):
+            st, meta, secs, _ = rest_job(port, "POST", path, body, name)
+            jobs_run += 1
+            phase(f"ops job {key}", st == 201
+                  and meta.get("jobState") == "finished",
+                  f"POST {path} -> {st}, {meta.get('jobState')} in "
+                  f"{secs:.2f}s")
+
+        # (a) the preempted fit and its unfaulted twin.
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        faults.arm("train.epoch", "preempt", after=2, max_triggers=1)
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        st, created, echoed = rid_request(
+            port, "POST", "/train/tensorflow",
+            {"name": "ops_fit", "parentName": "ops_bert", "method": "fit",
+             "methodParameters": fit}, rid="ops-fit-1")
+        meta = wait_done(port, "ops_fit") if st == 201 else created
+        fit_s = time.perf_counter() - t0
+        launches["fit"] = kernel_counts()
+        jobs_run += 1
+        faults.disarm("train.epoch")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        # What stays: each thread that ran a GEMM keeps its cuBLAS
+        # workspace in the caching allocator (the job ran on a new one).
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        mem_cleared = torch.cuda.memory_allocated()
+        history = server.ctx.artifacts.ledger.history("ops_fit")
+        states = [h["state"] for h in history]
+        leases = [rec for rec in server.ctx.leaser.snapshot()["recent"]
+                  if rec[0] == "ops_fit"]
+        line["preempt"] = {
+            "seconds": fit_s, "preemptions": meta.get("preemptions"),
+            "ledger_states": states, "launches": launches["fit"],
+            "expected": per_job, "memory_before": mem_before,
+            "memory_after": mem_after,
+            "memory_after_cublas_workspaces_cleared": mem_cleared,
+            "leases": [(r[2], r[3]) for r in leases]}
+        phase("ops preempted fit resumes",
+              st == 201 and echoed == "ops-fit-1"
+              and meta.get("jobState") == "finished"
+              and meta.get("preemptions") == 1
+              and states.count("preempted") == 1 and states[-1] == "finished"
+              and faults.triggers("train.epoch") == 1
+              and launches["fit"] == per_job,
+              f"train.epoch preempt after=2 max=1 -> {meta.get('jobState')}"
+              f" in {fit_s:.2f}s, preemptions {meta.get('preemptions')}, "
+              f"ledger {states}; launches {launches['fit']} (want "
+              f"{per_job}: epochs 0-2 once, {steps} steps; a restart "
+              f"would add {REST_LAYERS * 2 * (OPS_ROWS // 32)} to K1-K3)")
+        phase("ops preempted attempt freed its lease and memory",
+              len(leases) == 2 and leases[0][3] <= leases[1][2]
+              and mem_after - mem_before <= OPS_MEM_SLACK,
+              f"leases of the job (start, end) {line['preempt']['leases']} "
+              f"(two, the first released before the second); "
+              f"memory_allocated {mem_before} -> {mem_after} bytes "
+              f"(slack {OPS_MEM_SLACK}; {mem_cleared} with the cuBLAS "
+              f"workspaces cleared)")
+        st, meta2, secs2, twin_counts = rest_job(
+            port, "POST", "/train/tensorflow",
+            {"name": "ops_twin", "parentName": "ops_bert", "method": "fit",
+             "methodParameters": fit}, "ops_twin")
+        jobs_run += 1
+        launches["twin"] = twin_counts
+        line["preempt"]["twin_seconds"] = secs2
+
+        def losses(name):
+            rows = server.ctx.documents.find(
+                name, query={"docType": "history"})
+            return [r["loss"] for r in sorted(rows, key=lambda r: r["epoch"])]
+
+        got, want = losses("ops_fit"), losses("ops_twin")
+        rel = max((abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(got, want)), default=float("inf"))
+        line["preempt"]["losses"] = got
+        line["preempt"]["twin_losses"] = want
+        line["preempt"]["loss_rel_err"] = rel
+        phase("ops preempted fit equals its twin",
+              meta2.get("jobState") == "finished"
+              and len(got) == len(want) == OPS_EPOCHS
+              and rel <= OPS_LOSS_RTOL and twin_counts == per_job,
+              f"losses {got} vs unfaulted {want}: max relative "
+              f"{rel:.3g} (bar {OPS_LOSS_RTOL}); twin launches "
+              f"{twin_counts}")
+
+        # (b) the span tree under the submit's request id.
+        st, trace, _ = rid_request(
+            port, "GET", "/observability/jobs/ops_fit/trace")
+        spans = trace.get("spans", []) if st == 200 else []
+        by_id = {s["id"]: s for s in spans}
+
+        def attempt_of(span):
+            while span is not None:
+                if span["name"] == "job":
+                    return span["attrs"]["attempt"]
+                span = by_id.get(span.get("parent"))
+            return None
+
+        names = [s["name"] for s in spans]
+        epochs: dict = {}
+        for s in spans:
+            if s["name"] == "epoch":
+                epochs.setdefault(attempt_of(s), []).append(
+                    s["attrs"]["epoch"])
+        roots = [n["name"] for n in trace.get("tree", [])]
+        line["trace"] = {"roots": roots, "spans": len(spans),
+                         "epochs_by_attempt": epochs,
+                         "requestId": trace.get("requestId")}
+        phase("ops trace", st == 200 and trace.get("requestId") == "ops-fit-1"
+              and names.count("queue_wait") == 1
+              and names.count("lease") == 2
+              and [s["attrs"]["attempt"] for s in spans
+                   if s["name"] == "job"] == [1, 2]
+              and epochs == {1: [0, 1], 2: [2]},
+              f"GET /observability/jobs/ops_fit/trace -> {st}: requestId "
+              f"{trace.get('requestId')}, roots {roots}, {len(spans)} spans "
+              f"(queue_wait {names.count('queue_wait')}, lease "
+              f"{names.count('lease')}, job {names.count('job')}, "
+              f"retry_backoff {names.count('retry_backoff')}), epochs by "
+              f"attempt {epochs}")
+
+        # (d) serve the int8 artifact; serve.apply fails one dispatch.
+        zero_kernel_counts()
+        st, body, _ = rid_request(port, "POST", "/serve/ops_fit/load")
+        launches["load"] = kernel_counts()
+        phase("ops serve load", st == 200
+              and launches["load"]["dequantize_rowwise"] == 1,
+              f"POST /serve/ops_fit/load -> {st}; K5 "
+              f"{launches['load']['dequantize_rowwise']} launch")
+        # The model's batcher starts at its first predict.
+        stats0 = server.serving.stats()["models"].get(
+            "ops_fit", {"batches": 0, "rows": 0})
+        st, _, _ = rid_request(port, "POST", "/faults/serve.apply",
+                               {"mode": "error", "maxTriggers": 1})
+        zero_kernel_counts()
+        with concurrent.futures.ThreadPoolExecutor(OPS_PREDICTS) as pool:
+            answers = list(pool.map(
+                lambda i: rid_request(
+                    port, "POST", "/serve/ops_fit/predict",
+                    {"instances": x[i:i + 1].tolist()}, rid=f"ops-d-{i}"),
+                range(OPS_PREDICTS)))
+        launches["serve"] = kernel_counts()
+        rid_request(port, "DELETE", "/faults")
+        stats1 = server.serving.stats()["models"]["ops_fit"]
+        ok_rows = [i for i, a in enumerate(answers) if a[0] == 200]
+        failed = [i for i, a in enumerate(answers) if a[0] == 500]
+        dispatches = stats1["batches"] - stats0["batches"]
+        served_rows = stats1["rows"] - stats0["rows"]
+        picks = ok_rows[:4]
+        ref = server.ctx.volumes.load_estimator(
+            "train/tensorflow", "ops_fit", device="cpu").predict(x[picks])
+        got_p = np.concatenate([np.asarray(answers[i][1]["predictions"],
+                                           np.float32) for i in picks])
+        err = float(np.abs(got_p - ref).max()) if picks else float("inf")
+        live = rid_request(port, "GET", "/health")[0] == 200 and \
+            rid_request(port, "POST", "/serve/ops_fit/predict",
+                        {"instances": x[:1].tolist()})[0] == 200
+        line["serve_fault"] = {
+            "answered": len(ok_rows), "failed": len(failed),
+            "dispatches": dispatches, "served_rows": served_rows,
+            "launches": launches["serve"], "cpu_max_abs_err": err,
+            "latency_ms_p50": float(np.median(
+                [answers[i][1]["latencyMs"] for i in ok_rows]))
+            if ok_rows else None}
+        phase("ops serve.apply fault",
+              faults.triggers("serve.apply") == 1 and len(failed) >= 1
+              and len(ok_rows) + len(failed) == OPS_PREDICTS
+              and served_rows == len(ok_rows)
+              and launches["serve"]["flash_fwd"] == REST_LAYERS * dispatches
+              and err <= CPU_ATOL and live,
+              f"{OPS_PREDICTS} one-row predicts under serve.apply error "
+              f"max=1: {len(ok_rows)} answered 200, {len(failed)} failed "
+              f"(one dispatch's requests; {served_rows} rows served in "
+              f"{dispatches} dispatches); K1 {launches['serve']['flash_fwd']}"
+              f" (want 12 x {dispatches}); rows {picks} vs the CPU plain "
+              f"path max|dlogit| {err:.3g} (atol {CPU_ATOL}); live after: "
+              f"{live}")
+
+        # (c) the exposition's deltas against what the phase did.
+        predict_route = next(
+            key for *_, key in server.router.routes
+            if key.startswith("POST /serve/") and key.endswith("/predict"))
+        st, text, _ = rid_request(port, "GET", "/metrics.prom")
+        prom1 = parse_prom(text)
+
+        def delta(name, **labels):
+            return prom_sum(prom1, name, **labels) - prom_sum(
+                prom0, name, **labels)
+
+        deltas = {
+            "train_epoch_preempt": delta("lo_fault_triggers_total",
+                                         point="train.epoch",
+                                         mode="preempt"),
+            "serve_apply_error": delta("lo_fault_triggers_total",
+                                       point="serve.apply", mode="error"),
+            "jobs_finished": delta("lo_jobs_total", state="finished"),
+            "jobs_preempted": delta("lo_jobs_total", state="preempted"),
+            "predicts_answered": delta(PREDICT_DURATION + "_count",
+                                       model="ops_fit"),
+            "predict_5xx": delta("lo_http_requests_total",
+                                 route=predict_route, status="5xx"),
+        }
+        want_d = {"train_epoch_preempt": 1, "serve_apply_error": 1,
+                  "jobs_finished": jobs_run, "jobs_preempted": 1,
+                  "predicts_answered": len(ok_rows) + 1,
+                  "predict_5xx": len(failed)}
+        sse = dec_line.get("registry_sse", {})
+        line["metrics"] = {"deltas": deltas, "want": want_d,
+                           "decoder_sse": sse, "bytes": len(text)}
+        phase("ops metrics deltas", st == 200 and deltas == want_d
+              and sse.get("tokens") == sse.get("tokens_received")
+              == DEC_SSE * DEC_NEW
+              and sse.get("ttft_count") == sse.get("streams"),
+              f"/metrics.prom ({len(text)} bytes) deltas {deltas} (want "
+              f"{want_d}); phase 13's SSE streams: registry tokens "
+              f"{sse.get('tokens')} and TTFT observations "
+              f"{sse.get('ttft_count')} vs {sse.get('tokens_received')} "
+              f"tokens received by {sse.get('streams')} streams")
+
+        # (e) a predict-latency objective; a serve.apply delay fires it.
+        # The windows first age out (d)'s dispatches.
+        time.sleep(OPS_SLOW_S + 2 * OPS_TICK_S)
+        st, _, _ = rid_request(port, "POST", "/observability/slo", {
+            "name": "ops-predict", "kind": "latency", "target": 0.9,
+            "thresholdMs": OPS_THRESHOLD_MS})
+        rid_request(port, "POST", "/faults/serve.apply",
+                    {"mode": "delay", "delayMs": OPS_DELAY_MS})
+        t0, fired, sent = time.perf_counter(), None, 0
+        while time.perf_counter() - t0 < 20 and fired is None:
+            with concurrent.futures.ThreadPoolExecutor(4) as pool:
+                list(pool.map(lambda i: rid_request(
+                    port, "POST", "/serve/ops_fit/predict",
+                    {"instances": x[i:i + 1].tolist()},
+                    rid=f"ops-e-{sent + i}"), range(4)))
+            sent += 4
+            alerts = rid_request(port, "GET", "/observability/alerts")[1]
+            fired = next((a for a in alerts["firing"]
+                          if a["slo"] == "ops-predict"), None)
+        fire_s = time.perf_counter() - t0
+        rid_request(port, "DELETE", "/faults")
+        t0, names_b = time.perf_counter(), []
+        while time.perf_counter() - t0 < 15 and not names_b:
+            names_b = [b["name"] for b in rid_request(
+                port, "GET", "/observability/bundles")[1]["bundles"]]
+            time.sleep(0.1)
+        t0, resolved = time.perf_counter(), False
+        while time.perf_counter() - t0 < 20 and not resolved:
+            alerts = rid_request(port, "GET", "/observability/alerts")[1]
+            resolved = any(e["state"] == "resolved"
+                           and e["slo"] == "ops-predict"
+                           for e in alerts["history"])
+            time.sleep(OPS_TICK_S)
+        resolve_s = time.perf_counter() - t0
+        names_b = [b["name"] for b in rid_request(
+            port, "GET", "/observability/bundles")[1]["bundles"]]
+        manifest, flight_doc = {}, {}
+        if names_b:
+            manifest = rid_request(
+                port, "GET", f"/observability/bundles/{names_b[0]}")[1]
+            raw = server.bundles.read_file(names_b[0], "flight.json")
+            flight_doc = json.loads(raw)
+        events = flight_doc.get("snapshot", {}).get("events", {})
+        delays = [e for e in events.get("faults", [])
+                  if e.get("point") == "serve.apply"
+                  and e.get("mode") == "delay"]
+        e_rids = {e.get("requestId") for e in events.get("http", [])
+                  if str(e.get("requestId", "")).startswith("ops-e-")}
+        rid_request(port, "DELETE", "/observability/slo/ops-predict")
+        line["slo"] = {"fired_after_s": fire_s, "predicts_sent": sent,
+                       "burn_fast": (fired or {}).get("burnFast"),
+                       "burn_slow": (fired or {}).get("burnSlow"),
+                       "resolved_after_s": resolve_s, "bundles": names_b,
+                       "bundle_files": [f["name"] for f in
+                                        manifest.get("files", [])],
+                       "delay_triggers_in_bundle": len(delays),
+                       "request_ids_in_bundle": len(e_rids)}
+        phase("ops SLO fires one bundle and resolves",
+              st == 201 and fired is not None and len(names_b) == 1
+              and manifest.get("reason") == "slo_firing"
+              and manifest.get("detail", {}).get("slo") == "ops-predict"
+              and delays and e_rids and resolved,
+              f"objective ops-predict (p90 under {OPS_THRESHOLD_MS} ms, "
+              f"windows {OPS_FAST_S}/{OPS_SLOW_S} s, tick {OPS_TICK_S} s) "
+              f"under a {OPS_DELAY_MS} ms serve.apply delay: firing after "
+              f"{fire_s:.2f}s ({sent} predicts; burn {line['slo']['burn_fast']}"
+              f"/{line['slo']['burn_slow']}); bundles {names_b} (want one, "
+              f"reason slo_firing: {manifest.get('reason')}); its "
+              f"flight.json holds {len(delays)} delay triggers and "
+              f"{len(e_rids)} of the predicts' request ids; resolved "
+              f"{resolved} {resolve_s:.2f}s after the disarm")
+
+        # (f) the plane's disabled costs and a predict p50 with it on.
+        line["overhead"] = disabled_costs()
+        lat = []
+        for i in range(16):
+            st, body, _ = rid_request(port, "POST", "/serve/ops_fit/predict",
+                                      {"instances": x[i:i + 1].tolist()})
+            if st == 200:
+                lat.append(body["latencyMs"])
+        line["overhead"]["predict_p50_ms"] = float(np.median(lat)) \
+            if lat else None
+        print(f"[info] operations plane overhead on {card}: "
+              + json.dumps(line["overhead"]), flush=True)
+    finally:
+        faults.disarm_all()
+        server.shutdown()
+        rollup.reset_engine()
+        slo.reset_service()
+        bundle.reset_service()
+    line["launches"] = launches
+    line["seconds"] = time.perf_counter() - t_phase
+    return {"launches": launches, "line": line}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -7525,6 +8049,23 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     ep_s = time.perf_counter() - t_ep
+
+    # Phase 20: the operations plane (preemption and resume, trace,
+    # metrics, a serving fault, an SLO with its bundle, overheads).
+    tmp, t_ops = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        ops = run_operations_plane(tmp, card, dec["line"])
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("operations plane", False, repr(exc))
+        ops = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ops_s = time.perf_counter() - t_ops
+    ops_l = ops["launches"]
+    # bf16 K1-K3 and K4 in the preempted fit and its twin, K5 at the
+    # load, f32 K1 in the served predicts.
+    ops_train = [ops_l.get("fit"), ops_l.get("twin")]
     ep_l = ep["launches"]
     # bf16 K1-K3 in every rank of the dp 2 x ep 2 fit and of the REST
     # {"ep": 2} fit, K4 at the publication, K5 at the load.
@@ -7604,7 +8145,8 @@ def main() -> int:
          + rest_sum("flash_fwd", [pc_l.get("serve")])
          + rest_sum("flash_fwd", ws_f32)
          + rest_sum("flash_fwd", moe_f32)
-         + rest_sum("flash_fwd", [long_l.get("predict")]),
+         + rest_sum("flash_fwd", [long_l.get("predict")])
+         + rest_sum("flash_fwd", [ops_l.get("serve")]),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
@@ -7620,7 +8162,9 @@ def main() -> int:
                                                       ws_f32),
              "moe_forward_and_predict": rest_sum("flash_fwd", moe_f32),
              "long_context_predict": rest_sum("flash_fwd",
-                                              [long_l.get("predict")])},
+                                              [long_l.get("predict")]),
+             "operations_plane_predict": rest_sum("flash_fwd",
+                                                  [ops_l.get("serve")])},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -7638,7 +8182,8 @@ def main() -> int:
          + rest_sum("flash_fwd", ws_train)
          + rest_sum("flash_fwd", moe_train + [moe_l.get("forward_bf16")])
          + rest_sum("flash_fwd", long_train)
-         + rest_sum("flash_fwd", ep_train),
+         + rest_sum("flash_fwd", ep_train)
+         + rest_sum("flash_fwd", ops_train),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -7654,7 +8199,8 @@ def main() -> int:
              "moe_train_and_forward": rest_sum(
                  "flash_fwd", moe_train + [moe_l.get("forward_bf16")]),
              "long_context_ranks": rest_sum("flash_fwd", long_train),
-             "expert_parallel_ranks": rest_sum("flash_fwd", ep_train)},
+             "expert_parallel_ranks": rest_sum("flash_fwd", ep_train),
+             "operations_plane_train": rest_sum("flash_fwd", ops_train)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -7676,7 +8222,8 @@ def main() -> int:
          + rest_sum("quantize_rowwise", ws_train)
          + rest_sum("quantize_rowwise", moe_k4)
          + rest_sum("quantize_rowwise", [long_l.get("publish")])
-         + rest_sum("quantize_rowwise", [ep_l.get("publish")]),
+         + rest_sum("quantize_rowwise", [ep_l.get("publish")])
+         + rest_sum("quantize_rowwise", ops_train),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
@@ -7695,7 +8242,9 @@ def main() -> int:
              "long_context_publish": rest_sum("quantize_rowwise",
                                               [long_l.get("publish")]),
              "expert_parallel_publish": rest_sum("quantize_rowwise",
-                                                 [ep_l.get("publish")])},
+                                                 [ep_l.get("publish")]),
+             "operations_plane_publish": rest_sum("quantize_rowwise",
+                                                  ops_train)},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -7717,7 +8266,8 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", ws_k5)
          + rest_sum("dequantize_rowwise", moe_k5)
          + rest_sum("dequantize_rowwise", [long_l.get("load")])
-         + rest_sum("dequantize_rowwise", [ep_l.get("load")]),
+         + rest_sum("dequantize_rowwise", [ep_l.get("load")])
+         + rest_sum("dequantize_rowwise", [ops_l.get("load")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -7741,7 +8291,9 @@ def main() -> int:
              "long_context_load": rest_sum("dequantize_rowwise",
                                            [long_l.get("load")]),
              "expert_parallel_load": rest_sum("dequantize_rowwise",
-                                              [ep_l.get("load")])},
+                                              [ep_l.get("load")]),
+             "operations_plane_load": rest_sum("dequantize_rowwise",
+                                               [ops_l.get("load")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -7761,7 +8313,8 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", ws_train)
            + rest_sum(f"flash_bwd_{key}", moe_train)
            + rest_sum(f"flash_bwd_{key}", long_train)
-           + rest_sum(f"flash_bwd_{key}", ep_train),
+           + rest_sum(f"flash_bwd_{key}", ep_train)
+           + rest_sum(f"flash_bwd_{key}", ops_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -7779,7 +8332,9 @@ def main() -> int:
                "long_context_ranks": rest_sum(f"flash_bwd_{key}",
                                               long_train),
                "expert_parallel_ranks": rest_sum(f"flash_bwd_{key}",
-                                                 ep_train)},
+                                                 ep_train),
+               "operations_plane_train": rest_sum(f"flash_bwd_{key}",
+                                                  ops_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -7868,6 +8423,8 @@ def main() -> int:
           flush=True)
     print("expert_parallel " + json.dumps(ep["line"], default=str),
           flush=True)
+    print("operations_plane " + json.dumps(ops["line"], default=str),
+          flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
@@ -7875,7 +8432,7 @@ def main() -> int:
           f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f}, "
           f"program cache {pc_s:.1f}, warm start {ws_s:.1f}, moe "
           f"{moe_s:.1f}, long context {long_s:.1f}, expert parallel "
-          f"{ep_s:.1f})", flush=True)
+          f"{ep_s:.1f}, operations plane {ops_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -42,6 +42,19 @@ server's request bodies:
   .../captures/<name>`` (``?file=`` answers the file's bytes): on-demand
   ``torch.profiler`` captures of the live process (obs/profiling.py; 409
   while one runs or another ``torch.profiler`` is active);
+- the operations plane: ``GET /metrics.prom`` (Prometheus text 0.0.4
+  over the metrics registry and the subsystems' collectors), ``GET
+  /observability/jobs/<name>/trace`` (a job's span tree),
+  ``GET /observability/timeseries`` (rollup windows), ``GET
+  /observability/alerts``, ``GET|POST /observability/slo`` and ``DELETE
+  /observability/slo/<name>`` (SLO objectives and alerts), ``GET
+  /observability/flight`` (the flight rings and their merged timeline),
+  ``POST /observability/bundle``, ``GET|DELETE /observability/bundles``
+  and ``GET|DELETE /observability/bundles/<name>`` (debug bundles), and
+  ``GET|DELETE /faults`` and ``POST|DELETE /faults/<point>`` (the
+  fault-injection plane; ``FaultsConfig.specs`` arms schedules at boot).
+  Every request echoes or mints ``X-Request-Id``, passes the
+  ``http.handler`` fault point and is metered by route and status class;
 - ``GET /observe/<name>``: long poll until the job finishes or fails;
 - ``GET /observe/events?sinceId=&limit=``: the event feed, paged by
   ``_id``; ``POST``/``GET /observe/webhook`` and ``DELETE
@@ -78,6 +91,7 @@ header is accepted and ignored (the idempotency ledger is not ported).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import threading
@@ -86,10 +100,23 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 from urllib.parse import parse_qs, urlparse
 
+from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.config import Config
 from learningorchestra_tpu_torch.jobs.leases import LeaseTimeout
 from learningorchestra_tpu_torch.log import get_logger
+from learningorchestra_tpu_torch.obs import bundle as obs_bundle
 from learningorchestra_tpu_torch.obs import costs
+from learningorchestra_tpu_torch.obs import flight as obs_flight
+from learningorchestra_tpu_torch.obs import metrics as obs_metrics
+from learningorchestra_tpu_torch.obs import rollup as obs_rollup
+from learningorchestra_tpu_torch.obs import slo as obs_slo
+from learningorchestra_tpu_torch.obs import tracing as obs_tracing
+from learningorchestra_tpu_torch.obs.bundle import (
+    BundleBusy,
+    BundleError,
+    BundleNotFound,
+)
+from learningorchestra_tpu_torch.obs.metrics import Family
 from learningorchestra_tpu_torch.obs.profiling import (
     ProfilerConflict,
     ProfilerError,
@@ -126,6 +153,17 @@ from learningorchestra_tpu_torch.toolkit.registry import RegistryError
 PREFIX = Config().api.api_prefix
 TOOL = r"(?P<tool>[A-Za-z0-9_\-]+)"
 NAME = r"(?P<name>[A-Za-z0-9_.\-]+)"
+#: Client-supplied request ids must be header-safe and bounded; anything
+#: else gets a freshly minted id.
+_RID_RE = re.compile(r"[A-Za-z0-9_.\-]{1,64}")
+
+#: Guards the swap of a server's HTTP metric handles to a new registry.
+_OBS_REBIND_LOCK = threading.Lock()
+
+#: The HTTP families (the JAX server's).
+HTTP_DURATION = "lo_http_request_duration_seconds"
+HTTP_TOTAL = "lo_http_requests_total"
+HTTP_MAX_MS = "lo_http_request_max_ms"
 
 logger = get_logger("api")
 
@@ -137,26 +175,31 @@ class BadRequest(Exception):
 class Router:
     """Regex route table: (verb, pattern) -> handler(match, body, query).
     First match wins, so specific routes are registered before generic
-    ones where their patterns overlap."""
+    ones where their patterns overlap.  Each route's metric label is
+    ``"<VERB> <pattern>"``, as in the JAX server."""
 
     def __init__(self, prefix: str):
         self.prefix = prefix.rstrip("/")
-        self.routes: list[tuple[str, re.Pattern, Callable]] = []
+        self.routes: list[tuple[str, re.Pattern, Callable, str]] = []
 
     def add(self, verb: str, pattern: str, handler: Callable) -> None:
-        self.routes.append((verb.upper(), re.compile(
-            "^" + self.prefix + pattern + "/?$"), handler))
+        verb = verb.upper()
+        self.routes.append((verb, re.compile(
+            "^" + self.prefix + pattern + "/?$"), handler,
+            f"{verb} {pattern}"))
 
     def resolve(self, verb: str, path: str):
-        """-> (handler, match), or (None, "404"|"405")."""
+        """-> (handler, match, route key), or (None, "404"|"405", that
+        code as the key)."""
         matched_path = False
-        for route_verb, pattern, handler in self.routes:
+        for route_verb, pattern, handler, key in self.routes:
             m = pattern.match(path)
             if m:
                 matched_path = True
                 if route_verb == verb:
-                    return handler, m
-        return None, "405" if matched_path else "404"
+                    return handler, m, key
+        code = "405" if matched_path else "404"
+        return None, code, code
 
 
 def _int_param(query: dict, key: str, default: int) -> int:
@@ -210,9 +253,402 @@ class APIServer:
             max_seconds=prof.max_seconds,
             max_captures=prof.max_captures,
         )
+        # Windowed rollups + SLO burn-rate alerting: process-wide
+        # singletons sized from the first server's config; the engine's
+        # daemon snapshots the registry each tick and the SLO service
+        # evaluates on the same clock.
+        self.rollup = obs_rollup.ensure_engine(self.config.rollup)
+        self.slo = obs_slo.ensure_service(self.config.slo)
+        self.rollup.start()
+        # The flight recorder arms at boot; the bundle assembler
+        # snapshots the rings and every subsystem's state when an SLO
+        # fires, a job exhausts its retries or its deadline, or an
+        # operator POSTs /observability/bundle.
+        obs_flight.ensure(self.config.flight)
+        self.bundles = obs_bundle.ensure_service(
+            self.config.bundle if self.config.bundle.dir else
+            dataclasses.replace(self.config.bundle, dir=str(
+                self.config.store.volume_path() / "_bundles")),
+            providers=self._bundle_providers(), profiler=self.profiler)
+        self.slo.add_sink(self._slo_bundle_sink)
+        # HTTP metric handles bind against the CURRENT registry, checked
+        # per use, so a reset_registry() re-homes them and the collector.
+        self._obs_registry = None
+        self._obs_handles()
+        self._t_start = time.time()
         self.router = Router(self.config.api.api_prefix)
         self._httpd: ThreadingHTTPServer | None = None
         self._register_routes()
+        # Arm the schedules the config carried, so a deployment boots
+        # straight into its chaos drill; bad specs raise here.
+        faults.load_env({faults.ENV_PREFIX + suffix: spec
+                         for suffix, spec in self.config.faults.specs.items()})
+
+    # -- operations plane -----------------------------------------------------
+
+    def _bundle_providers(self) -> dict:
+        """Content sources of obs/bundle.py, stem -> zero-arg callable; a
+        failing one becomes a manifest error, not a lost bundle."""
+
+        def rollup():
+            eng = self.rollup
+            series = {}
+            for fam in eng.families:
+                try:
+                    series[fam] = eng.timeseries(fam, max_points=60)
+                except Exception as exc:  # noqa: BLE001 — one family
+                    series[fam] = {"error": repr(exc)}
+            return {"status": eng.status(), "series": series}
+
+        def journal():
+            from learningorchestra_tpu_torch.jobs.journal import (
+                JOURNAL_COLLECTION,
+            )
+
+            tail = max(0, int(self.config.bundle.journal_tail))
+            self.ctx.journal.flush()
+            docs = self.ctx.documents
+            if not docs.collection_exists(JOURNAL_COLLECTION):
+                return {"records": []}
+            records = list(docs.find(JOURNAL_COLLECTION))
+            return {"records": records[-tail:] if tail else []}
+
+        return {
+            "metrics": lambda: obs_metrics.get_registry().snapshot(),
+            "rollup": rollup,
+            "slo": lambda: {"alerts": self.slo.alerts(),
+                            "status": self.slo.status()},
+            "fleet": lambda: self.serving.fleet.snapshot(),
+            "journal": journal,
+            "faults": faults.status,
+            # What the JAX package writes with its lock witness off and
+            # no cluster: the port has neither yet (ROADMAP A.11).
+            "locks": lambda: {"enabled": False, "registeredLocks": 0,
+                              "stallThresholdS": 30.0, "edges": [],
+                              "events": [], "locks": [], "stalls": []},
+            "cluster": lambda: {"enabled": False, "engines": [],
+                                "claims": []},
+        }
+
+    def _slo_bundle_sink(self, event: dict) -> None:
+        """A ``firing`` transition is the incident signal: ask for a
+        bundle (debounced, single-flight, assembled on its own thread)."""
+        if event.get("state") != "firing":
+            return
+        self.bundles.trigger("slo_firing", {
+            "slo": event.get("slo"), "instance": event.get("instance"),
+            "burnFast": event.get("burnFast"),
+            "burnSlow": event.get("burnSlow")})
+
+    @property
+    def obs(self):
+        """The registry this server exposes (its collector registered)."""
+        self._obs_handles()
+        return self._obs_registry
+
+    def _obs_handles(self):
+        """HTTP metric handles on the current registry, rebinding (and
+        re-registering the collector, once) when reset_registry()
+        replaced it.  Registration is idempotent by name, so only the
+        swap runs under the lock."""
+        reg = obs_metrics.get_registry()
+        if reg is not self._obs_registry:
+            handles = (
+                reg.histogram(
+                    HTTP_DURATION, "HTTP request latency by route.",
+                    labels=("route",),
+                    buckets=tuple(ms / 1e3 for ms in
+                                  self.config.obs.latency_buckets_ms)),
+                reg.counter(HTTP_TOTAL,
+                            "HTTP requests by route and status class.",
+                            labels=("route", "status")),
+                reg.gauge(HTTP_MAX_MS,
+                          "Max observed request latency by route.",
+                          labels=("route",)),
+            )
+            with _OBS_REBIND_LOCK:
+                fresh = reg is not self._obs_registry
+                if fresh:
+                    (self._http_hist, self._http_total,
+                     self._http_max) = handles
+                    self._obs_registry = reg
+            if fresh:
+                reg.add_collector(self._collect_families)
+        return self._http_hist, self._http_total, self._http_max
+
+    def _record_metric(self, key: str, status: int, dt_ms: float,
+                       request_id: str | None = None) -> None:
+        if request_id is not None:
+            obs_flight.record("http", "request", route=key, status=status,
+                              ms=round(dt_ms, 3), requestId=request_id)
+        else:
+            obs_flight.record("http", "request", route=key, status=status,
+                              ms=round(dt_ms, 3))
+        http_hist, http_total, http_max = self._obs_handles()
+        http_hist.observe(dt_ms / 1e3, route=key)
+        http_total.inc(route=key,
+                       status=f"{min(max(status // 100, 1), 5)}xx")
+        http_max.set_max(dt_ms, route=key)
+
+    def _collect_families(self) -> list:
+        """Pull-side exposition: snapshot the subsystems that keep exact
+        counters under their own locks (job queues, the lease pool, the
+        program cache and durable store, the cost ledgers, serving,
+        decode, the fleet, the store's WALs, rollup and SLO) into the JAX
+        server's families.  Runs at scrape time; a failing collector
+        drops its families, never the exposition."""
+        from learningorchestra_tpu_torch.train import aot_store, compile_cache
+
+        fams: list[Family] = [Family(
+            "gauge", "lo_uptime_seconds",
+            "Seconds since this API process started.",
+        ).sample(time.time() - self._t_start)]
+        depth = Family("gauge", "lo_jobs_queue_depth",
+                       "Queued-but-undispatched jobs per fairness class.")
+        for cls, n in self.ctx.engine.queue_depths(
+                include_empty=True).items():
+            depth.sample(n, job_class=cls)
+        fams.append(depth)
+        fams.append(Family(
+            "gauge", "lo_cluster_engines",
+            "Live job engines sharing this store (0 = clustering off).",
+        ).sample(0))
+        snap = self.ctx.leaser.snapshot()
+        n_all, n_free = len(snap["all"]), len(snap["free"])
+        fams.append(Family(
+            "gauge", "lo_lease_devices",
+            "Chip-lease pool state (all/free/in_use).",
+        ).sample(n_all, state="all").sample(n_free, state="free")
+            .sample(n_all - n_free, state="in_use"))
+        stats = compile_cache.get_cache().stats()
+        events = Family("counter", "lo_compile_cache_events_total",
+                        "Compiled-program cache lifetime counters.")
+        for kind in ("hits", "misses", "evictions", "coalesced"):
+            events.sample(stats[kind], kind=kind)
+        events.sample(stats["deviceInvalidations"],
+                      kind="device_invalidations")
+        fams.append(events)
+        for kind, name, help_text, value in (
+                ("counter", "lo_compile_cache_trace_seconds_total",
+                 "Cumulative seconds spent tracing/compiling programs.",
+                 stats["traceTimeS"]),
+                ("gauge", "lo_compile_cache_entries",
+                 "Resident compiled-program cache entries.",
+                 stats["entries"]),
+                ("gauge", "lo_compile_cache_bytes_estimate",
+                 "Estimated resident bytes of cached programs.",
+                 stats["bytesEstimate"]),
+                ("gauge", "lo_compile_cache_measured_entries",
+                 "Cache entries charged at their MEASURED serialized "
+                 "size (vs the flat fallback estimate).",
+                 stats.get("measuredEntries", 0))):
+            fams.append(Family(kind, name, help_text).sample(value))
+        aot = aot_store.stats_snapshot()
+        for kind, name, help_text, key in (
+                ("counter", "lo_compile_cache_aot_hits",
+                 "AOT executables restored from the durable store "
+                 "(dispatches that skipped trace AND compile).", "hits"),
+                ("counter", "lo_compile_cache_aot_misses",
+                 "Durable-store lookups with no usable blob.", "misses"),
+                ("counter", "lo_compile_cache_aot_load_errors",
+                 "Stale/corrupt AOT blobs that degraded to a live "
+                 "re-trace.", "loadErrors"),
+                ("gauge", "lo_compile_cache_aot_persisted_entries",
+                 "Executables currently persisted in the AOT store.",
+                 "persistedEntries"),
+                ("gauge", "lo_compile_cache_aot_persisted_bytes",
+                 "On-disk bytes of persisted AOT executables.",
+                 "persistedBytes")):
+            fams.append(Family(kind, name, help_text).sample(aot[key]))
+        try:
+            fams += self._collect_cost_families()
+        except Exception:  # noqa: BLE001 — never the whole exposition
+            pass
+        sstats = self.serving.stats()
+        agg = self.serving.aggregate(sstats)
+        fams.append(Family(
+            "gauge", "lo_serving_resident_models",
+            "Models pinned resident on device.",
+        ).sample(agg["resident_models"]))
+        fams.append(Family(
+            "gauge", "lo_serving_resident_bytes",
+            "Parameter bytes pinned resident on device.",
+        ).sample(agg["resident_bytes"]))
+        sevents = Family(
+            "counter", "lo_serving_events_total",
+            "Serving lifetime counters, summed over served models.")
+        for kind in ("requests", "rows", "batches", "overflows",
+                     "padded_rows"):
+            sevents.sample(agg[kind], kind=kind)
+        fams.append(sevents)
+        fams.append(Family(
+            "gauge", "lo_serving_queue_depth",
+            "Rows queued across serving batchers.",
+        ).sample(agg["queue_depth"]))
+        fams.append(Family(
+            "gauge", "lo_serving_batch_occupancy",
+            "Mean dispatch occupancy (rows/bucket) over models.",
+        ).sample(agg["occupancy"]))
+        slat = Family("gauge", "lo_serving_latency_ms",
+                      "Rolling request-latency quantiles (max over models).")
+        for q, val in agg["quantiles"].items():
+            slat.sample(val, quantile=q)
+        fams.append(slat)
+        if sstats["models"]:
+            # The series the rollup tracks and the autoscaler's slope
+            # trigger fits against.
+            mdepth = Family(
+                "gauge", "lo_serving_model_queue_depth",
+                "Rows queued per served model (replicas summed).")
+            for model, mstats in sstats["models"].items():
+                mdepth.sample(mstats["queueDepth"], model=model)
+            fams.append(mdepth)
+        dstats = sstats["decode"]
+        if dstats["models"]:
+            dactive = Family(
+                "gauge", "lo_serving_decode_active_streams",
+                "Streams active (queued+resident) per decode model.")
+            dfree = Family(
+                "gauge", "lo_serving_decode_free_slots",
+                "Unoccupied page-pool slots per decode model.")
+            for model, ds in dstats["models"].items():
+                dactive.sample(ds["activeStreams"], model=model)
+                dfree.sample(sum(p["slots"] - p["live"]
+                                 for p in ds["pools"]), model=model)
+            fams += [dactive, dfree]
+        fleet = sstats["fleet"]
+        if fleet["models"]:
+            nrepl = Family("gauge", "lo_serving_replicas",
+                           "Active replicas per fleet-served model.")
+            rdepth = Family("gauge", "lo_serving_replica_queue_depth",
+                            "Rows queued per replica batcher.")
+            rreq = Family("counter", "lo_serving_replica_requests_total",
+                          "Requests routed per replica.")
+            for model, st in fleet["models"].items():
+                nrepl.sample(st["size"], model=model)
+                for r in st["replicas"]:
+                    labels = {"model": model, "replica": str(r["replica"]),
+                              "device": r["device"]}
+                    rdepth.sample(r["queueDepth"], **labels)
+                    rreq.sample(r["requests"], **labels)
+            fams += [nrepl, rdepth, rreq]
+        if fleet["scaleTotals"]:
+            scale = Family("counter", "lo_serving_fleet_scale_events_total",
+                           "Replica scale events per model and direction.")
+            for model, t in fleet["scaleTotals"].items():
+                scale.sample(t["up"], model=model, direction="up")
+                scale.sample(t["down"], model=model, direction="down")
+            fams.append(scale)
+        fams.append(Family(
+            "counter", "lo_serving_fleet_autoscaler_ticks_total",
+            "Autoscaler control-loop passes.",
+        ).sample(fleet["autoscaler"]["ticks"]))
+        root = self.config.store.store_path()
+        wal_bytes = wal_files = 0
+        if root.is_dir():
+            for wal in root.glob("*.wal"):
+                try:
+                    wal_bytes += wal.stat().st_size
+                    wal_files += 1
+                except OSError:
+                    continue  # dropped between glob and stat
+        fams.append(Family("gauge", "lo_store_wal_bytes",
+                           "Total bytes across store WAL files.",
+                           ).sample(wal_bytes))
+        fams.append(Family("gauge", "lo_store_wal_files",
+                           "Store WAL file count.").sample(wal_files))
+        try:
+            fams += self.rollup.prom_families()
+            fams += self.slo.prom_families()
+        except Exception:  # noqa: BLE001 — never the whole exposition
+            pass
+        return fams
+
+    def _collect_cost_families(self) -> list:
+        """The cost plane's families (obs/costs.py): what each program
+        costs per execution, and who consumed the device."""
+        if not costs.enabled():
+            return []
+        fams: list = []
+        ledger = costs.get_ledger().snapshot()
+        programs = [p for p in ledger["programs"] if p["label"]]
+        if programs:
+            flops = Family("gauge", "lo_program_flops",
+                           "FLOPs per execution of each program.")
+            accessed = Family("gauge", "lo_program_bytes_accessed",
+                              "Bytes accessed per execution.")
+            hbm = Family("gauge", "lo_program_hbm_bytes",
+                         "Per-program device memory by kind "
+                         "(argument/output/temp/code).")
+            size = Family("gauge", "lo_program_serialized_bytes",
+                          "Serialized program size (what the compile "
+                          "cache's byte cap charges).")
+            for prog in programs:
+                # program + key: labels alone are not unique.
+                labels = {"program": prog["label"], "key": prog["key"]}
+                if prog["flops"] is not None:
+                    flops.sample(prog["flops"], **labels)
+                if prog["bytesAccessed"] is not None:
+                    accessed.sample(prog["bytesAccessed"], **labels)
+                for kind, field in (("argument", "argumentBytes"),
+                                    ("output", "outputBytes"),
+                                    ("temp", "tempBytes"),
+                                    ("code", "generatedCodeBytes")):
+                    if prog[field] is not None:
+                        hbm.sample(prog[field], kind=kind, **labels)
+                if prog["serializedBytes"] is not None:
+                    size.sample(prog["serializedBytes"], **labels)
+            fams += [f for f in (flops, accessed, hbm, size) if f.samples]
+        fams.append(Family(
+            "counter", "lo_program_analyses_total",
+            "Cost/memory analyses run at program build time.",
+        ).sample(ledger["analyses"], outcome="ok")
+            .sample(ledger["analysisFailures"], outcome="failed"))
+        dt = costs.devtime().snapshot(peak_flops=costs.peak_flops())
+        totals = dt["totals"]
+        fams.append(Family(
+            "counter", "lo_device_time_seconds_total",
+            "Attributed device seconds (sampled; scaled to be unbiased).",
+        ).sample(totals["deviceTimeS"]))
+        fams.append(Family(
+            "counter", "lo_device_flops_total",
+            "Attributed FLOPs across dispatches.",
+        ).sample(totals["flops"]))
+        if dt["jobs"]:
+            jt = Family("gauge", "lo_job_device_seconds",
+                        "Attributed device seconds per job (freshest-N "
+                        "ring).")
+            jmfu = Family("gauge", "lo_job_mfu",
+                          "Model-FLOPs-utilization per job (needs "
+                          "LO_TPU_COSTS_PEAK_FLOPS).")
+            for job, doc in dt["jobs"].items():
+                jt.sample(doc["deviceTimeS"], job=job)
+                if "mfu" in doc:
+                    jmfu.sample(doc["mfu"], job=job)
+            fams.append(jt)
+            if jmfu.samples:
+                fams.append(jmfu)
+        if dt["models"]:
+            mt = Family("gauge", "lo_model_device_seconds",
+                        "Attributed device seconds per served model.")
+            for model, doc in dt["models"].items():
+                mt.sample(doc["deviceTimeS"], model=model)
+            fams.append(mt)
+        if dt["buckets"]:
+            bmfu = Family("gauge", "lo_serving_bucket_mfu",
+                          "Model-FLOPs-utilization per (model, bucket) "
+                          "(needs LO_TPU_COSTS_PEAK_FLOPS).")
+            bt = Family("gauge", "lo_serving_bucket_device_seconds",
+                        "Attributed device seconds per (model, bucket).")
+            for key, doc in dt["buckets"].items():
+                model, _, bucket = key.rpartition(":")
+                bt.sample(doc["deviceTimeS"], model=model, bucket=bucket)
+                if "mfu" in doc:
+                    bmfu.sample(doc["mfu"], model=model, bucket=bucket)
+            fams.append(bt)
+            if bmfu.samples:
+                fams.append(bmfu)
+        return fams
 
     # -- helpers --------------------------------------------------------------
 
@@ -604,6 +1040,154 @@ class APIServer:
         add("GET", rf"/monitoring/{TOOL}",
             lambda m, b, q: (200, self.monitoring.list_sessions()))
 
+        # ---- The operations plane (obs/, faults/), in the JAX server's
+        # order.
+        def metrics_prom(m, body, query):
+            return 200, ("text/plain; version=0.0.4; charset=utf-8",
+                         self.obs.render_prometheus().encode())
+
+        add("GET", r"/metrics\.prom", metrics_prom)
+
+        def job_trace(m, body, query):
+            """Span tree of a job's life, from the newest execution record
+            carrying a trace."""
+            name = m.group("name")
+            self.ctx.require_existing(name)
+            doc = next((rec["trace"] for rec in reversed(
+                self.ctx.artifacts.ledger.history(name)) if rec.get("trace")),
+                None)
+            if doc is None:
+                return 404, {
+                    "error": f"no trace recorded for {name!r} (job still "
+                             "running, predates tracing, or "
+                             "LO_TPU_OBS_TRACE=0)"}
+            spans = doc.get("spans", [])
+            return 200, {
+                "name": name,
+                "requestId": doc.get("requestId"),
+                "droppedSpans": doc.get("droppedSpans", 0),
+                "spans": spans,
+                "tree": obs_tracing.span_tree(spans),
+            }
+
+        add("GET", rf"/observability/jobs/{NAME}/trace", job_trace)
+
+        def timeseries_view(m, body, query):
+            try:
+                window_s = float(query.get("windowS", 300.0))
+                max_points = int(query.get("points", 0))
+            except (TypeError, ValueError):
+                raise BadRequest("windowS/points must be numeric") from None
+            labels = {k: v for k, v in query.items()
+                      if k not in ("name", "windowS", "points")}
+            return 200, self.rollup.timeseries(
+                query.get("name"), labels or None, window_s=window_s,
+                max_points=max_points)
+
+        add("GET", r"/observability/timeseries", timeseries_view)
+        add("GET", r"/observability/alerts",
+            lambda m, b, q: (200, self.slo.alerts()))
+        add("GET", r"/observability/slo",
+            lambda m, b, q: (200, self.slo.status()))
+
+        def slo_create(m, body, query):
+            threshold_ms = body.get("thresholdMs")
+            try:
+                doc = self.slo.add_objective(
+                    body.get("name"), body.get("kind"),
+                    body.get("target", 0),
+                    threshold_s=(float(threshold_ms) / 1000.0
+                                 if threshold_ms is not None else None),
+                    metric=body.get("metric"), route=body.get("route"))
+            except (TypeError, ValueError) as exc:
+                raise ValidationError(str(exc)) from None
+            return 201, {"objective": doc}
+
+        def slo_delete(m, body, query):
+            if not self.slo.remove_objective(m.group("name")):
+                return 404, {
+                    "error": f"no runtime objective {m.group('name')!r}"}
+            return 200, {"result": "deleted"}
+
+        add("POST", r"/observability/slo", slo_create)
+        add("DELETE", rf"/observability/slo/{NAME}", slo_delete)
+
+        def flight_view(m, body, query):
+            domains = tuple(d for d in str(query.get("domain") or "")
+                            .split(",") if d) or None
+            limit = _int_param(query, "limit", 0)
+            doc = obs_flight.snapshot(domains=domains, limit=limit)
+            doc["timeline"] = obs_flight.timeline(domains=domains,
+                                                  limit=limit)
+            return 200, doc
+
+        def bundle_create(m, body, query):
+            reason = str(body.get("reason") or "manual")
+            return 201, {"bundle": self.bundles.build(reason,
+                                                      {"via": "rest"})}
+
+        def bundle_get(m, body, query):
+            name = m.group("name")
+            rel = query.get("file")
+            if rel:
+                # One bundle file's bytes (traversal refused in read_file).
+                return 200, ("application/octet-stream",
+                             self.bundles.read_file(name, rel))
+            doc = self.bundles.manifest(name)
+            if doc is None:
+                return 404, {"error": f"no bundle {name!r}"}
+            return 200, doc
+
+        def bundle_delete(m, body, query):
+            if not self.bundles.delete(m.group("name")):
+                return 404, {"error": f"no bundle {m.group('name')!r}"}
+            return 200, {"result": "deleted"}
+
+        add("GET", r"/observability/flight", flight_view)
+        add("POST", r"/observability/bundle", bundle_create)
+        add("GET", r"/observability/bundles",
+            lambda m, b, q: (200, self.bundles.status()))
+        add("DELETE", r"/observability/bundles",
+            lambda m, b, q: (200, {"deleted": self.bundles.delete_all()}))
+        add("GET", rf"/observability/bundles/{NAME}", bundle_get)
+        add("DELETE", rf"/observability/bundles/{NAME}", bundle_delete)
+
+        def faults_arm(m, body, query):
+            mode = body.get("mode")
+            if not mode:
+                raise ValidationError(
+                    f"missing 'mode' (one of {list(faults.MODES)})")
+            try:
+                doc = faults.arm(
+                    m.group("name"), str(mode),
+                    rate=float(body.get("rate", 1.0)),
+                    seed=int(body.get("seed", 0)),
+                    after=int(body.get("after", 0)),
+                    max_triggers=int(body.get("maxTriggers", 0)),
+                    delay_ms=float(body.get("delayMs", 0.0)))
+            except (TypeError, ValueError) as exc:
+                raise ValidationError(str(exc)) from None
+            return 201, {"point": m.group("name"), "armed": doc}
+
+        def faults_disarm(m, body, query):
+            try:
+                disarmed = faults.disarm(m.group("name"))
+            except ValueError as exc:  # unknown point
+                raise ValidationError(str(exc)) from None
+            if not disarmed:
+                return 404, {"error": f"fault point {m.group('name')!r} "
+                                      "is not armed"}
+            return 200, {"result": "disarmed"}
+
+        def faults_disarm_all(m, body, query):
+            faults.disarm_all()
+            return 200, {"result": "disarmed"}
+
+        add("GET", r"/faults", lambda m, b, q: (200, faults.status()))
+        add("DELETE", r"/faults", faults_disarm_all)
+        add("POST", rf"/faults/{NAME}", faults_arm)
+        add("DELETE", rf"/faults/{NAME}", faults_disarm)
+
         # ---- On-demand profiler capture (obs/profiling.py), in the JAX
         # server's order: /start before /stop.
         def profile_start(m, body, query):
@@ -937,24 +1521,49 @@ class APIServer:
 
     # -- dispatch -------------------------------------------------------------
 
-    def handle(self, verb: str, path: str, body, query: dict | None = None
-               ) -> tuple[int, object]:
-        """Route one request; returns (status, JSON payload)."""
-        handler, m = self.router.resolve(verb, path)
+    def handle(self, verb: str, path: str, body, query: dict | None = None,
+               request_id: str | None = None) -> tuple[int, object]:
+        """Route one request; returns (status, JSON payload).  Every
+        request is metered by its route and status class, and recorded
+        in the ``http`` flight ring; ``request_id`` is bound for the
+        handler, so a job it submits carries it into its trace."""
+        t0 = time.perf_counter()
+        handler, m, key = self.router.resolve(verb, path)
         if handler is None:
-            if m == "405":
-                return 405, {"error": f"method {verb} not allowed on {path}"}
-            return 404, {"error": f"no such route: {path}"}
-        if not isinstance(body, dict):
-            return 406, {"error": "request body must be a JSON object"}
+            status, payload = (
+                (405, {"error": f"method {verb} not allowed on {path}"})
+                if m == "405" else
+                (404, {"error": f"no such route: {path}"}))
+        elif not isinstance(body, dict):
+            status, payload = 406, {
+                "error": "request body must be a JSON object"}
+        else:
+            token = (obs_tracing.set_request_id(request_id)
+                     if request_id else None)
+            try:
+                status, payload = self._handle_raw(handler, m, body,
+                                                   query or {})
+            finally:
+                if token is not None:
+                    obs_tracing.reset_request_id(token)
+        self._record_metric(key, status, (time.perf_counter() - t0) * 1e3,
+                            request_id=request_id)
+        return status, payload
+
+    def _handle_raw(self, handler, m, body, query):
         try:
-            return handler(m, body, query or {})
-        except (DuplicateArtifact, ConflictError, ProfilerConflict) as exc:
+            # Chaos probe inside the try: an injected error exercises the
+            # real 500 path, an injected delay the real latency path.
+            faults.hit("http.handler")
+            return handler(m, body, query)
+        except (DuplicateArtifact, ConflictError, ProfilerConflict,
+                BundleBusy) as exc:
             return 409, {"error": str(exc)}
-        except (NotFoundError, ServeNotFound, ProfilerNotFound) as exc:
+        except (NotFoundError, ServeNotFound, ProfilerNotFound,
+                BundleNotFound) as exc:
             return 404, {"error": str(exc)}
         except (ValidationError, RegistryError, ServeError,
-                ProfilerError) as exc:
+                ProfilerError, BundleError) as exc:
             return 406, {"error": str(exc)}
         except LeaseTimeout as exc:
             # No card lease within the placement budget: the pool is
@@ -988,6 +1597,12 @@ class APIServer:
                 pass
 
             def _run(self, verb: str):
+                # Echo the client's X-Request-Id or mint one; every
+                # response carries it.
+                rid = (self.headers.get("X-Request-Id") or "").strip()
+                if not _RID_RE.fullmatch(rid):
+                    rid = obs_tracing.new_request_id()
+                self._request_id = rid
                 parsed = urlparse(self.path)
                 query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
                 body = {}
@@ -999,7 +1614,8 @@ class APIServer:
                     except json.JSONDecodeError:
                         self._send(400, {"error": "request body is not JSON"})
                         return
-                self._send(*api.handle(verb, parsed.path, body, query))
+                self._send(*api.handle(verb, parsed.path, body, query,
+                                       request_id=rid))
 
             def _send(self, status: int, payload):
                 events = getattr(payload, "sse_events", None)
@@ -1014,6 +1630,7 @@ class APIServer:
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
+                self.send_header("X-Request-Id", self._request_id)
                 if status in (429, 503) and isinstance(payload, dict) \
                         and payload.get("retryAfter") is not None:
                     self.send_header(
@@ -1033,6 +1650,7 @@ class APIServer:
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-store")
                 self.send_header("Connection", "close")
+                self.send_header("X-Request-Id", self._request_id)
                 self.end_headers()
                 try:
                     for name, doc in events():
@@ -1075,6 +1693,13 @@ class APIServer:
         if httpd is not None:
             httpd.shutdown()
             httpd.server_close()
+        # The registry outlives this server: drop the collector so scrapes
+        # never touch a closed context.
+        if self._obs_registry is not None:
+            self._obs_registry.remove_collector(self._collect_families)
+        # Stop the rollup/SLO clock: a stopped server must not evaluate
+        # frozen windows (a later server's construction restarts it).
+        self.rollup.stop()
         self.profiler.close()
         self.serving.close()
         self.monitoring.close()

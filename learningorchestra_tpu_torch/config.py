@@ -2,7 +2,9 @@
 the port runs: ``StoreConfig``, ``APIConfig``, ``JobConfig`` (with the job
 journal's switches), ``CompileCacheConfig``, ``AotConfig``,
 ``ServeConfig``, ``DecodeConfig``, ``FleetConfig``, ``CostsConfig``,
-``ProfilingConfig`` and ``DistributedConfig``, with the same fields,
+``ProfilingConfig``, ``DistributedConfig`` and the operations plane's
+``ObsConfig``, ``RollupConfig``, ``SLOConfig``, ``FlightConfig``,
+``BundleConfig`` and ``FaultsConfig``, with the same fields,
 defaults and ``LO_TPU_*`` environment names, plus the ``device`` every
 entry point runs on and ``DistributedConfig.cpu_ranks``, the rank devices
 a CPU context gives a distributed fit.  :func:`get_config` is the process-wide config the
@@ -68,7 +70,16 @@ class JobConfig:
     # Weighted-fair dispatch weights per job class (service type);
     # unlisted classes weigh 1.  Env: LO_TPU_JOB_WEIGHTS='{"train": 2}'.
     class_weights: dict = dataclasses.field(default_factory=dict)
-    # Default wall-clock deadline per dispatched job; <= 0 disables.
+    # Preemption-retry budget per job: a body raising ``Preempted``
+    # re-executes up to this many times.  Env: LO_TPU_JOB_RETRIES.
+    max_preemption_retries: int = 3
+    # Retry backoff: attempt N sleeps min(max, base * 2**(N-1)) with
+    # U[0.5, 1.5) jitter before re-executing.
+    # Env: LO_TPU_JOB_BACKOFF_S / LO_TPU_JOB_BACKOFF_MAX_S.
+    retry_backoff_s: float = 0.05
+    retry_backoff_max_s: float = 5.0
+    # Default wall-clock deadline per dispatched job (preemption retries
+    # included); <= 0 disables.
     # Env: LO_TPU_JOB_DEADLINE_S.
     deadline_s: float = 0.0
     # Graceful-shutdown drain budget; <= 0 keeps the unbounded drain.
@@ -189,10 +200,10 @@ class FleetConfig:
     # Scale down after this many consecutive ticks with no traffic.
     # Env: LO_TPU_FLEET_DOWN_TICKS.
     down_ticks: int = 5
-    # The JAX package's queue-growth-slope trigger (rows/s over the
-    # rollup series): its source is not ported (obs/rollup, ROADMAP
-    # A.11), so a value above 0 is refused at boot.
-    # Env: LO_TPU_FLEET_UP_SLOPE / LO_TPU_FLEET_SLOPE_WINDOW_S.
+    # Scale up when a model's queued rows grow faster than this many
+    # rows/s, fitted by least squares over slope_window_s of the rollup
+    # series (obs/rollup.py); 0 = off.  Needs the rollup engine on and
+    # ticking.  Env: LO_TPU_FLEET_UP_SLOPE / LO_TPU_FLEET_SLOPE_WINDOW_S.
     up_slope: float = 0.0
     slope_window_s: float = 30.0
     # Scale up when the model's attributed device seconds per wall
@@ -211,7 +222,7 @@ class FleetConfig:
 
     def validate(self) -> None:
         """Refuse at boot what would otherwise first fail inside a
-        predict's lazy replica set, or read nothing at all."""
+        predict's lazy replica set."""
         if self.devices_per_replica < 1:
             raise ValueError(
                 "LO_TPU_FLEET_DEVICES_PER_REPLICA must be >= 1, got "
@@ -221,11 +232,6 @@ class FleetConfig:
                 "fleet replica bounds need 1 <= LO_TPU_FLEET_MIN "
                 f"({self.min_replicas}) <= LO_TPU_FLEET_MAX "
                 f"({self.max_replicas})")
-        if self.up_slope > 0:
-            raise ValueError(
-                f"LO_TPU_FLEET_UP_SLOPE={self.up_slope}: the queue-slope "
-                "trigger reads the rollup series (obs/rollup), not ported "
-                "yet (ROADMAP A.11); leave it 0")
 
 
 @dataclasses.dataclass
@@ -331,6 +337,133 @@ class DistributedConfig:
 
 
 @dataclasses.dataclass
+class ObsConfig:
+    """Metrics registry + Prometheus exposition at GET /metrics.prom +
+    job trace spans (obs/metrics.py, obs/tracing.py).  Env knobs:
+    LO_TPU_OBS_*."""
+
+    # Master switch: off makes every metric/span primitive a no-op.
+    # Env: LO_TPU_OBS_ENABLED.
+    enabled: bool = True
+    # Job tracing (request-id propagation + spans persisted into the
+    # execution ledger); metrics stay on when only this is off.
+    # Env: LO_TPU_OBS_TRACE.
+    trace: bool = True
+    # Label-cardinality cap per metric: past it, new label combinations
+    # collapse into one ``_overflow`` series.  Env: LO_TPU_OBS_MAX_SERIES.
+    max_series: int = 1024
+    # Span cap per job trace.  Env: LO_TPU_OBS_MAX_SPANS.
+    max_spans: int = 512
+    # Span-ledger sampling (0.0-1.0), decided per requestId.
+    # Env: LO_TPU_OBS_TRACE_SAMPLE.
+    trace_sample: float = 1.0
+    # HTTP latency histogram bucket edges, milliseconds, ascending.
+    # Env: LO_TPU_OBS_BUCKETS_MS (comma-separated).
+    latency_buckets_ms: tuple = (
+        1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+        250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0, 30000.0,
+    )
+
+
+@dataclasses.dataclass
+class RollupConfig:
+    """Windowed time-series rollups (obs/rollup.py) served at
+    ``GET /observability/timeseries``.  Env knobs: LO_TPU_ROLLUP_*."""
+
+    # Master switch: off, no snapshots are taken and SLO evaluation
+    # (which reads rollup windows) is off too.  Env: LO_TPU_ROLLUP_ENABLED.
+    enabled: bool = True
+    # Snapshot cadence; <= 0 disables the daemon thread (tick() stays
+    # callable).  Env: LO_TPU_ROLLUP_TICK_S.
+    tick_s: float = 10.0
+    # Ring length per series.  Env: LO_TPU_ROLLUP_POINTS.
+    points: int = 360
+    # Total tracked series; past it NEW series are dropped (counted).
+    # Env: LO_TPU_ROLLUP_MAX_SERIES.
+    max_series: int = 2048
+    # Extra families to track on top of the core set.
+    # Env: LO_TPU_ROLLUP_FAMILIES (comma-separated).
+    families: tuple = ()
+
+
+@dataclasses.dataclass
+class SLOConfig:
+    """SLO objectives + multi-window burn-rate alerting (obs/slo.py).
+    Env knobs: LO_TPU_SLO_*."""
+
+    # Evaluation switch.  Env: LO_TPU_SLO_ENABLED.
+    enabled: bool = True
+    # Route availability target.  Env: LO_TPU_SLO_AVAILABILITY.
+    availability_target: float = 0.999
+    # Per-model predict latency: predict_target of predicts under
+    # predict_p99_ms (0 ms disables).
+    # Env: LO_TPU_SLO_PREDICT_P99_MS / LO_TPU_SLO_PREDICT_TARGET.
+    predict_p99_ms: float = 250.0
+    predict_target: float = 0.99
+    # Streamed-decode time to first token (0 ms disables).
+    # Env: LO_TPU_SLO_DECODE_TTFT_MS / LO_TPU_SLO_DECODE_TTFT_TARGET.
+    decode_ttft_ms: float = 0.0
+    decode_ttft_target: float = 0.99
+    # Job success target.  Env: LO_TPU_SLO_JOB_SUCCESS.
+    job_success_target: float = 0.99
+    # Burn windows and threshold.
+    # Env: LO_TPU_SLO_FAST_S / LO_TPU_SLO_SLOW_S / LO_TPU_SLO_BURN.
+    fast_window_s: float = 300.0
+    slow_window_s: float = 3600.0
+    burn_threshold: float = 14.4
+    # Alert dwell times.  Env: LO_TPU_SLO_FOR_S / LO_TPU_SLO_RESOLVE_S.
+    for_s: float = 60.0
+    resolve_s: float = 300.0
+    # Webhook sink URL; empty = off.  Env: LO_TPU_SLO_WEBHOOK.
+    webhook: str = ""
+
+
+@dataclasses.dataclass
+class FlightConfig:
+    """Always-on flight recorder (obs/flight.py).  Env knobs:
+    LO_TPU_FLIGHT_*."""
+
+    # Master switch.  Env: LO_TPU_FLIGHT_ENABLED.
+    enabled: bool = True
+    # Ring capacity per domain.  Env: LO_TPU_FLIGHT_EVENTS.
+    events: int = 512
+
+
+@dataclasses.dataclass
+class BundleConfig:
+    """Debug-bundle assembler (obs/bundle.py).  Env knobs:
+    LO_TPU_BUNDLE_*."""
+
+    # Switch for trigger-driven capture.  Env: LO_TPU_BUNDLE_ENABLED.
+    enabled: bool = True
+    # Bundle root; "" derives <volume_root>/_bundles at server
+    # construction.  Env: LO_TPU_BUNDLE_DIR.
+    dir: str = ""
+    # Retained bundles.  Env: LO_TPU_BUNDLE_MAX.
+    max_bundles: int = 8
+    # Minimum seconds between auto-triggered bundles.
+    # Env: LO_TPU_BUNDLE_DEBOUNCE_S.
+    debounce_s: float = 300.0
+    # Start a short torch.profiler capture with each bundle.
+    # Env: LO_TPU_BUNDLE_PROFILE / LO_TPU_BUNDLE_PROFILE_S.
+    profile: bool = False
+    profile_s: float = 2.0
+    # Journal records in the bundle's tail.
+    # Env: LO_TPU_BUNDLE_JOURNAL_TAIL.
+    journal_tail: int = 200
+
+
+@dataclasses.dataclass
+class FaultsConfig:
+    """Fault-injection plane (faults/plane.py): schedules armed at boot
+    from ``LO_TPU_FAULT_<POINT>=<mode>[:k=v,...]``; the API server passes
+    ``specs`` to ``faults.load_env`` at construction."""
+
+    # point-name suffix (env spelling) -> raw spec string.
+    specs: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
 class Config:
     store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
     api: APIConfig = dataclasses.field(default_factory=APIConfig)
@@ -346,6 +479,12 @@ class Config:
         default_factory=ProfilingConfig)
     dist: DistributedConfig = dataclasses.field(
         default_factory=DistributedConfig)
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
+    rollup: RollupConfig = dataclasses.field(default_factory=RollupConfig)
+    slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
+    flight: FlightConfig = dataclasses.field(default_factory=FlightConfig)
+    bundle: BundleConfig = dataclasses.field(default_factory=BundleConfig)
+    faults: FaultsConfig = dataclasses.field(default_factory=FaultsConfig)
     # Where every estimator the services build or load lives.
     device: str = "cuda"
 
@@ -359,6 +498,10 @@ class Config:
             ("LO_TPU_VOLUME_ROOT", cfg.store, "volume_root", str),
             ("LO_TPU_STORE_BACKEND", cfg.store, "backend", str),
             ("LO_TPU_MAX_WORKERS", cfg.jobs, "max_workers", int),
+            ("LO_TPU_JOB_RETRIES", cfg.jobs, "max_preemption_retries", int),
+            ("LO_TPU_JOB_BACKOFF_S", cfg.jobs, "retry_backoff_s", float),
+            ("LO_TPU_JOB_BACKOFF_MAX_S", cfg.jobs, "retry_backoff_max_s",
+             float),
             ("LO_TPU_JOB_DEADLINE_S", cfg.jobs, "deadline_s", float),
             ("LO_TPU_JOB_DRAIN_S", cfg.jobs, "shutdown_drain_s", float),
             ("LO_TPU_SERVE_MAX_BATCH", cfg.serve, "max_batch", int),
@@ -407,6 +550,24 @@ class Config:
             ("LO_TPU_PROF_MAX_S", cfg.profiling, "max_seconds", float),
             ("LO_TPU_PROF_MAX_CAPTURES", cfg.profiling, "max_captures",
              int),
+            ("LO_TPU_OBS_MAX_SERIES", cfg.obs, "max_series", int),
+            ("LO_TPU_OBS_MAX_SPANS", cfg.obs, "max_spans", int),
+            ("LO_TPU_ROLLUP_TICK_S", cfg.rollup, "tick_s", float),
+            ("LO_TPU_ROLLUP_POINTS", cfg.rollup, "points", int),
+            ("LO_TPU_ROLLUP_MAX_SERIES", cfg.rollup, "max_series", int),
+            ("LO_TPU_SLO_PREDICT_P99_MS", cfg.slo, "predict_p99_ms", float),
+            ("LO_TPU_SLO_DECODE_TTFT_MS", cfg.slo, "decode_ttft_ms", float),
+            ("LO_TPU_SLO_FAST_S", cfg.slo, "fast_window_s", float),
+            ("LO_TPU_SLO_SLOW_S", cfg.slo, "slow_window_s", float),
+            ("LO_TPU_SLO_BURN", cfg.slo, "burn_threshold", float),
+            ("LO_TPU_SLO_FOR_S", cfg.slo, "for_s", float),
+            ("LO_TPU_SLO_RESOLVE_S", cfg.slo, "resolve_s", float),
+            ("LO_TPU_FLIGHT_EVENTS", cfg.flight, "events", int),
+            ("LO_TPU_BUNDLE_DIR", cfg.bundle, "dir", str),
+            ("LO_TPU_BUNDLE_MAX", cfg.bundle, "max_bundles", int),
+            ("LO_TPU_BUNDLE_DEBOUNCE_S", cfg.bundle, "debounce_s", float),
+            ("LO_TPU_BUNDLE_PROFILE_S", cfg.bundle, "profile_s", float),
+            ("LO_TPU_BUNDLE_JOURNAL_TAIL", cfg.bundle, "journal_tail", int),
         )
         for key, section, attr, cast in fields:
             if key in env:
@@ -420,7 +581,14 @@ class Config:
                 ("LO_TPU_AOT_ENABLED", cfg.aot, "enabled"),
                 ("LO_TPU_AOT_PREWARM", cfg.aot, "prewarm"),
                 ("LO_TPU_COSTS_ENABLED", cfg.costs, "enabled"),
-                ("LO_TPU_COSTS_DEEP", cfg.costs, "deep")):
+                ("LO_TPU_COSTS_DEEP", cfg.costs, "deep"),
+                ("LO_TPU_OBS_ENABLED", cfg.obs, "enabled"),
+                ("LO_TPU_OBS_TRACE", cfg.obs, "trace"),
+                ("LO_TPU_ROLLUP_ENABLED", cfg.rollup, "enabled"),
+                ("LO_TPU_SLO_ENABLED", cfg.slo, "enabled"),
+                ("LO_TPU_FLIGHT_ENABLED", cfg.flight, "enabled"),
+                ("LO_TPU_BUNDLE_ENABLED", cfg.bundle, "enabled"),
+                ("LO_TPU_BUNDLE_PROFILE", cfg.bundle, "profile")):
             if key in env:
                 setattr(section, attr, _bool_env(key, env[key]))
         if "LO_TPU_JOB_JOURNAL_MAX" in env:
@@ -437,13 +605,55 @@ class Config:
                 str(k): int(v)
                 for k, v in json.loads(env["LO_TPU_JOB_WEIGHTS"]).items()
             }
-        if "LO_TPU_COSTS_SAMPLE" in env:
-            cfg.costs.sample = float(env["LO_TPU_COSTS_SAMPLE"])
-            if not 0.0 <= cfg.costs.sample <= 1.0:
-                # A typo'd rate must not silently clamp.
+        def fraction(key: str) -> float:
+            # A typo'd rate or target must not silently clamp.
+            value = float(env[key])
+            if not 0.0 <= value <= 1.0:
                 raise ValueError(
-                    f"LO_TPU_COSTS_SAMPLE={env['LO_TPU_COSTS_SAMPLE']!r} "
-                    "must be a fraction in [0.0, 1.0]")
+                    f"{key}={env[key]!r} must be a fraction in [0.0, 1.0]")
+            return value
+
+        for key, section, attr in (
+                ("LO_TPU_COSTS_SAMPLE", cfg.costs, "sample"),
+                ("LO_TPU_OBS_TRACE_SAMPLE", cfg.obs, "trace_sample"),
+                ("LO_TPU_SLO_AVAILABILITY", cfg.slo, "availability_target"),
+                ("LO_TPU_SLO_PREDICT_TARGET", cfg.slo, "predict_target"),
+                ("LO_TPU_SLO_JOB_SUCCESS", cfg.slo, "job_success_target"),
+                ("LO_TPU_SLO_DECODE_TTFT_TARGET", cfg.slo,
+                 "decode_ttft_target")):
+            if key in env:
+                setattr(section, attr, fraction(key))
+        # A target of 1.0 leaves no error budget to burn.
+        for key, value in (
+                ("LO_TPU_SLO_AVAILABILITY", cfg.slo.availability_target),
+                ("LO_TPU_SLO_PREDICT_TARGET", cfg.slo.predict_target),
+                ("LO_TPU_SLO_JOB_SUCCESS", cfg.slo.job_success_target),
+                ("LO_TPU_SLO_DECODE_TTFT_TARGET",
+                 cfg.slo.decode_ttft_target)):
+            if value >= 1.0:
+                raise ValueError(
+                    f"{key}={value!r} leaves no error budget — SLO "
+                    "targets must be < 1.0")
+        if "LO_TPU_SLO_WEBHOOK" in env:
+            cfg.slo.webhook = env["LO_TPU_SLO_WEBHOOK"].strip()
+        if "LO_TPU_ROLLUP_FAMILIES" in env:
+            cfg.rollup.families = tuple(
+                t.strip() for t in env["LO_TPU_ROLLUP_FAMILIES"].split(",")
+                if t.strip())
+        if "LO_TPU_OBS_BUCKETS_MS" in env:
+            edges = tuple(float(t) for t in env["LO_TPU_OBS_BUCKETS_MS"]
+                          .split(",") if t.strip())
+            if not edges or list(edges) != sorted(edges):
+                raise ValueError(
+                    "LO_TPU_OBS_BUCKETS_MS must be a non-empty ascending "
+                    "comma-separated list of milliseconds")
+            cfg.obs.latency_buckets_ms = edges
+        # Fault-injection schedules: every LO_TPU_FAULT_<POINT> var is
+        # carried verbatim; the API server arms them (bad specs are
+        # refused there, loudly).
+        for key, raw in env.items():
+            if key.startswith("LO_TPU_FAULT_") and raw.strip():
+                cfg.faults.specs[key[len("LO_TPU_FAULT_"):]] = raw
         cfg.fleet.validate()
         return cfg
 

@@ -1,5 +1,4 @@
-"""The async job engine — port of the core of
-``learningorchestra_tpu/jobs/engine.py``.
+"""The async job engine — port of ``learningorchestra_tpu/jobs/engine.py``.
 
 Every pipeline step runs as a job on a worker thread and signals
 completion through its artifact's metadata document, the durable contract
@@ -7,9 +6,16 @@ clients poll:
 
 - explicit states (pending -> running -> finished | failed | cancelled)
   persisted as ``jobState`` beside the ``finished`` flag, and an
-  execution document per run (parameters, exception, captured stdout);
+  execution document per run (parameters, exception, captured stdout,
+  the job's span tree);
 - a process-local registry of live jobs, so ``wait`` / ``cancel`` /
   ``state`` work without polling the store;
+- structured retry for preemptible hardware: a body raising
+  :class:`Preempted` (or a ``preempt`` fault schedule, faults/plane.py)
+  re-executes up to ``max_preemption_retries`` times after a jittered
+  backoff; each attempt is journaled, traced as its own span, and a
+  body reads :func:`current_attempt` to resume (the executor resumes a
+  retried fit from its newest managed checkpoint);
 - weighted-fair dispatch across job classes (service types): submissions
   queue per class and freed workers go to classes by weighted
   round-robin, so one service's burst cannot starve another's job;
@@ -20,6 +26,12 @@ clients poll:
   warm (:meth:`JobEngine.note_warm`), queued jobs with that key dispatch
   first within their class's round-robin turn, at most four times in a
   row past the class's FIFO head;
+- the operations plane: the submitting request's id and trace
+  (obs/tracing.py) ride into the worker, with ``queue_wait``, one
+  ``job`` span per attempt and ``retry_backoff`` spans; queue waits and
+  state transitions feed the registry (obs/metrics.py); dispatch, retry
+  and terminal decisions land in the ``jobs`` flight ring; a
+  retries-exhausted or deadline terminal asks for a debug bundle;
 - two ``None``-able hooks the service context sets: ``journal``
   (:class:`~learningorchestra_tpu_torch.jobs.journal.JobJournal`), which
   records every transition and fences each terminal commit against the
@@ -27,22 +39,22 @@ clients poll:
   stamp), and ``notifier`` (the webhooks and event feed), told of every
   transition.
 
-The JAX engine's other hooks (cluster claims, tenant admission, flight
-recorder, metrics, tracing) are absent: the port
-behaves as that engine does with each of them off.  Its preemption
-retries are absent too, so ``preempted`` is never journaled: nothing in
-the port preempts a job until the fault plane and the cluster are ported.
+The JAX engine's cluster claims and tenant admission are absent (ROADMAP
+A.11 part 3): the port behaves as that engine does with both off.
 """
 
 from __future__ import annotations
 
+import contextvars
 import io
+import random
 import threading
 import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future, InvalidStateError
 from typing import Any, Callable
 
+from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.jobs import cancel as jobs_cancel
 from learningorchestra_tpu_torch.jobs import journal as jobs_journal
 from learningorchestra_tpu_torch.jobs.cancel import CancelToken
@@ -51,9 +63,49 @@ from learningorchestra_tpu_torch.log import (
     get_logger,
     kv,
 )
+from learningorchestra_tpu_torch.obs import bundle as obs_bundle
+from learningorchestra_tpu_torch.obs import flight as obs_flight
+from learningorchestra_tpu_torch.obs import tracing
+from learningorchestra_tpu_torch.obs.metrics import get_registry
 from learningorchestra_tpu_torch.store.artifacts import ArtifactStore
 
 logger = get_logger("jobs")
+
+#: Which retry attempt the calling job body is running as: 0 on the first
+#: execution, N after N preemptions (bound by the engine per attempt).
+_ATTEMPT: contextvars.ContextVar = contextvars.ContextVar(
+    "lo_job_attempt", default=0)
+
+#: Metric family names (the JAX engine's).
+JOBS_QUEUE_WAIT = "lo_jobs_queue_wait_seconds"
+JOBS_TOTAL = "lo_jobs_total"
+
+
+def current_attempt() -> int:
+    """0 on a job's first execution, N inside its Nth preemption retry;
+    valid anywhere down the job body's call stack."""
+    return _ATTEMPT.get()
+
+
+def _job_metrics():
+    """The engine's families, resolved per use so a registry reset takes
+    effect at once."""
+    reg = get_registry()
+    return (
+        reg.histogram(
+            JOBS_QUEUE_WAIT,
+            "Queue wait from submit to dispatch, per fairness class.",
+            labels=("job_class",),
+            buckets=(0.001, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0,
+                     60.0, 300.0, 1800.0),
+        ),
+        reg.counter(
+            JOBS_TOTAL,
+            "Job state transitions by class (finished/failed are "
+            "terminal; preempted counts each retry attempt).",
+            labels=("job_class", "state"),
+        ),
+    )
 
 
 class JobState:
@@ -62,6 +114,10 @@ class JobState:
     FINISHED = "finished"
     FAILED = "failed"
     CANCELLED = "cancelled"
+
+
+class Preempted(Exception):
+    """Raised by a job body to request re-execution after preemption."""
 
 
 class JobDeadlineExceeded(Exception):
@@ -85,9 +141,15 @@ class JobEngine:
         class_weights: dict[str, int] | None = None,
         deadline_s: float = 0.0,
         shutdown_drain_s: float = 0.0,
+        max_preemption_retries: int = 3,
+        retry_backoff_s: float = 0.05,
+        retry_backoff_max_s: float = 5.0,
     ):
         self.artifacts = artifacts
         self.max_workers = max_workers
+        self.max_preemption_retries = int(max_preemption_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.retry_backoff_max_s = float(retry_backoff_max_s)
         # One thread per DISPATCHED job, gated by _inflight: a fixed pool
         # would have no thread for the job a deadline reclaim freed a
         # slot for while the zombie still pins its own.
@@ -134,7 +196,7 @@ class JobEngine:
         if self.journal is not None:
             self.journal.append(event, name, **fields)
 
-    def _fence_refused(self, name: str) -> bool:
+    def _fence_refused(self, name: str, req: dict | None = None) -> bool:
         """True when the calling body's engine epoch is stale: a newer
         recovery owns the store, so every terminal write must be
         skipped."""
@@ -143,7 +205,9 @@ class JobEngine:
         try:
             self.journal.fence_check()
         except jobs_journal.StaleEpochError as exc:
-            logger.error(kv(job=name, state="fenced", error=str(exc)))
+            logger.error(kv(job=name, state="fenced", error=str(exc),
+                            **(req or {})))
+            obs_flight.record("jobs", "fence_refused", job=name)
             return True
         return False
 
@@ -185,12 +249,21 @@ class JobEngine:
         within their class's turn.
         ``deadline_s`` bounds the body's wall clock per dispatch (None
         inherits the engine default, ``<= 0`` disables)."""
+        # The submitting request's id (minted or echoed at the API layer)
+        # rides into the metadata, log lines and the job's trace.
+        request_id = tracing.get_request_id()
+        trace = tracing.new_trace(name, request_id)
+        t_submit = time.monotonic()
         # Persist the request parameters now, not only in the terminal
         # record: a bare PATCH re-run of a job whose first run died
         # re-uses them.
+        stamp = {}
         if parameters is not None:
-            self.artifacts.metadata.update(
-                name, {"requestParameters": parameters})
+            stamp["requestParameters"] = parameters
+        if request_id:
+            stamp["requestId"] = request_id
+        if stamp:
+            self.artifacts.metadata.update(name, stamp)
         # Shared with the watchdog: once ``expired`` flips, the body is a
         # zombie and every terminal write below is discarded.
         ctl = {"expired": False}
@@ -204,7 +277,9 @@ class JobEngine:
                 return self._run(
                     name, fn, ctl, token, description=description,
                     method=method, parameters=parameters,
-                    capture_stdout=capture_stdout, on_success=on_success)
+                    capture_stdout=capture_stdout, on_success=on_success,
+                    job_class=job_class, trace=trace, t_submit=t_submit,
+                    request_id=request_id)
 
         future: Future = Future()
         deadline = (
@@ -219,7 +294,8 @@ class JobEngine:
             self.journal.record_submit(
                 name, job_class=job_class, method=method,
                 description=description,
-                deadline_s=deadline if deadline else None)
+                deadline_s=deadline if deadline else None,
+                request_id=request_id)
         with self._lock:
             refused = self._shutdown
             if not refused:
@@ -241,25 +317,47 @@ class JobEngine:
         return future
 
     def _run(self, name, fn, ctl, token, *, description, method,
-             parameters, capture_stdout, on_success) -> Any:
+             parameters, capture_stdout, on_success, job_class, trace,
+             t_submit, request_id) -> Any:
         meta = self.artifacts.metadata
         t_start = time.monotonic()
+        queue_wait_hist, jobs_total = _job_metrics()
+        queue_wait_hist.observe(t_start - t_submit, job_class=job_class)
+        if trace is not None:
+            trace.add_span("queue_wait", t_submit, t_start,
+                           attrs={"class": job_class})
+        # req=<id> on every engine log line of this job: the key tying
+        # logs, metadata and the span tree together.
+        req = {"req": request_id} if request_id else {}
+        attempts = 0
+        job_sid = None  # the current attempt's span
 
-        def record(state, exception=None, stdout=None):
+        def trace_doc():
+            """End the attempt span and snapshot the trace for a TERMINAL
+            ledger record (None when tracing is off)."""
+            if trace is None:
+                return None
+            if job_sid is not None:
+                trace.end(job_sid)
+            return trace.to_doc()
+
+        def record(state, exception=None, stdout=None, terminal=True):
             # A job that printed nothing records no stdout.
             self.artifacts.ledger.record(
                 name, description=description, method=method,
                 parameters=parameters, state=state, exception=exception,
-                stdout=stdout or None)
+                stdout=stdout or None,
+                trace=trace_doc() if terminal else None)
 
         def commit_cancelled(detail: str | None = None):
             """A RUNNING job cancelled through :meth:`cancel`: the body
             wound down (or died doing so) -> CANCELLED, not finished or
             failed.  Fenced like every terminal commit."""
-            if self._fence_refused(name):
+            if self._fence_refused(name, req):
                 return None
             reason = token.reason or "cancel requested"
-            logger.warning(kv(job=name, state="cancelled", reason=reason))
+            logger.warning(kv(job=name, state="cancelled", reason=reason,
+                              **req))
             self._journal(name, "cancelled", reason=reason)
             meta.update(name, {
                 "jobState": JobState.CANCELLED,
@@ -267,80 +365,158 @@ class JobEngine:
                 "exception": f"cancelled: {reason}"
                 + (f" ({detail})" if detail else ""),
             })
+            jobs_total.inc(job_class=job_class, state="cancelled")
             record(JobState.CANCELLED, exception=detail)
             self._notify(name, "cancelled")
             return None
 
-        if ctl["expired"]:
-            # Expired before its body started: the failure is recorded
-            # and the worker handed on.
-            logger.warning(kv(job=name, state="abandoned"))
-            return None
-        if token.cancelled():
-            if ctl.get("cancelled"):
-                return commit_cancelled()
-            # The bounded shutdown drain, before the body started.
-            logger.warning(kv(job=name, state="cancelled"))
-            self._journal(name, "cancelled", reason=token.reason or None)
-            meta.mark_failed(
-                name, f"cancelled: {token.reason or 'engine shutdown'}")
-            return None
-        self._journal(name, "running", attempt=1)
-        meta.mark_running(name)
-        logger.info(kv(job=name, state="running", method=method))
-        # Feed only: webhooks register for finished/failed.
-        self._notify(name, "running")
-        buf = io.StringIO()
-        try:
-            if capture_stdout:
-                # Thread-scoped: only this job's prints are captured.
-                with capture_thread_stdout() as buf:
-                    result = fn()
-            else:
-                result = fn()
-        except BaseException as exc:  # noqa: BLE001 — a job body's
-            # failure is recorded, never kills the worker.
-            err = repr(exc)
+        while True:
             if ctl["expired"]:
-                logger.warning(kv(job=name, state="abandoned", error=err))
+                # Expired before this attempt started (or in its retry
+                # backoff): the failure is recorded, the worker handed on.
+                logger.warning(kv(job=name, state="abandoned", **req))
                 return None
-            if self._fence_refused(name):
-                # A stale-epoch straggler: the newer recovery owns this
-                # job's metadata.
+            if token.cancelled():
+                if ctl.get("cancelled"):
+                    return commit_cancelled()
+                # The bounded shutdown drain, before an attempt started.
+                logger.warning(kv(job=name, state="cancelled", **req))
+                self._journal(name, "cancelled",
+                              reason=token.reason or None)
+                meta.mark_failed(
+                    name, f"cancelled: {token.reason or 'engine shutdown'}")
                 return None
-            if ctl.get("cancelled"):
-                return commit_cancelled(err)
-            logger.error(kv(job=name, state="failed", error=err,
-                            dt=f"{time.monotonic() - t_start:.2f}s"),
-                         exc_info=True)
-            self._journal(name, "failed", reason=err)
-            meta.mark_failed(name, err)
-            record(JobState.FAILED, exception=err, stdout=buf.getvalue())
-            self._notify(name, "failed")
-            return None
-        if ctl["expired"]:
-            # Finished after its deadline: already failed and its worker
-            # handed on; a late finish would resurrect it.
-            logger.warning(kv(job=name, state="abandoned"))
-            return None
-        if ctl.get("cancelled"):
-            # Cancelled mid-run: its partial result must not publish as
-            # finished.
-            return commit_cancelled()
-        if self._fence_refused(name):
-            return None
-        extra = on_success(result) if on_success else None
-        logger.info(kv(job=name, state="finished",
-                       dt=f"{time.monotonic() - t_start:.2f}s"))
-        if self.journal is not None:
-            # Which engine life committed this artifact, on the GET path.
-            extra = {**(extra or {}),
-                     "engineEpoch": jobs_journal.current_stamp()}
-        self._journal(name, "finished")
-        meta.mark_finished(name, extra or None)
-        record(JobState.FINISHED, stdout=buf.getvalue())
-        self._notify(name, "finished")
-        return result
+            # One span per attempt: retries are separate intervals in the
+            # persisted trace.
+            if trace is not None:
+                job_sid = trace.begin("job", attrs={"attempt": attempts + 1})
+            with tracing.activate(trace, job_sid):
+                self._journal(name, "running", attempt=attempts + 1)
+                meta.mark_running(name)
+                logger.info(kv(job=name, state="running", method=method,
+                               attempt=attempts + 1, **req))
+                # Feed only: webhooks register for finished/failed.
+                self._notify(name, "running")
+                buf = io.StringIO()
+                attempt_token = _ATTEMPT.set(attempts)
+                try:
+                    faults.hit("engine.dispatch")
+                    obs_flight.record("jobs", "dispatch", job=name,
+                                      method=method, jobClass=job_class,
+                                      attempt=attempts + 1)
+                    if capture_stdout:
+                        # Thread-scoped: only this job's prints.
+                        with capture_thread_stdout() as buf:
+                            result = fn()
+                    else:
+                        result = fn()
+                except Preempted:
+                    if ctl["expired"]:
+                        logger.warning(kv(job=name, state="abandoned",
+                                          **req))
+                        return None
+                    attempts += 1
+                    exhausted = attempts > self.max_preemption_retries
+                    logger.warning(kv(job=name, state="preempted",
+                                      attempt=attempts, **req))
+                    self._journal(name, "preempted", attempt=attempts)
+                    obs_flight.record("jobs", "preempt_retry", job=name,
+                                      attempt=attempts, exhausted=exhausted)
+                    jobs_total.inc(job_class=job_class, state="preempted")
+                    # The exhausting attempt IS the terminal record.
+                    record("preempted", stdout=buf.getvalue(),
+                           terminal=exhausted)
+                    if not exhausted:
+                        meta.update(name, {"preemptions": attempts})
+                        if trace is not None:
+                            trace.end(job_sid)
+                        self._backoff(name, attempts, trace, req)
+                        continue
+                    if self._fence_refused(name, req):
+                        return None
+                    self._journal(name, "failed",
+                                  reason="preemption retries exhausted")
+                    meta.mark_failed(name, "Preempted (retries exhausted)")
+                    jobs_total.inc(job_class=job_class, state="failed")
+                    obs_bundle.trigger("job_retries_exhausted", job=name,
+                                       attempts=attempts)
+                    self._notify(name, "failed")
+                    return None
+                except BaseException as exc:  # noqa: BLE001 — a job
+                    # body's failure is recorded, never kills the worker.
+                    err = repr(exc)
+                    if ctl["expired"]:
+                        logger.warning(kv(job=name, state="abandoned",
+                                          error=err, **req))
+                        return None
+                    if self._fence_refused(name, req):
+                        # A stale-epoch straggler: the newer recovery
+                        # owns this job's metadata.
+                        return None
+                    if ctl.get("cancelled"):
+                        return commit_cancelled(err)
+                    logger.error(kv(job=name, state="failed", error=err,
+                                    dt=f"{time.monotonic() - t_start:.2f}s",
+                                    **req), exc_info=True)
+                    self._journal(name, "failed", reason=err)
+                    obs_flight.record("jobs", "failed", job=name,
+                                      error=err[:200])
+                    meta.mark_failed(name, err)
+                    jobs_total.inc(job_class=job_class, state="failed")
+                    record(JobState.FAILED, exception=err,
+                           stdout=buf.getvalue())
+                    self._notify(name, "failed")
+                    return None
+                finally:
+                    _ATTEMPT.reset(attempt_token)
+                if ctl["expired"]:
+                    # Finished after its deadline: already failed and its
+                    # worker handed on; a late finish would resurrect it.
+                    logger.warning(kv(job=name, state="abandoned", **req))
+                    return None
+                if ctl.get("cancelled"):
+                    # Cancelled mid-run: its partial result must not
+                    # publish as finished.
+                    return commit_cancelled()
+                if self._fence_refused(name, req):
+                    return None
+                extra = on_success(result) if on_success else None
+                logger.info(kv(job=name, state="finished",
+                               dt=f"{time.monotonic() - t_start:.2f}s",
+                               **req))
+                if self.journal is not None:
+                    # Which engine life committed this artifact.
+                    extra = {**(extra or {}),
+                             "engineEpoch": jobs_journal.current_stamp()}
+                self._journal(name, "finished")
+                meta.mark_finished(name, extra or None)
+                jobs_total.inc(job_class=job_class, state="finished")
+                record(JobState.FINISHED, stdout=buf.getvalue())
+                self._notify(name, "finished")
+                return result
+
+    def _backoff(self, name: str, attempt: int, trace, req: dict) -> None:
+        """Sleep the jittered exponential backoff before retry ``attempt``
+        (woken by a cancel token flip) and record a ``retry_backoff``
+        span."""
+        base = self.retry_backoff_s
+        if base <= 0:
+            return
+        delay = min(self.retry_backoff_max_s,
+                    base * (2 ** max(0, attempt - 1))) * (
+                        0.5 + random.random())
+        logger.info(kv(job=name, state="backoff", delay=f"{delay:.3f}s",
+                       attempt=attempt, **req))
+        t0 = time.monotonic()
+        token = jobs_cancel.current_cancel_token()
+        if token is not None:
+            token.wait(delay)
+        else:
+            time.sleep(delay)
+        if trace is not None:
+            trace.add_span("retry_backoff", t0, time.monotonic(),
+                           attrs={"attempt": attempt,
+                                  "delayS": round(delay, 4)})
 
     # -- weighted-fair dispatch ----------------------------------------------
 
@@ -512,6 +688,12 @@ class JobEngine:
         )
         logger.error(kv(job=name, state="deadline",
                         deadlineS=rec["deadline"]))
+        obs_flight.record("jobs", "deadline", job=name,
+                          deadlineS=rec["deadline"])
+        obs_bundle.trigger("job_deadline", job=name,
+                           deadlineS=rec["deadline"])
+        _, jobs_total = _job_metrics()
+        jobs_total.inc(job_class=rec["job_class"], state="deadline")
         self._journal(name, "deadline", reason=err)
         try:
             self.artifacts.metadata.mark_failed(name, err)
@@ -547,6 +729,14 @@ class JobEngine:
             JobState.FINISHED if meta.get("finished") else JobState.PENDING,
         )
 
+    def queue_depths(self, include_empty: bool = False) -> dict[str, int]:
+        """Queued-but-undispatched jobs per class; ``include_empty`` keeps
+        drained classes at 0 (the collector's series must report zero,
+        not vanish)."""
+        with self._lock:
+            return {cls: len(q) for cls, q in self._queues.items()
+                    if q or include_empty}
+
     def wait(self, name: str, timeout: float | None = None) -> Any:
         """Block until the job of ``name`` completes; returns its result
         (clients poll GET instead)."""
@@ -567,6 +757,10 @@ class JobEngine:
             # between a queue pop and its dispatch.
             future = self._futures.get(name)
             queued = future is not None and future.cancel()
+            job_class = next((
+                info["job_class"] for queue in self._queues.values()
+                for _runner, fut, info in queue if fut is future),
+                "default") if queued else None
             if not queued:
                 rec = self._running_recs.get(name)
                 if rec is not None and not rec["released"]:
@@ -576,6 +770,8 @@ class JobEngine:
                     rec["token"].cancel("cancel requested")
                     running = True
         if queued:
+            _, jobs_total = _job_metrics()
+            jobs_total.inc(job_class=job_class, state="cancelled")
             self._journal(name, "cancelled",
                           reason="cancelled while queued")
             self.artifacts.metadata.update(

@@ -190,13 +190,13 @@ class JobJournal:
     # -- append ---------------------------------------------------------------
 
     def record_submit(self, job: str, *, job_class: str, method=None,
-                      description=None, deadline_s=None) -> None:
+                      description=None, deadline_s=None,
+                      request_id=None) -> None:
         """The ``submitted`` + ``queued`` pair, adjacent in the FIFO.
 
         The request parameters are not journaled: the engine stamps them
         into the artifact's metadata (``requestParameters``) first, and
-        recovery re-dispatches through those.  (The JAX spec's
-        ``requestId`` belongs to request tracing, not ported.)"""
+        recovery re-dispatches through those."""
         if not self.enabled:
             return
         spec = {"jobClass": job_class}
@@ -206,6 +206,8 @@ class JobJournal:
             spec["description"] = description
         if deadline_s is not None:
             spec["deadlineS"] = deadline_s
+        if request_id is not None:
+            spec["requestId"] = request_id
         base = {"docType": "journal", "job": job, "epoch": self.epoch,
                 "at": time.time()}
         self._pending.append({**base, "event": "submitted", "spec": spec})

@@ -13,6 +13,11 @@ serialization.  Single-path serving is not leased: its batcher threads
 may run forwards while a train job holds the card.  A fleet replica
 (``serve/fleet``) is: it holds its card through :meth:`DeviceLeaser.
 acquire` for its whole life, so a train job queues behind it.
+
+Every request passes the ``lease.acquire`` fault point (faults/plane.py);
+waits, holds and grants feed the registry (obs/metrics.py), and a
+with-block lease on a card is the ``lease`` span of the job's trace, so
+the spans recorded inside it nest under it.
 """
 
 from __future__ import annotations
@@ -25,9 +30,36 @@ from typing import Sequence
 
 import torch
 
+from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.log import get_logger, kv
+from learningorchestra_tpu_torch.obs import tracing
+from learningorchestra_tpu_torch.obs.metrics import get_registry
 
 logger = get_logger("leases")
+
+#: Metric family names (the JAX package's).
+LEASE_WAIT = "lo_lease_wait_seconds"
+LEASE_HOLD = "lo_lease_hold_seconds"
+LEASES_TOTAL = "lo_leases_total"
+
+
+def _lease_metrics():
+    """Lease instrumentation handles, resolved per lease so registry
+    resets take effect at once."""
+    reg = get_registry()
+    return (
+        reg.histogram(
+            LEASE_WAIT, "Time a job waited for its chip lease.",
+            buckets=(0.001, 0.01, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0,
+                     300.0, 1800.0),
+        ),
+        reg.histogram(
+            LEASE_HOLD, "Time a job held its chip lease.",
+            buckets=(0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0,
+                     7200.0, 43200.0),
+        ),
+        reg.counter(LEASES_TOTAL, "Chip leases granted."),
+    )
 
 
 class LeaseTimeout(Exception):
@@ -77,6 +109,8 @@ class DeviceLeaser:
         yields the leased ids (empty when there is nothing to lease).
         ``timeout=None`` waits: a job queued behind a long fit must
         queue, not fail; a finite one raises :class:`LeaseTimeout`."""
+        t_req = time.monotonic()
+        faults.hit("lease.acquire")
         with self._cv:
             taken: list[str] = []
             if self._all:
@@ -92,10 +126,20 @@ class DeviceLeaser:
             if taken:
                 self._active.append(rec)
         t0 = time.monotonic()
+        wait_hist, hold_hist, leases_total = _lease_metrics()
         if taken:
+            wait_hist.observe(t0 - t_req)
+            leases_total.inc()
             logger.info(kv(event="lease", job=label, devices=taken))
         try:
-            yield taken
+            if taken:
+                # The span covers the with-block, so program and epoch
+                # spans recorded inside nest under it.
+                with tracing.span("lease", devices=",".join(taken),
+                                  waitS=round(t0 - t_req, 6)):
+                    yield taken
+            else:
+                yield taken
         finally:
             t1 = time.monotonic()
             with self._cv:
@@ -108,6 +152,7 @@ class DeviceLeaser:
                     self._active.remove(rec)
                 self._cv.notify_all()
             if taken:
+                hold_hist.observe(t1 - t0)
                 logger.info(kv(event="release", job=label, devices=taken,
                                held=f"{t1 - t0:.2f}s"))
 
@@ -118,9 +163,13 @@ class DeviceLeaser:
         that acquires it (a REST handler, the autoscaler) is not the one
         that releases it (a scale-down, shutdown).  Same blocking and
         timeout semantics as :meth:`lease`; call ``release()`` on the
-        returned :class:`LeaseHandle` (idempotent, any thread)."""
+        returned :class:`LeaseHandle` (idempotent, any thread).  The
+        with-block's span is suppressed: a span opened in the acquiring
+        thread could not close in the releasing one."""
         cm = self.lease(n_devices, label=label, timeout=timeout)
-        return LeaseHandle(cm, list(cm.__enter__()))
+        with tracing.activate(None):
+            devices = cm.__enter__()
+        return LeaseHandle(cm, list(devices))
 
     def revoke(self, label: str) -> list[str]:
         """Force-release every device leased as ``label`` or ``label:*``
@@ -164,7 +213,9 @@ class LeaseHandle:
             if self._released:
                 return
             self._released = True
-        self._cm.__exit__(None, None, None)
+        # Resumed with no active trace, as it was entered.
+        with tracing.activate(None):
+            self._cm.__exit__(None, None, None)
 
 
 def device_for(device_id: str) -> torch.device | None:

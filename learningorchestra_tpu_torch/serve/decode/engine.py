@@ -28,9 +28,15 @@ replica; pools are keyed (replica index or None, Tk) and step with their
 replica's placed module (replicas sharing the resident module share its
 step memo).  A pool whose replica was scaled away finishes on the
 resident module.  A fresh replica's pre-warm replays every recorded
-(S, Tk) step (:meth:`DecodeEngine.warm_replica`).  Not ported: the
-Prometheus decode families and the TTFT SLO (ROADMAP A.11) and the
-``serve.decode_step`` fault point (A.11).
+(S, Tk) step (:meth:`DecodeEngine.warm_replica`).
+
+Operations plane: time to first token, inter-token latency and tokens
+per model feed the registry (the TTFT SLO reads the first); submit,
+admit, pool growth, first token, abort and step errors land in the
+``decode`` flight ring; and each pool's step passes the
+``serve.decode_step`` fault point on the host, before the step program
+runs, so a CUDA graph never captures a fault or span decision (an
+injected failure fails that pool's streams, as a device fault would).
 """
 
 from __future__ import annotations
@@ -42,8 +48,11 @@ from collections import deque
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.log import get_logger, kv
 from learningorchestra_tpu_torch.obs import costs
+from learningorchestra_tpu_torch.obs import flight as obs_flight
+from learningorchestra_tpu_torch.obs.metrics import get_registry
 from learningorchestra_tpu_torch.serve.batcher import QueueFull
 from learningorchestra_tpu_torch.serve.bucketing import bucket_for
 from learningorchestra_tpu_torch.serve.decode.pages import (
@@ -59,6 +68,63 @@ logger = get_logger("decode")
 
 #: Ceiling on a non-stream request's wait for its streams to finish.
 _NONSTREAM_TIMEOUT_S = 300.0
+
+#: The decode families (the JAX engine's).
+DECODE_TTFT = "lo_serving_decode_ttft_seconds"
+DECODE_ITL = "lo_serving_decode_itl_seconds"
+DECODE_TOKENS = "lo_serving_decode_tokens_total"
+
+
+class _DecodeHists:
+    """TTFT / ITL histograms and the token counter, with one bound series
+    per model, re-resolved when the registry is replaced."""
+
+    def __init__(self):
+        self._reg = None
+        self._ttft = None
+        self._itl = None
+        self._tokens = None
+        self._bound: dict = {}
+
+    def _bind(self, model: str):
+        reg = get_registry()
+        if reg is not self._reg:
+            self._ttft = reg.histogram(
+                DECODE_TTFT,
+                "Time to first generated token per streamed decode "
+                "(admission wait + prefill steps + first step).",
+                labels=("model",))
+            self._itl = reg.histogram(
+                DECODE_ITL,
+                "Inter-token latency between consecutive streamed "
+                "decode tokens.",
+                labels=("model",))
+            self._tokens = reg.counter(
+                DECODE_TOKENS,
+                "Generated tokens per served model (all transports).",
+                labels=("model",))
+            self._bound = {}
+            self._reg = reg
+        bound = self._bound.get(model)
+        if bound is None:
+            if len(self._bound) >= 256:
+                self._bound.clear()
+            bound = self._bound[model] = (self._ttft.bind(model=model),
+                                          self._itl.bind(model=model))
+        return bound
+
+    def ttft(self, dt_s: float, model: str) -> None:
+        self._bind(model)[0].observe(dt_s)
+
+    def itl(self, dt_s: float, model: str) -> None:
+        self._bind(model)[1].observe(dt_s)
+
+    def tokens(self, n: int, model: str) -> None:
+        self._bind(model)
+        self._tokens.inc(n, model=model)
+
+
+_decode_hists = _DecodeHists()
 
 
 class _ModelDecoder:
@@ -94,10 +160,14 @@ class _ModelDecoder:
                 raise ServeError(f"decode for {self.name!r} is shut down")
             active = len(self._streams) + len(self._pending)
             if active >= self.cfg.max_streams:
+                obs_flight.record("decode", "queue_full", model=self.name,
+                                  stream=stream.stream_id, active=active)
                 raise QueueFull(
                     f"decode for {self.name!r} at max_streams="
                     f"{self.cfg.max_streams}"
                 )
+            obs_flight.record("decode", "submit", model=self.name,
+                              stream=stream.stream_id, total=stream.total)
             self._pending.append(stream)
             self._streams[stream.stream_id] = stream
             if self._thread is None or not self._thread.is_alive():
@@ -114,6 +184,8 @@ class _ModelDecoder:
             if stream is None:
                 return False
             stream.token.cancel(reason)
+            obs_flight.record("decode", "abort", model=self.name,
+                              stream=stream_id, reason=reason)
             self._cv.notify_all()
             return True
 
@@ -156,6 +228,10 @@ class _ModelDecoder:
                     logger.error("decode admit raised %s", kv(
                         model=self.name, stream=stream.stream_id,
                         error=str(exc)))
+                    obs_flight.record("decode", "admit_failed",
+                                      model=self.name,
+                                      stream=stream.stream_id,
+                                      error=str(exc))
                     self._finish(stream, error=f"admission failed: {exc}")
                     continue
                 if not admitted:
@@ -181,11 +257,17 @@ class _ModelDecoder:
         if pool is None:
             pool = self._pools[(ridx, kvlen)] = PagePool(
                 kvlen, self.cfg.max_slots, replica_idx=ridx)
+            obs_flight.record("decode", "pool_grow", model=self.name,
+                              kv=kvlen, slots=self.cfg.max_slots,
+                              replica=-1 if ridx is None else ridx)
         module = self._module_for(pool)
         slot = pool.admit(
             stream,
             lambda want: module.init_cache(want, kvlen, per_row=True),
             cell=lambda want: self._step_for(module, want, kvlen))
+        if slot is not None:
+            obs_flight.record("decode", "admit", model=self.name,
+                              stream=stream.stream_id, kv=kvlen, slot=slot)
         return slot is not None
 
     def _route_replica(self):
@@ -321,6 +403,9 @@ class _ModelDecoder:
             if not pool.live:
                 continue
             try:
+                # On the host, before the step program: a graph capture
+                # never records the decision.
+                faults.hit("serve.decode_step")
                 with torch.no_grad():
                     self._step_pool(pool)
             except Exception as exc:  # noqa: BLE001 — a device fault's
@@ -328,6 +413,8 @@ class _ModelDecoder:
                 # and the other pools stay healthy.
                 logger.error("decode step failed %s", kv(
                     model=self.name, pool=f"{key}", error=str(exc)))
+                obs_flight.record("decode", "step_error", model=self.name,
+                                  pool=f"{key}", error=str(exc))
                 for slot, stream in enumerate(pool.streams):
                     if stream is not None:
                         try:
@@ -383,6 +470,8 @@ class _ModelDecoder:
                     stream.tokens = [int(t)
                                      for t in row[stream.t0:stream.total]]
                     stream.first_at = stream.first_at or time.perf_counter()
+                    self._note_first(stream)
+                    _decode_hists.tokens(len(stream.tokens), self.name)
                 pool.release(slot)
                 self._finish(stream)
         if synced and pool.pending:
@@ -400,11 +489,22 @@ class _ModelDecoder:
                 weight, sum(iv.seconds() for iv in pending), None, None,
                 self.name, f"dec{pool.nslots}x{pool.kv}")
 
-    @staticmethod
-    def _emit(stream: DecodeStream, tok: int, pos: int, now: float) -> None:
+    def _note_first(self, stream: DecodeStream) -> None:
+        ttft = stream.first_at - stream.arrived
+        _decode_hists.ttft(ttft, self.name)
+        obs_flight.record("decode", "ttft", model=self.name,
+                          stream=stream.stream_id, ttftS=round(ttft, 4))
+
+    def _emit(self, stream: DecodeStream, tok: int, pos: int,
+              now: float) -> None:
         if stream.first_at is None:
             stream.first_at = now
+            self._note_first(stream)
+        else:
+            _decode_hists.itl(now - stream.last_at, self.name)
+        stream.last_at = now
         stream.push_token(tok, pos)
+        _decode_hists.tokens(1, self.name)
 
     def _finish(self, stream: DecodeStream, *, error: str | None = None,
                 aborted: bool = False) -> None:

@@ -33,7 +33,7 @@ class DecodeStream:
 
     __slots__ = (
         "stream_id", "model", "prompt", "t0", "total", "eager",
-        "token", "events", "arrived", "first_at",
+        "token", "events", "arrived", "first_at", "last_at",
         "tokens", "error", "_done",
     )
 
@@ -51,6 +51,7 @@ class DecodeStream:
         self.events: queue.Queue = queue.Queue(maxsize=_QUEUE_CAP)
         self.arrived = time.perf_counter()
         self.first_at: float | None = None
+        self.last_at: float | None = None
         self.tokens: list[int] = []  # emitted continuation tokens
         self.error: str | None = None
         self._done = threading.Event()

@@ -9,6 +9,9 @@ counts) and turns sustained pressure into replicas instead of 429s:
   ``FleetConfig.up_queue_frac`` for ``up_ticks`` consecutive ticks, when
   requests were SHED (a new 429 is saturation by definition), or when
   p99 crosses ``up_p99_ms`` (optional, gated on traffic this tick);
+- **scale up** when a model's queued rows grow faster than
+  ``up_slope`` rows/second, least-squares-fitted over the rollup series
+  (obs/rollup.py) so a ramp scales before the queue fills;
 - **scale down** after ``down_ticks`` consecutive ticks with no traffic,
   draining the victim's batcher before its card lease returns (a train
   job queued on the leaser gets the card back);
@@ -19,9 +22,7 @@ one replica.  The tick body, its ``decisions`` and its ``ledger`` (every
 evaluation, holds included, with the signals and streaks it read) are
 the JAX package's, key for key.  The device-time fraction
 (``up_device_frac``) reads the model's attributed device seconds from the
-cost plane (obs/costs.py) as the JAX loop does; the queue-growth slope
-(obs/rollup, ROADMAP A.11) has no source in the port: its reading is the
-JAX one with rollup off (None), and the config refuses turning it on.
+cost plane (obs/costs.py) as the JAX loop does.
 
 The loop is a daemon thread owned by the FleetManager, started only when
 some model can scale (max > 1).  ``tick()`` is public and thread-safe so
@@ -36,6 +37,7 @@ import time
 
 from learningorchestra_tpu_torch.jobs.leases import LeaseTimeout
 from learningorchestra_tpu_torch.log import get_logger, kv
+from learningorchestra_tpu_torch.obs import rollup as obs_rollup
 
 logger = get_logger("fleet")
 
@@ -297,11 +299,17 @@ class Autoscaler:
         return made
 
     def _queue_slope(self, name: str) -> float | None:
-        """The JAX package's queue-growth slope reads the rollup series
-        (obs/rollup, ROADMAP A.11): None, as there with rollup off.  The
-        config refuses ``up_slope > 0`` at boot, so nothing waits on
-        it."""
-        return None
+        """This model's queue-depth growth rate (rows/second) from the
+        shared rollup series, the windowed view the timeseries endpoint
+        serves.  None when the rollup engine is disabled, has not two
+        points yet, or the query fails (the autoscaler must never die on
+        an observability hiccup)."""
+        try:
+            return obs_rollup.get_engine().slope(
+                "lo_serving_model_queue_depth", {"model": name},
+                self.cfg.slope_window_s)
+        except Exception:  # noqa: BLE001
+            return None
 
     def _device_seconds(self, name: str) -> float:
         """This model's accumulated device seconds from the cost plane's

@@ -36,6 +36,7 @@ import numpy as np
 
 from learningorchestra_tpu_torch.jobs.leases import device_for
 from learningorchestra_tpu_torch.log import get_logger, kv
+from learningorchestra_tpu_torch.obs import tracing
 from learningorchestra_tpu_torch.serve.batcher import (
     BatcherClosed,
     MicroBatcher,
@@ -297,7 +298,10 @@ class ReplicaSet:
             # Warm BEFORE the replica is routable.  A failed warm-up is
             # logged and the replica serves cold: availability first.
             try:
-                self._warmup(replica)
+                with tracing.span("replica.warmup", model=self.name,
+                                  replica=idx,
+                                  device=replica.device_id or "host"):
+                    self._warmup(replica)
                 replica.warmed = True
             except Exception as exc:  # noqa: BLE001
                 logger.warning(kv(
@@ -403,7 +407,12 @@ class ReplicaSet:
         for i in order:
             replica = replicas[i]
             try:
-                return replica.batcher.submit(x), replica
+                # Replica attribution on the serve span (one context
+                # variable read when no trace is active).
+                with tracing.span("serve.predict", model=self.name,
+                                  replica=replica.idx,
+                                  device=replica.device_id or "host"):
+                    return replica.batcher.submit(x), replica
             except QueueFull as exc:
                 # BatcherClosed included: drained under us mid-route, the
                 # next candidate absorbs the request.

@@ -10,14 +10,17 @@ tries them in order and sheds (429) only when every replica refuses.
 
 Determinism: the RNG is a seeded ``random.Random`` making the JAX
 router's calls in the same order, so a seed and a depth sequence give
-the same candidate orders in both packages.  The JAX router's
-``serve.route`` fault probe belongs to the fault plane (ROADMAP A.11).
+the same candidate orders in both packages.  Every decision passes the
+``serve.route`` fault point first (faults/plane.py), so scale drills can
+inject latency or failure where traffic is spread.
 """
 
 from __future__ import annotations
 
 import random
 from typing import Sequence
+
+from learningorchestra_tpu_torch import faults
 
 
 class P2CRouter:
@@ -29,6 +32,7 @@ class P2CRouter:
     def choose(self, depths: Sequence[int]) -> list[int]:
         """Candidate order for ``len(depths)`` replicas: the P2C winner
         first, its pair partner second, the rest by ascending depth."""
+        faults.hit("serve.route")
         n = len(depths)
         if n <= 1:
             return [0] * n

@@ -29,8 +29,13 @@ with predict jobs; misses count buckets, never requests), and each
 dispatch records its device interval and the bucket's FLOPs in the
 device-time ledger per model and bucket (obs/costs.py, sampled).  The
 apply stays eager: the fleet's launch-count checks read the kernel
-wrappers' counters, which a graph replay would bypass.  The JAX service's
-faults come with ROADMAP A.11.
+wrappers' counters, which a graph replay would bypass.
+
+Operations plane: every dispatch passes the ``serve.apply`` fault point
+on the host before its bucket runs (an injected error fails exactly the
+requests coalesced into that dispatch), and every answered predict
+observes the per-model predict-latency histogram the rollup's quantiles
+and the predict-latency SLO read.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Callable
 
 import numpy as np
 
+from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.config import (
     AotConfig,
     DecodeConfig,
@@ -56,6 +62,7 @@ from learningorchestra_tpu_torch.jobs.leases import (
     placed,
 )
 from learningorchestra_tpu_torch.obs import costs
+from learningorchestra_tpu_torch.obs.metrics import get_registry
 from learningorchestra_tpu_torch.serve.batcher import (
     BatcherClosed,
     MicroBatcher,
@@ -81,6 +88,45 @@ _SCALAR_WINDOW = 512
 
 class NotFoundError(Exception):
     """No artifact of that name → 404."""
+
+
+#: The predict-latency family (the JAX service's).
+PREDICT_DURATION = "lo_serving_predict_duration_seconds"
+
+
+class _PredictHist:
+    """The predict-latency histogram with one bound series per model,
+    re-resolved when the registry is replaced.  Cardinality is bounded
+    by the registry's ``max_models`` cap."""
+
+    __slots__ = ("_reg", "_hist", "_bound")
+
+    def __init__(self):
+        self._reg = None
+        self._hist = None
+        self._bound: dict = {}
+
+    def observe(self, dt_s: float, model: str) -> None:
+        reg = get_registry()
+        if reg is not self._reg:
+            self._hist = reg.histogram(
+                PREDICT_DURATION,
+                "End-to-end predict latency per served model "
+                "(queue wait + coalesce + jitted apply + handoff).",
+                labels=("model",))
+            self._bound = {}
+            self._reg = reg
+        bound = self._bound.get(model)
+        if bound is None:
+            if len(self._bound) >= 256:
+                # max_models bounds concurrent models, not every name
+                # ever served.
+                self._bound.clear()
+            bound = self._bound[model] = self._hist.bind(model=model)
+        bound.observe(dt_s)
+
+
+_predict_hist = _PredictHist()
 
 
 class ServingService:
@@ -222,6 +268,10 @@ class ServingService:
         comes from the program cache once per entry; a sampled dispatch
         books its device interval and FLOPs against the model and
         bucket."""
+        # Chaos probe at the batch boundary, on the host before any
+        # device work: an injected failure fails every request coalesced
+        # into THIS dispatch and leaves the batcher healthy.
+        faults.hit("serve.apply")
         entry = self.registry.get(name)
         rows = padded.shape[0]
         apply = entry.apply_fns.get(rows)
@@ -360,6 +410,7 @@ class ServingService:
             out, replica = rs.submit(x)
             entry.requests += 1
             dt = time.perf_counter() - t0
+            _predict_hist.observe(dt, model=name)
             return {
                 "model": name,
                 "predictions": out.tolist(),
@@ -370,6 +421,7 @@ class ServingService:
         out = self._batcher_for(name).submit(x)
         entry.requests += 1
         dt = time.perf_counter() - t0
+        _predict_hist.observe(dt, model=name)
         return {
             "model": name,
             "predictions": out.tolist(),

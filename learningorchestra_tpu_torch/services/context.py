@@ -34,6 +34,7 @@ from learningorchestra_tpu_torch.jobs.engine import JobEngine
 from learningorchestra_tpu_torch.jobs.journal import JobJournal
 from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
 from learningorchestra_tpu_torch.log import get_logger, kv
+from learningorchestra_tpu_torch.obs import tracing
 from learningorchestra_tpu_torch.services.frame import Frame
 from learningorchestra_tpu_torch.services.webhooks import WebhookNotifier
 from learningorchestra_tpu_torch.store import (
@@ -88,6 +89,9 @@ class ServiceContext:
             class_weights=jobs.class_weights,
             deadline_s=jobs.deadline_s,
             shutdown_drain_s=jobs.shutdown_drain_s,
+            max_preemption_retries=jobs.max_preemption_retries,
+            retry_backoff_s=jobs.retry_backoff_s,
+            retry_backoff_max_s=jobs.retry_backoff_max_s,
         )
         # Device placement: jobs on the card serialize per card; the
         # watchdog revokes an expired job's leases through the same pool.
@@ -184,27 +188,33 @@ class ServiceContext:
         """Walk the manifest hottest first, restoring each blob and
         installing the program into the program cache; a key already
         resident is skipped, and a bad blob costs its key (a live build
-        later), never the boot."""
+        later), never the boot.  Every restore is a ``prewarm`` span on a
+        dedicated ``boot.prewarm`` trace."""
         cache = compile_cache.get_cache()
         warmed = skipped = failed = 0
         t0 = time.perf_counter()
-        for rec in work:
-            key = rec.get("key")
-            if not key or cache.contains(key):
-                skipped += 1
-                continue
-            label = rec.get("label")
-            try:
-                stored = store.load(key)
-                if stored is None:
-                    failed += 1
+        trace = tracing.new_trace("boot.prewarm")
+        with tracing.activate(trace):
+            for rec in work:
+                key = rec.get("key")
+                if not key or cache.contains(key):
+                    skipped += 1
                     continue
-                ok = cache.install(
-                    key, compile_cache.restore(key, stored, label=label),
-                    label=label)
-                warmed += 1 if ok else 0
-            except Exception:  # noqa: BLE001 — a bad blob costs one key
-                failed += 1
+                label = rec.get("label")
+                try:
+                    with tracing.span("prewarm", key=key[:12],
+                                      label=label or ""):
+                        stored = store.load(key)
+                        if stored is None:
+                            failed += 1
+                            continue
+                        ok = cache.install(
+                            key, compile_cache.restore(key, stored,
+                                                       label=label),
+                            label=label)
+                    warmed += 1 if ok else 0
+                except Exception:  # noqa: BLE001 — a bad blob costs one
+                    failed += 1  # key, not the boot
         self.aot_prewarm_stats = {
             "warmed": warmed, "skipped": skipped, "failed": failed,
             "total": len(work),

@@ -8,7 +8,7 @@
   ``"shardSequence"`` forcing that on or off, and its ``ep`` splits an MoE
   model's experts over the ranks of each replica), with
   managed checkpoints (a fresh POST wipes stale state, a PATCH of a
-  failed job resumes it), the published artifact (int8 with
+  failed job or the engine's preemption retry resumes it), the published artifact (int8 with
   ``quantize_checkpoint``), one history row per epoch and, with a
   ``monitoringPath``, a monitoring session whose logdir gets the scalars
   (with rank 0's ``compile_cache_*`` counter deltas, also published as
@@ -31,6 +31,7 @@ import shutil
 import time
 
 from learningorchestra_tpu_torch import dsl
+from learningorchestra_tpu_torch.jobs import engine as engine_mod
 from learningorchestra_tpu_torch.jobs.leases import placed
 from learningorchestra_tpu_torch.services.context import (
     ServiceContext,
@@ -218,6 +219,10 @@ class DistributedExecutorService:
             shard_seq = (mesh or {}).get("shardSequence")
             ckdir = ctx.checkpoint_dir(name)
             params.setdefault("resume", resume_default)
+            if engine_mod.current_attempt() > 0:
+                # A preemption retry's checkpoints are this run's own
+                # state: resume even when the request said fresh-fit.
+                params["resume"] = True
             if not params["resume"]:
                 shutil.rmtree(ckdir, ignore_errors=True)
             params["checkpoint_dir"] = str(ckdir)

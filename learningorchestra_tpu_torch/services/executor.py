@@ -20,8 +20,10 @@ finishes and publishes the best candidate.
 Managed checkpoints: a neural ``fit`` gets the artifact's checkpoint
 directory (``ServiceContext.checkpoint_dir``), wiped on a fresh run and
 resumed when a failed job is PATCHed back (how boot recovery resumes a
-killed fit); a neural tune trial gets ``trial_<idx>`` under the tune's
-directory, removed once the best candidate is published.  A request
+killed fit) or when the engine re-runs a preempted attempt
+(``jobs.engine.current_attempt() > 0``); a neural tune trial gets
+``trial_<idx>`` under the tune's directory, resumed by a preemption
+retry and removed once the best candidate is published.  A request
 carrying a raw ``checkpoint_dir`` is refused (406).  Each publication is
 fenced against the store's engine epoch (``require_current_epoch``).
 
@@ -47,8 +49,9 @@ import numpy as np
 
 from learningorchestra_tpu_torch import dsl
 from learningorchestra_tpu_torch.jobs import cancel as jobs_cancel
+from learningorchestra_tpu_torch.jobs import engine as engine_mod
 from learningorchestra_tpu_torch.jobs.leases import placed
-from learningorchestra_tpu_torch.obs import costs
+from learningorchestra_tpu_torch.obs import costs, tracing
 from learningorchestra_tpu_torch.services.context import (
     ServiceContext,
     ValidationError,
@@ -183,19 +186,30 @@ class ExecutorService:
                 if devs:
                     ctx.artifacts.metadata.update(
                         name, {"leasedDevices": devs})
-                instance = ctx.volumes.load_estimator(
-                    parent_type, parent_name, device=ctx.device)
+                with tracing.span("load_artifact", parent=parent_name):
+                    instance = ctx.volumes.load_estimator(
+                        parent_type, parent_name, device=ctx.device)
                 params = dsl.resolve_params(method_parameters, ctx.loader)
+                # A preemption retry (attempt > 0) resumes the checkpoints
+                # this run already wrote instead of restarting at epoch 0.
+                attempt = engine_mod.current_attempt()
+                resume = resume_checkpoint or attempt > 0
                 if (kind in ("train", "tune") and method == "fit"
                         and getattr(instance, "supports_managed_checkpoints",
                                     False)):
                     # A fresh run must not resurrect old state: its tree
-                    # is wiped; a failed job PATCHed back resumes.
+                    # is wiped (on attempt 0 only: a retry's checkpoints
+                    # are its own run's); a failed job PATCHed back
+                    # resumes.
                     ckdir = ctx.checkpoint_dir(name)
-                    if not resume_checkpoint:
+                    if not resume:
                         shutil.rmtree(ckdir, ignore_errors=True)
                     params["checkpoint_dir"] = str(ckdir)
-                    params.setdefault("resume", resume_checkpoint)
+                    params.setdefault("resume", resume)
+                    if attempt > 0:
+                        # The same logical run, continued, even when the
+                        # request asked for a fresh fit.
+                        params["resume"] = True
                 t0 = time.perf_counter()
                 # The body's dispatches (the fit's epochs) book against
                 # this job's device-time entry.
@@ -319,10 +333,13 @@ class ExecutorService:
 
         def run():
             cache_before = compile_cache.counters_snapshot()
-            # The engine does not retry a tune (no preemption in the
-            # port), so every run is a fresh grid: old trial state goes.
+            # A preemption retry resumes every trial from its newest
+            # checkpoint; attempt 0 is a fresh grid, so old trial state
+            # goes.
+            attempt = engine_mod.current_attempt()
             trial_ck_root = ctx.checkpoint_dir(name)
-            shutil.rmtree(trial_ck_root, ignore_errors=True)
+            if attempt == 0:
+                shutil.rmtree(trial_ck_root, ignore_errors=True)
             fit_params = dsl.resolve_params(method_parameters, ctx.loader)
             score_params = dsl.resolve_params(
                 scoring_parameters, ctx.loader
@@ -347,7 +364,8 @@ class ExecutorService:
                     trial_params = {
                         "checkpoint_dir": str(trial_ck_root
                                               / f"trial_{idx:04d}"),
-                        "resume": False, **fit_params}
+                        **fit_params}
+                    trial_params.setdefault("resume", attempt > 0)
                 # A neural trial leases a card for its device work and
                 # runs there; on one card the trials serialize.
                 lease = ctx.leaser.lease(1, label=f"{name}:trial") \

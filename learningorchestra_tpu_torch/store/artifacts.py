@@ -154,6 +154,7 @@ class ExecutionLedger:
         exception: str | None = None,
         stdout: str | None = None,
         metrics: dict | None = None,
+        trace: dict | None = None,
     ) -> int:
         doc: dict = {
             "executionTime": _now(),
@@ -167,6 +168,10 @@ class ExecutionLedger:
         doc.update({k: v for k, v in optional.items() if v is not None})
         if metrics:
             doc["metrics"] = metrics
+        if trace:
+            # The job's span record (obs/tracing.py), served back by
+            # GET /observability/jobs/<name>/trace.
+            doc["trace"] = trace
         return self.store.insert_one(name, doc)
 
     def history(self, name: str) -> list[dict]:

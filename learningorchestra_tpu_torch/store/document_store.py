@@ -13,7 +13,10 @@ one op record per line — ``{"op": "i", "d": doc}`` insert, ``{"op": "u",
 ``{"op": "n", "v": next_id}`` id floor — the JAX package's format, so
 either package reopens the other's store.  Full state is replayed on
 open; a torn final record (a crash mid-append) is truncated away, while
-damage followed by valid records refuses to open.
+damage followed by valid records refuses to open.  Every append (one op
+or a batch) passes the ``store.wal_write`` fault point first
+(faults/plane.py); the API server's collector reports the WALs' bytes and
+file count.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import re
 import threading
 from pathlib import Path
 from typing import Any, Iterable
+
+from learningorchestra_tpu_torch import faults
 
 # Collection names become file names; keep them safe.
 _NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]*$")
@@ -152,6 +157,10 @@ class _Collection:
         self._fh = open(self.path, "a", encoding="utf-8")
 
     def append_lines(self, lines: list[str]) -> None:
+        # Chaos probe BEFORE the write: an injected failure models a
+        # failing disk at the WAL boundary (the in-memory map may run
+        # ahead of the log; recovery is replay-on-reopen).
+        faults.hit("store.wal_write")
         self._fh.write("\n".join(lines) + "\n")
         self._fh.flush()
         if self.durable:

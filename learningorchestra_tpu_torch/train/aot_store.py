@@ -38,8 +38,11 @@ is never re-analyzed) and a payload checksum, and resolves
 the function in the table; any failure counts ``loadErrors``, deletes the
 blob and returns None.  A ``manifest.json`` beside the blobs records the
 hot set (key, label, hits, bytes) ordered by heat; the boot pre-warm
-(services/context.py) walks it hottest first.  The JAX store's fault
-points (``cache.aot_load`` / ``cache.aot_store``) come with ROADMAP A.11.
+(services/context.py) walks it hottest first, each restore a
+``prewarm`` span of a ``boot.prewarm`` trace.  Every write passes the
+``cache.aot_store`` fault point and every read ``cache.aot_load``
+(faults/plane.py): an injected failure degrades exactly as a bad disk
+would, to a counted error and a live build.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import threading
 import time
 from typing import Any, Callable
 
+from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.log import get_logger, kv
 
 __all__ = [
@@ -298,6 +302,7 @@ class AOTExecutableStore:
         untouched.  Re-offering a stored key refreshes its label/bytes and
         bumps its heat."""
         try:
+            faults.hit("cache.aot_store")
             blob = json.dumps(payload, sort_keys=True).encode("utf-8")
             header = {
                 "version": _FORMAT_VERSION,
@@ -345,6 +350,7 @@ class AOTExecutableStore:
             known = key in self._manifest
         path = self._blob_path(key)
         try:
+            faults.hit("cache.aot_load")
             with open(path, "rb") as fh:
                 if fh.read(len(_MAGIC)) != _MAGIC:
                     raise ValueError("bad magic")

@@ -34,9 +34,11 @@ on-disk store before building, and the boot pre-warm installs the store's
 hot set through :meth:`CompiledProgramCache.install`, so lookups resolve
 restored programs as hits.  A key is offered to the store only when it
 survives the process (:func:`persistable`): one holding an opaque serial
-or an object address names this process's objects.  The JAX cache's
-compile span, flight-recorder entry and ``compile.build`` fault point are
-ROADMAP A.11.  Counters surface at ``GET /monitoring/<tool>/compileCache``,
+or an object address names this process's objects.  Every live build
+passes the ``compile.build`` fault point first (faults/plane.py), is a
+``compile`` span of the calling job's trace (obs/tracing.py; a restore
+from the durable store records none) and an entry of the ``compile``
+flight ring, ``build`` or ``aot_restore``.  Counters surface at ``GET /monitoring/<tool>/compileCache``,
 as per-job deltas in train and tune metadata (services/executor.py) and
 as tfevents scalars of monitored distributed jobs.  Sizing knobs:
 ``config.CompileCacheConfig`` (``LO_TPU_COMPILE_CACHE_*``).
@@ -53,6 +55,10 @@ import time
 import weakref
 from collections import OrderedDict
 from typing import Any, Callable
+
+from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch.obs import flight as obs_flight
+from learningorchestra_tpu_torch.obs import tracing
 
 __all__ = [
     "CompiledProgramCache",
@@ -289,6 +295,14 @@ def apply_program_key(module: Any, *, rows: int | None = None) -> str:
     )
 
 
+def _record_compile_span(built_s: float, label, key: str) -> None:
+    """One program build as a ``compile`` span of the calling job's trace
+    (nested where it happened, inside the lease); a no-op outside an
+    active trace."""
+    tracing.record_span("compile", built_s, label=label or "",
+                        key=key[:12])
+
+
 def _device_signature() -> tuple:
     """The visible CUDA devices (index, name, capability); programs that
     hold device state (a captured graph) are invalid once it changes.
@@ -432,8 +446,13 @@ class CompiledProgramCache:
             with self._lock:
                 self.misses += 1
             t0 = time.perf_counter()
+            faults.hit("compile.build")
             value = builder()
-            self._note_cost(key, label, time.perf_counter() - t0)
+            built_s = time.perf_counter() - t0
+            _record_compile_span(built_s, label, key)
+            obs_flight.record("compile", "build", key=key,
+                              label=label or "", builtS=round(built_s, 4))
+            self._note_cost(key, label, built_s)
             return value
         while True:
             with self._lock:
@@ -467,6 +486,8 @@ class CompiledProgramCache:
             value = self._aot_restore(key, label)
             restored = value is not None
             if not restored:
+                # Chaos probe on the build path only: hits stay untouched.
+                faults.hit("compile.build")
                 value = builder()
         except BaseException:
             with self._lock:
@@ -475,6 +496,13 @@ class CompiledProgramCache:
                 ev.set()
             raise
         built_s = time.perf_counter() - t0
+        if not restored:
+            # A restored program records no compile span: the restart
+            # drill holds pre-warmed keys to zero builds.
+            _record_compile_span(built_s, label, key)
+        obs_flight.record("compile", "aot_restore" if restored else "build",
+                          key=key, label=label or "",
+                          builtS=round(built_s, 4))
         self._note_cost(key, label, built_s)
         measured = False
         if nbytes is None:

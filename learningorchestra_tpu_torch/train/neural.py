@@ -59,6 +59,11 @@ on the card, the host clock on the CPU) is attributed to the job.  The
 programs stay eager: the optimizer's host-side learning rate and counts
 and the autograd kernels make capturing a training step a design of its
 own.
+
+Each epoch starts at the ``train.epoch`` fault point (faults/plane.py; a
+``preempt`` schedule there is how a drill preempts a fit mid-way, and the
+engine's retry resumes its checkpoint) and ends as an ``epoch`` span of
+the job's trace (obs/tracing.py), both on the host clock alone.
 """
 
 from __future__ import annotations
@@ -75,10 +80,10 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from learningorchestra_tpu_torch import convert
+from learningorchestra_tpu_torch import convert, faults
 from learningorchestra_tpu_torch.device import resolve_device
 from learningorchestra_tpu_torch.jobs.cancel import cancel_requested
-from learningorchestra_tpu_torch.obs import costs
+from learningorchestra_tpu_torch.obs import costs, tracing
 from learningorchestra_tpu_torch.ops.layers import (
     MultiHeadSelfAttention,
     has_separate_qkv,
@@ -1397,6 +1402,11 @@ class NeuralEstimator(Estimator):
                     self.stop_training = True
                     break
                 t0 = time.perf_counter()
+                # Chaos probe per epoch, on the host before the epoch's
+                # work: an armed ``preempt`` schedule models a preemption
+                # mid-fit, after some checkpoints committed, so the
+                # engine's retry -> checkpoint resume runs end to end.
+                faults.hit("train.epoch")
                 interval = costs.Interval(self.device) \
                     if attributed is not None and costs.enabled() else None
                 metrics = run_epoch(epoch_i)
@@ -1419,6 +1429,15 @@ class NeuralEstimator(Estimator):
                     metrics.update(
                         {f"val_{k}": v for k, v in vmetrics.items()})
                 self.history.append(metrics)
+                # One span per epoch (train step + validation), from host
+                # clocks only: the metrics' transfer above already waited
+                # for the device.
+                if stream is None:
+                    tracing.record_span("epoch", time.perf_counter() - t0,
+                                        epoch=epoch_i)
+                else:
+                    tracing.record_span("epoch", time.perf_counter() - t0,
+                                        epoch=epoch_i, streaming=True)
                 if verbose:
                     _log.info("epoch %d/%d: %s", epoch_i + 1, epochs,
                               metrics)

@@ -50,8 +50,9 @@ from learningorchestra_tpu_torch.config import Config, StoreConfig
 from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
 from learningorchestra_tpu_torch.toolkit.estimators import trees
 
-#: Metadata keys of layers the port does not carry (tracing,
-#: compile-cache and device-time accounting).
+#: Metadata keys left out of the comparisons: the request id and span
+#: records (minted per run on each side), the compile cache's counters and
+#: device-time accounting (per-process values).
 UNPORTED_KEYS = {"requestId", "compileCache", "deviceTime", "trace"}
 CLASSIFIERS = ["LogisticRegression", "DecisionTree", "RandomForest",
                "GradientBoosting", "NaiveBayes"]

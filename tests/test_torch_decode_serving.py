@@ -9,10 +9,9 @@ included).
 
 The invariant everything rests on: a prompt admitted into an in-flight
 pool (other rows mid-generation, free slots present) decodes exactly
-what a solo ``generate`` of it decodes.  The JAX tests slow the steps
-with an armed ``serve.decode_step`` delay; the port has no fault plane
-(ROADMAP A.11), so these tests delay ``_ModelDecoder._step_pool`` itself,
-at the same point (after the abort sweep).
+what a solo ``generate`` of it decodes.  The tests slow the steps with
+an armed ``serve.decode_step`` delay, as the JAX ones do (the point fires
+on the host after the abort sweep, before the step program).
 """
 
 import json
@@ -26,10 +25,10 @@ import pytest
 import requests
 
 from learningorchestra_tpu.client import ClientError, Context
+from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.api.server import APIServer
 from learningorchestra_tpu_torch.config import Config, StoreConfig
 from learningorchestra_tpu_torch.models.text import DecoderLM
-from learningorchestra_tpu_torch.serve.decode import engine as dec_engine
 from learningorchestra_tpu_torch.serve.decode import streams as dec_streams
 from tests.torch_rest_pair import data_rows, server_pair
 
@@ -76,19 +75,25 @@ def decode_api(tmp_path_factory):
     server.shutdown()
 
 
+class _StepDelay:
+    """``delay[0] = seconds`` (re)arms the ``serve.decode_step`` delay:
+    timing only, the math is untouched."""
+
+    def __setitem__(self, index, seconds):
+        assert index == 0
+        faults.arm("serve.decode_step", "delay", delay_ms=seconds * 1e3)
+
+
 @pytest.fixture
-def slow_steps(monkeypatch):
-    """Delay every decode step by ``delay[0]`` seconds (timing only: the
-    math is untouched), at the JAX fault point's place."""
-    delay = [0.05]
-    real = dec_engine._ModelDecoder._step_pool
-
-    def slowed(self, pool):
-        time.sleep(delay[0])
-        return real(self, pool)
-
-    monkeypatch.setattr(dec_engine._ModelDecoder, "_step_pool", slowed)
-    return delay
+def slow_steps():
+    """Delay every decode step by 50 ms through the fault plane; the
+    test may re-arm it (``slow_steps[0] = 0.15``).  Disarmed after."""
+    delay = _StepDelay()
+    delay[0] = 0.05
+    try:
+        yield delay
+    finally:
+        faults.disarm_all()
 
 
 def _solo(est, prompt, new):

@@ -3,11 +3,10 @@ package's: the P2C router's candidate orders for the same seeds and
 depths, the autoscaler's decisions and ledger on one scripted signal
 schedule, and ``tests/test_fleet.py``'s lifecycle cases on injected
 device pools (``cuda:k`` ids resolve to no card here, so replicas run
-unplaced, as the JAX tests' ``tpu:k`` ids do on the CPU).  The JAX drills
-slow dispatch with the fault plane; the port has none (ROADMAP A.11), so
-these slow the stub dispatch itself.  Also: the kernels' launch counters
-count exactly from many threads, and ``Replica.place``'s three
-placements.
+unplaced, as the JAX tests' ``tpu:k`` ids do on the CPU).  The drills
+slow dispatch with an armed ``serve.apply`` delay, as the JAX ones do.
+Also: the kernels' launch counters count exactly from many threads, and
+``Replica.place``'s three placements.
 """
 
 import sys
@@ -23,6 +22,7 @@ from learningorchestra_tpu.config import FleetConfig as JaxFleetConfig
 from learningorchestra_tpu.jobs.leases import LeaseTimeout as JaxLeaseTimeout
 from learningorchestra_tpu.serve.fleet import Autoscaler as JaxAutoscaler
 from learningorchestra_tpu.serve.fleet import P2CRouter as JaxRouter
+from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.config import Config, FleetConfig, ServeConfig
 from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser, LeaseTimeout
 from learningorchestra_tpu_torch.ops import attention, quant
@@ -211,11 +211,12 @@ def test_autoscaler_decisions_and_ledger_equal_jax():
 
 class TestAutoscaler:
     def test_scale_up_on_sustained_queue_depth_under_slow_dispatch(self):
-        """A slow dispatch keeps the replica busy, sustained load builds
-        queue depth, the controller scales 1 -> 2; when the load stops,
-        idle ticks drain back to 1 and the lease returns."""
+        """A fault-plane delay holds the replica's dispatch busy,
+        sustained load builds queue depth, the controller scales 1 -> 2;
+        when the load stops and the delay disarms, idle ticks drain back
+        to 1 and the lease returns."""
         def dispatch(padded):
-            time.sleep(0.04)
+            faults.hit("serve.apply")  # the real dispatch's probe
             return padded
 
         rs, leaser = _stub_set(dispatch=dispatch, max_batch=2,
@@ -223,6 +224,7 @@ class TestAutoscaler:
         scaler = Autoscaler(_StubManager(rs), _fleet_cfg())
         stop = threading.Event()
         row = np.zeros((1, 1), np.float32)
+        faults.arm("serve.apply", "delay", delay_ms=40)
 
         def load():
             while not stop.is_set():
@@ -244,9 +246,11 @@ class TestAutoscaler:
             decisions = scaler.status()["decisions"]
             assert decisions and decisions[0]["signal"] in ("queue", "shed")
             assert len(leaser.snapshot()["free"]) <= 1
+            assert faults.triggers("serve.apply") > 0
             stop.set()
             for t in threads:
                 t.join(10)
+            faults.disarm("serve.apply")
             deadline = time.monotonic() + 15
             while rs.size > 1 and time.monotonic() < deadline:
                 scaler.tick()
@@ -254,6 +258,7 @@ class TestAutoscaler:
             assert rs.size == 1
             assert len(leaser.snapshot()["free"]) == 2
         finally:
+            faults.disarm_all()
             stop.set()
             for t in threads:
                 t.join(10)
@@ -638,16 +643,22 @@ class TestFleetConfigAtBoot:
     def test_unported_triggers_are_refused_at_boot(self, monkeypatch,
                                                     tmp_path, key, value,
                                                     names):
+        """The queue-slope trigger was refused while its source, the
+        rollup series, waited for ``names`` (ROADMAP A.11); now it boots
+        from the environment and from a config built in code, and the
+        autoscaler reports it."""
         monkeypatch.setenv(key, value)
-        with pytest.raises(ValueError, match=names):
-            Config.from_env()
-        # A config built in code is refused where serving boots.
+        assert Config.from_env().fleet.up_slope == float(value), names
         fleet = FleetConfig()
         setattr(fleet, key.removeprefix("LO_TPU_FLEET_").lower(),
                 float(value))
-        with pytest.raises(ValueError, match=names):
-            ServingService(VolumeStorage(tmp_path), fleet_config=fleet,
-                           device="cpu")
+        svc = ServingService(VolumeStorage(tmp_path), fleet_config=fleet,
+                             device="cpu")
+        try:
+            status = svc.fleet.snapshot()["autoscaler"]
+            assert status["upSlope"] == float(value)
+        finally:
+            svc.close()
 
     def test_fleet_env_names_are_the_jax_ones(self, monkeypatch):
         env = {"LO_TPU_FLEET_ENABLED": "0", "LO_TPU_FLEET_MIN": "2",

@@ -7,8 +7,8 @@ from the JAX params, and ``tests/test_fleet.py``'s REST drills (manual
 scale, autoscale, dissolve, failed cutover, the default single path) run
 on both.  Each server gets an injected 3-device pool (``tpu:k`` for the
 JAX one, ``cuda:k`` for the port, neither resolving to a card here).  The
-JAX drill slows dispatch with its fault plane; the port has none
-(ROADMAP A.11), so its drill slows ``ServingService._dispatch``.
+drill slows dispatch on each side through that server's own
+``/faults/serve.apply`` route.
 """
 
 import re
@@ -24,6 +24,7 @@ from learningorchestra_tpu.api import APIServer as JaxServer
 from learningorchestra_tpu.config import Config as JaxConfig
 from learningorchestra_tpu.jobs.leases import DeviceLeaser as JaxLeaser
 from learningorchestra_tpu.models.mlp import MLPClassifier as JaxMLP
+from learningorchestra_tpu_torch import faults as port_faults
 from learningorchestra_tpu_torch.api.server import APIServer
 from learningorchestra_tpu_torch.config import (
     Config,
@@ -34,7 +35,6 @@ from learningorchestra_tpu_torch.config import (
 from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
 from learningorchestra_tpu_torch.models.mlp import MLPClassifier
 from learningorchestra_tpu_torch.serve.batcher import BatcherClosed
-from learningorchestra_tpu_torch.serve.service import ServingService
 from tests.torch_rest_pair import UNPORTED_KEYS
 
 PREFIX = "/api/learningOrchestra/v1"
@@ -270,32 +270,22 @@ def _drained(servers, bases, side):
     requests.post(f"{base}/serve/flt_drill/unload", json={}, timeout=30)
 
 
-def test_autoscale_drill_end_to_end(pair, monkeypatch):
+def test_autoscale_drill_end_to_end(pair):
     servers, bases = pair
     x = _install(servers, "flt_drill")
-    # JAX: every coalesced dispatch sleeps 60 ms through the fault plane.
-    resp = requests.post(f"{bases['jax']}/faults/serve.apply",
-                         json={"mode": "delay", "delayMs": 60}, timeout=30)
-    assert resp.status_code in (200, 201), resp.text
-    try:
-        _drill(servers, bases, "jax", x)
-    finally:
-        requests.delete(f"{bases['jax']}/faults", timeout=30)
-    _drained(servers, bases, "jax")
-    # Port: the same 60 ms at the same place, by monkeypatching.
-    real = ServingService._dispatch
-    delay = [0.06]
-
-    def slowed(self, name, padded, replica=None):
-        time.sleep(delay[0])
-        return real(self, name, padded, replica)
-
-    monkeypatch.setattr(ServingService, "_dispatch", slowed)
-    try:
-        _drill(servers, bases, "port", x)
-    finally:
-        delay[0] = 0.0
-    _drained(servers, bases, "port")
+    # Every coalesced dispatch sleeps 60 ms through each side's own fault
+    # plane, armed over its REST surface.
+    for side in SIDES:
+        resp = requests.post(f"{bases[side]}/faults/serve.apply",
+                             json={"mode": "delay", "delayMs": 60},
+                             timeout=30)
+        assert resp.status_code in (200, 201), (side, resp.text)
+        try:
+            _drill(servers, bases, side, x)
+        finally:
+            requests.delete(f"{bases[side]}/faults", timeout=30)
+        _drained(servers, bases, side)
+    assert port_faults.triggers("serve.apply") > 0
 
 
 def test_dissolve_returns_model_to_single_path(pair):

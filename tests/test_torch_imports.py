@@ -61,6 +61,10 @@ def test_sources_exist():
                    "train/compile_cache.py",
                    # The durable program store and the live profiler.
                    "train/aot_store.py", "obs/profiling.py",
+                   # The operations plane.
+                   "obs/metrics.py", "obs/tracing.py", "obs/rollup.py",
+                   "obs/slo.py", "obs/flight.py", "obs/bundle.py",
+                   "faults/__init__.py", "faults/plane.py",
                    # The mixture-of-experts layer and models.
                    "ops/moe.py", "models/moe.py",
                    # Ring attention and the long-context model.

@@ -41,9 +41,9 @@ T, VOCAB, ROWS = 16, 64, 40
 BERT = dict(vocab_size=VOCAB, hidden_dim=32, num_layers=2, num_heads=2,
             max_len=T, num_classes=2)
 TOL = dict(atol=1e-4, rtol=1e-4)
-#: Metadata / execution-document keys of layers the port does not carry:
-#: the request-id tracing and span records, the compile cache and
-#: device-time accounting.
+#: Metadata / execution-document keys left out of the comparisons: the
+#: request id and span records (minted per run on each side), the compile
+#: cache's counters and device-time accounting (per-process values).
 UNPORTED_KEYS = {"requestId", "compileCache", "deviceTime", "trace"}
 FIELDS = [f"t{i}" for i in range(T)]
 

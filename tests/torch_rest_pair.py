@@ -19,9 +19,9 @@ from learningorchestra_tpu.config import Config as JaxConfig
 from learningorchestra_tpu_torch.api.server import APIServer
 from learningorchestra_tpu_torch.config import Config, StoreConfig
 
-#: Metadata / execution-document keys of layers the port does not carry:
-#: request-id tracing and spans, and the JAX package's native CSV
-#: engine's tag.
+#: Metadata / execution-document keys left out of the comparisons: the
+#: request id and span records (minted per run on each side) and the JAX
+#: package's native CSV engine's tag (not ported).
 UNPORTED_KEYS = {"requestId", "trace", "engine"}
 
 
