@@ -168,12 +168,13 @@ Phases (each prints its own line; any failure exits nonzero):
    job's int8 artifact (K5 once, K1 per batch) within 1e-3 of the same
    artifact on the CPU; its final f32 checkpoint against a single-device
    ``BertModel.fit`` of the same rows (bf16 bar 3e-2; 0 expected);
-   (b) world 1 (NCCL) and world 2 (gloo, both ranks on ``cuda:0``)
-   through ``DistributedTrainer`` on 128 of the rows, 1 epoch of plain
-   SGD: each rank launches K1/K2/K3 12 per step, world 2 within the bf16
-   bar of world 1 and its parameter change within ``SYNC_BAR`` of world
-   1's per leaf (as is (a)'s against the single-device fit's), and the
-   planted sync faults (sync skipped or rank 1's gradient lost, emulated
+   (b) world 2 (gloo, both ranks on ``cuda:0``) through
+   ``DistributedTrainer`` against one device in this process (which (a)
+   holds world 1 to, bit for bit) on 128 of the rows, 1 epoch of plain
+   SGD: each rank and the one device launch K1/K2/K3 12 per step, world
+   2 within the bf16 bar of the one device and its parameter change
+   within ``SYNC_BAR`` of the one device's per leaf (as is (a)'s against
+   the single-device fit's), and the planted sync faults (sync skipped or rank 1's gradient lost, emulated
    by a single-device fit of rank 0's rows; a mean for the sum) read
    above that bar; each rank's step and gradient-sync ms by CUDA events
    and the all-reduce's share of a step; (c) ``POST /builder/pytorch`` with
@@ -360,7 +361,22 @@ Phases (each prints its own line; any failure exits nonzero):
    disarm; (f) the disabled cost of ``faults.hit`` and of a ``span`` (ns,
    in process) and the predict p50 with the plane on, beside the card;
    the ``operations_plane`` line;
-21. last line: {"ok": true, "device": {...}}.
+21. the process entry point (``run_entry_point``): a child started as
+   ``python -m learningorchestra_tpu_torch serve --port P`` (no device
+   argument: the card) over a store holding phase 4's int8 BERT-base
+   artifact, with the lock witness on and its exit dump named; through
+   the port's ``client.py``: the load (K5) and 16 concurrent predicts
+   of 1-8 rows at T=128 under a ``/observability/profile`` capture whose
+   device records show K5 once and K1 12 per dispatch and no library
+   attention kernel, rows within ``CPU_ATOL`` of this process's CPU
+   forward of the same artifact, 16 one-row predicts for the p50 with
+   the witness on; the gateway: a keyed POST replayed (its job ran
+   once), the cached ``GET /registry``, ``GET /metrics`` counting the
+   predict route, ``GET /status`` HTML, ``GET /observability/locks``
+   with edges and no stall; SIGINT: exit 0 within ``ENTRY_EXIT_S``, and
+   the dump's edges all in the port's static lock graph; the
+   ``entry_point`` line;
+22. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -376,6 +392,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3686,7 +3703,7 @@ def run_text_pipeline(tmp, in_memory_step_ms) -> dict:
 # -- phase 12: data-parallel training over REST ------------------------------
 
 DIST_JOB = "bert_dist"
-DIST_ROWS = 128  # world 1 against world 2: 4 global batches of 32
+DIST_ROWS = 128  # one device against world 2: 4 global batches of 32
 # (b) runs plain SGD, so a parameter's change is the sum of its synced
 # gradients times the rate: a fault in the sync (skipped, one rank's
 # gradient lost, a mean for a sum) shows in the change at its own size,
@@ -3795,9 +3812,10 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
     """Phase 12: BERT-base data-parallel on the card.  (a) World 1 over
     REST (``POST /train/horovod``: NCCL, one leased card) with a
     monitoring session, a predict on its int8 artifact, its f32 final
-    checkpoint against a single-device fit; (b) world 1 (NCCL) and world
-    2 (gloo, both ranks on cuda:0) through ``DistributedTrainer`` on the
-    same rows; (c) the distributed builder; (d) a CSV by URL."""
+    checkpoint against a single-device fit; (b) world 2 (gloo, both
+    ranks on cuda:0) through ``DistributedTrainer`` against one device in
+    this process on the same rows; (c) the distributed builder; (d) a CSV
+    by URL."""
     import functools
     import http.server
     import threading
@@ -3944,42 +3962,65 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
                     world1_rest_vs_single_loss_diff=loss_diff,
                     world1_rest_vs_single_update=rest_update)
 
-        # (b) world 1 and world 2 on the same rows, through the trainer,
-        # under plain SGD from the same initial parameters.
+        # (b) world 2 through the trainer against one device on the same
+        # rows, under plain SGD from the same initial parameters.  (a)
+        # holds world 1 (NCCL) to one device bit for bit, so the one
+        # device runs in this process: a spawned world-1 trainer cost
+        # 27.5 s of the phase (PERF.md section 4).
         steps = -(-DIST_ROWS // TRAIN_SHAPE[0])
         worlds = {}
-        for key, devices in (("world1", ["cuda:0"]),
-                             ("world2", ["cuda:0", "cuda:0"])):
-            est = server.ctx.volumes.load_estimator("model/tensorflow",
-                                                    "bert", device="cuda")
-            est.compile(optimizer="sgd", learning_rate=DIST_SGD_LR)
-            trainer = DistributedTrainer(est, devices=devices)
-            t0 = time.perf_counter()
-            trainer.fit(x[:DIST_ROWS], y[:DIST_ROWS], epochs=1,
-                        batch_size=TRAIN_SHAPE[0], shuffle=False)
-            secs = time.perf_counter() - t0
-            summary = rank_summary(probe.fits[-1], steps)
-            worlds[key] = {"seconds": secs, "backend": trainer.backend,
-                           "history": dict(trainer.history),
-                           "params": convert.to_host(
-                               convert.flax_tree(est.module)), **summary}
-            launches[f"trainer_{key}"] = [r["launches"]
-                                          for r in summary["ranks"]]
-            check(f"distributed trainer {key}", summary["ok"],
-                  f"{trainer.backend}, {len(devices)} rank(s) on {devices}: "
-                  f"{secs:.2f}s; per rank {summary['ranks']} (want "
-                  f"{summary['want_per_rank']} launches of K1/K2/K3)")
-            del est, trainer
+        one = server.ctx.volumes.load_estimator("model/tensorflow", "bert",
+                                                device="cuda")
+        one.compile(optimizer="sgd", learning_rate=DIST_SGD_LR)
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        one.fit(x[:DIST_ROWS], y[:DIST_ROWS], epochs=1,
+                batch_size=TRAIN_SHAPE[0], shuffle=False)
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        launches["one_device"] = [counts]
+        want = REST_LAYERS * steps
+        worlds["world1"] = {
+            "seconds": secs, "backend": "one device, this process",
+            "history": dict(one.history),
+            "params": convert.to_host(convert.flax_tree(one.module)),
+            "ranks": [{"device": "cuda:0", "launches": counts}]}
+        check("distributed one device", all(
+            counts[k] == want for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")),
+              f"BertModel.fit in this process: {secs:.2f}s, {steps} SGD "
+              f"steps; launches {counts} (want {want} of K1/K2/K3)")
+        del one
+        devices = ["cuda:0", "cuda:0"]
+        est = server.ctx.volumes.load_estimator("model/tensorflow", "bert",
+                                                device="cuda")
+        est.compile(optimizer="sgd", learning_rate=DIST_SGD_LR)
+        trainer = DistributedTrainer(est, devices=devices)
+        t0 = time.perf_counter()
+        trainer.fit(x[:DIST_ROWS], y[:DIST_ROWS], epochs=1,
+                    batch_size=TRAIN_SHAPE[0], shuffle=False)
+        secs = time.perf_counter() - t0
+        summary = rank_summary(probe.fits[-1], steps)
+        worlds["world2"] = {"seconds": secs, "backend": trainer.backend,
+                            "history": dict(trainer.history),
+                            "params": convert.to_host(
+                                convert.flax_tree(est.module)), **summary}
+        launches["trainer_world2"] = [r["launches"]
+                                      for r in summary["ranks"]]
+        check("distributed trainer world2", summary["ok"],
+              f"{trainer.backend}, {len(devices)} rank(s) on {devices}: "
+              f"{secs:.2f}s; per rank {summary['ranks']} (want "
+              f"{summary['want_per_rank']} launches of K1/K2/K3)")
+        del est, trainer
         w1, w2 = worlds["world1"]["params"], worlds["world2"]["params"]
         w2_diff, leaves = max_tree_diff(w1, w2)
         sync = update_error(init, w2, w1)
-        check("distributed world 2 vs world 1",
-              worlds["world1"]["backend"] == "nccl"
-              and worlds["world2"]["backend"] == "gloo"
+        check("distributed world 2 vs one device",
+              worlds["world2"]["backend"] == "gloo"
               and w2_diff <= CRASH_BAR and sync["max_leaf"] <= SYNC_BAR,
-              f"max|world 2 (gloo) - world 1 (nccl)| over {leaves} leaves = "
+              f"max|world 2 (gloo) - one device| over {leaves} leaves = "
               f"{w2_diff:.3g} (bar {CRASH_BAR}; the reduction order "
-              f"differs); SGD parameter change vs world 1's {sync} (bar "
+              f"differs); SGD parameter change vs one device's {sync} (bar "
               f"{SYNC_BAR} per leaf); losses "
               f"{worlds['world1']['history'].get('loss')} vs "
               f"{worlds['world2']['history'].get('loss')}")
@@ -7753,6 +7794,254 @@ def run_operations_plane(tmp, card: str, dec_line: dict) -> dict:
     return {"launches": launches, "line": line}
 
 
+# -- phase 21: the process entry point and the gateway -----------------------
+
+ENTRY_MODEL = "bert-base"
+ENTRY_CLIENTS = 16  # concurrent predicts of 1-8 rows at T = 128
+ENTRY_CPU_ROWS = 4  # rows held against this process's CPU forward
+ENTRY_P50_PREDICTS = 16  # one-row predicts, as phase 20's p50
+ENTRY_BOOT_S = 240.0  # spawn to the first answer
+ENTRY_EXIT_S = 60.0  # SIGINT to the exit
+K5_SYMBOL = "dequantize_group_kernel"  # csrc/quant.cu
+#: Substrings of library attention kernels' names (SDPA's flash,
+#: memory-efficient and cuDNN routes): none may run on the served path.
+LIBRARY_ATTENTION = ("fmha", "pytorch_flash", "flash_fwd_kernel",
+                     "flash_fwd_splitkv", "efficient_attention",
+                     "attention_kernel", "sdpa")
+
+
+def keyed_request(port, verb, path, body, key):
+    """(status, JSON body) of one request carrying ``X-Idempotency-Key``."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(verb, "/api/learningOrchestra/v1" + path,
+                     body=json.dumps(body),
+                     headers={"Content-Type": "application/json",
+                              "X-Idempotency-Key": key})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def run_entry_point(tmp, card: str, bert_artifact) -> dict:
+    """Phase 21: the process a user starts, behind the gateway, with the
+    lock witness on (see the module docstring, item 21).  The child's
+    launch counters live in the child, so its K1 and K5 launches are read
+    from its own capture's device records."""
+    import socket
+
+    from learningorchestra_tpu_torch.analysis.wholeprogram import (
+        global_graph,
+    )
+    from learningorchestra_tpu_torch.analysis.witness import (
+        cross_check,
+        load_dump,
+    )
+    from learningorchestra_tpu_torch.client import ClientError, Context
+    from learningorchestra_tpu_torch.serve.service import ARTIFACT_TYPE
+    from learningorchestra_tpu_torch.store.volumes import VolumeStorage
+    from learningorchestra_tpu_torch.train.neural import load_artifact
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    VolumeStorage(f"{tmp}/volumes").save_object(ARTIFACT_TYPE, ENTRY_MODEL,
+                                                bert_artifact)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dump, log_path = f"{tmp}/witness.json", f"{tmp}/serve.log"
+    env = {**os.environ, "PYTHONPATH": repo,
+           "LO_TPU_STORE_ROOT": f"{tmp}/store",
+           "LO_TPU_VOLUME_ROOT": f"{tmp}/volumes",
+           "LO_TPU_WITNESS": "1", "LO_TPU_WITNESS_DUMP": dump}
+    rng = np.random.default_rng(21)
+    reqs = [rng.integers(1, 30522, (1 + i % 8, TRAIN_SHAPE[2])).astype(
+        np.int32) for i in range(ENTRY_CLIENTS)]
+    for x in reqs[::3]:
+        x[0, int(rng.integers(16, TRAIN_SHAPE[2])):] = 0  # pad tails
+    ok, line, launches = True, {"card": card}, {}
+
+    def check(name, good, detail):
+        nonlocal ok
+        phase(f"entry point {name}", good, detail)
+        ok &= bool(good)
+
+    t0 = time.perf_counter()
+    log = open(log_path, "w")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "learningorchestra_tpu_torch", "serve",
+         "--port", str(port)], cwd=repo, env=env, stdout=log,
+        stderr=subprocess.STDOUT)
+    try:
+        ctx = Context(f"http://127.0.0.1:{port}", request_timeout=600)
+        while True:
+            if child.poll() is not None:
+                raise RuntimeError(f"serve exited {child.returncode} at "
+                                   "boot")
+            try:
+                ctx.request("GET", "/health")
+                break
+            except (OSError, ClientError):
+                if time.perf_counter() - t0 > ENTRY_BOOT_S:
+                    raise RuntimeError("serve never answered") from None
+                time.sleep(0.1)
+        line["boot_to_first_answer_s"] = time.perf_counter() - t0
+
+        # (b) the load and the concurrent predicts under one capture.
+        t0 = time.perf_counter()
+        ctx.observability.profile_start(name="entry", max_seconds=120)
+        line["profile_start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = ctx.serve.load(ENTRY_MODEL)
+        line["load_s"] = time.perf_counter() - t0
+
+        def one(x):
+            t1 = time.perf_counter()
+            try:
+                return 200, ctx.serve.predict(ENTRY_MODEL, x.tolist()), \
+                    time.perf_counter() - t1
+            except ClientError as exc:
+                return exc.status, exc.payload, time.perf_counter() - t1
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(ENTRY_CLIENTS) as pool:
+            answers = list(pool.map(one, reqs))
+        line["burst_wall_s"] = time.perf_counter() - t0
+        stopped = ctx.observability.profile_stop()
+        files = [f["path"] for f in stopped.get("capture", {}).get(
+            "files", []) if f["path"].endswith(".pt.trace.json")]
+        events = json.loads(ctx.observability.profile_fetch(
+            "entry", files[0])).get("traceEvents", []) if files else []
+        kernels = [str(e.get("name", "")) for e in events
+                   if e.get("cat") == "kernel"]
+        k1 = sum(K1_SYMBOL in k for k in kernels)
+        k5 = sum(K5_SYMBOL in k for k in kernels)
+        library = sorted({k for k in kernels if K1_SYMBOL not in k and any(
+            s in k.lower() for s in LIBRARY_ATTENTION)})
+        unrecorded, runtime = unrecorded_launches(events)
+        stats = ctx.serve.list_loaded()["stats"]["models"][ENTRY_MODEL]
+        dispatches = stats["batches"]
+        launches["load"] = {"dequantize_rowwise": k5}
+        launches["predict"] = {"flash_fwd": k1}
+        good = all(st == 200 and np.asarray(b.get("predictions")).shape
+                   == (len(x), 2) and np.isfinite(
+                       np.asarray(b["predictions"])).all()
+                   for x, (st, b, _) in zip(reqs, answers))
+        check("load and predicts", bool(loaded.get("result")) and good,
+              f"POST /serve/{ENTRY_MODEL}/load in {line['load_s']:.2f}s; "
+              f"{len(reqs)} concurrent predicts of 1-8 rows at "
+              f"T={TRAIN_SHAPE[2]}: statuses "
+              f"{sorted({st for st, _, _ in answers})}, {dispatches} "
+              f"dispatches, buckets {stats.get('bucketHistogram')}")
+        check("capture launches", files and k5 == 1
+              and k1 == 12 * dispatches and not library and not unrecorded,
+              f"child's capture: {len(kernels)} kernels, {K5_SYMBOL} {k5} "
+              f"(want 1: one grouped load), {K1_SYMBOL} {k1} (want 12 x "
+              f"{dispatches} dispatches), library attention {library}, "
+              f"launches without a device record {len(unrecorded)} of "
+              f"{len(runtime)}")
+        picks = [(i, r) for i, x in enumerate(reqs) for r in range(len(x))
+                 ][::7][:ENTRY_CPU_ROWS]
+        t0 = time.perf_counter()
+        ref = load_artifact(bert_artifact, device="cpu").predict(
+            np.stack([reqs[i][r] for i, r in picks]))
+        cpu_s = time.perf_counter() - t0
+        got = np.stack([np.asarray(answers[i][1]["predictions"])[r]
+                        for i, r in picks]) if good else np.inf
+        err = float(np.abs(got - ref).max())
+        check("rows vs CPU", err <= CPU_ATOL,
+              f"rows {picks}: max|dlogit| {err:.3g} atol {CPU_ATOL} (CPU "
+              f"{cpu_s:.1f}s)")
+        lat = [ctx.serve.predict(ENTRY_MODEL, reqs[0][:1].tolist())[
+            "latencyMs"] for _ in range(ENTRY_P50_PREDICTS)]
+        line.update(
+            dispatches=dispatches, cpu_max_abs_err=err,
+            burst_client_ms_p50=float(np.median(
+                [s for _, _, s in answers])) * 1e3,
+            predict_p50_ms_witness_on=float(np.median(lat)),
+            capture={"kernels": len(kernels), "k1": k1, "k5": k5,
+                     "library_attention": library})
+
+        # (c) the gateway.
+        marker = f"{tmp}/idem_runs.txt"
+        body = {"name": "entry_fn",
+                "function": f"open({marker!r}, 'a').write('x')\n"
+                            "response = 1"}
+        key = "entry-" + os.urandom(8).hex()
+        first = keyed_request(port, "POST", "/function/python", body, key)
+        ctx.observe.wait("entry_fn", timeout=60)
+        again = keyed_request(port, "POST", "/function/python", body, key)
+        other = keyed_request(port, "POST", "/function/python",
+                              dict(body, name="entry_fn2"), key)
+        runs = open(marker).read() if os.path.exists(marker) else ""
+        check("idempotent replay", first[0] == again[0] == 201
+              and again[1] == first[1] and runs == "x" and other[0] == 422,
+              f"keyed POST /function/python -> {first[0]}, replayed -> "
+              f"{again[0]} (equal body {again[1] == first[1]}), the job ran "
+              f"{len(runs)} time(s); the key on another body -> {other[0]}")
+        listing = [ctx.request("GET", "/registry") for _ in range(4)]
+        ctx.request("DELETE", "/function/python/entry_fn")
+        listing.append(ctx.request("GET", "/registry"))
+        http_ring = [e for e in ctx.observability.flight(
+            ["http"])["events"]["http"] if e.get("route") == "GET /registry"]
+        ms = [e["ms"] for e in http_ring[-5:]]
+        check("cached GET", len(ms) == 5 and all(
+            doc == listing[0] for doc in listing) and max(ms[1:4]) < min(
+                ms[0], ms[4]),
+              f"GET /registry x4, a DELETE, GET /registry: gateway ms "
+              f"{[round(m, 3) for m in ms]} (hits under both misses: the "
+              f"first fills the cache, the DELETE clears it)")
+        metrics = ctx.metrics()
+        route = metrics["routes"].get(
+            "POST /serve/(?P<name>[A-Za-z0-9_.\\-]+)/predict", {})
+        want = len(reqs) + ENTRY_P50_PREDICTS
+        check("metrics", route.get("count") == want
+              and metrics["budget"]["request_timeout_s"] > 0,
+              f"GET /metrics: predict route {route} (want count {want}); "
+              f"budget {metrics['budget']}")
+        status_page = ctx.request("GET", "/status", raw=True).decode()
+        check("status page", "<h1>learningorchestra_tpu_torch</h1>"
+              in status_page and "Device leases" in status_page,
+              f"GET /status: {len(status_page)} bytes of HTML")
+        locks = ctx.observability.locks()
+        check("locks", locks["enabled"] is True and locks["edges"]
+              and not locks["stalls"],
+              f"GET /observability/locks: {len(locks['edges'])} edges, "
+              f"{len(locks['events'])} contention events, "
+              f"{locks['registeredLocks']} witnessed locks, stalls "
+              f"{locks['stalls']}")
+
+        # (d) the exit.
+        t0 = time.perf_counter()
+        child.send_signal(signal.SIGINT)
+        rc = child.wait(ENTRY_EXIT_S)
+        line["exit_s"] = time.perf_counter() - t0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(30)
+        log.close()
+    snap = load_dump(dump) if os.path.exists(dump) else {}
+    unmatched = cross_check(snap, global_graph(
+        os.path.join(repo, "learningorchestra_tpu_torch")))
+    check("exit and witness dump", rc == 0 and snap.get("enabled")
+          and snap.get("edges") and not unmatched,
+          f"SIGINT -> exit {rc} in {line['exit_s']:.2f}s (bound "
+          f"{ENTRY_EXIT_S}s); dump: {len(snap.get('edges', []))} edges, "
+          f"{len(snap.get('events', []))} events, unmatched "
+          f"{[f.message for f in unmatched]}")
+    line.update(witness_edges=len(snap.get("edges", [])),
+                witness_events=len(snap.get("events", [])),
+                unmatched_edges=len(unmatched), launches=launches,
+                seconds=time.perf_counter() - t_phase)
+    if not ok:
+        with open(log_path) as fh:
+            print("  entry point child log (tail):\n" + fh.read()[-4000:],
+                  flush=True)
+    return {"ok": ok, "launches": launches, "line": line}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -8062,6 +8351,20 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     ops_s = time.perf_counter() - t_ops
+
+    # Phase 21: the process a user starts (python -m ... serve), behind
+    # the gateway, with the lock witness on.
+    tmp, t_entry = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        entry = run_entry_point(tmp, card, slice_res["artifact"])
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("entry point", False, repr(exc))
+        entry = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    entry_s = time.perf_counter() - t_entry
+    entry_l = entry["launches"]
     ops_l = ops["launches"]
     # bf16 K1-K3 and K4 in the preempted fit and its twin, K5 at the
     # load, f32 K1 in the served predicts.
@@ -8102,7 +8405,7 @@ def main() -> int:
     dist_l = dist["launches"]
     # Every rank's K1/K2/K3 (bf16 training), the parent's K4 (the int8
     # publication), the predict job's K5 and f32 K1.
-    dist_ranks = [c for key in ("rest_train_ranks", "trainer_world1",
+    dist_ranks = [c for key in ("rest_train_ranks", "one_device",
                                 "trainer_world2")
                   for c in dist_l.get(key, [])]
     dist_parent = [dist_l.get("rest_train_parent")]
@@ -8146,7 +8449,8 @@ def main() -> int:
          + rest_sum("flash_fwd", ws_f32)
          + rest_sum("flash_fwd", moe_f32)
          + rest_sum("flash_fwd", [long_l.get("predict")])
-         + rest_sum("flash_fwd", [ops_l.get("serve")]),
+         + rest_sum("flash_fwd", [ops_l.get("serve")])
+         + rest_sum("flash_fwd", [entry_l.get("predict")]),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
@@ -8164,7 +8468,9 @@ def main() -> int:
              "long_context_predict": rest_sum("flash_fwd",
                                               [long_l.get("predict")]),
              "operations_plane_predict": rest_sum("flash_fwd",
-                                                  [ops_l.get("serve")])},
+                                                  [ops_l.get("serve")]),
+             "entry_point_predict": rest_sum("flash_fwd",
+                                             [entry_l.get("predict")])},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -8267,7 +8573,8 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", moe_k5)
          + rest_sum("dequantize_rowwise", [long_l.get("load")])
          + rest_sum("dequantize_rowwise", [ep_l.get("load")])
-         + rest_sum("dequantize_rowwise", [ops_l.get("load")]),
+         + rest_sum("dequantize_rowwise", [ops_l.get("load")])
+         + rest_sum("dequantize_rowwise", [entry_l.get("load")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -8293,7 +8600,9 @@ def main() -> int:
              "expert_parallel_load": rest_sum("dequantize_rowwise",
                                               [ep_l.get("load")]),
              "operations_plane_load": rest_sum("dequantize_rowwise",
-                                               [ops_l.get("load")])},
+                                               [ops_l.get("load")]),
+             "entry_point_load": rest_sum("dequantize_rowwise",
+                                          [entry_l.get("load")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -8425,6 +8734,8 @@ def main() -> int:
           flush=True)
     print("operations_plane " + json.dumps(ops["line"], default=str),
           flush=True)
+    print("entry_point " + json.dumps(entry["line"], default=str),
+          flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
@@ -8432,7 +8743,8 @@ def main() -> int:
           f"{dist_s:.1f}, decoder {dec_s:.1f}, fleet {fleet_s:.1f}, "
           f"program cache {pc_s:.1f}, warm start {ws_s:.1f}, moe "
           f"{moe_s:.1f}, long context {long_s:.1f}, expert parallel "
-          f"{ep_s:.1f}, operations plane {ops_s:.1f})", flush=True)
+          f"{ep_s:.1f}, operations plane {ops_s:.1f}, entry point "
+          f"{entry_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -18,9 +18,13 @@ keep the JAX package's names, so each has its counterpart there.
   cross-module inversion cycles, blocking-call-under-lock, and
   ``make_lock`` name congruence.
 
-The JAX package's drift gates and runtime-witness cross-check read its
-deploy manifests, client, fault plane and witnessed locks, which the
-port does not have yet (ROADMAP A.11).
+- **Drift** (:mod:`.drift`): the port's ``LO_TPU_*`` knobs, fault
+  points, routes and metric families against ``config.py``, the
+  README's port section, ``deploy/torch/``, ``client.py`` and the port's
+  tests.
+- **Witness** (:mod:`.witness`): a runtime lock-witness dump
+  (``concurrency_rt``, ``LO_TPU_WITNESS_DUMP``) against the static
+  whole-program graph; an edge the graph lacks is a finding.
 
 Run via :func:`run_checks`; the tier-1 gate is
 ``tests/test_torch_lochecks.py``.

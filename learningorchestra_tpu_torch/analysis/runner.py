@@ -2,12 +2,11 @@
 ``learningorchestra_tpu/analysis/runner.py``.
 
 ``run_checks(package_root)`` parses every package module once, runs
-the per-module analyzers (concurrency, program hazards, cancellation)
-and, with ``whole_program``, the composed lock graph, applies inline
-suppressions, and returns a :class:`Report`.  The JAX runner's drift
-gates and witness cross-check wait for the port's deploy manifests,
-client and witnessed locks (ROADMAP A.11).
-``tests/test_torch_lochecks.py`` is the tier-1 gate.
+the per-module analyzers (concurrency, program hazards, cancellation),
+the cross-artifact drift gates and, with ``whole_program``, the composed
+lock graph (with ``witness_dump``, a runtime witness snapshot checked
+against it), applies inline suppressions, and returns a
+:class:`Report`.  ``tests/test_torch_lochecks.py`` is the tier-1 gate.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from pathlib import Path
 
 from .cancellation import analyze_cancellation
 from .concurrency import analyze_concurrency
+from .drift import DriftPaths, analyze_drift
 from .findings import ERROR, WARN, Finding, apply_suppressions
 from .jaxlint import analyze_jax
 
@@ -74,6 +74,39 @@ RULES = {
         "concurrency_rt.make_lock name differs from the lock's "
         "static identity (witness edges would not line up)",
     ),
+    "witness-unmatched-edge": (
+        ERROR,
+        "runtime-witnessed lock order missing from the static "
+        "whole-program graph (static false negative)",
+    ),
+    "knob-missing-config": (
+        ERROR, "LO_TPU_* knob absent from config.py",
+    ),
+    "knob-missing-compose": (
+        ERROR, "LO_TPU_* knob absent from deploy/torch/docker-compose.yml",
+    ),
+    "knob-missing-k8s": (
+        ERROR, "LO_TPU_* knob absent from deploy/torch/k8s.yaml",
+    ),
+    "knob-missing-readme": (
+        ERROR, "LO_TPU_* knob absent from the README's port section",
+    ),
+    "knob-unknown": (
+        ERROR, "manifest/README knob that no code reads",
+    ),
+    "fault-point-unknown": (
+        ERROR, "fault-point name faults/plane.py never registers",
+    ),
+    "route-missing-client": (
+        ERROR, "REST route without a client.py binding",
+    ),
+    "route-gate-missing": (
+        ERROR, "the every-route-metered test gate is gone",
+    ),
+    "metric-unregistered": (
+        ERROR, "metric family used in tests/README but never "
+        "registered",
+    ),
 }
 
 
@@ -110,15 +143,27 @@ def _dedupe(findings: list[Finding]) -> list[Finding]:
 def run_checks(
     package_root: str | Path,
     *,
+    repo_root: str | Path | None = None,
+    drift: bool = True,
     whole_program: bool = False,
+    witness_dump: str | Path | None = None,
 ) -> Report:
     """Run every analyzer family over ``package_root``.
 
+    ``repo_root`` locates the cross-artifact surfaces (deploy
+    manifests, README, tests); default: the package root's parent.
+    ``drift=False`` runs only the per-module analyzers — what the
+    golden tests use on synthetic fixture trees.
     ``whole_program=True`` additionally composes the per-module lock
     models into the global graph (cross-module inversions,
-    blocking-call-under-lock, make_lock name congruence).
+    blocking-call-under-lock, make_lock name congruence), and
+    ``witness_dump`` cross-checks a runtime witness snapshot
+    (``LO_TPU_WITNESS_DUMP`` JSON) against that graph.
     """
     package_root = Path(package_root)
+    repo_root = Path(
+        repo_root if repo_root is not None else package_root.parent
+    )
     findings: list[Finding] = []
     texts: dict[str, str] = {}
     trees: dict[str, ast.Module] = {}
@@ -142,8 +187,21 @@ def run_checks(
     if whole_program:
         from .wholeprogram import analyze_wholeprogram
 
-        wp_findings, _ = analyze_wholeprogram(package_root, trees)
+        wp_findings, graph = analyze_wholeprogram(package_root, trees)
         findings += wp_findings
+        if witness_dump is not None:
+            from .witness import cross_check, load_dump
+
+            findings += cross_check(load_dump(witness_dump), graph)
+    if drift:
+        drift_findings = analyze_drift(DriftPaths.for_repo(repo_root))
+        for f in drift_findings:
+            if f.file not in texts:
+                try:
+                    texts[f.file] = Path(f.file).read_text()
+                except OSError:
+                    pass
+        findings += drift_findings
     kept, suppressed = apply_suppressions(_dedupe(findings), texts)
     kept.sort(key=lambda f: (f.file, f.line, f.rule))
     return Report(

@@ -78,20 +78,44 @@ server's request bodies:
   /serve/<model>/replicas``: one model's replica set (404 without one),
   created or resized by ``min``, ``max``, ``count``,
   ``devicesPerReplica``, dissolved back to single-path serving;
-- ``GET /health``.
+- ``GET /metrics`` (the legacy per-route JSON: count, errors, average
+  and max ms by route key, and the gateway budget), ``GET /status`` (an
+  HTML page: device leases, jobs and queues, recent events),
+  ``GET /observability/locks`` (the lock witness's snapshot with live
+  stacks, concurrency_rt.py), ``GET /cluster/status`` (``enabled:
+  false``: one engine, the control plane is not ported), ``GET
+  /registry`` (cacheable) and ``GET /health``.
+
+The gateway in front of every route is the JAX server's
+(``APIConfig``): a handler past ``request_timeout_s`` answers 504 (the
+long poll, ``/generate`` and a capture's start and stop are exempt; the
+abandoned handler finishes on its own thread and keeps its slot until it
+does); at
+``max_inflight`` admitted requests the next answers 503 at once;
+``max_connections`` bounds the connection threads; an opted-in GET is
+served from a ``cache_ttl_s`` response cache that any other verb
+clears; and a POST, PATCH or DELETE carrying ``X-Idempotency-Key`` is
+recorded in the ``_idempotency`` collection of the document store, so a
+retry with the same key replays the recorded answer (a key reused for
+another request answers 422, an attempt begun with no recorded outcome
+409).  Once :meth:`APIServer.shutdown` starts, requests on kept-alive
+connections answer 503 and close.  :func:`serve` runs the server in the
+foreground on ``api.host:api.port`` (``python -m
+learningorchestra_tpu_torch serve``).
 
 Status codes are the JAX server's: 201/200; 409 duplicate name or a job
 still running; 404 unknown artifact, model or route; 406 semantic errors
 (bad body, unknown class, ``checkpoint_dir``); 429 + ``Retry-After``
 under serving backpressure; 503 + ``Retry-After`` when no card lease
 frees up within ``FleetConfig.lease_timeout_s``; 400 for a body that is
-not JSON or a bad query parameter.  The client's ``X-Idempotency-Key``
-header is accepted and ignored (the idempotency ledger is not ported).
+not JSON, a bad query parameter or a bad ``X-Tenant`` header.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import html
 import json
 import re
 import threading
@@ -100,7 +124,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 from urllib.parse import parse_qs, urlparse
 
-from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch import concurrency_rt, faults
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.config import Config
 from learningorchestra_tpu_torch.jobs.leases import LeaseTimeout
 from learningorchestra_tpu_torch.log import get_logger
@@ -148,6 +173,8 @@ from learningorchestra_tpu_torch.services.context import (
 )
 from learningorchestra_tpu_torch.services.monitoring import MonitoringError
 from learningorchestra_tpu_torch.store.artifacts import DuplicateArtifact
+from learningorchestra_tpu_torch.store.document_store import DuplicateKey
+from learningorchestra_tpu_torch.toolkit import registry
 from learningorchestra_tpu_torch.toolkit.registry import RegistryError
 
 PREFIX = Config().api.api_prefix
@@ -158,7 +185,7 @@ NAME = r"(?P<name>[A-Za-z0-9_.\-]+)"
 _RID_RE = re.compile(r"[A-Za-z0-9_.\-]{1,64}")
 
 #: Guards the swap of a server's HTTP metric handles to a new registry.
-_OBS_REBIND_LOCK = threading.Lock()
+_OBS_REBIND_LOCK = make_lock("server._OBS_REBIND_LOCK")
 
 #: The HTTP families (the JAX server's).
 HTTP_DURATION = "lo_http_request_duration_seconds"
@@ -176,17 +203,26 @@ class Router:
     """Regex route table: (verb, pattern) -> handler(match, body, query).
     First match wins, so specific routes are registered before generic
     ones where their patterns overlap.  Each route's metric label is
-    ``"<VERB> <pattern>"``, as in the JAX server."""
+    ``"<VERB> <pattern>"``, as in the JAX server.
+
+    Per-route gateway flags, by route key (:attr:`flags`): ``cacheable``
+    opts a GET into the response cache (poll GETs must not: a job's
+    completion is written through the store, not HTTP, so a cached poll
+    would serve a stale ``finished``); ``no_timeout`` exempts a
+    deliberate long poll or stream from the request budget."""
 
     def __init__(self, prefix: str):
         self.prefix = prefix.rstrip("/")
         self.routes: list[tuple[str, re.Pattern, Callable, str]] = []
+        self.flags: dict[str, dict] = {}
 
-    def add(self, verb: str, pattern: str, handler: Callable) -> None:
+    def add(self, verb: str, pattern: str, handler: Callable, *,
+            cacheable: bool = False, no_timeout: bool = False) -> None:
         verb = verb.upper()
+        key = f"{verb} {pattern}"
         self.routes.append((verb, re.compile(
-            "^" + self.prefix + pattern + "/?$"), handler,
-            f"{verb} {pattern}"))
+            "^" + self.prefix + pattern + "/?$"), handler, key))
+        self.flags[key] = {"cacheable": cacheable, "no_timeout": no_timeout}
 
     def resolve(self, verb: str, path: str):
         """-> (handler, match, route key), or (None, "404"|"405", that
@@ -207,6 +243,67 @@ def _int_param(query: dict, key: str, default: int) -> int:
         return int(query.get(key, default))
     except (TypeError, ValueError):
         raise BadRequest(f"{key} must be an integer") from None
+
+
+class _BoundedThreadingHTTPServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with a hard cap on connection threads.
+
+    The ``max_inflight`` semaphore bounds ADMITTED handlers, but the
+    stdlib starts one thread per accepted connection before a byte of the
+    request is parsed: a client trickling bodies would grow threads
+    without bound underneath the handler cap.  Beyond
+    ``max_connections`` the socket is closed at accept."""
+
+    daemon_threads = True
+
+    def __init__(self, addr, handler, *, max_connections: int = 256):
+        self._conn_slots = (threading.BoundedSemaphore(max_connections)
+                            if max_connections > 0 else None)
+        super().__init__(addr, handler)
+
+    def process_request(self, request, client_address):
+        if self._conn_slots is not None and \
+                not self._conn_slots.acquire(blocking=False):
+            self.shutdown_request(request)
+            return
+        try:
+            super().process_request(request, client_address)
+        except BaseException:
+            if self._conn_slots is not None:
+                self._conn_slots.release()
+            raise
+
+    def process_request_thread(self, request, client_address):
+        try:
+            super().process_request_thread(request, client_address)
+        finally:
+            if self._conn_slots is not None:
+                self._conn_slots.release()
+
+
+class _Slot:
+    """One ``max_inflight`` slot with shared ownership: the dispatcher and,
+    for a request past its budget, the abandoned handler's thread each
+    own it, and the semaphore frees only at the LAST release, so a 504'd
+    handler still counts against the cap until it really returns."""
+
+    def __init__(self, sem):
+        self._sem = sem
+        self._lock = make_lock("_Slot._lock")
+        self._owners = 1
+
+    def share(self) -> None:
+        with self._lock:
+            self._owners += 1
+
+    def release(self) -> None:
+        if self._sem is None:
+            return
+        with self._lock:
+            self._owners -= 1
+            if self._owners > 0:
+                return
+        self._sem.release()
 
 
 class APIServer:
@@ -279,6 +376,24 @@ class APIServer:
         self.router = Router(self.config.api.api_prefix)
         self._httpd: ThreadingHTTPServer | None = None
         self._register_routes()
+        # The gateway (JAX server's): the response cache of opted-in GETs,
+        # the legacy per-route metrics behind GET /metrics, the admission
+        # semaphore, and the shutdown gate that answers kept-alive
+        # connections 503 once shutdown() starts.
+        self._cache: dict[tuple, tuple] = {}
+        self._cache_lock = make_lock("APIServer._cache_lock")
+        self._metrics: dict[str, dict] = {}
+        self._metrics_lock = make_lock("APIServer._metrics_lock")
+        n_inflight = self.config.api.max_inflight
+        self._inflight = (threading.BoundedSemaphore(n_inflight)
+                          if n_inflight > 0 else None)
+        self._shutting_down = threading.Event()
+        self._shutdown_lock = make_lock("APIServer._shutdown_lock")
+        self._shut_down = False
+        # The idempotency ledger's sweep counter (the records live in the
+        # document store's IDEM_COLLECTION).
+        self._idem_lock = make_lock("APIServer._idem_lock")
+        self._idem_writes = 0
         # Arm the schedules the config carried, so a deployment boots
         # straight into its chaos drill; bad specs raise here.
         faults.load_env({faults.ENV_PREFIX + suffix: spec
@@ -321,11 +436,9 @@ class APIServer:
             "fleet": lambda: self.serving.fleet.snapshot(),
             "journal": journal,
             "faults": faults.status,
-            # What the JAX package writes with its lock witness off and
-            # no cluster: the port has neither yet (ROADMAP A.11).
-            "locks": lambda: {"enabled": False, "registeredLocks": 0,
-                              "stallThresholdS": 30.0, "edges": [],
-                              "events": [], "locks": [], "stalls": []},
+            "locks": concurrency_rt.snapshot,
+            # What the JAX package writes with no cluster: the control
+            # plane is not ported (ROADMAP A.11 part 3).
             "cluster": lambda: {"enabled": False, "engines": [],
                                 "claims": []},
         }
@@ -384,6 +497,14 @@ class APIServer:
         else:
             obs_flight.record("http", "request", route=key, status=status,
                               ms=round(dt_ms, 3))
+        with self._metrics_lock:
+            rec = self._metrics.setdefault(key, {
+                "count": 0, "errors": 0, "total_ms": 0.0, "max_ms": 0.0})
+            rec["count"] += 1
+            if status >= 400:
+                rec["errors"] += 1
+            rec["total_ms"] += dt_ms
+            rec["max_ms"] = max(rec["max_ms"], dt_ms)
         http_hist, http_total, http_max = self._obs_handles()
         http_hist.observe(dt_ms / 1e3, route=key)
         http_total.inc(route=key,
@@ -650,6 +771,175 @@ class APIServer:
                 fams.append(bmfu)
         return fams
 
+    # -- idempotency ----------------------------------------------------------
+
+    #: Store collection of the idempotency records (the JAX server's: the
+    #: underscore keeps it out of the artifact namespace).
+    IDEM_COLLECTION = "_idempotency"
+    #: Records older than this are swept: a retry a day later is a new
+    #: request.
+    IDEM_TTL_S = 86400.0
+    #: Sweep cadence, counted in new records.
+    IDEM_SWEEP_EVERY = 512
+
+    @staticmethod
+    def _idem_id(key: str) -> int:
+        """The record's ``_id``, from the key (the JAX server's: 63 bits of
+        its SHA-256), so the store's ``insert_unique`` claims a key
+        atomically; the stored key is checked on every hit."""
+        digest = hashlib.sha256(key.encode()).digest()
+        return int.from_bytes(digest[:8], "big") >> 1
+
+    @staticmethod
+    def _idem_fingerprint(verb: str, path: str, body: dict,
+                          query: dict | None = None) -> str:
+        """The request's identity, recorded with its key (the JAX
+        server's): a key reused for a different mutation, query included,
+        is refused rather than answered with another request's result."""
+        canon = json.dumps([body or {}, sorted((query or {}).items())],
+                           sort_keys=True, default=str)
+        return hashlib.sha256(
+            f"{verb} {path} {canon}".encode()).hexdigest()[:32]
+
+    def _idem_begin(self, key: str, fingerprint: str):
+        """Claim ``key`` or report its earlier outcome:
+        ``("replay", status, payload)`` once it completed,
+        ``("mismatch", record)`` when it named another request,
+        ``("ambiguous", record)`` when an attempt began and recorded no
+        outcome (in flight, or the process died mid-handler), and
+        ``("fresh", _id)`` after a ``begun`` record is written."""
+        docs = self.ctx.documents
+        _id = self._idem_id(key)
+        try:
+            docs.insert_unique(
+                self.IDEM_COLLECTION,
+                {"key": key, "fp": fingerprint, "state": "begun",
+                 "at": time.time()},
+                _id,
+            )
+        except DuplicateKey:
+            rec = docs.find_one(self.IDEM_COLLECTION, _id) or {}
+            if rec.get("key") != key or rec.get("fp") != fingerprint:
+                return ("mismatch", rec)
+            if rec.get("state") == "done":
+                payload = rec.get("payload")
+                return ("replay", rec.get("status", 200),
+                        payload if payload is not None else {})
+            return ("ambiguous", rec)
+        with self._idem_lock:
+            self._idem_writes += 1
+            # The first keyed write after boot sweeps too: the counter is
+            # in memory, so a server restarting before SWEEP_EVERY writes
+            # would otherwise never honour the TTL.
+            sweep = (self._idem_writes == 1
+                     or self._idem_writes % self.IDEM_SWEEP_EVERY == 0)
+        if sweep:
+            threading.Thread(target=self._idem_sweep, daemon=True,
+                             name="lo-idem-sweep").start()
+        return ("fresh", _id)
+
+    def _idem_finish(self, _id: int, status: int, payload) -> None:
+        """Record the terminal answer for replay; runs in the handler's
+        thread even after a 504, so a retry sees the real outcome."""
+        if not isinstance(payload, (dict, list)):
+            payload = None
+        try:
+            self.ctx.documents.update_one(
+                self.IDEM_COLLECTION, _id,
+                {"state": "done", "status": status, "payload": payload})
+        except Exception:  # noqa: BLE001 — a lost record degrades to
+            pass  # at-least-once, never to a 500
+
+    def _idem_sweep(self) -> None:
+        docs = self.ctx.documents
+        cutoff = time.time() - self.IDEM_TTL_S
+        if not docs.collection_exists(self.IDEM_COLLECTION):
+            return
+        try:
+            for rec in docs.find(self.IDEM_COLLECTION):
+                if rec.get("at", 0) < cutoff:
+                    docs.delete_one(self.IDEM_COLLECTION, rec["_id"])
+        except Exception:  # noqa: BLE001 — a sweep retries at the next
+            pass  # cadence
+
+    # -- status page ----------------------------------------------------------
+
+    def _render_status(self) -> str:
+        """The ops page (the JAX server's sections): agents, device
+        leases, jobs with their queues and recent events, from state the
+        process holds; a meta refresh keeps it live in a browser."""
+        esc = html.escape
+
+        def table(headers, rows):
+            head = "".join(f"<th>{esc(str(h))}</th>" for h in headers)
+            body = "".join(
+                "<tr>" + "".join(f"<td>{esc(str(c))}</td>" for c in row)
+                + "</tr>" for row in rows)
+            return (f"<table><thead><tr>{head}</tr></thead>"
+                    f"<tbody>{body}</tbody></table>")
+
+        sections = [
+            "<h2>Agents</h2><p>in-process mode (no task coordinator: the "
+            "control plane is not ported, ROADMAP A.11 part 3)</p>"]
+        snap = self.ctx.leaser.snapshot()
+        if snap["initialized"]:
+            sections.append(
+                f"<h2>Device leases</h2><p>{len(snap['free'])}/"
+                f"{len(snap['all'])} free — "
+                f"{esc(', '.join(snap['all']) or 'cpu (no-op)')}</p>"
+                + table(("job", "device", "held"),
+                        [(label, dev, f"{t1 - t0:.2f}s")
+                         for label, dev, t0, t1 in snap["recent"]]))
+        else:
+            sections.append("<h2>Device leases</h2><p>no lease taken yet "
+                            "(device discovery is lazy)</p>")
+        running = self.ctx.engine.running_jobs()
+        rows = []
+        for name in running[:50]:
+            meta = self.ctx.artifacts.metadata.read(name) or {}
+            rows.append((name, meta.get("type", ""),
+                         meta.get("jobState", "")))
+        depths = self.ctx.engine.queue_depths()
+        sections.append(
+            f"<h2>Jobs ({len(running)} live)</h2>"
+            + table(("artifact", "type", "state"), rows)
+            + ("<p>queued per class: " + esc(json.dumps(depths)) + "</p>"
+               if depths else ""))
+        ev_rows = "".join(
+            "<tr class={cls}><td>{ts}</td><td>{name}</td><td>{event}</td>"
+            "<td>{typ}</td></tr>".format(
+                cls="err" if e.get("event") == "failed" else "ok",
+                ts=time.strftime("%H:%M:%S",
+                                 time.localtime(e.get("ts", 0))),
+                name=esc(str(e.get("artifact", ""))),
+                event=esc(str(e.get("event", ""))),
+                typ=esc(str(e.get("artifactType") or "")))
+            for e in reversed(self.ctx.webhooks.latest_events(20)))
+        sections.append(
+            "<h2>Recent events</h2><table><thead><tr><th>time</th>"
+            "<th>artifact</th><th>event</th><th>type</th></tr></thead>"
+            f"<tbody>{ev_rows}</tbody></table>")
+        uptime = time.time() - self._t_start
+        return (
+            "<!doctype html><html><head>"
+            "<title>learningorchestra_tpu_torch status</title>"
+            '<meta http-equiv="refresh" content="5">'
+            "<style>"
+            "body{font-family:system-ui,sans-serif;margin:2em;color:#222}"
+            "table{border-collapse:collapse;margin:0.5em 0}"
+            "td,th{border:1px solid #ccc;padding:4px 10px;"
+            "text-align:left;font-size:14px}"
+            "th{background:#f0f0f0}"
+            "tr.err td{background:#fde8e8}"
+            ".err{color:#b00}"
+            "h2{margin-top:1.2em;font-size:16px}"
+            "</style></head><body>"
+            "<h1>learningorchestra_tpu_torch</h1>"
+            f"<p>uptime {uptime:.0f}s — store backend "
+            f"{type(self.ctx.documents).__name__} — device "
+            f"{esc(str(self.ctx.device))} — {len(running)} live jobs</p>"
+            + "".join(sections) + "</body></html>")
+
     # -- helpers --------------------------------------------------------------
 
     def _created(self, service_path: str, meta: dict):
@@ -711,6 +1001,35 @@ class APIServer:
         add = self.router.add
 
         add("GET", r"/health", lambda m, b, q: (200, {"status": "ok"}))
+        add("GET", r"/registry",
+            lambda m, b, q: (200, registry.list_registered()),
+            cacheable=True)
+
+        # ---- The gateway's own views ----
+        def metrics_view(m, body, query):
+            """The legacy per-route JSON, beside the registry's
+            histograms at /metrics.prom."""
+            with self._metrics_lock:
+                routes = {
+                    k: {**v, "avg_ms": round(v["total_ms"] / v["count"], 3)
+                        if v["count"] else 0.0}
+                    for k, v in self._metrics.items()}
+            return 200, {"routes": routes, "budget": {
+                "request_timeout_s": self.config.api.request_timeout_s,
+                "cache_ttl_s": self.config.api.cache_ttl_s}}
+
+        add("GET", r"/metrics", metrics_view)
+        add("GET", r"/status", lambda m, b, q: (200, (
+            "text/html; charset=utf-8", self._render_status().encode())))
+        # The witness's snapshot: edges, contention events, every held or
+        # contended lock with its holder and waiters, and their stacks
+        # (enabled false and empty with the witness off).
+        add("GET", r"/observability/locks", lambda m, b, q: (
+            200, concurrency_rt.snapshot(include_stacks=True)))
+        # One engine: the control plane is not ported (ROADMAP A.11 part
+        # 3), so the answer is the JAX server's without a cluster.
+        add("GET", r"/cluster/status", lambda m, b, q: (
+            200, {"enabled": False, "engines": [], "claims": []}))
 
         # ---- Dataset ----
         def shard_rows_of(body, default):
@@ -1207,9 +1526,15 @@ class APIServer:
                 return 404, {"error": f"no capture {name!r}"}
             return 200, doc
 
-        add("POST", r"/observability/profile/start", profile_start)
+        # Exempt from the request budget, unlike the JAX server's: in a
+        # fresh process a start initializes CUPTI and warms the tracer
+        # (profiling.start_warm), past 10 s on an H100, and a stop writes
+        # the trace; a 504 would report a capture failed that then runs.
+        add("POST", r"/observability/profile/start", profile_start,
+            no_timeout=True)
         add("POST", r"/observability/profile/stop",
-            lambda m, b, q: (200, {"capture": self.profiler.stop()}))
+            lambda m, b, q: (200, {"capture": self.profiler.stop()}),
+            no_timeout=True)
         add("GET", r"/observability/profile",
             lambda m, b, q: (200, self.profiler.status()))
         add("GET", r"/observability/profile/captures",
@@ -1313,6 +1638,10 @@ class APIServer:
                 if (meta.get("finished") or meta.get("jobState") == "failed"
                         or time.time() >= deadline):
                     return 200, {"metadata": meta}
+                # A request thread holding no lock: the analyzer takes the
+                # nested handlers for _register_routes' __init__ context.
+                # The handler polls the store between its reads.
+                # lo-check: disable=blocking-call-under-lock
                 time.sleep(0.1)
 
         # The feed and the wildcard webhooks come before the NAME route:
@@ -1345,7 +1674,7 @@ class APIServer:
         add("GET", r"/observe/webhook",
             lambda m, b, q: (200, {"result": self.ctx.webhooks.list("*")}))
         add("DELETE", r"/observe/webhook/(?P<hook>[0-9]+)", webhook_delete)
-        add("GET", rf"/observe/{NAME}", observe_wait)
+        add("GET", rf"/observe/{NAME}", observe_wait, no_timeout=True)
 
         # ---- Observe push: one artifact's webhooks ----
         def webhook_register(m, body, query):
@@ -1506,7 +1835,8 @@ class APIServer:
         add("POST", rf"/serve/{NAME}/replicas", serve_replicas_post)
         add("DELETE", rf"/serve/{NAME}/replicas", serve_replicas_delete)
         add("POST", rf"/serve/{NAME}/predict", serve_predict)
-        add("POST", rf"/serve/{NAME}/generate", serve_generate)
+        add("POST", rf"/serve/{NAME}/generate", serve_generate,
+            no_timeout=True)
         add("DELETE", rf"/serve/{NAME}/generate/(?P<stream>[A-Za-z0-9]+)",
             serve_generate_abort)
         add("POST", rf"/serve/{NAME}/load", lambda m, b, q: (
@@ -1522,33 +1852,135 @@ class APIServer:
     # -- dispatch -------------------------------------------------------------
 
     def handle(self, verb: str, path: str, body, query: dict | None = None,
-               request_id: str | None = None) -> tuple[int, object]:
-        """Route one request; returns (status, JSON payload).  Every
-        request is metered by its route and status class, and recorded
-        in the ``http`` flight ring; ``request_id`` is bound for the
-        handler, so a job it submits carries it into its trace."""
+               request_id: str | None = None, idem_key: str | None = None,
+               ) -> tuple[int, object]:
+        """Route one request through the gateway; returns (status, JSON
+        payload, or a (content type, bytes) pair).  Admission first (503
+        when ``max_inflight`` handlers hold their slots), then the cache
+        of opted-in GETs (any other verb clears it), the idempotency
+        ledger for a keyed POST, PATCH or DELETE, and the handler under
+        the request budget (504 past it).  Every request is metered by
+        its route and status class and recorded in the ``http`` flight
+        ring; ``request_id`` is bound for the handler, so a job it
+        submits carries it into its trace."""
         t0 = time.perf_counter()
-        handler, m, key = self.router.resolve(verb, path)
-        if handler is None:
-            status, payload = (
-                (405, {"error": f"method {verb} not allowed on {path}"})
-                if m == "405" else
-                (404, {"error": f"no such route: {path}"}))
-        elif not isinstance(body, dict):
-            status, payload = 406, {
-                "error": "request body must be a JSON object"}
+        query = query or {}
+        if self._inflight is None:
+            slot = _Slot(None)
+        elif self._inflight.acquire(blocking=False):
+            slot = _Slot(self._inflight)
         else:
-            token = (obs_tracing.set_request_id(request_id)
-                     if request_id else None)
-            try:
-                status, payload = self._handle_raw(handler, m, body,
-                                                   query or {})
-            finally:
-                if token is not None:
-                    obs_tracing.reset_request_id(token)
+            # Saturated: shed now rather than queue behind stuck handlers.
+            self._record_metric("saturated", 503, 0.0,
+                                request_id=request_id)
+            return 503, {
+                "error": "gateway saturated "
+                         f"({self.config.api.max_inflight} requests in "
+                         "flight); retry with backoff"}
+        try:
+            status, payload, key = self._handle_slotted(
+                verb, path, body, query, slot, request_id, idem_key)
+        finally:
+            # For a request past its budget the handler's thread co-owns
+            # the slot: it frees when that thread really returns.
+            slot.release()
         self._record_metric(key, status, (time.perf_counter() - t0) * 1e3,
                             request_id=request_id)
         return status, payload
+
+    def _handle_slotted(self, verb, path, body, query, slot, request_id,
+                        idem_key):
+        """-> (status, payload, route key) of an admitted request."""
+        handler, m, key = self.router.resolve(verb, path)
+        if handler is None:
+            return ((405, {"error": f"method {verb} not allowed on {path}"},
+                     key) if m == "405" else
+                    (404, {"error": f"no such route: {path}"}, key))
+        if not isinstance(body, dict):
+            return 406, {"error": "request body must be a JSON object"}, key
+        flags = self.router.flags[key]
+        ttl = self.config.api.cache_ttl_s
+        cache_key = None
+        if verb == "GET" and flags["cacheable"] and ttl > 0:
+            cache_key = (path, tuple(sorted(query.items())))
+            with self._cache_lock:
+                hit = self._cache.get(cache_key)
+            if hit is not None and hit[0] > time.monotonic():
+                return hit[1], hit[2], key
+        elif verb != "GET":
+            # Any mutation clears the whole cache: cheap, and mutations
+            # are rare beside polls.
+            with self._cache_lock:
+                self._cache.clear()
+
+        idem_id = None
+        if idem_key and verb in ("POST", "PATCH", "DELETE"):
+            kind, *rest = self._idem_begin(
+                idem_key, self._idem_fingerprint(verb, path, body, query))
+            if kind == "replay":
+                return rest[0], rest[1], key
+            if kind == "mismatch":
+                return 422, {
+                    "error": "this idempotency key was already used for a "
+                             "different request — keys identify ONE "
+                             "logical mutation; mint a fresh key per "
+                             "operation",
+                    "idempotency_key": idem_key}, key
+            if kind == "ambiguous":
+                return 409, {
+                    "error": "a previous attempt with this idempotency key "
+                             "began but has no recorded outcome (still in "
+                             "flight, or the server died mid-request) — "
+                             "inspect the artifact's state before retrying "
+                             "with a fresh key",
+                    "idempotency_key": idem_key}, key
+            idem_id = rest[0]
+
+        def invoke():
+            # Bound here: past the budget the handler runs on its own
+            # thread, which does not inherit the HTTP thread's context.
+            token = (obs_tracing.set_request_id(request_id)
+                     if request_id else None)
+            try:
+                result = self._handle_raw(handler, m, body, query)
+            finally:
+                if token is not None:
+                    obs_tracing.reset_request_id(token)
+            if idem_id is not None:
+                self._idem_finish(idem_id, *result)
+            return result
+
+        timeout = self.config.api.request_timeout_s
+        if flags["no_timeout"] or timeout <= 0:
+            status, payload = invoke()
+        else:
+            # A thread per request, not a pool: stuck handlers must not
+            # leave a fixed pool answering only 504s.  Python cannot
+            # cancel the abandoned thread; a timed-out mutation may still
+            # commit later, as behind any gateway.
+            box: dict = {}
+
+            def run():
+                try:
+                    box["result"] = invoke()
+                finally:
+                    slot.release()
+
+            slot.share()
+            worker = threading.Thread(target=run, name="lo-gateway-req",
+                                      daemon=True)
+            worker.start()
+            worker.join(timeout)
+            if "result" in box:
+                status, payload = box["result"]
+            else:
+                status, payload = 504, {
+                    "error": f"request exceeded {timeout}s gateway budget"}
+        if cache_key is not None and status < 400:
+            with self._cache_lock:
+                self._cache[cache_key] = (time.monotonic() + ttl, status,
+                                          payload)
+        return status, payload, key
 
     def _handle_raw(self, handler, m, body, query):
         try:
@@ -1603,8 +2035,19 @@ class APIServer:
                 if not _RID_RE.fullmatch(rid):
                     rid = obs_tracing.new_request_id()
                 self._request_id = rid
+                if api._drain_if_shutting_down(self):
+                    return
                 parsed = urlparse(self.path)
                 query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
+                # The JAX server's tenant header rules (the port has no
+                # tenant admission yet, ROADMAP A.11 part 3): a bad value
+                # is a 400, never silently reassigned.
+                tenant = (self.headers.get("X-Tenant") or "").strip()
+                if tenant and not _RID_RE.fullmatch(tenant):
+                    self._send(400, {
+                        "error": "invalid X-Tenant header: expected 1-64 "
+                                 "chars of [A-Za-z0-9_.-]"})
+                    return
                 body = {}
                 length = int(self.headers.get("Content-Length") or 0)
                 if length:
@@ -1614,8 +2057,9 @@ class APIServer:
                     except json.JSONDecodeError:
                         self._send(400, {"error": "request body is not JSON"})
                         return
-                self._send(*api.handle(verb, parsed.path, body, query,
-                                       request_id=rid))
+                self._send(*api.handle(
+                    verb, parsed.path, body, query, request_id=rid,
+                    idem_key=self.headers.get("X-Idempotency-Key")))
 
             def _send(self, status: int, payload):
                 events = getattr(payload, "sse_events", None)
@@ -1676,20 +2120,66 @@ class APIServer:
 
         return Handler
 
+    def serve_forever(self, host: str | None = None,
+                      port: int | None = None) -> None:
+        """Serve in the calling thread on ``host:port`` (the config's
+        ``api.host`` / ``api.port`` by default) until :meth:`shutdown`."""
+        host = self.config.api.host if host is None else host
+        port = self.config.api.port if port is None else port
+        httpd = _BoundedThreadingHTTPServer(
+            (host, port), self._handler_class(),
+            max_connections=self.config.api.max_connections)
+        # Published under the shutdown lock: a shutdown() racing this
+        # either sees the listener (and stops it) or has already flipped
+        # _shut_down (and nothing serves).
+        with self._shutdown_lock:
+            if self._shut_down:
+                httpd.server_close()
+                return
+            self._httpd = httpd
+        try:
+            httpd.serve_forever()
+        except Exception:
+            # shutdown() closed the socket before the poll loop began:
+            # a clean stop, not an error.
+            with self._shutdown_lock:
+                if self._shut_down:
+                    return
+            raise
+
     def start_background(self, host: str = "127.0.0.1",
                          port: int | None = None) -> int:
         """Bind, serve on a daemon thread, return the bound port (None/0
         picks an ephemeral one)."""
-        httpd = ThreadingHTTPServer((host, port or 0), self._handler_class())
-        httpd.daemon_threads = True
-        self._httpd = httpd
-        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        httpd = _BoundedThreadingHTTPServer(
+            (host, port or 0), self._handler_class(),
+            max_connections=self.config.api.max_connections)
+        with self._shutdown_lock:
+            self._httpd = httpd
+        threading.Thread(target=httpd.serve_forever, daemon=True,
+                         name="lo-http-accept").start()
         return httpd.server_address[1]
 
+    def _drain_if_shutting_down(self, handler) -> bool:
+        """503 + ``Connection: close`` for a request that arrives on a
+        kept-alive connection after shutdown started: the accept loop is
+        gone, but HTTP/1.1 connections would go on being served."""
+        if not self._shutting_down.is_set():
+            return False
+        handler.close_connection = True
+        handler._send(503, {"error": "server is shutting down"})
+        return True
+
     def shutdown(self) -> None:
-        """Stop the accept loop, close the socket, release the models,
-        stop the engine and close the store."""
-        httpd, self._httpd = self._httpd, None
+        """Idempotent stop: the accept loop halted and its socket closed,
+        kept-alive connections answered 503, then the models released,
+        the engine stopped and the store closed, once."""
+        with self._shutdown_lock:
+            if self._shut_down:
+                return
+            self._shut_down = True
+            httpd, self._httpd = self._httpd, None
+        self._shutting_down.set()
         if httpd is not None:
             httpd.shutdown()
             httpd.server_close()
@@ -1704,3 +2194,23 @@ class APIServer:
         self.serving.close()
         self.monitoring.close()
         self.ctx.close()
+
+
+def serve(config: Config | None = None, *, device=None) -> None:
+    """Run the API server in the foreground on ``api.host:api.port`` until
+    KeyboardInterrupt (SIGINT), then shut it down: the accept loop, the
+    rollup clock, serving with its decode pools, and the job engine stop,
+    so the process exits and the lock witness's exit dump is written.
+    ``device`` overrides ``config.device`` (``"cpu"`` for a test).
+
+    The JAX ``serve()``'s fence, rejoin and warm-standby branches belong
+    to store HA and the control plane, which are not ported yet (ROADMAP
+    A.11 part 3): this process always starts as the one primary."""
+    server = APIServer(config or Config.from_env(), device=device)
+    cfg = server.config
+    logger.info("serving on %s:%d (device %s)", cfg.api.host, cfg.api.port,
+                server.ctx.device)
+    try:
+        server.serve_forever()
+    finally:
+        server.shutdown()

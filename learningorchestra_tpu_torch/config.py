@@ -21,8 +21,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import threading
 from pathlib import Path
+
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 
 
 @dataclasses.dataclass
@@ -50,8 +51,22 @@ class StoreConfig:
 
 @dataclasses.dataclass
 class APIConfig:
-    """REST front server (the address is ``start_background``'s)."""
+    """REST front server and its gateway (the JAX package's fields and
+    defaults): the address ``serve`` binds, the request budget (504 past
+    it), the response cache's TTL on the GETs that opt in, and the two
+    concurrency caps: every admitted handler holds one of
+    ``max_inflight`` slots (503 at saturation, no queueing), and
+    ``max_connections`` bounds the connection threads underneath, so a
+    client trickling bodies never reaches the handler cap.  <= 0
+    disables either cap, the budget or the cache."""
 
+    host: str = "0.0.0.0"
+    # Env: LO_TPU_API_PORT.
+    port: int = 80
+    request_timeout_s: float = 10.0
+    cache_ttl_s: float = 300.0
+    max_inflight: int = 64
+    max_connections: int = 256
     # GET pagination cap.
     page_limit_max: int = 100
     page_limit_default: int = 20
@@ -497,6 +512,7 @@ class Config:
             ("LO_TPU_STORE_ROOT", cfg.store, "root", str),
             ("LO_TPU_VOLUME_ROOT", cfg.store, "volume_root", str),
             ("LO_TPU_STORE_BACKEND", cfg.store, "backend", str),
+            ("LO_TPU_API_PORT", cfg.api, "port", int),
             ("LO_TPU_MAX_WORKERS", cfg.jobs, "max_workers", int),
             ("LO_TPU_JOB_RETRIES", cfg.jobs, "max_preemption_retries", int),
             ("LO_TPU_JOB_BACKOFF_S", cfg.jobs, "retry_backoff_s", float),
@@ -658,8 +674,24 @@ class Config:
         return cfg
 
 
+#: Knobs read straight from the environment at their use site instead
+#: of through :meth:`Config.from_env`: the log level applies before any
+#: config is built, and the lock witness's switches are read while the
+#: modules that construct locks import (this one among them).  They are
+#: registered here because config.py is the port's knob index: the
+#: drift gate (analysis/drift.py) fails any ``LO_TPU_*`` reference this
+#: file does not name.
+DIRECT_ENV_KNOBS = (
+    "LO_TPU_LOG_LEVEL",        # log.py: root level, default INFO
+    "LO_TPU_WITNESS",          # concurrency_rt.py: "1" instruments the
+                               # make_lock/make_rlock locks
+    "LO_TPU_WITNESS_STALL_S",  # stall-watchdog threshold (default 30)
+    "LO_TPU_WITNESS_DUMP",     # path: the witnessed-order graph as JSON
+                               # at exit, for run_checks(witness_dump=)
+)
+
 _config: Config | None = None
-_config_lock = threading.Lock()
+_config_lock = make_lock("config._config_lock")
 
 
 def get_config() -> Config:

@@ -52,10 +52,10 @@ module-level dict and a return — no lock, no lookup, no allocation.
 
 from __future__ import annotations
 
-import threading
 import time
 import zlib
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.log import get_logger, kv
 
 logger = get_logger("faults")
@@ -170,7 +170,7 @@ def _random():
     return random
 
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("plane._LOCK")
 #: point -> FaultSchedule.  THE fast-path gate: empty means the whole
 #: plane is disabled and :func:`hit` returns after one truthiness check.
 _ARMED: dict[str, FaultSchedule] = {}

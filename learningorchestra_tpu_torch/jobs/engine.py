@@ -55,6 +55,7 @@ from concurrent.futures import Future, InvalidStateError
 from typing import Any, Callable
 
 from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.jobs import cancel as jobs_cancel
 from learningorchestra_tpu_torch.jobs import journal as jobs_journal
 from learningorchestra_tpu_torch.jobs.cancel import CancelToken
@@ -164,7 +165,7 @@ class JobEngine:
         self._watchdog: threading.Thread | None = None
         self._watchdog_wake = threading.Event()
         self._futures: dict[str, Future] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("JobEngine._lock")
         # Weighted round-robin over per-class FIFO queues: a class's
         # weight is its consecutive dispatches per turn (default 1).
         self.class_weights = dict(class_weights or {})
@@ -728,6 +729,11 @@ class JobEngine:
             "jobState",
             JobState.FINISHED if meta.get("finished") else JobState.PENDING,
         )
+
+    def running_jobs(self) -> list[str]:
+        """The jobs submitted and not done yet (queued or running)."""
+        with self._lock:
+            return [n for n, f in self._futures.items() if not f.done()]
 
     def queue_depths(self, include_empty: bool = False) -> dict[str, int]:
         """Queued-but-undispatched jobs per class; ``include_empty`` keeps

@@ -48,8 +48,15 @@ import threading
 import time
 from collections import deque
 from pathlib import Path
+from typing import TYPE_CHECKING
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.log import get_logger, kv
+
+if TYPE_CHECKING:  # at run time a cycle: store/ imports train/neural.py
+    from learningorchestra_tpu_torch.store.document_store import (
+        DocumentStore,
+    )
 
 logger = get_logger("journal")
 
@@ -137,7 +144,8 @@ class JobJournal:
     enqueue order.
     """
 
-    def __init__(self, documents, store_root: str | Path, *,
+    def __init__(self, documents: DocumentStore,
+                 store_root: str | Path, *,
                  enabled: bool = True, max_records: int = 4096):
         self.documents = documents
         self.store_root = Path(store_root)
@@ -149,7 +157,7 @@ class JobJournal:
         self._pending: deque = deque()
         self._wake = threading.Event()
         self._stop = threading.Event()
-        self._flush_lock = threading.Lock()
+        self._flush_lock = make_lock("JobJournal._flush_lock")
         self._flusher: threading.Thread | None = None
         # Each construction is an engine boot: the next epoch fences
         # stragglers of every previous life.  A disabled journal keeps

@@ -24,13 +24,16 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import threading
 import time
 from typing import Sequence
 
 import torch
 
 from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch.concurrency_rt import (
+    make_condition,
+    make_lock,
+)
 from learningorchestra_tpu_torch.log import get_logger, kv
 from learningorchestra_tpu_torch.obs import tracing
 from learningorchestra_tpu_torch.obs.metrics import get_registry
@@ -72,7 +75,7 @@ class DeviceLeaser:
 
     def __init__(self, device_ids: Sequence[str] | None = None, *,
                  device="cuda"):
-        self._cv = threading.Condition()
+        self._cv = make_condition("DeviceLeaser._cv")
         if device_ids is not None:
             self._all = list(device_ids)
         elif torch.device(device).type == "cuda":
@@ -205,7 +208,7 @@ class LeaseHandle:
     def __init__(self, cm, devices: list[str]):
         self._cm = cm
         self.devices = devices
-        self._lock = threading.Lock()
+        self._lock = make_lock("LeaseHandle._lock")
         self._released = False
 
     def release(self) -> None:

@@ -17,9 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
+
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
@@ -30,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = make_lock("build._lock")
 _libs: dict[str, ctypes.CDLL] = {}
 #: nvcc's output (ptxas registers / shared memory / spills) per source,
 #: from the build that made its library (kept beside it as ``.log``).

@@ -18,6 +18,8 @@ import os
 import sys
 import threading
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
+
 _ROOT = "lo"
 _configured = False
 
@@ -72,7 +74,7 @@ class _StdoutRouter(io.TextIOBase):
         return True
 
 
-_router_lock = threading.Lock()
+_router_lock = make_lock("log._router_lock")
 
 
 @contextlib.contextmanager

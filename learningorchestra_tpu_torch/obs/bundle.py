@@ -13,8 +13,9 @@ one versioned on-disk directory:
 - ``fleet.json``    — the fleet snapshot with the autoscaler's ledger;
 - ``journal.json``  — the newest job-journal records;
 - ``faults.json``   — armed schedules + trigger counters;
-- ``locks.json`` and ``cluster.json`` — what the JAX package writes
-  with its lock witness off and no cluster (the port has neither yet);
+- ``locks.json``    — the lock witness's snapshot (concurrency_rt.py);
+- ``cluster.json``  — what the JAX package writes with no cluster (the
+  control plane is not ported);
 - ``manifest.json`` — name, reason, detail, file sizes, errors, and the
   name of a ``torch.profiler`` capture started with it when
   ``BundleConfig.profile`` is on (obs/profiling.py, whose every start
@@ -38,6 +39,7 @@ import shutil
 import threading
 import time
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.log import get_logger, kv
 from learningorchestra_tpu_torch.obs import flight as obs_flight
 
@@ -88,7 +90,7 @@ class BundleService:
         self.dir = cfg.dir or os.path.join(".", "_bundles")
         self.providers = dict(providers or {})
         self.profiler = profiler
-        self._lock = threading.Lock()
+        self._lock = make_lock("BundleService._lock")
         self._building = False
         self._last_auto: float | None = None
         self._seq = 0
@@ -351,7 +353,7 @@ class BundleService:
 # -- process-wide singleton ---------------------------------------------------
 
 _service: BundleService | None = None
-_service_lock = threading.Lock()
+_service_lock = make_lock("bundle._service_lock")
 
 
 def get_service() -> BundleService | None:

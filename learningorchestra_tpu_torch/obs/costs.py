@@ -54,6 +54,8 @@ import time
 import types
 from collections import Counter, OrderedDict
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
+
 __all__ = [
     "CostLedger",
     "DeviceTimeLedger",
@@ -136,7 +138,7 @@ class CostLedger:
 
     def __init__(self, max_programs: int = 256):
         self.max_programs = max(1, int(max_programs))
-        self._lock = threading.Lock()
+        self._lock = make_lock("CostLedger._lock")
         self._programs: OrderedDict[str, ProgramCost] = OrderedDict()
         self.analyses = 0
         self.analysis_failures = 0
@@ -252,7 +254,7 @@ class DeviceTimeLedger:
         self._stride = (
             max(1, round(1.0 / self.sample)) if self.sample > 0 else 0
         )
-        self._lock = threading.Lock()
+        self._lock = make_lock("DeviceTimeLedger._lock")
         # PER-KEY stride counters (bounded): one global counter would
         # alias strictly alternating streams.
         self._counters: OrderedDict[str, int] = OrderedDict()
@@ -429,7 +431,7 @@ def mfu(flops: float, device_s: float, *,
 
 # -- process-wide singletons --------------------------------------------------
 
-_lock = threading.Lock()
+_lock = make_lock("costs._lock")
 _ledger: CostLedger | None = None
 _devtime: DeviceTimeLedger | None = None
 _cfg_cache = None

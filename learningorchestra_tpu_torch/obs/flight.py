@@ -10,8 +10,10 @@ Bounded per-domain event rings:
 - ``jobs``    — engine dispatch / preempt-retry / terminal decisions;
 - ``compile`` — program builds and durable-store restores;
 - ``faults``  — every fault-point trigger;
-- ``locks`` and ``cluster`` — kept for the JAX package's lock witness
-  and control plane, which the port does not have yet: they stay empty.
+- ``locks``   — the lock witness's contention events and stalls
+  (concurrency_rt.py, with ``LO_TPU_WITNESS=1``);
+- ``cluster`` — kept for the JAX package's control plane, which the port
+  does not have yet: it stays empty.
 
 Every event carries ``t`` (monotonic), ``wall`` and, when one is bound
 on the calling thread, the ``requestId`` (obs/tracing.py), so
@@ -27,9 +29,9 @@ Knobs: config.py ``FlightConfig`` (env ``LO_TPU_FLIGHT_*``).
 from __future__ import annotations
 
 import collections
-import threading
 import time
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.obs import tracing as obs_tracing
 
 __all__ = [
@@ -51,7 +53,7 @@ DOMAINS = (
     "http", "decode", "jobs", "compile", "faults", "locks", "cluster",
 )
 
-_lock = threading.Lock()
+_lock = make_lock("flight._lock")
 #: None while disabled (the record() fast path is this one check);
 #: {domain: deque} while enabled.
 _rings: dict | None = None

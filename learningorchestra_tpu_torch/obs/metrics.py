@@ -28,8 +28,9 @@ from __future__ import annotations
 
 import bisect
 import math
-import threading
 from typing import Callable, Iterable, Sequence
+
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 
 
 __all__ = [
@@ -252,7 +253,7 @@ class MetricsRegistry:
         # persist, decided deterministically per request id
         # (obs/tracing.py new_trace).  Metrics are never sampled.
         self.trace_sample = min(1.0, max(0.0, float(trace_sample)))
-        self.lock = threading.Lock()
+        self.lock = make_lock("MetricsRegistry.lock")
         self._metrics: dict[str, _Metric] = {}
         self._collectors: list[Callable[[], Iterable[Family]]] = []
         #: SAMPLES routed to an overflow series (one per observation
@@ -493,7 +494,7 @@ class MetricsRegistry:
 # -- process-wide singleton ---------------------------------------------------
 
 _registry: MetricsRegistry | None = None
-_registry_lock = threading.Lock()
+_registry_lock = make_lock("metrics._registry_lock")
 
 
 def get_registry() -> MetricsRegistry:

@@ -56,6 +56,8 @@ import socket
 import threading
 import time
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
+
 __all__ = [
     "ProfilerConflict",
     "ProfilerError",
@@ -77,7 +79,7 @@ _META_FILE = "capture.json"
 WARMUP_LAUNCHES = 512
 
 # Serializes every start of a torch.profiler the port makes.
-_claim_lock = threading.Lock()
+_claim_lock = make_lock("profiling._claim_lock")
 
 
 class ProfilerError(Exception):
@@ -199,7 +201,7 @@ class ProfilerService:
         self.root = str(root)
         self.max_seconds = float(max_seconds)
         self.max_captures = max(1, int(max_captures))
-        self._lock = threading.Lock()
+        self._lock = make_lock("ProfilerService._lock")
         self._active: dict | None = None
         self._profile = None
         # True while a stop's trace export runs OUTSIDE the lock: a start

@@ -23,6 +23,7 @@ import collections
 import threading
 import time
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.log import get_logger
 
 logger = get_logger("rollup")
@@ -161,7 +162,7 @@ class RollupEngine:
         ))
         self.points = max(2, int(cfg.points))
         self.max_series = max(1, int(cfg.max_series))
-        self._lock = threading.Lock()
+        self._lock = make_lock("RollupEngine._lock")
         self._series: dict[tuple, _Series] = {}
         self.ticks = 0
         #: Snapshots dropped because the engine was at max_series —
@@ -575,7 +576,7 @@ class RollupEngine:
 # -- process-wide singleton ---------------------------------------------------
 
 _engine: RollupEngine | None = None
-_engine_lock = threading.Lock()
+_engine_lock = make_lock("rollup._engine_lock")
 
 
 def get_engine() -> RollupEngine:

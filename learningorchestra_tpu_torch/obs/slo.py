@@ -34,6 +34,7 @@ import json
 import threading
 import time
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.log import get_logger, kv
 
 logger = get_logger("slo")
@@ -153,7 +154,7 @@ class SLOService:
 
     def __init__(self, cfg):
         self.cfg = cfg
-        self._lock = threading.Lock()
+        self._lock = make_lock("SLOService._lock")
         self.objectives: list[_Objective] = []
         if cfg.availability_target > 0:
             self.objectives.append(_Objective(
@@ -539,7 +540,7 @@ class SLOService:
 # -- process-wide singleton ---------------------------------------------------
 
 _service: SLOService | None = None
-_service_lock = threading.Lock()
+_service_lock = make_lock("slo._service_lock")
 
 
 def get_service() -> SLOService:

@@ -26,9 +26,10 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-import threading
 import time
 import uuid
+
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 
 
 __all__ = [
@@ -91,7 +92,7 @@ class JobTrace:
         self.job = job
         self.request_id = request_id
         self.max_spans = int(max_spans)
-        self._lock = threading.Lock()
+        self._lock = make_lock("JobTrace._lock")
         self._spans: dict[int, dict] = {}
         self._next_id = 1
         self.dropped = 0

@@ -29,10 +29,10 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import torch
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.kernels import build
 from learningorchestra_tpu_torch.obs import costs
 
@@ -44,7 +44,7 @@ launches = 0
 #: K2 / K3 launches made by ``flash_attention_bwd`` in this process.
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
-_count_lock = threading.Lock()
+_count_lock = make_lock("attention._count_lock")
 
 
 def count_launch(counter: str, n: int = 1) -> None:

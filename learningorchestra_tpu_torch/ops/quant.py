@@ -29,11 +29,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import threading
 
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.kernels import build
 
 #: Kernel launches made by the quantize / dequantize kernels, and the
@@ -42,7 +42,7 @@ quantize_launches = 0
 quantize_leaves = 0
 dequantize_launches = 0
 dequantize_leaves = 0
-_count_lock = threading.Lock()
+_count_lock = make_lock("quant._count_lock")
 
 
 def count_launch(**deltas: int) -> None:

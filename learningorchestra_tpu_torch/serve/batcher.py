@@ -28,6 +28,7 @@ from typing import Callable
 
 import numpy as np
 
+from learningorchestra_tpu_torch.concurrency_rt import make_condition
 from learningorchestra_tpu_torch.serve.bucketing import bucket_for, pad_rows
 
 
@@ -82,7 +83,7 @@ class MicroBatcher:
         self.name = name
         self._queue: collections.deque[_Pending] = collections.deque()
         self._rows_queued = 0
-        self._cond = threading.Condition()
+        self._cond = make_condition("MicroBatcher._cond")
         self._closed = False
         self.requests = 0
         self.rows = 0

@@ -49,6 +49,10 @@ import numpy as np
 import torch
 
 from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch.concurrency_rt import (
+    make_condition,
+    make_lock,
+)
 from learningorchestra_tpu_torch.log import get_logger, kv
 from learningorchestra_tpu_torch.obs import costs
 from learningorchestra_tpu_torch.obs import flight as obs_flight
@@ -136,7 +140,7 @@ class _ModelDecoder:
         self.engine = engine
         self.name = name
         self.cfg = engine.cfg
-        self._cv = threading.Condition()
+        self._cv = make_condition("_ModelDecoder._cv")
         self._pending: deque = deque()
         # (replica index | None, kv bucket) -> pool
         self._pools: dict[tuple, PagePool] = {}
@@ -574,7 +578,7 @@ class DecodeEngine:
     def __init__(self, service, config):
         self.service = service
         self.cfg = config
-        self._lock = threading.Lock()
+        self._lock = make_lock("DecodeEngine._lock")
         self._decoders: dict[str, _ModelDecoder] = {}
         self._closed = False
 

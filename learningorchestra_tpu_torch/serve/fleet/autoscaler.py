@@ -35,6 +35,7 @@ import collections
 import threading
 import time
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.jobs.leases import LeaseTimeout
 from learningorchestra_tpu_torch.log import get_logger, kv
 from learningorchestra_tpu_torch.obs import rollup as obs_rollup
@@ -50,7 +51,7 @@ class Autoscaler:
         self.cfg = cfg
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
-        self._lock = threading.Lock()
+        self._lock = make_lock("Autoscaler._lock")
         # model -> {"up": streak, "down": streak, "overflows": last}
         self._state: dict[str, dict] = {}
         self.ticks = 0

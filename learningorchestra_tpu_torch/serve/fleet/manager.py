@@ -25,6 +25,7 @@ from __future__ import annotations
 import threading
 import time
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.serve.batcher import BatcherClosed
 from learningorchestra_tpu_torch.serve.fleet.autoscaler import Autoscaler
 from learningorchestra_tpu_torch.serve.fleet.replicaset import (
@@ -50,7 +51,7 @@ class FleetManager:
         # is live — changing the shard width means re-placing every
         # replica, so configure() rejects it until a dissolve.
         self._shards: dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("FleetManager._lock")
         # Per-model creation coalescing (the ModelRegistry idiom): a
         # set is only REGISTERED once its first replica is placed, so
         # concurrent predicts during the (possibly seconds-long) lease

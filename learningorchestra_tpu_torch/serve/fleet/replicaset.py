@@ -27,13 +27,13 @@ A request that raced into the victim rides the final flush or gets
 from __future__ import annotations
 
 import copy
-import threading
 import time
 import zlib
 from typing import Callable
 
 import numpy as np
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.jobs.leases import device_for
 from learningorchestra_tpu_torch.log import get_logger, kv
 from learningorchestra_tpu_torch.obs import tracing
@@ -199,11 +199,11 @@ class ReplicaSet:
             (int(router_seed) << 32) ^ zlib.crc32(name.encode())
         )
         self._replicas: list[Replica] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("ReplicaSet._lock")
         # Scaling is serialized apart from routing: a lease may block
         # for seconds, and concurrent scalers (autoscaler tick, manual
         # POST, lazy ensure) must converge on one target.
-        self._scale_lock = threading.Lock()
+        self._scale_lock = make_lock("ReplicaSet._scale_lock")
         self._closed = False
         self.scale_ups = 0
         self.scale_downs = 0

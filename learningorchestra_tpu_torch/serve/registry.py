@@ -18,6 +18,8 @@ import time
 from collections import OrderedDict
 from typing import Any, Callable
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
+
 
 class ServeError(Exception):
     """Model cannot be served (bad artifact, bad input) → 406."""
@@ -89,7 +91,7 @@ class ModelRegistry:
         self.max_models = int(max_models)
         self.max_bytes = int(max_bytes)
         self._entries: OrderedDict[str, _Resident] = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = make_lock("ModelRegistry._lock")
         self._loading: dict[str, threading.Event] = {}
         self._doomed: set[str] = set()
         self.loads = 0

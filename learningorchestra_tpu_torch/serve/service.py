@@ -42,13 +42,13 @@ from __future__ import annotations
 
 import contextlib
 import os
-import threading
 import time
 from typing import Callable
 
 import numpy as np
 
 from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.config import (
     AotConfig,
     DecodeConfig,
@@ -164,10 +164,10 @@ class ServingService:
         # for GreedyDecodeMixin models; no thread and no pool until the
         # first /generate.
         self.decode = DecodeEngine(self, decode_config or DecodeConfig())
-        self._lock = threading.Lock()
+        self._lock = make_lock("ServingService._lock")
         self._closed = False
         self._scalar_history: dict[str, list] = {}
-        self._scalar_lock = threading.Lock()
+        self._scalar_lock = make_lock("ServingService._scalar_lock")
         self._t0 = time.time()
 
     # -- model residency -----------------------------------------------------

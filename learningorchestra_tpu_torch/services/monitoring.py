@@ -23,6 +23,7 @@ import subprocess
 import threading
 import time
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.services.tfevents import write_scalars
 
 # First char alphanumeric/underscore: forbids '.', '..' and path escapes.
@@ -78,7 +79,7 @@ class MonitoringService:
         self.host = "0.0.0.0" if external_host else host
         self.external_host = external_host
         self._sessions: dict[str, MonitoringSession] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("MonitoringService._lock")
 
     # -- session lifecycle ---------------------------------------------------
 

@@ -24,11 +24,11 @@ from __future__ import annotations
 import json
 import os
 import re
-import threading
 from pathlib import Path
 from typing import Any, Iterable
 
 from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch.concurrency_rt import make_lock, make_rlock
 
 # Collection names become file names; keep them safe.
 _NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]*$")
@@ -94,7 +94,7 @@ class _Collection:
     def __init__(self, path: Path, durable: bool):
         self.path = path
         self.durable = durable
-        self.lock = threading.RLock()
+        self.lock = make_rlock("_Collection.lock")
         self.docs: dict[int, dict] = {}
         self.next_id = 0
         self._fh = None
@@ -200,7 +200,7 @@ class DocumentStore:
         self.root.mkdir(parents=True, exist_ok=True)
         self.durable = durable_writes
         self._collections: dict[str, _Collection] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("DocumentStore._lock")
         for wal in sorted(self.root.glob("*.wal")):
             self._collections[wal.stem] = _Collection(wal, durable_writes)
 

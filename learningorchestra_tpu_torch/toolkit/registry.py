@@ -13,10 +13,11 @@ from __future__ import annotations
 
 import importlib
 import inspect
-import threading
 from typing import Any, Callable
 
-_lock = threading.RLock()
+from learningorchestra_tpu_torch.concurrency_rt import make_rlock
+
+_lock = make_rlock("registry._lock")
 _registry: dict[tuple[str, str], Callable] = {}
 _loaded = False
 
@@ -131,6 +132,14 @@ def validate_method_params(
     if fn is None:
         return list(params)
     return _unaccepted(fn, params)
+
+
+def list_registered() -> list[dict]:
+    """Every registered (modulePath, class), the port's module paths."""
+    _ensure_loaded()
+    with _lock:
+        return [{"modulePath": mod, "class": name}
+                for (mod, name) in sorted(_registry)]
 
 
 def constructors() -> dict[str, Callable]:

@@ -57,6 +57,7 @@ import time
 from typing import Any, Callable
 
 from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.log import get_logger, kv
 
 __all__ = [
@@ -203,7 +204,7 @@ class AOTExecutableStore:
         self.root = os.path.expanduser(root)
         self.max_entries = int(max_entries)
         self.max_bytes = int(max_bytes)
-        self._lock = threading.Lock()
+        self._lock = make_lock("AOTExecutableStore._lock")
         # key -> {"label", "hits", "bytes", "storedAt"}
         self._manifest: dict[str, dict] = {}
         # Counters (process lifetime; stats() snapshots them).
@@ -509,7 +510,7 @@ def offer_program(key: str, label: str | None, *, fn=None,
 # -- restored decode cells ----------------------------------------------------
 
 _cells: dict[str, set] = {}
-_cells_lock = threading.Lock()
+_cells_lock = make_lock("aot_store._cells_lock")
 
 
 def note_restored_cell(arch: str, cell: tuple) -> None:
@@ -530,7 +531,7 @@ def restored_cells(arch: str | None = None):
 # -- process-wide singleton ---------------------------------------------------
 
 _store: AOTExecutableStore | None = None
-_store_lock = threading.Lock()
+_store_lock = make_lock("aot_store._store_lock")
 _config_override = None
 
 

@@ -56,6 +56,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
+
 KEEP = 2  # retained checkpoints; older ones are pruned after each publish
 STATE_FILE = "state.pt"
 
@@ -125,14 +127,14 @@ class _AsyncSlot:
     """One directory's writer: at most one save in flight."""
 
     def __init__(self):
-        self.lock = threading.Lock()
+        self.lock = make_lock("_AsyncSlot.lock")
         self.thread: threading.Thread | None = None
         self.pending = None  # (step, history, stats) awaiting publish
         self.error: BaseException | None = None
 
 
 _SLOTS: dict[str, _AsyncSlot] = {}
-_SLOTS_LOCK = threading.Lock()
+_SLOTS_LOCK = make_lock("checkpoint._SLOTS_LOCK")
 
 
 def _slot(directory: Path) -> _AsyncSlot:

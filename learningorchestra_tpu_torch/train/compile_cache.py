@@ -57,6 +57,7 @@ from collections import OrderedDict
 from typing import Any, Callable
 
 from learningorchestra_tpu_torch import faults
+from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.obs import flight as obs_flight
 from learningorchestra_tpu_torch.obs import tracing
 
@@ -101,7 +102,7 @@ def _aot():
 
 _serials = itertools.count(1)
 _opaque_tokens: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-_opaque_lock = threading.Lock()
+_opaque_lock = make_lock("compile_cache._opaque_lock")
 
 
 def _opaque(obj: Any) -> tuple:
@@ -381,7 +382,7 @@ class CompiledProgramCache:
         self.entry_bytes = int(entry_bytes)
         self._entries: OrderedDict[str, _Entry] = OrderedDict()
         self._building: dict[str, threading.Event] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("CompiledProgramCache._lock")
         self._devices: tuple | None = None
         # Bumped on every device-set clear: a build that STARTED before
         # an invalidation is never inserted after it.
@@ -635,7 +636,7 @@ class CompiledProgramCache:
 # -- process-wide singleton ---------------------------------------------------
 
 _cache: CompiledProgramCache | None = None
-_cache_lock = threading.Lock()
+_cache_lock = make_lock("compile_cache._cache_lock")
 
 
 def get_cache() -> CompiledProgramCache:

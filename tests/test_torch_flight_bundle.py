@@ -171,8 +171,9 @@ def test_bundle_files_and_manifest_keys_match_jax(tmp_path):
         assert ours["file"][0] == 200
         assert json.loads(ours["file"][1][1]) == json.loads(
             theirs["file"][1][1])
-        # The lock witness and the cluster plane are not ported: their
-        # files hold what the JAX package writes with both off.
+        # With both lock witnesses off, both snapshots are the empty one;
+        # the cluster plane is not ported: its file holds what the JAX
+        # package writes without a cluster.
         for stem in ("locks", "cluster"):
             assert json.loads(servers["port"].bundles.read_file(
                 made["port"]["name"], f"{stem}.json")) == json.loads(

@@ -68,7 +68,11 @@ def test_sources_exist():
                    # The mixture-of-experts layer and models.
                    "ops/moe.py", "models/moe.py",
                    # Ring attention and the long-context model.
-                   "parallel/ring_attention.py", "models/longcontext.py"):
+                   "parallel/ring_attention.py", "models/longcontext.py",
+                   # The entry point, the lock witness, the client and
+                   # the drift gates.
+                   "__main__.py", "concurrency_rt.py", "client.py",
+                   "analysis/witness.py", "analysis/drift.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()

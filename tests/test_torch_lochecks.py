@@ -245,6 +245,33 @@ def test_copied_analyzers_match_jax_on_the_port_package():
     assert _keys(port) == _keys(jax)
 
 
+def test_lock_name_mismatch_fires_like_jax_and_not_on_the_port(tmp_path):
+    """A factory name that is not the lock's static identity is a
+    finding for both analyzers; the port's 49 factory calls have none."""
+    root = _write(tmp_path, {"named.py": """
+        from pkg.concurrency_rt import make_lock, make_rlock
+
+        _table_lock = make_lock("named._table_lock")
+        _other = make_lock("named.wrong")
+
+        class Holder:
+            def __init__(self):
+                self._lock = make_lock("Holder._lock")
+                self.mutex = make_rlock("Holder._mutex")
+    """})
+    trees = {p: t for p, (t, _) in _trees(root).items()}
+    port, _ = wholeprogram.analyze_wholeprogram(root, trees)
+    jax, _ = jax_wholeprogram.analyze_wholeprogram(root, trees)
+    mismatched = sorted((f.line, f.message.split("'")[1]) for f in port
+                        if f.rule == "lock-name-mismatch")
+    assert mismatched == [(5, "named.wrong"), (10, "Holder._mutex")]
+    assert sorted(map(_keys_of, port)) == sorted(map(_keys_of, jax))
+    trees = {p: t for p, (t, _) in _trees(PKG).items()}
+    port, graph = wholeprogram.analyze_wholeprogram(PKG, trees)
+    assert not [f for f in port if f.rule == "lock-name-mismatch"]
+    assert len(graph.names) >= 49
+
+
 # -- the retargeted host-sync rule --------------------------------------------
 
 PROGRAMS = {
@@ -292,7 +319,7 @@ PROGRAMS = {
 
 def test_host_sync_fires_inside_program_functions_only(tmp_path):
     root = _write(tmp_path, PROGRAMS)
-    report = run_checks(root)
+    report = run_checks(root, drift=False)
     got = sorted((Path(f.file).relative_to(root).as_posix(), f.line,
                   f.message.split()[0])
                  for f in report.findings)
