@@ -93,7 +93,7 @@ Phases (each prints its own line; any failure exits nonzero):
    581,012 rows; fit rows cut per estimator in ``COVTYPE_FIT_ROWS``, each
    cut in its line as ``fit_rows``; the CPU reference answers every row
    too, and computes its decision scores only where a label differs),
-   t-SNE at 2,000 points; the CPU reference runs in two child processes
+   t-SNE at 1,000 points; the CPU reference runs in two child processes
    (``--cpu-reference``, Covertype gradient boosting in the second,
    ``CPU_REFERENCE_SECOND``) from the phase's start, beside the card's
    side and (b), and the Covertype comparisons come after (b); labels
@@ -147,8 +147,8 @@ Phases (each prints its own line; any failure exits nonzero):
    plot of them coloured by label, every image a valid 960x720 PNG;
    ``POST /dataset/tensor`` of a seeded (60,000, 28, 28, 1) f32 ``.npy``
    (15 shards) and a streaming ``MnistCNN`` fit at batch 1,024; a
-   sharded CSV at Covertype's schema cut to 100,000 rows (parsed in
-   Python) and a streaming ``MLPClassifier`` fit; a generic ingest;
+   sharded CSV at Covertype's schema cut to 100,000 rows (parsed by the
+   native CSV engine) and a streaming ``MLPClassifier`` fit; a generic ingest;
    BERT-base streaming over 2 shards of 256 rows against the in-memory
    fit of the same rows (bf16 bar 3e-2, 0 expected) and one shard's fit
    profiled; the ``text_pipeline`` line (each job's seconds and
@@ -310,7 +310,7 @@ Phases (each prints its own line; any failure exits nonzero):
    (K5) with every leaf exact, and answers 8 concurrent ``/predict``
    requests at T = 4,096 on one device (K1 4 per dispatch; the one-row
    request against the CPU); then (b) ``DistributedTrainer(spec=
-   MeshSpec(sp=2), devices=["cuda:0"] * 2)`` fits 4 bf16 steps of 2 rows
+   MeshSpec(sp=2), devices=["cuda:0"] * 2)`` fits 2 bf16 steps of 2 rows
    at T = 65,536 (K1/K2/K3 8 per rank per step; each rank's step ms and
    peak memory), and K1-K3 at a ring step's (2, 8, 32768, 32) are held
    against their plain versions in chunks of 2,048 query rows (bf16
@@ -376,7 +376,28 @@ Phases (each prints its own line; any failure exits nonzero):
    with edges and no stall; SIGINT: exit 0 within ``ENTRY_EXIT_S``, and
    the dump's edges all in the port's static lock graph; the
    ``entry_point`` line;
-22. last line: {"ok": true, "device": {...}}.
+22. the control plane, store HA and the native store
+   (``run_control_plane``): two ``serve`` children (engines A and B) over
+   one python store with the cluster on (distinct engine ids, a 3 s
+   claim TTL) and a ``standby`` child shipping that store's WALs and
+   probing B, all on the card; phase 20's BERT-base job (96 rows, 3
+   epochs of 3 bf16 steps, a checkpoint every epoch) trained through A
+   under ``X-Tenant`` t22 (A's second epoch held at its top by an armed
+   ``train.epoch`` delay): a t22 job answers 429 with the same error and
+   ``Retry-After`` on both engines while another tenant's runs; A is
+   SIGKILLed after its first checkpoint, B steals the claim and resumes
+   from it: K1/K2/K3 12 per step run on B and K4 once in B's own
+   capture, exactly one ``finished`` journal record, under B's epoch, and
+   losses within 1e-5 (relative) of phase 20's unfaulted twin; B serves
+   the int8 artifact, then is SIGKILLed under a write storm: the standby
+   promotes, every acknowledged write is on it, its capture shows K5
+   once and K1 12 per dispatch, its rows within ``CPU_ATOL`` of B's; B
+   restarted with the standby as ``LO_HA_PEER`` exits 3 (refused); then
+   phase 11's 100,000-row Covertype-schema CSV through the native store
+   and CSV engine and through the python store's row path: the same
+   shards, both times and g++'s version; the ``control_plane``,
+   ``store_ha`` and ``native_store`` lines;
+23. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -2227,18 +2248,18 @@ COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
 # solvers; kNN's CPU predict against its training rows; kmeans++ seeding
 # on the host).  Every predict on the card runs over all 581,012 rows.
 COVTYPE_FIT_ROWS = {"RandomForestClassifier": 25_000,
-                    "GradientBoostingClassifier": 5_000,
+                    "GradientBoostingClassifier": 2_500,
                     "KNeighborsClassifier": 5_000,
-                    "DecisionTreeClassifier": 100_000,
-                    "DecisionTreeRegressor": 100_000,
-                    "LogisticRegression": 100_000, "SGDClassifier": 100_000,
-                    "LinearSVC": 100_000, "SVC": 50_000, "KMeans": 100_000}
+                    "DecisionTreeClassifier": 50_000,
+                    "DecisionTreeRegressor": 50_000,
+                    "LogisticRegression": 50_000, "SGDClassifier": 50_000,
+                    "LinearSVC": 50_000, "SVC": 25_000, "KMeans": 50_000}
 # The (shape, estimator) pairs of the CPU reference's second child: the
 # Covertype gradient boosting's host tree growth and walks over every
 # row (~70 s) run beside the first child's other ~80 s, where one child
 # in series set phase 9's critical path.
 CPU_REFERENCE_SECOND = {("covtype", "GradientBoostingClassifier")}
-TSNE_POINTS = 2000
+TSNE_POINTS = 1000
 # Bound on the wait for one estimator's CPU reference (the slowest, the
 # Covertype gradient boosting's fit and predict, takes ~50 s alone).
 CPU_REFERENCE_TIMEOUT_S = 600
@@ -2627,7 +2648,7 @@ class CpuReference:
         self.dir = outdir
         os.makedirs(outdir, exist_ok=True)
         # Each child keeps this process's thread counts: a CPU fit's
-        # reductions, and so a 100,000-row KMeans fit's labels, depend on
+        # reductions, and so a 50,000-row KMeans fit's labels, depend on
         # them.
         self.children = []
         for part in (0, 1):
@@ -3687,7 +3708,8 @@ def run_text_pipeline(tmp, in_memory_step_ms) -> dict:
                              for c, f in stream_fits.items()},
             "images": images,
             "reduced": {"covtype_rows": f"{COVTYPE_STREAM_ROWS} of 581012 "
-                        "(the sharded CSV is parsed in Python)",
+                        "(the sharded CSV is parsed by the native CSV "
+                        "engine)",
                         "imdb_rows": f"{IMDB_ROWS} of 25000 per split"},
         }
     finally:
@@ -6302,7 +6324,7 @@ LONG_STEP_BAR = 1e-4  # the f32 sp = 2 step against one device
 # runs read 5.5e-5; an sp-sum fault in a token-local leaf reads of
 # order 1.
 LONG_LEAF_BAR = 1e-3
-LONG_FIT_T, LONG_FIT_EPOCHS = 65536, 4  # (b): 4 steps of 2 rows
+LONG_FIT_T, LONG_FIT_EPOCHS = 65536, 2  # (b): 2 steps of 2 rows
 LONG_REST_ROWS = 4  # (c): 2 steps of a global batch of 2
 LONG_PREDICTS = 8
 # Query rows per chunk of the plain version at a ring step's (2, 8,
@@ -6519,7 +6541,7 @@ def ring_results(procs: list, stage: str) -> tuple:
 
 def long_fit() -> dict:
     """(b): ``DistributedTrainer(spec=MeshSpec(sp=2))`` over two gloo
-    ranks on cuda:0 fits the full-width model 4 bf16 steps of 2 rows at
+    ranks on cuda:0 fits the full-width model 2 bf16 steps of 2 rows at
     T = 65,536 (each rank 32,768 tokens of each row)."""
     from learningorchestra_tpu_torch.models.longcontext import (
         LongContextTransformer,
@@ -8042,6 +8064,553 @@ def run_entry_point(tmp, card: str, bert_artifact) -> dict:
     return {"ok": ok, "launches": launches, "line": line}
 
 
+# -- phase 22: the control plane, store HA and the native store ---------------
+
+CP_TTL_S = 3.0  # a claim or engine older than this is stolen
+CP_HEARTBEAT_S = 0.5
+CP_SWEEP_S = 0.5
+CP_HOLD_MS = 600_000  # engine A's second epoch holds at its top until killed
+CP_STANDBY_INTERVAL_S = 0.25
+CP_STANDBY_MISSES = 4
+CP_RETRY_AFTER_S = 2.0
+CP_BOOT_S = 240.0  # spawn to the first answer
+CP_JOB_S = 600.0  # the stolen fit's deadline
+CP_STORM_ACKED = 12  # acknowledged writes before B is killed
+CP_PREDICT_ROWS = (1, 2, 3, 4, 5, 6, 7, 8)  # one request each, T = 128
+CP_REVIVE_S = 120.0
+SERVE_REFUSED_STATUS = 3  # api/server.py SERVE_REFUSED
+K2_SYMBOL, K3_SYMBOL = "flash_bwd_dq_", "flash_bwd_dkv_"  # csrc/flash_bwd.cu
+K4_SYMBOL = "quantize_group_kernel"  # csrc/quant.cu (not the dequantize)
+
+
+def tenant_request(port, verb, path, body, tenant=None):
+    """(status, headers, JSON body) of one request carrying ``X-Tenant``."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    headers = {"Content-Type": "application/json"}
+    if tenant:
+        headers["X-Tenant"] = tenant
+    try:
+        conn.request(verb, "/api/learningOrchestra/v1" + path,
+                     body=None if body is None else json.dumps(body),
+                     headers=headers)
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def capture_kernels(ctx, name: str) -> dict:
+    """Stop a child's capture and count the port's kernels among its
+    device records (the child's own counters stay in the child)."""
+    stopped = ctx.observability.profile_stop()
+    files = [f["path"] for f in stopped.get("capture", {}).get("files", [])
+             if f["path"].endswith(".pt.trace.json")]
+    events = json.loads(ctx.observability.profile_fetch(
+        name, files[0])).get("traceEvents", []) if files else []
+    kernels = [str(e.get("name", "")) for e in events
+               if e.get("cat") == "kernel"]
+    unrecorded, runtime = unrecorded_launches(events)
+    return {
+        "files": len(files), "kernels": len(kernels),
+        "flash_fwd": sum(K1_SYMBOL in k for k in kernels),
+        "flash_bwd_dq": sum(K2_SYMBOL in k for k in kernels),
+        "flash_bwd_dkv": sum(K3_SYMBOL in k for k in kernels),
+        "quantize_rowwise": sum(K4_SYMBOL in k and K5_SYMBOL not in k
+                                for k in kernels),
+        "dequantize_rowwise": sum(K5_SYMBOL in k for k in kernels),
+        "library_attention": sorted({
+            k for k in kernels if K1_SYMBOL not in k and any(
+                s in k.lower() for s in LIBRARY_ATTENTION)}),
+        "unrecorded": len(unrecorded), "runtime": len(runtime)}
+
+
+def journal_events(store: str, job: str) -> list:
+    """The job's journal records, read from the shared store's WAL."""
+    out = {}
+    path = os.path.join(store, "_job_journal.wal")
+    with open(path, "rb") as fh:
+        for raw in fh:
+            try:
+                op = json.loads(raw)
+            except ValueError:
+                continue  # a torn tail
+            if op.get("op") == "i" and op["d"].get("job") == job:
+                out[op["d"]["_id"]] = op["d"]
+            elif op.get("op") == "d":
+                out.pop(op.get("id"), None)
+    return [out[k] for k in sorted(out)]
+
+
+def native_vs_python_ingest(tmp) -> dict:
+    """Phase 11's Covertype-schema CSV (100,000 rows, sharded) through the
+    native store and CSV engine, and through the python store and its row
+    path: the same shards byte for byte."""
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.services import dataset
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.store.sharded import ShardedDataset
+
+    os.makedirs(tmp, exist_ok=True)
+    cov = covtype_inputs()
+    header = [f"Elevation_{i}" for i in range(10)] + [
+        f"Wilderness_Area{i}" for i in range(4)] + [
+        f"Soil_Type{i}" for i in range(40)] + ["Cover_Type"]
+    csv = f"{tmp}/covtype.csv"
+    np.savetxt(csv, np.concatenate([
+        cov["x"][:COVTYPE_STREAM_ROWS],
+        cov["y"][:COVTYPE_STREAM_ROWS, None]], axis=1),
+        fmt=["%.4f"] * 10 + ["%d"] * 45, delimiter=",",
+        header=",".join(header), comments="")
+    del cov
+    out = {"bytes": os.path.getsize(csv)}
+    shards = {}
+    real_native = dataset._native
+    for engine, backend in (("native", "native"), ("python", "python")):
+        cfg = Config()
+        cfg.store.root = f"{tmp}/{engine}/store"
+        cfg.store.volume_root = f"{tmp}/{engine}/volumes"
+        cfg.store.backend = backend
+        if engine == "python":
+            dataset._native = lambda: None  # the Python row path
+        ctx = ServiceContext(cfg, device="cpu")
+        try:
+            t0 = time.perf_counter()
+            dataset.DatasetService(ctx).create_csv(
+                "covtype", f"file://{csv}", shard_rows=COVTYPE_STREAM_SHARD)
+            ctx.engine.wait("covtype", timeout=600)
+            secs = time.perf_counter() - t0
+            meta = ctx.artifacts.metadata.read("covtype")
+            ds = ShardedDataset(ctx.volumes.path_for("dataset/csv",
+                                                     "covtype"))
+            shards[engine] = [{k: (v.dtype.str, v.tobytes()) for k, v in
+                               ds.load_shard(i).items()}
+                              for i in range(ds.n_shards)]
+            preview = ctx.documents.find("covtype", query={
+                "_id": {"$gte": 1}, "docType": {"$ne": "execution"}})
+            out[engine] = {"seconds": secs, "rows": meta.get("rows"),
+                           "shards": meta.get("shards"),
+                           "engine": meta.get("engine"),
+                           "store": type(ctx.documents).__name__,
+                           "rows_per_s": (meta.get("rows") or 0) / secs,
+                           "preview": len(preview)}
+            out[engine + "_preview"] = preview
+        finally:
+            dataset._native = real_native
+            ctx.close()
+    previews = out.pop("native_preview"), out.pop("python_preview")
+    out["equal"] = (shards["native"] == shards["python"]
+                    and previews[0] == previews[1])
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True)
+    out["gxx"] = gxx.stdout.splitlines()[0] if gxx.returncode == 0 else \
+        gxx.stderr.strip()
+    return out
+
+
+def run_control_plane(tmp, card: str, ops_line: dict) -> dict:
+    """Phase 22: two ``serve`` engines sharing one store through the claim
+    table, a warm ``standby`` over that store, all three on the card; the
+    native store against the python one (see the module docstring, item
+    22).  The children's launch counters stay in the children, so their
+    K1-K5 launches are read from their own captures."""
+    import socket
+
+    from learningorchestra_tpu_torch.client import ClientError, Context
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    store, vol, replica = f"{tmp}/store", f"{tmp}/volumes", f"{tmp}/replica"
+    ports = []
+    for _ in range(3):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    pa, pb, ps = ports
+    x, y = make_train_data(30522)
+    x, y = x[:OPS_ROWS], y[:OPS_ROWS]
+    csv = f"{tmp}/cp_tokens.csv"
+    os.makedirs(tmp, exist_ok=True)
+    with open(csv, "w") as fh:
+        fh.write(",".join(REST_FIELDS + ["label"]) + "\n")
+        for row, label in zip(x, y):
+            fh.write(",".join(map(str, row)) + f",{label}\n")
+    base_env = {**os.environ, "PYTHONPATH": repo,
+                "LO_TPU_VOLUME_ROOT": vol, "LO_TPU_PROF_MAX_S": "900"}
+    base_env.pop("LO_TPU_WITNESS", None)
+    engine_env = {**base_env, "LO_TPU_STORE_ROOT": store,
+                  "LO_TPU_STORE_BACKEND": "python",
+                  "LO_TPU_CLUSTER_ENABLED": "1",
+                  "LO_TPU_CLUSTER_HEARTBEAT_S": str(CP_HEARTBEAT_S),
+                  "LO_TPU_CLUSTER_TTL_S": str(CP_TTL_S),
+                  "LO_TPU_CLUSTER_SWEEP_S": str(CP_SWEEP_S),
+                  "LO_TPU_TENANT_MAX_RUNNING": "1",
+                  "LO_TPU_TENANT_RETRY_AFTER_S": str(CP_RETRY_AFTER_S)}
+    envs = {
+        "A": {**engine_env, "LO_TPU_CLUSTER_ENGINE_ID": "A",
+              # Epoch 0 runs free and checkpoints; epoch 1 holds at its
+              # top until the kill.
+              "LO_TPU_FAULT_TRAIN_EPOCH": f"delay:ms={CP_HOLD_MS},after=1"},
+        "B": {**engine_env, "LO_TPU_CLUSTER_ENGINE_ID": "B"},
+    }
+    logs = {k: f"{tmp}/{k}.log" for k in ("A", "B", "standby", "revived")}
+    procs: dict = {}
+    ok, line = True, {"card": card}
+    launches: dict = {}
+
+    def check(name, good, detail):
+        nonlocal ok
+        phase(f"control plane {name}", good, detail)
+        ok &= bool(good)
+
+    def spawn(key, argv, env):
+        with open(logs[key], "w") as fh:
+            procs[key] = subprocess.Popen(
+                [sys.executable, "-m", "learningorchestra_tpu_torch", *argv],
+                cwd=repo, env=env, stdout=fh, stderr=subprocess.STDOUT)
+
+    def wait_until(cond, timeout_s, what, *keys):
+        t0 = time.perf_counter()
+        while True:
+            for key in keys:
+                if procs[key].poll() is not None:
+                    raise RuntimeError(f"{key} exited "
+                                       f"{procs[key].returncode} waiting for "
+                                       f"{what}")
+            got = cond()
+            if got:
+                return got
+            if time.perf_counter() - t0 > timeout_s:
+                raise RuntimeError(f"timed out waiting for {what}")
+            time.sleep(0.05)
+
+    def answers(port):
+        try:
+            return tenant_request(port, "GET", "/health", None)[0] == 200
+        except OSError:
+            return False
+
+    # (g) runs on a thread of its own from the start: this process only
+    # polls the children meanwhile.
+    ingest: dict = {}
+    ingest_thread = threading.Thread(
+        target=lambda: ingest.update(native_vs_python_ingest(
+            f"{tmp}/ingest")), name="cp-ingest", daemon=True)
+    ingest_thread.start()
+    t0 = time.perf_counter()
+    spawn("A", ["serve", "--port", str(pa)], envs["A"])
+    spawn("B", ["serve", "--port", str(pb)], envs["B"])
+    spawn("standby", ["standby", "--primary", f"127.0.0.1:{pb}",
+                      "--primary-store", store, "--replica", replica,
+                      "--port", str(ps), "--host", "127.0.0.1",
+                      "--interval", str(CP_STANDBY_INTERVAL_S),
+                      "--misses", str(CP_STANDBY_MISSES)], base_env)
+    ctx_a = Context(f"http://127.0.0.1:{pa}", request_timeout=600)
+    ctx_b = Context(f"http://127.0.0.1:{pb}", request_timeout=600)
+    ctx_s = Context(f"http://127.0.0.1:{ps}", request_timeout=600)
+    job = "cp_fit"
+    try:
+        wait_until(lambda: answers(pa) and answers(pb), CP_BOOT_S,
+                   "both engines", "A", "B")
+        line["engines_boot_s"] = time.perf_counter() - t0
+
+        def standby_armed():
+            try:
+                return ctx_s.request("GET", "/replication/status").get(
+                    "saw_primary")
+            except (OSError, ClientError):
+                return False
+
+        wait_until(standby_armed, CP_BOOT_S, "the standby", "standby")
+        line["standby_armed_s"] = time.perf_counter() - t0
+        # B's capture starts while A works: a first start in a fresh
+        # process takes ~10 s (CUPTI and the warm-up).
+        def start_capture(ctx, name, key):
+            t1 = time.perf_counter()
+            ctx.observability.profile_start(name=name, max_seconds=900)
+            line[key] = time.perf_counter() - t1
+
+        b_capture = threading.Thread(target=start_capture, args=(
+            ctx_b, "cp_b", "b_capture_start_s"), daemon=True)
+        b_capture.start()
+
+        # (a) engine A: ingest, projection, model, the fit under tenant t22.
+        for key, path, body, name in (
+                ("ingest", "/dataset/csv",
+                 {"datasetName": "cp", "url": f"file://{csv}"}, "cp"),
+                ("projection", "/transform/projection",
+                 {"projectionName": "cp_x", "datasetName": "cp",
+                  "fields": REST_FIELDS}, "cp_x"),
+                ("model", "/model/tensorflow",
+                 {"modelName": "cp_bert", "class": "BertModel",
+                  "modulePath": "learningorchestra_tpu.models.text",
+                  "classParameters": REST_MODEL}, "cp_bert")):
+            t1 = time.perf_counter()
+            st, created = request(pa, "POST", path, body)
+            meta = wait_done(pa, name) if st == 201 else created
+            secs = time.perf_counter() - t1
+            check(f"engine A {key}", st == 201
+                  and meta.get("jobState") == "finished",
+                  f"POST {path} -> {st}, {meta.get('jobState')} in "
+                  f"{secs:.2f}s")
+        fit = {"x": "$cp_x", "y": "$cp.label", "epochs": OPS_EPOCHS,
+               "batch_size": TRAIN_SHAPE[0], "shuffle": False,
+               "checkpoint_every": 1, "checkpoint_min_interval_s": 0,
+               "checkpoint_async": False, "quantize_checkpoint": True}
+        st, _, _ = tenant_request(pa, "POST", "/train/tensorflow", {
+            "name": job, "parentName": "cp_bert", "method": "fit",
+            "methodParameters": fit}, tenant="t22")
+        steps_epoch = OPS_ROWS // TRAIN_SHAPE[0]
+        marker = f"{vol}/_checkpoints/{job}/latest.json"
+
+        def first_checkpoint():
+            try:
+                with open(marker) as fh:
+                    return json.load(fh).get("step", 0) >= 1  # epoch 0
+            except (OSError, ValueError):
+                return False
+
+        t1 = time.perf_counter()
+        wait_until(first_checkpoint, CP_JOB_S, "A's first checkpoint", "A")
+        line["a_first_checkpoint_s"] = time.perf_counter() - t1
+
+        # (b) tenant quotas answer alike on both engines.
+        fn = {"function": "response = 1"}
+        rej = {}
+        for key, port in (("A", pa), ("B", pb)):
+            rej[key] = tenant_request(port, "POST", "/function/python",
+                                      {"name": f"cp_fn_{key}", **fn},
+                                      tenant="t22")
+        other = tenant_request(pb, "POST", "/function/python",
+                               {"name": "cp_fn_other", **fn},
+                               tenant="t-other")
+        missing = tenant_request(pb, "GET", "/function/python/cp_fn_A",
+                                 None)[0]
+        status_b = ctx_b.cluster.status()
+        check("tenant 429s", st == 201 and all(
+            r[0] == 429 and r[1].get("Retry-After") == str(CP_RETRY_AFTER_S)
+            for r in rej.values())
+            and rej["A"][2]["error"] == rej["B"][2]["error"]
+            and other[0] == 201 and missing == 404
+            and status_b.get("tenants", {}).get("t22", {}).get("running")
+            == 1,
+            f"fit under X-Tenant t22 -> {st}; a job of t22 on A -> "
+            f"{rej['A'][0]} ({rej['A'][1].get('Retry-After')}), on B -> "
+            f"{rej['B'][0]} ({rej['B'][1].get('Retry-After')}), the same "
+            f"error {rej['A'][2].get('error')!r}; t-other on B -> "
+            f"{other[0]}; the refused job left {missing}; tenants "
+            f"{status_b.get('tenants')}")
+        claims = {c["job"]: c for c in status_b.get("claims", [])}
+        check("claim table before the kill", claims.get(job, {}).get(
+            "engine") == "A" and claims[job].get("state") == "live"
+            and sorted(e["engine"] for e in status_b.get("engines", [])
+                       if e.get("live")) == ["A", "B"],
+            f"B's /cluster/status: engines {status_b.get('engines')}, "
+            f"claim {claims.get(job)}")
+        epochs = {e["engine"]: e["epoch"] for e in status_b["engines"]}
+        line["engine_epochs"] = epochs
+
+        # (c) kill A mid-fit; B steals the claim and resumes.
+        b_capture.join(120)
+        if "b_capture_start_s" not in line:
+            raise RuntimeError("B's capture did not start")
+        procs["A"].send_signal(signal.SIGKILL)
+        procs["A"].wait(30)
+        t_kill = time.perf_counter()
+
+        def stolen():
+            st_ = ctx_b.cluster.status()
+            c = {c["job"]: c for c in st_.get("claims", [])}.get(job, {})
+            return c.get("engine") == "B"
+
+        wait_until(stolen, CP_JOB_S, "the steal", "B")
+        line["steal_s"] = time.perf_counter() - t_kill
+
+        def finished():
+            _, _, meta = tenant_request(pb, "GET",
+                                        f"/train/tensorflow/{job}", None)
+            meta = meta[0] if meta else {}
+            return meta if meta.get("jobState") in ("finished",
+                                                    "failed") else None
+
+        meta = wait_until(finished, CP_JOB_S, "the resumed fit", "B")
+        line["resume_to_finished_s"] = time.perf_counter() - t_kill
+        cap_b = capture_kernels(ctx_b, "cp_b")
+        trace = ctx_b.request("GET", f"/observability/jobs/{job}/trace")
+        run_epochs = sorted(s["attrs"]["epoch"] for s in trace.get(
+            "spans", []) if s.get("name") == "epoch")
+        steps_b = steps_epoch * len(run_epochs)
+        events = journal_events(store, job)
+        finished_ev = [e for e in events if e.get("event") == "finished"]
+        launches["b"] = {k: cap_b[k] for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+            "quantize_rowwise", "dequantize_rowwise")}
+        want_b = {"flash_fwd": REST_LAYERS * steps_b,
+                  "flash_bwd_dq": REST_LAYERS * steps_b,
+                  "flash_bwd_dkv": REST_LAYERS * steps_b,
+                  "quantize_rowwise": 1, "dequantize_rowwise": 0}
+        check("steal and resume", meta.get("jobState") == "finished"
+              and run_epochs == list(range(1, OPS_EPOCHS))
+              and launches["b"] == want_b and not cap_b["library_attention"]
+              and not cap_b["unrecorded"],
+              f"claim stolen {line['steal_s']:.2f}s after the kill (TTL "
+              f"{CP_TTL_S}s), finished {line['resume_to_finished_s']:.2f}s "
+              f"after it; epochs run on B {run_epochs} ({steps_b} steps); "
+              f"B's capture {launches['b']} (want {want_b}), library "
+              f"attention {cap_b['library_attention']}, launches without "
+              f"a device record {cap_b['unrecorded']} of {cap_b['runtime']}")
+        check("one publication under B's epoch", len(finished_ev) == 1
+              and finished_ev[0].get("epoch") == epochs.get("B")
+              == meta.get("engineEpoch") != epochs.get("A"),
+              f"journal events of {job}: "
+              f"{[(e.get('event'), e.get('epoch')) for e in events]}; "
+              f"engineEpoch {meta.get('engineEpoch')}, epochs {epochs}")
+        rows = ctx_b.request("GET", f"/train/tensorflow/{job}")
+        losses = [r["loss"] for r in sorted(
+            (r for r in rows if r.get("docType") == "history"),
+            key=lambda r: r["epoch"])]
+        twin = (ops_line.get("preempt") or {}).get("twin_losses") or []
+        rel = max((abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(losses, twin)), default=float("inf"))
+        check("losses equal phase 20's twin", len(losses) == len(twin)
+              == OPS_EPOCHS and rel <= OPS_LOSS_RTOL,
+              f"losses {losses} vs phase 20's unfaulted twin {twin}: max "
+              f"relative {rel:.3g} (bar {OPS_LOSS_RTOL})")
+        line.update(losses=losses, twin_losses=twin, loss_rel_err=rel,
+                    epochs_on_b=run_epochs, b_capture=cap_b)
+
+        # (d) predict with B, then a write storm; kill B mid-storm.
+        rng = np.random.default_rng(22)
+        reqs = [rng.integers(1, 30522, (n, TRAIN_SHAPE[2])).astype(np.int32)
+                for n in CP_PREDICT_ROWS]
+        ctx_b.serve.load(job)
+        b_rows = [np.asarray(ctx_b.serve.predict(job, r.tolist())[
+            "predictions"], np.float32) for r in reqs]
+        storm_ctx = Context(f"http://127.0.0.1:{pb}", request_timeout=600,
+                            failover=f"127.0.0.1:{ps}")
+        acked, stop = [], threading.Event()
+
+        def storm():
+            # A write that got an error was not acknowledged: the next
+            # one takes a fresh name.
+            i = 0
+            while not stop.is_set():
+                name = f"cp_w{i}"
+                i += 1
+                try:
+                    storm_ctx.request("POST", "/function/python",
+                                      {"name": name, **fn})
+                    acked.append((name, time.perf_counter()))
+                except (OSError, ClientError):
+                    time.sleep(0.02)
+
+        writer = threading.Thread(target=storm, daemon=True)
+        writer.start()
+        wait_until(lambda: len(acked) >= CP_STORM_ACKED, 120,
+                   "the storm", "B", "standby")
+        procs["B"].send_signal(signal.SIGKILL)
+        procs["B"].wait(30)
+        t_kill = time.perf_counter()
+        before = len(acked)
+        wait_until(lambda: any(t > t_kill for _, t in acked), 120,
+                   "a write on the promoted standby", "standby")
+        line["takeover_s"] = min(t for _, t in acked if t > t_kill) - t_kill
+        stop.set()
+        writer.join(60)
+        lost = []
+        for name, _ in acked:
+            try:
+                got = ctx_s.request("GET", f"/function/python/{name}")
+                if not got or got[0].get("name") != name:
+                    lost.append(name)
+            except ClientError:
+                lost.append(name)
+        promoted = json.load(open(f"{replica}/.promoted"))
+        fence = json.load(open(f"{store}/.fenced"))
+        check("standby promotes, no acknowledged write lost",
+              not lost and str(ps) in storm_ctx.base
+              and promoted.get("epoch") == fence.get("epoch") == 1,
+              f"B killed after {before} acknowledged writes; the first write "
+              f"on the standby {line['takeover_s']:.2f}s after the kill "
+              f"(probe {CP_STANDBY_INTERVAL_S}s x {CP_STANDBY_MISSES}); "
+              f"{len(acked)} acknowledged, lost {lost}; the client now at "
+              f"{storm_ctx.base}; promotion epoch {promoted.get('epoch')}, "
+              f"fence {fence.get('promoted_to')}")
+
+        # (f) B restarted with the standby as its HA peer must refuse; it
+        # boots while (e) runs.
+        t_revive = time.perf_counter()
+        spawn("revived", ["serve", "--port", str(pb)],
+              {**envs["B"], "LO_HA_PEER": f"127.0.0.1:{ps}"})
+
+        # (e) the promoted standby serves on the card: K5 once, K1 per
+        # dispatch, rows as B's.
+        start_capture(ctx_s, "cp_s", "standby_capture_start_s")
+        st0 = ctx_s.serve.list_loaded()["stats"]["models"].get(
+            job, {"batches": 0})["batches"]
+        ctx_s.serve.load(job)
+        s_rows = [np.asarray(ctx_s.serve.predict(job, r.tolist())[
+            "predictions"], np.float32) for r in reqs]
+        dispatches = ctx_s.serve.list_loaded()["stats"]["models"][job][
+            "batches"] - st0
+        cap_s = capture_kernels(ctx_s, "cp_s")
+        launches["standby_load"] = {"dequantize_rowwise":
+                                    cap_s["dequantize_rowwise"]}
+        launches["standby_predict"] = {"flash_fwd": cap_s["flash_fwd"]}
+        err = max(float(np.abs(a - b).max()) for a, b in zip(s_rows, b_rows))
+        check("promoted standby serves on the card",
+              cap_s["dequantize_rowwise"] == 1
+              and cap_s["flash_fwd"] == REST_LAYERS * dispatches
+              and dispatches == len(reqs) and err <= CPU_ATOL
+              and not cap_s["library_attention"] and not cap_s["unrecorded"],
+              f"standby capture: {K5_SYMBOL} {cap_s['dequantize_rowwise']} "
+              f"(want 1), {K1_SYMBOL} {cap_s['flash_fwd']} (want "
+              f"{REST_LAYERS} x {dispatches} dispatches); rows vs B's before "
+              f"the kill max|dlogit| {err:.3g} (atol {CPU_ATOL}); library "
+              f"attention {cap_s['library_attention']}")
+        line.update(standby_capture=cap_s, standby_vs_b_max_abs=err,
+                    standby_dispatches=dispatches,
+                    acknowledged_writes=len(acked), lost_writes=len(lost))
+
+        rc = procs["revived"].wait(CP_REVIVE_S)
+        line["revived_exit_s"] = time.perf_counter() - t_revive
+        said = open(logs["revived"]).read()
+        check("revived primary refuses", rc == SERVE_REFUSED_STATUS
+              and "fenced" in said and not answers(pb),
+              f"serve with LO_HA_PEER=127.0.0.1:{ps} -> exit {rc} (want "
+              f"{SERVE_REFUSED_STATUS}) in {line['revived_exit_s']:.2f}s")
+        procs["standby"].send_signal(signal.SIGINT)
+        line["standby_exit"] = procs["standby"].wait(60)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    if not ok:
+        for key, path in logs.items():
+            if os.path.exists(path):
+                with open(path) as fh:
+                    print(f"  control plane {key} log (tail):\n"
+                          + fh.read()[-3000:], flush=True)
+
+    # (g) the native store and CSV engine against the python ones.
+    ingest_thread.join(600)
+    if "equal" not in ingest:
+        raise RuntimeError("the native-vs-python ingest did not finish")
+    n, p = ingest["native"], ingest["python"]
+    check("native vs python ingest", ingest["equal"]
+          and n["rows"] == p["rows"] == COVTYPE_STREAM_ROWS
+          and n["engine"] == "native" and p["engine"] is None
+          and n["store"] == "NativeDocumentStore"
+          and p["store"] == "DocumentStore",
+          f"{COVTYPE_STREAM_ROWS} rows x 55 columns ({ingest['bytes']} B) "
+          f"in {n['shards']} shards: native {n['seconds']:.2f}s "
+          f"({n['rows_per_s']:.0f} rows/s), python {p['seconds']:.2f}s "
+          f"({p['rows_per_s']:.0f} rows/s); shards and preview equal "
+          f"{ingest['equal']}; {ingest['gxx']}")
+    line.update(native_store=ingest, seconds=time.perf_counter() - t_phase)
+    return {"ok": ok, "launches": launches, "line": line}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -8364,6 +8933,20 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     entry_s = time.perf_counter() - t_entry
+
+    # Phase 22: two engines over one store (claims, steal, fence, tenant
+    # quotas), a warm standby that promotes, and the native store.
+    tmp, t_cp = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        cp = run_control_plane(tmp, card, ops["line"])
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("control plane", False, repr(exc))
+        cp = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cp_s = time.perf_counter() - t_cp
+    cp_l = cp["launches"]
     entry_l = entry["launches"]
     ops_l = ops["launches"]
     # bf16 K1-K3 and K4 in the preempted fit and its twin, K5 at the
@@ -8450,7 +9033,8 @@ def main() -> int:
          + rest_sum("flash_fwd", moe_f32)
          + rest_sum("flash_fwd", [long_l.get("predict")])
          + rest_sum("flash_fwd", [ops_l.get("serve")])
-         + rest_sum("flash_fwd", [entry_l.get("predict")]),
+         + rest_sum("flash_fwd", [entry_l.get("predict")])
+         + rest_sum("flash_fwd", [cp_l.get("standby_predict")]),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
@@ -8470,7 +9054,9 @@ def main() -> int:
              "operations_plane_predict": rest_sum("flash_fwd",
                                                   [ops_l.get("serve")]),
              "entry_point_predict": rest_sum("flash_fwd",
-                                             [entry_l.get("predict")])},
+                                             [entry_l.get("predict")]),
+             "control_plane_standby_predict": rest_sum(
+                 "flash_fwd", [cp_l.get("standby_predict")])},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -8489,7 +9075,8 @@ def main() -> int:
          + rest_sum("flash_fwd", moe_train + [moe_l.get("forward_bf16")])
          + rest_sum("flash_fwd", long_train)
          + rest_sum("flash_fwd", ep_train)
-         + rest_sum("flash_fwd", ops_train),
+         + rest_sum("flash_fwd", ops_train)
+         + rest_sum("flash_fwd", [cp_l.get("b")]),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -8506,7 +9093,9 @@ def main() -> int:
                  "flash_fwd", moe_train + [moe_l.get("forward_bf16")]),
              "long_context_ranks": rest_sum("flash_fwd", long_train),
              "expert_parallel_ranks": rest_sum("flash_fwd", ep_train),
-             "operations_plane_train": rest_sum("flash_fwd", ops_train)},
+             "operations_plane_train": rest_sum("flash_fwd", ops_train),
+             "control_plane_stolen_fit": rest_sum("flash_fwd",
+                                                  [cp_l.get("b")])},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -8529,7 +9118,8 @@ def main() -> int:
          + rest_sum("quantize_rowwise", moe_k4)
          + rest_sum("quantize_rowwise", [long_l.get("publish")])
          + rest_sum("quantize_rowwise", [ep_l.get("publish")])
-         + rest_sum("quantize_rowwise", ops_train),
+         + rest_sum("quantize_rowwise", ops_train)
+         + rest_sum("quantize_rowwise", [cp_l.get("b")]),
          "launches_by_path": {
              "serve": counts["quantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["quantize_rowwise"],
@@ -8550,7 +9140,9 @@ def main() -> int:
              "expert_parallel_publish": rest_sum("quantize_rowwise",
                                                  [ep_l.get("publish")]),
              "operations_plane_publish": rest_sum("quantize_rowwise",
-                                                  ops_train)},
+                                                  ops_train),
+             "control_plane_stolen_fit_publish": rest_sum(
+                 "quantize_rowwise", [cp_l.get("b")])},
          "max_abs_err": max(quant_res["quantize"],
                             zoo_art["max_abs_err"]["quantize"]),
          "ms": qt["quantize_grouped_ms"], "plain_ms": qt["quantize_plain_ms"],
@@ -8574,7 +9166,8 @@ def main() -> int:
          + rest_sum("dequantize_rowwise", [long_l.get("load")])
          + rest_sum("dequantize_rowwise", [ep_l.get("load")])
          + rest_sum("dequantize_rowwise", [ops_l.get("load")])
-         + rest_sum("dequantize_rowwise", [entry_l.get("load")]),
+         + rest_sum("dequantize_rowwise", [entry_l.get("load")])
+         + rest_sum("dequantize_rowwise", [cp_l.get("standby_load")]),
          "launches_by_path": {
              "serve": counts["dequantize_rowwise"],
              "zoo_artifacts": zoo_art["launches"]["dequantize_rowwise"],
@@ -8602,7 +9195,9 @@ def main() -> int:
              "operations_plane_load": rest_sum("dequantize_rowwise",
                                                [ops_l.get("load")]),
              "entry_point_load": rest_sum("dequantize_rowwise",
-                                          [entry_l.get("load")])},
+                                          [entry_l.get("load")]),
+             "control_plane_standby_load": rest_sum(
+                 "dequantize_rowwise", [cp_l.get("standby_load")])},
          "max_abs_err": max(quant_res["dequantize"],
                             zoo_art["max_abs_err"]["dequantize"]),
          "ms": qt["dequantize_grouped_ms"],
@@ -8623,7 +9218,8 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", moe_train)
            + rest_sum(f"flash_bwd_{key}", long_train)
            + rest_sum(f"flash_bwd_{key}", ep_train)
-           + rest_sum(f"flash_bwd_{key}", ops_train),
+           + rest_sum(f"flash_bwd_{key}", ops_train)
+           + rest_sum(f"flash_bwd_{key}", [cp_l.get("b")]),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -8643,7 +9239,9 @@ def main() -> int:
                "expert_parallel_ranks": rest_sum(f"flash_bwd_{key}",
                                                  ep_train),
                "operations_plane_train": rest_sum(f"flash_bwd_{key}",
-                                                  ops_train)},
+                                                  ops_train),
+               "control_plane_stolen_fit": rest_sum(f"flash_bwd_{key}",
+                                                    [cp_l.get("b")])},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -8736,6 +9334,23 @@ def main() -> int:
           flush=True)
     print("entry_point " + json.dumps(entry["line"], default=str),
           flush=True)
+    cp_line = cp["line"]
+    cp_common = {"card": cp_line.get("card"), "error": cp_line.get("error")}
+    print("control_plane " + json.dumps({**cp_common, **{
+        k: cp_line.get(k) for k in (
+            "engines_boot_s", "engine_epochs", "b_capture_start_s",
+            "a_first_checkpoint_s", "steal_s", "resume_to_finished_s",
+            "epochs_on_b", "losses", "twin_losses", "loss_rel_err",
+            "b_capture")}}, default=str), flush=True)
+    print("store_ha " + json.dumps({**cp_common, **{
+        k: cp_line.get(k) for k in (
+            "standby_armed_s", "takeover_s", "acknowledged_writes",
+            "lost_writes", "standby_capture_start_s", "standby_capture",
+            "standby_dispatches", "standby_vs_b_max_abs",
+            "revived_exit_s", "standby_exit", "seconds")}}, default=str),
+          flush=True)
+    print("native_store " + json.dumps({**cp_common, **(
+        cp_line.get("native_store") or {})}, default=str), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
@@ -8744,7 +9359,7 @@ def main() -> int:
           f"program cache {pc_s:.1f}, warm start {ws_s:.1f}, moe "
           f"{moe_s:.1f}, long context {long_s:.1f}, expert parallel "
           f"{ep_s:.1f}, operations plane {ops_s:.1f}, entry point "
-          f"{entry_s:.1f})", flush=True)
+          f"{entry_s:.1f}, control plane {cp_s:.1f})", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

@@ -4,13 +4,25 @@
         REST API server on LO_TPU_API_PORT (default 80), on the card
         unless ``--device`` names another (``cpu`` for a test).  SIGINT
         stops it cleanly: exit status 0, and the lock witness's exit
-        dump (``LO_TPU_WITNESS_DUMP``) is written.
+        dump (``LO_TPU_WITNESS_DUMP``) is written.  On a fenced store, or
+        under an ``LO_HA_PEER`` that promoted over it, it refuses with
+        status 3 (``api.server.SERVE_REFUSED``).
 
-    python -m learningorchestra_tpu_torch coordinator | agent | standby
+    python -m learningorchestra_tpu_torch standby --primary HOST:PORT
+            --replica DIR --port P [--primary-store DIR] [--host H]
+            [--interval S] [--misses N] [--device cpu]
+        Warm standby (store/ha.py): ships the primary's WALs (through the
+        filesystem with ``--primary-store``, else over its
+        ``/replication`` routes), probes its ``/health``, and after
+        ``--misses`` failed probes promotes the replica and serves the
+        full API on ``--port``, on the card unless ``--device`` names
+        another.  The torch import, the CUDA context and the kernel
+        libraries are paid before promotion.
+
+    python -m learningorchestra_tpu_torch coordinator | agent
         Parse as in the JAX package and exit with status 2 and one line
         naming the ROADMAP item that ports them: the multi-host task
-        coordinator and its agents (A.9 part 2) and the warm standby of
-        store HA (A.11 part 3).
+        coordinator and its agents (A.9 part 2).
 """
 
 from __future__ import annotations
@@ -24,7 +36,6 @@ UNPORTED = {
     "coordinator": "ROADMAP A.9 part 2 (parallel/coordinator.py)",
     "agent": "ROADMAP A.9 part 2 (parallel/coordinator.py, "
              "parallel/launch.py)",
-    "standby": "ROADMAP A.11 part 3 (store/ha.py, store/replica.py)",
 }
 
 
@@ -36,7 +47,19 @@ def _cmd_serve(args) -> int:
     from learningorchestra_tpu_torch.api.server import serve
 
     try:
-        serve(device=args.device)
+        return serve(device=args.device)
+    except KeyboardInterrupt:
+        return 0
+
+
+def _cmd_standby(args) -> int:
+    from learningorchestra_tpu_torch.store.ha import run_standby
+
+    try:
+        run_standby(args.primary, args.primary_store, args.replica,
+                    args.port, check_interval=args.interval,
+                    max_misses=args.misses, host=args.host,
+                    device=args.device)
     except KeyboardInterrupt:
         pass
     return 0
@@ -79,7 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     standby.add_argument("--primary", required=True,
                          help="primary API HOST:PORT to health-check")
     standby.add_argument("--primary-store", default=None,
-                         help="primary's store directory (WAL source)")
+                         help="primary's store directory (WAL source) "
+                              "when a mount is shared; omit to ship WALs "
+                              "over the primary's /replication routes")
     standby.add_argument("--replica", required=True,
                          help="local replica directory")
     standby.add_argument("--port", type=int, required=True,
@@ -89,6 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
                          help="seconds between sync+health probes")
     standby.add_argument("--misses", type=int, default=4,
                          help="consecutive failed probes before takeover")
+    standby.add_argument(
+        "--device", default="cuda",
+        help="device the promoted server runs on (default cuda; cpu for "
+             "tests)",
+    )
     return parser
 
 
@@ -96,6 +126,8 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "serve":
         return _cmd_serve(args)
+    if args.command == "standby":
+        return _cmd_standby(args)
     return _cmd_unported(args)
 
 

@@ -82,9 +82,15 @@ server's request bodies:
   and max ms by route key, and the gateway budget), ``GET /status`` (an
   HTML page: device leases, jobs and queues, recent events),
   ``GET /observability/locks`` (the lock witness's snapshot with live
-  stacks, concurrency_rt.py), ``GET /cluster/status`` (``enabled:
-  false``: one engine, the control plane is not ported), ``GET
-  /registry`` (cacheable) and ``GET /health``.
+  stacks, concurrency_rt.py), ``GET /cluster/status`` (the claim
+  table's engines and claims when clustered, ``enabled: false`` with
+  one engine, and the tenant counters under a quota), ``GET
+  /registry`` (cacheable) and ``GET /health``;
+- ``GET /replication/wals``, ``GET /replication/wal/<name>?from=&len=``,
+  ``GET /replication/status`` and ``POST /replication/fence``: what a
+  network standby (store/ha.py) ships and reads, and the fence a promoted
+  standby posts (only a strictly higher election epoch fences; the
+  server then demotes itself).
 
 The gateway in front of every route is the JAX server's
 (``APIConfig``): a handler past ``request_timeout_s`` answers 504 (the
@@ -106,9 +112,19 @@ learningorchestra_tpu_torch serve``).
 Status codes are the JAX server's: 201/200; 409 duplicate name or a job
 still running; 404 unknown artifact, model or route; 406 semantic errors
 (bad body, unknown class, ``checkpoint_dir``); 429 + ``Retry-After``
-under serving backpressure; 503 + ``Retry-After`` when no card lease
-frees up within ``FleetConfig.lease_timeout_s``; 400 for a body that is
-not JSON, a bad query parameter or a bad ``X-Tenant`` header.
+under serving backpressure or a tenant over its ``TenantConfig`` quota
+(``X-Tenant``, checked on job-creating routes before any metadata
+exists); 503 + ``Retry-After`` when no card lease frees up within
+``FleetConfig.lease_timeout_s``; 400 for a body that is not JSON, a bad
+query parameter or a bad ``X-Tenant`` header.
+
+Store HA: a running server watches its store's fence marker, and with
+``HAConfig.peer`` its peer's election epoch, every
+``FENCE_CHECK_INTERVAL_S`` and shuts itself down once fenced
+(:meth:`APIServer._start_fence_watch`).  :func:`serve` refuses to start
+on a fenced store or under a peer with a higher epoch (exit status
+``SERVE_REFUSED``), or rejoins as the new primary's standby with
+``HAConfig.auto_rejoin``.
 """
 
 from __future__ import annotations
@@ -127,6 +143,7 @@ from urllib.parse import parse_qs, urlparse
 from learningorchestra_tpu_torch import concurrency_rt, faults
 from learningorchestra_tpu_torch.concurrency_rt import make_lock
 from learningorchestra_tpu_torch.config import Config
+from learningorchestra_tpu_torch.jobs.cluster import QuotaExceeded, bind_tenant
 from learningorchestra_tpu_torch.jobs.leases import LeaseTimeout
 from learningorchestra_tpu_torch.log import get_logger
 from learningorchestra_tpu_torch.obs import bundle as obs_bundle
@@ -268,7 +285,11 @@ class _BoundedThreadingHTTPServer(ThreadingHTTPServer):
             return
         try:
             super().process_request(request, client_address)
-        except BaseException:
+        except RuntimeError:
+            # The thread could not start, so its release never runs.  (An
+            # interrupt while a started thread is being waited for leaves
+            # the release to that thread: releasing here too would raise,
+            # and the accept loop would swallow the interrupt.)
             if self._conn_slots is not None:
                 self._conn_slots.release()
             raise
@@ -398,6 +419,12 @@ class APIServer:
         # straight into its chaos drill; bad specs raise here.
         faults.load_env({faults.ENV_PREFIX + suffix: spec
                          for suffix, spec in self.config.faults.specs.items()})
+        # The fence watch's cadence bounds the window in which a primary
+        # revived during its standby's promotion still serves; floored so
+        # a tiny value cannot hot-spin peer polls.
+        if self.config.ha.fence_interval_s > 0:
+            self.FENCE_CHECK_INTERVAL_S = max(
+                0.05, self.config.ha.fence_interval_s)
 
     # -- operations plane -----------------------------------------------------
 
@@ -437,11 +464,20 @@ class APIServer:
             "journal": journal,
             "faults": faults.status,
             "locks": concurrency_rt.snapshot,
-            # What the JAX package writes with no cluster: the control
-            # plane is not ported (ROADMAP A.11 part 3).
-            "cluster": lambda: {"enabled": False, "engines": [],
-                                "claims": []},
+            "cluster": self._cluster_doc,
         }
+
+    def _cluster_doc(self) -> dict:
+        """The ``/cluster/status`` body and a bundle's ``cluster.json``:
+        the claim table as the store sees it (``enabled: false`` with one
+        engine) and, under a quota, the tenant counters."""
+        if self.ctx.cluster is None:
+            doc = {"enabled": False, "engines": [], "claims": []}
+        else:
+            doc = {"enabled": True, **self.ctx.cluster.status()}
+        if self.ctx.admission is not None:
+            doc["tenants"] = self.ctx.admission.snapshot()
+        return doc
 
     def _slo_bundle_sink(self, event: dict) -> None:
         """A ``firing`` transition is the incident signal: ask for a
@@ -529,11 +565,23 @@ class APIServer:
         for cls, n in self.ctx.engine.queue_depths(
                 include_empty=True).items():
             depth.sample(n, job_class=cls)
+        # Tenant samples of the same family, once a tenant was seen.
+        for (cls, tenant), n in (
+                self.ctx.engine.queue_depths_by_tenant().items()):
+            depth.sample(n, job_class=cls, tenant=tenant or "-")
         fams.append(depth)
+        engines_live = 0
+        if self.ctx.cluster is not None:
+            try:
+                engines_live = sum(
+                    1 for e in self.ctx.cluster.status().get("engines", ())
+                    if e.get("live"))
+            except Exception:  # noqa: BLE001 — a scrape must not fail
+                engines_live = 0
         fams.append(Family(
             "gauge", "lo_cluster_engines",
             "Live job engines sharing this store (0 = clustering off).",
-        ).sample(0))
+        ).sample(engines_live))
         snap = self.ctx.leaser.snapshot()
         n_all, n_free = len(snap["all"]), len(snap["free"])
         fams.append(Family(
@@ -678,6 +726,15 @@ class APIServer:
                            ).sample(wal_bytes))
         fams.append(Family("gauge", "lo_store_wal_files",
                            "Store WAL file count.").sample(wal_files))
+        from learningorchestra_tpu_torch.store.ha import is_fenced
+        from learningorchestra_tpu_torch.store.replica import read_epoch
+
+        fams.append(Family("gauge", "lo_replication_epoch",
+                           "This store's election epoch.",
+                           ).sample(read_epoch(root)))
+        fams.append(Family("gauge", "lo_store_fenced",
+                           "1 when a standby fenced this store, else 0.",
+                           ).sample(1 if is_fenced(root) is not None else 0))
         try:
             fams += self.rollup.prom_families()
             fams += self.slo.prom_families()
@@ -880,7 +937,7 @@ class APIServer:
 
         sections = [
             "<h2>Agents</h2><p>in-process mode (no task coordinator: the "
-            "control plane is not ported, ROADMAP A.11 part 3)</p>"]
+            "multi-host coordinator is not ported, ROADMAP A.9 part 2)</p>"]
         snap = self.ctx.leaser.snapshot()
         if snap["initialized"]:
             sections.append(
@@ -893,6 +950,7 @@ class APIServer:
         else:
             sections.append("<h2>Device leases</h2><p>no lease taken yet "
                             "(device discovery is lazy)</p>")
+        sections.append(self._render_ha_status(esc))
         running = self.ctx.engine.running_jobs()
         rows = []
         for name in running[:50]:
@@ -939,6 +997,41 @@ class APIServer:
             f"{type(self.ctx.documents).__name__} — device "
             f"{esc(str(self.ctx.device))} — {len(running)} live jobs</p>"
             + "".join(sections) + "</body></html>")
+
+    def _render_ha_status(self, esc) -> str:
+        """The store HA section: role, election epoch, peer.  A bad peer
+        or an unreadable store degrades this section only."""
+        try:
+            from learningorchestra_tpu_torch.store.ha import (
+                is_fenced,
+                peer_status,
+            )
+            from learningorchestra_tpu_torch.store.replica import read_epoch
+
+            root = self.config.store.store_path()
+            fence = is_fenced(root)
+            role = "fenced" if fence is not None else "primary"
+            bits = [f"role: <b>{role}</b> — election epoch "
+                    f"{read_epoch(root)}"]
+            if fence is not None:
+                bits.append("<span class=err>FENCED by "
+                            f"{esc(str(fence.get('promoted_to') or '?'))}"
+                            "</span>")
+            peer = self.config.ha.peer
+            if peer:
+                st = peer_status(peer)
+                if not isinstance(st, dict):
+                    bits.append(f"<span class=err>peer {esc(peer)}: "
+                                "unreachable</span>")
+                else:
+                    bits.append(f"peer {esc(peer)}: "
+                                f"role={esc(str(st.get('role')))} "
+                                f"epoch={esc(str(st.get('epoch')))}")
+            else:
+                bits.append("no HA peer configured")
+            return "<h2>Store HA</h2><p>" + " · ".join(bits) + "</p>"
+        except Exception as exc:  # noqa: BLE001 — the page must render
+            return f"<h2>Store HA</h2><p class=err>{esc(repr(exc))}</p>"
 
     # -- helpers --------------------------------------------------------------
 
@@ -997,6 +1090,88 @@ class APIServer:
 
     # -- route table ----------------------------------------------------------
 
+    def _register_replication_routes(self) -> None:
+        """Replication and HA peering (store/ha.py): a network standby
+        pulls WAL listings and byte ranges here; a promoted standby posts
+        its fence; ``/replication/status`` carries the election epoch a
+        restarted node compares with its own before serving."""
+        from learningorchestra_tpu_torch.store.ha import is_fenced
+        from learningorchestra_tpu_torch.store.replica import (
+            FENCE_FILE,
+            read_epoch,
+        )
+
+        add = self.router.add
+
+        def replication_wals(m, body, query):
+            root = self.config.store.store_path()
+            wals = []
+            if root.is_dir():
+                for wal in sorted(root.glob("*.wal")):
+                    try:
+                        wals.append({"name": wal.stem,
+                                     "size": wal.stat().st_size})
+                    except OSError:
+                        continue  # dropped between glob and stat
+            return 200, {"wals": wals, "epoch": read_epoch(root),
+                         "fenced": is_fenced(root) is not None}
+
+        def replication_wal_read(m, body, query):
+            # NAME excludes "/" and "%": the stem cannot leave the root.
+            root = self.config.store.store_path()
+            offset = max(0, _int_param(query, "from", 0))
+            length = _int_param(query, "len", 0)
+            try:
+                with open(root / f"{m.group('name')}.wal", "rb") as fh:
+                    fh.seek(offset)
+                    data = fh.read(length) if length > 0 else fh.read()
+            except FileNotFoundError:
+                return 404, {"error": f"no WAL {m.group('name')!r}"}
+            return 200, ("application/octet-stream", data)
+
+        def replication_status(m, body, query):
+            root = self.config.store.store_path()
+            fence = is_fenced(root)
+            return 200, {
+                "role": "fenced" if fence is not None else "primary",
+                "epoch": read_epoch(root),
+                "fence": fence,
+            }
+
+        def replication_fence(m, body, query):
+            root = self.config.store.store_path()
+            # Only a STRICTLY higher election epoch may fence this store:
+            # a stale standby or a replayed POST must not take down a
+            # healthy primary.
+            ours = read_epoch(root)
+            theirs = int((body or {}).get("epoch", 0) or 0)
+            if theirs <= ours:
+                return 409, {
+                    "error": f"fence epoch {theirs} is not newer than "
+                             f"this store's epoch {ours}",
+                    "epoch": ours,
+                }
+            root.mkdir(parents=True, exist_ok=True)
+            (root / FENCE_FILE).write_text(json.dumps(dict(body or {})))
+
+            # Demote after this answer flushes: the promoted standby
+            # needs the acknowledgement.
+            def demote():
+                time.sleep(0.2)
+                logger.warning("store fenced by peer over "
+                               "/replication/fence — demoting: shutting "
+                               "down to prevent split-brain")
+                self.shutdown()
+
+            threading.Thread(target=demote, daemon=True,
+                             name="lo-fence-demote").start()
+            return 200, {"fenced": True}
+
+        add("GET", r"/replication/wals", replication_wals)
+        add("GET", rf"/replication/wal/{NAME}", replication_wal_read)
+        add("GET", r"/replication/status", replication_status)
+        add("POST", r"/replication/fence", replication_fence)
+
     def _register_routes(self) -> None:
         add = self.router.add
 
@@ -1026,10 +1201,10 @@ class APIServer:
         # (enabled false and empty with the witness off).
         add("GET", r"/observability/locks", lambda m, b, q: (
             200, concurrency_rt.snapshot(include_stacks=True)))
-        # One engine: the control plane is not ported (ROADMAP A.11 part
-        # 3), so the answer is the JAX server's without a cluster.
-        add("GET", r"/cluster/status", lambda m, b, q: (
-            200, {"enabled": False, "engines": [], "claims": []}))
+        # Always 200: a single engine answers enabled false.
+        add("GET", r"/cluster/status",
+            lambda m, b, q: (200, self._cluster_doc()))
+        self._register_replication_routes()
 
         # ---- Dataset ----
         def shard_rows_of(body, default):
@@ -1853,7 +2028,7 @@ class APIServer:
 
     def handle(self, verb: str, path: str, body, query: dict | None = None,
                request_id: str | None = None, idem_key: str | None = None,
-               ) -> tuple[int, object]:
+               tenant: str | None = None) -> tuple[int, object]:
         """Route one request through the gateway; returns (status, JSON
         payload, or a (content type, bytes) pair).  Admission first (503
         when ``max_inflight`` handlers hold their slots), then the cache
@@ -1862,7 +2037,9 @@ class APIServer:
         the request budget (504 past it).  Every request is metered by
         its route and status class and recorded in the ``http`` flight
         ring; ``request_id`` is bound for the handler, so a job it
-        submits carries it into its trace."""
+        submits carries it into its trace, as is ``tenant`` (the
+        ``X-Tenant`` header), checked against its quota first on a
+        job-creating POST or PATCH (429 + ``Retry-After`` over it)."""
         t0 = time.perf_counter()
         query = query or {}
         if self._inflight is None:
@@ -1879,7 +2056,8 @@ class APIServer:
                          "flight); retry with backoff"}
         try:
             status, payload, key = self._handle_slotted(
-                verb, path, body, query, slot, request_id, idem_key)
+                verb, path, body, query, slot, request_id, idem_key,
+                tenant)
         finally:
             # For a request past its budget the handler's thread co-owns
             # the slot: it frees when that thread really returns.
@@ -1888,8 +2066,21 @@ class APIServer:
                             request_id=request_id)
         return status, payload
 
+    #: Route prefixes whose POST / PATCH enqueue engine jobs: the set the
+    #: tenant admission gates (serving has its own backpressure).
+    _JOB_ROUTE_PREFIXES = (
+        "/dataset/", "/transform/", "/explore/", "/model/", "/train/",
+        "/tune/", "/evaluate/", "/predict/", "/function/", "/builder/",
+    )
+
+    def _is_job_route(self, path: str) -> bool:
+        prefix = self.config.api.api_prefix.rstrip("/")
+        if prefix and path.startswith(prefix):
+            path = path[len(prefix):]
+        return path.startswith(self._JOB_ROUTE_PREFIXES)
+
     def _handle_slotted(self, verb, path, body, query, slot, request_id,
-                        idem_key):
+                        idem_key, tenant=None):
         """-> (status, payload, route key) of an admitted request."""
         handler, m, key = self.router.resolve(verb, path)
         if handler is None:
@@ -1898,6 +2089,15 @@ class APIServer:
                     (404, {"error": f"no such route: {path}"}, key))
         if not isinstance(body, dict):
             return 406, {"error": "request body must be a JSON object"}, key
+        # Tenant admission before the handler runs: a rejected request
+        # leaves no orphan metadata behind.
+        if (self.ctx.admission is not None and verb in ("POST", "PATCH")
+                and self._is_job_route(path)):
+            try:
+                self.ctx.admission.check(tenant)
+            except QuotaExceeded as exc:
+                return 429, {"error": str(exc),
+                             "retryAfter": exc.retry_after_s}, key
         flags = self.router.flags[key]
         ttl = self.config.api.cache_ttl_s
         cache_key = None
@@ -1942,7 +2142,10 @@ class APIServer:
             token = (obs_tracing.set_request_id(request_id)
                      if request_id else None)
             try:
-                result = self._handle_raw(handler, m, body, query)
+                # The tenant rides a contextvar like the request id: the
+                # engine's submit stamps it on the job.
+                with bind_tenant(tenant):
+                    result = self._handle_raw(handler, m, body, query)
             finally:
                 if token is not None:
                     obs_tracing.reset_request_id(token)
@@ -2010,6 +2213,11 @@ class APIServer:
                 "error": str(exc),
                 "retryAfter": self.config.serve.retry_after_s,
             }
+        except QuotaExceeded as exc:
+            # A handler that submits more jobs inside can still trip a
+            # tenant quota after the gateway's check.
+            return 429, {"error": str(exc),
+                         "retryAfter": exc.retry_after_s}
         except BadRequest as exc:
             return 400, {"error": str(exc)}
         except Exception as exc:  # noqa: BLE001 — the server must keep
@@ -2039,9 +2247,8 @@ class APIServer:
                     return
                 parsed = urlparse(self.path)
                 query = {k: v[0] for k, v in parse_qs(parsed.query).items()}
-                # The JAX server's tenant header rules (the port has no
-                # tenant admission yet, ROADMAP A.11 part 3): a bad value
-                # is a 400, never silently reassigned.
+                # The tenant for fair-share admission: a bad value is a
+                # 400, never silently reassigned.
                 tenant = (self.headers.get("X-Tenant") or "").strip()
                 if tenant and not _RID_RE.fullmatch(tenant):
                     self._send(400, {
@@ -2059,7 +2266,8 @@ class APIServer:
                         return
                 self._send(*api.handle(
                     verb, parsed.path, body, query, request_id=rid,
-                    idem_key=self.headers.get("X-Idempotency-Key")))
+                    idem_key=self.headers.get("X-Idempotency-Key"),
+                    tenant=tenant or None))
 
             def _send(self, status: int, payload):
                 events = getattr(payload, "sse_events", None)
@@ -2137,6 +2345,7 @@ class APIServer:
                 httpd.server_close()
                 return
             self._httpd = httpd
+        self._start_fence_watch()
         try:
             httpd.serve_forever()
         except Exception:
@@ -2158,7 +2367,46 @@ class APIServer:
             self._httpd = httpd
         threading.Thread(target=httpd.serve_forever, daemon=True,
                          name="lo-http-accept").start()
+        self._start_fence_watch()
         return httpd.server_address[1]
+
+    #: Seconds between fence checks (``HAConfig.fence_interval_s``
+    #: overrides it per server).
+    FENCE_CHECK_INTERVAL_S = 5.0
+
+    def _start_fence_watch(self) -> None:
+        """Self-demote when a standby fences this store while it serves.
+
+        :func:`serve` refuses to START on a fenced store, but a running
+        primary can be fenced underneath itself (a partition makes the
+        standby promote; when it heals, old clients would go on writing
+        here).  On a shared filesystem the fence marker shows within one
+        interval; without one the watch polls ``HAConfig.peer``'s
+        ``/replication/status``, and a primary peer with a higher
+        election epoch fences this store.  Either way the server shuts
+        itself down."""
+        from learningorchestra_tpu_torch.store.ha import is_fenced
+
+        store_root = self.config.store.store_path()
+        peer = self.config.ha.peer
+
+        def watch():
+            # wait() is the sleep and the exit signal: a normal shutdown
+            # ends the thread at once.
+            while not self._shutting_down.wait(self.FENCE_CHECK_INTERVAL_S):
+                fence = is_fenced(store_root)
+                if fence is None and peer:
+                    fence = _peer_supersedes(store_root, peer)
+                if fence is not None:
+                    logger.warning(
+                        "store fenced while serving (promoted_to=%r) — "
+                        "demoting: shutting down to prevent split-brain",
+                        fence.get("promoted_to"))
+                    self.shutdown()
+                    return
+
+        threading.Thread(target=watch, daemon=True,
+                         name="lo-fence-watch").start()
 
     def _drain_if_shutting_down(self, handler) -> bool:
         """503 + ``Connection: close`` for a request that arrives on a
@@ -2196,17 +2444,138 @@ class APIServer:
         self.ctx.close()
 
 
-def serve(config: Config | None = None, *, device=None) -> None:
+def _peer_supersedes(store_root, peer: str) -> dict | None:
+    """Did the HA peer promote over this store?  The fence record (also
+    written locally, best effort) when the peer is a primary serving a
+    STRICTLY HIGHER election epoch, else None: the no-shared-disk half of
+    fencing.  An unreachable peer, or one answering ``role="standby"``
+    (a monitoring standby serves its status route), does not supersede."""
+    from learningorchestra_tpu_torch.store.ha import peer_status
+    from learningorchestra_tpu_torch.store.replica import (
+        FENCE_FILE,
+        read_epoch,
+    )
+
+    status = peer_status(peer)
+    if (status is None or status.get("role") != "primary"
+            or int(status.get("epoch", 0)) <= read_epoch(store_root)):
+        return None
+    fence = {"promoted_to": peer, "epoch": status.get("epoch"),
+             "reason": "peer holds higher election epoch"}
+    try:
+        # Durable self-fence: the next restart refuses without asking.
+        store_root.mkdir(parents=True, exist_ok=True)
+        (store_root / FENCE_FILE).write_text(json.dumps(fence))
+    except OSError:
+        pass
+    return fence
+
+
+#: Exit status of ``serve`` when it refuses to start: the store is fenced
+#: or the HA peer holds a higher election epoch.
+SERVE_REFUSED = 3
+
+
+def serve(config: Config | None = None, *, device=None) -> int:
     """Run the API server in the foreground on ``api.host:api.port`` until
     KeyboardInterrupt (SIGINT), then shut it down: the accept loop, the
     rollup clock, serving with its decode pools, and the job engine stop,
     so the process exits and the lock witness's exit dump is written.
     ``device`` overrides ``config.device`` (``"cpu"`` for a test).
+    Returns the process's exit status.
 
-    The JAX ``serve()``'s fence, rejoin and warm-standby branches belong
-    to store HA and the control plane, which are not ported yet (ROADMAP
-    A.11 part 3): this process always starts as the one primary."""
-    server = APIServer(config or Config.from_env(), device=device)
+    Store HA first, as in the JAX ``serve()``: a fenced store, or an
+    ``HAConfig.peer`` that promoted over this one (a higher election
+    epoch), refuses to serve — status :data:`SERVE_REFUSED`, where the
+    JAX package exits 0 — unless ``HAConfig.auto_rejoin`` makes this node
+    the new primary's standby (WALs shipped over the network into
+    ``<store>.rejoined``); a node whose rejoin replica was promoted
+    resumes serving from it."""
+    from pathlib import Path
+
+    from learningorchestra_tpu_torch.store.ha import (
+        is_fenced,
+        promotion_record,
+        run_standby,
+    )
+    from learningorchestra_tpu_torch.store.replica import read_epoch
+
+    config = config or Config.from_env()
+    store_root = config.store.store_path()
+    rejoin_root = Path(str(store_root) + ".rejoined")
+
+    def standby_of(target: str) -> int:
+        # Every rejoin path's parameters: with a promotion record in
+        # rejoin_root this resumes as primary, else it monitors target
+        # with the conservative rejoin window.
+        run_standby(target, None, rejoin_root, config.api.port,
+                    host=config.api.host,
+                    check_interval=config.ha.rejoin_interval_s,
+                    max_misses=config.ha.rejoin_misses, device=device)
+        return 0
+
+    def archive_stale_rejoin(reason: str) -> bool:
+        # Move a stale .rejoined aside (never delete): its .promoted
+        # record would otherwise resume stale history later.
+        dst = rejoin_root.with_name(rejoin_root.name + ".stale")
+        n = 0
+        while dst.exists():
+            n += 1
+            dst = rejoin_root.with_name(f"{rejoin_root.name}.stale{n}")
+        try:
+            rejoin_root.rename(dst)
+        except OSError as exc:
+            logger.error("stale rejoin replica %s (%s) could not be "
+                         "archived (%s) — refusing to serve; move it away "
+                         "and restart", rejoin_root, reason, exc)
+            return False
+        logger.warning("archived stale rejoin replica to %s (%s)", dst,
+                       reason)
+        return True
+
+    rejoin_rec = (promotion_record(rejoin_root) if config.ha.auto_rejoin
+                  else None)
+    fence = is_fenced(store_root)
+    if rejoin_rec:
+        rejoin_epoch = read_epoch(rejoin_root)
+        try:
+            fence_epoch = int((fence or {}).get("epoch"))
+        except (TypeError, ValueError):
+            fence_epoch = None  # unreadable fence: unknown, not old
+        # The rejoin replica shadows the store only while it holds the
+        # highest election epoch this node knows.
+        if fence is None and read_epoch(store_root) >= rejoin_epoch:
+            if not archive_stale_rejoin(
+                    "original store restored as system of record at an "
+                    "equal-or-higher epoch"):
+                return SERVE_REFUSED
+        elif fence is not None and (fence_epoch is None
+                                    or fence_epoch >= rejoin_epoch):
+            if not archive_stale_rejoin(
+                    f"a later promotion fenced the original store at epoch "
+                    f"{fence_epoch}, past the rejoin epoch {rejoin_epoch}"):
+                return SERVE_REFUSED
+        else:
+            logger.warning("resuming as primary from the promoted rejoin "
+                           "replica %s", rejoin_root)
+            return standby_of(config.ha.peer
+                              or rejoin_rec.get("old_primary")
+                              or "127.0.0.1:0")
+
+    if fence is None and config.ha.peer:
+        fence = _peer_supersedes(store_root, config.ha.peer)
+    if fence is not None:
+        new_primary = fence.get("promoted_to") or config.ha.peer
+        if config.ha.auto_rejoin and new_primary:
+            logger.warning("store is fenced — auto-rejoining as a standby "
+                           "of %s (replica: %s)", new_primary, rejoin_root)
+            return standby_of(new_primary)
+        print("store is fenced — a standby promoted itself to "
+              f"{fence.get('promoted_to') or 'a new primary'}; refusing to "
+              "serve.  Re-join by running this node as a standby of the "
+              "new primary, or set LO_HA_AUTO_REJOIN=1.", flush=True)
+        return SERVE_REFUSED
+    server = APIServer(config, device=device)
     cfg = server.config
     logger.info("serving on %s:%d (device %s)", cfg.api.host, cfg.api.port,
                 server.ctx.device)
@@ -2214,3 +2583,4 @@ def serve(config: Config | None = None, *, device=None) -> None:
         server.serve_forever()
     finally:
         server.shutdown()
+    return 0

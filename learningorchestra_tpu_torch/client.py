@@ -24,10 +24,10 @@ Every request a method sends is the JAX client's, byte for byte (verb,
 path, query, body, ``X-Idempotency-Key``, ``X-Tenant``), so one script
 drives either package's server.  (``modulePath`` strings name the JAX
 package's model modules; the port's server maps them to its own zoo.)
-Against the port, the methods whose routes wait for the control plane
-and store HA (``replication_status``, the failover retry's standby
-probe) get the port's answer: ``/replication/status`` is not served
-yet, and ``cluster.status()`` answers ``enabled: false``.
+The port serves every route the client binds, ``/replication/*`` and
+``/cluster/status`` included, so ``Context(..., failover=...)``,
+``replication_status()`` and ``cluster.status()`` behave against a port
+primary and its ``standby`` as against the JAX package's.
 
 Only the standard library is used (urllib), so the module is trivially
 vendorable as a standalone client package.

@@ -37,8 +37,9 @@ class StoreConfig:
     volume_root: str = "~/.learningorchestra_tpu_torch/volumes"
     # fsync appends on every write (durable) vs. rely on OS flush (fast).
     durable_writes: bool = False
-    # Document-store engine: "auto" | "python" (the same WAL store);
-    # "native" names the JAX package's C++ store, which is not ported.
+    # Document-store engine: "native" (the C++ store, native/__init__.py),
+    # "python" (the embedded WAL store) or "auto" (native when its library
+    # builds with g++, else python).  Clustering needs "python".
     # Env: LO_TPU_STORE_BACKEND.
     backend: str = "auto"
 
@@ -479,6 +480,69 @@ class FaultsConfig:
 
 
 @dataclasses.dataclass
+class HAConfig:
+    """Store failover pairing (store/ha.py — the reference's mongo
+    replica set): the JAX package's fields and defaults."""
+
+    # "host:port" of the HA partner node: the standby before promotion,
+    # the old primary after.  When set, serve() refuses to start — and a
+    # running primary self-demotes — if the peer answers
+    # /replication/status as a primary with a HIGHER election epoch.
+    # Env: LO_HA_PEER.
+    peer: str = ""
+    # Seconds between fence / peer-epoch checks while serving; <= 0 keeps
+    # the server default (APIServer.FENCE_CHECK_INTERVAL_S).
+    # Env: LO_HA_FENCE_INTERVAL.
+    fence_interval_s: float = 0.0
+    # A fenced primary rejoins as the new primary's standby (network WAL
+    # shipping into <store>.rejoined) instead of exiting.
+    # Env: LO_HA_AUTO_REJOIN.
+    auto_rejoin: bool = False
+    # Takeover window of the auto-rejoined standby (2 s x 15 = 30 s).
+    # Env: LO_HA_REJOIN_INTERVAL, LO_HA_REJOIN_MISSES.
+    rejoin_interval_s: float = 2.0
+    rejoin_misses: int = 15
+
+
+@dataclasses.dataclass
+class ClusterConfig:
+    """Scale-out control plane (jobs/cluster.py): N engine processes over
+    ONE store root share dispatch through a store-backed claim table with
+    heartbeat-renewed leases.  Needs the python store backend (the claim
+    table's WAL-refresh coherence primitive)."""
+
+    # Join the cluster at boot.  Env: LO_TPU_CLUSTER_ENABLED.
+    enabled: bool = False
+    # Engine identity in the claim table ("" derives engine-<pid>); two
+    # engines must not share one.  Env: LO_TPU_CLUSTER_ENGINE_ID.
+    engine_id: str = ""
+    # Lease renewal cadence.  Env: LO_TPU_CLUSTER_HEARTBEAT_S.
+    heartbeat_s: float = 1.0
+    # A claim (or engine) whose heartbeat is older than this is dead and
+    # stealable; the engines' clocks must agree to within it.
+    # Env: LO_TPU_CLUSTER_TTL_S.
+    ttl_s: float = 5.0
+    # Expired-claim sweep cadence.  Env: LO_TPU_CLUSTER_SWEEP_S.
+    sweep_s: float = 2.0
+
+
+@dataclasses.dataclass
+class TenantConfig:
+    """Per-tenant fair-share admission (jobs/cluster.py TenantAdmission):
+    quotas on the X-Tenant header, 429 + Retry-After at the API tier;
+    under clustering the counters live in the claim collection, so every
+    engine rejects alike.  0 disables a quota."""
+
+    # Env: LO_TPU_TENANT_MAX_QUEUED.
+    max_queued: int = 0
+    # Concurrently running fits (executor / distributed classes).
+    # Env: LO_TPU_TENANT_MAX_RUNNING.
+    max_running: int = 0
+    # Env: LO_TPU_TENANT_RETRY_AFTER_S.
+    retry_after_s: float = 1.0
+
+
+@dataclasses.dataclass
 class Config:
     store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
     api: APIConfig = dataclasses.field(default_factory=APIConfig)
@@ -500,6 +564,9 @@ class Config:
     flight: FlightConfig = dataclasses.field(default_factory=FlightConfig)
     bundle: BundleConfig = dataclasses.field(default_factory=BundleConfig)
     faults: FaultsConfig = dataclasses.field(default_factory=FaultsConfig)
+    ha: HAConfig = dataclasses.field(default_factory=HAConfig)
+    cluster: ClusterConfig = dataclasses.field(default_factory=ClusterConfig)
+    tenant: TenantConfig = dataclasses.field(default_factory=TenantConfig)
     # Where every estimator the services build or load lives.
     device: str = "cuda"
 
@@ -584,6 +651,19 @@ class Config:
             ("LO_TPU_BUNDLE_DEBOUNCE_S", cfg.bundle, "debounce_s", float),
             ("LO_TPU_BUNDLE_PROFILE_S", cfg.bundle, "profile_s", float),
             ("LO_TPU_BUNDLE_JOURNAL_TAIL", cfg.bundle, "journal_tail", int),
+            ("LO_TPU_CLUSTER_ENGINE_ID", cfg.cluster, "engine_id", str),
+            ("LO_TPU_CLUSTER_HEARTBEAT_S", cfg.cluster, "heartbeat_s",
+             float),
+            ("LO_TPU_CLUSTER_TTL_S", cfg.cluster, "ttl_s", float),
+            ("LO_TPU_CLUSTER_SWEEP_S", cfg.cluster, "sweep_s", float),
+            ("LO_TPU_TENANT_MAX_QUEUED", cfg.tenant, "max_queued", int),
+            ("LO_TPU_TENANT_MAX_RUNNING", cfg.tenant, "max_running", int),
+            ("LO_TPU_TENANT_RETRY_AFTER_S", cfg.tenant, "retry_after_s",
+             float),
+            ("LO_HA_PEER", cfg.ha, "peer", str),
+            ("LO_HA_FENCE_INTERVAL", cfg.ha, "fence_interval_s", float),
+            ("LO_HA_REJOIN_INTERVAL", cfg.ha, "rejoin_interval_s", float),
+            ("LO_HA_REJOIN_MISSES", cfg.ha, "rejoin_misses", int),
         )
         for key, section, attr, cast in fields:
             if key in env:
@@ -604,7 +684,9 @@ class Config:
                 ("LO_TPU_SLO_ENABLED", cfg.slo, "enabled"),
                 ("LO_TPU_FLIGHT_ENABLED", cfg.flight, "enabled"),
                 ("LO_TPU_BUNDLE_ENABLED", cfg.bundle, "enabled"),
-                ("LO_TPU_BUNDLE_PROFILE", cfg.bundle, "profile")):
+                ("LO_TPU_BUNDLE_PROFILE", cfg.bundle, "profile"),
+                ("LO_TPU_CLUSTER_ENABLED", cfg.cluster, "enabled"),
+                ("LO_HA_AUTO_REJOIN", cfg.ha, "auto_rejoin")):
             if key in env:
                 setattr(section, attr, _bool_env(key, env[key]))
         if "LO_TPU_JOB_JOURNAL_MAX" in env:
@@ -702,6 +784,14 @@ def get_config() -> Config:
         if _config is None:
             _config = Config.from_env()
         return _config
+
+
+def set_config(cfg: Config) -> None:
+    """Replace the process-wide config (a promoted standby serves its
+    replica root through it)."""
+    global _config
+    with _config_lock:
+        _config = cfg
 
 
 def _bool_env(key: str, value: str) -> bool:

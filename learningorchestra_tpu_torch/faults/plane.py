@@ -21,11 +21,12 @@ point                  call site in the port
 ``train.epoch``        train/neural.py — top of every fit epoch
 ``cache.aot_load``     train/aot_store.py — before a blob is read
 ``cache.aot_store``    train/aot_store.py — before a blob is written
+``replica.wal_ship``   store/replica.py — top of every WAL sync
+``store.ha.failover``  store/ha.py — the standby's promotion
+``cluster.claim``      jobs/cluster.py — before a claim CAS
+``cluster.heartbeat``  jobs/cluster.py — before a lease renewal
+``cluster.steal``      jobs/cluster.py — before an expired claim's takeover
 =====================  ====================================================
-
-``replica.wal_ship``, ``store.ha.failover`` and the ``cluster.*`` points
-are registered as in the JAX package; their call sites (store/ha.py,
-store/replica.py, jobs/cluster.py) are not ported yet.
 
 A **schedule** arms a point with one of three behaviours:
 

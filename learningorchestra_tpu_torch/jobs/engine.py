@@ -32,19 +32,24 @@ clients poll:
   state transitions feed the registry (obs/metrics.py); dispatch, retry
   and terminal decisions land in the ``jobs`` flight ring; a
   retries-exhausted or deadline terminal asks for a debug bundle;
-- two ``None``-able hooks the service context sets: ``journal``
+- four ``None``-able hooks the service context sets: ``journal``
   (:class:`~learningorchestra_tpu_torch.jobs.journal.JobJournal`), which
   records every transition and fences each terminal commit against the
   store's engine epoch (each dispatched body runs under its boot's epoch
-  stamp), and ``notifier`` (the webhooks and event feed), told of every
-  transition.
-
-The JAX engine's cluster claims and tenant admission are absent (ROADMAP
-A.11 part 3): the port behaves as that engine does with both off.
+  stamp); ``notifier`` (the webhooks and event feed), told of every
+  transition; ``cluster`` (jobs/cluster.py), whose claim every dispatch
+  must win before its body runs (a lost claim means a peer engine owns
+  the job) and releases after; and ``admission``, the per-tenant
+  queued / running counters;
+- per-tenant fairness: a submission carries the requesting tenant
+  (``X-Tenant``, bound by the API tier); once any tenanted submission
+  arrived, each class's turn serves its tenants round-robin, so one
+  tenant's flood delays, never starves, another's jobs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import io
 import random
@@ -86,6 +91,14 @@ def current_attempt() -> int:
     """0 on a job's first execution, N inside its Nth preemption retry;
     valid anywhere down the job body's call stack."""
     return _ATTEMPT.get()
+
+
+def _current_tenant():
+    """The requesting tenant bound by the API tier, or None (imported at
+    use: the raw engine's import path stays without jobs.cluster)."""
+    from learningorchestra_tpu_torch.jobs.cluster import current_tenant
+
+    return current_tenant()
 
 
 def _job_metrics():
@@ -190,6 +203,18 @@ class JobEngine:
         # The crash-durable job journal (jobs/journal.py), set by the
         # service context; None disables journaling and fencing.
         self.journal = None
+        # The cluster coordinator (jobs/cluster.py), set by the service
+        # context when multi-engine dispatch is on: every dispatch claims
+        # its job first.  None: one engine, one attribute check.
+        self.cluster = None
+        # Per-tenant admission counters (jobs/cluster.py TenantAdmission),
+        # set by the context when a quota is configured; None disables.
+        self.admission = None
+        # Nested tenant fairness: per-class last-served tenant.  The scan
+        # runs only once a tenanted submission arrived, so untenanted
+        # deployments keep the plain FIFO pop.
+        self._tenant_rr: dict[str, str] = {}
+        self._tenant_seen = False
 
     def _journal(self, name: str, event: str, **fields) -> None:
         """Append one transition record (never raises: the journal counts
@@ -255,6 +280,9 @@ class JobEngine:
         request_id = tracing.get_request_id()
         trace = tracing.new_trace(name, request_id)
         t_submit = time.monotonic()
+        # The requesting tenant rides into the queue entry (nested fair
+        # share) and into the metadata (attribution).
+        tenant = _current_tenant()
         # Persist the request parameters now, not only in the terminal
         # record: a bare PATCH re-run of a job whose first run died
         # re-uses them.
@@ -263,6 +291,8 @@ class JobEngine:
             stamp["requestParameters"] = parameters
         if request_id:
             stamp["requestId"] = request_id
+        if tenant:
+            stamp["tenant"] = tenant
         if stamp:
             self.artifacts.metadata.update(name, stamp)
         # Shared with the watchdog: once ``expired`` flips, the body is a
@@ -274,13 +304,50 @@ class JobEngine:
             # The body carries its boot's engine epoch: terminal commits
             # and publications compare it with the store's (fencing).
             epoch = self.journal.epoch if self.journal is not None else None
-            with jobs_cancel.bind(token), jobs_journal.stamp(epoch):
-                return self._run(
-                    name, fn, ctl, token, description=description,
-                    method=method, parameters=parameters,
-                    capture_stdout=capture_stdout, on_success=on_success,
-                    job_class=job_class, trace=trace, t_submit=t_submit,
-                    request_id=request_id)
+            # Clustered: the body runs only after this engine wins the
+            # job's claim; a lost claim (or any claim-path error) means a
+            # peer owns it, and this future resolves None.
+            claim_ctx = contextlib.nullcontext()
+            if self.cluster is not None:
+                try:
+                    owned = self.cluster.claim(name, info["enqueued_at"])
+                except Exception:  # noqa: BLE001 — lost, never a crash
+                    logger.exception(kv(job=name, event="claim_failed"))
+                    owned = False
+                if not owned:
+                    if self.admission is not None:
+                        self.admission.note_dequeued(tenant)
+                    obs_flight.record("jobs", "claim_lost", job=name,
+                                      jobClass=job_class)
+                    logger.info(kv(job=name, state="claim_lost"))
+                    return None
+                from learningorchestra_tpu_torch.jobs.cluster import (
+                    bind_claim,
+                )
+
+                claim_ctx = bind_claim(name)
+            if self.admission is not None:
+                self.admission.note_dispatch(tenant, job_class)
+            try:
+                with jobs_cancel.bind(token), jobs_journal.stamp(epoch), \
+                        claim_ctx:
+                    return self._run(
+                        name, fn, ctl, token, description=description,
+                        method=method, parameters=parameters,
+                        capture_stdout=capture_stdout,
+                        on_success=on_success, job_class=job_class,
+                        trace=trace, t_submit=t_submit,
+                        request_id=request_id)
+            finally:
+                if self.admission is not None:
+                    self.admission.note_done(tenant, job_class)
+                if self.cluster is not None:
+                    try:
+                        self.cluster.release(name)
+                    except Exception:  # noqa: BLE001 — best effort: the
+                        # lease's TTL reclaims it.
+                        logger.exception(kv(job=name,
+                                            event="claim_release_failed"))
 
         future: Future = Future()
         deadline = (
@@ -288,7 +355,15 @@ class JobEngine:
             else float(deadline_s)
         )
         info = {"name": name, "job_class": job_class, "deadline": deadline,
-                "ctl": ctl, "token": token, "warm_key": warm_key}
+                "ctl": ctl, "token": token, "warm_key": warm_key,
+                "tenant": tenant,
+                # Submit wall time: the claim table's supersede rule
+                # compares it with a released claim's completion time.
+                "enqueued_at": time.time()}
+        # Queued-quota accounting before the enqueue (the dispatcher may
+        # pop the entry as soon as the lock drops).
+        if self.admission is not None:
+            self.admission.note_queued(tenant)
         # Journaled ahead of the in-memory enqueue, outside the engine
         # lock (a late append drains inline through the store).
         if self.journal is not None:
@@ -300,6 +375,8 @@ class JobEngine:
         with self._lock:
             refused = self._shutdown
             if not refused:
+                if tenant:
+                    self._tenant_seen = True
                 queue = self._queues.get(job_class)
                 if queue is None:
                     queue = self._queues[job_class] = deque()
@@ -310,6 +387,8 @@ class JobEngine:
                 self._prune_locked()
                 self._dispatch_locked()
         if refused:
+            if self.admission is not None:
+                self.admission.note_dequeued(tenant)
             # The journal already holds the submitted/queued pair: end
             # that life, or recovery would resurrect a refused job.
             self._journal(name, "cancelled",
@@ -562,7 +641,37 @@ class JobEngine:
                     del queue[i]
                     return item
         self._warm_bypass[job_class] = 0
+        if self._tenant_seen:
+            picked = self._tenant_pick_locked(queue, job_class)
+            if picked is not None:
+                return picked
         return queue.popleft()
+
+    def _tenant_pick_locked(self, queue: deque, job_class: str):
+        """Nested tenant round-robin inside one class's turn: with more
+        than one tenant queued, serve tenants in sorted cyclic order (a
+        per-class last-served pointer), popping the chosen tenant's
+        oldest entry.  None with one tenant or none (plain FIFO)."""
+        tenants: list[str] = []
+        for _r, f, info in queue:
+            if f.cancelled():
+                continue
+            t = info.get("tenant") or ""
+            if t not in tenants:
+                tenants.append(t)
+        if len(tenants) <= 1:
+            return None
+        order = sorted(tenants)
+        last = self._tenant_rr.get(job_class, "")
+        pick = next((t for t in order if t > last), order[0])
+        self._tenant_rr[job_class] = pick
+        for i, item in enumerate(queue):
+            if item[1].cancelled():
+                continue
+            if (item[2].get("tenant") or "") == pick:
+                del queue[i]
+                return item
+        return None
 
     def _dispatch_locked(self) -> None:
         """Hand freed workers to queued jobs, class by class."""
@@ -743,6 +852,22 @@ class JobEngine:
             return {cls: len(q) for cls, q in self._queues.items()
                     if q or include_empty}
 
+    def queue_depths_by_tenant(self) -> dict[tuple, int]:
+        """Queued jobs per ``(class, tenant)``: the tenant samples of the
+        queue-depth family once any tenanted submission arrived (empty
+        before, so untenanted scrapes keep their shape)."""
+        with self._lock:
+            if not self._tenant_seen:
+                return {}
+            out: dict[tuple, int] = {}
+            for cls, queue in self._queues.items():
+                for _runner, fut, info in queue:
+                    if fut.cancelled():
+                        continue
+                    key = (cls, info.get("tenant") or "")
+                    out[key] = out.get(key, 0) + 1
+            return out
+
     def wait(self, name: str, timeout: float | None = None) -> Any:
         """Block until the job of ``name`` completes; returns its result
         (clients poll GET instead)."""
@@ -763,10 +888,11 @@ class JobEngine:
             # between a queue pop and its dispatch.
             future = self._futures.get(name)
             queued = future is not None and future.cancel()
-            job_class = next((
-                info["job_class"] for queue in self._queues.values()
+            qinfo = next((
+                info for queue in self._queues.values()
                 for _runner, fut, info in queue if fut is future),
-                "default") if queued else None
+                {}) if queued else {}
+            job_class = qinfo.get("job_class", "default")
             if not queued:
                 rec = self._running_recs.get(name)
                 if rec is not None and not rec["released"]:
@@ -776,6 +902,10 @@ class JobEngine:
                     rec["token"].cancel("cancel requested")
                     running = True
         if queued:
+            if self.admission is not None:
+                # It left the queue without dispatching: the tenant's
+                # queued count must not leak.
+                self.admission.note_dequeued(qinfo.get("tenant"))
             _, jobs_total = _job_metrics()
             jobs_total.inc(job_class=job_class, state="cancelled")
             self._journal(name, "cancelled",
@@ -835,9 +965,11 @@ class JobEngine:
             for queue in self._queues.values():
                 for _runner, queued, info in queue:
                     if queued.cancel():
-                        dropped.append(info["name"])
+                        dropped.append((info["name"], info.get("tenant")))
                 queue.clear()
-        for name in dropped:
+        for name, drop_tenant in dropped:
+            if self.admission is not None:
+                self.admission.note_dequeued(drop_tenant)
             self._journal(name, "cancelled",
                           reason="shutdown drain deadline")
             self.artifacts.metadata.update(

@@ -34,9 +34,13 @@ from re-dispatch to the explicit ``orphaned-by-restart`` path, never
 lost or run twice.  Fence checks read a one-line file, only at terminal
 commits and publications.
 
-Not ported: the cluster plane's cross-process guard (the JAX journal's
-``cluster`` / ``exclusive`` hooks and the claim-ownership fence, ROADMAP
-A.11): one engine owns a store root here.
+Under the multi-engine control plane (jobs/cluster.py) the context sets
+two hooks, as in the JAX journal: ``cluster``, to which the fence
+delegates (a commit needs this engine to still own the job's live claim
+under its stamped epoch), and ``exclusive``, the coordinator's
+cross-process guard, around every append and replay so two engines never
+allocate the same ``_id``.  Epoch minting runs under ``epoch_lock`` (the
+same guard), so engines booting at once mint distinct epochs.
 """
 
 from __future__ import annotations
@@ -146,11 +150,20 @@ class JobJournal:
 
     def __init__(self, documents: DocumentStore,
                  store_root: str | Path, *,
-                 enabled: bool = True, max_records: int = 4096):
+                 enabled: bool = True, max_records: int = 4096,
+                 epoch_lock=None):
         self.documents = documents
         self.store_root = Path(store_root)
         self.enabled = bool(enabled)
         self.max_records = int(max_records)
+        #: Zero-arg callable returning a context manager that holds the
+        #: cluster's cross-process lock (None: one engine, no lock).
+        self._epoch_lock = epoch_lock
+        #: Set by the context under clustering: ``cluster`` takes over
+        #: the fence (claim ownership), ``exclusive`` (a zero-arg guard
+        #: factory refreshing this collection) wraps appends and replays.
+        self.cluster = None
+        self.exclusive = None
         #: Appends that failed (store fault, disk full): a lossy journal
         #: stays countable.
         self.dropped = 0
@@ -167,8 +180,11 @@ class JobJournal:
     # -- epoch fencing --------------------------------------------------------
 
     def _mint_epoch(self) -> int:
-        epoch = read_engine_epoch(self.store_root) + 1
-        write_engine_epoch(self.store_root, epoch)
+        lock = (self._epoch_lock() if self._epoch_lock is not None
+                else contextlib.nullcontext())
+        with lock:
+            epoch = read_engine_epoch(self.store_root) + 1
+            write_engine_epoch(self.store_root, epoch)
         logger.info(kv(event="engine_epoch_minted", epoch=epoch))
         return epoch
 
@@ -186,6 +202,30 @@ class JobJournal:
         if stamped is None:
             stamped = current_stamp()
         if stamped is None:
+            return
+        if self.cluster is not None:
+            # Several live engines hold different durable epochs, so the
+            # fence is claim ownership: a dispatch commits only while its
+            # engine still owns the live claim under the stamped epoch,
+            # and a straggler whose claim was stolen is refused.
+            from learningorchestra_tpu_torch.jobs.cluster import (
+                current_claim,
+            )
+
+            claim = current_claim()
+            if claim is None:
+                return  # direct library use on a clustered store
+            if not self.cluster.verify(claim, stamped):
+                from learningorchestra_tpu_torch.obs import flight
+
+                flight.record("cluster", "fence_refused", job=claim,
+                              engine=self.cluster.engine_id, epoch=stamped)
+                raise StaleEpochError(
+                    f"claim for job {claim!r} is no longer owned by engine "
+                    f"{self.cluster.engine_id!r} under epoch {stamped} — "
+                    "the claim was stolen or released by a peer; refusing "
+                    "to commit"
+                )
             return
         durable = self.durable_epoch()
         if durable > stamped:
@@ -271,8 +311,13 @@ class JobJournal:
                 batch.append(self._pending.popleft())
             if not batch:
                 return 0
+            # Clustered: the append runs inside the cross-process guard,
+            # which folds the peers' appends in first.
+            guard = (self.exclusive() if self.exclusive is not None
+                     else contextlib.nullcontext())
             try:
-                self.documents.insert_many(JOURNAL_COLLECTION, batch)
+                with guard:
+                    self.documents.insert_many(JOURNAL_COLLECTION, batch)
             except Exception:  # noqa: BLE001 — the journal must not take
                 # down the engine; the loss is counted and logged.
                 self.dropped += len(batch)
@@ -308,10 +353,15 @@ class JobJournal:
         if not self.enabled:
             return {}
         self.flush()
-        if not self.documents.collection_exists(JOURNAL_COLLECTION):
-            return {}
+        # Clustered: fold the peers' appends in before reading.
+        guard = (self.exclusive() if self.exclusive is not None
+                 else contextlib.nullcontext())
+        with guard:
+            docs = (self.documents.find(JOURNAL_COLLECTION)
+                    if self.documents.collection_exists(JOURNAL_COLLECTION)
+                    else [])
         out: dict = {}
-        for doc in self.documents.find(JOURNAL_COLLECTION):
+        for doc in docs:
             if doc.get("docType") != "journal" or not doc.get("job"):
                 continue
             event = doc.get("event")

@@ -14,8 +14,9 @@ one versioned on-disk directory:
 - ``journal.json``  — the newest job-journal records;
 - ``faults.json``   — armed schedules + trigger counters;
 - ``locks.json``    — the lock witness's snapshot (concurrency_rt.py);
-- ``cluster.json``  — what the JAX package writes with no cluster (the
-  control plane is not ported);
+- ``cluster.json``  — the claim table's engines and claims
+  (``ClusterCoordinator.status()``) and the tenant counters;
+  ``enabled: false`` with one engine;
 - ``manifest.json`` — name, reason, detail, file sizes, errors, and the
   name of a ``torch.profiler`` capture started with it when
   ``BundleConfig.profile`` is on (obs/profiling.py, whose every start

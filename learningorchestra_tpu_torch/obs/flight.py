@@ -12,8 +12,9 @@ Bounded per-domain event rings:
 - ``faults``  — every fault-point trigger;
 - ``locks``   — the lock witness's contention events and stalls
   (concurrency_rt.py, with ``LO_TPU_WITNESS=1``);
-- ``cluster`` — kept for the JAX package's control plane, which the port
-  does not have yet: it stays empty.
+- ``cluster`` — the claim table (jobs/cluster.py): claims, renewals,
+  releases, steals, dead engines, tenant rejections and refused
+  fences.
 
 Every event carries ``t`` (monotonic), ``wall`` and, when one is bound
 on the calling thread, the ``requestId`` (obs/tracing.py), so

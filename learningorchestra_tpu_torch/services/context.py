@@ -15,8 +15,18 @@ held through a weak reference, deregistered by :meth:`close`).  With the
 durable program store on (``AotConfig.enabled`` and ``prewarm``), each
 boot starts the pre-warm (:meth:`ServiceContext._start_aot_prewarm`): a
 daemon thread that installs the store's hot set into the program cache
-while the API already serves.  The cluster plane's claim stealing is not
-ported (ROADMAP A.11).
+while the API already serves.
+
+With ``ClusterConfig.enabled`` several engine processes share one store
+root (jobs/cluster.py): the context builds the coordinator before the
+journal (so epoch minting runs under the cluster's cross-process lock),
+wires the journal's fence and appends to it, joins, and adopts a dead
+peer's work — its running jobs through :meth:`ServiceContext.
+_cluster_steal` (resumed from their newest checkpoint), its queued ones
+through :meth:`ServiceContext._cluster_engine_dead`.  A store without
+``refresh`` (the native backend) refuses clustering loudly.  A tenant
+quota (``TenantConfig``) builds the admission counters, store-backed when
+clustered.
 """
 
 from __future__ import annotations
@@ -119,13 +129,63 @@ class ServiceContext:
         # and every transition lands in the event feed.
         self.webhooks = WebhookNotifier(self.documents)
         self.engine.notifier = self.webhooks
+        # The multi-engine control plane, built BEFORE the journal so the
+        # epoch is minted under the cluster's cross-process lock (engines
+        # booting at once mint distinct epochs).
+        self.cluster = None
+        self.admission = None
+        cl = self.config.cluster
+        if cl.enabled:
+            if not hasattr(self.documents, "refresh"):
+                raise ValueError(
+                    "ClusterConfig.enabled (LO_TPU_CLUSTER_ENABLED) needs "
+                    "the python store backend (LO_TPU_STORE_BACKEND="
+                    "python): the native store has no WAL-refresh "
+                    "coherence primitive, and engines over one store "
+                    "root would diverge")
+            from learningorchestra_tpu_torch.jobs.cluster import (
+                ClusterCoordinator,
+            )
+
+            self.cluster = ClusterCoordinator(
+                self.documents, self.config.store.store_path(),
+                engine_id=cl.engine_id, heartbeat_s=cl.heartbeat_s,
+                ttl_s=cl.ttl_s, sweep_s=cl.sweep_s)
+        ten = self.config.tenant
+        if ten.max_queued > 0 or ten.max_running > 0:
+            from learningorchestra_tpu_torch.jobs.cluster import (
+                TenantAdmission,
+            )
+
+            self.admission = TenantAdmission(
+                max_queued=ten.max_queued, max_running=ten.max_running,
+                retry_after_s=ten.retry_after_s, cluster=self.cluster)
+        self.engine.admission = self.admission
         # Constructing the journal mints this boot's engine epoch, so a
         # straggler of any previous life is refused at its commit.
         self.journal = JobJournal(
             self.documents, self.config.store.store_path(),
-            enabled=jobs.journal, max_records=jobs.journal_max_records)
+            enabled=jobs.journal, max_records=jobs.journal_max_records,
+            epoch_lock=((lambda: self.cluster._guard(refresh=()))
+                        if self.cluster is not None else None))
         self.engine.journal = self.journal if self.journal.enabled else None
-        self.journal.prune()
+        if self.cluster is not None:
+            # Claims carry this boot's epoch; the journal's fence becomes
+            # claim ownership and its appends run under the guard; the
+            # engine claims before every dispatch; join() starts the
+            # heartbeat and the sweep.
+            self.cluster.epoch = self.journal.epoch
+            self.cluster.on_steal = self._cluster_steal
+            self.cluster.on_engine_dead = self._cluster_engine_dead
+            if self.journal.enabled:
+                self.journal.cluster = self.cluster
+                self.journal.exclusive = self.cluster.journal_guard
+            self.engine.cluster = self.cluster
+            self.cluster.join()
+            with self.cluster.journal_guard():
+                self.journal.prune()
+        else:
+            self.journal.prune()
         self._recover_jobs()
         # The boot pre-warm of the durable program store's hot set: in the
         # background, so readiness never waits for it.
@@ -157,6 +217,11 @@ class ServiceContext:
         # never hangs on an unbounded drain.
         self.engine.shutdown(wait=self.config.jobs.shutdown_drain_s > 0)
         self.journal.close()  # its final drain needs the open store
+        # The cluster leaves after the journal's last drain (its guard
+        # serializes that drain) and before the store closes (retracting
+        # the membership document is a store write).
+        if self.cluster is not None:
+            self.cluster.close()
         self.documents.close()
 
     # -- boot pre-warm --------------------------------------------------------
@@ -256,6 +321,11 @@ class ServiceContext:
             if not meta or meta.get("jobState") not in ("pending",
                                                          "running"):
                 continue
+            if self.cluster is not None and not self.cluster.claimable(
+                    name):
+                # A live peer holds its claim: the job runs over there.
+                # Should that peer die, the sweep steals and resumes it.
+                continue
             rec = journaled.get(name)
             # Pre-crash queue admission order (the latest ``queued``
             # sequence number); journal-less jobs last, by name.
@@ -284,6 +354,90 @@ class ServiceContext:
                     f"could not re-dispatch recovered job {name!r}: "
                     f"{exc!r} — failing it orphaned-by-restart")
                 self._orphan_job(name, journaled=True, detail=repr(exc))
+
+    def _cluster_steal(self, job: str, prev_engine: str) -> None:
+        """Sweep callback: this engine now owns a claim stolen from a dead
+        (or partitioned) peer.  Re-read the job's state from the shared
+        store and close it out (the peer finished it before dying) or
+        resume it through the checkpoint-resume path boot recovery uses.
+        The stolen claim stays ours across the re-dispatch (its
+        dispatch-time claim renews it), so a revived straggler is fenced
+        at its terminal commit."""
+        try:
+            # The dead peer wrote this job's collection: fold its WAL in.
+            self.documents.refresh(job)
+            rec = self.journal.replay().get(job)
+            if rec is not None and rec.get("terminal"):
+                # Ended before the peer died: release (its doneAt
+                # supersedes stale queue entries) and touch nothing.
+                self.cluster.release(job)
+                return
+            meta = self.artifacts.metadata.read(job)
+            if meta is None:
+                self.cluster.release(job)
+                return
+            kind = self._recoverable_kind(meta)
+            if kind is None:
+                self._orphan_job(job, journaled=rec is not None)
+                self.cluster.release(job)
+                return
+            self._redispatch(job, kind, (rec or {}).get("spec") or {})
+            logger.warning(
+                f"stole job {job!r} from engine {prev_engine!r} (epoch "
+                f"{self.journal.epoch}): re-dispatched through the "
+                "checkpoint-resume path")
+        except Exception as exc:  # noqa: BLE001 — one bad adoption must
+            # not kill the sweep loop.
+            logger.error(f"could not adopt stolen job {job!r}: {exc!r} — "
+                         "failing it orphaned-by-restart")
+            try:
+                self._orphan_job(job, journaled=True, detail=repr(exc))
+                self.cluster.release(job)
+            except Exception:  # noqa: BLE001
+                logger.exception(kv(event="steal_orphan_failed", job=job))
+
+    def _cluster_engine_dead(self, engine_id: str, epoch: int) -> None:
+        """Sweep callback: a peer engine's membership expired.  Its
+        running jobs hold claims (the steal path adopts them); this
+        adopts its queued, never-claimed ones — journaled under the dead
+        epoch, non-terminal, no live claim — in pre-crash queue order.  A
+        racing duplicate (the peer was only partitioned) is safe: both
+        race the dispatch-time claim and exactly one runs.  A job this
+        engine already holds queued or running is skipped: when the dead
+        engine's epoch is the larger one, the replayed epoch of a job the
+        steal just re-dispatched here is still the dead engine's (the
+        replay keeps the largest), and a second dispatch would run the
+        fit twice at once."""
+        try:
+            replayed = self.journal.replay()
+        except Exception:  # noqa: BLE001 — the next sweep retries
+            return
+        held = set(self.engine.running_jobs())
+        work = sorted(
+            ((rec.get("seq", -1), job, rec)
+             for job, rec in replayed.items()
+             if rec.get("epoch") == epoch and not rec.get("terminal")
+             and rec.get("state") in ("submitted", "queued")),
+            key=lambda t: (t[0], t[1]))
+        for _seq, job, rec in work:
+            if job in held or not self.cluster.claimable(job):
+                continue
+            try:
+                self.documents.refresh(job)
+                meta = self.artifacts.metadata.read(job)
+                kind = (self._recoverable_kind(meta) if meta is not None
+                        else None)
+                if kind is None:
+                    if meta is not None and meta.get("jobState") in (
+                            "pending", "running"):
+                        self._orphan_job(job, journaled=True)
+                    continue
+                self._redispatch(job, kind, rec.get("spec") or {})
+                logger.warning(f"adopted queued job {job!r} from dead "
+                               f"engine {engine_id!r} (epoch {epoch})")
+            except Exception as exc:  # noqa: BLE001
+                logger.error(f"could not adopt queued job {job!r} from dead "
+                             f"engine {engine_id!r}: {exc!r}")
 
     @staticmethod
     def _recoverable_kind(meta: dict) -> str | None:

@@ -18,9 +18,16 @@ HTTP sources stream through the standard library's ``urllib.request``
 (60 s timeout) where the JAX package uses ``requests``; a non-2xx answer
 fails the job with ``requests``' ``raise_for_status`` wording
 (:class:`HTTPError`).  A ``.npy`` source is downloaded to the datasets
-volume first (``npycache_<hash>``), so it can be memory-mapped.  The JAX
-package's native CSV engine is not ported (ROADMAP A.11), so a sharded
-CSV takes its Python path.
+volume first (``npycache_<hash>``), so it can be memory-mapped.
+
+Where the native engine builds (native/__init__.py), CSV ingest runs
+through it as in the JAX package: an in-memory ingest parses the whole
+file in C++ and inserts the JSONL straight into the native store
+(:meth:`DatasetService._ingest_native`), and a sharded one feeds raw
+byte chunks to the C++ numeric parser, which returns packed float64
+blocks for the shard writer (:meth:`DatasetService.
+_ingest_sharded_native`).  Without the library, or for a file too big to
+buffer, the Python paths run, with the same documents and shards.
 """
 
 from __future__ import annotations
@@ -29,18 +36,23 @@ import contextlib
 import csv
 import hashlib
 import io
+import json
 import math
+import os
 import re
 import urllib.error
 import urllib.request
 
 import numpy as np
 
+from learningorchestra_tpu_torch.log import get_logger
 from learningorchestra_tpu_torch.services.context import ServiceContext
 from learningorchestra_tpu_torch.store.sharded import (
     ShardedDatasetWriter,
     ShardedTensorWriter,
 )
+
+logger = get_logger("dataset")
 
 _HEADER_CLEAN_RE = re.compile(r"[^0-9a-zA-Z_]+")
 _INT_RE = re.compile(r"[+-]?[0-9]+")
@@ -114,6 +126,32 @@ def open_url(url: str):
 
 
 @contextlib.contextmanager
+def _open_bytes(url: str):
+    """A CSV source as an iterator of byte chunks (the native numeric
+    parser reads raw bytes)."""
+    if is_http(url):
+        with open_url(url) as resp:
+            yield iter(lambda: resp.read(1 << 20), b"")
+    else:
+        with open(_local_path(url), "rb") as fh:
+            yield iter(lambda: fh.read(1 << 22), b"")
+
+
+def _native():
+    """The native engine's module when its library builds, else None
+    (the reason is logged: the Python path then runs)."""
+    from learningorchestra_tpu_torch import native
+
+    try:
+        native.load_library()
+    except (native.NativeBuildError, OSError) as exc:
+        logger.warning("native CSV engine unavailable (%s); the Python "
+                       "ingest path runs", exc)
+        return None
+    return native
+
+
+@contextlib.contextmanager
 def _open_text(url: str):
     """A CSV source as text lines (``newline=""``: quoted fields keep
     their line breaks)."""
@@ -151,6 +189,9 @@ class DatasetService:
             if shard_rows:
                 return self._ingest_sharded(name, url, int(shard_rows),
                                             infer_types)
+            native = self._ingest_native(name, url, infer_types)
+            if native is not None:
+                return native
             n_rows = 0
             fields: list[str] = []
             with _open_text(url) as fh:
@@ -181,13 +222,70 @@ class DatasetService:
         )
         return meta
 
+    #: Above this size the whole-buffer native path would hold ~2.5x the
+    #: file resident (download + JSONL + store copy); stream instead.
+    NATIVE_MAX_BYTES = 256 * 1024 * 1024
+
+    def _ingest_native(self, name: str, url: str, infer_types: bool):
+        """The JAX package's fully native ingest: C++ CSV parse, then the
+        JSONL straight into the native store (no per-row Python objects).
+        Returns None before touching the store when the engine is not
+        built here, the file is too big to buffer or the parse fails, and
+        the streaming Python path takes over."""
+        native = _native()
+        if native is None:
+            return None
+        try:
+            if is_http(url):
+                chunks, total = [], 0
+                with open_url(url) as resp:
+                    declared = int(resp.headers.get("content-length") or 0)
+                    if declared > self.NATIVE_MAX_BYTES:
+                        return None
+                    for chunk in iter(lambda: resp.read(1 << 20), b""):
+                        total += len(chunk)
+                        if total > self.NATIVE_MAX_BYTES:
+                            return None  # too big to buffer: stream
+                        chunks.append(chunk)
+                data = b"".join(chunks)
+            else:
+                path = _local_path(url)
+                if os.path.getsize(path) > self.NATIVE_MAX_BYTES:
+                    return None
+                with open(path, "rb") as fh:
+                    data = fh.read()
+            # Valid UTF-8, as the streaming path's errors="replace" reads
+            # it: the store holds JSON text.
+            try:
+                data.decode("utf-8")
+            except UnicodeDecodeError:
+                data = data.decode("utf-8", errors="replace").encode("utf-8")
+            fields, jsonl = native.csv_parse(data, infer_types)
+        except Exception as exc:  # noqa: BLE001 — nothing inserted yet,
+            # so the streaming path may still ingest it.
+            logger.warning("native CSV ingest of %r fell back: %r", url, exc)
+            return None
+        if hasattr(self.ctx.documents, "insert_jsonl"):
+            n = self.ctx.documents.insert_jsonl(name, jsonl)
+        else:
+            n = self.ctx.documents.insert_many(
+                name, (json.loads(ln) for ln in jsonl.splitlines() if ln))
+        return {"fields": fields, "rows": n}
+
     def _ingest_sharded(self, name: str, url: str, shard_rows: int,
                         infer_types: bool) -> dict:
         """Stream CSV rows into columnar volume shards: peak host memory
         is O(shard_rows x columns) whatever the file size.  The first
         ``PREVIEW_ROWS`` rows also land in the store so GET pages work;
-        columns must be numeric (a blank cell is NaN)."""
+        columns must be numeric (a blank cell is NaN).  With type
+        inference on and the native engine built, the C++ parser does
+        it (:meth:`_ingest_sharded_native`)."""
         root = self.ctx.volumes.path_for(CSV_TYPE, name)
+        if infer_types:
+            native_result = self._ingest_sharded_native(name, root, url,
+                                                        shard_rows)
+            if native_result is not None:
+                return native_result
         writer = None
         preview: list[dict] = []
         fields: list[str] = []
@@ -221,6 +319,105 @@ class DatasetService:
             "shards": len(manifest["shard_rows"]),
             "shardRows": shard_rows,
             "previewRows": len(preview),
+        }
+
+    _NATIVE_CHUNK = 4 << 20  # bytes fed to the native parser per call
+
+    def _ingest_sharded_native(self, name: str, root, url: str,
+                               shard_rows: int) -> dict | None:
+        """The JAX package's native sharded ingest: raw bytes -> C++
+        quote-aware CSV records -> packed float64 blocks -> columnar
+        shards, no per-row or per-cell Python objects.  None when the
+        engine is not built here (the row path runs).  Parity with the row
+        path: short rows pad NaN, empty cells are NaN, a column with a
+        non-empty unparseable cell fails the job, and dtypes follow the
+        text's format (the parser counts float-formatted cells per
+        column, so "5.0" stays float32 as ``_infer`` keeps it)."""
+        native = _native()
+        if native is None:
+            return None
+        writer = None
+        fields: list[str] = []
+        bad = ffmt = None
+        n_rows = 0
+        head_bytes = b""  # the first bytes, for the text preview
+        buf = b""
+        with _open_bytes(url) as chunks:
+            final = False
+            while True:
+                if not final:
+                    piece = next(chunks, None)
+                    if piece is None:
+                        final = True
+                    else:
+                        buf += piece
+                        if len(head_bytes) < (1 << 18):
+                            # From the pieces in stream order (buf
+                            # shrinks as records are consumed).
+                            head_bytes += piece[:(1 << 18) - len(head_bytes)]
+                if not fields:
+                    nl = buf.find(b"\n")
+                    if nl < 0:
+                        if not final:
+                            continue
+                        if not buf.strip():
+                            raise ValueError(
+                                f"CSV at {url} has no header row")
+                        nl = len(buf)
+                    header_line = buf[:nl].lstrip(b"\xef\xbb\xbf").decode(
+                        "utf-8", "replace").rstrip("\r")
+                    fields = _clean_header(next(csv.reader([header_line])))
+                    writer = ShardedDatasetWriter(
+                        root, fields, rows_per_shard=shard_rows)
+                    bad = np.zeros(len(fields), np.int64)
+                    ffmt = np.zeros(len(fields), np.int64)
+                    buf = buf[nl + 1:]
+                while len(buf) >= self._NATIVE_CHUNK or (final and buf):
+                    block, consumed = native.csv_numeric_chunk(
+                        buf, len(fields), is_final=final, bad_counts=bad,
+                        float_counts=ffmt)
+                    if consumed == 0:
+                        break  # one record longer than the buffer
+                    if len(block):
+                        writer.append_block(block,
+                                            float_format_cols=ffmt > 0)
+                        n_rows += len(block)
+                    buf = buf[consumed:]
+                if final and not buf:
+                    break
+        if writer is None:
+            raise ValueError(f"CSV at {url} has no header row")
+        for i, count in enumerate(bad):
+            if count:
+                raise ValueError(
+                    f"column {fields[i]!r} is not numeric ({int(count)} "
+                    "unparseable cell(s)); cast or project it away before "
+                    "sharded ingest")
+        manifest = writer.close()
+        # The preview from the head bytes, typed as the row path types it.
+        preview: list[dict] = []
+        head_text = head_bytes.decode("utf-8", "replace")
+        head_lines = head_text.splitlines()
+        if len(head_bytes) >= (1 << 18) and not head_text.endswith("\n"):
+            head_lines = head_lines[:-1]  # the cap may cut a record
+        for row in csv.reader(head_lines[1:]):
+            if len(preview) >= min(self.PREVIEW_ROWS, n_rows):
+                break
+            if not row:
+                continue
+            vals = [_infer(v) for v in row[: len(fields)]]
+            vals += [None] * (len(fields) - len(vals))
+            preview.append(dict(zip(fields, vals)))
+        if preview:
+            self.ctx.documents.insert_many(name, preview)
+        return {
+            "fields": fields,
+            "rows": n_rows,
+            "sharded": True,
+            "shards": len(manifest["shard_rows"]),
+            "shardRows": shard_rows,
+            "previewRows": len(preview),
+            "engine": "native",
         }
 
     # -- tensor (N-D, image-shaped) -------------------------------------------

@@ -5,7 +5,11 @@ The system of record for every artifact: the Mongo subset the pipeline
 uses (``insert_one`` / ``insert_unique`` / ``insert_many`` with atomic
 integer ``_id`` allocation, ``update_one``, ``compare_and_update``,
 ``delete_one``, ``find`` with equality and ``$gt``-style operators,
-``count``, ``aggregate_counts``, ``compact``, ``drop``).
+``count``, ``aggregate_counts``, ``compact``, ``drop``), plus
+:meth:`DocumentStore.refresh`, the cross-process coherence primitive of
+the multi-engine control plane (jobs/cluster.py): several processes
+over one store root each fold the others' WAL appends in before they
+read or write a shared collection.
 
 Durability: one JSONL write-ahead log per collection (``<name>.wal``),
 one op record per line — ``{"op": "i", "d": doc}`` insert, ``{"op": "u",
@@ -98,6 +102,8 @@ class _Collection:
         self.docs: dict[int, dict] = {}
         self.next_id = 0
         self._fh = None
+        # Bytes of the WAL folded into ``docs`` (catch_up reads past it).
+        self._replayed_off = 0
         if path.exists():
             self._replay()
         self._open_log()
@@ -135,6 +141,7 @@ class _Collection:
                 break
             self._apply(op)
             good_end = off = end
+        self._replayed_off = good_end
         if torn_at is None:
             return
         # A crash mid-append leaves one torn record at the TAIL; valid
@@ -151,6 +158,48 @@ class _Collection:
         # append starts a clean line.
         with open(self.path, "r+b") as fh:
             fh.truncate(good_end)
+
+    def catch_up(self) -> None:
+        """Fold in records another process appended since our last
+        replay (the JAX ``_Collection.catch_up``): only the unseen tail
+        is read, so a call with nothing new costs one stat.  Our own
+        appends since then re-apply idempotently (file order is the
+        history).  A torn tail (a peer died mid-append) stops the scan
+        without truncating.  A WAL a peer compacted (a new file under
+        the same name) is replayed whole and reopened for append, so
+        neither side's later records go to the replaced file."""
+        try:
+            st = os.stat(self.path)
+        except FileNotFoundError:
+            return
+        with self.lock:
+            if self._fh is not None and os.fstat(
+                    self._fh.fileno()).st_ino != st.st_ino:
+                self._fh.close()
+                self.docs = {}
+                self._replayed_off = 0
+                self._replay()
+                self._open_log()
+                return
+            if st.st_size <= self._replayed_off:
+                return
+            with open(self.path, "rb") as fh:
+                fh.seek(self._replayed_off)
+                data = fh.read()
+            off = good_end = self._replayed_off
+            for raw in data.splitlines(keepends=True):
+                end = off + len(raw)
+                if not raw.strip():
+                    if raw.endswith(b"\n"):
+                        good_end = end
+                    off = end
+                    continue
+                op = _parse(raw)
+                if op is None:
+                    break  # a torn tail: re-scanned from here next time
+                self._apply(op)
+                good_end = off = end
+            self._replayed_off = good_end
 
     def _open_log(self) -> None:
         self.path.parent.mkdir(parents=True, exist_ok=True)
@@ -217,18 +266,38 @@ class DocumentStore:
 
     def collection_exists(self, name: str) -> bool:
         with self._lock:
-            return name in self._collections
+            if name in self._collections:
+                return True
+        # A collection a peer process created exists on disk before this
+        # process opens it.
+        return (self.root / f"{name}.wal").exists()
 
     def _get(self, name: str, create: bool = False) -> _Collection:
         with self._lock:
             coll = self._collections.get(name)
             if coll is None:
-                if not create:
+                path = self.root / f"{name}.wal"
+                if not create and not path.exists():
                     raise NoSuchCollection(name)
                 self._validate_name(name)
-                coll = _Collection(self.root / f"{name}.wal", self.durable)
+                # Replays the WAL when the file exists: how a collection
+                # a peer process created becomes readable here.
+                coll = _Collection(path, self.durable)
                 self._collections[name] = coll
             return coll
+
+    def refresh(self, name: str) -> None:
+        """Fold in the records other processes appended to ``name`` since
+        this process last read it.  Within one process the in-memory map
+        is authoritative; when several share a store root (the
+        multi-engine control plane), each serializes its mutations under
+        a cross-process file lock and calls this first.  A collection
+        this process never opened is replayed from disk at its next
+        use."""
+        with self._lock:
+            coll = self._collections.get(name)
+        if coll is not None:
+            coll.catch_up()
 
     def drop(self, name: str) -> bool:
         with self._lock:
@@ -388,6 +457,8 @@ class DocumentStore:
             finally:
                 os.close(dir_fd)
             coll._open_log()
+            # The rewritten file is this state: catch_up reads past it.
+            coll._replayed_off = coll.path.stat().st_size
 
     def close(self) -> None:
         with self._lock:

@@ -68,9 +68,9 @@ def _publish_manifest(root: Path, manifest: dict) -> dict:
 
 
 class ShardedDatasetWriter:
-    """Streaming writer: buffer rows, flush one ``.npz`` per shard (the
-    JAX package's row path; its native parser's block mode is not
-    ported, ROADMAP A.11).
+    """Streaming writer: buffer rows (:meth:`append`) or float64 blocks
+    from the native CSV parser (:meth:`append_block`), flush one ``.npz``
+    per shard.
 
     Columns may change integer/float character between shards (a column
     integral for the first million rows then fractional); the manifest
@@ -89,8 +89,13 @@ class ShardedDatasetWriter:
         self.fields = list(fields)
         self.rows_per_shard = rows_per_shard
         self._buf: list[list] = []
+        self._blocks: list[np.ndarray] = []
+        self._block_rows = 0
         self._shard_rows: list[int] = []
         self._dtypes: dict[str, np.dtype] = {}
+        # Per-field "saw float-formatted text" flags of block mode: the
+        # native parser reports them, so both paths type columns by text.
+        self._float_format = np.zeros(len(self.fields), bool)
         self._closed = False
 
     def append(self, row: list) -> None:
@@ -101,9 +106,68 @@ class ShardedDatasetWriter:
                 f"row has {len(row)} values, header has "
                 f"{len(self.fields)} fields"
             )
+        if self._blocks:
+            raise RuntimeError("append after append_block: pick one")
         self._buf.append(row)
         if len(self._buf) >= self.rows_per_shard:
             self._flush()
+
+    def append_block(self, block, float_format_cols=None) -> None:
+        """Append a ``(n, n_fields)`` float64 array (the native CSV
+        parser's output).  ``float_format_cols`` marks columns whose text
+        was float-formatted somewhere ("5.0", "1e3"): they stay float32
+        even when every value is integral, as the row path's ``_infer``
+        keeps them.  Row and block modes do not mix on one writer."""
+        if self._buf:
+            raise RuntimeError("append_block after append: pick one")
+        block = np.asarray(block, np.float64)
+        if block.ndim != 2 or block.shape[1] != len(self.fields):
+            raise ValueError(
+                f"block shape {block.shape} != (n, {len(self.fields)})")
+        if float_format_cols is not None:
+            self._float_format |= np.asarray(float_format_cols, bool)
+        self._blocks.append(block)
+        self._block_rows += len(block)
+        while self._block_rows >= self.rows_per_shard:
+            self._flush_block(self.rows_per_shard)
+
+    def _take_block_rows(self, n: int) -> np.ndarray:
+        """Pop exactly ``n`` rows off the block queue."""
+        out, need = [], n
+        while need > 0:
+            head = self._blocks[0]
+            if len(head) <= need:
+                out.append(head)
+                need -= len(head)
+                self._blocks.pop(0)
+            else:
+                out.append(head[:need])
+                self._blocks[0] = head[need:]
+                need = 0
+        self._block_rows -= n
+        return out[0] if len(out) == 1 else np.concatenate(out, axis=0)
+
+    def _flush_block(self, n: int) -> None:
+        if n <= 0:
+            return
+        rows = self._take_block_rows(n)
+        cols = {}
+        for i, field in enumerate(self.fields):
+            arr = rows[:, i]
+            # The row path's inference: int32 only when no cell was
+            # float-formatted and the values are integral, finite and
+            # int32-safe.
+            if (not self._float_format[i]) and np.all(np.isfinite(arr)) \
+                    and np.all(arr == np.floor(arr)) and _int32_safe(arr):
+                arr = arr.astype(np.int32)
+            else:
+                arr = arr.astype(np.float32)
+            cols[field] = arr
+            prev = self._dtypes.get(field)
+            self._dtypes[field] = arr.dtype if prev is None else np.dtype(
+                _narrow(np.promote_types(prev, arr.dtype)))
+        _publish_shard(self.root, len(self._shard_rows), cols)
+        self._shard_rows.append(n)
 
     def _flush(self) -> None:
         if not self._buf:
@@ -150,6 +214,7 @@ class ShardedDatasetWriter:
         if self._closed:
             raise RuntimeError("writer already closed")
         self._flush()
+        self._flush_block(self._block_rows)
         self._closed = True
         manifest = {
             "fields": self.fields,

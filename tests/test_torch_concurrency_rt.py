@@ -34,6 +34,10 @@ from learningorchestra_tpu import concurrency_rt as jax_rt
 from learningorchestra_tpu.analysis import wholeprogram as jax_wholeprogram
 from learningorchestra_tpu.analysis.witness import cross_check as jax_cross_check
 from learningorchestra_tpu_torch import concurrency_rt as rt
+# Imported here, outside any witnessed window: their module-level locks
+# must be plain ones whichever test first imports them.
+from learningorchestra_tpu_torch import config as _config  # noqa: F401
+from learningorchestra_tpu_torch.api import server as _server  # noqa: F401
 from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.analysis import run_checks
 from learningorchestra_tpu_torch.analysis.wholeprogram import global_graph
@@ -230,7 +234,10 @@ def test_short_job_has_zero_unmatched_edges(witness, tmp_path):
     """A witnessed engine job whose store writes cross the armed fault
     plane (collection lock -> plane lock -> metrics lock): every witnessed
     edge is in the port's static graph."""
-    arts = ArtifactStore(open_document_store(tmp_path / "store"))
+    # The python store: its collection lock is the chain's first link
+    # (the default "auto" store is the native one, which has none).
+    arts = ArtifactStore(open_document_store(tmp_path / "store",
+                                             backend="python"))
     arts.metadata.create("wit_job", {"name": "wit_job"})
     faults.arm("store.wal_write", "delay", delay_ms=0.0)
     try:
@@ -257,7 +264,8 @@ def test_fresh_process_dump_cross_checks_clean(tmp_path):
         "from learningorchestra_tpu_torch.jobs.engine import JobEngine\n"
         "from learningorchestra_tpu_torch import faults\n"
         "tmp = tempfile.mkdtemp()\n"
-        "arts = ArtifactStore(open_document_store(tmp + '/s'))\n"
+        "arts = ArtifactStore(open_document_store(tmp + '/s',\n"
+        "                                         backend='python'))\n"
         "arts.metadata.create('j', {'name': 'j'})\n"
         "faults.arm('store.wal_write', 'delay', delay_ms=0.0)\n"
         "eng = JobEngine(arts, max_workers=1)\n"

@@ -185,7 +185,16 @@ def test_the_port_tree_is_clean():
 
 
 def test_deleting_a_real_k8s_knob_line_trips_the_gate(tmp_path):
-    knob = K + "COMPILE_CACHE_ENTRIES"
+    _delete_k8s_knob_line(tmp_path, K + "COMPILE_CACHE_ENTRIES")
+
+
+@pytest.mark.parametrize("knob", ["CLUSTER_ENABLED", "CLUSTER_TTL_S",
+                                  "TENANT_MAX_QUEUED"])
+def test_the_control_plane_knobs_are_held_by_the_gate(tmp_path, knob):
+    _delete_k8s_knob_line(tmp_path, K + knob)
+
+
+def _delete_k8s_knob_line(tmp_path, knob):
     real = (ROOT / "deploy" / "torch" / "k8s.yaml").read_text()
     assert knob in real
     tampered = tmp_path / "k8s.yaml"

@@ -8,10 +8,13 @@ against the JAX package's (``learningorchestra_tpu/__main__.py``):
   graph accounts for edge by edge;
 - ``serve`` with no device runs on the card, so on a host without one it
   exits non-zero;
-- ``coordinator``, ``agent`` and ``standby`` parse as in the JAX package
-  and exit 2 naming the ROADMAP item that ports them;
+- ``coordinator`` and ``agent`` parse as in the JAX package and exit 2
+  naming the ROADMAP item that ports them (A.9 part 2);
+- ``standby --device cpu`` runs: before any contact with its primary it
+  answers ``/replication/status`` as a standby and 503 elsewhere, never
+  promotes, and stops on SIGINT with exit status 0;
 - the parser's subcommands and flags are the JAX parser's, plus
-  ``serve --device``.
+  ``serve --device`` and ``standby --device``.
 """
 
 import argparse
@@ -22,6 +25,8 @@ import socket
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -126,14 +131,52 @@ def test_serve_defaults_to_the_card(tmp_path):
     (["coordinator"], "A.9 part 2"),
     (["coordinator", "--host", "127.0.0.1", "--port", "7071"], "A.9 part 2"),
     (["agent", "--coordinator", "h:7070", "--capacity", "2"], "A.9 part 2"),
-    (["standby", "--primary", "h:80", "--replica", "/tmp/r", "--port", "81"],
-     "A.11 part 3"),
 ])
 def test_unported_subcommands_say_which_item_ports_them(capsys, argv, item):
     assert port_main.main(argv) == 2
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1
     assert f"{argv[0]}: not ported yet" in err[0] and item in err[0]
+
+
+def test_standby_runs_monitors_and_stops_on_sigint(tmp_path):
+    """A standby whose primary never answered stands by (no takeover
+    without first contact), serves its status route, 503s the rest, and
+    SIGINT ends it with status 0."""
+    port, dead = _free_port(), _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "learningorchestra_tpu_torch", "standby",
+         "--primary", f"127.0.0.1:{dead}", "--replica",
+         str(tmp_path / "replica"), "--port", str(port), "--host",
+         "127.0.0.1", "--interval", "0.05", "--misses", "2",
+         "--device", "cpu"],
+        cwd=tmp_path, env=_env(tmp_path), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    base = f"http://127.0.0.1:{port}/api/learningOrchestra/v1"
+    try:
+        deadline = time.time() + 90
+        status = {}
+        # Past --misses and still standing by.
+        while status.get("misses", 0) < 4:
+            assert proc.poll() is None, proc.communicate()[0][-3000:]
+            assert time.time() < deadline, ("no standby status", status)
+            try:
+                with urllib.request.urlopen(
+                        base + "/replication/status", timeout=2) as resp:
+                    status = json.loads(resp.read())
+            except OSError:
+                time.sleep(0.1)
+        assert status["role"] == "standby" and status["saw_primary"] is False
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(base + "/health", timeout=2)
+        assert exc.value.code == 503
+        assert not (tmp_path / "replica" / ".promoted").exists()
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
 
 
 def _jax_parser() -> argparse.ArgumentParser:
@@ -171,6 +214,8 @@ def test_parser_matches_the_jax_main():
         "agent", "coordinator", "serve", "standby"]
     assert port["serve"].pop("device") == (("--device",), "cuda", None,
                                            False)
+    assert port["standby"].pop("device") == (("--device",), "cuda", None,
+                                             False)
     assert port == jax
     for argv in (["serve"], ["serve", "--port", "8080"],
                  ["agent", "--coordinator", "h:1"]):

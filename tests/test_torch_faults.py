@@ -9,6 +9,8 @@ attempt 2 from its checkpoint, with the JAX weights carried in; its
 history and final parameters match the JAX drill's (f32 5e-5) and an
 unfaulted port fit's, and its trace has one ``job`` span per attempt."""
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -312,6 +314,93 @@ def _cache_aot_store(tmp_path):
         aot_store.reset_store()
 
 
+def _replica_wal_ship(tmp_path):
+    from learningorchestra_tpu_torch.store.replica import WalReplica
+
+    store = DocumentStore(tmp_path / "primary")
+    store.insert_one("c", {"a": 1})
+    try:
+        replica = WalReplica(str(tmp_path / "primary"), tmp_path / "replica")
+        faults.arm("replica.wal_ship", "error", max_triggers=1)
+        with pytest.raises(faults.FaultInjected):
+            replica.sync()
+        assert replica.sync() == {
+            "c": (tmp_path / "primary" / "c.wal").stat().st_size}
+        assert replica.lag_bytes() == 0
+        assert replica.find("c")[0]["a"] == 1
+    finally:
+        store.close()
+
+
+def _store_ha_failover(tmp_path):
+    from learningorchestra_tpu_torch.store import ha
+
+    DocumentStore(tmp_path / "primary").close()
+    monitor = ha.StandbyMonitor("127.0.0.1:9", str(tmp_path / "primary"),
+                                tmp_path / "replica")
+    faults.arm("store.ha.failover", "error", max_triggers=1)
+    with pytest.raises(faults.FaultInjected):
+        monitor.promote()
+    # Promotion is idempotent: nothing landed, the retry promotes.
+    assert ha.promotion_record(tmp_path / "replica") is None
+    monitor.promote()
+    assert ha.read_epoch(tmp_path / "replica") == 1
+
+
+def _cluster_coordinator(tmp_path):
+    from learningorchestra_tpu_torch.jobs.cluster import ClusterCoordinator
+
+    store = DocumentStore(tmp_path / "store")
+    return store, ClusterCoordinator(store, store.root, engine_id="A",
+                                     heartbeat_s=30, ttl_s=60, sweep_s=30)
+
+
+def _cluster_claim(tmp_path):
+    store, coord = _cluster_coordinator(tmp_path)
+    try:
+        faults.arm("cluster.claim", "error", max_triggers=1)
+        with pytest.raises(faults.FaultInjected):
+            coord.claim("j")
+        assert coord.claim("j") is True
+    finally:
+        coord.close()
+        store.close()
+
+
+def _cluster_heartbeat(tmp_path):
+    store, coord = _cluster_coordinator(tmp_path)
+    try:
+        faults.arm("cluster.heartbeat", "error", max_triggers=1)
+        with pytest.raises(faults.FaultInjected):
+            coord.heartbeat()
+        assert coord.claim("j") is True and coord.heartbeat() == 1
+    finally:
+        coord.close()
+        store.close()
+
+
+def _cluster_steal(tmp_path):
+    from learningorchestra_tpu_torch.jobs.cluster import ClusterCoordinator
+
+    store, dead = _cluster_coordinator(tmp_path)
+    other = DocumentStore(tmp_path / "store")
+    thief = ClusterCoordinator(other, other.root, engine_id="B",
+                               heartbeat_s=30, ttl_s=0.05, sweep_s=30)
+    try:
+        assert dead.claim("j") is True
+        time.sleep(0.12)
+        faults.arm("cluster.steal", "error", max_triggers=1)
+        with pytest.raises(faults.FaultInjected):
+            thief.sweep()
+        # The claim stays with the dead owner; the next sweep takes it.
+        assert thief.sweep() == [("j", "A")]
+    finally:
+        for c in (dead, thief):
+            c.close()
+        store.close()
+        other.close()
+
+
 CALL_SITES = {
     "engine.dispatch": _engine_dispatch,
     "lease.acquire": _lease_acquire,
@@ -324,6 +413,11 @@ CALL_SITES = {
     "train.epoch": _train_epoch,
     "cache.aot_load": _cache_aot_load,
     "cache.aot_store": _cache_aot_store,
+    "replica.wal_ship": _replica_wal_ship,
+    "store.ha.failover": _store_ha_failover,
+    "cluster.claim": _cluster_claim,
+    "cluster.heartbeat": _cluster_heartbeat,
+    "cluster.steal": _cluster_steal,
 }
 
 
@@ -335,11 +429,13 @@ def test_each_port_point_fires_at_its_call_site(point, tmp_path):
 
 
 def test_unported_points_are_the_jax_control_plane_ones():
-    """Registered for the REST surface, with no call site in the port
-    until store/ha.py, store/replica.py and jobs/cluster.py are ported."""
-    assert set(faults.POINTS) - set(CALL_SITES) == {
-        "replica.wal_ship", "store.ha.failover", "cluster.claim",
-        "cluster.heartbeat", "cluster.steal"}
+    """Every registered point has a call site in the port (the control
+    plane's five since store/ha.py, store/replica.py and jobs/cluster.py
+    were ported), each driven above, and the registry is the JAX one."""
+    from learningorchestra_tpu.faults import plane as jax_plane
+
+    assert set(faults.POINTS) == set(CALL_SITES)
+    assert set(faults.POINTS) == set(jax_plane.POINTS)
 
 
 # -- the preemption drill ----------------------------------------------------

@@ -172,13 +172,16 @@ def test_bundle_files_and_manifest_keys_match_jax(tmp_path):
         assert json.loads(ours["file"][1][1]) == json.loads(
             theirs["file"][1][1])
         # With both lock witnesses off, both snapshots are the empty one;
-        # the cluster plane is not ported: its file holds what the JAX
-        # package writes without a cluster.
+        # with one engine each, cluster.json is the claim table's status
+        # as GET /cluster/status answers it (enabled false on both).
         for stem in ("locks", "cluster"):
             assert json.loads(servers["port"].bundles.read_file(
                 made["port"]["name"], f"{stem}.json")) == json.loads(
                 servers["jax"].bundles.read_file(
                     made["jax"]["name"], f"{stem}.json")), stem
+        assert json.loads(servers["port"].bundles.read_file(
+            made["port"]["name"], "cluster.json")) == servers["port"].handle(
+                "GET", f"{PREFIX}/cluster/status", {}, {})[1]
         assert ours["escape"] == theirs["escape"]
         assert ours["missing"] == theirs["missing"] == 404
         assert set(ours["flight"][1]) == set(theirs["flight"][1])
@@ -287,3 +290,62 @@ def test_exhausted_retries_and_a_deadline_each_land_a_bundle(tmp_path):
     finally:
         engine.shutdown(wait=False)
         store.close()
+
+
+def test_the_cluster_ring_is_fed_by_the_claim_table_like_jax(tmp_path):
+    """Claims, renewals, releases, steals, a dead engine and a quota
+    rejection land in the ``cluster`` ring, event for event as the JAX
+    control plane records them."""
+    from learningorchestra_tpu.jobs.cluster import (
+        ClusterCoordinator as JaxCoordinator,
+    )
+    from learningorchestra_tpu.jobs.cluster import (
+        QuotaExceeded as JaxQuota,
+    )
+    from learningorchestra_tpu.jobs.cluster import (
+        TenantAdmission as JaxAdmission,
+    )
+    from learningorchestra_tpu.store import DocumentStore as JaxStore
+    from learningorchestra_tpu_torch.jobs.cluster import (
+        ClusterCoordinator,
+        QuotaExceeded,
+        TenantAdmission,
+    )
+
+    rings = {}
+    for name, mod, coord, store, adm, quota in (
+            ("port", flight, ClusterCoordinator, DocumentStore,
+             TenantAdmission, QuotaExceeded),
+            ("jax", jflight, JaxCoordinator, JaxStore, JaxAdmission,
+             JaxQuota)):
+        mod.configure(FlightConfig(events=64) if name == "port"
+                      else JaxFlightConfig(events=64))
+        root = tmp_path / name
+        stores = [store(root), store(root)]
+        dead, thief = (coord(s, root, engine_id=e, heartbeat_s=30,
+                             ttl_s=t, sweep_s=30)
+                       for s, e, t in zip(stores, ("A", "B"),
+                                          (60.0, 0.05)))
+        try:
+            dead.heartbeat()
+            assert dead.claim("j1") and dead.claim("j2")
+            dead.release("j2")
+            time.sleep(0.12)
+            assert [j for j, _ in thief.sweep()] == ["j1"]
+            admission = adm(max_queued=1, cluster=thief)
+            admission.note_queued("t")
+            with pytest.raises(quota):
+                admission.check("t")
+        finally:
+            for c in (dead, thief):
+                c.close()
+            for s in stores:
+                s.close()
+        rings[name] = [
+            {k: v for k, v in e.items() if k not in ("t", "wall")}
+            for e in mod.snapshot()["events"]["cluster"]]
+        mod.reset()
+    assert rings["port"] == rings["jax"]
+    assert [e["kind"] for e in rings["port"]] == [
+        "renew", "claim", "claim", "release", "steal", "engine_dead",
+        "quota_reject"]

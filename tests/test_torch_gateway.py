@@ -24,6 +24,7 @@ call exists.
 import contextlib
 import http.client
 import json
+import socket
 import threading
 import time
 import uuid
@@ -395,3 +396,48 @@ def test_expired_records_are_swept_and_ids_match_jax(tmp_path):
                 port.IDEM_SWEEP_EVERY) == (jax.IDEM_COLLECTION,
                                            jax.IDEM_TTL_S,
                                            jax.IDEM_SWEEP_EVERY)
+
+
+def test_an_interrupt_while_a_connection_thread_starts_stops_the_loop(
+        monkeypatch):
+    """SIGINT landing in the accept loop while it waits for a connection's
+    thread to start must reach ``serve_forever``'s caller: the started
+    thread frees its connection slot once, and the interrupt is not
+    swallowed by a double release."""
+    from learningorchestra_tpu_torch.api.server import (
+        _BoundedThreadingHTTPServer,
+    )
+
+    done = threading.Event()
+
+    class Handler:
+        def __init__(self, *args):
+            done.set()
+
+    srv = _BoundedThreadingHTTPServer(("127.0.0.1", 0), Handler,
+                                      max_connections=1)
+    real_start = threading.Thread.start
+
+    def start_then_interrupt(thread):
+        # The interrupt lands after the connection's thread has run and
+        # freed its slot (the order that used to lose it).
+        real_start(thread)
+        thread.join(10)
+        raise KeyboardInterrupt
+
+    ours, theirs = socket.socketpair()
+    monkeypatch.setattr(threading.Thread, "start", start_then_interrupt)
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            srv.process_request(ours, ("127.0.0.1", 1))
+    finally:
+        monkeypatch.undo()
+        theirs.close()
+    assert done.wait(10)
+    # The thread's release is the only one: the slot frees exactly once.
+    deadline = time.time() + 10
+    while not srv._conn_slots.acquire(blocking=False):
+        assert time.time() < deadline, "the connection slot never freed"
+        time.sleep(0.01)
+    assert not srv._conn_slots.acquire(blocking=False)
+    srv.server_close()

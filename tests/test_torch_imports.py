@@ -72,8 +72,13 @@ def test_sources_exist():
                    # The entry point, the lock witness, the client and
                    # the drift gates.
                    "__main__.py", "concurrency_rt.py", "client.py",
-                   "analysis/witness.py", "analysis/drift.py"):
+                   "analysis/witness.py", "analysis/drift.py",
+                   # The control plane, store HA and the native store.
+                   "jobs/cluster.py", "store/replica.py", "store/ha.py",
+                   "native/__init__.py"):
         assert f"learningorchestra_tpu_torch/{module}" in names
+    # The port's own copy of the native store's source.
+    assert (PORT / "csrc" / "docstore.cpp").is_file()
     assert (PORT / "csrc" / "flash_fwd.cu").is_file()
     assert (PORT / "csrc" / "flash_bwd.cu").is_file()
     assert (PORT / "csrc" / "quant.cu").is_file()

@@ -269,7 +269,11 @@ def test_lock_name_mismatch_fires_like_jax_and_not_on_the_port(tmp_path):
     trees = {p: t for p, (t, _) in _trees(PKG).items()}
     port, graph = wholeprogram.analyze_wholeprogram(PKG, trees)
     assert not [f for f in port if f.rule == "lock-name-mismatch"]
-    assert len(graph.names) >= 49
+    assert len(graph.names) >= 52
+    # The control plane's and the native store's locks, by static name.
+    for name in ("ClusterCoordinator._lock", "TenantAdmission._lock",
+                 "native._build_lock"):
+        assert name in graph.names, name
 
 
 # -- the retargeted host-sync rule --------------------------------------------

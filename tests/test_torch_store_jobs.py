@@ -161,13 +161,31 @@ def test_store_ids_are_atomic_and_unique(store, pkg):
         store.insert_unique("c", {}, _id=7)
 
 
-def test_open_document_store_backends(tmp_path):
+def test_open_document_store_backends(tmp_path, monkeypatch):
+    from learningorchestra_tpu_torch import native
+
     s = open_document_store(tmp_path / "a", backend="python")
     s.insert_one("c", {"v": 1})
     s.close()
-    assert open_document_store(tmp_path / "a").find("c")[0]["v"] == 1
-    with pytest.raises(ValueError, match="not ported"):
+    # "auto" opens the python store's WAL with the native engine.
+    auto = open_document_store(tmp_path / "a")
+    assert isinstance(auto, native.NativeDocumentStore)
+    assert auto.find("c")[0]["v"] == 1
+    auto.close()
+    with pytest.raises(ValueError, match="unknown store backend"):
+        open_document_store(tmp_path / "b", backend="mongo")
+    # A native library that cannot be built: "native" raises with the
+    # compiler's output, "auto" opens the python store.
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "nb")
+    monkeypatch.setattr(native, "CXX_FLAGS",
+                        native.CXX_FLAGS + ("-DLO_BREAK", "-include",
+                                            str(tmp_path / "missing.h")))
+    with pytest.raises(native.NativeBuildError, match="missing.h"):
         open_document_store(tmp_path / "b", backend="native")
+    fallback = open_document_store(tmp_path / "b")
+    assert type(fallback).__name__ == "DocumentStore"
+    fallback.close()
 
 
 # -- metadata and lineage ------------------------------------------------------

@@ -20,8 +20,8 @@ from learningorchestra_tpu_torch.api.server import APIServer
 from learningorchestra_tpu_torch.config import Config, StoreConfig
 
 #: Metadata / execution-document keys left out of the comparisons: the
-#: request id and span records (minted per run on each side) and the JAX
-#: package's native CSV engine's tag (not ported).
+#: request id and span records (minted per run on each side) and the
+#: native CSV engine's tag (present on the side whose engine ran).
 UNPORTED_KEYS = {"requestId", "trace", "engine"}
 
 
