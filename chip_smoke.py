@@ -133,10 +133,10 @@ Phases (each prints its own line; any failure exits nonzero):
    vocabulary of 20,000 synthetic word types with sentiment-bearing ones,
    lengths long-tailed around 180 words), ``POST /dataset/csv`` of both
    and a histogram of the label; ``/transform/text`` (BPE trained to
-   8,000 tokens, maxLen 128, 4,096-row shards: 2, the second a ragged
-   tail of 8 rows) and the held-out split and a maxLen-80 pair with
+   8,000 tokens, maxLen 128, 2,048-row shards: 2, the second a ragged
+   tail of 4 rows) and the held-out split and a maxLen-80 pair with
    ``tokenizerFrom``; BERT-base (phase 8's model) trained streaming for 1
-   epoch at batch 32 with ``quantize_checkpoint`` (129 steps: K1/K2/K3 12
+   epoch at batch 32 with ``quantize_checkpoint`` (65 steps: K1/K2/K3 12
    each per step, K4 once; one program per distinct shard length), a
    streaming evaluate on the test split (K5 once, K1 per batch) and a
    predict on the bare test dataset (K5 once, K1 per dispatch;
@@ -168,7 +168,9 @@ Phases (each prints its own line; any failure exits nonzero):
    job's int8 artifact (K5 once, K1 per batch) within 1e-3 of the same
    artifact on the CPU; its final f32 checkpoint against a single-device
    ``BertModel.fit`` of the same rows (bf16 bar 3e-2; 0 expected);
-   (b) world 2 (gloo, both ranks on ``cuda:0``) through
+   (b) world 2 (gloo, both ranks on ``cuda:0``; started beside (a)'s
+   job, so the two worlds' starts overlap and their steps share the
+   card: the line is marked ``contended``) through
    ``DistributedTrainer`` against one device in this process (which (a)
    holds world 1 to, bit for bit) on 128 of the rows, 1 epoch of plain
    SGD: each rank and the one device launch K1/K2/K3 12 per step, world
@@ -309,10 +311,10 @@ Phases (each prints its own line; any failure exits nonzero):
    K1/K2/K3 8 per rank per step), publishes it int8 (K4) and loads it
    (K5) with every leaf exact, and answers 8 concurrent ``/predict``
    requests at T = 4,096 on one device (K1 4 per dispatch; the one-row
-   request against the CPU); then (b) ``DistributedTrainer(spec=
+   request against the CPU); beside them (b) ``DistributedTrainer(spec=
    MeshSpec(sp=2), devices=["cuda:0"] * 2)`` fits 2 bf16 steps of 2 rows
-   at T = 65,536 (K1/K2/K3 8 per rank per step; each rank's step ms and
-   peak memory), and K1-K3 at a ring step's (2, 8, 32768, 32) are held
+   at T = 65,536 (K1/K2/K3 8 per rank per step; each rank's step ms,
+   marked ``contended``, and peak memory), and K1-K3 at a ring step's (2, 8, 32768, 32) are held
    against their plain versions in chunks of 2,048 query rows (bf16
    3e-2, absolute and of the largest plain value), then timed beside
    their bounds and SDPA; the ``long_context`` line;
@@ -329,10 +331,11 @@ Phases (each prints its own line; any failure exits nonzero):
    defaults with ``POST /train/horovod`` and ``"mesh": {"ep": 2}`` (2
    steps of 8 rows at T = 1,024), publishes it int8 (K4, all 8 experts of
    each layer) and loads it (K5), and ``/generate`` of 8 tokens equals a
-   one-device greedy decode of the same artifact; then (b)
+   one-device greedy decode of the same artifact; beside them (b)
    ``DistributedTrainer(spec=MeshSpec(dp=2, ep=2), devices=["cuda:0"] *
    4)`` fits the classifier 8 bf16 steps of 32 rows (each rank's step,
-   gradient sync and expert exchange ms, peak memory, parameter bytes,
+   gradient sync and expert exchange ms, marked ``contended``, peak
+   memory, parameter bytes,
    K1/K2/K3 2 per step), and K1-K3 at a rank's (16, 4, 256, 32) with a
    key mask are held against their plain versions (bf16 3e-2); the
    ``expert_parallel`` line;
@@ -397,7 +400,32 @@ Phases (each prints its own line; any failure exits nonzero):
    and CSV engine and through the python store's row path: the same
    shards, both times and g++'s version; the ``control_plane``,
    ``store_ha`` and ``native_store`` lines;
-23. last line: {"ok": true, "device": {...}}.
+23. pipeline parallelism (``run_pipeline``): ``PipelinedTransformer`` at
+   BERT-base widths (vocab 30,522, hidden 768, 12 layers, 12 heads, mlp
+   3,072, max_len 128, 2 classes), pp 4 over ``["cuda:0"] * 4``, 8
+   microbatches, a global batch of 32 seeded token rows with zero-padded
+   tails, lr 2e-5, from one carried seeded init: (a) under each schedule
+   (``gpipe`` and ``1f1b`` in four gloo rank processes, ``mpmd`` in this
+   process) one f32 step whose loss is within 2e-5 (relative) of the
+   sequential oracle's on the card, whose gradients (adam's first moment
+   after the step, every rank's copy of every leaf it holds) are within
+   1e-4 of the oracle's per leaf (||d|| / ||mu||), and whose parameters
+   are within 5e-5 of the oracle's after the step; (b) the same fit goes
+   on for 3
+   bf16 steps (a callback switches the compute dtype after epoch 0):
+   K1/K2/K3 24 per rank per step (3 layers x 8 microbatches; 96 a step in
+   the mpmd process), each rank's step ms, bubble share, hop ms,
+   parameter bytes and peak memory, and each schedule's bf16 losses
+   within 3e-2 of the others'; K1-K3 at a microbatch's (4, 12, 128, 64)
+   held against their plain versions (bf16 3e-2); the two rank worlds
+   run beside each other and the in-process legs, so the line's step ms,
+   bubble shares and hop waits are marked ``contended``
+   (``scripts/torch_pipeline_phase.py --serial`` runs each alone); (c)
+   over REST on a server whose leaser holds four units of cuda:0: ``POST
+   /model/tensorflow`` with the JAX ``modulePath`` and ``{"schedule":
+   "mpmd", "pp": 4}``, ``/train`` (2 bf16 steps), ``/evaluate`` and
+   ``/predict`` (K1 12 a 512-row chunk); the ``pipeline`` line;
+24. last line: {"ok": true, "device": {...}}.
 
 Without a visible GPU, or without the repository beside it, it exits
 nonzero and prints no result.
@@ -411,6 +439,7 @@ import http.client
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -2247,8 +2276,8 @@ COVTYPE_RANGES = ((1859, 3858), (0, 360), (0, 66), (0, 1397), (-173, 601),
 # the phase's time (host tree growth; CPU reference fits of the f32
 # solvers; kNN's CPU predict against its training rows; kmeans++ seeding
 # on the host).  Every predict on the card runs over all 581,012 rows.
-COVTYPE_FIT_ROWS = {"RandomForestClassifier": 25_000,
-                    "GradientBoostingClassifier": 2_500,
+COVTYPE_FIT_ROWS = {"RandomForestClassifier": 10_000,
+                    "GradientBoostingClassifier": 1_000,
                     "KNeighborsClassifier": 5_000,
                     "DecisionTreeClassifier": 50_000,
                     "DecisionTreeRegressor": 50_000,
@@ -3214,17 +3243,17 @@ def run_crash_drill(tmp) -> dict:
 
 # The Large Movie Review Dataset's split (Maas et al., 2011), as a shape:
 # 25,000 train and 25,000 test reviews, balanced; the text is seeded.  Cut
-# to this many per split (1 full 4,096-row shard and a tail of 8: two
+# to this many per split (1 full 2,048-row shard and a tail of 4: two
 # shard lengths, so two streaming programs) to bound the run's time; the
 # row shape, vocabulary and lengths stay.
-IMDB_ROWS = 4_104
+IMDB_ROWS = 2_052
 IMDB_TYPES = 20_000  # synthetic word types, Zipf-distributed
 IMDB_SENTIMENT = 200  # sentiment-bearing types per polarity
 IMDB_SENTIMENT_SHARE = 0.03  # of a review's words
-TEXT_VOCAB, TEXT_LEN, TEXT_SHARD = 8000, 128, 4096
+TEXT_VOCAB, TEXT_LEN, TEXT_SHARD = 8000, 128, 2048
 CONFIG3_LEN = 80  # BASELINE config 3's Keras IMDb sequence length
 STREAM_BATCH = 32
-MNIST_ROWS, MNIST_BATCH = 60_000, 1024
+MNIST_ROWS, MNIST_BATCH, MNIST_SHARD = 60_000, 1024, 4096
 # Covertype's schema (54 features + Cover_Type), cut from 581,012 rows:
 # the sharded CSV ingest parses in Python (the native parser is A.11).
 COVTYPE_STREAM_ROWS, COVTYPE_STREAM_SHARD = 100_000, 16_384
@@ -3639,7 +3668,7 @@ def run_text_pipeline(tmp, in_memory_step_ms) -> dict:
         mnist = run("mnist", "POST", "/dataset/tensor", {
             "datasetName": "mnist", "url": f"file://{tmp}/mnist_x.npy",
             "labelsUrl": f"file://{tmp}/mnist_y.npy",
-            "shardRows": TEXT_SHARD}, "mnist")
+            "shardRows": MNIST_SHARD}, "mnist")
         model("cnn", "models.vision", "MnistCNN", {})
         train("cnn_stream", "cnn", "mnist", MNIST_BATCH)
         # 6. Sharded CSV (Covertype's schema) and the streaming MLP.
@@ -3660,7 +3689,7 @@ def run_text_pipeline(tmp, in_memory_step_ms) -> dict:
         fit_summary = [(c, f["moved"], f["leaves"], f["history"].get("loss"))
                        for c, f in stream_fits.items()]
         phase("text tensor/CSV ingest",
-              mnist.get("shards") == -(-MNIST_ROWS // TEXT_SHARD)
+              mnist.get("shards") == -(-MNIST_ROWS // MNIST_SHARD)
               and covtype.get("shards") == -(-COVTYPE_STREAM_ROWS
                                              // COVTYPE_STREAM_SHARD)
               and covtype.get("rows") == COVTYPE_STREAM_ROWS
@@ -3764,6 +3793,9 @@ class TrainerProbe:
         def fit(trainer, *args, **kwargs):
             out = real(trainer, *args, **kwargs)
             probe.fits.append({"world": trainer.mesh.size,
+                               # A REST job's trainer stages under the
+                               # server's root; a phase's own, elsewhere.
+                               "rest": trainer.stage_root is not None,
                                "backend": trainer.backend,
                                "rank_stats": trainer.rank_stats,
                                "history": dict(trainer.history)})
@@ -3809,6 +3841,12 @@ def update_error(init, got, want, scale: float = 1.0) -> dict:
         leaves.append((".".join(path),
                        float((scale * (pg - p0) - (pw - p0)).norm()),
                        float((pw - p0).norm()), p0.numel()))
+    return _worst_leaf(leaves)
+
+
+def _worst_leaf(leaves: list) -> dict:
+    """``update_error``'s ratios from (name, ||difference||, ||reference||,
+    elements) per leaf."""
     num = math.sqrt(sum(n * n for _, n, _, _ in leaves))
     den = math.sqrt(sum(d * d for _, _, d, _ in leaves))
     if not den:  # no change to hold against
@@ -3862,6 +3900,8 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
     httpd.RequestHandlerClass.log_message = lambda *a: None
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     ok, line, launches = True, {}, {}
+    pool = concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="dist-world2")
 
     def check(name, good, detail):
         nonlocal ok
@@ -3884,6 +3924,23 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
                   meta.get("jobState") == "finished", f"{verb} {path} -> "
                   f"{status}, jobState {meta.get('jobState')}")
 
+        # (b)'s world-2 trainer starts beside (a)'s REST job: the two
+        # worlds' rank starts (host imports, CUDA contexts) overlap, and
+        # their steps share the card (PERF.md section 4).
+        devices = ["cuda:0", "cuda:0"]
+        est = server.ctx.volumes.load_estimator("model/tensorflow", "bert",
+                                                device="cuda")
+        est.compile(optimizer="sgd", learning_rate=DIST_SGD_LR)
+        trainer = DistributedTrainer(est, devices=devices)
+
+        def world2_fit():
+            t0 = time.perf_counter()
+            trainer.fit(x[:DIST_ROWS], y[:DIST_ROWS], epochs=1,
+                        batch_size=TRAIN_SHAPE[0], shuffle=False)
+            return time.perf_counter() - t0
+
+        world2 = pool.submit(world2_fit)
+
         # (a) world 1 over REST, traced into its monitoring session.
         steps = TRAIN_EPOCHS * -(-TRAIN_ROWS // TRAIN_SHAPE[0])
         status, meta, secs, counts = rest_job(
@@ -3894,8 +3951,9 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
                  "epochs": TRAIN_EPOCHS, "batch_size": TRAIN_SHAPE[0],
                  "shuffle": False, "quantize_checkpoint": True},
              "monitoringPath": f"{DIST_JOB}_logs"}, DIST_JOB)
-        rest_fit = probe.fits[-1] if probe.fits else {"rank_stats": [],
-                                                      "world": 0}
+        rest_fit = next((f for f in reversed(probe.fits)
+                         if f["world"] == 1),
+                        {"rank_stats": [], "world": 0})
         ranks = rank_summary(rest_fit, steps)
         _, rows = request(port, "GET", f"/train/horovod/{DIST_JOB}")
         history = [r for r in rows if r.get("docType") == "history"]
@@ -3984,13 +4042,15 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
                     world1_rest_vs_single_loss_diff=loss_diff,
                     world1_rest_vs_single_update=rest_update)
 
-        # (b) world 2 through the trainer against one device on the same
-        # rows, under plain SGD from the same initial parameters.  (a)
-        # holds world 1 (NCCL) to one device bit for bit, so the one
-        # device runs in this process: a spawned world-1 trainer cost
-        # 27.5 s of the phase (PERF.md section 4).
+        # (b) world 2 through the trainer (started beside (a)) against one
+        # device on the same rows, under plain SGD from the same initial
+        # parameters.  (a) holds world 1 (NCCL) to one device bit for bit,
+        # so the one device runs in this process, after world 2's ranks
+        # are done (its launches are this process's): a spawned world-1
+        # trainer cost 27.5 s of the phase (PERF.md section 4).
         steps = -(-DIST_ROWS // TRAIN_SHAPE[0])
         worlds = {}
+        world2.exception()  # the ranks are done (an error raises below)
         one = server.ctx.volumes.load_estimator("model/tensorflow", "bert",
                                                 device="cuda")
         one.compile(optimizer="sgd", learning_rate=DIST_SGD_LR)
@@ -4013,16 +4073,9 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
               f"BertModel.fit in this process: {secs:.2f}s, {steps} SGD "
               f"steps; launches {counts} (want {want} of K1/K2/K3)")
         del one
-        devices = ["cuda:0", "cuda:0"]
-        est = server.ctx.volumes.load_estimator("model/tensorflow", "bert",
-                                                device="cuda")
-        est.compile(optimizer="sgd", learning_rate=DIST_SGD_LR)
-        trainer = DistributedTrainer(est, devices=devices)
-        t0 = time.perf_counter()
-        trainer.fit(x[:DIST_ROWS], y[:DIST_ROWS], epochs=1,
-                    batch_size=TRAIN_SHAPE[0], shuffle=False)
-        secs = time.perf_counter() - t0
-        summary = rank_summary(probe.fits[-1], steps)
+        secs = world2.result()
+        summary = rank_summary(next(f for f in reversed(probe.fits)
+                                    if f["world"] == 2), steps)
         worlds["world2"] = {"seconds": secs, "backend": trainer.backend,
                             "history": dict(trainer.history),
                             "params": convert.to_host(
@@ -4107,9 +4160,13 @@ def run_distributed(tmp, in_memory_step_ms) -> dict:
               f"{umeta.get('jobState')} in {url_s:.2f}s, rows "
               f"{umeta.get('rows')}, equal to the file ingest: "
               f"{strip[0] == strip[1]}")
+        # World 1's REST ranks and world 2's ran at once: their step and
+        # sync ms shared the card.
+        line["contended"] = True
         line.update(builder_s=build_s, url_ingest_s=url_s,
                     in_memory_step_ms=in_memory_step_ms)
     finally:
+        pool.shutdown(wait=True)  # world 2's ranks end before the probe
         probe.close()
         httpd.shutdown()
         httpd.server_close()
@@ -6634,8 +6691,8 @@ def long_rest(tmp, card: str) -> tuple:
                                     "epochs": 1, "batch_size": 2,
                                     "shuffle": False},
              "mesh": {"sp": LONG_SP}}, fit_name)
-        fit = probe.fits[-1] if probe.fits else {"rank_stats": [],
-                                                 "world": 0}
+        fit = next((f for f in reversed(probe.fits) if f["rest"]),
+                   None) or {"rank_stats": [], "world": 0}
         steps = LONG_REST_ROWS // 2
         want = layers * LONG_SP * steps
         ranks = [s["launches"] for s in fit["rank_stats"]]
@@ -6814,7 +6871,7 @@ def run_long_context(tmp, card: str) -> dict:
     (a) two gloo rank processes on cuda:0 (``--ring-child``) check the
     flash ring against the plain version and the f32 sp = 2 step against
     one device, while (c) drives the REST path (``/train/horovod`` with
-    ``{"sp": 2}``, the int8 artifact, ``/predict``); then (b) the 4-step
+    ``{"sp": 2}``, the int8 artifact, ``/predict``); beside them (b) the 2-step
     bf16 fit at T = 65,536 through ``DistributedTrainer``, and K1-K3
     checked and timed at a ring step's shape; the ``long_context``
     line."""
@@ -6832,13 +6889,21 @@ def run_long_context(tmp, card: str) -> dict:
         [sys.executable, os.path.abspath(__file__), "--ring-child", stage,
          str(r)], stdout=logs[r], stderr=subprocess.STDOUT,
         stdin=subprocess.DEVNULL, env=env) for r in range(LONG_SP)]
+    # (b)'s two ranks start beside (a)'s and (c)'s: their starts overlap,
+    # and the fit's steps share the card with (c)'s (PERF.md section 4).
+    pool = concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="long-fit")
     try:
+        fit = pool.submit(long_fit)
         line["rest"], launches = long_rest(os.path.join(tmp, "rest"), card)
         line["ring"], line["f32_step"] = ring_results(procs, stage)
-        line["fit"] = long_fit()
+        line["fit"] = fit.result()
+        # Its ranks ran beside (a)'s and (c)'s: its step ms shared the card.
+        line["fit"]["contended"] = True
         launches["fit_ranks"] = [r["launches"] for r in line["fit"]["ranks"]]
         line["timing"] = ring_step_kernels(attention)
     finally:
+        pool.shutdown(wait=True)
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
@@ -7191,8 +7256,8 @@ def ep_rest(tmp, card: str) -> tuple:
                                     "batch_size": EP_REST_BATCH,
                                     "shuffle": False},
              "mesh": {"ep": EP_MESH["ep"]}}, fit_name)
-        fit = probe.fits[-1] if probe.fits else {"rank_stats": [],
-                                                 "world": 0}
+        fit = next((f for f in reversed(probe.fits) if f["rest"]),
+                   None) or {"rank_stats": [], "world": 0}
         steps = EP_REST_ROWS // EP_REST_BATCH
         want = layers * steps
         ranks = [s["launches"] for s in fit["rank_stats"]]
@@ -7285,7 +7350,7 @@ def run_expert_parallel(tmp, card: str) -> dict:
     four gloo rank processes on cuda:0 (``--ep-child``) check one f32
     dp 2 x ep 2 step against one device while (c) drives the REST path
     (``/train/horovod`` with ``{"ep": 2}`` on the decoder LM, the int8
-    artifact, ``/generate``); then (b) the 8-step bf16 fit of the
+    artifact, ``/generate``); beside them (b) the 8-step bf16 fit of the
     classifier through ``DistributedTrainer`` and K1-K3 checked at a
     rank's attention shape; the ``expert_parallel`` line."""
     from learningorchestra_tpu_torch.ops import attention
@@ -7302,13 +7367,21 @@ def run_expert_parallel(tmp, card: str) -> dict:
         [sys.executable, os.path.abspath(__file__), "--ep-child", stage,
          str(r)], stdout=logs[r], stderr=subprocess.STDOUT,
         stdin=subprocess.DEVNULL, env=env) for r in range(EP_WORLD)]
+    # (b)'s four ranks start beside (a)'s and (c)'s: their starts overlap,
+    # and the fit's steps share the card with (c)'s (PERF.md section 4).
+    pool = concurrent.futures.ThreadPoolExecutor(
+        max_workers=1, thread_name_prefix="ep-fit")
     try:
+        fit = pool.submit(ep_fit)
         line["rest"], launches = ep_rest(os.path.join(tmp, "rest"), card)
         line["f32_step"] = ep_results(procs, stage)
-        line["fit"] = ep_fit()
+        line["fit"] = fit.result()
+        # Its ranks ran beside (a)'s and (c)'s: its step ms shared the card.
+        line["fit"]["contended"] = True
         launches["fit_ranks"] = [r["launches"] for r in line["fit"]["ranks"]]
         line["kernels"] = ep_step_kernels(attention)
     finally:
+        pool.shutdown(wait=True)
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
@@ -8611,6 +8684,502 @@ def run_control_plane(tmp, card: str, ops_line: dict) -> dict:
     return {"ok": ok, "launches": launches, "line": line}
 
 
+# -- phase 23: pipeline parallelism -------------------------------------------
+
+PP_PATH = "learningorchestra_tpu.parallel.pipeline"
+PP_SHAPE = {"vocab_size": 30522, "hidden_dim": 768, "num_layers": 12,
+            "num_heads": 12, "mlp_dim": 3072, "max_len": 128,
+            "num_classes": 2}
+PP, PP_MICRO, PP_BATCH = 4, 8, 32
+PP_DEVICE = "cuda:0"
+PP_LR = 2e-5  # one adam step moves a leaf by at most ~lr
+PP_BF16_EPOCHS = 3  # (b): bf16 steps after (a)'s f32 step
+PP_LOSS_BAR = 2e-5  # (a): relative, against the sequential oracle
+PP_PARAM_BAR = 5e-5  # (a): every parameter after the step
+# (a): the step's gradients, held through adam's first moment (mu = (1 -
+# b1) g after one step; the parameters move by ~lr whatever g is): per
+# leaf ||mu - mu_oracle|| / ||mu_oracle||, on every rank's copy.
+PP_GRAD_BAR = 1e-4
+PP_BF16_TOL = 3e-2  # (b): the schedules' bf16 losses, each other
+PP_REST_ROWS = 64  # (c): 2 steps of 32
+PP_SCHEDULES = ("gpipe", "1f1b", "mpmd")
+
+
+def pp_rows(n: int, seed: int) -> tuple:
+    """Seeded token rows of ``PP_SHAPE``'s vocabulary, each with a
+    zero-padded tail (lengths 64..128), and labels."""
+    rng = np.random.default_rng(seed)
+    t = PP_SHAPE["max_len"]
+    x = rng.integers(1, PP_SHAPE["vocab_size"], (n, t)).astype(np.int32)
+    for r, n_tok in enumerate(rng.integers(t // 2, t + 1, n)):
+        x[r, n_tok:] = 0
+    return x, rng.integers(0, 2, n).astype(np.int32)
+
+
+class PipelineSwitch:
+    """Phase 23's fit callback: after epoch 0 (the f32 step) each process
+    writes its launch counters, its parameters in the JAX layout (a
+    pipeline rank of dp index 0 its stage, rank 0 the embedding and head
+    too: no gather) and adam's first moment of every leaf it holds (each
+    rank its copies of the embedding and head too), then the fit goes on
+    in bf16.  It crosses into the rank processes, so it lives in a module
+    they can import (``chip_smoke``)."""
+
+    def __init__(self, out_dir: str):
+        self.out_dir = out_dir
+
+    def __call__(self, epoch, metrics, model):
+        if epoch != 0:
+            return
+        from learningorchestra_tpu_torch.ops import attention
+
+        rank = model._rank.link.rank if model._rank is not None else 0
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        with open(os.path.join(self.out_dir, f"f32_counts_{rank}.json"),
+                  "w") as fh:
+            json.dump({"flash_fwd": attention.launches,
+                       "flash_bwd_dq": attention.bwd_dq_launches,
+                       "flash_bwd_dkv": attention.bwd_dkv_launches}, fh)
+        from learningorchestra_tpu_torch import convert
+
+        moments = None
+        if model._rank is None:  # mpmd: every stage is in this process
+            state = model.state_dict()
+            params = state["params"]
+            emb, stages, head = state["opt_state"]  # one per partition
+            moments = {"embed": emb["mu"], "head": head["mu"],
+                       **{f"stage_{s:02d}": st["mu"]
+                          for s, st in enumerate(stages)}}
+        elif model._rank.link.dp_index == 0:
+            parts, stage = model._parts, model._rank.link.stage
+            params = {"stage": stage,
+                      "params": convert.params_to_jax(parts.stage(stage))}
+            if rank == 0:
+                params["embed"] = convert.params_to_jax(parts.embed)
+                params["head"] = convert.params_to_jax(parts.head)
+        else:
+            params = None
+        if params is not None:
+            self._dump(f"params_{rank}", params)
+        self._dump(f"moments_{rank}", moments or pp_rank_moments(model))
+        model.compute_dtype = "bfloat16"
+
+    def _dump(self, name: str, obj) -> None:
+        tmp = os.path.join(self.out_dir, f".{name}.tmp")
+        with open(tmp, "wb") as fh:
+            pickle.dump(obj, fh, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, os.path.join(self.out_dir, f"{name}.pkl"))
+
+
+def pp_rank_moments(model) -> dict:
+    """Adam's first moment of every leaf a pipeline rank holds, as flax
+    trees on the host: ``{"embed", "stage_NN", "head"}``."""
+    from learningorchestra_tpu_torch.parallel import pipeline as pl
+
+    parts, s = model._parts, model._rank.link.stage
+    mu = lambda m: pl._opt_export(  # noqa: E731
+        model.opt_state, model.optimizer, m, model._updates)["mu"]
+    return {"embed": mu(parts.embed), f"stage_{s:02d}": mu(parts.stage(s)),
+            "head": mu(parts.head)}
+
+
+def pp_moment_error(got: dict, want: dict) -> dict:
+    """The first moments ``got`` (host trees of some of ``want``'s parts)
+    against ``want``'s (tensors on the card), on the card: per leaf
+    ||got - want|| / ||want||, floored as ``update_error`` floors it."""
+    leaves = []
+    for part, tree in got.items():
+        ref = dict(_flat(want[part]))
+        for path, g in _flat(tree):
+            w = ref[path]
+            d = torch.as_tensor(np.asarray(g)).to(w.device) - w
+            leaves.append((".".join((part,) + path), float(d.norm()),
+                           float(w.norm()), w.numel()))
+    return _worst_leaf(leaves)
+
+
+def _leaf_max_diff(a, b) -> float:
+    """max|a - b| over two trees of host arrays, on ``PP_DEVICE``."""
+    if isinstance(a, dict):
+        return max(_leaf_max_diff(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return max(_leaf_max_diff(u, v) for u, v in zip(a, b))
+    u, v = (torch.as_tensor(np.asarray(t)).to(PP_DEVICE) for t in (a, b))
+    return float((u - v).abs().max())
+
+
+def pp_oracle(est, x, y) -> dict:
+    """The sequential oracle on the card: one f32 forward and backward of
+    the stage stack over the whole batch, one adam step; its loss, the
+    parameters after and adam's first moments (``pp_rank_moments``'
+    layout, left on the card)."""
+    from learningorchestra_tpu_torch import convert
+    from learningorchestra_tpu_torch.parallel import pipeline as pl
+
+    est._ensure_parts()
+    parts = est._parts
+    dev = torch.device(PP_DEVICE)
+    opt = est.optimizer.build(parts.parameters())
+    t0 = time.perf_counter()
+    loss, _ = pl.sequential_loss(
+        parts.embed, list(parts.stages), parts.head, est._loss_fn,
+        torch.from_numpy(x).to(dev), torch.from_numpy(y).long().to(dev),
+        torch.ones(len(x), device=dev))
+    loss.backward()
+    opt.step()
+    parts.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    key = est.optimizer.slots["mu"]
+    mu = lambda m: convert.flax_tree(  # noqa: E731
+        m, pick=lambda p: opt.state[p][key].detach().clone())
+    return {"loss": float(loss), "seconds": seconds,
+            "params": convert.pipeline_to_jax(
+                parts.embed, list(parts.stages), parts.head),
+            "moments": {"embed": mu(parts.embed), "head": mu(parts.head),
+                        **{f"stage_{s:02d}": mu(st)
+                           for s, st in enumerate(parts.stages)}}}
+
+
+def pp_fit(schedule: str, init, x, y, tmp) -> dict:
+    """One schedule's fit through ``PipelinedTransformer.fit`` from the
+    carried init: 1 f32 epoch then ``PP_BF16_EPOCHS`` bf16 epochs of one
+    step each; the counters at 0 just before, read just after."""
+    import chip_smoke as module  # the callback class, importable by ranks
+    from learningorchestra_tpu_torch.parallel.pipeline import (
+        PipelinedTransformer,
+    )
+
+    out = os.path.join(tmp, schedule)
+    os.makedirs(out)
+    est = PipelinedTransformer(
+        **PP_SHAPE, pp=PP, n_microbatches=PP_MICRO, learning_rate=PP_LR,
+        seed=0, compute_dtype="float32", schedule=schedule,
+        devices=[PP_DEVICE] * PP, device=PP_DEVICE)
+    est.load_state_dict({"params": init})
+    from learningorchestra_tpu_torch.obs import tracing
+
+    mpmd = schedule == "mpmd"
+    if mpmd:  # its launches are this process's (the ranks count theirs)
+        zero_kernel_counts()
+    # mpmd records each stage's host dispatch seconds as spans.
+    trace = tracing.new_trace(f"pp-{schedule}") if mpmd else None
+    t0 = time.perf_counter()
+    with tracing.activate(trace):
+        est.fit(x, y, epochs=1 + PP_BF16_EPOCHS, batch_size=PP_BATCH,
+                shuffle=False, callbacks=[module.PipelineSwitch(out)])
+    fit_s = time.perf_counter() - t0
+    spans = trace.to_doc()["spans"] if trace is not None else []
+    process = kernel_counts() if mpmd else None
+    from learningorchestra_tpu_torch import convert
+
+    written = []
+    for name in sorted(os.listdir(out)):
+        if name.startswith("params_"):
+            with open(os.path.join(out, name), "rb") as fh:
+                written.append(pickle.load(fh))
+    if mpmd:
+        after_f32 = written[0]
+    else:  # the ranks' stages in the JAX layout
+        stages = sorted((w for w in written), key=lambda w: w["stage"])
+        first = next(w for w in written if "embed" in w)
+        after_f32 = (first["embed"], convert.stack_trees(
+            [w["params"] for w in stages]), first["head"])
+    moments = []
+    for name in sorted(os.listdir(out)):
+        if name.startswith("moments_"):
+            with open(os.path.join(out, name), "rb") as fh:
+                moments.append(pickle.load(fh))
+    f32 = []
+    for name in sorted(os.listdir(out)):
+        if name.startswith("f32_counts_"):
+            with open(os.path.join(out, name)) as fh:
+                f32.append(json.load(fh))
+    if mpmd:
+        ranks = [{"rank": 0, "launches": process, "param_bytes": sum(
+            p.numel() * p.element_size() for p in est._parts.parameters()),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}]
+    else:
+        ranks = est.rank_stats
+    return {"est": est, "losses": list(est.history["loss"]), "fit_s": fit_s,
+            "after_f32": after_f32, "moments": moments,
+            "f32_counts": f32, "ranks": ranks,
+            "stage_dispatch_s": [
+                [sp["durationS"] for sp in spans
+                 if sp["name"] == "mpmd.stage"
+                 and sp["attrs"]["epoch"] == e]
+                for e in range(1 + PP_BF16_EPOCHS)],
+            "epoch_s": [sp["durationS"] for sp in spans
+                        if sp["name"] == "epoch"]}
+
+
+def pp_step_kernels(attention) -> dict:
+    """K1, K2 and K3 in bf16 at a microbatch's attention shape (4, 12, 128,
+    64) with a key mask, each against its plain version (bar
+    ``PP_BF16_TOL``)."""
+    h = PP_SHAPE["num_heads"]
+    b, t = PP_BATCH // PP_MICRO, PP_SHAPE["max_len"]
+    d = PP_SHAPE["hidden_dim"] // h
+    gen = torch.Generator(device=PP_DEVICE).manual_seed(23)
+    q, k, v, do = (torch.randn(b, h, t, d, device=PP_DEVICE, generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    km = _timing_mask(b, t, q.device)
+    with torch.inference_mode():
+        o, lse = attention.flash_attention_fwd(q, k, v, km, False)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        bwd = (km, do, lse, delta, False)
+        dq = attention.flash_attention_bwd_dq(q, k, v, *bwd)
+        dk, dv = attention.flash_attention_bwd_dkv(q, k, v, *bwd)
+        o_ref, lse_ref = attention.flash_attention_fwd_plain(q, k, v, km,
+                                                             False)
+        dq_ref = attention.flash_attention_bwd_dq_plain(q, k, v, *bwd)
+        dk_ref, dv_ref = attention.flash_attention_bwd_dkv_plain(q, k, v,
+                                                                 *bwd)
+    err = {"o": max_abs(o, o_ref), "lse": max_abs(lse, lse_ref),
+           "dq": max_abs(dq, dq_ref), "dk": max_abs(dk, dk_ref),
+           "dv": max_abs(dv, dv_ref)}
+    phase("pipeline step kernels", all(e <= PP_BF16_TOL
+                                       for e in err.values()),
+          f"K1/K2/K3 bf16 at a microbatch's {tuple(q.shape)} with a key "
+          f"mask (last 37 keys) against their plain versions: max|d| {err} "
+          f"(bar {PP_BF16_TOL})")
+    return {"shape": list(q.shape), "max_abs_err": err}
+
+
+def pp_rest(tmp, x, y) -> tuple:
+    """(c): the port's server with four lease units of cuda:0: the model
+    created over REST with the JAX module path and mpmd, a train job, an
+    evaluate job and a predict job."""
+    from learningorchestra_tpu_torch.api.server import APIServer
+    from learningorchestra_tpu_torch.jobs.leases import DeviceLeaser
+
+    line: dict = {}
+    launches: dict = {}
+    layers = PP_SHAPE["num_layers"]
+    server = APIServer(server_config(tmp), device=PP_DEVICE)
+    port = server.start_background()
+    server.ctx.leaser = server.ctx.engine.leaser = DeviceLeaser(
+        [PP_DEVICE] * PP)
+    try:
+        status, meta, model_s, _ = rest_job(
+            port, "POST", "/model/tensorflow",
+            {"name": "pp_model", "modulePath": PP_PATH,
+             "class": "PipelinedTransformer",
+             "classParameters": {**PP_SHAPE, "schedule": "mpmd", "pp": PP,
+                                 "n_microbatches": PP_MICRO,
+                                 "learning_rate": PP_LR, "seed": 0}},
+            "pp_model")
+        phase("pipeline rest model", status == 201
+              and bool(meta.get("finished")),
+              f"POST /model/tensorflow {PP_PATH}.PipelinedTransformer "
+              f"{{'schedule': 'mpmd', 'pp': {PP}}} -> {status}, finished "
+              f"{meta.get('finished')} in {model_s:.2f}s")
+        steps = PP_REST_ROWS // PP_BATCH
+        status, meta, fit_s, fit_l = rest_job(
+            port, "POST", "/train/tensorflow",
+            {"name": "pp_fit", "modelName": "pp_model",
+             "parentName": "pp_model", "method": "fit",
+             "methodParameters": {"x": x.tolist(), "y": y.tolist(),
+                                  "epochs": 1, "batch_size": PP_BATCH,
+                                  "shuffle": False}}, "pp_fit")
+        launches["rest_train"] = fit_l
+        _, rows = request(port, "GET", "/train/tensorflow/pp_fit")
+        history = [r.get("loss") for r in rows
+                   if r.get("docType") == "history"]
+        want = layers * PP_MICRO * steps
+        phase("pipeline rest train", status == 201
+              and bool(meta.get("finished")) and len(history) == 1
+              and all(math.isfinite(v) for v in history)
+              and meta.get("leasedDevices") == [PP_DEVICE] * PP
+              and all(fit_l[k] == want for k in (
+                  "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+              f"POST /train/tensorflow mpmd, {len(x)} rows in {steps} "
+              f"steps: {meta.get('jobState')} in {fit_s:.2f}s (fitTime "
+              f"{meta.get('fitTime')}), leased {meta.get('leasedDevices')}, "
+              f"loss {history}, K1/K2/K3 {[fit_l[k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')]}"
+              f" (want {want})")
+        line["train"] = {"job_s": fit_s, "fit_time_s": meta.get("fitTime"),
+                         "losses": history}
+        status, meta, eval_s, eval_l = rest_job(
+            port, "POST", "/evaluate/tensorflow",
+            {"name": "pp_eval", "modelName": "pp_fit",
+             "parentName": "pp_fit", "method": "evaluate",
+             "methodParameters": {"x": x.tolist(), "y": y.tolist()}},
+            "pp_eval")
+        launches["rest_evaluate"] = eval_l
+        _, rows = request(port, "GET", "/evaluate/tensorflow/pp_eval")
+        metrics = [r for r in rows if "loss" in r and "docType" not in r]
+        chunks = -(-len(x) // 512)
+        phase("pipeline rest evaluate", status == 201
+              and bool(meta.get("finished")) and len(metrics) == 1
+              and math.isfinite(metrics[0]["loss"])
+              and eval_l["flash_fwd"] == layers * chunks
+              and eval_l["flash_bwd_dq"] == 0,
+              f"POST /evaluate/tensorflow: {meta.get('jobState')} in "
+              f"{eval_s:.2f}s, metrics {metrics[:1]}, K1 "
+              f"{eval_l['flash_fwd']} (want {layers} a chunk x {chunks})")
+        status, meta, pred_s, pred_l = rest_job(
+            port, "POST", "/predict/tensorflow",
+            {"name": "pp_pred", "modelName": "pp_fit",
+             "parentName": "pp_fit", "method": "predict",
+             "methodParameters": {"x": x.tolist()}}, "pp_pred")
+        launches["rest_predict"] = pred_l
+        classes = [r["result"] for r in rest_rows(
+            port, "/predict/tensorflow/pp_pred") if "result" in r]
+        phase("pipeline rest predict", status == 201
+              and bool(meta.get("finished")) and len(classes) == len(x)
+              and set(classes) <= {0, 1}
+              and pred_l["flash_fwd"] == layers * chunks,
+              f"POST /predict/tensorflow: {meta.get('jobState')} in "
+              f"{pred_s:.2f}s, {len(classes)} classes, K1 "
+              f"{pred_l['flash_fwd']} (want {layers} a chunk x {chunks})")
+        line.update(model_s=model_s, evaluate_s=eval_s, predict_s=pred_s,
+                    metrics=metrics[:1])
+    finally:
+        server.shutdown()
+    return line, launches
+
+
+def run_pipeline(tmp, card: str, overlap: bool = True) -> dict:
+    """Phase 23: pipeline parallelism at BERT-base widths (module
+    docstring, item 23); the ``pipeline`` line.  With ``overlap`` (the
+    smoke's way) the gpipe and 1f1b worlds run beside each other and
+    beside this process's legs, so their step ms share the card; without
+    it (``scripts/torch_pipeline_phase.py --serial``) each world, then
+    each leg, runs alone."""
+    from learningorchestra_tpu_torch.ops import attention
+    from learningorchestra_tpu_torch.parallel.pipeline import (
+        PipelinedTransformer,
+    )
+
+    t_phase = time.perf_counter()
+    line: dict = {"schedules": {}}
+    launches: dict = {}
+    x, y = pp_rows(PP_BATCH, seed=23)
+    base = PipelinedTransformer(
+        **PP_SHAPE, pp=PP, n_microbatches=PP_MICRO, learning_rate=PP_LR,
+        seed=0, compute_dtype="float32", schedule="gpipe",
+        devices=[PP_DEVICE] * PP, device=PP_DEVICE)
+    base._ensure_parts()
+    init = base.state_dict()["params"]
+    oracle = pp_oracle(base, x, y)
+    del base
+    torch.cuda.empty_cache()
+    layers_per_stage = PP_SHAPE["num_layers"] // PP
+    steps = 1 + PP_BF16_EPOCHS
+    # With ``overlap`` the gpipe and 1f1b worlds (four rank processes
+    # each, mostly host imports before their first step) run beside each
+    # other and beside this process's mpmd fit, the kernels at the
+    # microbatch shape and the REST leg: their step ms share the card.
+    fits = {}
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=2 if overlap else 1,
+            thread_name_prefix="pp-world") as pool:
+        worlds = {}
+        for s in ("gpipe", "1f1b"):
+            worlds[s] = pool.submit(pp_fit, s, init, x, y, tmp)
+            if not overlap:
+                worlds[s].result()
+        if not overlap:
+            fits.update((s, f.result()) for s, f in worlds.items())
+        fits["mpmd"] = pp_fit("mpmd", init, x, y, tmp)
+        line["kernels"] = pp_step_kernels(attention)
+        rx, ry = pp_rows(PP_REST_ROWS, seed=24)
+        line["rest"], rest_l = pp_rest(os.path.join(tmp, "rest"), rx, ry)
+        launches.update(rest_l)
+        fits.update((s, f.result()) for s, f in worlds.items())
+    # Contended: the ranks' step ms, bubble shares and hop waits were taken
+    # while other worlds and legs shared the card.
+    line["contended"] = overlap
+    for schedule in PP_SCHEDULES:
+        fit = fits[schedule]
+        ranks = fit["ranks"]
+        per_rank = layers_per_stage * PP_MICRO * steps
+        want = PP_SHAPE["num_layers"] * PP_MICRO * steps \
+            if schedule == "mpmd" else per_rank
+        counts = [r["launches"] for r in ranks]
+        f32 = fit["f32_counts"]
+        loss_err = abs(fit["losses"][0] - oracle["loss"]) / abs(
+            oracle["loss"])
+        param_err = _leaf_max_diff(fit["after_f32"], oracle["params"])
+        grad_err = [pp_moment_error(m, oracle["moments"])
+                    for m in fit["moments"]]
+        worst = max(grad_err, key=lambda e: e["max_leaf"],
+                    default={"max_leaf": math.inf, "leaf": None})
+        phase(f"pipeline {schedule} f32 step", loss_err <= PP_LOSS_BAR
+              and param_err <= PP_PARAM_BAR
+              and len(grad_err) == (1 if schedule == "mpmd" else PP)
+              and worst["max_leaf"] <= PP_GRAD_BAR,
+              f"loss {fit['losses'][0]:.7f} vs the sequential oracle's "
+              f"{oracle['loss']:.7f} (relative {loss_err:.2e}, bar "
+              f"{PP_LOSS_BAR}); gradients (adam's first moment) of "
+              f"{len(grad_err)} process(es) against the oracle's, largest "
+              f"leaf ||d||/||mu|| {worst['max_leaf']:.2e} at "
+              f"{worst['leaf']} (bar {PP_GRAD_BAR}); parameters "
+              f"after one adam step, max|d| {param_err:.2e} (bar "
+              f"{PP_PARAM_BAR})")
+        phase(f"pipeline {schedule} launches",
+              len(counts) == (1 if schedule == "mpmd" else PP)
+              and all(c[k] == want for c in counts for k in (
+                  "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+              and all(c.get("quantize_rowwise", 0) == 0 for c in counts),
+              f"K1/K2/K3 per {'process' if schedule == 'mpmd' else 'rank'} "
+              f"{[[c[k] for k in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')] for c in counts]}"
+              f" over {steps} steps (want {want}: "
+              f"{PP_SHAPE['num_layers'] if schedule == 'mpmd' else layers_per_stage}"
+              f" layers x {PP_MICRO} microbatches a step); after the f32 "
+              f"step {[c['flash_fwd'] for c in f32]}")
+        entry = {"f32_loss": fit["losses"][0],
+                 "f32_loss_rel_err": loss_err,
+                 "f32_param_max_abs": param_err,
+                 "f32_grad_max_leaf_rel": [e["max_leaf"] for e in grad_err],
+                 "f32_grad_model_rel": [e["model"] for e in grad_err],
+                 "bf16_losses": fit["losses"][1:], "fit_s": fit["fit_s"],
+                 "launches": counts, "launches_after_f32": f32}
+        if schedule != "mpmd":
+            entry["ranks"] = [{
+                "rank": r["rank"], "stage": r["stage"],
+                "step_ms": r["step_ms"], "bubble_share": r["bubble_share"],
+                "busy_ms": r["busy_ms"], "hop_ms_sum": sum(r["hop_ms"]),
+                "hops": len(r["hop_ms"]), "max_in_flight":
+                    r["max_in_flight"], "param_bytes": r["param_bytes"],
+                "peak_mib": r.get("peak_memory_bytes", 0) / 2**20,
+                "spawn_to_first_step_s": r["spawn_to_first_step_s"],
+                "startup_s": r["startup_s"]}
+                for r in ranks]
+            entry["analytic_bubble"] = (PP - 1) / (PP_MICRO + PP - 1)
+        else:
+            entry["stage_dispatch_s"] = fit["stage_dispatch_s"]
+            entry["epoch_s"] = fit["epoch_s"]
+            entry["param_bytes"] = ranks[0]["param_bytes"]
+        line["schedules"][schedule] = entry
+        # Epoch 0 ran K1's f32 route, epochs 1-3 its bf16 route.
+        launches.setdefault("f32", []).extend(f32)
+        launches.setdefault("bf16", []).extend(
+            {k: c[k] - f.get(k, 0) for k in c} for c, f in zip(counts, f32))
+        fit.pop("est")
+        torch.cuda.empty_cache()
+    bf16 = {s: fits[s]["losses"][1:] for s in PP_SCHEDULES}
+    spread = max(abs(a - b) for s in PP_SCHEDULES for t in PP_SCHEDULES
+                 for a, b in zip(bf16[s], bf16[t]))
+    in_flight = [r["max_in_flight"] for r in
+                 line["schedules"]["1f1b"]["ranks"]]
+    phase("pipeline bf16 steps", spread <= PP_BF16_TOL
+          and all(len(v) == PP_BF16_EPOCHS and all(map(math.isfinite, v))
+                  for v in bf16.values())
+          and in_flight == [2 * (PP - 1 - s) + 1 for s in range(PP)],
+          f"bf16 losses {bf16}: largest gap between schedules {spread:.2e} "
+          f"(bar {PP_BF16_TOL}); 1F1B microbatches in flight per stage "
+          f"{in_flight} (want 2*(pp-1-s)+1)")
+    line["oracle"] = {"loss": oracle["loss"], "seconds": oracle["seconds"]}
+    line["launches"] = launches
+    line["phase_s"] = time.perf_counter() - t_phase
+    name, _, limit = card.partition(",")
+    line = {"card": name.strip(), "power_limit": limit.strip(), **line}
+    return {"line": line, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -8946,6 +9515,29 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     cp_s = time.perf_counter() - t_cp
+
+    # Phase 23: pipeline parallelism (gpipe and 1f1b in rank processes,
+    # mpmd in this one) at BERT-base widths, and mpmd over REST.
+    tmp, t_pp = tempfile.mkdtemp(prefix="chip_smoke_"), time.perf_counter()
+    try:
+        pipe = run_pipeline(tmp, card)
+    except Exception as exc:  # noqa: BLE001 — reported as the phase's
+        # failure, which fails the script.
+        phase("pipeline", False, repr(exc))
+        pipe = {"launches": {}, "line": {"error": repr(exc)}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pp_s = time.perf_counter() - t_pp
+    pp_l = pipe["launches"]
+    # Every rank's K1-K3 of the gpipe and 1f1b fits and the mpmd fit's:
+    # epoch 0 on K1's f32 route, epochs 1-3 bf16; the REST mpmd fit, its
+    # evaluate and predict in the model's compute dtype, bf16.
+    pp_f32 = list(pp_l.get("f32", []))
+    pp_train = pp_f32 + list(pp_l.get("bf16", [])) + [
+        pp_l.get("rest_train")]
+    pp_fwd = list(pp_l.get("bf16", [])) + [
+        pp_l.get(k) for k in ("rest_train", "rest_evaluate",
+                              "rest_predict")]
     cp_l = cp["launches"]
     entry_l = entry["launches"]
     ops_l = ops["launches"]
@@ -9034,7 +9626,8 @@ def main() -> int:
          + rest_sum("flash_fwd", [long_l.get("predict")])
          + rest_sum("flash_fwd", [ops_l.get("serve")])
          + rest_sum("flash_fwd", [entry_l.get("predict")])
-         + rest_sum("flash_fwd", [cp_l.get("standby_predict")]),
+         + rest_sum("flash_fwd", [cp_l.get("standby_predict")])
+         + rest_sum("flash_fwd", pp_f32),
          "launches_by_path": {
              "serve": counts["flash_fwd"],
              "rest_predict_and_serve": rest_sum("flash_fwd", rest_f32),
@@ -9056,7 +9649,8 @@ def main() -> int:
              "entry_point_predict": rest_sum("flash_fwd",
                                              [entry_l.get("predict")]),
              "control_plane_standby_predict": rest_sum(
-                 "flash_fwd", [cp_l.get("standby_predict")])},
+                 "flash_fwd", [cp_l.get("standby_predict")]),
+             "pipeline_f32_step": rest_sum("flash_fwd", pp_f32)},
          "max_abs_err": flash_inputs["path_f32"][4],
          "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
@@ -9076,7 +9670,8 @@ def main() -> int:
          + rest_sum("flash_fwd", long_train)
          + rest_sum("flash_fwd", ep_train)
          + rest_sum("flash_fwd", ops_train)
-         + rest_sum("flash_fwd", [cp_l.get("b")]),
+         + rest_sum("flash_fwd", [cp_l.get("b")])
+         + rest_sum("flash_fwd", pp_fwd),
          "launches_by_path": {
              "train": train_counts["flash_fwd"],
              "rest_train_and_evaluate": rest_sum("flash_fwd", rest_bf16),
@@ -9095,7 +9690,8 @@ def main() -> int:
              "expert_parallel_ranks": rest_sum("flash_fwd", ep_train),
              "operations_plane_train": rest_sum("flash_fwd", ops_train),
              "control_plane_stolen_fit": rest_sum("flash_fwd",
-                                                  [cp_l.get("b")])},
+                                                  [cp_l.get("b")]),
+             "pipeline_ranks_and_rest": rest_sum("flash_fwd", pp_fwd)},
          "max_abs_err": flash_inputs["train_bf16"][4],
          "ms": k1_bf16["ms"], "plain_ms": k1_bf16["plain_ms"],
          "bound_ms": k1_bf16["bound_ms"], "bound_by": k1_bf16["bound_by"],
@@ -9219,7 +9815,8 @@ def main() -> int:
            + rest_sum(f"flash_bwd_{key}", long_train)
            + rest_sum(f"flash_bwd_{key}", ep_train)
            + rest_sum(f"flash_bwd_{key}", ops_train)
-           + rest_sum(f"flash_bwd_{key}", [cp_l.get("b")]),
+           + rest_sum(f"flash_bwd_{key}", [cp_l.get("b")])
+           + rest_sum(f"flash_bwd_{key}", pp_train),
            "launches_by_path": {
                "train": train_counts[f"flash_bwd_{key}"],
                "rest_train": rest_sum(f"flash_bwd_{key}", rest_train),
@@ -9241,7 +9838,9 @@ def main() -> int:
                "operations_plane_train": rest_sum(f"flash_bwd_{key}",
                                                   ops_train),
                "control_plane_stolen_fit": rest_sum(f"flash_bwd_{key}",
-                                                    [cp_l.get("b")])},
+                                                    [cp_l.get("b")]),
+               "pipeline_ranks_and_rest": rest_sum(f"flash_bwd_{key}",
+                                                   pp_train)},
            "max_abs_err": err, "ms": bwd_t[key]["ms"],
            "plain_ms": bwd_t[key]["plain_ms"],
            "bound_ms": bwd_t[key]["bound_ms"],
@@ -9351,6 +9950,7 @@ def main() -> int:
           flush=True)
     print("native_store " + json.dumps({**cp_common, **(
         cp_line.get("native_store") or {})}, default=str), flush=True)
+    print("pipeline " + json.dumps(pipe["line"], default=str), flush=True)
     print(f"smoke_seconds {time.perf_counter() - T_START:.1f} (zoo phases "
           f"{zoo_s:.1f}, rest pipeline {rest_s:.1f}, classical estimators "
           f"and the Titanic pipeline {classic_s:.1f}, crash drill "
@@ -9359,7 +9959,8 @@ def main() -> int:
           f"program cache {pc_s:.1f}, warm start {ws_s:.1f}, moe "
           f"{moe_s:.1f}, long context {long_s:.1f}, expert parallel "
           f"{ep_s:.1f}, operations plane {ops_s:.1f}, entry point "
-          f"{entry_s:.1f}, control plane {cp_s:.1f})", flush=True)
+          f"{entry_s:.1f}, control plane {cp_s:.1f}, pipeline {pp_s:.1f})",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if failures:

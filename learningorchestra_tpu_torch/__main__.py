@@ -22,7 +22,7 @@
     python -m learningorchestra_tpu_torch coordinator | agent
         Parse as in the JAX package and exit with status 2 and one line
         naming the ROADMAP item that ports them: the multi-host task
-        coordinator and its agents (A.9 part 2).
+        coordinator and its agents (A.9 part 3).
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ import sys
 
 #: Subcommand -> the ROADMAP item that ports it.
 UNPORTED = {
-    "coordinator": "ROADMAP A.9 part 2 (parallel/coordinator.py)",
-    "agent": "ROADMAP A.9 part 2 (parallel/coordinator.py, "
+    "coordinator": "ROADMAP A.9 part 3 (parallel/coordinator.py)",
+    "agent": "ROADMAP A.9 part 3 (parallel/coordinator.py, "
              "parallel/launch.py)",
 }
 

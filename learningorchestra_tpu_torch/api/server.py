@@ -937,7 +937,7 @@ class APIServer:
 
         sections = [
             "<h2>Agents</h2><p>in-process mode (no task coordinator: the "
-            "multi-host coordinator is not ported, ROADMAP A.9 part 2)</p>"]
+            "multi-host coordinator is not ported, ROADMAP A.9 part 3)</p>"]
         snap = self.ctx.leaser.snapshot()
         if snap["initialized"]:
             sections.append(

@@ -337,7 +337,7 @@ class DistributedConfig:
     # ends with its ranks, bounded by the engine's deadline and cancel.
     job_timeout_s: float = 86400.0
     # The JAX package's cluster mode (a task coordinator's "host:port"):
-    # set, a distributed train answers 406 (ROADMAP A.9 part 2, A.11).
+    # set, a distributed train answers 406 (ROADMAP A.9 part 3, A.11).
     # Env: LO_TPU_TASK_COORDINATOR.
     task_coordinator: str | None = None
     # Where a distributed fit stages its inputs and task (one directory
@@ -350,6 +350,21 @@ class DistributedConfig:
         if self.stage_root:
             return Path(os.path.expanduser(self.stage_root))
         return Path(volume_root) / "_dist_stage"
+
+
+@dataclasses.dataclass
+class MPMDConfig:
+    """Pipeline-parallel training (parallel/pipeline.py and
+    parallel/mpmd.py): the deployment defaults of ``PipelinedTransformer``.
+    Env knobs: LO_TPU_MPMD_*."""
+
+    # The schedule a job gets when it names none: "" keeps the estimator
+    # default (gpipe); "gpipe" | "1f1b" | "mpmd" force it fleet-wide.
+    # Env: LO_TPU_MPMD_SCHEDULE.
+    schedule: str = ""
+    # The microbatch count a job gets when it passes no n_microbatches;
+    # 0 = auto (2 x pipeline stages).  Env: LO_TPU_MPMD_MICRO.
+    n_micro: int = 0
 
 
 @dataclasses.dataclass
@@ -558,6 +573,7 @@ class Config:
         default_factory=ProfilingConfig)
     dist: DistributedConfig = dataclasses.field(
         default_factory=DistributedConfig)
+    mpmd: MPMDConfig = dataclasses.field(default_factory=MPMDConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     rollup: RollupConfig = dataclasses.field(default_factory=RollupConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
@@ -600,6 +616,8 @@ class Config:
             ("LO_TPU_DECODE_IDLE_S", cfg.decode, "idle_timeout_s", float),
             ("LO_TPU_WORLD_SIZE", cfg.dist, "num_processes", int),
             ("LO_TPU_CPU_RANKS", cfg.dist, "cpu_ranks", int),
+            ("LO_TPU_MPMD_SCHEDULE", cfg.mpmd, "schedule", str),
+            ("LO_TPU_MPMD_MICRO", cfg.mpmd, "n_micro", int),
             ("LO_TPU_FLEET_MIN", cfg.fleet, "min_replicas", int),
             ("LO_TPU_FLEET_MAX", cfg.fleet, "max_replicas", int),
             ("LO_TPU_FLEET_INTERVAL_S", cfg.fleet, "interval_s", float),

@@ -17,6 +17,11 @@ the carry is a per-leaf layout change:
   (kh, kw, 1, C) is (C, 1, kh, kw);
 - ``Embed`` ``embedding`` <-> ``nn.Embedding`` ``weight``;
 - ``LayerNorm``/``GroupNorm`` ``scale``/``bias`` <-> ``weight``/``bias``;
+- a pipelined transformer's parameters (parallel/pipeline.py) are the
+  JAX tuple ``(embed, stages, head)``, each a flax tree, the stage trees
+  stacked on a leading (pp,) axis: :func:`load_pipeline` carries it into
+  the embedding, stage and head modules (stage s from slice s) and
+  :func:`pipeline_to_jax` carries the modules back;
 - an MoE layer's expert leaves (``ops/moe.py::EXPERT_LEAVES``: the 3-D
   ``expert_w1`` (E, H, M) and ``expert_w2`` (E, M, H), the biases
   (E, M) and (E, H)) keep their names and layouts both ways; its
@@ -189,6 +194,43 @@ def join_experts(tree, layers: set, gather):
     ranks' slices concatenated in ep order (a collective every rank of
     the group makes, leaf by leaf in the same order)."""
     return map_expert_leaves(tree, layers, gather)
+
+
+def stack_trees(trees: list):
+    """Nested dicts of arrays stacked leaf by leaf on a new leading axis
+    (the JAX pipeline's (pp, ...) stage stack)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in first}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def slice_tree(tree, index: int):
+    """Slice ``index`` of every leaf's leading axis."""
+    if isinstance(tree, dict):
+        return {k: slice_tree(v, index) for k, v in tree.items()}
+    return tree[index]
+
+
+def load_pipeline(params, embed: nn.Module, stages: dict, head: nn.Module
+                  ) -> None:
+    """Carry the JAX pipeline's ``(embed, stages, head)`` params into the
+    port's modules; ``stages`` maps a stage index to its module (a rank
+    of the pipeline holds one stage, which loads its slice alone)."""
+    ep, sp, hp = params
+    embed.load_state_dict(params_from_jax(ep))
+    for s, stage in stages.items():
+        stage.load_state_dict(params_from_jax(slice_tree(sp, s)))
+    head.load_state_dict(params_from_jax(hp))
+
+
+def pipeline_to_jax(embed: nn.Module, stages: list, head: nn.Module
+                    ) -> tuple:
+    """The modules as the JAX pipeline's ``(embed, stages, head)`` tuple
+    of numpy flax trees, the stages (in order) stacked."""
+    return (params_to_jax(embed),
+            stack_trees([params_to_jax(st) for st in stages]),
+            params_to_jax(head))
 
 
 def params_to_jax(module: nn.Module) -> dict:

@@ -190,7 +190,7 @@ class DataParallel:
                  ep: int = 1):
         self.rank, self.world = rank, world
         self.sp, self.ep, self.dp_size = sp, ep, world // (sp * ep)
-        self.dp_index, self.ep_index, self.sp_index = rank_coords(
+        self.dp_index, _, self.ep_index, self.sp_index = rank_coords(
             rank, sp, ep)
         # Set by the rank program when the model runs over the ring.
         self.shard_tokens = False
@@ -447,6 +447,13 @@ class DistributedTrainer:
         self.estimator = estimator
         self.mesh = mesh if mesh is not None else build_mesh(
             spec, devices if devices is not None else _default_devices())
+        if self.mesh.shape.get("pp", 1) > 1:
+            # Nothing in this trainer shards over pp, so pp > 1 would
+            # replicate every rank's work pp-fold with no speedup.
+            raise ValueError(
+                "DistributedTrainer does not use the pp axis; "
+                "pipeline parallelism is parallel.pipeline."
+                "PipelinedTransformer")
         sp = self.mesh.shape["sp"]
         self.shard_sequence = sp > 1 if shard_sequence is None \
             else bool(shard_sequence)
@@ -636,28 +643,9 @@ class DistributedTrainer:
                 from learningorchestra_tpu_torch.kernels import build
 
                 build.build()
-            env = dict(os.environ)
-            # The ranks import what this process can: the package, and the
-            # modules of the callbacks they unpickle.
-            env["PYTHONPATH"] = os.pathsep.join(dict.fromkeys(
-                [_REPO] + [p for p in sys.path if p]
-                + [p for p in [env.get("PYTHONPATH")] if p]))
-            # One host: the ranks talk over the loopback interface.
-            env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-            env.setdefault("NCCL_SOCKET_IFNAME", "lo")
             t_spawn = time.time()
-            # The ranks die with this thread (PR_SET_PDEATHSIG in the rank
-            # program), which waits on them below.
-            for rank in range(world):
-                with open(stage / f"rank{rank}.log", "wb") as out, \
-                        open(stage / f"rank{rank}.err", "wb") as err:
-                    procs.append(subprocess.Popen(
-                        [sys.executable, "-m",
-                         "learningorchestra_tpu_torch.parallel.rank",
-                         str(stage), str(rank)],
-                        stdout=out, stderr=err, stdin=subprocess.DEVNULL,
-                        env=env))
-            self._watch(procs, stage)
+            procs.extend(start_ranks(stage, world))
+            watch_ranks(procs, stage)
             with open(stage / RESULT, "rb") as fh:
                 result = pickle.load(fh)
             self.rank_stats = result["rank_stats"]
@@ -668,32 +656,59 @@ class DistributedTrainer:
                     None if first is None else first - t_spawn)
             return result
         finally:
-            _stop(procs)
+            stop_ranks(procs)
             shutil.rmtree(stage, ignore_errors=True)
             _live_stages.discard(str(stage))
 
-    def _watch(self, procs: list, stage: Path) -> None:
-        """Wait for every rank; relay the engine's cancel as a flag file;
-        fail as soon as a rank dies (each dead rank's stderr tail in the
-        error; the caller stops the rest)."""
-        relayed = False
-        while True:
-            codes = [p.poll() for p in procs]
-            dead = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
-            if dead:
-                raise RuntimeError("distributed fit failed: " + "; ".join(
-                    f"rank {r} exited with code {c}:\n" + (
-                        stage / f"rank{r}.err").read_bytes()[-4000:].decode(
-                            errors="replace") for r, c in dead))
-            if all(code == 0 for code in codes):
-                return
-            if not relayed and cancel_requested():
-                (stage / CANCEL).touch()
-                relayed = True
-            time.sleep(0.05)
+def start_ranks(stage: Path, world: int) -> list:
+    """Start the ``world`` rank processes of the fit staged in ``stage``
+    (each ``python -m learningorchestra_tpu_torch.parallel.rank stage
+    r``, its output in ``rank<r>.log`` / ``.err`` there).  The ranks die
+    with the calling thread (PR_SET_PDEATHSIG in the rank program), which
+    must wait on them (:func:`watch_ranks`)."""
+    env = dict(os.environ)
+    # The ranks import what this process can: the package, and the
+    # modules of the callbacks they unpickle.
+    env["PYTHONPATH"] = os.pathsep.join(dict.fromkeys(
+        [_REPO] + [p for p in sys.path if p]
+        + [p for p in [env.get("PYTHONPATH")] if p]))
+    # One host: the ranks talk over the loopback interface.
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    procs = []
+    for rank in range(world):
+        with open(stage / f"rank{rank}.log", "wb") as out, \
+                open(stage / f"rank{rank}.err", "wb") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "learningorchestra_tpu_torch.parallel.rank",
+                 str(stage), str(rank)],
+                stdout=out, stderr=err, stdin=subprocess.DEVNULL, env=env))
+    return procs
 
 
-def _stop(procs: list) -> None:
+def watch_ranks(procs: list, stage: Path) -> None:
+    """Wait for every rank; relay the engine's cancel as a flag file;
+    fail as soon as a rank dies (each dead rank's stderr tail in the
+    error; the caller stops the rest)."""
+    relayed = False
+    while True:
+        codes = [p.poll() for p in procs]
+        dead = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
+        if dead:
+            raise RuntimeError("distributed fit failed: " + "; ".join(
+                f"rank {r} exited with code {c}:\n" + (
+                    stage / f"rank{r}.err").read_bytes()[-4000:].decode(
+                        errors="replace") for r, c in dead))
+        if all(code == 0 for code in codes):
+            return
+        if not relayed and cancel_requested():
+            (stage / CANCEL).touch()
+            relayed = True
+        time.sleep(0.05)
+
+
+def stop_ranks(procs: list) -> None:
     """Terminate the ranks still running and reap every one."""
     for proc in procs:
         if proc.poll() is None:

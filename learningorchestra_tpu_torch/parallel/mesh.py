@@ -1,18 +1,20 @@
 """Named device meshes — port of ``learningorchestra_tpu/parallel/mesh.py``.
 
 The six axes of the JAX package exist here too, so a request's ``mesh``
-body means the same on both packages.  Three are ported: ``dp`` (a rank
+body means the same on both packages.  Four are ported: ``dp`` (a rank
 is one process holding a replica of the model; gradients are all-reduced
 over the ranks, parallel/distributed.py), ``ep`` (the ranks of one
 data-parallel replica see the same rows and each holds and computes
-E/ep of every MoE layer's experts, ops/moe.py) and ``sp`` (the ranks of
+E/ep of every MoE layer's experts, ops/moe.py), ``sp`` (the ranks of
 one replica split each row's sequence and run ring attention,
-parallel/ring_attention.py).  Ranks follow the JAX axis order (dp, fsdp,
-pp, ep, tp, sp), innermost last: rank ``r`` is
-``(dp_index * ep + ep_index) * sp + sp_index``.  ``fsdp`` shards
-parameters and ``tp``/``pp`` shard the model's work in the JAX package;
-replicating them here would be a different memory contract, so a spec
-with any of them above 1 is refused (ROADMAP A.9 part 2).  ``ep`` and
+parallel/ring_attention.py) and ``pp`` (each rank of a data-parallel
+replica holds one stage of a ``PipelinedTransformer``'s layers,
+parallel/pipeline.py).  Ranks follow the JAX axis order (dp, fsdp, pp,
+ep, tp, sp), innermost last: rank ``r`` is
+``((dp_index * pp + pp_index) * ep + ep_index) * sp + sp_index``.
+``fsdp`` shards parameters and ``tp`` shards the model's work in the JAX
+package; replicating them here would be a different memory contract, so
+a spec with either above 1 is refused (ROADMAP A.9 part 3).  ``ep`` and
 ``sp`` together are refused too: no model of the zoo is both routed and
 ring-bound (ROADMAP C).
 """
@@ -52,8 +54,7 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Devices laid out by a spec: one ``torch.device`` per rank, in rank
-    order, and the axis sizes (every axis but ``dp``, ``ep`` and ``sp`` is
-    1)."""
+    order, and the axis sizes (``fsdp`` and ``tp`` are 1)."""
 
     devices: tuple
     shape: dict
@@ -75,13 +76,13 @@ def validate_spec(spec: MeshSpec) -> None:
             raise ValueError(f"mesh axis {axis} must be a positive int")
     if spec.sp > 1 and spec.sp & (spec.sp - 1):
         raise ValueError("sp axis should be a power of two")
-    refused = {a: getattr(spec, a) for a in ("fsdp", "pp", "tp")
+    refused = {a: getattr(spec, a) for a in ("fsdp", "tp")
                if getattr(spec, a) > 1}
     if refused:
         raise ValueError(
             f"mesh axes {refused} are not ported to the PyTorch package: "
-            "only the data axis dp, the expert axis ep and the sequence "
-            "axis sp are (fsdp/tp/pp: ROADMAP A.9 part 2)")
+            "only the data axis dp, the pipeline axis pp, the expert axis "
+            "ep and the sequence axis sp are (fsdp/tp: ROADMAP A.9 part 3)")
     if spec.ep > 1 and spec.sp > 1:
         raise ValueError(
             f"mesh axes ep={spec.ep} and sp={spec.sp} together are not "
@@ -96,7 +97,8 @@ def build_mesh(spec: MeshSpec | None = None, devices: list | None = None
     spec's size must divide the device count; spare devices fold into
     ``dp``, as in the JAX package, so ``{"dp": 2}`` over 8 devices is a
     world of 8, ``{"sp": 2}`` over 4 devices is dp 2 x sp 2 and
-    ``{"ep": 2}`` over 4 devices is dp 2 x ep 2."""
+    ``{"ep": 2}`` over 4 devices is dp 2 x ep 2 and ``{"pp": 2}`` over 4
+    devices dp 2 x pp 2."""
     if devices is None:
         devices = [f"cuda:{k}" for k in range(torch.cuda.device_count())]
     devs = tuple(torch.device(d) for d in devices)

@@ -1,4 +1,5 @@
-"""The rank program of a data-parallel fit (parallel/distributed.py).
+"""The rank program of a data-parallel fit (parallel/distributed.py) and
+of a pipelined one (parallel/pipeline.py, task mode ``pipeline``).
 
     python -m learningorchestra_tpu_torch.parallel.rank <staging dir> <rank>
 
@@ -161,6 +162,28 @@ def ring_bound(est, dp: DataParallel, shard_sequence: bool):
         est.bind_mesh(None)
 
 
+def run_data_parallel(task: dict, stage: Path, rank: int, world: int,
+                      device) -> tuple[dict, dict]:
+    """This rank's part of a data-parallel ``fit`` or ``evaluate``: its
+    result (rank 0's is handed back) and its stats."""
+    dp = DataParallel(rank, world, device, task["backend"],
+                      stage / CANCEL, mesh_key=task.get("mesh_key"),
+                      sp=task.get("sp", 1), ep=task.get("ep", 1))
+    est = load_estimator(task["estimator"], device, dp)
+    est._dp = dp
+    data = load_data(task["data"])
+    kwargs = dict(task["kwargs"])
+    with ring_bound(est, dp, task.get("shard_sequence", False)):
+        if task["mode"] == "fit":
+            out = run_fit(est, dp, data, kwargs, task["trace_dir"])
+        else:
+            out = {"metrics": est.evaluate(data["x"], data["y"], **kwargs)}
+    return out, {**dp.stats(),
+                 # What the rank holds: E/ep of each split MoE layer.
+                 "param_bytes": sum(p.numel() * p.element_size()
+                                    for p in est.module.parameters())}
+
+
 def die_with_parent(parent: int) -> None:
     """SIGKILL this process when its parent goes; exit now if it has gone
     already (before the request was made)."""
@@ -185,24 +208,14 @@ def main(argv: list[str]) -> int:
         torch.set_num_threads(task["threads"])
     init_process_group(stage, rank, world, task["backend"])
     try:
-        dp = DataParallel(rank, world, device, task["backend"],
-                          stage / CANCEL, mesh_key=task.get("mesh_key"),
-                          sp=task.get("sp", 1), ep=task.get("ep", 1))
         cache_before = compile_cache.counters_snapshot()
-        est = load_estimator(task["estimator"], device, dp)
-        est._dp = dp
-        data = load_data(task["data"])
-        kwargs = dict(task["kwargs"])
-        with ring_bound(est, dp, task.get("shard_sequence", False)):
-            if task["mode"] == "fit":
-                out = run_fit(est, dp, data, kwargs, task["trace_dir"])
-            else:
-                out = {"metrics": est.evaluate(data["x"], data["y"],
-                                               **kwargs)}
-        stats = {**dp.stats(), "launches": launch_counts(device),
-                 # What the rank holds: E/ep of each split MoE layer.
-                 "param_bytes": sum(p.numel() * p.element_size()
-                                    for p in est.module.parameters())}
+        if task["mode"] == "pipeline":
+            from learningorchestra_tpu_torch.parallel import pipeline
+
+            out, stats = pipeline.run_rank(task, stage, rank, world, device)
+        else:
+            out, stats = run_data_parallel(task, stage, rank, world, device)
+        stats["launches"] = launch_counts(device)
         if device.type == "cuda":
             stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
                 device)

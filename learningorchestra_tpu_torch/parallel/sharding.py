@@ -14,7 +14,9 @@ ported: a 2-D or 3-D leaf whose name holds ``expert`` and whose leading
 (expert) dimension divides by ``ep`` is split into E/ep whole experts per
 ep index (:func:`expert_slice`); a leaf that does not divide stays whole
 on every rank, the JAX fall-through that replicates it.  The
-``fsdp``/``tp`` rules wait for ROADMAP A.9 part 2.
+``fsdp``/``tp`` rules wait for ROADMAP A.9 part 3.  A pipeline stage
+(``pp``, parallel/pipeline.py) takes the rows of its dp index and holds
+its own slice of the layers.
 """
 
 from __future__ import annotations
@@ -35,10 +37,13 @@ def shard_batch(arrays: tuple, rank: int, world: int) -> tuple:
     return tuple(a[batch_rows(a.shape[0], rank, world)] for a in arrays)
 
 
-def rank_coords(rank: int, sp: int, ep: int = 1) -> tuple[int, int, int]:
-    """(dp index, ep index, sp index) of ``rank``, the JAX mesh's axis
-    order with ``sp`` fastest: ``rank = (dp * ep + ep_index) * sp + sp``."""
-    return rank // (sp * ep), (rank // sp) % ep, rank % sp
+def rank_coords(rank: int, sp: int, ep: int = 1, pp: int = 1
+                ) -> tuple[int, int, int, int]:
+    """(dp, pp, ep, sp) indices of ``rank``, the JAX mesh's axis order
+    with ``sp`` fastest: ``rank = ((dp * pp + pp_index) * ep + ep_index)
+    * sp + sp_index``."""
+    return (rank // (sp * ep * pp), (rank // (sp * ep)) % pp,
+            (rank // sp) % ep, rank % sp)
 
 
 def splits_experts(name: str, shape, ep: int) -> bool:

@@ -15,7 +15,7 @@ extra loads.  A replica on another card gets a copy of the resident
 module there, cached by the registry entry's identity so an invalidated
 artifact is placed again, never served stale.  A replica of more than
 one resolved card would need the JAX package's GSPMD parameter sharding,
-which the port does not have yet (ROADMAP A.9 part 2): it is refused.
+which the port does not have yet (ROADMAP A.9 part 3): it is refused.
 
 Drain before unload: scale-down takes the victim off the routable list
 FIRST, closes its batcher (``MicroBatcher.close`` flushes what is
@@ -285,7 +285,7 @@ class ReplicaSet:
             raise ServeError(
                 f"devicesPerReplica={self.devices_per_replica} leased "
                 f"{replica.devices}: a replica across several cards needs "
-                "parameter sharding, not ported yet (ROADMAP A.9 part 2)"
+                "parameter sharding, not ported yet (ROADMAP A.9 part 3)"
             )
         replica.batcher = MicroBatcher(
             self._factory(replica),

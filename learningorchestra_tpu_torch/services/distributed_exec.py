@@ -19,7 +19,7 @@
   process group is needed), one result row per rank.
 
 The JAX package's cluster mode (``_submit_train_cluster``, a fit fanned
-out to host agents by a task coordinator) is ROADMAP A.9 part 2 / A.11:
+out to host agents by a task coordinator) is ROADMAP A.9 part 3 / A.11:
 with ``dist.task_coordinator`` set a distributed train answers 406.
 """
 
@@ -193,7 +193,7 @@ class DistributedExecutorService:
         if self.ctx.config.dist.task_coordinator:
             raise ValidationError(
                 "cluster-mode distributed training (a task coordinator) is "
-                "not ported to the PyTorch package (ROADMAP A.9 part 2, "
+                "not ported to the PyTorch package (ROADMAP A.9 part 3, "
                 "A.11); unset dist.task_coordinator to train on this host")
 
     def _submit_train(self, name, parent_meta, training_parameters,

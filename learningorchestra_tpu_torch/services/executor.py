@@ -56,10 +56,41 @@ from learningorchestra_tpu_torch.services.context import (
     ServiceContext,
     ValidationError,
 )
+from learningorchestra_tpu_torch.store.artifacts import LineageError
 from learningorchestra_tpu_torch.toolkit import registry
 from learningorchestra_tpu_torch.toolkit.base import map_tensors
 from learningorchestra_tpu_torch.train import compile_cache
 from learningorchestra_tpu_torch.train.neural import NeuralEstimator
+
+
+def _model_class(ctx: ServiceContext, name: str):
+    """The registry class of the model behind artifact ``name`` (None when
+    its lineage names none)."""
+    try:
+        meta = ctx.artifacts.metadata.find_model_ancestor(name)
+        return registry.resolve(meta.get("modulePath"), meta.get("class"))
+    except (LineageError, registry.RegistryError):
+        return None
+
+
+@contextlib.contextmanager
+def lease_and_place(ctx: ServiceContext, label: str, model_class):
+    """A model job's lease, placed: one card, or every card for a class
+    that spans a mesh (``spans_mesh``: a pipelined transformer), as a
+    distributed fit takes them.  Yields the leased devices and, for a
+    mesh model, the devices its mesh is laid over: the leased cards, or
+    ``dist.cpu_ranks`` CPU ranks on a context on the CPU (else None)."""
+    # Imported here: distributed_exec imports this module.
+    from learningorchestra_tpu_torch.services.distributed_exec import (
+        rank_devices,
+    )
+
+    spans = bool(getattr(model_class, "spans_mesh", False))
+    with ctx.leaser.lease(0 if spans else 1, label=label) as devs, \
+            placed(devs):
+        yield devs, (rank_devices(ctx.device, devs,
+                                  ctx.config.dist.cpu_ranks)
+                     if spans else None)
 
 
 def store_history_rows(documents, name: str, history: dict) -> int:
@@ -182,13 +213,17 @@ class ExecutorService:
             cache_before = compile_cache.counters_snapshot()
             # The lease covers all of the job's device work: the parent's
             # load (dequantize), the method and the publication (quantize).
-            with ctx.leaser.lease(1, label=name) as devs, placed(devs):
+            with lease_and_place(ctx, name, _model_class(
+                    ctx, parent_name)) as (devs, mesh):
                 if devs:
                     ctx.artifacts.metadata.update(
                         name, {"leasedDevices": devs})
                 with tracing.span("load_artifact", parent=parent_name):
                     instance = ctx.volumes.load_estimator(
                         parent_type, parent_name, device=ctx.device)
+                if mesh is not None:  # its rank processes stage here
+                    instance.bind_devices(mesh)
+                    instance.stage_root = ctx.stage_root()
                 params = dsl.resolve_params(method_parameters, ctx.loader)
                 # A preemption retry (attempt > 0) resumes the checkpoints
                 # this run already wrote instead of restarting at epoch 0.

@@ -11,11 +11,11 @@ binary.
 from __future__ import annotations
 
 from learningorchestra_tpu_torch import dsl
-from learningorchestra_tpu_torch.jobs.leases import placed
 from learningorchestra_tpu_torch.services.context import (
     ServiceContext,
     ValidationError,
 )
+from learningorchestra_tpu_torch.services.executor import lease_and_place
 from learningorchestra_tpu_torch.toolkit import registry
 
 
@@ -71,8 +71,12 @@ class ModelService:
         def run():
             # The build lands on the leased card, as the executor's jobs
             # do, and serializes with the jobs already there.
-            with ctx.leaser.lease(1, label=name) as devs, placed(devs):
+            # A model spanning a mesh is laid over the leased cards (the
+            # executor binds them again at each job).
+            with lease_and_place(ctx, name, factory) as (_, mesh):
                 params = dsl.resolve_params(class_parameters, ctx.loader)
+                if mesh is not None:
+                    params["devices"] = mesh
                 instance = factory(**params, device=ctx.device)
                 ctx.volumes.save_estimator(artifact_type, name, instance)
             # The instance is persisted; the future keeps no device copy.

@@ -148,8 +148,8 @@ class VolumeStorage:
         """Persist a neural estimator as ``estimator.to_artifact()``: int8
         parameters (one grouped quantize launch) when its last fit asked
         for ``quantize_checkpoint``, else f32 with the optimizer state;
-        anything else (a classical estimator, a transform's output) as
-        :meth:`save_object` pickles it."""
+        anything else (a classical estimator, a mesh model, a transform's
+        output) as :meth:`save_object` pickles it."""
         if isinstance(estimator, NeuralEstimator):
             estimator = estimator.to_artifact()
         return self.save_object(artifact_type, name, estimator)
@@ -162,7 +162,9 @@ class VolumeStorage:
         obj = self.read_object(artifact_type, name)
         if is_artifact(obj):
             return load_artifact(obj, device=device)
-        if isinstance(obj, TensorEstimator):
+        if callable(getattr(obj, "to", None)):
+            # A tensor estimator, or a mesh model (a pipelined transformer)
+            # pickled with its f32 state on the host, places itself.
             return obj.to(device)
         return map_tensors(obj, lambda t: t.to(device))
 

@@ -26,11 +26,12 @@ _TEXT = "learningorchestra_tpu_torch.models.text"
 _VISION = "learningorchestra_tpu_torch.models.vision"
 _MOE = "learningorchestra_tpu_torch.models.moe"
 _LONG = "learningorchestra_tpu_torch.models.longcontext"
+_PIPE = "learningorchestra_tpu_torch.parallel.pipeline"
 _ZOO = (_MLP, _TEXT, _VISION, _MOE, _LONG)
 _ESTIMATORS = "learningorchestra_tpu_torch.toolkit.estimators."
 _CLASSICAL = ("linear", "trees", "bayes", "cluster", "decomposition",
               "preprocessing", "neighbors", "svm")
-_MODULES = _ZOO + tuple(_ESTIMATORS + m for m in _CLASSICAL)
+_MODULES = _ZOO + (_PIPE,) + tuple(_ESTIMATORS + m for m in _CLASSICAL)
 
 #: Request module path -> the port's modules to look the class up in.
 MODULE_ALIASES: dict[str, tuple[str, ...]] = {
@@ -39,6 +40,7 @@ MODULE_ALIASES: dict[str, tuple[str, ...]] = {
     "learningorchestra_tpu.models.vision": (_VISION,),
     "learningorchestra_tpu.models.moe": (_MOE,),
     "learningorchestra_tpu.models.longcontext": (_LONG,),
+    "learningorchestra_tpu.parallel.pipeline": (_PIPE,),
     "learningorchestra_tpu.models": _ZOO,
     "tensorflow.keras.applications": (_VISION,),
     "tensorflow.keras.models": _ZOO,
@@ -115,9 +117,10 @@ def validate_init_params(
     module_path: str, class_name: str, params: dict
 ) -> list[str]:
     """Names in ``params`` the constructor does not accept.  ``device``
-    is the service context's to set, never a request's."""
+    (and a mesh model's ``devices``) is the service context's to set,
+    never a request's."""
     return _unaccepted(resolve(module_path, class_name).__init__, params,
-                       drop=("device",))
+                       drop=("device", "devices"))
 
 
 def validate_method(class_or_factory: Any, method: str) -> bool:

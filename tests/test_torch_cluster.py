@@ -338,18 +338,25 @@ def test_refresh_folds_a_peers_appends_and_compaction(tmp_path):
 
 
 def _quota_server(pkg_name, tmp_path):
+    """A server of ``pkg_name`` with one worker and a queued quota of one,
+    over a fresh metrics registry: the registry is process-wide, so a
+    rejection an earlier test counted would show in this test's
+    counter."""
     if pkg_name == "port":
         from learningorchestra_tpu_torch.api.server import APIServer
         from learningorchestra_tpu_torch.config import Config
+        from learningorchestra_tpu_torch.obs import metrics
 
         cfg = Config()
         kw = {"device": "cpu"}
     else:
         from learningorchestra_tpu.api import APIServer
         from learningorchestra_tpu.config import Config
+        from learningorchestra_tpu.obs import metrics
 
         cfg = Config()
         kw = {}
+    metrics.reset_registry()
     cfg.store.root = str(tmp_path / pkg_name / "store")
     cfg.store.volume_root = str(tmp_path / pkg_name / "volumes")
     cfg.jobs.max_workers = 1

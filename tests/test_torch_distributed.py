@@ -242,7 +242,7 @@ def test_distributed_contract(contract):
 
 # -- mesh and backend ---------------------------------------------------------
 
-@pytest.mark.parametrize("axis", ["fsdp", "pp", "tp"])
+@pytest.mark.parametrize("axis", ["fsdp", "tp"])
 def test_model_axes_are_refused(axis):
     with pytest.raises(ValueError, match="only the data axis"):
         build_mesh(MeshSpec(**{axis: 2}), ["cpu"] * 4)
@@ -253,9 +253,9 @@ def test_sequence_axis_is_accepted_with_its_rank_layout():
     assert mesh.size == 4 and mesh.shape["sp"] == 2 \
         and mesh.shape["dp"] == 2  # spare devices fold into dp
     # sp varies fastest: rank r is dp index r // sp, sp index r % sp
-    # (and ep index 0).
+    # (and pp and ep index 0).
     assert [rank_coords(r, 2) for r in range(4)] == [
-        (0, 0, 0), (0, 0, 1), (1, 0, 0), (1, 0, 1)]
+        (0, 0, 0, 0), (0, 0, 0, 1), (1, 0, 0, 0), (1, 0, 0, 1)]
     assert sequence_slice(12, 1, 2) == slice(6, 12)
     with pytest.raises(ValueError, match="power of two"):
         build_mesh(MeshSpec(sp=3), ["cpu"] * 3)

@@ -9,7 +9,7 @@ against the JAX package's (``learningorchestra_tpu/__main__.py``):
 - ``serve`` with no device runs on the card, so on a host without one it
   exits non-zero;
 - ``coordinator`` and ``agent`` parse as in the JAX package and exit 2
-  naming the ROADMAP item that ports them (A.9 part 2);
+  naming the ROADMAP item that ports them (A.9 part 3);
 - ``standby --device cpu`` runs: before any contact with its primary it
   answers ``/replication/status`` as a standby and 503 elsewhere, never
   promotes, and stops on SIGINT with exit status 0;
@@ -128,9 +128,9 @@ def test_serve_defaults_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["coordinator"], "A.9 part 2"),
-    (["coordinator", "--host", "127.0.0.1", "--port", "7071"], "A.9 part 2"),
-    (["agent", "--coordinator", "h:7070", "--capacity", "2"], "A.9 part 2"),
+    (["coordinator"], "A.9 part 3"),
+    (["coordinator", "--host", "127.0.0.1", "--port", "7071"], "A.9 part 3"),
+    (["agent", "--coordinator", "h:7070", "--capacity", "2"], "A.9 part 3"),
 ])
 def test_unported_subcommands_say_which_item_ports_them(capsys, argv, item):
     assert port_main.main(argv) == 2

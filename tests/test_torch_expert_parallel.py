@@ -106,10 +106,10 @@ def test_mesh_lays_dp_by_ep_and_refuses_ep_with_sp():
     grid = np.asarray(jmesh.devices).reshape(2, 2)
     ids = [d.id for d in jax.devices()[:4]]
     for r in range(4):
-        d, e, s = rank_coords(r, 1, 2)
+        d, _, e, s = rank_coords(r, 1, 2)
         assert grid[d, e].id == ids[r] and s == 0
     assert [rank_coords(r, 2, 2) for r in (0, 1, 2, 5)] == [
-        (0, 0, 0), (0, 0, 1), (0, 1, 0), (1, 0, 1)]
+        (0, 0, 0, 0), (0, 0, 0, 1), (0, 0, 1, 0), (1, 0, 0, 1)]
     with pytest.raises(ValueError, match="ep=2 and sp=2 together"):
         build_mesh(MeshSpec(ep=2, sp=2), ["cpu"] * 4)
     # leaf_spec's expert rule: 2-D and 3-D leaves named expert whose

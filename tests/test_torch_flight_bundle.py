@@ -8,18 +8,24 @@ lands exactly one bundle holding the faulted requests and the triggers;
 a job whose preemption retries run out, and one past its deadline, each
 ask for a bundle."""
 
+import gc
 import json
 import time
 
 import pytest
 
+from learningorchestra_tpu import concurrency_rt as jrt
 from learningorchestra_tpu.api import APIServer as JaxServer
 from learningorchestra_tpu import faults as jfaults
 from learningorchestra_tpu.config import Config as JaxConfig
 from learningorchestra_tpu.config import FlightConfig as JaxFlightConfig
 from learningorchestra_tpu.obs import bundle as jbundle
 from learningorchestra_tpu.obs import flight as jflight
+from learningorchestra_tpu.obs import metrics as jmetrics
+from learningorchestra_tpu.obs import rollup as jrollup
+from learningorchestra_tpu.obs import slo as jslo
 from learningorchestra_tpu.obs import tracing as jtracing
+from learningorchestra_tpu_torch import concurrency_rt as rt
 from learningorchestra_tpu_torch import faults
 from learningorchestra_tpu_torch.api.server import APIServer
 from learningorchestra_tpu_torch.config import (
@@ -41,9 +47,19 @@ PREFIX = "/api/learningOrchestra/v1"
 
 @pytest.fixture(autouse=True)
 def _fresh():
-    """The recorders, bundle services and fault planes are process-wide:
-    each test starts from empty ones (the planes' cumulative counters
-    land in a bundle's faults.json)."""
+    """The recorders, bundle services, fault planes and lock witnesses are
+    process-wide: each test starts from empty ones (the planes'
+    cumulative counters land in a bundle's faults.json, the witnesses'
+    edges and live witnessed locks in its locks.json).  A witnessed lock
+    lives as long as its owner: the singletons an earlier test's server
+    left behind are rebuilt, and dropped before the test starts."""
+    for mod in (rt, jrt):
+        mod.set_witness(False)
+        mod.reset()
+    jrollup.reset_engine()
+    jslo.reset_service()
+    jmetrics.reset_registry()
+    gc.collect()
     for mod in (flight, jflight):
         mod.reset()
     for mod in (faults, jfaults):

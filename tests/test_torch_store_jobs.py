@@ -35,6 +35,7 @@ from learningorchestra_tpu.models.mlp import MLPClassifier as JaxMLP
 from learningorchestra_tpu.services import dataset as jax_dataset
 from learningorchestra_tpu.store import artifacts as jax_artifacts
 from learningorchestra_tpu.store import document_store as jax_store
+from learningorchestra_tpu.train import compile_cache as jax_compile_cache
 from learningorchestra_tpu_torch import dsl
 from learningorchestra_tpu_torch.jobs import cancel, engine
 from learningorchestra_tpu_torch.jobs.leases import (
@@ -538,11 +539,15 @@ def test_dsl_spec_namespace_is_the_ports():
 
 
 @pytest.mark.parametrize("side", ["jax", "port"])
-def test_fit_stops_after_the_epoch_a_cancel_lands_in(side):
+def test_fit_stops_after_the_epoch_a_cancel_lands_in(side, request):
     rng = np.random.default_rng(0)
     x = rng.normal(size=(64, 4)).astype(np.float32)
     y = (x[:, 0] > 0).astype(np.int32)
     if side == "jax":
+        # The JAX fit compiles into the process-wide program cache: a later
+        # file on this worker that fits the same program and counts its
+        # compile span (tests/test_obs.py) would find it there.
+        request.addfinalizer(jax_compile_cache.reset_cache)
         est, mod = JaxMLP(hidden_layer_sizes=(8,), num_classes=2), jax_cancel
     else:
         est = MLPClassifier(hidden_layer_sizes=(8,), num_classes=2,
